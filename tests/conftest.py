@@ -45,3 +45,11 @@ jax.config.update("jax_default_matmul_precision", "highest")
 jax.config.update("jax_enable_compilation_cache", False)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc; skips elsewhere "
+        "(tests/test_torch_cuda_kernels.py)",
+    )
