@@ -5,17 +5,21 @@
 
 Builds the hand-written CUDA kernels from csrc/, holds each against its
 plain PyTorch version at the shapes the llava-1.5-7b decode path gives it,
-then drives the port's main path at full width: LLaVA-1.5-7B (CLIP
+then drives the port's main paths at full width: LLaVA-1.5-7B (CLIP
 ViT-L/14-336, mlp2x_gelu projector, 32-layer Llama-7B) with random bf16
-weights from a seed, greedy decode of 4 requests. Every phase prints one
-line; any failure raises and exits non-zero. The last line is the device
-record {"ok": true, "device": {...}}.
+weights from a seed, greedy decode of 4 requests, first on the bf16 tree
+(K1, K4 bf16), then on the int4g serving tree quantized on the card (int4
+layer stacks with g=128 scales, int8 projector/lm_head/embedding) with an
+int4 prompt KV cache (K1, K4 int4/int8, K6) and briefly an int8 one (K4
+int8/int8). Every phase prints one line; any failure raises and exits
+non-zero. The last line is the device record {"ok": true, "device": {...}}.
 
 Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -42,6 +46,11 @@ from halva_tpu_torch.ops.generate import (
     generate_greedy,
     init_gen_cache_like,
 )
+from halva_tpu_torch.ops.w4_matmul import (
+    quantize_params_int4,
+    w4_dense_stacked,
+    w4_dense_stacked_plain,
+)
 
 # bf16 kernel vs plain version on the same bf16 inputs, elementwise
 # |got - plain| <= KERNEL_ATOL + KERNEL_RTOL * |plain|, and the relative
@@ -55,6 +64,17 @@ LSE_MAX_ABS = 1e-3  # fp32 statistic: only the summation order differs
 # the attention outputs differ by the P rounding above, and the difference
 # travels through every later layer's bf16 activations
 LOGITS_REL = 2e-2
+# decode-step logits of the int4g tree, kernel path (K6, K4 int4/int8) vs
+# plain path on one prompt cache: the kernels sum in another order and skip
+# the plain version's bf16 rounding of probability * v scale; the
+# difference travels through 32 bf16 layers like any bf16-level
+# perturbation, whose effect the smoke measures beside it (the noise floor:
+# plain path vs plain path with the token embeddings perturbed by 2^-7
+# N(0, 1) relative). Measured on an H100: 1.81-1.84e-2 against a floor of
+# 1.85-1.87e-2; the bound is 4/3 of the floor, as LOGITS_REL is of the
+# bf16 tree's floor of ~1.5e-2.
+LOGITS_REL_W4 = 2.5e-2
+W4_GROUP = 128  # the int4g serving tree's group size
 
 PROMPT_LENS = (623, 615, 608, 623)  # spliced lengths of the 48/40/33/48 prompts
 TEXT_LENS = (48, 40, 33, 48)  # the requests' text tokens, image sentinel at 1
@@ -84,6 +104,29 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@functools.lru_cache(maxsize=None)
+def side_stream() -> torch.cuda.Stream:
+    # one for the whole run: cuBLAS keeps a workspace for every stream used
+    return torch.cuda.Stream()
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Median device time of fn's launches, replayed from one CUDA graph: the
+    graph issues them back to back, so the host's per-call work (the Python
+    wrappers take tens of us) does not show in the time of a short kernel."""
+    side = side_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the default stream, as capture wants
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = timed_ms(graph.replay, iters=iters)
+    del graph
+    return ms
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -157,8 +200,8 @@ def check_flash(gen: torch.Generator) -> dict:
         worst = max(worst, err)
         if kvh == h and causal:
             args = (q, k, v, seg, seg)
-            ms = timed_ms(lambda: flash_attention_fwd(*args, causal=True))
-            plain_ms = timed_ms(
+            ms = device_ms(lambda: flash_attention_fwd(*args, causal=True))
+            plain_ms = device_ms(
                 lambda: flash_attention_plain(*args, causal=True))
             # QK^T and PV, 2 * D FLOP each per live (query, key) pair
             flops = 4 * h * d * sum(n * (n + 1) / 2 for n in PROMPT_LENS)
@@ -217,8 +260,8 @@ def check_decode(gen: torch.Generator) -> dict:
             for li in range(layers):
                 call(fn, li)
 
-        ms = timed_ms(lambda: walk(decode_attend_layer)) / layers
-        plain_ms = timed_ms(lambda: walk(decode_attend_plain)) / layers
+        ms = device_ms(lambda: walk(decode_attend_layer)) / layers
+        plain_ms = device_ms(lambda: walk(decode_attend_plain)) / layers
         row = kvh * d * 2 * 2  # k + v bytes of one cache position, all heads
         nominal = b * (sp + sg) * row
         read = (sum(PROMPT_LENS) + int((steps + 1).sum())) * row
@@ -229,6 +272,164 @@ def check_decode(gen: torch.Generator) -> dict:
     return {"name": "decode_attn", "route": "cuda",
             "source": "halva_tpu_torch/csrc/decode_attn.cu",
             "replaces": "halva_tpu/ops/decode_attention.py:82",
+            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+
+
+def _quant_caches(gen, mode, layers, b, kvh, sp, sg, d):
+    """Stacked random int8 (kv8) or int4 (kv4) prompt caches and int8 gen
+    caches of random bytes, with bf16 scales near the dequantized values'
+    unit size."""
+    dev = "cuda"
+
+    def rbytes(*shape, lo=-127):
+        return torch.randint(lo, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def sc(*shape, lo=0.01, hi=0.04):
+        return (torch.rand(*shape, generator=gen, device=dev) * (hi - lo)
+                + lo).bfloat16()
+
+    if mode == "kv4":
+        s2 = -(-sp // 2)
+        pc = {"k4": rbytes(layers, b, kvh, s2, d, lo=-128),
+              "v4": rbytes(layers, b, kvh, s2, d, lo=-128),
+              "k_scale": sc(layers, b, 2, kvh, s2, lo=0.1, hi=0.3),
+              "v_scale": sc(layers, b, 2, kvh, s2, lo=0.1, hi=0.3)}
+    else:
+        pc = {"k": rbytes(layers, b, kvh, sp, d),
+              "v": rbytes(layers, b, kvh, sp, d),
+              "k_scale": sc(layers, b, kvh, sp),
+              "v_scale": sc(layers, b, kvh, sp)}
+    gc = {"k": rbytes(layers, b, kvh, sg, d), "v": rbytes(layers, b, kvh, sg, d),
+          "k_scale": sc(layers, b, kvh, sg), "v_scale": sc(layers, b, kvh, sg)}
+    return pc, gc
+
+
+def check_decode_quant(gen: torch.Generator) -> list:
+    """K4's int8-prompt/int8-gen and int4-prompt/int8-gen modes against
+    decode_attend_plain at the 7B decode shape (odd Sp = 623)."""
+    dev = "cuda"
+    b, h, sp, sg, d, layers = 4, 32, 623, 128, 128, 8
+    steps = torch.tensor([0, 37, 100, 127], device=dev)
+    gen_valid = torch.arange(sg, device=dev)[None, :] <= steps[:, None]
+    seg = lengths_to_seg(PROMPT_LENS, sp, dev)
+    out = []
+    for mode in ("kv8", "kv4"):
+        name = "decode_attn_" + mode
+        worst = 0.0
+        for kvh in (32, 8):
+            q = torch.randn(b, 1, h, d, generator=gen, device=dev).bfloat16()
+            pc, gc = _quant_caches(gen, mode, layers, b, kvh, sp, sg, d)
+
+            def call(fn, li):
+                return fn(q, {k: v[li] for k, v in pc.items()}, seg,
+                          {k: v[li] for k, v in gc.items()}, gen_valid)
+
+            err = rel = 0.0
+            ok = True
+            for li in (0, layers - 1):
+                got = call(decode_attend_layer, li)
+                want = call(decode_attend_plain, li)
+                torch.cuda.synchronize()
+                err = max(err, max_abs(got, want))
+                rel = max(rel, rel_err(got, want))
+                ok = ok and within(got, want) and bool(
+                    torch.isfinite(got).all())
+            print(f"{name} B={b} H={h} KVH={kvh} Sp={sp} Sg={sg} D={d}: "
+                  f"max_abs_err {err:.3e} rel {rel:.3e} (limits {KERNEL_ATOL}"
+                  f" + {KERNEL_RTOL}*|plain|, rel {KERNEL_RTOL}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version")
+            worst = max(worst, err)
+            if kvh != h:
+                continue
+
+            def walk(fn):
+                for li in range(layers):
+                    call(fn, li)
+
+            ms = device_ms(lambda: walk(decode_attend_layer)) / layers
+            plain_ms = device_ms(lambda: walk(decode_attend_plain)) / layers
+            # k + v (+ their scales) bytes of one live position, all heads
+            prompt_row = kvh * (d if mode == "kv4" else 2 * d) + 4 * kvh
+            gen_row = kvh * 2 * d + 4 * kvh
+            read = (sum(PROMPT_LENS) * prompt_row
+                    + int((steps + 1).sum()) * gen_row)
+            print(f"{name} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms;"
+                  f" {read / 1e6:.2f} MB live -> {read / ms / 1e6:.0f} GB/s "
+                  "live")
+            timing = (ms, plain_ms)
+        out.append({"name": name, "route": "cuda",
+                    "source": "halva_tpu_torch/csrc/decode_attn.cu",
+                    "replaces": "halva_tpu/ops/decode_attention.py:82",
+                    "max_abs_err": worst, "ms": timing[0],
+                    "plain_ms": timing[1]})
+    return out
+
+
+# (K, N) of the 7B decode matmuls: wq/wk/wv/wo, gate/up, down
+W4_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
+
+
+def check_w4(gen: torch.Generator) -> dict:
+    """K6 against w4_dense_stacked_plain at the 7B decode matmul shapes,
+    per-channel and g=128 scales, B = 4 (the smoke's batch) and 80 (the
+    reference's serving batch). The JSON line carries gate/up at B=4,
+    g=128."""
+    dev = "cuda"
+    layers = 4
+    worst = 0.0
+    for k, n in W4_SHAPES:
+        np_ = n // 2
+        # random bytes: every nibble occurs, -8 included; `layers` distinct
+        # weights so that timed calls read device memory, not L2
+        w = torch.randint(-128, 128, (layers, k, np_), generator=gen,
+                          device=dev, dtype=torch.int8)
+        for groups in (1, k // W4_GROUP):
+            s = (torch.rand(layers, 2, groups, np_, generator=gen,
+                            device=dev) * 0.02 + 0.005).bfloat16()
+            for b in (4, 80):
+                x = torch.randn(b, k, generator=gen, device=dev).bfloat16()
+
+                def call(fn, li):
+                    return fn(x, {"kernel_q4p": w[li],
+                                  "kernel_scale4p": s[li]})
+
+                def walk(fn):
+                    for li in range(layers):
+                        call(fn, li)
+
+                err = rel = 0.0
+                ok = True
+                for li in (0, layers - 1):
+                    got = call(w4_dense_stacked, li)
+                    want = call(w4_dense_stacked_plain, li)
+                    torch.cuda.synchronize()
+                    err = max(err, max_abs(got, want))
+                    rel = max(rel, rel_err(got, want))
+                    ok = ok and within(got, want) and bool(
+                        torch.isfinite(got).all())
+                ms = device_ms(lambda: walk(w4_dense_stacked)) / layers
+                plain_ms = device_ms(lambda: walk(w4_dense_stacked_plain))
+                plain_ms /= layers
+                nbytes = k * np_ + 2 * groups * np_ * 2
+                print(f"w4_gemv B={b} K={k} N={n} G={groups}: max_abs_err "
+                      f"{err:.3e} rel {rel:.3e} (limits {KERNEL_ATOL} + "
+                      f"{KERNEL_RTOL}*|plain|, rel {KERNEL_RTOL}); kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                      f"{nbytes / 1e6:.2f} MB packed weights + scales -> "
+                      f"{nbytes / ms / 1e6:.0f} GB/s {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("w4_gemv disagrees with its plain "
+                                         "version")
+                worst = max(worst, err)
+                if (k, n, groups, b) == (4096, 11008, 4096 // W4_GROUP, 4):
+                    timing = (ms, plain_ms)
+        del w
+    return {"name": "w4_gemv", "route": "cuda",
+            "source": "halva_tpu_torch/csrc/w4_gemv.cu",
+            "replaces": "halva_tpu/ops/w4_matmul.py:313",
             "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
 
 
@@ -247,9 +448,11 @@ def make_inputs(cfg):
     return tuple(torch.from_numpy(x).cuda() for x in (ids, images, lens))
 
 
-def run_model(kernels: list) -> None:
-    """The port's main path at full width, then the plain path beside it."""
+def run_bf16(kernels: dict) -> dict:
+    """The bf16 main path at full width, then the plain path beside it.
+    Returns the bf16 param tree."""
     cfg = LLAVA_V15_7B
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = LlavaModel(cfg, tree.init_params(cfg, gen, torch.bfloat16, "cuda"))
@@ -259,7 +462,8 @@ def run_model(kernels: list) -> None:
     print(f"model: llava-v1.5-7b, {cfg.llm.num_layers} layers, hidden "
           f"{cfg.llm.hidden_size}, CLIP ViT-L/14-{cfg.vision.image_size}; "
           f"{n_params / 1e9:.3f} B random bf16 params from seed 0 in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s ({before / 2**30:.2f} GiB "
+          "allocated before them)")
     inputs = make_inputs(cfg)
     b = inputs[0].shape[0]
 
@@ -294,8 +498,8 @@ def run_model(kernels: list) -> None:
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the main path did not run every kernel")
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    for name in want:
+        kernels[name]["launches"] = launches[name]
     tok_ok = bool(((tokens >= 0) & (tokens < cfg.llm.vocab_size)).all()
                   and (num == NEW_TOKENS).all())
     print(f"tokens: shape {tuple(tokens.shape)}, all in [0, "
@@ -344,11 +548,142 @@ def run_model(kernels: list) -> None:
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("kernel path disagrees with the plain path")
+    return params
 
 
-def check_kernels() -> list:
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    return [check_flash(gen), check_decode(gen)]
+def tree_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for _, t in tree.flatten(params))
+
+
+def quantize_int4g(params: dict) -> dict:
+    """The int4g serving tree, quantized on the card from the bf16 tree."""
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q4 = quantize_params_int4(params, group_size=W4_GROUP)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    print(f"int4g tree: quantize_params_int4(group_size={W4_GROUP}) on the "
+          f"card in {secs:.2f} s, {tree_bytes(params) / 1e9:.3f} GB bf16 -> "
+          f"{tree_bytes(q4) / 1e9:.3f} GB")
+    return q4
+
+
+def expect_launches(launches: dict, want: dict, what: str) -> None:
+    ok = launches == want
+    print(f"launches in the {what}: {launches} (expected {want}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {what} did not run every kernel")
+
+
+def run_int4g(q4: dict, kernels: dict) -> None:
+    """The int4g serving path at full width (int4 prompt KV), a short int8
+    KV run, then the plain path beside the kernel path."""
+    cfg = LLAVA_V15_7B
+    layers = cfg.llm.num_layers
+    inputs = make_inputs(cfg)
+    b = inputs[0].shape[0]
+    with torch.inference_mode():
+        generate_greedy(q4, cfg, *inputs, max_new_tokens=2, eos_id=-1,
+                        kv_quant="int4")  # warm-up, not counted
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _prefill_impl(q4, cfg, *inputs, kv_quant="int4")
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+
+        # the int4g main path; counts start at 0 right before it
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        tokens, num = generate_greedy(q4, cfg, *inputs,
+                                      max_new_tokens=NEW_TOKENS, eos_id=-1,
+                                      kv_quant="int4")
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+    # one K1 per layer per prefill, one K4 per layer per decode step, K6 for
+    # each of the 7 matmuls of a layer per decode step
+    expect_launches(launches, {
+        "flash_fwd": layers, "decode_attn_kv4": layers * NEW_TOKENS,
+        "w4_gemv": 7 * layers * NEW_TOKENS}, "int4g main run")
+    for name in ("decode_attn_kv4", "w4_gemv"):
+        kernels[name]["launches"] = launches[name]
+    tok_ok = bool(((tokens >= 0) & (tokens < cfg.llm.vocab_size)).all()
+                  and (num == NEW_TOKENS).all())
+    print(f"int4g tokens: shape {tuple(tokens.shape)}, all in [0, "
+          f"{cfg.llm.vocab_size}), {NEW_TOKENS} per row "
+          f"{'ok' if tok_ok else 'FAIL'}")
+    if not tok_ok:
+        raise AssertionError("int4g tokens out of range")
+    decode_s = total_s - prefill_s
+    print(f"int4g main path: prefill {prefill_s * 1e3:.2f} ms (B={b}, "
+          f"{max(PROMPT_LENS)} spliced tokens, int4 prompt KV), decode "
+          f"{decode_s / NEW_TOKENS * 1e3:.3f} ms/step, "
+          f"{b * NEW_TOKENS / decode_s:.1f} decode tokens/s, "
+          f"{b * NEW_TOKENS / total_s:.1f} tokens/s end to end "
+          f"({total_s:.3f} s), peak memory {peak / 2**30:.2f} GiB")
+
+    # int8 prompt KV: the same tree, K4 in its int8/int8 mode
+    kv8_tokens = 4
+    with torch.inference_mode():
+        _kernels.reset_launches()
+        tok8, _ = generate_greedy(q4, cfg, *inputs, max_new_tokens=kv8_tokens,
+                                  eos_id=-1, kv_quant="int8")
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launches)
+    expect_launches(launches, {
+        "flash_fwd": layers, "decode_attn_kv8": layers * kv8_tokens,
+        "w4_gemv": 7 * layers * kv8_tokens}, "int8-KV run")
+    kernels["decode_attn_kv8"]["launches"] = launches["decode_attn_kv8"]
+    if not bool(((tok8 >= 0) & (tok8 < cfg.llm.vocab_size)).all()):
+        raise AssertionError("int8-KV tokens out of range")
+
+    # kernel path vs plain path: copies of one int4 prompt cache, the main
+    # run's tokens, so only K6 and K4 differ; beside them the noise floor,
+    # the plain path with its token embeddings perturbed at the bf16 level
+    noise = torch.Generator(device="cuda").manual_seed(1)
+    with torch.inference_mode():
+        _, _, slen, pc, pseg = _prefill_impl(q4, cfg, *inputs,
+                                             kv_quant="int4")
+        runs = {}
+        for run, impl in (("auto", "auto"), ("plain", "plain"),
+                          ("floor", "plain")):
+            cache = {k: v.clone() for k, v in pc.items()}
+            gen_cache = init_gen_cache_like(cfg.llm, b, NEW_TOKENS, cache)
+            logits = []
+            for step in range(COMPARE_STEPS):
+                emb = llama.embed(q4["llm"], tokens[:, step, None])
+                if run == "floor":
+                    eps = torch.randn(emb.shape, generator=noise,
+                                      device="cuda")
+                    emb = (emb.float() * (1 + 2**-7 * eps)).to(emb.dtype)
+                lg, gen_cache = llama.decode_step(
+                    q4["llm"], cfg.llm, emb, slen + step, cache, pseg,
+                    gen_cache, step, attn_impl=impl)
+                logits.append(lg)
+            runs[run] = torch.stack(logits)  # (steps, B, V)
+            del cache, gen_cache
+    finite = all(bool(torch.isfinite(r).all()) for r in runs.values())
+    step_rel = [rel_err(runs["auto"][i], runs["plain"][i])
+                for i in range(COMPARE_STEPS)]
+    floor = [rel_err(runs["floor"][i], runs["plain"][i])
+             for i in range(COMPARE_STEPS)]
+    agree = float((runs["auto"].argmax(-1) == runs["plain"].argmax(-1))
+                  .float().mean())
+    ok = finite and max(step_rel) <= LOGITS_REL_W4
+    print("int4g kernel vs plain path: decode steps 0-"
+          f"{COMPARE_STEPS - 1} logits rel err "
+          + ", ".join(f"{e:.3e}" for e in step_rel)
+          + f" (limit {LOGITS_REL_W4}); noise floor (plain vs plain with "
+          "embeddings x (1 + 2^-7 N(0,1))) "
+          + ", ".join(f"{e:.3e}" for e in floor)
+          + f"; greedy agreement {agree:.3f} over {COMPARE_STEPS} steps x "
+          f"{b} rows; logits finite {finite} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("int4g kernel path disagrees with the plain path")
 
 
 def main() -> None:
@@ -360,8 +695,13 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print(gpu_line())
     phase_build()
-    kernels = check_kernels()
-    run_model(kernels)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    checked = [check_flash(gen), check_decode(gen), *check_decode_quant(gen),
+               check_w4(gen)]
+    kernels = {k["name"]: k for k in checked}
+    q4 = quantize_int4g(run_bf16(kernels))  # the bf16 tree is freed here
+    torch.cuda.empty_cache()
+    run_int4g(q4, kernels)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] == "halva_tpu")
     if "jax" in sys.modules or set(loaded) - {
             "halva_tpu", "halva_tpu.config", "halva_tpu.constants"}:
@@ -370,7 +710,7 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
-                                  for kern in kernels]}))
+                                  for kern in checked]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,11 +22,11 @@ import tempfile
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("flash_fwd.cu", "decode_attn.cu")
+SOURCES = ("flash_fwd.cu", "decode_attn.cu", "w4_gemv.cu")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libhalva_kernels.so"
 
@@ -66,29 +66,45 @@ def _source_hash() -> str:
 def build() -> str:
     """Compile the sources if this hash has no library yet; return its path.
 
-    nvcc's output (including `-Xptxas -v` register and spill counts) is kept
-    as `build.log` beside the library. Raises with nvcc's stderr on failure.
+    One nvcc per source, all started together, then one link. nvcc's output
+    (including `-Xptxas -v` register and spill counts) is kept as
+    `build.log` beside the library. Raises with nvcc's stderr on failure.
     """
     out_dir = os.path.join(BUILD_ROOT, _source_hash())
     lib_path = os.path.join(out_dir, LIB_NAME)
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    # build under a temporary name, then rename: a process building at the
+    # build in a private directory, then rename: a process building at the
     # same time never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
+    work = tempfile.mkdtemp(dir=out_dir)
+    nvcc = find_nvcc()
+    try:
+        objs = [os.path.join(work, s + ".o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        outs = [p.communicate() for p in procs]
+        results = [(c, p.returncode, out, err)
+                   for c, p, (out, err) in zip(cmds, procs, outs)]
+        if all(rc == 0 for _, rc, _, _ in results):
+            tmp = os.path.join(work, LIB_NAME)
+            link = [nvcc, "-shared", "-o", tmp, *objs]
+            p = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, p.returncode, p.stdout, p.stderr))
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            for c, _, out, err in results:
+                f.write(" ".join(c) + "\n" + out + err)
+        failed = [(c, rc, err) for c, rc, _, err in results if rc != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{os.path.basename(c[-1])} (exit {rc}):\n{err}"
+                for c, rc, err in failed))
+        os.replace(tmp, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib_path
 
 
@@ -110,6 +126,12 @@ def lib() -> ctypes.CDLL:
     cdll.halva_flash_fwd_bf16.restype = i
     cdll.halva_decode_attn_bf16.argtypes = [p] * 8 + [i] * 6 + [f, p]
     cdll.halva_decode_attn_bf16.restype = i
+    cdll.halva_decode_attn_kv8.argtypes = [p] * 12 + [i] * 6 + [f, p]
+    cdll.halva_decode_attn_kv8.restype = i
+    cdll.halva_decode_attn_kv4.argtypes = [p] * 12 + [i] * 7 + [f, p]
+    cdll.halva_decode_attn_kv4.restype = i
+    cdll.halva_w4_gemv.argtypes = [p] * 6 + [i] * 7 + [p]
+    cdll.halva_w4_gemv.restype = i
     cdll.halva_cuda_error_string.argtypes = [i]
     cdll.halva_cuda_error_string.restype = ctypes.c_char_p
     return cdll

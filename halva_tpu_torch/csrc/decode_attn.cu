@@ -1,22 +1,39 @@
 // K4: one-query decode attention over a layer's prompt KV cache merged with
-// its generated-token cache in one softmax, bf16 caches, GQA grouped.
+// its generated-token cache in one softmax, GQA grouped; bf16, int8 or
+// nibble-packed int4 prompt caches, bf16 or int8 gen caches.
 //
 // Replaces the Pallas TPU kernel halva_tpu/ops/decode_attention.py:
-// _decode_kernel (pallas_call in decode_attend_layer), bf16 mode. Same
-// contract: prompt key j is visible iff prompt_seg[b, j] != 0, gen slot j iff
-// gen_valid[b, j]; the G = H / KVH query heads of kv head n are heads
-// n*G .. n*G+G-1; a row with no visible key comes out as 0.
+// _decode_kernel (pallas_call in decode_attend_layer), in its bf16, int8 and
+// int4 prompt modes with bf16 or int8 gen caches. Same contract: prompt token
+// t is visible iff t < Sp and prompt_seg[b, t] != 0 (Sp the true prompt
+// length), gen slot j iff gen_valid[b, j]; the G = H / KVH query heads of kv
+// head n are heads n*G .. n*G+G-1; a row with no visible key comes out as 0.
+// Cache formats (one template instance per (prompt, gen) pair in use:
+// bf16/bf16, int8/int8, int4/int8):
+//   - bf16: (B, KVH, S, D) values;
+//   - int8: (B, KVH, S, D) int8 values, per-(token, head) bf16 scales
+//     (B, KVH, S). Values convert without their scale; the k scale
+//     multiplies the logit and the v scale the probability before the PV
+//     product (as the Pallas kernel and llama._decode_attend);
+//   - int4: (B, KVH, ceil(Sp/2), D) int8, byte row r holding token 2r in its
+//     low nibble and token 2r+1 in its high nibble, sign-extended by an
+//     arithmetic shift of a 32-bit value; scales (B, 2, KVH, ceil(Sp/2)),
+//     the even/odd plane ahead of the heads.
+// A masked key is selected out, never multiplied: its logit is -1e30, its
+// v scale 0 and its V row unread, whatever its scale holds.
 //
 // What bounds it on an H100: memory bandwidth. Per call it reads the layer's
-// caches once, B*KVH*(Sp+Sg)*D*2*2 bytes (49 MB at llava-1.5-7b B=4, Sp=623,
-// Sg=128), at ~G FLOP per byte (G query heads per kv head): far below the
-// ridge, so bytes are the whole cost. The design streams each cache row
-// exactly once and skips rows that are masked:
+// caches once (bf16 at llava-1.5-7b B=4, Sp=623, Sg=128: 49 MB; int4 prompt
+// + int8 gen: ~11 MB), at ~G FLOP per byte: far below the ridge, so bytes
+// are the whole cost. The design streams each cache row exactly once and
+// skips rows that are masked:
 //   - one block of 256 threads per (kv head, batch row) carries all G query
 //     heads of that kv head, so a key or value row is read once for G heads
 //     (the reference's grouped GQA, with no repeated cache);
-//   - keys arrive in tiles of 128 rows; 16-byte loads, D/8 lanes per row,
-//     the dot products reduced with warp shuffles into shared logits;
+//   - keys arrive in tiles of 128 tokens; D/8 lanes per row, each loading 8
+//     dims (16 bytes bf16, 8 bytes int8/int4; the two tokens of an int4 byte
+//     row are adjacent rows of the tile, so their loads coalesce), the dot
+//     products reduced with warp shuffles into shared logits;
 //   - one warp per head runs the online softmax (exp2 domain, fp32) over a
 //     tile; the PV pass has each thread own two adjacent dims of a slice of
 //     the tile's rows, so a warp's value loads are contiguous;
@@ -24,8 +41,8 @@
 //     (m, l, acc), so the merge needs no second pass; partial accumulators
 //     of the row slices are summed through shared memory at the end.
 // The caller passes the layer slice cache[li] (a view, no copy). Not done
-// yet: int8 / int4 prompt caches, beam and rows modes, a split along the key
-// axis for small B*KVH grids (128 blocks at the 7B shape fill ~1 wave).
+// yet: beam and rows modes, a split along the key axis for small B*KVH grids
+// (128 blocks at the 7B shape fill ~1 wave).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,53 +56,129 @@ constexpr float NEG_BIG = -1e30f;
 constexpr float M_INIT = -1e29f;  // above NEG_BIG: a masked key gets p = 0
 constexpr float LOG2E = 1.4426950408889634f;
 
+enum Fmt { BF16 = 0, I8 = 1, I4 = 2 };
+
 template <int D, int G>
 struct Smem {
   float p[G][TK];        // logits, then probabilities, of the current tile
   int ok[TK];            // key visible
+  float vsc[TK];         // v scale of a visible key, 0 for a masked one
   float alpha[G];        // rescale of the running accumulator for this tile
   float m[G], l[G];      // running max (exp2 domain) and denominator
   float red[NT / (D / 2)][G][D];  // final sum over the row slices
 };
 
-// One span of keys (the prompt cache or the gen cache) merged into the
-// running softmax state. Exactly one of seg32 / valid8 is non-null.
-template <int D, int G>
-__device__ __forceinline__ void attend_span(const __nv_bfloat16* __restrict__ K,
-                            const __nv_bfloat16* __restrict__ V, int S,
-                            const int* __restrict__ seg32,
-                            const uint8_t* __restrict__ valid8,
-                            const float (&qreg)[G][8], float (&acc)[G][2],
-                            Smem<D, G>& sm) {
-  constexpr int LPR = D / 8;        // lanes per key row (16 bytes each)
+// One span of keys of one (batch row, kv head): the prompt cache or the gen
+// cache. Exactly one of seg / valid is non-null.
+struct Span {
+  const void* k;
+  const void* v;
+  const __nv_bfloat16* ks;  // int8: token scales; int4: even-token plane
+  const __nv_bfloat16* vs;
+  long odd;                 // int4: offset of the odd-token scale plane
+  int S;                    // tokens
+  const int* seg;
+  const uint8_t* valid;
+};
+
+// signed nibble (low if sh == 0, high if sh == 4) of byte j of w
+__device__ __forceinline__ float nib(uint32_t w, int j, int sh) {
+  return (float)((int32_t)(w << (28 - 8 * j - sh)) >> 28);
+}
+
+__device__ __forceinline__ float sbyte(uint32_t w, int j) {
+  return (float)((int32_t)(w << (24 - 8 * j)) >> 24);
+}
+
+// dims lr*8 .. lr*8+7 of key token t, unscaled
+template <int D, int F>
+__device__ __forceinline__ void load_k8(const Span& s, int t, int lr,
+                                        float (&kf)[8]) {
+  if constexpr (F == BF16) {
+    const uint4 kx = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(s.k) + (long)t * D + lr * 8);
+    const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(k2[i]);
+      kf[2 * i] = f.x;
+      kf[2 * i + 1] = f.y;
+    }
+  } else {
+    const long row = F == I4 ? (t >> 1) : t;
+    const uint2 kx = *reinterpret_cast<const uint2*>(
+        static_cast<const int8_t*>(s.k) + row * D + lr * 8);
+    const int sh = (t & 1) * 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      kf[j] = F == I4 ? nib(kx.x, j, sh) : sbyte(kx.x, j);
+      kf[4 + j] = F == I4 ? nib(kx.y, j, sh) : sbyte(kx.y, j);
+    }
+  }
+}
+
+// dims 2*dp, 2*dp+1 of value token t, unscaled
+template <int D, int F>
+__device__ __forceinline__ float2 load_v2(const Span& s, int t, int dp) {
+  if constexpr (F == BF16)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        static_cast<const __nv_bfloat16*>(s.v) + (long)t * D + dp * 2));
+  const long row = F == I4 ? (t >> 1) : t;
+  const uint32_t w = *reinterpret_cast<const uint16_t*>(
+      static_cast<const int8_t*>(s.v) + row * D + dp * 2);
+  if constexpr (F == I4) {
+    const int sh = (t & 1) * 4;
+    return make_float2(nib(w, 0, sh), nib(w, 1, sh));
+  }
+  return make_float2(sbyte(w, 0), sbyte(w, 1));
+}
+
+template <int F>
+__device__ __forceinline__ float tok_scale(const __nv_bfloat16* sc,
+                                           const Span& s, int t) {
+  if constexpr (F == BF16) return 1.f;
+  if constexpr (F == I4)
+    return __bfloat162float(sc[(t & 1) * s.odd + (t >> 1)]);
+  return __bfloat162float(sc[t]);
+}
+
+// One span merged into the running softmax state.
+template <int D, int G, int F>
+__device__ __forceinline__ void attend_span(const Span& s,
+                                            const float (&qreg)[G][8],
+                                            float (&acc)[G][2],
+                                            Smem<D, G>& sm) {
+  constexpr int LPR = D / 8;        // lanes per key row
   constexpr int RPP = NT / LPR;     // key rows per pass
-  constexpr int DP = D / 2;         // bf16 pairs per row
+  constexpr int DP = D / 2;         // dim pairs per row
   constexpr int JG = NT / DP;       // row slices of the PV pass
   const int tid = threadIdx.x;
   const int lr = tid % LPR, rr = tid / LPR;
   const int dp = tid % DP, jg = tid / DP;
   const int warp = tid >> 5, lane = tid & 31;
 
-  for (int c0 = 0; c0 < S; c0 += TK) {
+  for (int c0 = 0; c0 < s.S; c0 += TK) {
     // logits of the tile's visible keys
 #pragma unroll
     for (int r = rr; r < TK; r += RPP) {
-      const int j = c0 + r;
-      const bool ok = j < S && (seg32 ? seg32[j] != 0 : valid8[j] != 0);
+      const int t = c0 + r;
+      const bool ok = t < s.S && (s.seg ? s.seg[t] != 0 : s.valid[t] != 0);
+      // the scales are loaded before the row, so the two loads overlap
+      float ksc = 0.f, vsc = 0.f;
+      if (ok && lr == 0) {
+        ksc = tok_scale<F>(s.ks, s, t);
+        vsc = tok_scale<F>(s.vs, s, t);
+      }
       float part[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) part[g] = 0.f;
       if (ok) {
-        const uint4 kx =
-            *reinterpret_cast<const uint4*>(K + (long)j * D + lr * 8);
-        const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kx);
+        float kf[8];
+        load_k8<D, F>(s, t, lr, kf);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 kf = __bfloat1622float2(k2[i]);
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int g = 0; g < G; ++g)
-            part[g] += qreg[g][2 * i] * kf.x + qreg[g][2 * i + 1] * kf.y;
-        }
+          for (int g = 0; g < G; ++g) part[g] += qreg[g][i] * kf[i];
       }
 #pragma unroll
       for (int off = LPR / 2; off > 0; off >>= 1)
@@ -94,13 +187,15 @@ __device__ __forceinline__ void attend_span(const __nv_bfloat16* __restrict__ K,
           part[g] += __shfl_xor_sync(0xffffffffu, part[g], off);
       if (lr == 0) {
         sm.ok[r] = ok;
+        sm.vsc[r] = vsc;
 #pragma unroll
-        for (int g = 0; g < G; ++g) sm.p[g][r] = ok ? part[g] : NEG_BIG;
+        for (int g = 0; g < G; ++g) sm.p[g][r] = ok ? part[g] * ksc : NEG_BIG;
       }
     }
     __syncthreads();
 
-    // online softmax update, one warp per query head of the group
+    // online softmax update, one warp per query head of the group; the
+    // stored weight of a key is its probability times its v scale
     if (warp < G) {
       const int g = warp;
       float mx = M_INIT;
@@ -113,7 +208,7 @@ __device__ __forceinline__ void attend_span(const __nv_bfloat16* __restrict__ K,
       float sum = 0.f;
       for (int i = lane; i < TK; i += 32) {
         const float p = exp2f(sm.p[g][i] - m_new);
-        sm.p[g][i] = p;
+        sm.p[g][i] = F == BF16 ? p : p * sm.vsc[i];
         sum += p;
       }
 #pragma unroll
@@ -134,13 +229,11 @@ __device__ __forceinline__ void attend_span(const __nv_bfloat16* __restrict__ K,
       acc[g][0] *= sm.alpha[g];
       acc[g][1] *= sm.alpha[g];
     }
-    const int rows = min(TK, S - c0);
+    const int rows = min(TK, s.S - c0);
 #pragma unroll 4
     for (int r = jg; r < rows; r += JG) {
       if (!sm.ok[r]) continue;  // same branch for every thread of the row
-      const float2 vf = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(V + (long)(c0 + r) * D +
-                                                   dp * 2));
+      const float2 vf = load_v2<D, F>(s, c0 + r, dp);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = sm.p[g][r];
@@ -148,21 +241,31 @@ __device__ __forceinline__ void attend_span(const __nv_bfloat16* __restrict__ K,
         acc[g][1] += p * vf.y;
       }
     }
-    __syncthreads();  // the next tile overwrites p and ok
+    __syncthreads();  // the next tile overwrites p, ok and vsc
   }
 }
 
-template <int D, int G>
+template <int F>
+__host__ __device__ constexpr int row_bytes(int D) {
+  return F == BF16 ? 2 * D : D;
+}
+
+// PF / GF: prompt and gen cache formats. Sp is the true prompt length in
+// tokens, sp_rows the prompt cache's rows per head (Sp, or ceil(Sp/2) for
+// int4).
+template <int D, int G, int PF, int GF>
 __global__ void __launch_bounds__(NT)
 decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ kp,
-                   const __nv_bfloat16* __restrict__ vp,
+                   const void* __restrict__ kp, const void* __restrict__ vp,
+                   const __nv_bfloat16* __restrict__ kps,
+                   const __nv_bfloat16* __restrict__ vps,
                    const int* __restrict__ seg,
-                   const __nv_bfloat16* __restrict__ kg,
-                   const __nv_bfloat16* __restrict__ vg,
+                   const void* __restrict__ kg, const void* __restrict__ vg,
+                   const __nv_bfloat16* __restrict__ kgs,
+                   const __nv_bfloat16* __restrict__ vgs,
                    const uint8_t* __restrict__ gvalid,
                    __nv_bfloat16* __restrict__ o, int H, int KVH, int Sp,
-                   int Sg, float scale_log2) {
+                   int sp_rows, int Sg, float scale_log2) {
   constexpr int LPR = D / 8;
   constexpr int DP = D / 2;
   constexpr int JG = NT / DP;
@@ -195,10 +298,33 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   const long head = (long)b * KVH + n;
-  attend_span<D, G>(kp + head * Sp * D, vp + head * Sp * D, Sp,
-                    seg + (long)b * Sp, nullptr, qreg, acc, sm);
-  attend_span<D, G>(kg + head * Sg * D, vg + head * Sg * D, Sg, nullptr,
-                    gvalid + (long)b * Sg, qreg, acc, sm);
+  Span ps;
+  ps.k = static_cast<const char*>(kp) + head * sp_rows * row_bytes<PF>(D);
+  ps.v = static_cast<const char*>(vp) + head * sp_rows * row_bytes<PF>(D);
+  if (PF == I4) {  // (B, 2, KVH, sp_rows): even plane, odd plane behind it
+    ps.ks = kps + ((long)b * 2 * KVH + n) * sp_rows;
+    ps.vs = vps + ((long)b * 2 * KVH + n) * sp_rows;
+    ps.odd = (long)KVH * sp_rows;
+  } else {
+    ps.ks = kps ? kps + head * Sp : nullptr;
+    ps.vs = vps ? vps + head * Sp : nullptr;
+    ps.odd = 0;
+  }
+  ps.S = Sp;
+  ps.seg = seg + (long)b * Sp;
+  ps.valid = nullptr;
+  attend_span<D, G, PF>(ps, qreg, acc, sm);
+
+  Span gs;
+  gs.k = static_cast<const char*>(kg) + head * Sg * row_bytes<GF>(D);
+  gs.v = static_cast<const char*>(vg) + head * Sg * row_bytes<GF>(D);
+  gs.ks = kgs ? kgs + head * Sg : nullptr;
+  gs.vs = vgs ? vgs + head * Sg : nullptr;
+  gs.odd = 0;
+  gs.S = Sg;
+  gs.seg = nullptr;
+  gs.valid = gvalid + (long)b * Sg;
+  attend_span<D, G, GF>(gs, qreg, acc, sm);
 
   const int dp = tid % DP, jg = tid / DP;
 #pragma unroll
@@ -218,33 +344,48 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
-int launch_d(int G, dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
-             const __nv_bfloat16* kp, const __nv_bfloat16* vp, const int* seg,
-             const __nv_bfloat16* kg, const __nv_bfloat16* vg,
-             const uint8_t* gv, __nv_bfloat16* o, int H, int KVH, int Sp,
-             int Sg, float sl2) {
+struct Args {
+  const __nv_bfloat16* q;
+  const void *kp, *vp;
+  const __nv_bfloat16 *kps, *vps;
+  const int* seg;
+  const void *kg, *vg;
+  const __nv_bfloat16 *kgs, *vgs;
+  const uint8_t* gv;
+  __nv_bfloat16* o;
+  int H, KVH, Sp, sp_rows, Sg;
+  float sl2;
+};
+
+template <int D, int PF, int GF>
+int launch(int G, dim3 grid, cudaStream_t st, const Args& a) {
+#define HALVA_DECODE_CASE(GG)                                               \
+  case GG:                                                                  \
+    decode_attn_kernel<D, GG, PF, GF><<<grid, NT, 0, st>>>(                 \
+        a.q, a.kp, a.vp, a.kps, a.vps, a.seg, a.kg, a.vg, a.kgs, a.vgs,     \
+        a.gv, a.o, a.H, a.KVH, a.Sp, a.sp_rows, a.Sg, a.sl2);               \
+    break;
   switch (G) {
-    case 1:
-      decode_attn_kernel<D, 1><<<grid, NT, 0, st>>>(q, kp, vp, seg, kg, vg,
-                                                    gv, o, H, KVH, Sp, Sg, sl2);
-      break;
-    case 2:
-      decode_attn_kernel<D, 2><<<grid, NT, 0, st>>>(q, kp, vp, seg, kg, vg,
-                                                    gv, o, H, KVH, Sp, Sg, sl2);
-      break;
-    case 4:
-      decode_attn_kernel<D, 4><<<grid, NT, 0, st>>>(q, kp, vp, seg, kg, vg,
-                                                    gv, o, H, KVH, Sp, Sg, sl2);
-      break;
-    case 8:
-      decode_attn_kernel<D, 8><<<grid, NT, 0, st>>>(q, kp, vp, seg, kg, vg,
-                                                    gv, o, H, KVH, Sp, Sg, sl2);
-      break;
+    HALVA_DECODE_CASE(1)
+    HALVA_DECODE_CASE(2)
+    HALVA_DECODE_CASE(4)
+    HALVA_DECODE_CASE(8)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef HALVA_DECODE_CASE
   return (int)cudaGetLastError();
+}
+
+template <int PF, int GF>
+int run(const Args& a, int B, int D, float scale, void* stream) {
+  if (B <= 0 || a.KVH <= 0 || a.H % a.KVH != 0 || a.Sp < 0 || a.Sg < 0 ||
+      D != 128)  // the head dim of every supported Llama config
+    return (int)cudaErrorInvalidValue;
+  Args b = a;
+  b.sl2 = scale * LOG2E;
+  return launch<128, PF, GF>(a.H / a.KVH, dim3(a.KVH, B),
+                             static_cast<cudaStream_t>(stream), b);
 }
 
 }  // namespace
@@ -258,22 +399,48 @@ extern "C" int halva_decode_attn_bf16(const void* q, const void* kp,
                                       const void* gvalid, void* o, int B,
                                       int H, int KVH, int Sp, int Sg, int D,
                                       float scale, void* stream) {
-  if (B <= 0 || KVH <= 0 || H % KVH != 0 || Sp < 0 || Sg < 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(KVH, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int G = H / KVH;
-  const float sl2 = scale * LOG2E;
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kpp = static_cast<const __nv_bfloat16*>(kp);
-  const auto* vpp = static_cast<const __nv_bfloat16*>(vp);
-  const auto* sp = static_cast<const int*>(seg);
-  const auto* kgp = static_cast<const __nv_bfloat16*>(kg);
-  const auto* vgp = static_cast<const __nv_bfloat16*>(vg);
-  const auto* gvp = static_cast<const uint8_t*>(gvalid);
-  auto* op = static_cast<__nv_bfloat16*>(o);
-  if (D != 128)  // the head dim of every supported Llama config
-    return (int)cudaErrorInvalidValue;
-  return launch_d<128>(G, grid, st, qp, kpp, vpp, sp, kgp, vgp, gvp, op, H,
-                       KVH, Sp, Sg, sl2);
+  const Args a{static_cast<const __nv_bfloat16*>(q), kp, vp, nullptr,
+               nullptr, static_cast<const int*>(seg), kg, vg, nullptr,
+               nullptr, static_cast<const uint8_t*>(gvalid),
+               static_cast<__nv_bfloat16*>(o), H, KVH, Sp, Sp, Sg, 0.f};
+  return run<BF16, BF16>(a, B, D, scale, stream);
+}
+
+// int8 prompt and gen caches: kp/vp (B, KVH, Sp, D) int8 with kps/vps
+// (B, KVH, Sp) bf16; kg/vg (B, KVH, Sg, D) int8 with kgs/vgs (B, KVH, Sg).
+extern "C" int halva_decode_attn_kv8(
+    const void* q, const void* kp, const void* vp, const void* kps,
+    const void* vps, const void* seg, const void* kg, const void* vg,
+    const void* kgs, const void* vgs, const void* gvalid, void* o, int B,
+    int H, int KVH, int Sp, int Sg, int D, float scale, void* stream) {
+  const Args a{static_cast<const __nv_bfloat16*>(q), kp, vp,
+               static_cast<const __nv_bfloat16*>(kps),
+               static_cast<const __nv_bfloat16*>(vps),
+               static_cast<const int*>(seg), kg, vg,
+               static_cast<const __nv_bfloat16*>(kgs),
+               static_cast<const __nv_bfloat16*>(vgs),
+               static_cast<const uint8_t*>(gvalid),
+               static_cast<__nv_bfloat16*>(o), H, KVH, Sp, Sp, Sg, 0.f};
+  return run<I8, I8>(a, B, D, scale, stream);
+}
+
+// int4 prompt cache and int8 gen cache: kp/vp (B, KVH, Sp2, D) int8 packed
+// token pairs with kps/vps (B, 2, KVH, Sp2) bf16, Sp2 = ceil(Sp / 2), seg
+// (B, Sp) in token order; the gen cache as for halva_decode_attn_kv8.
+extern "C" int halva_decode_attn_kv4(
+    const void* q, const void* kp, const void* vp, const void* kps,
+    const void* vps, const void* seg, const void* kg, const void* vg,
+    const void* kgs, const void* vgs, const void* gvalid, void* o, int B,
+    int H, int KVH, int Sp, int Sp2, int Sg, int D, float scale,
+    void* stream) {
+  if (Sp2 != (Sp + 1) / 2) return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const __nv_bfloat16*>(q), kp, vp,
+               static_cast<const __nv_bfloat16*>(kps),
+               static_cast<const __nv_bfloat16*>(vps),
+               static_cast<const int*>(seg), kg, vg,
+               static_cast<const __nv_bfloat16*>(kgs),
+               static_cast<const __nv_bfloat16*>(vgs),
+               static_cast<const uint8_t*>(gvalid),
+               static_cast<__nv_bfloat16*>(o), H, KVH, Sp, Sp2, Sg, 0.f};
+  return run<I4, I8>(a, B, D, scale, stream);
 }

@@ -6,10 +6,11 @@ length, batched, right-padded to a bucket, and tail batches are filled with
 dead rows (prompt length 0, zero image) that the decode marks done at step
 0. Answers are written as JSONL rows with the reference's schema.
 
+Quantized trees (int8, int4) and quantized KV caches (`kv_quant`) run.
 Not ported yet (they raise NotImplementedError): sampling, beam search,
-device meshes, continuous batching, speculative decode, quantized KV and
-the prefetch pool. PIL and halva_tpu.mm_utils are imported where an image
-or a prompt is processed, so importing this module needs neither.
+device meshes, continuous batching, speculative decode and the prefetch
+pool. PIL and halva_tpu.mm_utils are imported where an image or a prompt
+is processed, so importing this module needs neither.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from halva_tpu_torch import tree
 from halva_tpu_torch.config import LlavaConfig
 from halva_tpu_torch.ops.generate import decode_tokens, generate_greedy
 
@@ -55,7 +57,7 @@ def build_prompt(text: str, template_name: str = "v1",
 
 class BatchedGenerator:
     """Length-bucketed batched greedy decode over a prepared model. The
-    device is the device of the params."""
+    device is the device of the params' LLM tensors."""
 
     def __init__(
         self,
@@ -69,6 +71,7 @@ class BatchedGenerator:
         max_new_tokens: int = 1024,
         prompt_bucket: int = 64,
         attn_impl: str = "auto",
+        kv_quant=False,  # False | True | "int8" | "int4"
         **unported,
     ):
         if unported:
@@ -86,8 +89,11 @@ class BatchedGenerator:
         self.max_new_tokens = max_new_tokens
         self.bucket = prompt_bucket
         self.attn_impl = attn_impl
+        self.kv_quant = kv_quant
         self.eos_id = tokenizer.eos_token_id
-        self.device = params["llm"]["embed"]["embedding"].device
+        # any tensor leaf: a quantized tree has embedding_q, not embedding
+        self.device = next(t for _, t in tree.flatten(params["llm"])
+                           if isinstance(t, torch.Tensor)).device
         self.last_stats: Dict = {}
 
     def _tokenize(self, req: EvalRequest) -> List[int]:
@@ -161,6 +167,7 @@ class BatchedGenerator:
                     max_new_tokens=self.max_new_tokens,
                     eos_id=self.eos_id,
                     attn_impl=self.attn_impl,
+                    kv_quant=self.kv_quant,
                 )
             tokens = tokens.cpu().numpy()  # host readback = fence
             host_s += t1 - t0

@@ -1,4 +1,4 @@
-"""Llama-family decoder, bf16 greedy-decode subset, in plain PyTorch.
+"""Llama-family decoder, greedy-decode subset, in plain PyTorch.
 
 Counterpart of halva_tpu/models/llama.py with the same param tree: per-layer
 weights stacked on a leading `num_layers` axis, dense kernels (in, out). The
@@ -6,12 +6,14 @@ reference's `lax.scan` over layers is a Python loop over layer slices
 (`layer_slice`), which are views. KV caches are head-major
 (L, B, KVH, S, Dh), as the decode kernel wants them.
 
-Ported here: plain dense kernels (+ bias), RMSNorm / bias-free LayerNorm,
-RoPE (HF half-split, fp32 tables, linear scaling), the forward, prefill into
-a bf16 prompt cache, and the KV-cached decode step over a bf16 gen cache.
+Ported here: dense kernels (+ bias) in float, int8 (`kernel_q`: W8A8 or
+weight dequant) and packed int4 (`kernel_q4p`), int8 embeddings, RMSNorm /
+bias-free LayerNorm, RoPE (HF half-split, fp32 tables, linear scaling), the
+forward, prefill into a bf16, int8 or int4 prompt cache, and the KV-cached
+decode step over a bf16 or int8 gen cache. An int4 tree decodes through
+`_decode_step_w4` (K6 for every layer matmul, K4 for attention).
 Not ported yet (each raises NotImplementedError naming its ROADMAP slice):
-LoRA and quantized weight branches of `dense` / `embed`, ALiBi, sliding
-window, int8/int4 KV caches, tensor parallelism and beams.
+LoRA, NF4 weights, ALiBi, sliding window, tensor parallelism and beams.
 
 Shapes: B batch, S sequence, D hidden, H heads, Dh head dim, V vocab.
 """
@@ -24,15 +26,22 @@ import torch
 import torch.nn.functional as F
 
 from halva_tpu_torch.config import LlamaConfig
+from halva_tpu_torch.ops import quant
 from halva_tpu_torch.ops.attention import attention
 from halva_tpu_torch.ops.decode_attention import (
     decode_attend_layer,
     decode_attend_plain,
 )
+from halva_tpu_torch.ops.w4_matmul import (
+    dequantize_int4,
+    w4_dense_stacked,
+    w4_dense_stacked_plain,
+    w4a8_dense,
+)
 
 Params = Dict[str, Any]
 
-_QUANT_KEYS = ("kernel_q", "kernel_q4", "kernel_q4p", "lora_a")
+_UNPORTED_KEYS = ("kernel_q4", "lora_a")
 
 
 def _mlp_act(cfg: LlamaConfig):
@@ -63,15 +72,29 @@ def _check_supported(cfg: LlamaConfig) -> None:
 
 
 def dense(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """y = x @ kernel [+ bias]."""
-    for key in _QUANT_KEYS:
+    """y = x @ kernel [+ bias]; the kernel may be packed int4 (`kernel_q4p`:
+    W4A8 when the scales are per channel and W4A8 is on, else bf16 dequant
+    then matmul) or int8 (`kernel_q`: W8A8 when on, else weight dequant)."""
+    for key in _UNPORTED_KEYS:
         if key in p:
             raise NotImplementedError(
                 f"dense: '{key}' weights are not ported yet (ROADMAP queue "
-                "1: LoRA with the DPA training slice, int8/int4 weights with "
-                "the int4 serving slice)"
+                "1: LoRA with the DPA training slice, NF4 with the training "
+                "extras)"
             )
-    y = x @ p["kernel"].to(x.dtype)
+    if "kernel_q4p" in p:
+        if quant.w4a8_enabled() and p["kernel_scale4p"].shape[1] == 1:
+            y = w4a8_dense(x, p["kernel_q4p"], p["kernel_scale4p"])
+        else:
+            y = x @ dequantize_int4(p["kernel_q4p"], p["kernel_scale4p"],
+                                    x.dtype)
+    elif "kernel_q" in p:
+        if quant.w8a8_enabled():
+            y = quant.int8_dense(x, p["kernel_q"], p["kernel_scale"])
+        else:
+            y = quant.w8_dense(x, p["kernel_q"], p["kernel_scale"])
+    else:
+        y = x @ p["kernel"].to(x.dtype)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
@@ -129,19 +152,23 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 def _embedding_table(params: Params) -> torch.Tensor:
-    if "embedding_q" in params["embed"]:
-        raise NotImplementedError(
-            "quantized embeddings are not ported yet (ROADMAP queue 1, int4 "
-            "serving slice)"
-        )
-    return params["embed"]["embedding"]
+    """The (V, D) table; an int8 table dequantized in fp32."""
+    ep = params["embed"]
+    if "embedding_q" in ep:
+        return ep["embedding_q"].float() * ep["embedding_scale"].float()
+    return ep["embedding"]
 
 
 def embed(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
     """Token embedding lookup; out-of-range ids (the -200 image sentinel,
-    -100 ignore) are clamped to 0 and overwritten by the splice."""
-    table = _embedding_table(params)
-    return F.embedding(input_ids.clamp(0, table.shape[0] - 1), table)
+    -100 ignore) are clamped to 0 and overwritten by the splice. An int8
+    table gives bf16 rows whatever the tree's dtype (quant.embed_lookup)."""
+    ep = params["embed"]
+    table = ep.get("embedding", ep.get("embedding_q"))
+    ids = input_ids.clamp(0, table.shape[0] - 1)
+    if "embedding_q" in ep:
+        return quant.embed_lookup(ep, ids)
+    return F.embedding(ids, table)
 
 
 def _norm(cfg: LlamaConfig, x: torch.Tensor, scale: torch.Tensor):
@@ -242,8 +269,14 @@ def forward(
 # --------------------------------------------------------------------------
 # KV-cached decode: a read-only PROMPT cache (exact prompt length, written by
 # prefill) and a small GENERATED cache (max_new slots, written in place one
-# slot per step). Both head-major (L, B, KVH, S, Dh).
+# slot per step). Both head-major (L, B, KVH, S, Dh). Prompt caches are
+# bf16 {k, v}, int8 {k, v, k_scale, v_scale} (scales (L, B, KVH, S)) or int4
+# {k4, v4, k_scale, v_scale} (token pairs packed along S, scales
+# (L, B, 2, KVH, ceil(S/2)) with the even/odd plane ahead of the heads);
+# gen caches bf16 or int8 with (L, B, KVH, Sg) scales.
 # --------------------------------------------------------------------------
+
+KV_QUANT = (False, True, "int8", "int4")
 
 
 def init_gen_cache(
@@ -252,14 +285,71 @@ def init_gen_cache(
     max_new: int,
     dtype=torch.bfloat16,
     device="cpu",
+    quantized: bool = False,
 ) -> Params:
-    """Zeroed gen cache (L, B, KVH, Sg, Dh). Sg is max_new rounded up to a
+    """Zeroed gen cache (L, B, KVH, Sg, Dh); quantized: int8 values with
+    per-(head, slot) bf16 scales (ones). Sg is max_new rounded up to a
     multiple of 128, as in the reference, so the shapes agree; slots past
     the current step stay invalid."""
     sg = -(-max_new // 128) * 128
     shape = (cfg.num_layers, batch, cfg.kv_heads, sg, cfg.head_size)
+    if quantized:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.ones(shape[:-1], dtype=torch.bfloat16,
+                                  device=device),
+            "v_scale": torch.ones(shape[:-1], dtype=torch.bfloat16,
+                                  device=device),
+        }
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., Dh) -> int8 values + per-leading-dims bf16 scales (symmetric
+    absmax/127 over the head dim)."""
+    q, scale = quant.quantize_rows_int8(t)
+    return q, scale[..., 0].to(torch.bfloat16)
+
+
+def _quantize_kv4(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, KVH, S, Dh), S even -> (packed (B, KVH, S/2, Dh) int8 with token
+    2r in the low nibble and 2r+1 in the high nibble, scales (B, 2, KVH,
+    S/2) bf16 with the even/odd plane leading). Symmetric absmax/7 per
+    (token, head), values in [-7, 7]."""
+    if t.shape[2] % 2:
+        raise ValueError("int4 KV packing needs an even sequence length")
+    t32 = t.float()
+    absmax = t32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 7.0)
+    q = torch.clamp(torch.round(t32 / scale), -7, 7).to(torch.int32)
+    packed = (q[:, :, 1::2] << 4) | (q[:, :, 0::2] & 0xF)  # [0, 255]
+    packed = (packed - 256 * (packed > 127).to(torch.int32)).to(torch.int8)
+    sc = scale[..., 0]  # (B, KVH, S)
+    scales = torch.stack([sc[:, :, 0::2], sc[:, :, 1::2]], dim=1)
+    return packed, scales.to(torch.bfloat16)
+
+
+def _store_prompt_kv(cache: Params, li: int, kh: torch.Tensor,
+                     vh: torch.Tensor, quantize_cache) -> None:
+    """Write layer li's head-major k, v (B, KVH, S, Dh) into the prompt
+    cache in its format."""
+    if quantize_cache == "int4":
+        if kh.shape[2] % 2:  # one dead token slot (segment 0 downstream)
+            kh, vh = F.pad(kh, (0, 0, 0, 1)), F.pad(vh, (0, 0, 0, 1))
+        for name, t in (("k", kh), ("v", vh)):
+            q, sc = _quantize_kv4(t)
+            cache[name + "4"][li] = q
+            cache[name + "_scale"][li] = sc
+    elif quantize_cache:
+        for name, t in (("k", kh), ("v", vh)):
+            q, sc = _quantize_kv(t)
+            cache[name][li] = q
+            cache[name + "_scale"][li] = sc
+    else:
+        cache["k"][li].copy_(kh)
+        cache["v"][li].copy_(vh)
 
 
 def prefill(
@@ -274,39 +364,65 @@ def prefill(
 ) -> Tuple[torch.Tensor, Params]:
     """Full-sequence forward writing the prompt cache.
 
-    Returns (final hidden states (B, S, D), {k, v}: (L, B, KVH, S, Dh)).
-    Prompts are right-padded; padding keys carry segment id 0 so decode
-    steps never attend to them."""
+    Returns (final hidden states (B, S, D), prompt cache). quantize_cache:
+    False = `cache_dtype` {k, v}; True | "int8" = int8 values + per-(token,
+    head) scales; "int4" = nibble-packed token pairs (an odd S gets one
+    dead padding slot). Prompts are right-padded; padding keys carry
+    segment id 0 so decode steps never attend to them."""
     _check_supported(cfg)
-    if quantize_cache:
-        raise NotImplementedError(
-            "int8/int4 prompt caches are not ported yet (ROADMAP queue 2, "
-            "K4 int8/int4 modes)"
-        )
+    if quantize_cache not in KV_QUANT:
+        raise ValueError(f"quantize_cache must be one of {KV_QUANT}, got "
+                         f"{quantize_cache!r}")
     b, s, _ = inputs_embeds.shape
     cos, sin = rope_cos_sin(positions, cfg.head_size, cfg.rope_theta,
                             cfg.rope_scaling)
-    shape = (cfg.num_layers, b, cfg.kv_heads, s, cfg.head_size)
+    nl, kvh, dh = cfg.num_layers, cfg.kv_heads, cfg.head_size
     dev = inputs_embeds.device
-    cache = {"k": torch.empty(shape, dtype=cache_dtype, device=dev),
-             "v": torch.empty(shape, dtype=cache_dtype, device=dev)}
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    if quantize_cache == "int4":
+        s2 = -(-s // 2)
+        cache = {n: empty((nl, b, kvh, s2, dh), torch.int8)
+                 for n in ("k4", "v4")}
+        cache.update({n: empty((nl, b, 2, kvh, s2), torch.bfloat16)
+                      for n in ("k_scale", "v_scale")})
+    elif quantize_cache:
+        cache = {n: empty((nl, b, kvh, s, dh), torch.int8)
+                 for n in ("k", "v")}
+        cache.update({n: empty((nl, b, kvh, s), torch.bfloat16)
+                      for n in ("k_scale", "v_scale")})
+    else:
+        cache = {n: empty((nl, b, kvh, s, dh), cache_dtype)
+                 for n in ("k", "v")}
     x = inputs_embeds
-    for li in range(cfg.num_layers):
+    for li in range(nl):
         lp = layer_slice(params["layers"], li)
         x, k, v = _attn_block(cfg, lp, x, cos, sin, segment_ids, attn_impl)
         x = x + _mlp(cfg, _norm(cfg, x, lp["post_attn_norm"]["scale"]),
                      lp["mlp"])
-        cache["k"][li].copy_(k.transpose(1, 2))  # head-major
-        cache["v"][li].copy_(v.transpose(1, 2))
+        _store_prompt_kv(cache, li, k.transpose(1, 2), v.transpose(1, 2),
+                         quantize_cache)
     return _norm(cfg, x, params["final_norm"]["scale"]), cache
 
 
 def _write_gen(gen: Params, k: torch.Tensor, v: torch.Tensor, li: int,
                step: int) -> None:
     """Write this layer's new k, v (B, 1, KVH, Dh) at gen slot `step`, in
-    place (the reference returns an updated copy)."""
-    gen["k"][li, :, :, step] = k[:, 0]
-    gen["v"][li, :, :, step] = v[:, 0]
+    place (the reference returns an updated copy), quantized with
+    per-(head, slot) scales when the cache is int8."""
+    for name, t in (("k", k[:, 0]), ("v", v[:, 0])):
+        if "k_scale" in gen:
+            q, sc = _quantize_kv(t)
+            gen[name][li, :, :, step] = q
+            gen[name + "_scale"][li, :, :, step] = sc
+        else:
+            gen[name][li, :, :, step] = t
+
+
+def _layer_cache(cache: Params, li: int) -> Params:
+    return {key: t[li] for key, t in cache.items()}
 
 
 def _decode_attend(q, prompt_l, prompt_seg, gen_l, gen_valid, attn_impl):
@@ -321,21 +437,18 @@ def decode_step(
     cfg: LlamaConfig,
     token_embeds: torch.Tensor,  # (B, 1, D)
     positions: torch.Tensor,  # (B,) absolute position of this token
-    prompt_cache: Params,  # read-only {k, v}: (L, B, KVH, Sp, Dh)
-    prompt_seg: torch.Tensor,  # (B, Sp) 0 = padding
-    gen_cache: Params,  # {k, v}: (L, B, KVH, Sg, Dh), updated in place
+    prompt_cache: Params,  # read-only, (L, B, KVH, Sp, Dh) leaves
+    prompt_seg: torch.Tensor,  # (B, Sp) 0 = padding, Sp the true length
+    gen_cache: Params,  # (L, B, KVH, Sg, Dh) leaves, updated in place
     step: int,  # decode step = gen slot to write
     attn_impl: str = "auto",
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step: (fp32 logits (B, V), gen cache). The new token's KV
     goes to gen slot `step` (lockstep across rows); its RoPE position is
-    per-row `positions`. Attention goes through K4 for CUDA tensors."""
+    per-row `positions`. Attention goes through K4 for CUDA tensors; a
+    packed-int4 tree takes `_decode_step_w4`. attn_impl="plain" takes the
+    plain versions of the kernels instead."""
     _check_supported(cfg)
-    if "k_scale" in prompt_cache or "k4" in prompt_cache:
-        raise NotImplementedError(
-            "int8/int4 prompt caches are not ported yet (ROADMAP queue 2, "
-            "K4 int8/int4 modes)"
-        )
     b = token_embeds.shape[0]
     h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_size
     sg = gen_cache["k"].shape[3]
@@ -344,6 +457,10 @@ def decode_step(
     dev = token_embeds.device
     gen_valid = (torch.arange(sg, device=dev) <= step).expand(b, sg)
     gen_valid = gen_valid.contiguous()
+    if "kernel_q4p" in params["layers"]["attn"]["wq"]:
+        return _decode_step_w4(params, cfg, token_embeds, prompt_cache,
+                               prompt_seg, gen_cache, step, cos, sin,
+                               gen_valid, attn_impl)
     x = token_embeds
     for li in range(cfg.num_layers):
         lp = layer_slice(params["layers"], li)
@@ -353,16 +470,45 @@ def decode_step(
         k = apply_rope(dense(y, ap["wk"]).reshape(b, 1, kvh, dh), cos, sin)
         v = dense(y, ap["wv"]).reshape(b, 1, kvh, dh)
         _write_gen(gen_cache, k, v, li, step)
-        out = _decode_attend(
-            q,
-            {"k": prompt_cache["k"][li], "v": prompt_cache["v"][li]},
-            prompt_seg,
-            {"k": gen_cache["k"][li], "v": gen_cache["v"][li]},
-            gen_valid,
-            attn_impl,
-        )
+        out = _decode_attend(q, _layer_cache(prompt_cache, li), prompt_seg,
+                             _layer_cache(gen_cache, li), gen_valid,
+                             attn_impl)
         x = x + dense(out.reshape(b, 1, h * dh), ap["wo"])
         x = x + _mlp(cfg, _norm(cfg, x, lp["post_attn_norm"]["scale"]),
                      lp["mlp"])
+    hidden = _norm(cfg, x, params["final_norm"]["scale"])
+    return lm_logits(params, cfg, hidden)[:, 0], gen_cache
+
+
+def _decode_step_w4(params, cfg, token_embeds, prompt_cache, prompt_seg,
+                    gen_cache, step, cos, sin, gen_valid, attn_impl):
+    """decode_step over packed-int4 layer stacks: all 7 layer matmuls go
+    through K6 (ops/w4_matmul.w4_dense_stacked) on (B, K) rows and
+    attention through K4, each on its layer slice (a view). Layer biases
+    are not read, as in the reference. attn_impl="plain" takes both
+    kernels' plain versions."""
+    mm = w4_dense_stacked_plain if attn_impl == "plain" else w4_dense_stacked
+    act = _mlp_act(cfg)
+    b = token_embeds.shape[0]
+    h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_size
+    x = token_embeds
+    for li in range(cfg.num_layers):
+        lp = layer_slice(params["layers"], li)
+        ap, mp = lp["attn"], lp["mlp"]
+        y2 = _norm(cfg, x, lp["input_norm"]["scale"])[:, 0]  # (B, D)
+        q = apply_rope(mm(y2, ap["wq"]).reshape(b, 1, h, dh), cos, sin)
+        k = apply_rope(mm(y2, ap["wk"]).reshape(b, 1, kvh, dh), cos, sin)
+        v = mm(y2, ap["wv"]).reshape(b, 1, kvh, dh)
+        _write_gen(gen_cache, k, v, li, step)
+        out = _decode_attend(q, _layer_cache(prompt_cache, li), prompt_seg,
+                             _layer_cache(gen_cache, li), gen_valid,
+                             attn_impl)
+        x = x + mm(out.reshape(b, h * dh), ap["wo"])[:, None]
+        y2 = _norm(cfg, x, lp["post_attn_norm"]["scale"])[:, 0]
+        if cfg.gated_mlp:
+            mlp = mm(act(mm(y2, mp["gate"])) * mm(y2, mp["up"]), mp["down"])
+        else:
+            mlp = mm(act(mm(y2, mp["up"])), mp["down"])
+        x = x + mlp[:, None]
     hidden = _norm(cfg, x, params["final_norm"]["scale"])
     return lm_logits(params, cfg, hidden)[:, 0], gen_cache

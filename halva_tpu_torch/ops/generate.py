@@ -32,9 +32,11 @@ def _prefill_impl(
     images: torch.Tensor,  # (B, 3, H, W)
     prompt_lengths: torch.Tensor,  # (B,) valid tokens before the splice
     attn_impl: str = "auto",
+    kv_quant=False,
 ):
     """Returns (first token (B,) int32, first logits (B, V) fp32, spliced
-    lengths (B,), prompt cache, spliced segment ids (B, S + T - 1))."""
+    lengths (B,), prompt cache in the `kv_quant` format, spliced segment
+    ids (B, S + T - 1))."""
     b, s = input_ids.shape
     dev = input_ids.device
     seg = (torch.arange(s, device=dev)[None, :]
@@ -44,6 +46,7 @@ def _prefill_impl(
     hidden, prompt_cache = llama.prefill(
         params["llm"], cfg.llm, sp.embeds, sp.segment_ids, sp.positions,
         cache_dtype=torch.bfloat16, attn_impl=attn_impl,
+        quantize_cache=kv_quant,
     )
     has_img = (input_ids == IMAGE_TOKEN_INDEX).any(dim=1)
     spliced_len = prompt_lengths + has_img.to(prompt_lengths.dtype) * (
@@ -57,15 +60,13 @@ def _prefill_impl(
 
 def init_gen_cache_like(cfg_llm, rows: int, max_new_tokens: int,
                         prompt_cache: Params) -> Params:
-    """Generated-token cache in the prompt cache's dtype and device."""
-    if "k_scale" in prompt_cache or "k4" in prompt_cache:
-        raise NotImplementedError(
-            "int8/int4 caches are not ported yet (ROADMAP queue 2, K4 "
-            "int8/int4 modes)"
-        )
-    k = prompt_cache["k"]
-    return llama.init_gen_cache(cfg_llm, rows, max_new_tokens,
-                                dtype=k.dtype, device=k.device)
+    """Generated-token cache on the prompt cache's device: int8 for an int8
+    or int4 prompt cache (both carry `k_scale`), the prompt dtype
+    otherwise."""
+    k = prompt_cache["k4" if "k4" in prompt_cache else "k"]
+    return llama.init_gen_cache(cfg_llm, rows, max_new_tokens, dtype=k.dtype,
+                                device=k.device,
+                                quantized="k_scale" in prompt_cache)
 
 
 def _decode_impl(
@@ -116,14 +117,12 @@ def generate_greedy(
     attn_impl: str = "auto",
     kv_quant=False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy decoding: (tokens (B, max_new) int32, num_generated (B,))."""
-    if kv_quant:
-        raise NotImplementedError(
-            "int8/int4 KV caches are not ported yet (ROADMAP queue 2, K4 "
-            "int8/int4 modes)"
-        )
+    """Greedy decoding: (tokens (B, max_new) int32, num_generated (B,)).
+    kv_quant: False = bf16 prompt cache; True | "int8" = int8 values +
+    per-(token, head) scales; "int4" = nibble-packed token pairs. The gen
+    cache is int8 whenever the prompt cache is quantized."""
     first_tok, _, spliced_len, prompt_cache, prompt_seg = _prefill_impl(
-        params, cfg, input_ids, images, prompt_lengths, attn_impl)
+        params, cfg, input_ids, images, prompt_lengths, attn_impl, kv_quant)
     tokens, num, _ = _decode_impl(
         params, cfg, first_tok, spliced_len, prompt_cache, prompt_seg,
         max_new_tokens, eos_id, attn_impl)

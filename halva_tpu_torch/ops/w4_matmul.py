@@ -1,0 +1,234 @@
+"""Packed int4 weights: quantizers, the prefill matmuls, and K6, the decode
+GEMV (CUDA, csrc/w4_gemv.cu) with its plain version.
+
+Counterpart of halva_tpu/ops/w4_matmul.py, single device (tp=1). Storage is
+the reference's: two int4 values per int8 byte, split-half, so byte [k, j]
+holds channel j in its low nibble and channel j + N/2 in its high nibble;
+`kernel_scale4p` (2, G, N/2) bf16 scales the two halves, one scale per
+output channel (G = 1) or per group of K/G input rows. Quantization is
+symmetric absmax/7 with values in [-7, 7]; unpacking sign-extends, so any
+byte (also -8) is a valid weight.
+
+`w4_dense_stacked` takes one layer slice `{kernel_q4p (K, N/2),
+kernel_scale4p (2, G, N/2)}` (a view of the stacked tree): torch needs no
+counterpart of the reference's scalar-prefetch layer index. It launches K6
+for CUDA tensors and uses `w4_dense_stacked_plain` for CPU tensors; on a
+CUDA tensor it launches or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from halva_tpu_torch import _kernels
+from halva_tpu_torch.ops import quant
+
+KERNEL = "w4_gemv"
+
+Params = Dict[str, Any]
+
+# K6 geometry (csrc/w4_gemv.cu): a block owns TILE_NP packed columns and a
+# split of K; rows of x go in chunks of at most 8.
+TILE_NP = 64
+K_LANES = 32
+TARGET_BLOCKS = 264  # two blocks per SM of an H100's 132
+ROW_CHUNKS = (1, 2, 4, 8)
+
+
+def quantize_kernel_int4_stacked(
+    w: torch.Tensor, group_size: Optional[int] = None, tp: int = 1
+) -> Dict[str, torch.Tensor]:
+    """(L, K, N) float -> {kernel_q4p (L, K, N/2) int8, kernel_scale4p
+    (L, 2, G, N/2) bf16}; G = 1 (group_size None) or K / group_size."""
+    if tp != 1:
+        raise NotImplementedError(
+            "tensor-parallel int4 packing (tp > 1) is not ported yet "
+            "(ROADMAP queue 1 item 10, multi-GPU)"
+        )
+    nl, k, n = w.shape
+    if n % 2:
+        raise ValueError(f"int4 packing needs an even output dim, got {n}")
+    g = k if group_size is None else group_size
+    if k % g:
+        raise ValueError(f"group size {g} does not divide K={k}")
+    w32 = w.float().reshape(nl, k // g, g, n)
+    absmax = w32.abs().amax(dim=-2, keepdim=True)  # (L, G, 1, N)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 7.0)
+    q = torch.clamp(torch.round(w32 / scale), -7, 7).to(torch.int32)
+    q = q.reshape(nl, k, n)
+    packed = ((q[:, :, n // 2:] & 0xF) << 4) | (q[:, :, : n // 2] & 0xF)
+    packed = (packed - 256 * (packed > 127).to(torch.int32)).to(torch.int8)
+    # (L, G, 1, N) -> (L, 2, G, N/2): [:, h] scales channel half h
+    s = scale.reshape(nl, k // g, 2, n // 2).permute(0, 2, 1, 3)
+    return {"kernel_q4p": packed,
+            "kernel_scale4p": s.to(torch.bfloat16).contiguous()}
+
+
+def quantize_params_int4(params: Params, group_size: Optional[int] = None,
+                         tp: int = 1) -> Params:
+    """The int4 serving tree: every stacked 3-D kernel (LLM and vision
+    layers) -> packed int4, then 2-D kernels and vocab tables -> int8
+    (quant.quantize_params). Stacks whose K the group size does not divide
+    keep per-channel scales. Sibling leaves (biases) are kept; the input
+    tree is not modified. Same leaves, bytes and scale bits as the
+    reference's quantize_params_int4_host."""
+    if tp != 1:
+        raise NotImplementedError(
+            "tensor-parallel int4 packing (tp > 1) is not ported yet "
+            "(ROADMAP queue 1 item 10, multi-GPU)"
+        )
+
+    def rewrite(node):
+        if isinstance(node, (list, tuple)):
+            return type(node)(rewrite(x) for x in node)
+        if not isinstance(node, dict):
+            return node
+        k3 = node.get("kernel")
+        if isinstance(k3, torch.Tensor) and k3.ndim == 3:
+            g = group_size
+            if g is not None and k3.shape[1] % g:
+                g = None
+            out = {k: v for k, v in node.items() if k != "kernel"}
+            out.update(quantize_kernel_int4_stacked(k3, group_size=g))
+            return out
+        return {k: rewrite(v) for k, v in node.items()}
+
+    return quant.quantize_params(rewrite(params))
+
+
+def unpack_int4(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 packed bytes -> (lo, hi) sign-extended int32 nibbles in
+    [-8, 7], by arithmetic shifts of 32-bit values."""
+    p32 = p.to(torch.int32)
+    return (p32 << 28) >> 28, p32 >> 4
+
+
+def dequantize_int4(kernel_q4p: torch.Tensor, kernel_scale4p: torch.Tensor,
+                    dtype) -> torch.Tensor:
+    """(K, N/2) packed + (2, G, N/2) scales -> (K, N) weights: nibble and
+    scale each cast to `dtype`, multiplied in `dtype` (the reference's
+    dense dequant branch)."""
+    lo, hi = unpack_int4(kernel_q4p)
+    s = kernel_scale4p.to(dtype)
+    ng = s.shape[1]
+    if ng > 1:
+        s = s.repeat_interleave(lo.shape[0] // ng, dim=1)  # (2, K, N/2)
+    return torch.cat([lo.to(dtype) * s[0], hi.to(dtype) * s[1]], dim=-1)
+
+
+def w4a8_dense(x: torch.Tensor, kernel_q4p: torch.Tensor,
+               kernel_scale4p: torch.Tensor) -> torch.Tensor:
+    """W4A8 prefill matmul: nibbles unpacked to int8, per-token int8
+    activations (quant.int8_dense's scheme), exact s32 dots. G = 1: one
+    dot, y = acc * sx * sw. G > 1: one dot per group of K/G rows, each
+    group's weight scale folded into its fp32 partial before the sum."""
+    ng = kernel_scale4p.shape[1]
+    lo, hi = unpack_int4(kernel_q4p)
+    wq = torch.cat([lo, hi], dim=-1).to(torch.int8)  # (K, N)
+    sw = torch.cat([kernel_scale4p[0], kernel_scale4p[1]], dim=-1).float()
+    lead, k = x.shape[:-1], x.shape[-1]
+    xq, sx = quant.quantize_rows_int8(x.reshape(-1, k))
+    if ng == 1:
+        y = quant.int_matmul(xq, wq).float() * sx * sw
+        return y.to(x.dtype).reshape(*lead, -1)
+    gs = k // ng
+    acc = torch.zeros((xq.shape[0], wq.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for g in range(ng):
+        d = quant.int_matmul(xq[:, g * gs:(g + 1) * gs],
+                             wq[g * gs:(g + 1) * gs])
+        acc = acc + d.float() * sw[g][None, :]
+    return (acc * sx).to(x.dtype).reshape(*lead, -1)
+
+
+def w4_dense_stacked_plain(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """y (B, N) = x (B, K) @ dequant(p): nibbles times scales in fp32 (exact:
+    4-bit by 8-bit mantissas), one fp32 matmul, cast to x's dtype."""
+    w = dequantize_int4(p["kernel_q4p"], p["kernel_scale4p"], torch.float32)
+    return (x.float() @ w).to(x.dtype)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(b: int, k: int, np_: int) -> Tuple[int, int, int]:
+    """K6 launch plan: (rows per chunk, K splits, rows per split).
+
+    Rows of x go in chunks of 1/2/4/8 (the fp32 partial sums a thread keeps
+    in registers); K is split so that column tiles x row chunks x splits
+    reaches about two blocks per SM, each split a multiple of the block's
+    K_LANES rows and at least 8 of them. A split's partial sums are reduced
+    by the last of its blocks to finish (csrc/w4_gemv.cu)."""
+    rc = next(c for c in ROW_CHUNKS if c >= min(b, ROW_CHUNKS[-1]))
+    blocks = _cdiv(np_, TILE_NP) * _cdiv(b, rc)
+    splits = max(1, min(_cdiv(TARGET_BLOCKS, blocks), k // (8 * K_LANES)))
+    ksplit = _cdiv(_cdiv(k, splits), K_LANES) * K_LANES
+    return rc, _cdiv(k, ksplit), ksplit
+
+
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_MAX_TILES = 1 << 16
+
+
+def _counters(device: torch.device) -> torch.Tensor:
+    """Per-device zeroed int32 tickets of the split reduction. The kernel's
+    last block of a tile resets its ticket to 0, so the buffer is zeroed
+    once and reused by every launch on the device's streams in order."""
+    c = _COUNTERS.get(device)
+    if c is None:
+        c = torch.zeros(_MAX_TILES, dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
+
+
+def w4_dense_stacked(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """y (B, N) = x (B, K) @ dequant(layer slice p): K6 for CUDA tensors
+    (bf16 x, written straight into (B, N)), the plain version for CPU
+    tensors."""
+    w, s = p["kernel_q4p"], p["kernel_scale4p"]
+    if x.device.type == "cpu":
+        return w4_dense_stacked_plain(x, p)
+    if any(not t.is_cuda or t.device != x.device for t in (x, w, s)):
+        raise ValueError("w4_dense_stacked: all inputs on one CUDA device")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.int8 or (
+            s.dtype != torch.bfloat16):
+        raise TypeError("w4_dense_stacked: x bf16, kernel_q4p int8, "
+                        "kernel_scale4p bf16")
+    b, k = x.shape
+    np_ = w.shape[1]
+    ng = s.shape[1]
+    if (
+        x.ndim != 2 or w.shape != (k, np_) or s.shape != (2, ng, np_)
+        or ng < 1 or k % ng or np_ % 8 or b < 1
+    ):
+        raise ValueError(
+            f"w4_dense_stacked: unsupported shapes x {tuple(x.shape)} "
+            f"kernel_q4p {tuple(w.shape)} kernel_scale4p {tuple(s.shape)} "
+            "(needs K % G == 0 and N/2 % 8 == 0)"
+        )
+    if any(not t.is_contiguous() for t in (x, w, s)) or any(
+            t.data_ptr() % 16 for t in (x, w, s)):
+        raise ValueError("w4_dense_stacked: inputs must be contiguous and "
+                         "16-byte aligned")
+    rc, splits, ksplit = plan(b, k, np_)
+    tiles = _cdiv(np_, TILE_NP) * _cdiv(b, rc)
+    if tiles > _MAX_TILES:
+        raise ValueError(f"w4_dense_stacked: {tiles} tiles exceed "
+                         f"{_MAX_TILES}")
+    y = torch.empty((b, 2 * np_), dtype=x.dtype, device=x.device)
+    partial = torch.empty((splits if splits > 1 else 0, b, 2 * np_),
+                          dtype=torch.float32, device=x.device)
+    counters = _counters(x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernels.lib().halva_w4_gemv(
+            x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(),
+            partial.data_ptr(), counters.data_ptr(),
+            b, k, np_, ng, rc, splits, ksplit, stream,
+        )
+    _kernels.check(err, KERNEL)
+    _kernels.launches[KERNEL] += 1
+    return y

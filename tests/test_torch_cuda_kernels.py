@@ -6,8 +6,11 @@ elsewhere. They import no JAX, so they also run where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Tolerance: bf16 outputs within one bf16 step plus the P rounding of the
-kernels' tensor-core PV product: |got - plain| <= 1e-2 + 1e-2 * |plain| on
-live rows (the same bound chip_smoke.py states)."""
+kernels' tensor-core PV product (or of the plain version's bf16 P times v
+scale): |got - plain| <= 1e-2 + 1e-2 * |plain| on live rows (the same bound
+chip_smoke.py states). K6 and its plain version both compute nibble *
+scale in fp32 and sum in fp32; only the summation order and the bf16
+output rounding differ."""
 
 import pytest
 import torch
@@ -20,6 +23,10 @@ from halva_tpu_torch.ops.decode_attention import (
 from halva_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
+)
+from halva_tpu_torch.ops.w4_matmul import (
+    w4_dense_stacked,
+    w4_dense_stacked_plain,
 )
 
 
@@ -72,4 +79,73 @@ def test_decode_attn_matches_plain(cuda, kvh):
     before = _kernels.launches["decode_attn"]
     got = decode_attend_layer(q, pc, seg, gc, gen_valid)
     assert _kernels.launches["decode_attn"] == before + 1
+    _close(got, decode_attend_plain(q, pc, seg, gc, gen_valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,np_,groups", [(4096, 1376, 1), (4096, 1376, 32),
+                                          (11008, 2048, 86)])
+@pytest.mark.parametrize("b", [1, 4, 80])
+def test_w4_gemv_matches_plain(cuda, b, k, np_, groups):
+    w = torch.randint(-128, 128, (k, np_), generator=cuda, device="cuda",
+                      dtype=torch.int8)
+    s = (torch.rand(2, groups, np_, generator=cuda, device="cuda") * 0.02
+         + 0.005).bfloat16()
+    x = torch.randn(b, k, generator=cuda, device="cuda").bfloat16()
+    p = {"kernel_q4p": w, "kernel_scale4p": s}
+    before = _kernels.launches["w4_gemv"]
+    got = w4_dense_stacked(x, p)
+    assert _kernels.launches["w4_gemv"] == before + 1
+    assert got.shape == (b, 2 * np_) and got.dtype == torch.bfloat16
+    _close(got, w4_dense_stacked_plain(x, p))
+    again = w4_dense_stacked(x, p)  # the split tickets were reset
+    assert torch.equal(got, again)
+
+
+def _quant_caches(gen, mode, b, kvh, sp, sg, d):
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def sc(*shape, lo=0.01, hi=0.04):
+        return (torch.rand(*shape, generator=gen, device="cuda") * (hi - lo)
+                + lo).bfloat16()
+
+    if mode == "kv4":
+        s2 = -(-sp // 2)
+        pc = {"k4": torch.randint(-128, 128, (b, kvh, s2, d), generator=gen,
+                                  device="cuda", dtype=torch.int8),
+              "k_scale": sc(b, 2, kvh, s2, lo=0.1, hi=0.3),
+              "v_scale": sc(b, 2, kvh, s2, lo=0.1, hi=0.3)}
+        pc["v4"] = torch.randint(-128, 128, pc["k4"].shape, generator=gen,
+                                 device="cuda", dtype=torch.int8)
+    else:
+        pc = {"k": i8(b, kvh, sp, d), "v": i8(b, kvh, sp, d),
+              "k_scale": sc(b, kvh, sp), "v_scale": sc(b, kvh, sp)}
+    gc = {"k": i8(b, kvh, sg, d), "v": i8(b, kvh, sg, d),
+          "k_scale": sc(b, kvh, sg), "v_scale": sc(b, kvh, sg)}
+    return pc, gc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["kv8", "kv4"])
+@pytest.mark.parametrize("kvh", [8, 2])
+def test_decode_attn_quantized_matches_plain(cuda, mode, kvh):
+    b, h, sp, sg, d = 3, 8, 301, 128, 128
+    q = torch.randn(b, 1, h, d, generator=cuda, device="cuda").bfloat16()
+    pc, gc = _quant_caches(cuda, mode, b, kvh, sp, sg, d)
+    seg = torch.ones(b, sp, dtype=torch.int32, device="cuda")
+    seg[0, 250:] = 0
+    seg[2] = 0
+    # garbage in the scales of masked keys must not reach the output
+    pc["v_scale"].view(-1)[-1] = float("nan")
+    gen_valid = (torch.arange(sg, device="cuda")[None, :]
+                 <= torch.tensor([0, 40, 127], device="cuda")[:, None])
+    gc["v_scale"][~gen_valid[:, None, :].expand_as(gc["v_scale"])] = float(
+        "inf")
+    name = "decode_attn_" + mode
+    before = _kernels.launches[name]
+    got = decode_attend_layer(q, pc, seg, gc, gen_valid)
+    assert _kernels.launches[name] == before + 1
+    assert torch.isfinite(got).all()
     _close(got, decode_attend_plain(q, pc, seg, gc, gen_valid))

@@ -1,16 +1,22 @@
 """K4 in the port (halva_tpu_torch/ops/decode_attention.py) against the
 reference's Pallas decode kernel (interpret mode on the CPU, as
 tests/test_decode_attention.py runs it) and its XLA oracle
-llama._decode_attend, with bf16 prompt and gen caches at the shapes the
-reference's own tests use: MHA, GQA, a prompt shorter than one block, a
-single valid gen slot. On CPU tensors the port's wrapper takes its plain
-version.
+llama._decode_attend: bf16 prompt and gen caches at the shapes the
+reference's own tests use (MHA, GQA, a prompt shorter than one block, a
+single valid gen slot), and int8-prompt/int8-gen and int4-prompt/int8-gen
+caches (MHA and GQA, odd and even prompt lengths, a padded prompt row),
+the int4 oracle fed the even/odd view as tests/test_kv4.py feeds it. On CPU
+tensors the port's wrapper takes its plain version.
 
 Tolerances: with an fp32 query every operand is exact in fp32 on both
-sides, so rtol = atol = 1e-5. With a bf16 query the outputs are rounded to
-bf16 and may differ by one bf16 step: rtol = 2^-7 (one step just above a
-power of two), atol = 8e-3 near zero. Every row here is live (gen slot 0
-is always visible, as in decode): on a row with no visible key the Pallas
+sides, so rtol = atol = 1e-5 (int8/int4: atol 1e-4, the scales put the
+outputs at a few units and the even/odd and per-block orders differ). With
+a bf16 query the outputs are rounded to bf16 and may differ by one bf16
+step: rtol = 2^-7 (one step just above a power of two), atol = 8e-3 near
+zero; quantized caches also round probability * v scale to bf16 before the
+PV product, the Pallas kernel unnormalized and the oracle normalized, so
+rtol = 2^-6, atol = 2e-2 there. Every row here is live (gen slot 0 is
+always visible, as in decode): on a row with no visible key the Pallas
 kernel gives 0 and the oracle a uniform average."""
 
 import numpy as np
@@ -21,11 +27,15 @@ import jax
 import jax.numpy as jnp
 
 from halva_tpu.models.llama import _decode_attend as jax_decode_attend
+from halva_tpu.models.llama import _unpack_kv4 as jax_unpack_kv4
 from halva_tpu.ops.decode_attention import decode_attend_layer as jax_layer
+from halva_tpu.ops.decode_attention import seg_even_odd as jax_seg_even_odd
 from halva_tpu_torch import tree
 from halva_tpu_torch.ops.decode_attention import (
     decode_attend_layer,
     decode_attend_plain,
+    seg_even_odd,
+    unpack_kv4,
 )
 
 torch.set_num_threads(2)
@@ -97,3 +107,138 @@ def test_cpu_wrapper_is_the_plain_version():
         decode_attend_layer(q, pc, seg, gc, gv),
         decode_attend_plain(q, pc, seg, gc, gv), rtol=0, atol=0,
     )
+
+
+# name: (prompt format, b, h, kvh, sp, d, sg, gen steps per row)
+QCASES = {
+    "int8_mha_odd": ("int8", 2, 4, 4, 301, 128, 16, (3, 7)),
+    "int8_gqa_even": ("int8", 2, 8, 2, 300, 128, 16, (0, 9)),
+    "int4_mha_odd": ("int4", 2, 4, 4, 301, 128, 16, (3, 7)),
+    "int4_gqa_even": ("int4", 2, 8, 2, 300, 128, 16, (5, 0)),
+}
+
+
+def _quant_inputs(fmt, b, h, kvh, sp, d, sg, steps, q_dtype, seed=0):
+    """Stacked (2-layer) int8 or int4 prompt caches and int8 gen caches of
+    random bytes (-8 nibbles included) with bf16 scales that put the
+    dequantized values near unit size; row 1 of the prompt is padded."""
+    rng = np.random.RandomState(seed)
+    layers = 2
+
+    def bf16(x):
+        return np.asarray(jnp.asarray(x, jnp.bfloat16))
+
+    def int8(*shape):
+        return np.clip(np.round(rng.randn(*shape) * 40), -127,
+                       127).astype(np.int8)
+
+    q = np.asarray(jnp.asarray(rng.randn(b, 1, h, d), q_dtype))
+    if fmt == "int4":
+        s2 = -(-sp // 2)
+        prompt = {
+            "k4": rng.randint(-128, 128, (layers, b, kvh, s2, d)).astype(
+                np.int8),
+            "v4": rng.randint(-128, 128, (layers, b, kvh, s2, d)).astype(
+                np.int8),
+            "k_scale": bf16(rng.uniform(0.1, 0.3, (layers, b, 2, kvh, s2))),
+            "v_scale": bf16(rng.uniform(0.1, 0.3, (layers, b, 2, kvh, s2))),
+        }
+    else:
+        prompt = {
+            "k": int8(layers, b, kvh, sp, d), "v": int8(layers, b, kvh, sp, d),
+            "k_scale": bf16(rng.uniform(0.01, 0.04, (layers, b, kvh, sp))),
+            "v_scale": bf16(rng.uniform(0.01, 0.04, (layers, b, kvh, sp))),
+        }
+    gen = {
+        "k": int8(layers, b, kvh, sg, d), "v": int8(layers, b, kvh, sg, d),
+        "k_scale": bf16(rng.uniform(0.01, 0.04, (layers, b, kvh, sg))),
+        "v_scale": bf16(rng.uniform(0.01, 0.04, (layers, b, kvh, sg))),
+    }
+    seg = np.ones((b, sp), np.int32)
+    seg[0, sp - 50:] = 0
+    seg[1, sp // 3:] = 0
+    gv = np.arange(sg)[None, :] <= np.asarray(steps)[:, None]
+    return q, prompt, seg, gen, gv
+
+
+def _oracle(q, prompt, seg, gen, gv, li):
+    """llama._decode_attend as the reference's generic decode scan calls it
+    (the int4 cache as its even/odd int8 view)."""
+    if "k4" in prompt:
+        klo, khi = jax_unpack_kv4(jnp.asarray(prompt["k4"][li]))
+        vlo, vhi = jax_unpack_kv4(jnp.asarray(prompt["v4"][li]))
+        kp = jnp.concatenate([klo, khi], axis=2).astype(jnp.int8)
+        vp = jnp.concatenate([vlo, vhi], axis=2).astype(jnp.int8)
+        ks, vs = prompt["k_scale"][li], prompt["v_scale"][li]
+        kps = np.concatenate([ks[:, 0], ks[:, 1]], axis=2)
+        vps = np.concatenate([vs[:, 0], vs[:, 1]], axis=2)
+        seg_in = jax_seg_even_odd(jnp.asarray(seg)).reshape(seg.shape[0], -1)
+    else:
+        kp, vp = prompt["k"][li], prompt["v"][li]
+        kps, vps = prompt["k_scale"][li], prompt["v_scale"][li]
+        seg_in = seg
+    return np.asarray(jax.jit(jax_decode_attend)(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(gen["k"][li]), jnp.asarray(gen["v"][li]),
+        jnp.asarray(seg_in), jnp.asarray(gv),
+        kp_scale=jnp.asarray(kps), vp_scale=jnp.asarray(vps),
+        kg_scale=jnp.asarray(gen["k_scale"][li]),
+        vg_scale=jnp.asarray(gen["v_scale"][li]),
+    ), np.float32)
+
+
+@pytest.mark.parametrize("q_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name", list(QCASES))
+def test_quantized_caches_match_reference(name, q_dtype):
+    fmt, b, h, kvh, sp, d, sg, steps = QCASES[name]
+    jdt = jnp.float32 if q_dtype == "f32" else jnp.bfloat16
+    q, prompt, seg, gen, gv = _quant_inputs(fmt, b, h, kvh, sp, d, sg,
+                                            steps, jdt)
+    tq, tseg, tgv = tree.to_torch([q, seg, gv])
+    tprompt, tgen = tree.to_torch(prompt), tree.to_torch(gen)
+    tol = dict(rtol=1e-5, atol=1e-4) if q_dtype == "f32" else dict(
+        rtol=2**-6, atol=2e-2)
+    for li in (0, 1):
+        got = decode_attend_layer(
+            tq, {k: v[li] for k, v in tprompt.items()}, tseg,
+            {k: v[li] for k, v in tgen.items()}, tgv)
+        assert got.dtype == tq.dtype and got.shape == (b, 1, h, d)
+        got = got.float().numpy()
+        pallas = np.asarray(jax_layer(
+            jnp.asarray(q), jax.tree.map(jnp.asarray, prompt),
+            jnp.asarray(seg), jax.tree.map(jnp.asarray, gen),
+            jnp.asarray(gv), jnp.int32(li),
+        ), np.float32)
+        np.testing.assert_allclose(got, _oracle(q, prompt, seg, gen, gv, li),
+                                   **tol)
+        np.testing.assert_allclose(got, pallas, **tol)
+
+
+@pytest.mark.parametrize("sp", [9, 10])
+def test_even_odd_helpers_match_reference(sp):
+    rng = np.random.RandomState(sp)
+    seg = rng.randint(0, 3, (2, sp)).astype(np.int32)
+    np.testing.assert_array_equal(
+        seg_even_odd(torch.from_numpy(seg)).numpy(),
+        np.asarray(jax_seg_even_odd(jnp.asarray(seg))))
+    packed = rng.randint(-128, 128, (2, 3, 5, 4)).astype(np.int8)
+    for got, want in zip(unpack_kv4(torch.from_numpy(packed)),
+                         jax_unpack_kv4(jnp.asarray(packed))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_garbage_scales_of_masked_keys_do_not_leak():
+    """A masked key contributes exactly 0 whatever its scale holds (the
+    plain version selects, as the kernel must)."""
+    q, prompt, seg, gen, gv = _quant_inputs(
+        "int8", 2, 4, 4, 40, 128, 16, (2, 3), jnp.float32)
+    tq, tseg, tgv = tree.to_torch([q, seg, gv])
+    pc = {k: v[0] for k, v in tree.to_torch(prompt).items()}
+    gc = {k: v[0] for k, v in tree.to_torch(gen).items()}
+    want = decode_attend_plain(tq, pc, tseg, gc, tgv)
+    dead = (tseg == 0)[:, None, :]
+    pc["v_scale"] = pc["v_scale"].masked_fill(dead, float("nan"))
+    gc["v_scale"] = gc["v_scale"].masked_fill(~tgv[:, None, :], float("inf"))
+    got = decode_attend_plain(tq, pc, tseg, gc, tgv)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -1,6 +1,7 @@
 """The kernel build and dispatch rules of the port, checked without a GPU:
 where nvcc is looked for, that a failed build raises with nvcc's stderr,
-that a built library is reused by hash, and that a wrapper given a tensor
+that the sources compile in parallel (one nvcc per source, then one link)
+and a built library is reused by hash, and that a wrapper given a tensor
 that is on neither the CPU nor a CUDA device raises instead of falling
 back to its plain version."""
 
@@ -13,6 +14,7 @@ import torch
 from halva_tpu_torch import _kernels
 from halva_tpu_torch.ops.decode_attention import decode_attend_layer
 from halva_tpu_torch.ops.flash_attention import flash_attention
+from halva_tpu_torch.ops.w4_matmul import w4_dense_stacked
 
 
 def _fake_nvcc(tmp_path, body):
@@ -62,8 +64,11 @@ def test_build_is_reused_by_source_hash(tmp_path, monkeypatch):
     first = _kernels.build()
     assert first.endswith(os.path.join(_kernels._source_hash(),
                                        _kernels.LIB_NAME))
+    # one compile per source and one link, and nothing more on reuse
+    built = calls.read_text().count("x")
+    assert built == len(_kernels.SOURCES) + 1
     assert _kernels.build() == first
-    assert calls.read_text().count("x") == 1
+    assert calls.read_text().count("x") == built
 
 
 def test_non_cpu_non_cuda_tensors_raise():
@@ -80,4 +85,19 @@ def test_non_cpu_non_cuda_tensors_raise():
     valid = torch.empty(1, 8, dtype=torch.bool, **meta)
     with pytest.raises(ValueError, match="CUDA"):
         decode_attend_layer(q[:, :1], cache, seg, cache, valid)
+    qcache = {"k4": torch.empty(1, 2, 4, 128, dtype=torch.int8, **meta)}
+    qcache["v4"] = qcache["k4"]
+    qcache["k_scale"] = torch.empty(1, 2, 2, 4, dtype=torch.bfloat16, **meta)
+    qcache["v_scale"] = qcache["k_scale"]
+    gcache = {"k": torch.empty(1, 2, 8, 128, dtype=torch.int8, **meta)}
+    gcache["v"] = gcache["k"]
+    gcache["k_scale"] = torch.empty(1, 2, 8, dtype=torch.bfloat16, **meta)
+    gcache["v_scale"] = gcache["k_scale"]
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attend_layer(q[:, :1], qcache, seg, gcache, valid)
+    w = {"kernel_q4p": torch.empty(128, 64, dtype=torch.int8, **meta),
+         "kernel_scale4p": torch.empty(2, 1, 64, dtype=torch.bfloat16,
+                                       **meta)}
+    with pytest.raises(ValueError, match="CUDA"):
+        w4_dense_stacked(torch.empty(2, 128, dtype=torch.bfloat16, **meta), w)
     assert sum(_kernels.launches.values()) == 0

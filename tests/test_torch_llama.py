@@ -1,13 +1,19 @@
 """Llama decoder in the port (halva_tpu_torch/models/llama.py) against
 halva_tpu.models.llama on the same tiny fp32 trees: the forward's logits,
-prefill's hidden states and head-major prompt cache, and one decode step's
-logits and updated gen cache.
+prefill's hidden states and head-major prompt cache (bf16, int8, int4),
+and one decode step's logits and updated gen cache, on float trees and on
+an int4 tree whose decode step the reference runs through its Pallas
+kernels (K6 and K4 in interpret mode, at dh=128).
 
 Tolerances: fp32 activations rtol = atol = 1e-5 (only summation order
 differs). The KV caches are bf16 in both packages (prefill writes
 cache_dtype=bfloat16); an fp32 value a few ulps apart can round to
 neighbouring bf16 values, so cache entries may differ by one bf16 step
-(rtol 2^-7)."""
+(rtol 2^-7). Quantized caches: the same int8 values and bf16 scales,
+except where a few-ulp fp32 difference crosses a rounding boundary (one
+unit, or one bf16 step, in at most 0.1 % of the entries). The int4 decode
+step's logits: rtol = atol = 1e-4 (fp32 throughout on both sides; the
+reference's Pallas kernels order their sums by block)."""
 
 import dataclasses
 
@@ -18,8 +24,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from halva_tpu.config import LLAMA_TINY
+from halva_tpu.config import LLAMA_TINY, LlamaConfig
 from halva_tpu.models import llama as jllama
+from halva_tpu.ops.w4_matmul import quantize_params_int4_host
 from halva_tpu_torch import tree
 from halva_tpu_torch.models import llama
 
@@ -147,11 +154,112 @@ def test_decode_step_logits_and_gen_cache(name):
 
 def test_unported_branches_raise():
     x = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError):
-        llama.dense(x, {"kernel_q": x, "kernel_scale": x})
+    with pytest.raises(NotImplementedError):  # NF4
+        llama.dense(x, {"kernel_q4": x, "kernel_scale4": x})
     with pytest.raises(NotImplementedError):
         llama.dense(x, {"kernel": torch.zeros(4, 4), "lora_a": x})
     cfg = dataclasses.replace(LLAMA_TINY, sliding_window=8)
     _, tp = _llm_trees(LLAMA_TINY)
     with pytest.raises(NotImplementedError):
         llama.forward(tp, cfg, torch.zeros(1, 4, dtype=torch.int32))
+
+
+def _assert_cache_close(got_t, want, key):
+    """Integer caches equal but for rare one-unit flips where a few-ulp
+    fp32 difference crosses a rounding boundary; scales within a bf16
+    step."""
+    got = tree.to_numpy({key: got_t})[key]
+    want = np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape, key
+    if got.dtype == np.int8:
+        flips = got != want
+        assert flips.mean() <= 1e-3, (key, flips.mean())
+    else:
+        np.testing.assert_allclose(got.astype(np.float32),
+                                   want.astype(np.float32), **BF16_STEP)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_prefill_quantized_cache(mode):
+    cfg = LLAMA_TINY
+    jp, tp = _llm_trees(cfg)
+    emb, seg, pos = _prefill_inputs(cfg, s=21)  # odd: int4 pads one slot
+    jh, jc = jax.jit(lambda p, e, s_, q: jllama.prefill(
+        p, cfg, e, s_, q, quantize_cache=mode))(
+        jp, jnp.asarray(emb), jnp.asarray(seg), jnp.asarray(pos))
+    th, tc = llama.prefill(tp, cfg, torch.from_numpy(emb),
+                           torch.from_numpy(seg), torch.from_numpy(pos),
+                           quantize_cache=mode)
+    np.testing.assert_allclose(_np(th), _np(jh), **F32)
+    assert sorted(tc) == sorted(jc)
+    want = ({"k4", "v4"} if mode == "int4" else {"k", "v"}) | {
+        "k_scale", "v_scale"}
+    assert set(tc) == want
+    if mode == "int4":
+        assert tuple(tc["k4"].shape) == (cfg.num_layers, 2, cfg.kv_heads, 11,
+                                         cfg.head_size)
+        assert tuple(tc["k_scale"].shape) == (cfg.num_layers, 2, 2,
+                                              cfg.kv_heads, 11)
+    for key in tc:
+        _assert_cache_close(tc[key], jc[key], key)
+    with pytest.raises(ValueError):
+        llama.prefill(tp, cfg, torch.from_numpy(emb), torch.from_numpy(seg),
+                      torch.from_numpy(pos), quantize_cache="int5")
+
+
+# dh = 128 and Sg = 128: the reference's CPU decode_step takes
+# _decode_step_w4, i.e. its Pallas K6 and K4 in interpret mode
+W4_CFGS = {
+    "mha": LlamaConfig(vocab_size=128, hidden_size=256, intermediate_size=384,
+                       num_layers=2, num_heads=2, max_position_embeddings=256),
+    "gqa": LlamaConfig(vocab_size=128, hidden_size=512, intermediate_size=384,
+                       num_layers=2, num_heads=4, num_kv_heads=2,
+                       max_position_embeddings=256),
+}
+
+
+@pytest.mark.parametrize("kv", ["int4", "int8"])
+@pytest.mark.parametrize("name", list(W4_CFGS))
+def test_decode_step_w4_matches_pallas_route(name, kv, monkeypatch):
+    traced = []
+    real = jllama._decode_step_w4
+    monkeypatch.setattr(jllama, "_decode_step_w4",
+                        lambda *a, **k: traced.append(1) or real(*a, **k))
+    cfg = W4_CFGS[name]
+    assert cfg.head_size == 128
+    params = jllama.init_params(jax.random.PRNGKey(4), cfg, jnp.float32)
+    q_np = quantize_params_int4_host(jax.tree.map(np.asarray, params),
+                                     group_size=64)
+    jp = jax.tree.map(jnp.asarray, q_np)
+    tp = tree.to_torch(q_np)
+    emb, seg, pos = _prefill_inputs(cfg, s=13)
+    _, jc = jax.jit(lambda p, e, s_, q: jllama.prefill(
+        p, cfg, e, s_, q, quantize_cache=kv))(
+        jp, jnp.asarray(emb), jnp.asarray(seg), jnp.asarray(pos))
+    prompt_np = jax.tree.map(np.asarray, jc)
+    step = 3
+    gen_np = jax.tree.map(np.array, jllama.init_gen_cache(
+        cfg, 2, 8, quantized=True))
+    rng = np.random.RandomState(5)
+    for key in ("k", "v"):
+        shape = gen_np[key][:, :, :, :step].shape
+        gen_np[key][:, :, :, :step] = rng.randint(-127, 128, shape)
+        gen_np[key + "_scale"][:, :, :, :step] = np.asarray(jnp.asarray(
+            rng.uniform(0.01, 0.03, shape[:-1]), jnp.bfloat16))
+    tok_emb = rng.randn(2, 1, cfg.hidden_size).astype(np.float32)
+    positions = np.array([13 + step, 9 + step], np.int32)
+    want_logits, want_gen = jax.jit(
+        lambda p, e, q, pc, ps, gc: jllama.decode_step(
+            p, cfg, e, q, pc, ps, gc, jnp.int32(step))
+    )(jp, jnp.asarray(tok_emb), jnp.asarray(positions),
+      jax.tree.map(jnp.asarray, prompt_np), jnp.asarray(seg),
+      jax.tree.map(jnp.asarray, gen_np))
+    gen_t = tree.to_torch(gen_np)
+    got_logits, got_gen = llama.decode_step(
+        tp, cfg, torch.from_numpy(tok_emb), torch.from_numpy(positions),
+        tree.to_torch(prompt_np), torch.from_numpy(seg), gen_t, step)
+    assert traced  # the reference ran its Pallas route
+    np.testing.assert_allclose(_np(got_logits), _np(want_logits),
+                               rtol=1e-4, atol=1e-4)
+    for key in gen_np:
+        _assert_cache_close(got_gen[key], want_gen[key], key)

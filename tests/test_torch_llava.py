@@ -1,10 +1,14 @@
 """LLaVA in the port against the reference on LLAVA_TINY fp32 trees: the
 CLIP tower, the projectors, image encoding, the image-token splice, and
-greedy generation end to end.
+greedy generation end to end, on the float tree and on the int4g serving
+tree (int4 layer stacks with grouped scales, int8 projector and lm_head)
+with int4 and int8 KV caches.
 
-Tolerances: fp32 activations rtol = atol = 1e-5; the splice's integer
-fields exactly equal; greedy tokens and counts exactly equal (mixed prompt
-lengths, one dead row, an eos_id that some row hits)."""
+Tolerances: fp32 activations rtol = atol = 1e-5 (1e-4 on the int4 tree:
+W8A8 quantizes the projector's activations, where a few-ulp input
+difference can move one int8 step); the splice's integer fields exactly
+equal; greedy tokens and counts exactly equal (mixed prompt lengths, one
+dead row, an eos_id that some row hits)."""
 
 import dataclasses
 
@@ -21,11 +25,12 @@ from halva_tpu.models import llava as jllava
 from halva_tpu.models import projector as jprojector
 from halva_tpu.models import vit as jvit
 from halva_tpu.ops import generate as jgenerate
+from halva_tpu.ops.w4_matmul import quantize_params_int4_host
 from halva_tpu_torch import tree
 from halva_tpu_torch.models import llava, projector, vit
 from halva_tpu_torch.ops import generate
 
-from test_torch_tree import shared_trees
+from test_torch_tree import jax_tree, shared_trees
 
 torch.set_num_threads(2)
 
@@ -158,3 +163,67 @@ def test_prefill_first_token_and_cache_layout():
     np.testing.assert_array_equal(g_seg.numpy(), np.asarray(w_seg))
     assert tuple(g_cache["k"].shape) == w_cache["k"].shape
     assert g_cache["k"].dtype == torch.bfloat16
+
+
+def int4_trees():
+    """(jax tree, torch tree) of the int4g serving tree (group size 32) of
+    LLAVA_TINY, lm_head scaled x100 as tests/test_w4.py does, so greedy
+    margins dwarf quantization noise."""
+    t = jax_tree(LLAVA_TINY)
+    t["llm"]["lm_head"]["kernel"] = t["llm"]["lm_head"]["kernel"] * 100.0
+    q = quantize_params_int4_host(t, group_size=32)
+    return jax.tree.map(jnp.asarray, q), tree.to_torch(q)
+
+
+def test_encode_images_int4_tree():
+    jp, tp = int4_trees()
+    assert "kernel_q4p" in tp["vision"]["layers"]["mlp"]["fc1"]
+    assert "kernel_q" in tp["projector"]["layers"][0]
+    imgs = _images(2, seed=1)
+    want = jllava.encode_images(jp, LLAVA_TINY, jnp.asarray(imgs))
+    got = llava.encode_images(tp, LLAVA_TINY, torch.from_numpy(imgs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("kv_quant", ["int4", "int8"])
+def test_generate_greedy_int4_tree_token_exact(kv_quant):
+    jp, tp = int4_trees()
+    ids, imgs, lens = _generate_inputs()
+    lens = lens.copy()
+    lens[3] = 11  # spliced lengths 19 (odd) and 15: the int4 pad slot
+    ids[3, 11:] = 0
+    want_tok, want_num = jgenerate.generate_greedy(
+        jp, LLAVA_TINY, jnp.asarray(ids), jnp.asarray(imgs),
+        jnp.asarray(lens), max_new_tokens=10, eos_id=-1, kv_quant=kv_quant)
+    with torch.inference_mode():
+        got_tok, got_num = generate.generate_greedy(
+            tp, LLAVA_TINY, torch.from_numpy(ids), torch.from_numpy(imgs),
+            torch.from_numpy(lens), max_new_tokens=10, eos_id=-1,
+            kv_quant=kv_quant)
+    np.testing.assert_array_equal(got_tok.numpy(), np.asarray(want_tok))
+    np.testing.assert_array_equal(got_num.numpy(), np.asarray(want_num))
+
+
+@pytest.mark.parametrize("kv_quant", [True, "int4"])
+def test_prefill_quantized_cache_layout(kv_quant):
+    jp, tp = int4_trees()
+    ids, imgs, lens = _generate_inputs()
+    want = jgenerate._prefill_phase(
+        jp, LLAVA_TINY, jnp.asarray(ids), jnp.asarray(imgs),
+        jnp.asarray(lens), 8, "auto", kv_quant)
+    got = generate._prefill_impl(
+        tp, LLAVA_TINY, torch.from_numpy(ids), torch.from_numpy(imgs),
+        torch.from_numpy(lens), kv_quant=kv_quant)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    g_cache, w_cache = got[3], want[3]
+    assert sorted(g_cache) == sorted(w_cache)
+    for key in g_cache:
+        assert tuple(g_cache[key].shape) == w_cache[key].shape, key
+    gen_cache = generate.init_gen_cache_like(LLAVA_TINY.llm, 4, 8, g_cache)
+    want_gen = jgenerate.init_gen_cache_like(LLAVA_TINY.llm, 4, 8, w_cache)
+    assert sorted(gen_cache) == sorted(want_gen)
+    for key in gen_cache:
+        assert tuple(gen_cache[key].shape) == want_gen[key].shape, key
+        assert str(gen_cache[key].dtype).split(".")[-1] == str(
+            want_gen[key].dtype), key

@@ -2,20 +2,27 @@
 the reference's on the tiny model: same prompts (the v1 template, an
 SPTok tokenizer), same PNG images, same weights -> the same answer texts,
 exactly. Five requests at batch 2 exercise length sorting, bucketing and a
-tail batch padded with a dead row."""
+tail batch padded with a dead row. The int4g serving tree, which has no
+float `embedding` leaf once its table is int8, answers with int4 and int8
+KV caches (its int8 table gives bf16 rows, so the LLM runs in bf16, where
+the two frameworks round differently: its token parity with the reference
+is held in test_torch_llava on a float table)."""
 
 import json
 
 import numpy as np
+import pytest
 from PIL import Image
 
 from halva_tpu.config import LLAVA_TINY
 from halva_tpu.evals import runner as jrunner
 from halva_tpu.mm_utils import ImageProcessor
+from halva_tpu.ops.w4_matmul import quantize_params_int4_host
+from halva_tpu_torch import tree
 from halva_tpu_torch.evals import runner
 
 from test_data_pipeline import SPTok
-from test_torch_tree import shared_trees
+from test_torch_tree import jax_tree, shared_trees
 
 
 def _requests(tmp_path, module):
@@ -61,9 +68,30 @@ def test_answers_jsonl_schema(tmp_path):
     assert runner.build_prompt("Hi", "v1") == jrunner.build_prompt("Hi", "v1")
 
 
-def test_unported_options_raise():
-    import pytest
+@pytest.mark.parametrize("kv_quant", ["int4", "int8"])
+def test_batched_generator_quantized_tree(tmp_path, kv_quant):
+    t = jax_tree(LLAVA_TINY)
+    # a vocab-sized table, so that the int8 pass makes embedding_q and the
+    # tree has no float embedding leaf
+    t["llm"]["embed"]["embedding"] = np.random.RandomState(1).randn(
+        4096, LLAVA_TINY.llm.hidden_size).astype(np.float32) * 0.02
+    q = quantize_params_int4_host(t, group_size=32)
+    assert "embedding" not in q["llm"]["embed"]
+    kw = dict(batch_size=2, max_new_tokens=4, prompt_bucket=16,
+              kv_quant=kv_quant)
+    proc = ImageProcessor(size=28, crop_size=28)
+    reqs = _requests(tmp_path, runner)[:3]
+    gen = runner.BatchedGenerator(tree.to_torch(q), LLAVA_TINY, SPTok(),
+                                  proc, **kw)
+    assert gen.device.type == "cpu"
+    seen = []
+    got = gen.run(reqs, on_result=lambda r, text: seen.append(r.question_id))
+    assert len(got) == 3 and all(isinstance(x, str) for x in got)
+    assert sorted(seen) == [0, 1, 2]
+    assert set(gen.last_stats) == {"host_ms_per_img", "device_ms_per_img"}
 
+
+def test_unported_options_raise():
     _, tp = shared_trees()
     with pytest.raises(NotImplementedError):
         runner.BatchedGenerator(tp, LLAVA_TINY, SPTok(), None, num_beams=2)
