@@ -4,13 +4,17 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from csrc/, holds each against its
-plain PyTorch version at the shapes the llava-1.5-7b decode path gives it,
+plain PyTorch version at the shapes the llava-1.5-7b decode and train paths
+give it,
 then drives the port's main paths at full width: LLaVA-1.5-7B (CLIP
 ViT-L/14-336, mlp2x_gelu projector, 32-layer Llama-7B) with random bf16
 weights from a seed, greedy decode of 4 requests, first on the bf16 tree
-(K1, K4 bf16), then on the int4g serving tree quantized on the card (int4
-layer stacks with g=128 scales, int8 projector/lm_head/embedding) with an
-int4 prompt KV cache (K1, K4 int4/int8, K6) and briefly an int8 one (K4
+(K1, K4 bf16); then the DPA LoRA train step on that tree (LoRA r=128 on
+every LLM linear, remat, chunked loss, AdamW; K1 forward, K2 and K3
+backward) for 4 micro-steps (2 updates), and one micro-step against the
+plain path; then the int4g serving tree quantized on the card (int4 layer
+stacks with g=128 scales, int8 projector/lm_head/embedding) with an int4
+prompt KV cache (K1, K4 int4/int8, K6) and briefly an int8 one (K4
 int8/int8). Every phase prints one line; any failure raises and exits
 non-zero. The last line is the device record {"ok": true, "device": {...}}.
 
@@ -19,6 +23,7 @@ Needs a CUDA device; imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import statistics
@@ -30,7 +35,11 @@ import numpy as np
 import torch
 
 from halva_tpu_torch import _kernels, tree
-from halva_tpu_torch.config import LLAVA_V15_7B
+from halva_tpu_torch.config import (
+    IGNORE_INDEX,
+    IMAGE_TOKEN_INDEX,
+    LLAVA_V15_7B,
+)
 from halva_tpu_torch.models import llama
 from halva_tpu_torch.models.llava import LlavaModel
 from halva_tpu_torch.ops.decode_attention import (
@@ -38,6 +47,10 @@ from halva_tpu_torch.ops.decode_attention import (
     decode_attend_plain,
 )
 from halva_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_plain,
+    flash_attention_delta,
     flash_attention_fwd,
     flash_attention_plain,
 )
@@ -51,6 +64,15 @@ from halva_tpu_torch.ops.w4_matmul import (
     w4_dense_stacked,
     w4_dense_stacked_plain,
 )
+from halva_tpu_torch.train.lora import add_lora
+from halva_tpu_torch.train.trainer import (
+    TrainConfig,
+    dpa_step_fns,
+    init_train_state,
+)
+
+CFG = LLAVA_V15_7B  # the train phase's model
+DEVICE = "cuda"
 
 # bf16 kernel vs plain version on the same bf16 inputs, elementwise
 # |got - plain| <= KERNEL_ATOL + KERNEL_RTOL * |plain|, and the relative
@@ -60,6 +82,14 @@ from halva_tpu_torch.ops.w4_matmul import (
 KERNEL_ATOL = 1e-2
 KERNEL_RTOL = 1e-2
 LSE_MAX_ABS = 1e-3  # fp32 statistic: only the summation order differs
+# K2/K3 (flash backward) vs flash_attention_bwd_plain, which rounds P and dS
+# to bf16 where the kernels do: elementwise |got - plain| <= BWD_RTOL *
+# (max|plain| + |plain|) on live rows, relative norm <= BWD_REL. What is left
+# is the bf16 rounding of the outputs and of the few P or dS elements whose
+# fp32 values (exp2 of a pre-scaled logit in the kernels, exp in the plain
+# version, other summation orders) straddle a bf16 rounding boundary.
+BWD_RTOL = 2e-2
+BWD_REL = 2e-3
 # first-token logits of the kernel path vs the plain path, 32 bf16 layers:
 # the attention outputs differ by the P rounding above, and the difference
 # travels through every later layer's bf16 activations
@@ -74,11 +104,20 @@ LOGITS_REL = 2e-2
 # 1.85-1.87e-2; the bound is 4/3 of the floor, as LOGITS_REL is of the
 # bf16 tree's floor of ~1.5e-2.
 LOGITS_REL_W4 = 2.5e-2
+# DPA train step, kernel path vs plain path (attn_impl="plain") on one
+# micro-step: the alignment loss, the KL and the LoRA grads by relative
+# error, each within TRAIN_FLOOR_FACTOR of its noise floor (plain path vs
+# plain path with the text-token embeddings perturbed by 2^-7 N(0, 1)
+# relative), the rule LOGITS_REL and LOGITS_REL_W4 follow
+TRAIN_FLOOR_FACTOR = 4 / 3
 W4_GROUP = 128  # the int4g serving tree's group size
 
 PROMPT_LENS = (623, 615, 608, 623)  # spliced lengths of the 48/40/33/48 prompts
 TEXT_LENS = (48, 40, 33, 48)  # the requests' text tokens, image sentinel at 1
 NEW_TOKENS = 32
+# the DPA train step: 512 text tokens, the image sentinel at 1 -> 1087 spliced
+TRAIN_TEXT = 512
+TRAIN_SPLICED = TRAIN_TEXT + LLAVA_V15_7B.num_image_tokens - 1
 COMPARE_STEPS = 4  # decode steps re-run on the plain path
 
 
@@ -212,6 +251,75 @@ def check_flash(gen: torch.Generator) -> dict:
             "source": "halva_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "halva_tpu/ops/flash_attention.py:83",
             "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+
+
+def check_flash_bwd(gen: torch.Generator) -> list:
+    """K2 and K3 against flash_attention_bwd_plain at the DPA train shape
+    (B=4 rows of 1087 spliced tokens, H=32, D=128), on K1's o and LSE, with
+    padded rows; then a GQA (KVH=8) and a packed-segment case."""
+    dev = "cuda"
+    b, s, h, d = 4, TRAIN_SPLICED, 32, 128
+    lens = (s, s - 7, s - 64, s - 301)  # padded rows
+    worst = {"dq": 0.0, "dkv": 0.0}
+    timing = {}
+    for kvh, seg_kind in ((32, "pad"), (8, "pad"), (32, "packed")):
+        def r(*shape):
+            return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+        q, k, v, do = r(b, s, h, d), r(b, s, kvh, d), r(b, s, kvh, d), r(
+            b, s, h, d)
+        seg = lengths_to_seg(lens, s, dev)
+        if seg_kind == "packed":  # two documents in every row
+            seg = seg * (1 + (torch.arange(s, device=dev) >= 500).int())
+        live = seg != 0
+        do[~live] = 0  # dead rows never reach a loss
+        o, lse = flash_attention_fwd(q, k, v, seg, seg)
+        delta = flash_attention_delta(o, do)
+        args = (q, k, v, seg, seg, do, lse, delta)
+        got = (flash_attention_bwd_dq(*args), *flash_attention_bwd_dkv(*args))
+        want = flash_attention_bwd_plain(q, k, v, seg, seg, o, lse, do)
+        torch.cuda.synchronize()
+        line = []
+        ok = True
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            g, w = g[live].float(), w[live].float()
+            err, rel = max_abs(g, w), rel_err(g, w)
+            bound = BWD_RTOL * (w.abs().max() + w.abs())
+            ok = ok and bool((g - w).abs().le(bound).all()) and (
+                rel <= BWD_REL) and bool(torch.isfinite(g).all())
+            kernel = "dq" if name == "dq" else "dkv"
+            worst[kernel] = max(worst[kernel], err)
+            line.append(f"{name} max_abs_err {err:.3e} rel {rel:.3e}")
+        print(f"flash_bwd B={b} S={s} H={h} KVH={kvh} D={d} causal {seg_kind}"
+              f": {', '.join(line)} (limits {BWD_RTOL}*(max|plain| + "
+              f"|plain|), rel {BWD_REL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash_bwd disagrees with its plain version")
+        if kvh == h and seg_kind == "pad":
+            timing["dq"] = device_ms(lambda: flash_attention_bwd_dq(*args))
+            timing["dkv"] = device_ms(lambda: flash_attention_bwd_dkv(*args))
+            timing["plain"] = device_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, seg, seg, o, lse, do))
+            pairs = h * sum(n * (n + 1) / 2 for n in lens)
+            # 2 * D FLOP per live (query, key) pair for each product: K2
+            # computes S, dP and dQ, K3 S, dP, dV and dK
+            print(f"flash_bwd time: K2 (dq) {timing['dq']:.4f} ms, "
+                  f"{3 * 2 * d * pairs / timing['dq'] / 1e9:.1f} TFLOP/s; "
+                  f"K3 (dk, dv) {timing['dkv']:.4f} ms, "
+                  f"{4 * 2 * d * pairs / timing['dkv'] / 1e9:.1f} TFLOP/s; "
+                  f"plain backward (dq, dk, dv together) "
+                  f"{timing['plain']:.4f} ms; on live causal pairs")
+        del q, k, v, do, o, lse, delta, got, want
+    common = {"route": "cuda", "source": "halva_tpu_torch/csrc/flash_bwd.cu",
+              "plain_ms": timing["plain"]}
+    return [
+        {"name": "flash_bwd_dq", "replaces":
+         "halva_tpu/ops/flash_attention.py:206", "max_abs_err": worst["dq"],
+         "ms": timing["dq"], **common},
+        {"name": "flash_bwd_dkv", "replaces":
+         "halva_tpu/ops/flash_attention.py:279", "max_abs_err": worst["dkv"],
+         "ms": timing["dkv"], **common},
+    ]
 
 
 def check_decode(gen: torch.Generator) -> dict:
@@ -686,6 +794,201 @@ def run_int4g(q4: dict, kernels: dict) -> None:
         raise AssertionError("int4g kernel path disagrees with the plain path")
 
 
+TRAIN_B = 2  # micro-batch: 2B rows in the pos+neg forward
+TRAIN_MICRO_STEPS = 4  # two updates at grad_accum_steps=2
+LORA_B_STD = 1e-3  # comparison tree's lora_b: ~2 % of a layer's output
+
+
+def train_batch(cfg, seed: int) -> dict:
+    """A synthetic DPA batch as scripts/bench_train7b.py:build_batch makes it:
+    TRAIN_B rows of TRAIN_TEXT tokens with the image sentinel at 1, labels
+    on the second half, two phrase spans, random pixels."""
+    rng = np.random.RandomState(seed)
+    b, t = TRAIN_B, TRAIN_TEXT
+    hi = min(30000, cfg.llm.vocab_size)
+
+    def grp():
+        ids = rng.randint(5, hi, (b, t)).astype(np.int32)
+        ids[:, 1] = IMAGE_TOKEN_INDEX
+        seg = np.ones((b, t), np.int32)
+        lab = ids.copy()
+        lab[:, : t // 2] = IGNORE_INDEX
+        sg = np.zeros((b, t), np.int32)
+        sg[:, t // 2: t // 2 + 3] = 1
+        sg[:, t // 2 + 4: t // 2 + 7] = 2
+        return ids, seg, lab, sg
+
+    i1, s1, l1, g1 = grp()
+    i2, s2, l2, g2 = grp()
+    i3, s3, l3, _ = grp()
+    img = cfg.vision.image_size
+    batch = dict(
+        input_ids=i1, segment_ids=s1, labels=l1, pos_signs=g1,
+        neg_input_ids=i2, neg_segment_ids=s2, neg_labels=l2, neg_signs=g2,
+        ref_input_ids=i3, ref_segment_ids=s3, ref_labels=l3,
+        images=rng.randn(b, 3, img, img).astype(np.float32),
+        ref_images=rng.randn(b, 3, img, img).astype(np.float32))
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+
+def bit_sums(params) -> dict:
+    """An exact checksum per leaf: the int64 sum of its bit patterns, taken
+    in slices of 2^24 elements (a whole stacked leaf in int64 would be
+    11.5 GB)."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    out = {}
+    for path, t in tree.flatten(params):
+        flat = t.detach().reshape(-1).view(ints[t.element_size()])
+        out[path] = sum(int(c.sum(dtype=torch.int64))
+                        for c in flat.split(1 << 24))
+    return out
+
+
+def changed(before: dict, after: dict) -> list:
+    return [p for p in before if before[p] != after[p]]
+
+
+def run_train(params: dict, kernels: dict) -> None:
+    """The DPA LoRA train step of llava-v1.5-7b at full width: bf16 base,
+    bf16 LoRA r=128 alpha=256 on the 7 linears of all layers, remat per
+    layer, loss_chunk=256, micro-batch 2, AdamW with warmup and cosine
+    decay, grad_accum_steps=2; TRAIN_MICRO_STEPS micro-steps. Then one
+    micro-step on the kernel path against the plain path."""
+    cfg = CFG
+    layers = cfg.llm.num_layers
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    policy = add_lora(params, gen, rank=128, alpha=256.0)
+    tcfg = TrainConfig(grad_accum_steps=2, num_train_steps=400, remat=True,
+                       loss_chunk=256)
+    trainable, frozen, opt, opt_state = init_train_state(policy, tcfg)
+    step, _ = dpa_step_fns(cfg, tcfg, opt)
+    batches = [train_batch(cfg, seed) for seed in range(TRAIN_MICRO_STEPS)]
+    n_lora = sum(t.numel() for _, t in tree.flatten(trainable)
+                 if t is not None)
+    sums = [bit_sums(policy)]
+
+    # the main path; counts start at 0 right before it, read after each
+    # micro-step; the peak memory is that of the micro-steps alone (the
+    # checksums between them are not the step's)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    seen = {}
+    times = []
+    peak = 0
+    for i, batch in enumerate(batches):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainable, opt_state, m = step(trainable, frozen, None, opt_state,
+                                       batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        now = dict(_kernels.launches)
+        per_step = {k: now[k] - seen.get(k, 0) for k in now}
+        seen = now
+        vals = [float(x) for x in m]
+        ok = all(np.isfinite(vals)) and vals[3] > 0
+        print(f"train micro-step {i}: loss {vals[0]:.6f} alignment "
+              f"{vals[1]:.6f} kl {vals[2]:.3e} grad_norm {vals[3]:.4e}; "
+              f"{times[-1] * 1e3:.1f} ms; updates applied {opt.updates} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train step: a loss is not finite or the "
+                                 "grad norm is 0")
+        # per layer: K1 in the pos+neg, policy-ref and frozen-ref forwards
+        # and in the remat recompute of the two forwards with grad; K2 and
+        # K3 in the backward of those two
+        expect_launches(per_step, {"flash_fwd": 5 * layers,
+                                   "flash_bwd_dq": 2 * layers,
+                                   "flash_bwd_dkv": 2 * layers},
+                        f"train micro-step {i}")
+        if opt.updates and i % tcfg.grad_accum_steps == 1:
+            sums.append(bit_sums(policy))
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        kernels[name]["launches"] = seen.get(name, 0)
+
+    lora_paths = {p for p, t in tree.flatten(trainable) if t is not None}
+    first, second = changed(sums[0], sums[1]), changed(sums[1], sums[2])
+    ok = (opt.updates == 2 and not first and second
+          and set(second) <= lora_paths)
+    print(f"train updates: {opt.updates}; leaves changed by update 1 (lr(0) "
+          f"= 0): {len(first)}; by update 2: {len(second)} of "
+          f"{len(lora_paths)} LoRA leaves ({n_lora / 1e6:.1f} M params), "
+          f"{len(set(second) - lora_paths)} others "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the optimizer changed other leaves than LoRA's,"
+                             " or none")
+    steady = times[1:]
+    print(f"train main path ({gpu_line()}): "
+          f"{statistics.mean(steady) * 1e3:.1f} ms per micro-step (mean of "
+          f"micro-steps 1-{len(times) - 1}; all: "
+          + ", ".join(f"{t * 1e3:.1f}" for t in times)
+          + f" ms), B={TRAIN_B} rows of {TRAIN_SPLICED} spliced tokens, "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    del policy, trainable, frozen, opt, opt_state, step
+    compare_train(params, batches[0])
+
+
+def compare_train(params: dict, batch: dict) -> None:
+    """One micro-step's loss parts and LoRA grads, kernel path against plain
+    path, beside the noise floor; on a tree whose lora_b is small and
+    nonzero (at B = 0 the KL and the lora_a grads are exactly 0)."""
+    cfg = CFG
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    cmp = add_lora(params, gen, rank=128, alpha=256.0)
+    for group in ("attn", "mlp"):
+        for p in cmp["llm"]["layers"][group].values():
+            p["lora_b"] = (torch.randn(p["lora_b"].shape, generator=gen,
+                                       device=DEVICE) * LORA_B_STD).to(
+                                           p["lora_b"].dtype)
+    runs = {}
+    tcfg = TrainConfig(grad_accum_steps=2, num_train_steps=400, remat=True,
+                       loss_chunk=256)
+    trainable, frozen, opt, _ = init_train_state(cmp, tcfg)
+    table = frozen["llm"]["embed"]["embedding"]
+    noise = torch.Generator(device=DEVICE).manual_seed(3)
+    eps = torch.randn(table.shape, generator=noise, device=DEVICE)
+    floor_frozen = tree.map_tree(lambda x: x, frozen)
+    floor_frozen["llm"]["embed"]["embedding"] = (
+        table.float() * (1 + 2**-7 * eps)).to(table.dtype)
+    del eps
+    for run, impl, frz in (("kernel", "auto", frozen),
+                           ("plain", "plain", frozen),
+                           ("floor", "plain", floor_frozen)):
+        step, _ = dpa_step_fns(cfg, dataclasses.replace(tcfg, attn_impl=impl),
+                               opt)
+        _, parts, grads = step.loss_and_grads(trainable, frz, None, batch)
+        runs[run] = (float(parts.alignment), float(parts.divergence),
+                     [g for _, g in tree.flatten(grads) if g is not None])
+        torch.cuda.synchronize()
+
+    def errs(run):
+        got, want = runs[run], runs["plain"]
+        g = torch.cat([x.float().flatten() for x in got[2]])
+        w = torch.cat([x.float().flatten() for x in want[2]])
+        return (abs(got[0] - want[0]) / abs(want[0]),
+                abs(got[1] - want[1]) / abs(want[1]), rel_err(g, w))
+
+    got, floor = errs("kernel"), errs("floor")
+    finite = all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in
+                 runs.values())
+    ok = finite and all(e <= TRAIN_FLOOR_FACTOR * f
+                        for e, f in zip(got, floor))
+    names = ("alignment", "kl", "LoRA grads")
+    print("train kernel vs plain path (one micro-step, lora_b ~ "
+          f"{LORA_B_STD} N(0,1)): plain alignment {runs['plain'][0]:.6f}, "
+          f"kl {runs['plain'][1]:.4e}; rel err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, got))
+          + "; noise floor (plain vs plain with the text embeddings x (1 + "
+          "2^-7 N(0,1))) "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, floor))
+          + f"; bound {TRAIN_FLOOR_FACTOR:.3f} x floor "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train kernel path disagrees with the plain path")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -696,10 +999,14 @@ def main() -> None:
     print(gpu_line())
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    checked = [check_flash(gen), check_decode(gen), *check_decode_quant(gen),
-               check_w4(gen)]
+    checked = [check_flash(gen), *check_flash_bwd(gen), check_decode(gen),
+               *check_decode_quant(gen), check_w4(gen)]
     kernels = {k["name"]: k for k in checked}
-    q4 = quantize_int4g(run_bf16(kernels))  # the bf16 tree is freed here
+    params = run_bf16(kernels)
+    run_train(params, kernels)
+    torch.cuda.empty_cache()
+    q4 = quantize_int4g(params)
+    del params  # the bf16 tree is freed here
     torch.cuda.empty_cache()
     run_int4g(q4, kernels)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] == "halva_tpu")

@@ -22,7 +22,8 @@ import tempfile
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("flash_fwd.cu", "decode_attn.cu", "w4_gemv.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attn.cu", "w4_gemv.cu")
+HEADERS = ("mma_bf16.cuh",)  # included by sources; part of the build hash
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,7 +58,7 @@ def find_nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -124,6 +125,10 @@ def lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     cdll.halva_flash_fwd_bf16.argtypes = [p] * 7 + [i] * 6 + [f, i, p]
     cdll.halva_flash_fwd_bf16.restype = i
+    cdll.halva_flash_bwd_dq_bf16.argtypes = [p] * 9 + [i] * 6 + [f, i, p]
+    cdll.halva_flash_bwd_dq_bf16.restype = i
+    cdll.halva_flash_bwd_dkv_bf16.argtypes = [p] * 10 + [i] * 6 + [f, i, p]
+    cdll.halva_flash_bwd_dkv_bf16.restype = i
     cdll.halva_decode_attn_bf16.argtypes = [p] * 8 + [i] * 6 + [f, p]
     cdll.halva_decode_attn_bf16.restype = i
     cdll.halva_decode_attn_kv8.argtypes = [p] * 12 + [i] * 6 + [f, p]

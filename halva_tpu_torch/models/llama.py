@@ -2,28 +2,30 @@
 
 Counterpart of halva_tpu/models/llama.py with the same param tree: per-layer
 weights stacked on a leading `num_layers` axis, dense kernels (in, out). The
-reference's `lax.scan` over layers is a Python loop over layer slices
-(`layer_slice`), which are views. KV caches are head-major
+reference's `lax.scan` over layers is a Python loop over per-layer views
+(`layer_slice`, `unstack_layers`). KV caches are head-major
 (L, B, KVH, S, Dh), as the decode kernel wants them.
 
-Ported here: dense kernels (+ bias) in float, int8 (`kernel_q`: W8A8 or
-weight dequant) and packed int4 (`kernel_q4p`), int8 embeddings, RMSNorm /
-bias-free LayerNorm, RoPE (HF half-split, fp32 tables, linear scaling), the
-forward, prefill into a bf16, int8 or int4 prompt cache, and the KV-cached
-decode step over a bf16 or int8 gen cache. An int4 tree decodes through
+Ported here: dense kernels (+ bias, + LoRA) in float, int8 (`kernel_q`:
+W8A8 or weight dequant) and packed int4 (`kernel_q4p`), int8 embeddings,
+RMSNorm / bias-free LayerNorm, RoPE (HF half-split, fp32 tables, linear
+scaling), the forward (with per-layer rematerialisation for training),
+prefill into a bf16, int8 or int4 prompt cache, and the KV-cached decode
+step over a bf16 or int8 gen cache. An int4 tree decodes through
 `_decode_step_w4` (K6 for every layer matmul, K4 for attention).
 Not ported yet (each raises NotImplementedError naming its ROADMAP slice):
-LoRA, NF4 weights, ALiBi, sliding window, tensor parallelism and beams.
+NF4 weights, ALiBi, sliding window, tensor parallelism and beams.
 
 Shapes: B batch, S sequence, D hidden, H heads, Dh head dim, V vocab.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from halva_tpu_torch.config import LlamaConfig
 from halva_tpu_torch.ops import quant
@@ -41,7 +43,7 @@ from halva_tpu_torch.ops.w4_matmul import (
 
 Params = Dict[str, Any]
 
-_UNPORTED_KEYS = ("kernel_q4", "lora_a")
+_UNPORTED_KEYS = ("kernel_q4",)
 
 
 def _mlp_act(cfg: LlamaConfig):
@@ -72,15 +74,17 @@ def _check_supported(cfg: LlamaConfig) -> None:
 
 
 def dense(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """y = x @ kernel [+ bias]; the kernel may be packed int4 (`kernel_q4p`:
-    W4A8 when the scales are per channel and W4A8 is on, else bf16 dequant
-    then matmul) or int8 (`kernel_q`: W8A8 when on, else weight dequant)."""
+    """y = x @ kernel [+ bias] [+ lora_scale * (x @ lora_a) @ lora_b]; the
+    kernel may be packed int4 (`kernel_q4p`: W4A8 when the scales are per
+    channel and W4A8 is on, else bf16 dequant then matmul) or int8
+    (`kernel_q`: W8A8 when on, else weight dequant). The LoRA branch keys
+    on `lora_a`: a `lora_scale` standing alone (the frozen reference tree
+    of train/trainer.py keeps it) adds nothing."""
     for key in _UNPORTED_KEYS:
         if key in p:
             raise NotImplementedError(
                 f"dense: '{key}' weights are not ported yet (ROADMAP queue "
-                "1: LoRA with the DPA training slice, NF4 with the training "
-                "extras)"
+                "1 item 8: NF4 with the training extras)"
             )
     if "kernel_q4p" in p:
         if quant.w4a8_enabled() and p["kernel_scale4p"].shape[1] == 1:
@@ -97,6 +101,9 @@ def dense(x: torch.Tensor, p: Params) -> torch.Tensor:
         y = x @ p["kernel"].to(x.dtype)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
+    if "lora_a" in p:
+        lo = (x @ p["lora_a"].to(x.dtype)) @ p["lora_b"].to(x.dtype)
+        y = y + p["lora_scale"].to(x.dtype) * lo
     return y
 
 
@@ -206,6 +213,24 @@ def _attn_block(cfg, lp, x, cos, sin, segment_ids, attn_impl):
     return x + dense(out.reshape(b, s, h * dh), ap["wo"]), k, v
 
 
+def _layer(cfg, attn_impl, x, lp, cos, sin, segment_ids):
+    """One decoder layer: attention sublayer, then the MLP sublayer."""
+    x, _, _ = _attn_block(cfg, lp, x, cos, sin, segment_ids, attn_impl)
+    return x + _mlp(cfg, _norm(cfg, x, lp["post_attn_norm"]["scale"]),
+                    lp["mlp"])
+
+
+def unstack_layers(layers: Params) -> List[Params]:
+    """The per-layer trees of a stacked layer tree, as views from one
+    `unbind` per leaf: autograd then stacks the layers' grads of a leaf once,
+    where `layer_slice` would scatter each into a zeroed full-size tensor."""
+    if isinstance(layers, dict):
+        per_key = {k: unstack_layers(v) for k, v in layers.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[li] for k, v in per_key.items()} for li in range(n)]
+    return layers.unbind(0)
+
+
 # --------------------------------------------------------------------------
 # Forward
 # --------------------------------------------------------------------------
@@ -218,18 +243,29 @@ def forward_embeds(
     segment_ids: torch.Tensor,  # (B, S) int32; 0 = padding
     positions: torch.Tensor,  # (B, S)
     attn_impl: str = "auto",
+    remat: bool = False,
 ) -> torch.Tensor:
     """Decoder stack over input embeddings; final hidden states after the
-    final norm (B, S, D)."""
+    final norm (B, S, D).
+
+    remat: when autograd records, each layer is a non-reentrant
+    `torch.utils.checkpoint` region (the reference's `jax.checkpoint(...,
+    nothing_saveable)` per layer): the forward keeps only the layer inputs,
+    and the backward runs each layer again before its gradient (so K1 runs
+    once more per layer)."""
     _check_supported(cfg)
     cos, sin = rope_cos_sin(positions, cfg.head_size, cfg.rope_theta,
                             cfg.rope_scaling)
     x = inputs_embeds
-    for li in range(cfg.num_layers):
-        lp = layer_slice(params["layers"], li)
-        x, _, _ = _attn_block(cfg, lp, x, cos, sin, segment_ids, attn_impl)
-        x = x + _mlp(cfg, _norm(cfg, x, lp["post_attn_norm"]["scale"]),
-                     lp["mlp"])
+    remat = remat and torch.is_grad_enabled()
+    for lp in unstack_layers(params["layers"]):
+        if remat:
+            # no randomness in a layer: no RNG state to stash and restore
+            x = checkpoint(_layer, cfg, attn_impl, x, lp, cos, sin,
+                           segment_ids, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _layer(cfg, attn_impl, x, lp, cos, sin, segment_ids)
     return _norm(cfg, x, params["final_norm"]["scale"])
 
 

@@ -3,12 +3,13 @@
 Counterpart of halva_tpu/models/llava.py (single-image rows). The splice is
 a fixed-shape gather: output position j of a row whose image sentinel sits
 at p (T patches) takes text token j (j < p), patch j - p (p <= j < p + T)
-or text token j - T + 1 (j >= p + T). Output length S + T - 1.
+or text token j - T + 1 (j >= p + T). Output length S + T - 1. `forward` is
+the training-style forward: splice with labels and signs, then the decoder.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -43,18 +44,24 @@ class LlavaModel(nn.Module):
 
 def encode_images(params: Params, cfg: LlavaConfig,
                   images: torch.Tensor) -> torch.Tensor:
-    """(B, 3, H, W) -> (B, T, D_llm): frozen tower, then the projector."""
+    """(B, 3, H, W) -> (B, T, D_llm): the frozen tower under no_grad (the
+    reference's stop_gradient), then the projector, also under no_grad
+    unless one of its leaves requires grad (mm_projector_lr training)."""
     if cfg.vision_tower_type != "vit":
         raise NotImplementedError(
             "the RADIO tower is not ported yet (ROADMAP queue 1, alt "
             "backends)"
         )
-    feats = vit.encode(
-        params["vision"], cfg.vision, images,
-        select_layer=cfg.mm_vision_select_layer,
-        select_feature=cfg.mm_vision_select_feature,
-    )
-    return projector.apply(params["projector"], cfg, feats)
+    with torch.no_grad():
+        feats = vit.encode(
+            params["vision"], cfg.vision, images,
+            select_layer=cfg.mm_vision_select_layer,
+            select_feature=cfg.mm_vision_select_feature,
+        )
+    trained = any(t.requires_grad
+                  for _, t in tree.flatten(params["projector"]))
+    with torch.set_grad_enabled(trained and torch.is_grad_enabled()):
+        return projector.apply(params["projector"], cfg, feats)
 
 
 class Spliced(NamedTuple):
@@ -124,3 +131,37 @@ def splice_image_tokens(
     positions = torch.arange(s_out, dtype=i32, device=dev).expand(b, s_out)
     return Spliced(embeds, gather_i32(labels, IGNORE_INDEX),
                    gather_i32(signs, 0), out_seg, positions)
+
+
+def forward(
+    params: Params,
+    cfg: LlavaConfig,
+    input_ids: torch.Tensor,  # (B, S) with one IMAGE_TOKEN_INDEX or none
+    images: torch.Tensor,  # (B, 3, H, W)
+    segment_ids: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
+    signs: Optional[torch.Tensor] = None,
+    attn_impl: str = "auto",
+    remat: bool = False,
+    return_hidden: bool = False,
+) -> Tuple[torch.Tensor, Spliced]:
+    """Splice, then the decoder stack: (fp32 logits (B, S_out, V), the
+    spliced batch, whose labels and signs align with the logits).
+
+    return_hidden: final hidden states (B, S_out, D) instead of logits, for
+    the chunked loss (train/dpa.py), which never holds (B, S, V) logits."""
+    if images.ndim == 5:
+        raise NotImplementedError(
+            "multi-image rows are not ported yet (ROADMAP queue 1 item 11, "
+            "splice_image_tokens_multi)"
+        )
+    feats = encode_images(params, cfg, images)
+    sp = splice_image_tokens(params, cfg, input_ids, feats, segment_ids,
+                             labels, signs)
+    hidden = llama.forward_embeds(
+        params["llm"], cfg.llm, sp.embeds, sp.segment_ids, sp.positions,
+        attn_impl=attn_impl, remat=remat,
+    )
+    if return_hidden:
+        return hidden, sp
+    return llama.lm_logits(params["llm"], cfg.llm, hidden), sp

@@ -10,7 +10,12 @@ kernels' tensor-core PV product (or of the plain version's bf16 P times v
 scale): |got - plain| <= 1e-2 + 1e-2 * |plain| on live rows (the same bound
 chip_smoke.py states). K6 and its plain version both compute nibble *
 scale in fp32 and sum in fp32; only the summation order and the bf16
-output rounding differ."""
+output rounding differ. K2 and K3 (the flash backward) against
+flash_attention_bwd_plain, which rounds P and dS to bf16 where the kernels
+do: |got - plain| <= 2e-2 * (max|plain| + |plain|) on live rows, and the
+relative norm of the difference <= 2e-3 (the bf16 output rounding, plus a
+P or dS element whose fp32 value differs in its last bits between the two
+and rounds to the neighbouring bf16 value)."""
 
 import pytest
 import torch
@@ -22,6 +27,9 @@ from halva_tpu_torch.ops.decode_attention import (
 )
 from halva_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
     flash_attention_plain,
 )
 from halva_tpu_torch.ops.w4_matmul import (
@@ -149,3 +157,72 @@ def test_decode_attn_quantized_matches_plain(cuda, mode, kvh):
     assert _kernels.launches[name] == before + 1
     assert torch.isfinite(got).all()
     _close(got, decode_attend_plain(q, pc, seg, gc, gen_valid))
+
+
+def _close_grad(got, want):
+    want = want.float()
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.float(), want, rtol=2e-2,
+                               atol=2e-2 * scale)
+    assert float((got.float() - want).norm() / want.norm()) <= 2e-3
+
+
+def _bwd_inputs(gen, b, s, h, kvh, layout):
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q, k, v, do = r(b, s, h, 128), r(b, s, kvh, 128), r(b, s, kvh, 128), r(
+        b, s, h, 128)
+    seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    seg[-1, s - 37:] = 0
+    if layout == "packed":
+        seg[0, 90:] = 2
+    live = seg != 0
+    do[~live] = 0  # dead rows never reach a loss
+    return q, k, v, do, seg, live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvh,causal,layout", [
+    (8, True, "pad"), (8, False, "pad"), (2, True, "packed"),
+    (8, True, "packed")])
+def test_flash_bwd_matches_plain(cuda, kvh, causal, layout):
+    b, s, h = 2, 200, 8
+    q, k, v, do, seg, live = _bwd_inputs(cuda, b, s, h, kvh, layout)
+    o, lse = flash_attention_fwd(q, k, v, seg, seg, causal=causal)
+    before = (_kernels.launches["flash_bwd_dq"],
+              _kernels.launches["flash_bwd_dkv"])
+    got = flash_attention_bwd(q, k, v, seg, seg, o, lse, do, causal=causal)
+    assert (_kernels.launches["flash_bwd_dq"],
+            _kernels.launches["flash_bwd_dkv"]) == (before[0] + 1,
+                                                    before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, seg, seg, o, lse, do,
+                                     causal=causal)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == torch.bfloat16
+        assert torch.isfinite(g).all()
+        _close_grad(g[live], w[live])
+    # the group sum runs inside K3, in a fixed order: bit-identical reruns
+    again = flash_attention_bwd(q, k, v, seg, seg, o, lse, do, causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_reaches_q_k_v(cuda):
+    """On CUDA tensors flash_attention is an autograd Function: the grads of
+    q, k and v exist (K1's output used to carry no grad_fn) and are K2's and
+    K3's, which match the plain backward."""
+    b, s, h, kvh = 2, 200, 8, 2
+    q, k, v, do, seg, live = _bwd_inputs(cuda, b, s, h, kvh, "packed")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(_kernels.launches)
+    out = flash_attention(*leaves, seg, seg)
+    assert out.grad_fn is not None
+    out.backward(do)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert _kernels.launches[name] == before.get(name, 0) + 1
+    o, lse = flash_attention_fwd(q, k, v, seg, seg)
+    want = flash_attention_bwd_plain(q, k, v, seg, seg, o, lse, do)
+    for t, w in zip(leaves, want):
+        assert t.grad is not None
+        _close_grad(t.grad[live], w[live])

@@ -42,6 +42,8 @@ def test_every_module_imports_without_jax():
     out = json.loads(p.stdout.strip().splitlines()[-1])
     assert "halva_tpu_torch.evals.runner" in out["modules"]
     assert "halva_tpu_torch.ops.generate" in out["modules"]
+    for name in ("lora", "dpa", "trainer", "checkpoint"):
+        assert f"halva_tpu_torch.train.{name}" in out["modules"]
     assert not out["triton"]
     assert not out["pil"]  # PIL is imported where an image is decoded
     assert set(out["halva_tpu"]) <= {
@@ -50,6 +52,8 @@ def test_every_module_imports_without_jax():
 
 
 def test_sources_use_no_library_attention():
+    """No JAX, Triton, library attention or torch.compile anywhere in the
+    package (the train modules and the flash backward included)."""
     banned = re.compile(
         r"import jax|from jax|scaled_dot_product_attention|torch\.compile"
         r"|import triton|flash_attn")
@@ -62,3 +66,21 @@ def test_sources_use_no_library_attention():
                     if banned.search(line):
                         hits.append(f"{path}:{i}: {line.strip()}")
     assert not hits, "\n".join(hits)
+
+
+def test_flash_kernels_are_hand_written_and_deterministic():
+    """The flash kernels' CUDA sources call no library (no cuBLAS, cuDNN,
+    CUTLASS or torch) and K3 sums dK and dV over the query heads of a KV
+    head without atomics, so the backward is deterministic."""
+    csrc = os.path.join(PKG, "csrc")
+    library = re.compile(r"cublas|cudnn|cutlass|torch|#include <(?!cuda_bf16|"
+                         r"cuda_runtime|stdint)")
+    code = {}
+    for name in ("flash_fwd.cu", "flash_bwd.cu", "mma_bf16.cuh"):
+        text = open(os.path.join(csrc, name)).read()
+        code[name] = "\n".join(ln.split("//")[0] for ln in text.splitlines())
+        assert not library.search(code[name]), name
+    bwd = code["flash_bwd.cu"]
+    assert "atomic" not in bwd
+    for kernel in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        assert f"__global__ void __launch_bounds__(NTHREADS)\n{kernel}" in bwd

@@ -156,12 +156,13 @@ def test_unported_branches_raise():
     x = torch.zeros(2, 4)
     with pytest.raises(NotImplementedError):  # NF4
         llama.dense(x, {"kernel_q4": x, "kernel_scale4": x})
-    with pytest.raises(NotImplementedError):
-        llama.dense(x, {"kernel": torch.zeros(4, 4), "lora_a": x})
-    cfg = dataclasses.replace(LLAMA_TINY, sliding_window=8)
     _, tp = _llm_trees(LLAMA_TINY)
-    with pytest.raises(NotImplementedError):
-        llama.forward(tp, cfg, torch.zeros(1, 4, dtype=torch.int32))
+    # LoRA is ported (tests/test_torch_lora.py); sliding window and ALiBi
+    # are not
+    for cfg in (dataclasses.replace(LLAMA_TINY, sliding_window=8),
+                dataclasses.replace(LLAMA_TINY, position_embedding="alibi")):
+        with pytest.raises(NotImplementedError):
+            llama.forward(tp, cfg, torch.zeros(1, 4, dtype=torch.int32))
 
 
 def _assert_cache_close(got_t, want, key):
