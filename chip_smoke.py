@@ -15,8 +15,21 @@ backward) for 4 micro-steps (2 updates), and one micro-step against the
 plain path; then the int4g serving tree quantized on the card (int4 layer
 stacks with g=128 scales, int8 projector/lm_head/embedding) with an int4
 prompt KV cache (K1, K4 int4/int8, K6) and briefly an int8 one (K4
-int8/int8). Every phase prints one line; any failure raises and exits
-non-zero. The last line is the device record {"ok": true, "device": {...}}.
+int8/int8). On both trees it then drives beam search (`generate_beam`,
+4 beams: K5's per-beam gen stage, and K4's beam mode as the other route)
+and speculative greedy decode (`generate_speculative`, draft_k 4, and 8 over
+200 tokens with a 256-slot gen cache: K5's shared gen stage, K6 at B*K
+rows), asserts their launch counts, and prints the beam step beside the
+greedy step (with the device time of the beam loop's selection and
+gen-cache reorder), the verify step beside the decode step, and the two
+beam routes against each other at batch 4 and at batch 80. Beside each
+kernel's time it prints the least time the card could take for the same
+work (bytes over 3.35 TB/s or FLOP over 989 TFLOP/s, whichever is larger)
+and, where one PyTorch call computes the same function
+(`scaled_dot_product_attention`), that call's time as a yardstick; the
+port itself never calls it. Every phase prints one line; any failure raises
+and exits non-zero. The last line is the device record {"ok": true,
+"device": {...}}.
 
 Needs a CUDA device; imports no JAX.
 """
@@ -33,18 +46,20 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from halva_tpu_torch import _kernels, tree
-from halva_tpu_torch.config import (
-    IGNORE_INDEX,
-    IMAGE_TOKEN_INDEX,
-    LLAVA_V15_7B,
-)
+from halva_tpu_torch.config import LLAVA_V15_7B
+from halva_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from halva_tpu_torch.models import llama
 from halva_tpu_torch.models.llava import LlavaModel
+from halva_tpu_torch.ops.beam import (generate_beam, init_beam_state,
+                                      reorder_gen_cache, select_step)
 from halva_tpu_torch.ops.decode_attention import (
     decode_attend_layer,
     decode_attend_plain,
+    fold_attend_layer,
+    fold_attend_plain,
 )
 from halva_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dkv,
@@ -59,6 +74,7 @@ from halva_tpu_torch.ops.generate import (
     generate_greedy,
     init_gen_cache_like,
 )
+from halva_tpu_torch.ops.speculative import generate_speculative
 from halva_tpu_torch.ops.w4_matmul import (
     quantize_params_int4,
     w4_dense_stacked,
@@ -119,6 +135,13 @@ NEW_TOKENS = 32
 TRAIN_TEXT = 512
 TRAIN_SPLICED = TRAIN_TEXT + LLAVA_V15_7B.num_image_tokens - 1
 COMPARE_STEPS = 4  # decode steps re-run on the plain path
+BEAMS = 4
+BEAM_TOKENS_BF16 = 8  # the short beam run on the bf16 tree
+SHORT_TOKENS = 4  # runs that only drive a further cache mode or route
+SPEC_LONG = (8, 200)  # draft_k, tokens: a 256-slot gen cache
+# the card's published peaks (H100 SXM data sheet), for each kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 
 
 def gpu_line() -> str:
@@ -166,6 +189,21 @@ def device_ms(fn, iters: int = 20) -> float:
     ms = timed_ms(graph.replay, iters=iters)
     del graph
     return ms
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the bytes the function must move
+    (each input read once, each output written once) over the memory rate,
+    or its operations on these inputs over the bf16 tensor-core peak,
+    whichever is larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOP_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -244,13 +282,26 @@ def check_flash(gen: torch.Generator) -> dict:
                 lambda: flash_attention_plain(*args, causal=True))
             # QK^T and PV, 2 * D FLOP each per live (query, key) pair
             flops = 4 * h * d * sum(n * (n + 1) / 2 for n in PROMPT_LENS)
+            # the yardstick: one SDPA call on (B, H, S, D) views under the
+            # same causal + segment mask
+            mask = ((seg[:, :, None] == seg[:, None, :])
+                    & (seg[:, :, None] != 0)
+                    & torch.ones(s, s, dtype=torch.bool, device=dev).tril())
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask[:, None]))
+            lim = bound(tensor_bytes(q, k, v, seg, o, lse), flops)
             print(f"flash_fwd time: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms; {flops / ms / 1e9:.1f} TFLOP/s on live causal pairs")
-            timing = (ms, plain_ms)
+                  f"ms, SDPA with the mask {lib_ms:.4f} ms, bound "
+                  f"{lim['bound_ms']:.4f} ms by {lim['bound_by']}; "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s on live causal pairs")
+            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      **lim}
+            del mask
     return {"name": "flash_fwd", "route": "cuda",
             "source": "halva_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "halva_tpu/ops/flash_attention.py:83",
-            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            "max_abs_err": worst, **timing}
 
 
 def check_flash_bwd(gen: torch.Generator) -> list:
@@ -284,8 +335,8 @@ def check_flash_bwd(gen: torch.Generator) -> list:
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
             g, w = g[live].float(), w[live].float()
             err, rel = max_abs(g, w), rel_err(g, w)
-            bound = BWD_RTOL * (w.abs().max() + w.abs())
-            ok = ok and bool((g - w).abs().le(bound).all()) and (
+            limit = BWD_RTOL * (w.abs().max() + w.abs())
+            ok = ok and bool((g - w).abs().le(limit).all()) and (
                 rel <= BWD_REL) and bool(torch.isfinite(g).all())
             kernel = "dq" if name == "dq" else "dkv"
             worst[kernel] = max(worst[kernel], err)
@@ -301,6 +352,24 @@ def check_flash_bwd(gen: torch.Generator) -> list:
             timing["plain"] = device_ms(lambda: flash_attention_bwd_plain(
                 q, k, v, seg, seg, o, lse, do))
             pairs = h * sum(n * (n + 1) / 2 for n in lens)
+            # the yardstick: autograd's backward of one SDPA call under the
+            # same mask (dq, dk and dv together), CUDA events around it
+            mask = ((seg[:, :, None] == seg[:, None, :])
+                    & (seg[:, :, None] != 0)
+                    & torch.ones(s, s, dtype=torch.bool, device=dev).tril())
+            leaves = [t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves,
+                                                 attn_mask=mask[:, None])
+            dot = do.transpose(1, 2)
+            timing["library"] = timed_ms(lambda: torch.autograd.grad(
+                out, leaves, dot, retain_graph=True))
+            del mask, leaves, out, dot
+            io = tensor_bytes(q, k, v, seg, do, lse, delta)
+            timing["dq_bound"] = bound(io + tensor_bytes(q),
+                                       3 * 2 * d * pairs)
+            timing["dkv_bound"] = bound(io + tensor_bytes(k, v),
+                                        4 * 2 * d * pairs)
             # 2 * D FLOP per live (query, key) pair for each product: K2
             # computes S, dP and dQ, K3 S, dP, dV and dK
             print(f"flash_bwd time: K2 (dq) {timing['dq']:.4f} ms, "
@@ -308,17 +377,23 @@ def check_flash_bwd(gen: torch.Generator) -> list:
                   f"K3 (dk, dv) {timing['dkv']:.4f} ms, "
                   f"{4 * 2 * d * pairs / timing['dkv'] / 1e9:.1f} TFLOP/s; "
                   f"plain backward (dq, dk, dv together) "
-                  f"{timing['plain']:.4f} ms; on live causal pairs")
+                  f"{timing['plain']:.4f} ms, SDPA backward (all three) "
+                  f"{timing['library']:.4f} ms; bounds "
+                  f"{timing['dq_bound']['bound_ms']:.4f} and "
+                  f"{timing['dkv_bound']['bound_ms']:.4f} ms by "
+                  f"{timing['dq_bound']['bound_by']}; on live causal pairs")
         del q, k, v, do, o, lse, delta, got, want
+    # library_ms: the one SDPA backward computes what K2 and K3 compute
+    # together
     common = {"route": "cuda", "source": "halva_tpu_torch/csrc/flash_bwd.cu",
-              "plain_ms": timing["plain"]}
+              "plain_ms": timing["plain"], "library_ms": timing["library"]}
     return [
         {"name": "flash_bwd_dq", "replaces":
          "halva_tpu/ops/flash_attention.py:206", "max_abs_err": worst["dq"],
-         "ms": timing["dq"], **common},
+         "ms": timing["dq"], **timing["dq_bound"], **common},
         {"name": "flash_bwd_dkv", "replaces":
          "halva_tpu/ops/flash_attention.py:279", "max_abs_err": worst["dkv"],
-         "ms": timing["dkv"], **common},
+         "ms": timing["dkv"], **timing["dkv_bound"], **common},
     ]
 
 
@@ -372,15 +447,34 @@ def check_decode(gen: torch.Generator) -> dict:
         plain_ms = device_ms(lambda: walk(decode_attend_plain)) / layers
         row = kvh * d * 2 * 2  # k + v bytes of one cache position, all heads
         nominal = b * (sp + sg) * row
-        read = (sum(PROMPT_LENS) + int((steps + 1).sum())) * row
-        print(f"decode_attn time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms;"
+        live_keys = sum(PROMPT_LENS) + int((steps + 1).sum())
+        read = live_keys * row
+        # the yardstick: one SDPA call over the concatenated prompt + gen
+        # keys (concatenated outside the timed call) under a mask
+        kcat = torch.cat([kp, kg], dim=3)
+        vcat = torch.cat([vp, vg], dim=3)
+        mask = torch.cat([seg != 0, gen_valid], dim=1)[:, None, None, :]
+        qt = q.transpose(1, 2)
+
+        def walk_sdpa():
+            for li in range(layers):
+                F.scaled_dot_product_attention(qt, kcat[li], vcat[li],
+                                               attn_mask=mask)
+
+        lib_ms = device_ms(walk_sdpa) / layers
+        del kcat, vcat
+        lim = bound(read + 2 * tensor_bytes(q) + tensor_bytes(seg, gen_valid),
+                    4 * d * h * live_keys)
+        print(f"decode_attn time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+              f" SDPA over concatenated keys {lib_ms:.4f} ms, bound "
+              f"{lim['bound_ms']:.4f} ms by {lim['bound_by']};"
               f" cache bytes {nominal / 1e6:.1f} MB allocated, "
               f"{read / 1e6:.1f} MB live -> {read / ms / 1e6:.0f} GB/s live")
-        timing = (ms, plain_ms)
+        timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **lim}
     return {"name": "decode_attn", "route": "cuda",
             "source": "halva_tpu_torch/csrc/decode_attn.cu",
             "replaces": "halva_tpu/ops/decode_attention.py:82",
-            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            "max_abs_err": worst, **timing}
 
 
 def _quant_caches(gen, mode, layers, b, kvh, sp, sg, d):
@@ -464,15 +558,296 @@ def check_decode_quant(gen: torch.Generator) -> list:
             gen_row = kvh * 2 * d + 4 * kvh
             read = (sum(PROMPT_LENS) * prompt_row
                     + int((steps + 1).sum()) * gen_row)
-            print(f"{name} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms;"
-                  f" {read / 1e6:.2f} MB live -> {read / ms / 1e6:.0f} GB/s "
-                  "live")
-            timing = (ms, plain_ms)
+            live_keys = sum(PROMPT_LENS) + int((steps + 1).sum())
+            lim = bound(
+                read + 2 * tensor_bytes(q) + tensor_bytes(seg, gen_valid),
+                4 * d * h * live_keys)
+            print(f"{name} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+                  f" bound {lim['bound_ms']:.4f} ms by {lim['bound_by']} (no "
+                  f"library call takes these caches); {read / 1e6:.2f} MB "
+                  f"live -> {read / ms / 1e6:.0f} GB/s live")
+            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                      **lim}
         out.append({"name": name, "route": "cuda",
                     "source": "halva_tpu_torch/csrc/decode_attn.cu",
                     "replaces": "halva_tpu/ops/decode_attention.py:82",
-                    "max_abs_err": worst, "ms": timing[0],
-                    "plain_ms": timing[1]})
+                    "max_abs_err": worst, **timing})
+    return out
+
+
+FOLD_SOURCE = "halva_tpu_torch/csrc/fold_attn.cu"
+FOLD_REPLACES = "halva_tpu/ops/decode_attention.py:306"
+
+
+def _fold_caches(gen, mode, layers, b, gen_rows, kvh, sp, sg, d):
+    """Stacked prompt caches at b rows and gen caches at gen_rows rows in
+    cache mode `mode` (bf16 | kv8 | kv4)."""
+    dev = "cuda"
+    if mode != "bf16":
+        pc, _ = _quant_caches(gen, mode, layers, b, kvh, sp, sg, d)
+        _, gc = _quant_caches(gen, "kv8", layers, gen_rows, kvh, 2, sg, d)
+        return pc, gc
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    return ({"k": r(layers, b, kvh, sp, d), "v": r(layers, b, kvh, sp, d)},
+            {"k": r(layers, gen_rows, kvh, sg, d),
+             "v": r(layers, gen_rows, kvh, sg, d)})
+
+
+def _cache_row_bytes(mode, kvh, d, prompt):
+    """k + v (+ scales) bytes of one live cache position, all heads."""
+    if mode == "bf16":
+        return kvh * d * 2 * 2
+    return kvh * (d if (mode == "kv4" and prompt) else 2 * d) + 4 * kvh
+
+
+def check_fold(gen: torch.Generator) -> list:
+    """K5 against fold_attend_plain, and K4's beam mode against
+    decode_attend_plain(beam_k=4), at the 7B shapes of the beam and verify
+    steps: B=4 items, H=32, Sp=623 (odd), D=128. Per-beam gen stage at K=4,
+    Sg=128 in the three cache modes (and GQA, KVH=8); shared gen stage with
+    candidates at K=4 (Sg=128) and K=8 (Sg=256). One row of the `kernels`
+    line per cache mode and stage; the times are the K=4 MHA ones. Also the
+    two beam routes against each other at B=80 items, printed only."""
+    dev = "cuda"
+    b, h, sp, d, layers = 4, 32, 623, 128, 4
+    seg = lengths_to_seg(PROMPT_LENS, sp, dev)
+    names = {"bf16": "", "kv8": "_kv8", "kv4": "_kv4"}
+    out = []
+
+    def compare(label, got, want):
+        torch.cuda.synchronize()
+        ok = within(got, want) and bool(torch.isfinite(got).all())
+        err, rel = max_abs(got, want), rel_err(got, want)
+        print(f"{label}: max_abs_err {err:.3e} rel {rel:.3e} (limits "
+              f"{KERNEL_ATOL} + {KERNEL_RTOL}*|plain|, rel {KERNEL_RTOL}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label} disagrees with its plain version")
+        return err
+
+    def layer(t, li):
+        return {key: v[li] for key, v in t.items()}
+
+    # ---- per-beam gen stage (beam search), and K4's beam mode beside it
+    k, sg = BEAMS, 128
+    steps = torch.randint(0, sg, (b * k,), generator=gen, device=dev)
+    steps[0] = 0  # a single valid gen slot
+    gen_valid = torch.arange(sg, device=dev)[None, :] <= steps[:, None]
+    live_prompt = sum(PROMPT_LENS)
+    live_gen = int((steps + 1).sum())
+    for mode in ("bf16", "kv8", "kv4"):
+        worst = {"fold": 0.0, "grid": 0.0}
+        for kvh in (32, 8):
+            q = torch.randn(b, k, h, d, generator=gen, device=dev).bfloat16()
+            q1 = q.reshape(b * k, 1, h, d)
+            pc, gc = _fold_caches(gen, mode, layers, b, b * k, kvh, sp, sg, d)
+
+            def fold(fn, li):
+                return fn(q, layer(pc, li), seg, layer(gc, li), gen_valid,
+                          fold_k=k)
+
+            def grid(li):
+                return decode_attend_layer(q1, layer(pc, li), seg,
+                                           layer(gc, li), gen_valid,
+                                           beam_k=k, beam_route="grid")
+
+            for li in (0, layers - 1):
+                want = fold(fold_attend_plain, li)
+                tag = f"B={b} K={k} H={h} KVH={kvh} Sp={sp} Sg={sg} D={d}"
+                worst["fold"] = max(worst["fold"], compare(
+                    f"fold_attn{names[mode]} {tag}",
+                    fold(fold_attend_layer, li), want))
+                want1 = decode_attend_plain(
+                    q1, layer(pc, li), seg, layer(gc, li), gen_valid,
+                    beam_k=k)
+                worst["grid"] = max(worst["grid"], compare(
+                    f"decode_attn{names[mode]}_beam {tag}", grid(li), want1))
+            if kvh != h:
+                continue
+
+            def walk(fn):
+                for li in range(layers):
+                    fn(li)
+
+            ms = device_ms(lambda: walk(
+                lambda li: fold(fold_attend_layer, li))) / layers
+            plain_ms = device_ms(lambda: walk(
+                lambda li: fold(fold_attend_plain, li))) / layers
+            grid_ms = device_ms(lambda: walk(grid)) / layers
+            grid_plain_ms = device_ms(lambda: walk(
+                lambda li: decode_attend_plain(
+                    q1, layer(pc, li), seg, layer(gc, li), gen_valid,
+                    beam_k=k))) / layers
+            # every query row meets every live key of its item and beam
+            flops = 4 * d * h * (k * live_prompt + live_gen)
+            small = 2 * tensor_bytes(q) + tensor_bytes(seg, gen_valid)
+            gen_bytes = live_gen * _cache_row_bytes(mode, kvh, d, False)
+            prompt_bytes = live_prompt * _cache_row_bytes(mode, kvh, d, True)
+            # K5 must read the prompt once per item; the function K4's beam
+            # mode computes is the same, so its bound is the same
+            lim = bound(prompt_bytes + gen_bytes + small, flops)
+            lib_ms = None
+            if mode == "bf16":
+                # the yardstick: one SDPA call at B*K rows over [prompt of
+                # the row's item | the row's gen cache] keys, repeated and
+                # concatenated outside the timed call (so it reads the
+                # prompt once per beam)
+                kcat = torch.cat([pc["k"].repeat_interleave(k, dim=1),
+                                  gc["k"]], dim=3)
+                vcat = torch.cat([pc["v"].repeat_interleave(k, dim=1),
+                                  gc["v"]], dim=3)
+                mask = torch.cat([(seg != 0).repeat_interleave(k, dim=0),
+                                  gen_valid], dim=1)[:, None, None, :]
+                qt = q1.transpose(1, 2)
+
+                def walk_sdpa():
+                    for li in range(layers):
+                        F.scaled_dot_product_attention(
+                            qt, kcat[li], vcat[li], attn_mask=mask)
+
+                got = F.scaled_dot_product_attention(
+                    qt, kcat[0], vcat[0], attn_mask=mask).transpose(1, 2)
+                compare(f"SDPA yardstick of fold_attn {tag}",
+                        got.reshape(b, k, h, d), fold(fold_attend_plain, 0))
+                lib_ms = device_ms(walk_sdpa) / layers
+                del kcat, vcat
+            lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+            print(f"fold_attn{names[mode]} time: K5 {ms:.4f} ms (plain "
+                  f"{plain_ms:.4f}), K4 beam route {grid_ms:.4f} ms (plain "
+                  f"{grid_plain_ms:.4f}), bound {lim['bound_ms']:.4f} ms by "
+                  f"{lim['bound_by']}; {(prompt_bytes + gen_bytes) / 1e6:.2f}"
+                  f" MB live caches -> K5 "
+                  f"{(prompt_bytes + gen_bytes) / ms / 1e6:.0f} GB/s; SDPA "
+                  f"at B*K rows over repeated prompt keys {lib}")
+            fold_t = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      **lim}
+            grid_t = {"ms": grid_ms, "plain_ms": grid_plain_ms,
+                      "library_ms": lib_ms, **lim}
+        out.append({"name": "fold_attn" + names[mode], "route": "cuda",
+                    "source": FOLD_SOURCE, "replaces": FOLD_REPLACES,
+                    "max_abs_err": worst["fold"], **fold_t})
+        out.append({"name": f"decode_attn{names[mode]}_beam", "route": "cuda",
+                    "source": "halva_tpu_torch/csrc/decode_attn.cu",
+                    "replaces": "halva_tpu/ops/decode_attention.py:82",
+                    "max_abs_err": worst["grid"], **grid_t})
+        del pc, gc
+
+    # ---- the two beam routes where a layer's prompt cache outgrows the L2:
+    # batch 80 (the reference's serving batch), times only, not in the
+    # `kernels` line
+    b80, k, sg, layers80 = 80, BEAMS, 128, 2
+    seg80 = lengths_to_seg(PROMPT_LENS * (b80 // len(PROMPT_LENS)), sp, dev)
+    steps = torch.randint(0, sg, (b80 * k,), generator=gen, device=dev)
+    gen_valid = torch.arange(sg, device=dev)[None, :] <= steps[:, None]
+    for mode in ("bf16", "kv4"):
+        q = torch.randn(b80, k, h, d, generator=gen, device=dev).bfloat16()
+        q1 = q.reshape(b80 * k, 1, h, d)
+        pc, gc = _fold_caches(gen, mode, layers80, b80, b80 * k, h, sp, sg, d)
+
+        def fold(li):
+            return fold_attend_layer(q, layer(pc, li), seg80, layer(gc, li),
+                                     gen_valid, fold_k=k)
+
+        def grid(li):
+            return decode_attend_layer(q1, layer(pc, li), seg80,
+                                       layer(gc, li), gen_valid, beam_k=k,
+                                       beam_route="grid")
+
+        want = fold_attend_plain(q, layer(pc, 0), seg80, layer(gc, 0),
+                                 gen_valid, fold_k=k)
+        tag = f"B={b80} K={k} H={h} KVH={h} Sp={sp} Sg={sg} D={d}"
+        compare(f"fold_attn{names[mode]} {tag}", fold(0), want)
+        compare(f"decode_attn{names[mode]}_beam {tag}",
+                grid(0).reshape(want.shape), want)
+        del want
+        ms = device_ms(lambda: [fold(li) for li in range(layers80)])
+        grid_ms = device_ms(lambda: [grid(li) for li in range(layers80)])
+        prompt_mb = (b80 // len(PROMPT_LENS) * sum(PROMPT_LENS)
+                     * _cache_row_bytes(mode, h, d, True) / 1e6)
+        print(f"fold_attn{names[mode]} at batch {b80} ({prompt_mb:.0f} MB of "
+              f"live prompt cache per layer, L2 50 MB): K5 "
+              f"{ms / layers80:.4f} ms, K4 beam route "
+              f"{grid_ms / layers80:.4f} ms")
+        del pc, gc
+
+    # ---- shared gen stage with candidates (speculative verify)
+    for mode in ("bf16", "kv8", "kv4"):
+        worst = 0.0
+        for k, sg, kvh in ((4, 128, 32), (8, 256, 32), (4, 128, 8)):
+            q = torch.randn(b, k, h, d, generator=gen, device=dev).bfloat16()
+            kc = torch.randn(b, k, kvh, d, generator=gen,
+                             device=dev).bfloat16()
+            vc = torch.randn(b, k, kvh, d, generator=gen,
+                             device=dev).bfloat16()
+            gen_len = torch.tensor([0, 37, 100, sg - k], device=dev)
+            gen_valid = torch.arange(sg, device=dev)[None, :] < gen_len[:, None]
+            pc, gc = _fold_caches(gen, mode, layers, b, b, kvh, sp, sg, d)
+
+            def fold(fn, li):
+                return fn(q, layer(pc, li), seg, layer(gc, li), gen_valid,
+                          fold_k=k, shared_gen=True, candidates=(kc, vc))
+
+            for li in (0, layers - 1):
+                worst = max(worst, compare(
+                    f"fold_attn{names[mode]}_shared B={b} K={k} H={h} "
+                    f"KVH={kvh} Sp={sp} Sg={sg} D={d}",
+                    fold(fold_attend_layer, li), fold(fold_attend_plain, li)))
+            if kvh != h:
+                continue
+
+            def walk(fn):
+                for li in range(layers):
+                    fold(fn, li)
+
+            ms = device_ms(lambda: walk(fold_attend_layer)) / layers
+            plain_ms = device_ms(lambda: walk(fold_attend_plain)) / layers
+            live_gen = int(gen_len.sum())
+            live_prompt = sum(PROMPT_LENS)
+            # query i also meets candidates j <= i: K (K + 1) / 2 per item
+            flops = 4 * d * h * (k * (live_prompt + live_gen)
+                                 + b * k * (k + 1) // 2)
+            nbytes = (live_prompt * _cache_row_bytes(mode, kvh, d, True)
+                      + live_gen * _cache_row_bytes(mode, kvh, d, False)
+                      + 2 * tensor_bytes(q) + tensor_bytes(kc, vc, seg,
+                                                           gen_valid))
+            lim = bound(nbytes, flops)
+            lib_ms = None
+            if mode == "bf16":
+                # the yardstick: one SDPA call over [prompt | gen |
+                # candidates] keys, concatenated outside the timed call
+                kcat = torch.cat([pc["k"], gc["k"], kc.transpose(1, 2)[None]
+                                  .expand(layers, b, kvh, k, d)], dim=3)
+                vcat = torch.cat([pc["v"], gc["v"], vc.transpose(1, 2)[None]
+                                  .expand(layers, b, kvh, k, d)], dim=3)
+                causal = torch.ones(k, k, dtype=torch.bool, device=dev).tril()
+                mask = torch.cat([
+                    (seg != 0)[:, None, :].expand(b, k, sp),
+                    gen_valid[:, None, :].expand(b, k, sg),
+                    causal[None].expand(b, k, k)], dim=2)[:, None]
+                qt = q.transpose(1, 2)
+
+                def walk_sdpa():
+                    for li in range(layers):
+                        F.scaled_dot_product_attention(
+                            qt, kcat[li], vcat[li], attn_mask=mask)
+
+                lib_ms = device_ms(walk_sdpa) / layers
+                del kcat, vcat
+            lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+            print(f"fold_attn{names[mode]}_shared K={k} Sg={sg} time: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA over "
+                  f"concatenated keys {lib}, bound {lim['bound_ms']:.4f} ms "
+                  f"by {lim['bound_by']}")
+            if k == BEAMS:
+                timing = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, **lim}
+            del pc, gc
+        out.append({"name": f"fold_attn{names[mode]}_shared", "route": "cuda",
+                    "source": FOLD_SOURCE, "replaces": FOLD_REPLACES,
+                    "max_abs_err": worst, **timing})
     return out
 
 
@@ -482,9 +857,9 @@ W4_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 
 def check_w4(gen: torch.Generator) -> dict:
     """K6 against w4_dense_stacked_plain at the 7B decode matmul shapes,
-    per-channel and g=128 scales, B = 4 (the smoke's batch) and 80 (the
-    reference's serving batch). The JSON line carries gate/up at B=4,
-    g=128."""
+    per-channel and g=128 scales, B = 4 (the smoke's batch), 16 and 32 (the
+    rows of 4 beams and of an 8-token verify step) and 80 (the reference's
+    serving batch). The JSON line carries gate/up at B=4, g=128."""
     dev = "cuda"
     layers = 4
     worst = 0.0
@@ -497,7 +872,7 @@ def check_w4(gen: torch.Generator) -> dict:
         for groups in (1, k // W4_GROUP):
             s = (torch.rand(layers, 2, groups, np_, generator=gen,
                             device=dev) * 0.02 + 0.005).bfloat16()
-            for b in (4, 80):
+            for b in (4, 16, 32, 80):
                 x = torch.randn(b, k, generator=gen, device=dev).bfloat16()
 
                 def call(fn, li):
@@ -522,10 +897,13 @@ def check_w4(gen: torch.Generator) -> dict:
                 plain_ms = device_ms(lambda: walk(w4_dense_stacked_plain))
                 plain_ms /= layers
                 nbytes = k * np_ + 2 * groups * np_ * 2
+                lim = bound(nbytes + tensor_bytes(x) + b * n * 2,
+                            2 * b * k * n)
                 print(f"w4_gemv B={b} K={k} N={n} G={groups}: max_abs_err "
                       f"{err:.3e} rel {rel:.3e} (limits {KERNEL_ATOL} + "
                       f"{KERNEL_RTOL}*|plain|, rel {KERNEL_RTOL}); kernel "
-                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{lim['bound_ms']:.4f} ms by {lim['bound_by']}; "
                       f"{nbytes / 1e6:.2f} MB packed weights + scales -> "
                       f"{nbytes / ms / 1e6:.0f} GB/s {'ok' if ok else 'FAIL'}")
                 if not ok:
@@ -533,12 +911,14 @@ def check_w4(gen: torch.Generator) -> dict:
                                          "version")
                 worst = max(worst, err)
                 if (k, n, groups, b) == (4096, 11008, 4096 // W4_GROUP, 4):
-                    timing = (ms, plain_ms)
+                    # no PyTorch call multiplies by packed int4 weights
+                    timing = {"ms": ms, "plain_ms": plain_ms,
+                              "library_ms": None, **lim}
         del w
     return {"name": "w4_gemv", "route": "cuda",
             "source": "halva_tpu_torch/csrc/w4_gemv.cu",
             "replaces": "halva_tpu/ops/w4_matmul.py:313",
-            "max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+            "max_abs_err": worst, **timing}
 
 
 def make_inputs(cfg):
@@ -553,7 +933,7 @@ def make_inputs(cfg):
     size = cfg.vision.image_size
     images = rng.randn(b, 3, size, size).astype(np.float32)
     lens = np.asarray(TEXT_LENS, np.int32)
-    return tuple(torch.from_numpy(x).cuda() for x in (ids, images, lens))
+    return tuple(torch.from_numpy(x).to(DEVICE) for x in (ids, images, lens))
 
 
 def run_bf16(kernels: dict) -> dict:
@@ -563,7 +943,7 @@ def run_bf16(kernels: dict) -> dict:
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    model = LlavaModel(cfg, tree.init_params(cfg, gen, torch.bfloat16, "cuda"))
+    model = LlavaModel(cfg, tree.init_params(cfg, gen, torch.bfloat16))
     params = model.params
     n_params = sum(t.numel() for _, t in tree.flatten(params))
     torch.cuda.synchronize()
@@ -685,9 +1065,10 @@ def expect_launches(launches: dict, want: dict, what: str) -> None:
         raise AssertionError(f"the {what} did not run every kernel")
 
 
-def run_int4g(q4: dict, kernels: dict) -> None:
+def run_int4g(q4: dict, kernels: dict) -> torch.Tensor:
     """The int4g serving path at full width (int4 prompt KV), a short int8
-    KV run, then the plain path beside the kernel path."""
+    KV run, then the plain path beside the kernel path. Returns the main
+    run's greedy tokens."""
     cfg = LLAVA_V15_7B
     layers = cfg.llm.num_layers
     inputs = make_inputs(cfg)
@@ -792,6 +1173,301 @@ def run_int4g(q4: dict, kernels: dict) -> None:
           f"{b} rows; logits finite {finite} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("int4g kernel path disagrees with the plain path")
+    return tokens
+
+
+def in_vocab(tokens: torch.Tensor, cfg, eos: int = -1) -> bool:
+    return bool((((tokens >= 0) & (tokens < cfg.llm.vocab_size))
+                 | (tokens == eos)).all())
+
+
+def timed_run(fn):
+    """(result, seconds, launches) of fn(), the counts set to 0 just before
+    it and read just after, the clock stopped after a synchronize."""
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(_kernels.launches)
+
+
+def record(kernels: dict, launches: dict, *names) -> None:
+    for name in names:
+        kernels[name]["launches"] = launches[name]
+
+
+def run_beam_spec_bf16(params: dict, kernels: dict) -> None:
+    """Beam search and speculative decode on the bf16 tree, short: K5's bf16
+    modes and K4's bf16 beam mode through the entry points."""
+    cfg = LLAVA_V15_7B
+    layers = cfg.llm.num_layers
+    inputs = make_inputs(cfg)
+    n = BEAM_TOKENS_BF16
+    with torch.inference_mode():
+        stats = {}
+        (tok, num), secs, launches = timed_run(lambda: generate_beam(
+            params, cfg, *inputs, max_new_tokens=n, eos_id=-1,
+            num_beams=BEAMS, stats=stats))
+        expect_launches(launches, {"flash_fwd": layers,
+                                   "fold_attn": layers * n},
+                        f"bf16 beam run ({BEAMS} beams, {n} tokens)")
+        record(kernels, launches, "fold_attn")
+        ok = (in_vocab(tok, cfg) and bool((num == n).all())
+              and bool(torch.isfinite(stats["best_scores"]).all())
+              and stats["steps"] == n)
+        print(f"bf16 beam run: {secs:.3f} s with its prefill, best scores "
+              + ", ".join(f"{x:.3f}" for x in stats["best_scores"].tolist())
+              + f"; hypotheses of {num.tolist()} tokens (budget {n}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("bf16 beam run: bad hypotheses or scores")
+
+        (tok_g, _), _, launches = timed_run(lambda: generate_beam(
+            params, cfg, *inputs, max_new_tokens=SHORT_TOKENS, eos_id=-1,
+            num_beams=BEAMS, beam_route="grid"))
+        expect_launches(launches, {"flash_fwd": layers,
+                                   "decode_attn_beam": layers * SHORT_TOKENS},
+                        "bf16 beam run on K4's beam route")
+        record(kernels, launches, "decode_attn_beam")
+        if not in_vocab(tok_g, cfg):
+            raise AssertionError("bf16 grid-route beam tokens out of range")
+
+        (tok_s, num_s, st), _, launches = timed_run(
+            lambda: generate_speculative(
+                params, cfg, *inputs, max_new_tokens=n, eos_id=-1,
+                draft_k=4))
+        expect_launches(launches, {
+            "flash_fwd": layers,
+            "fold_attn_shared": layers * st["verify_steps"]},
+            "bf16 speculative run (draft_k 4)")
+        record(kernels, launches, "fold_attn_shared")
+        ok = (in_vocab(tok_s, cfg) and bool((num_s == n).all())
+              and st["emitted_tokens"] >= st["verify_steps"] >= 1)
+        print(f"bf16 speculative run: {st} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("bf16 speculative run: bad tokens or stats")
+
+
+def _step_times(q4, cfg, inputs, tokens):
+    """Device ms, from CUDA-graph replays, of one greedy decode step, one
+    beam step on each decode-attention route with the beam loop's selection
+    and gen-cache reorder beside it, and one verify step at draft_k 4 and 8,
+    all on one int4 prompt cache of the int4g tree at gen slot 8."""
+    b = inputs[0].shape[0]
+    out = {}
+    with torch.inference_mode():
+        _, _, slen, pc, pseg = _prefill_impl(q4, cfg, *inputs,
+                                             kv_quant="int4")
+        at = 8
+
+        def decode(rows, **kw):
+            gen_cache = init_gen_cache_like(cfg.llm, rows, NEW_TOKENS, pc)
+            emb = llama.embed(q4["llm"], tokens[:, at, None]
+                              .repeat_interleave(rows // b, dim=0))
+            pos = (slen + at).repeat_interleave(rows // b)
+            return device_ms(lambda: llama.decode_step(
+                q4["llm"], cfg.llm, emb, pos, pc, pseg, gen_cache, at, **kw))
+
+        out["greedy"] = decode(b)
+        out["beam_fold"] = decode(b * BEAMS, beam_k=BEAMS)
+        out["beam_grid"] = decode(b * BEAMS, beam_k=BEAMS, beam_route="grid")
+
+        # the beam loop's other two parts at the run's shapes: the selection
+        # over random logits (so the parents are a real permutation), a few
+        # steps in, and the reorder of the whole gen cache by its parents
+        noise = torch.Generator(device=DEVICE).manual_seed(5)
+        logits = torch.randn(b * BEAMS, cfg.llm.vocab_size, generator=noise,
+                             device=DEVICE)
+        state = init_beam_state(b, BEAMS, NEW_TOKENS, slen)
+        for step in range(at):
+            state, _ = select_step(state, logits, step, -1, 1.0)
+        out["select"] = device_ms(
+            lambda: select_step(state, logits, at, -1, 1.0))
+        _, parent = select_step(state, logits, at, -1, 1.0)
+        gen_cache = init_gen_cache_like(cfg.llm, b * BEAMS, NEW_TOKENS, pc)
+        out["reorder"] = device_ms(
+            lambda: reorder_gen_cache(gen_cache, parent))
+        out["reorder_mb"] = tensor_bytes(*gen_cache.values()) / 1e6
+        del gen_cache
+        for kq in (4, SPEC_LONG[0]):
+            gen_cache = init_gen_cache_like(cfg.llm, b, sum(SPEC_LONG), pc)
+            emb = llama.embed(q4["llm"], tokens[:, at:at + kq])
+            gen_len = torch.full((b,), at, dtype=torch.int32, device=DEVICE)
+            out[f"verify_{kq}"] = device_ms(lambda: llama.verify_step(
+                q4["llm"], cfg.llm, emb, slen + at, pc, pseg, gen_cache,
+                gen_len))
+    return out
+
+
+def run_beam_spec_int4g(q4: dict, kernels: dict,
+                        greedy_tokens: torch.Tensor) -> None:
+    """Beam search (4 beams, 32 tokens) and speculative greedy decode
+    (draft_k 4 over 32 tokens, draft_k 8 over 200) on the int4g tree with an
+    int4 prompt KV cache, each beside the greedy decode of the same tree and
+    batch in this call; short runs of the int8 KV modes and of K4's beam
+    route; one verify step against the plain path."""
+    cfg = LLAVA_V15_7B
+    layers = cfg.llm.num_layers
+    inputs = make_inputs(cfg)
+    b = inputs[0].shape[0]
+    kv = dict(eos_id=-1, kv_quant="int4")
+    with torch.inference_mode():
+        _, prefill_s, _ = timed_run(lambda: _prefill_impl(
+            q4, cfg, *inputs, kv_quant="int4"))
+        (_, _), greedy_s, _ = timed_run(lambda: generate_greedy(
+            q4, cfg, *inputs, max_new_tokens=NEW_TOKENS, **kv))
+        greedy_ms = (greedy_s - prefill_s) / NEW_TOKENS * 1e3
+
+        # ---- the beam main path
+        stats = {}
+        (tok, num), beam_s, launches = timed_run(lambda: generate_beam(
+            q4, cfg, *inputs, max_new_tokens=NEW_TOKENS, num_beams=BEAMS,
+            stats=stats, **kv))
+        # per beam step: K5 once and K6 seven times per layer, at 16 rows
+        expect_launches(launches, {
+            "flash_fwd": layers, "fold_attn_kv4": layers * NEW_TOKENS,
+            "w4_gemv": 7 * layers * NEW_TOKENS},
+            f"int4g beam run ({BEAMS} beams, {NEW_TOKENS} tokens)")
+        record(kernels, launches, "fold_attn_kv4")
+        ok = (in_vocab(tok, cfg) and bool((num == NEW_TOKENS).all())
+              and bool(torch.isfinite(stats["best_scores"]).all())
+              and stats["steps"] == NEW_TOKENS)
+        beam_ms = (beam_s - prefill_s) / NEW_TOKENS * 1e3
+        print(f"int4g beam main path: {beam_ms:.3f} ms per beam step "
+              f"({BEAMS} beams x {b} items) against {greedy_ms:.3f} ms per "
+              f"greedy step of the same tree and batch in this call: ratio "
+              f"{beam_ms / greedy_ms:.3f} on the host clock; best scores "
+              + ", ".join(f"{x:.2f}" for x in stats["best_scores"].tolist())
+              + f"; hypotheses of {num.tolist()} tokens "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("int4g beam run: bad hypotheses or scores")
+
+        # ---- further modes and routes, short
+        for what, fn, want in (
+            ("int4g beam run on K4's beam route",
+             lambda: generate_beam(q4, cfg, *inputs,
+                                   max_new_tokens=SHORT_TOKENS,
+                                   num_beams=BEAMS, beam_route="grid", **kv),
+             {"decode_attn_kv4_beam": layers * SHORT_TOKENS}),
+            ("int8-KV beam run",
+             lambda: generate_beam(q4, cfg, *inputs,
+                                   max_new_tokens=SHORT_TOKENS,
+                                   num_beams=BEAMS, eos_id=-1,
+                                   kv_quant="int8"),
+             {"fold_attn_kv8": layers * SHORT_TOKENS}),
+            ("int8-KV beam run on K4's beam route",
+             lambda: generate_beam(q4, cfg, *inputs,
+                                   max_new_tokens=SHORT_TOKENS,
+                                   num_beams=BEAMS, eos_id=-1,
+                                   kv_quant="int8", beam_route="grid"),
+             {"decode_attn_kv8_beam": layers * SHORT_TOKENS}),
+        ):
+            (tok_x, _), _, launches = timed_run(fn)
+            expect_launches(launches, {
+                "flash_fwd": layers, "w4_gemv": 7 * layers * SHORT_TOKENS,
+                **want}, what)
+            record(kernels, launches, *want)
+            if not in_vocab(tok_x, cfg):
+                raise AssertionError(f"{what}: tokens out of range")
+
+        # ---- speculative greedy decode
+        # the draft_k 4 runs are the main path of their rows of the
+        # `kernels` line (whose times are the K=4 ones); the long run's
+        # launches are asserted and printed, not recorded there
+        for draft_k, n, kv_quant, name, main_path in (
+                (4, NEW_TOKENS, "int4", "fold_attn_kv4_shared", True),
+                (*SPEC_LONG, "int4", "fold_attn_kv4_shared", False),
+                (4, SHORT_TOKENS, "int8", "fold_attn_kv8_shared", True)):
+            (tok_s, num_s, st), spec_s, launches = timed_run(
+                lambda: generate_speculative(
+                    q4, cfg, *inputs, max_new_tokens=n, eos_id=-1,
+                    draft_k=draft_k, kv_quant=kv_quant))
+            steps = st["verify_steps"]
+            what = (f"int4g speculative run (draft_k {draft_k}, {n} tokens, "
+                    f"{kv_quant} KV)")
+            # per verify step: K5 shared once, K6 seven times per layer
+            expect_launches(launches, {
+                "flash_fwd": layers, name: layers * steps,
+                "w4_gemv": 7 * layers * steps}, what)
+            if main_path:
+                record(kernels, launches, name)
+            ok = (in_vocab(tok_s, cfg) and bool((num_s == n).all())
+                  and st["emitted_tokens"] >= steps >= 1)
+            line = f"{what}: {st}, {launches[name]} launches of {name}"
+            if kv_quant == "int4":
+                verify_ms = (spec_s - prefill_s) / steps * 1e3
+                ref = greedy_tokens[:, :n]
+                same = (tok_s[:, :ref.shape[1]] == ref)
+                prefix = same.int().cumprod(dim=1).sum(dim=1).tolist()
+                line += (f"; {verify_ms:.3f} ms per verify step against "
+                         f"{greedy_ms:.3f} ms per decode step (ratio "
+                         f"{verify_ms / greedy_ms:.3f}, host clock), "
+                         f"{st['emitted_tokens'] / b / steps:.3f} tokens per "
+                         "row per verify step (random weights: no finding); "
+                         f"agreement with the greedy run's tokens "
+                         f"{float(same.float().mean()):.3f} over "
+                         f"{ref.shape[1]} tokens, equal prefixes {prefix}")
+            print(line + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{what}: bad tokens or stats")
+
+    # ---- device time of one step of each kind, same cache, CUDA graphs
+    t = _step_times(q4, cfg, inputs, greedy_tokens)
+    print("int4g step device times (CUDA-graph replays, gen slot 8): greedy "
+          f"{t['greedy']:.3f} ms; beam step {t['beam_fold']:.3f} ms with K5 "
+          f"(ratio {t['beam_fold'] / t['greedy']:.3f}), "
+          f"{t['beam_grid']:.3f} ms with K4's beam route; verify step "
+          f"draft_k 4 {t['verify_4']:.3f} ms (ratio "
+          f"{t['verify_4'] / t['greedy']:.3f}), draft_k {SPEC_LONG[0]} "
+          f"{t[f'verify_{SPEC_LONG[0]}']:.3f} ms (ratio "
+          f"{t[f'verify_{SPEC_LONG[0]}'] / t['greedy']:.3f})")
+    whole = t["beam_fold"] + t["select"] + t["reorder"]
+    print(f"int4g beam loop parts on the device (a graph each): model step "
+          f"{t['beam_fold']:.3f} ms ({t['beam_fold'] / whole:.1%}), selection "
+          f"{t['select']:.3f} ms ({t['select'] / whole:.1%}), gen-cache "
+          f"reorder (index_select of {t['reorder_mb']:.1f} MB by parent beam) "
+          f"{t['reorder']:.3f} ms ({t['reorder'] / whole:.1%}); with them the"
+          f" beam step is {whole / t['greedy']:.3f} x the greedy step")
+    compare_verify(q4, cfg, inputs, greedy_tokens)
+
+
+def compare_verify(q4, cfg, inputs, tokens) -> None:
+    """One verify step's logits (draft_k 4, the greedy run's first tokens as
+    candidates, empty gen cache), kernel path (K6 at 16 rows, K5 shared)
+    against plain path, beside the noise floor: plain path with the
+    candidate embeddings perturbed by 2^-7 N(0, 1) relative."""
+    b, kq = inputs[0].shape[0], 4
+    noise = torch.Generator(device=DEVICE).manual_seed(4)
+    with torch.inference_mode():
+        _, _, slen, pc, pseg = _prefill_impl(q4, cfg, *inputs,
+                                             kv_quant="int4")
+        runs = {}
+        for run, impl in (("auto", "auto"), ("plain", "plain"),
+                          ("floor", "plain")):
+            gen_cache = init_gen_cache_like(cfg.llm, b, NEW_TOKENS, pc)
+            emb = llama.embed(q4["llm"], tokens[:, :kq])
+            if run == "floor":
+                eps = torch.randn(emb.shape, generator=noise, device=DEVICE)
+                emb = (emb.float() * (1 + 2**-7 * eps)).to(emb.dtype)
+            gen_len = torch.zeros((b,), dtype=torch.int32, device=DEVICE)
+            runs[run], _ = llama.verify_step(
+                q4["llm"], cfg.llm, emb, slen, pc, pseg, gen_cache, gen_len,
+                attn_impl=impl)
+    finite = all(bool(torch.isfinite(r).all()) for r in runs.values())
+    err = rel_err(runs["auto"], runs["plain"])
+    floor = rel_err(runs["floor"], runs["plain"])
+    agree = float((runs["auto"].argmax(-1) == runs["plain"].argmax(-1))
+                  .float().mean())
+    ok = finite and err <= TRAIN_FLOOR_FACTOR * floor
+    print(f"int4g verify step kernel vs plain path: logits rel err {err:.3e},"
+          f" noise floor {floor:.3e}, bound {TRAIN_FLOOR_FACTOR:.3f} x floor;"
+          f" argmax agreement {agree:.3f} over {kq} positions x {b} rows; "
+          f"logits finite {finite} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("verify step: kernel path disagrees with the "
+                             "plain path")
 
 
 TRAIN_B = 2  # micro-batch: 2B rows in the pos+neg forward
@@ -1000,22 +1676,27 @@ def main() -> None:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     checked = [check_flash(gen), *check_flash_bwd(gen), check_decode(gen),
-               *check_decode_quant(gen), check_w4(gen)]
+               *check_decode_quant(gen), *check_fold(gen), check_w4(gen)]
     kernels = {k["name"]: k for k in checked}
     params = run_bf16(kernels)
+    run_beam_spec_bf16(params, kernels)
     run_train(params, kernels)
     torch.cuda.empty_cache()
     q4 = quantize_int4g(params)
     del params  # the bf16 tree is freed here
     torch.cuda.empty_cache()
-    run_int4g(q4, kernels)
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] == "halva_tpu")
-    if "jax" in sys.modules or set(loaded) - {
-            "halva_tpu", "halva_tpu.config", "halva_tpu.constants"}:
-        raise AssertionError(f"JAX code was imported: {loaded}")
-    print(f"imports: no jax; from halva_tpu only the framework-free {loaded}")
-    keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms")
+    greedy_tokens = run_int4g(q4, kernels)
+    run_beam_spec_int4g(q4, kernels, greedy_tokens)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "halva_tpu"))
+    if loaded:
+        raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
+    print("imports: neither jax nor any module of the JAX package")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    idle = [kern["name"] for kern in checked if not kern.get("launches")]
+    if idle:
+        raise AssertionError(f"no main path launched {idle}")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}
                                   for kern in checked]}))
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,10 @@ import tempfile
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attn.cu", "w4_gemv.cu")
-HEADERS = ("mma_bf16.cuh",)  # included by sources; part of the build hash
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attn.cu", "fold_attn.cu",
+           "w4_gemv.cu")
+# included by sources; part of the build hash
+HEADERS = ("mma_bf16.cuh", "decode_common.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -129,12 +131,14 @@ def lib() -> ctypes.CDLL:
     cdll.halva_flash_bwd_dq_bf16.restype = i
     cdll.halva_flash_bwd_dkv_bf16.argtypes = [p] * 10 + [i] * 6 + [f, i, p]
     cdll.halva_flash_bwd_dkv_bf16.restype = i
-    cdll.halva_decode_attn_bf16.argtypes = [p] * 8 + [i] * 6 + [f, p]
+    cdll.halva_decode_attn_bf16.argtypes = [p] * 8 + [i] * 7 + [f, p]
     cdll.halva_decode_attn_bf16.restype = i
-    cdll.halva_decode_attn_kv8.argtypes = [p] * 12 + [i] * 6 + [f, p]
+    cdll.halva_decode_attn_kv8.argtypes = [p] * 12 + [i] * 7 + [f, p]
     cdll.halva_decode_attn_kv8.restype = i
-    cdll.halva_decode_attn_kv4.argtypes = [p] * 12 + [i] * 7 + [f, p]
+    cdll.halva_decode_attn_kv4.argtypes = [p] * 12 + [i] * 8 + [f, p]
     cdll.halva_decode_attn_kv4.restype = i
+    cdll.halva_fold_attn.argtypes = [i] + [p] * 14 + [i] * 9 + [f, p]
+    cdll.halva_fold_attn.restype = i
     cdll.halva_w4_gemv.argtypes = [p] * 6 + [i] * 7 + [p]
     cdll.halva_w4_gemv.restype = i
     cdll.halva_cuda_error_string.argtypes = [i]

@@ -40,215 +40,21 @@
 //   - the prompt tiles and then the generated tiles feed the same running
 //     (m, l, acc), so the merge needs no second pass; partial accumulators
 //     of the row slices are summed through shared memory at the end.
-// The caller passes the layer slice cache[li] (a view, no copy). Not done
-// yet: beam and rows modes, a split along the key axis for small B*KVH grids
-// (128 blocks at the 7B shape fill ~1 wave).
+// The caller passes the layer slice cache[li] (a view, no copy). Beam mode
+// (beam_k > 1, the reference's grid route): q, o, the gen cache and gen_valid
+// carry B * beam_k rows and row r reads prompt row r / beam_k, so the prompt
+// cache is stored once per item; each beam's block still streams it (the L2
+// may serve the repeats). fold_attn.cu reads it once per item instead. The
+// reference's rows mode is the same function as the base modes: how many
+// rows a block takes is this kernel's own tiling. Not done yet: a split
+// along the key axis for small B*KVH grids (128 blocks at the 7B shape fill
+// ~1 wave).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int NT = 256;   // threads per block
-constexpr int TK = 128;   // keys per tile
-constexpr float NEG_BIG = -1e30f;
-constexpr float M_INIT = -1e29f;  // above NEG_BIG: a masked key gets p = 0
-constexpr float LOG2E = 1.4426950408889634f;
-
-enum Fmt { BF16 = 0, I8 = 1, I4 = 2 };
-
-template <int D, int G>
-struct Smem {
-  float p[G][TK];        // logits, then probabilities, of the current tile
-  int ok[TK];            // key visible
-  float vsc[TK];         // v scale of a visible key, 0 for a masked one
-  float alpha[G];        // rescale of the running accumulator for this tile
-  float m[G], l[G];      // running max (exp2 domain) and denominator
-  float red[NT / (D / 2)][G][D];  // final sum over the row slices
-};
-
-// One span of keys of one (batch row, kv head): the prompt cache or the gen
-// cache. Exactly one of seg / valid is non-null.
-struct Span {
-  const void* k;
-  const void* v;
-  const __nv_bfloat16* ks;  // int8: token scales; int4: even-token plane
-  const __nv_bfloat16* vs;
-  long odd;                 // int4: offset of the odd-token scale plane
-  int S;                    // tokens
-  const int* seg;
-  const uint8_t* valid;
-};
-
-// signed nibble (low if sh == 0, high if sh == 4) of byte j of w
-__device__ __forceinline__ float nib(uint32_t w, int j, int sh) {
-  return (float)((int32_t)(w << (28 - 8 * j - sh)) >> 28);
-}
-
-__device__ __forceinline__ float sbyte(uint32_t w, int j) {
-  return (float)((int32_t)(w << (24 - 8 * j)) >> 24);
-}
-
-// dims lr*8 .. lr*8+7 of key token t, unscaled
-template <int D, int F>
-__device__ __forceinline__ void load_k8(const Span& s, int t, int lr,
-                                        float (&kf)[8]) {
-  if constexpr (F == BF16) {
-    const uint4 kx = *reinterpret_cast<const uint4*>(
-        static_cast<const __nv_bfloat16*>(s.k) + (long)t * D + lr * 8);
-    const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(k2[i]);
-      kf[2 * i] = f.x;
-      kf[2 * i + 1] = f.y;
-    }
-  } else {
-    const long row = F == I4 ? (t >> 1) : t;
-    const uint2 kx = *reinterpret_cast<const uint2*>(
-        static_cast<const int8_t*>(s.k) + row * D + lr * 8);
-    const int sh = (t & 1) * 4;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kf[j] = F == I4 ? nib(kx.x, j, sh) : sbyte(kx.x, j);
-      kf[4 + j] = F == I4 ? nib(kx.y, j, sh) : sbyte(kx.y, j);
-    }
-  }
-}
-
-// dims 2*dp, 2*dp+1 of value token t, unscaled
-template <int D, int F>
-__device__ __forceinline__ float2 load_v2(const Span& s, int t, int dp) {
-  if constexpr (F == BF16)
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-        static_cast<const __nv_bfloat16*>(s.v) + (long)t * D + dp * 2));
-  const long row = F == I4 ? (t >> 1) : t;
-  const uint32_t w = *reinterpret_cast<const uint16_t*>(
-      static_cast<const int8_t*>(s.v) + row * D + dp * 2);
-  if constexpr (F == I4) {
-    const int sh = (t & 1) * 4;
-    return make_float2(nib(w, 0, sh), nib(w, 1, sh));
-  }
-  return make_float2(sbyte(w, 0), sbyte(w, 1));
-}
-
-template <int F>
-__device__ __forceinline__ float tok_scale(const __nv_bfloat16* sc,
-                                           const Span& s, int t) {
-  if constexpr (F == BF16) return 1.f;
-  if constexpr (F == I4)
-    return __bfloat162float(sc[(t & 1) * s.odd + (t >> 1)]);
-  return __bfloat162float(sc[t]);
-}
-
-// One span merged into the running softmax state.
-template <int D, int G, int F>
-__device__ __forceinline__ void attend_span(const Span& s,
-                                            const float (&qreg)[G][8],
-                                            float (&acc)[G][2],
-                                            Smem<D, G>& sm) {
-  constexpr int LPR = D / 8;        // lanes per key row
-  constexpr int RPP = NT / LPR;     // key rows per pass
-  constexpr int DP = D / 2;         // dim pairs per row
-  constexpr int JG = NT / DP;       // row slices of the PV pass
-  const int tid = threadIdx.x;
-  const int lr = tid % LPR, rr = tid / LPR;
-  const int dp = tid % DP, jg = tid / DP;
-  const int warp = tid >> 5, lane = tid & 31;
-
-  for (int c0 = 0; c0 < s.S; c0 += TK) {
-    // logits of the tile's visible keys
-#pragma unroll
-    for (int r = rr; r < TK; r += RPP) {
-      const int t = c0 + r;
-      const bool ok = t < s.S && (s.seg ? s.seg[t] != 0 : s.valid[t] != 0);
-      // the scales are loaded before the row, so the two loads overlap
-      float ksc = 0.f, vsc = 0.f;
-      if (ok && lr == 0) {
-        ksc = tok_scale<F>(s.ks, s, t);
-        vsc = tok_scale<F>(s.vs, s, t);
-      }
-      float part[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) part[g] = 0.f;
-      if (ok) {
-        float kf[8];
-        load_k8<D, F>(s, t, lr, kf);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int g = 0; g < G; ++g) part[g] += qreg[g][i] * kf[i];
-      }
-#pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1)
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          part[g] += __shfl_xor_sync(0xffffffffu, part[g], off);
-      if (lr == 0) {
-        sm.ok[r] = ok;
-        sm.vsc[r] = vsc;
-#pragma unroll
-        for (int g = 0; g < G; ++g) sm.p[g][r] = ok ? part[g] * ksc : NEG_BIG;
-      }
-    }
-    __syncthreads();
-
-    // online softmax update, one warp per query head of the group; the
-    // stored weight of a key is its probability times its v scale
-    if (warp < G) {
-      const int g = warp;
-      float mx = M_INIT;
-      for (int i = lane; i < TK; i += 32) mx = fmaxf(mx, sm.p[g][i]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = sm.m[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int i = lane; i < TK; i += 32) {
-        const float p = exp2f(sm.p[g][i] - m_new);
-        sm.p[g][i] = F == BF16 ? p : p * sm.vsc[i];
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float al = exp2f(m_old - m_new);
-        sm.alpha[g] = al;
-        sm.l[g] = sm.l[g] * al + sum;
-        sm.m[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V over this thread's slice of the tile's rows
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      acc[g][0] *= sm.alpha[g];
-      acc[g][1] *= sm.alpha[g];
-    }
-    const int rows = min(TK, s.S - c0);
-#pragma unroll 4
-    for (int r = jg; r < rows; r += JG) {
-      if (!sm.ok[r]) continue;  // same branch for every thread of the row
-      const float2 vf = load_v2<D, F>(s, c0 + r, dp);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float p = sm.p[g][r];
-        acc[g][0] += p * vf.x;
-        acc[g][1] += p * vf.y;
-      }
-    }
-    __syncthreads();  // the next tile overwrites p, ok and vsc
-  }
-}
-
-template <int F>
-__host__ __device__ constexpr int row_bytes(int D) {
-  return F == BF16 ? 2 * D : D;
-}
+using namespace halva_decode;
 
 // PF / GF: prompt and gen cache formats. Sp is the true prompt length in
 // tokens, sp_rows the prompt cache's rows per head (Sp, or ceil(Sp/2) for
@@ -265,7 +71,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ vgs,
                    const uint8_t* __restrict__ gvalid,
                    __nv_bfloat16* __restrict__ o, int H, int KVH, int Sp,
-                   int sp_rows, int Sg, float scale_log2) {
+                   int sp_rows, int Sg, int beam_k, float scale_log2) {
   constexpr int LPR = D / 8;
   constexpr int DP = D / 2;
   constexpr int JG = NT / DP;
@@ -297,22 +103,31 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
 
+  // beam mode: rows b of q, o and the gen cache are beams, beam_k per item;
+  // the prompt cache, its scales and segment ids stay at item rows
+  const int bp = b / beam_k;
   const long head = (long)b * KVH + n;
+  const long phead = (long)bp * KVH + n;
   Span ps;
-  ps.k = static_cast<const char*>(kp) + head * sp_rows * row_bytes<PF>(D);
-  ps.v = static_cast<const char*>(vp) + head * sp_rows * row_bytes<PF>(D);
+  ps.k = static_cast<const char*>(kp) + phead * sp_rows * row_bytes<PF>(D);
+  ps.v = static_cast<const char*>(vp) + phead * sp_rows * row_bytes<PF>(D);
   if (PF == I4) {  // (B, 2, KVH, sp_rows): even plane, odd plane behind it
-    ps.ks = kps + ((long)b * 2 * KVH + n) * sp_rows;
-    ps.vs = vps + ((long)b * 2 * KVH + n) * sp_rows;
+    ps.ks = kps + ((long)bp * 2 * KVH + n) * sp_rows;
+    ps.vs = vps + ((long)bp * 2 * KVH + n) * sp_rows;
     ps.odd = (long)KVH * sp_rows;
   } else {
-    ps.ks = kps ? kps + head * Sp : nullptr;
-    ps.vs = vps ? vps + head * Sp : nullptr;
+    ps.ks = kps ? kps + phead * Sp : nullptr;
+    ps.vs = vps ? vps + phead * Sp : nullptr;
     ps.odd = 0;
   }
+  ps.stride = D;
   ps.S = Sp;
-  ps.seg = seg + (long)b * Sp;
+  ps.seg = seg + (long)bp * Sp;
   ps.valid = nullptr;
+  ps.row_lo = 0;
+  ps.row_hi = G;
+  ps.causal_g = 0;
+  ps.row0 = 0;
   attend_span<D, G, PF>(ps, qreg, acc, sm);
 
   Span gs;
@@ -321,9 +136,14 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   gs.ks = kgs ? kgs + head * Sg : nullptr;
   gs.vs = vgs ? vgs + head * Sg : nullptr;
   gs.odd = 0;
+  gs.stride = D;
   gs.S = Sg;
   gs.seg = nullptr;
   gs.valid = gvalid + (long)b * Sg;
+  gs.row_lo = 0;
+  gs.row_hi = G;
+  gs.causal_g = 0;
+  gs.row0 = 0;
   attend_span<D, G, GF>(gs, qreg, acc, sm);
 
   const int dp = tid % DP, jg = tid / DP;
@@ -353,7 +173,7 @@ struct Args {
   const __nv_bfloat16 *kgs, *vgs;
   const uint8_t* gv;
   __nv_bfloat16* o;
-  int H, KVH, Sp, sp_rows, Sg;
+  int H, KVH, Sp, sp_rows, Sg, beam_k;
   float sl2;
 };
 
@@ -363,7 +183,7 @@ int launch(int G, dim3 grid, cudaStream_t st, const Args& a) {
   case GG:                                                                  \
     decode_attn_kernel<D, GG, PF, GF><<<grid, NT, 0, st>>>(                 \
         a.q, a.kp, a.vp, a.kps, a.vps, a.seg, a.kg, a.vg, a.kgs, a.vgs,     \
-        a.gv, a.o, a.H, a.KVH, a.Sp, a.sp_rows, a.Sg, a.sl2);               \
+        a.gv, a.o, a.H, a.KVH, a.Sp, a.sp_rows, a.Sg, a.beam_k, a.sl2);     \
     break;
   switch (G) {
     HALVA_DECODE_CASE(1)
@@ -380,6 +200,7 @@ int launch(int G, dim3 grid, cudaStream_t st, const Args& a) {
 template <int PF, int GF>
 int run(const Args& a, int B, int D, float scale, void* stream) {
   if (B <= 0 || a.KVH <= 0 || a.H % a.KVH != 0 || a.Sp < 0 || a.Sg < 0 ||
+      a.beam_k < 1 || B % a.beam_k != 0 ||
       D != 128)  // the head dim of every supported Llama config
     return (int)cudaErrorInvalidValue;
   Args b = a;
@@ -390,19 +211,21 @@ int run(const Args& a, int B, int D, float scale, void* stream) {
 
 }  // namespace
 
-// q (B, H, D) bf16; kp/vp (B, KVH, Sp, D) bf16; seg (B, Sp) int32;
-// kg/vg (B, KVH, Sg, D) bf16; gvalid (B, Sg) bool; o (B, H, D) bf16.
-// Returns a cudaError_t.
+// q (B, H, D) bf16; kp/vp (B / beam_k, KVH, Sp, D) bf16; seg (B / beam_k, Sp)
+// int32; kg/vg (B, KVH, Sg, D) bf16; gvalid (B, Sg) bool; o (B, H, D) bf16.
+// beam_k = 1: one prompt row per query row; beam_k > 1: query row r reads
+// prompt row r / beam_k. Returns a cudaError_t.
 extern "C" int halva_decode_attn_bf16(const void* q, const void* kp,
                                       const void* vp, const void* seg,
                                       const void* kg, const void* vg,
                                       const void* gvalid, void* o, int B,
                                       int H, int KVH, int Sp, int Sg, int D,
-                                      float scale, void* stream) {
+                                      int beam_k, float scale, void* stream) {
   const Args a{static_cast<const __nv_bfloat16*>(q), kp, vp, nullptr,
                nullptr, static_cast<const int*>(seg), kg, vg, nullptr,
                nullptr, static_cast<const uint8_t*>(gvalid),
-               static_cast<__nv_bfloat16*>(o), H, KVH, Sp, Sp, Sg, 0.f};
+               static_cast<__nv_bfloat16*>(o), H, KVH, Sp, Sp, Sg, beam_k,
+               0.f};
   return run<BF16, BF16>(a, B, D, scale, stream);
 }
 
@@ -412,7 +235,8 @@ extern "C" int halva_decode_attn_kv8(
     const void* q, const void* kp, const void* vp, const void* kps,
     const void* vps, const void* seg, const void* kg, const void* vg,
     const void* kgs, const void* vgs, const void* gvalid, void* o, int B,
-    int H, int KVH, int Sp, int Sg, int D, float scale, void* stream) {
+    int H, int KVH, int Sp, int Sg, int D, int beam_k, float scale,
+    void* stream) {
   const Args a{static_cast<const __nv_bfloat16*>(q), kp, vp,
                static_cast<const __nv_bfloat16*>(kps),
                static_cast<const __nv_bfloat16*>(vps),
@@ -420,7 +244,8 @@ extern "C" int halva_decode_attn_kv8(
                static_cast<const __nv_bfloat16*>(kgs),
                static_cast<const __nv_bfloat16*>(vgs),
                static_cast<const uint8_t*>(gvalid),
-               static_cast<__nv_bfloat16*>(o), H, KVH, Sp, Sp, Sg, 0.f};
+               static_cast<__nv_bfloat16*>(o), H, KVH, Sp, Sp, Sg, beam_k,
+               0.f};
   return run<I8, I8>(a, B, D, scale, stream);
 }
 
@@ -431,7 +256,7 @@ extern "C" int halva_decode_attn_kv4(
     const void* q, const void* kp, const void* vp, const void* kps,
     const void* vps, const void* seg, const void* kg, const void* vg,
     const void* kgs, const void* vgs, const void* gvalid, void* o, int B,
-    int H, int KVH, int Sp, int Sp2, int Sg, int D, float scale,
+    int H, int KVH, int Sp, int Sp2, int Sg, int D, int beam_k, float scale,
     void* stream) {
   if (Sp2 != (Sp + 1) / 2) return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const __nv_bfloat16*>(q), kp, vp,
@@ -441,6 +266,7 @@ extern "C" int halva_decode_attn_kv4(
                static_cast<const __nv_bfloat16*>(kgs),
                static_cast<const __nv_bfloat16*>(vgs),
                static_cast<const uint8_t*>(gvalid),
-               static_cast<__nv_bfloat16*>(o), H, KVH, Sp, Sp2, Sg, 0.f};
+               static_cast<__nv_bfloat16*>(o), H, KVH, Sp, Sp2, Sg, beam_k,
+               0.f};
   return run<I4, I8>(a, B, D, scale, stream);
 }

@@ -1,16 +1,17 @@
-"""Batched evaluation generation, single-device greedy path.
+"""Batched evaluation generation, single-device deterministic decode.
 
 Counterpart of halva_tpu/evals/runner.py's BatchedGenerator for greedy
-decode: prompts are tokenized with the conversation template, sorted by
+decode, beam search (`num_beams`) and speculative greedy decode (`spec_k`):
+prompts are tokenized with the conversation template, sorted by
 length, batched, right-padded to a bucket, and tail batches are filled with
 dead rows (prompt length 0, zero image) that the decode marks done at step
 0. Answers are written as JSONL rows with the reference's schema.
 
 Quantized trees (int8, int4) and quantized KV caches (`kv_quant`) run.
-Not ported yet (they raise NotImplementedError): sampling, beam search,
-device meshes, continuous batching, speculative decode and the prefetch
-pool. PIL and halva_tpu.mm_utils are imported where an image or a prompt
-is processed, so importing this module needs neither.
+Not ported yet (they raise NotImplementedError): sampling, device meshes,
+continuous batching and the prefetch pool. PIL and mm_utils are imported
+where an image or a prompt is processed, so importing this module needs
+neither.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ import torch
 
 from halva_tpu_torch import tree
 from halva_tpu_torch.config import LlavaConfig
+from halva_tpu_torch.ops.beam import generate_beam
 from halva_tpu_torch.ops.generate import decode_tokens, generate_greedy
+from halva_tpu_torch.ops.speculative import generate_speculative
 
 CHAIR_PROMPT = "Describe the image in detail."
 
@@ -43,8 +46,8 @@ class EvalRequest:
 def build_prompt(text: str, template_name: str = "v1",
                  mm_use_im_start_end: bool = False,
                  with_image: bool = True) -> str:
-    from halva_tpu.constants import DEFAULT_IMAGE_TOKEN
-    from halva_tpu.conversation import get_template
+    from halva_tpu_torch.constants import DEFAULT_IMAGE_TOKEN
+    from halva_tpu_torch.conversation import get_template
 
     qs = text
     if with_image:
@@ -56,8 +59,10 @@ def build_prompt(text: str, template_name: str = "v1",
 
 
 class BatchedGenerator:
-    """Length-bucketed batched greedy decode over a prepared model. The
-    device is the device of the params' LLM tensors."""
+    """Length-bucketed batched decode over a prepared model: greedy, beam
+    search (num_beams > 1, HF semantics) or speculative greedy (spec_k >= 2,
+    the verify width). The device is the device of the params' LLM
+    tensors."""
 
     def __init__(
         self,
@@ -72,12 +77,26 @@ class BatchedGenerator:
         prompt_bucket: int = 64,
         attn_impl: str = "auto",
         kv_quant=False,  # False | True | "int8" | "int4"
+        num_beams: int = 1,
+        length_penalty: float = 1.0,
+        spec_k: int = 0,  # >= 2: speculative greedy decode
         **unported,
     ):
         if unported:
             raise NotImplementedError(
                 f"BatchedGenerator: {sorted(unported)} not ported yet "
-                "(ROADMAP queue 1: the port runs greedy single-device decode)"
+                "(ROADMAP queue 1: the port runs deterministic single-device "
+                "decode: greedy, beams, speculative)"
+            )
+        if spec_k >= 2 and num_beams > 1:
+            raise ValueError(
+                "spec_k is single-device greedy decode (ops/speculative.py); "
+                "drop num_beams"
+            )
+        if spec_k == 1 or spec_k < 0 or num_beams < 1:
+            raise ValueError(
+                f"spec_k must be 0 or >= 2 and num_beams >= 1, got "
+                f"spec_k={spec_k} num_beams={num_beams}"
             )
         self.params = params
         self.cfg = cfg
@@ -90,6 +109,9 @@ class BatchedGenerator:
         self.bucket = prompt_bucket
         self.attn_impl = attn_impl
         self.kv_quant = kv_quant
+        self.num_beams = num_beams
+        self.length_penalty = length_penalty
+        self.spec_k = spec_k
         self.eos_id = tokenizer.eos_token_id
         # any tensor leaf: a quantized tree has embedding_q, not embedding
         self.device = next(t for _, t in tree.flatten(params["llm"])
@@ -97,7 +119,7 @@ class BatchedGenerator:
         self.last_stats: Dict = {}
 
     def _tokenize(self, req: EvalRequest) -> List[int]:
-        from halva_tpu.mm_utils import tokenizer_image_token
+        from halva_tpu_torch.mm_utils import tokenizer_image_token
 
         prompt = build_prompt(
             req.text,
@@ -115,7 +137,7 @@ class BatchedGenerator:
             return np.zeros((3, sz, sz), np.float32)
         from PIL import Image
 
-        from halva_tpu.mm_utils import process_images
+        from halva_tpu_torch.mm_utils import process_images
 
         with Image.open(req.image_path) as im:
             img = im.convert("RGB")
@@ -143,32 +165,46 @@ class BatchedGenerator:
         requests: Sequence[EvalRequest],
         on_result: Optional[Callable[[EvalRequest, str], None]] = None,
     ) -> List[str]:
-        """Greedy-decode all requests; returns the text of each, in input
-        order. Timing lands in self.last_stats."""
-        from halva_tpu.conversation import get_template
+        """Decode all requests; returns the text of each, in input order.
+        Timing (and the speculative counts) land in self.last_stats."""
+        from halva_tpu_torch.conversation import get_template
 
         ids_all = [self._tokenize(r) for r in requests]
         order = sorted(range(len(requests)), key=lambda i: len(ids_all[i]))
         results: List[str] = [""] * len(requests)
         stop = get_template(self.template).stop_str()
         host_s = device_s = 0.0
+        spec_steps = spec_emitted = 0
         for s in range(0, len(order), self.batch_size):
             idxs = order[s : s + self.batch_size]
             t0 = time.perf_counter()
             batch_ids, imgs, lens = self._build_batch(requests, ids_all, idxs)
             t1 = time.perf_counter()
+            args = (
+                self.params,
+                self.cfg,
+                torch.from_numpy(batch_ids).to(self.device),
+                torch.from_numpy(imgs).to(self.device),
+                torch.from_numpy(lens).to(self.device),
+            )
+            kwargs = dict(
+                max_new_tokens=self.max_new_tokens,
+                eos_id=self.eos_id,
+                attn_impl=self.attn_impl,
+                kv_quant=self.kv_quant,
+            )
             with torch.inference_mode():
-                tokens, num = generate_greedy(
-                    self.params,
-                    self.cfg,
-                    torch.from_numpy(batch_ids).to(self.device),
-                    torch.from_numpy(imgs).to(self.device),
-                    torch.from_numpy(lens).to(self.device),
-                    max_new_tokens=self.max_new_tokens,
-                    eos_id=self.eos_id,
-                    attn_impl=self.attn_impl,
-                    kv_quant=self.kv_quant,
-                )
+                if self.spec_k >= 2:
+                    tokens, num, sstats = generate_speculative(
+                        *args, draft_k=self.spec_k, **kwargs)
+                    spec_steps += sstats["verify_steps"]
+                    spec_emitted += sstats["emitted_tokens"]
+                elif self.num_beams > 1:
+                    tokens, num = generate_beam(
+                        *args, num_beams=self.num_beams,
+                        length_penalty=self.length_penalty, **kwargs)
+                else:
+                    tokens, num = generate_greedy(*args, **kwargs)
             tokens = tokens.cpu().numpy()  # host readback = fence
             host_s += t1 - t0
             device_s += time.perf_counter() - t1
@@ -183,6 +219,9 @@ class BatchedGenerator:
             "host_ms_per_img": host_s / n * 1e3,
             "device_ms_per_img": device_s / n * 1e3,
         }
+        if self.spec_k >= 2:
+            self.last_stats["spec_verify_steps"] = spec_steps
+            self.last_stats["spec_emitted_tokens"] = spec_emitted
         return results
 
 

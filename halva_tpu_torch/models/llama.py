@@ -11,10 +11,13 @@ W8A8 or weight dequant) and packed int4 (`kernel_q4p`), int8 embeddings,
 RMSNorm / bias-free LayerNorm, RoPE (HF half-split, fp32 tables, linear
 scaling), the forward (with per-layer rematerialisation for training),
 prefill into a bf16, int8 or int4 prompt cache, and the KV-cached decode
-step over a bf16 or int8 gen cache. An int4 tree decodes through
-`_decode_step_w4` (K6 for every layer matmul, K4 for attention).
+step over a bf16 or int8 gen cache, with `beam_k` beams per item against
+an item-row prompt cache, and the K-token speculative verify step
+(`verify_step`, K5's shared gen stage). An int4 tree decodes through
+`_decode_step_w4`, and verifies, through K6 for every layer matmul and K4
+or K5 for attention.
 Not ported yet (each raises NotImplementedError naming its ROADMAP slice):
-NF4 weights, ALiBi, sliding window, tensor parallelism and beams.
+NF4 weights, ALiBi, sliding window and tensor parallelism.
 
 Shapes: B batch, S sequence, D hidden, H heads, Dh head dim, V vocab.
 """
@@ -33,6 +36,8 @@ from halva_tpu_torch.ops.attention import attention
 from halva_tpu_torch.ops.decode_attention import (
     decode_attend_layer,
     decode_attend_plain,
+    fold_attend_layer,
+    fold_attend_plain,
 )
 from halva_tpu_torch.ops.w4_matmul import (
     dequantize_int4,
@@ -320,7 +325,7 @@ def init_gen_cache(
     batch: int,
     max_new: int,
     dtype=torch.bfloat16,
-    device="cpu",
+    device="cuda",
     quantized: bool = False,
 ) -> Params:
     """Zeroed gen cache (L, B, KVH, Sg, Dh); quantized: int8 values with
@@ -461,11 +466,15 @@ def _layer_cache(cache: Params, li: int) -> Params:
     return {key: t[li] for key, t in cache.items()}
 
 
-def _decode_attend(q, prompt_l, prompt_seg, gen_l, gen_valid, attn_impl):
-    """K4 (ops/decode_attention.py) unless attn_impl is "plain"."""
+def _decode_attend(q, prompt_l, prompt_seg, gen_l, gen_valid, attn_impl,
+                   beam_k=1, beam_route="fold"):
+    """K4, or K5 for beams (ops/decode_attention.py), unless attn_impl is
+    "plain"."""
     if attn_impl == "plain":
-        return decode_attend_plain(q, prompt_l, prompt_seg, gen_l, gen_valid)
-    return decode_attend_layer(q, prompt_l, prompt_seg, gen_l, gen_valid)
+        return decode_attend_plain(q, prompt_l, prompt_seg, gen_l, gen_valid,
+                                   beam_k)
+    return decode_attend_layer(q, prompt_l, prompt_seg, gen_l, gen_valid,
+                               beam_k, beam_route)
 
 
 def decode_step(
@@ -478,14 +487,24 @@ def decode_step(
     gen_cache: Params,  # (L, B, KVH, Sg, Dh) leaves, updated in place
     step: int,  # decode step = gen slot to write
     attn_impl: str = "auto",
+    beam_k: int = 1,
+    beam_route: str = "fold",
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step: (fp32 logits (B, V), gen cache). The new token's KV
     goes to gen slot `step` (lockstep across rows); its RoPE position is
     per-row `positions`. Attention goes through K4 for CUDA tensors; a
     packed-int4 tree takes `_decode_step_w4`. attn_impl="plain" takes the
-    plain versions of the kernels instead."""
+    plain versions of the kernels instead.
+
+    beam_k > 1 (ops/beam.py): token_embeds, positions and the gen cache carry
+    B*K beam rows while the prompt cache and prompt_seg stay at B item rows;
+    row r attends prompt row r // K, through K5 (beam_route "fold") or K4's
+    beam mode ("grid")."""
     _check_supported(cfg)
     b = token_embeds.shape[0]
+    if beam_k < 1 or b % beam_k or prompt_seg.shape[0] * beam_k != b:
+        raise ValueError(f"decode_step: {b} rows are not beam_k={beam_k} "
+                         f"beams of {prompt_seg.shape[0]} prompt rows")
     h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_size
     sg = gen_cache["k"].shape[3]
     cos, sin = rope_cos_sin(positions[:, None], dh, cfg.rope_theta,
@@ -496,7 +515,7 @@ def decode_step(
     if "kernel_q4p" in params["layers"]["attn"]["wq"]:
         return _decode_step_w4(params, cfg, token_embeds, prompt_cache,
                                prompt_seg, gen_cache, step, cos, sin,
-                               gen_valid, attn_impl)
+                               gen_valid, attn_impl, beam_k, beam_route)
     x = token_embeds
     for li in range(cfg.num_layers):
         lp = layer_slice(params["layers"], li)
@@ -508,7 +527,7 @@ def decode_step(
         _write_gen(gen_cache, k, v, li, step)
         out = _decode_attend(q, _layer_cache(prompt_cache, li), prompt_seg,
                              _layer_cache(gen_cache, li), gen_valid,
-                             attn_impl)
+                             attn_impl, beam_k, beam_route)
         x = x + dense(out.reshape(b, 1, h * dh), ap["wo"])
         x = x + _mlp(cfg, _norm(cfg, x, lp["post_attn_norm"]["scale"]),
                      lp["mlp"])
@@ -517,11 +536,12 @@ def decode_step(
 
 
 def _decode_step_w4(params, cfg, token_embeds, prompt_cache, prompt_seg,
-                    gen_cache, step, cos, sin, gen_valid, attn_impl):
+                    gen_cache, step, cos, sin, gen_valid, attn_impl,
+                    beam_k=1, beam_route="fold"):
     """decode_step over packed-int4 layer stacks: all 7 layer matmuls go
     through K6 (ops/w4_matmul.w4_dense_stacked) on (B, K) rows and
-    attention through K4, each on its layer slice (a view). Layer biases
-    are not read, as in the reference. attn_impl="plain" takes both
+    attention through K4 (K5 for beams), each on its layer slice (a view).
+    Layer biases are not read, as in the reference. attn_impl="plain" takes both
     kernels' plain versions."""
     mm = w4_dense_stacked_plain if attn_impl == "plain" else w4_dense_stacked
     act = _mlp_act(cfg)
@@ -538,7 +558,7 @@ def _decode_step_w4(params, cfg, token_embeds, prompt_cache, prompt_seg,
         _write_gen(gen_cache, k, v, li, step)
         out = _decode_attend(q, _layer_cache(prompt_cache, li), prompt_seg,
                              _layer_cache(gen_cache, li), gen_valid,
-                             attn_impl)
+                             attn_impl, beam_k, beam_route)
         x = x + mm(out.reshape(b, h * dh), ap["wo"])[:, None]
         y2 = _norm(cfg, x, lp["post_attn_norm"]["scale"])[:, 0]
         if cfg.gated_mlp:
@@ -548,3 +568,113 @@ def _decode_step_w4(params, cfg, token_embeds, prompt_cache, prompt_seg,
         x = x + mlp[:, None]
     hidden = _norm(cfg, x, params["final_norm"]["scale"])
     return lm_logits(params, cfg, hidden)[:, 0], gen_cache
+
+
+# --------------------------------------------------------------------------
+# Speculative verification: K candidate tokens per row in one pass.
+# --------------------------------------------------------------------------
+
+
+def write_gen_candidates(gen: Params, kc: torch.Tensor, vc: torch.Tensor,
+                         gen_len: torch.Tensor) -> None:
+    """Write all K candidate KVs of every layer, kc / vc (L, B, K, KVH, Dh),
+    at per-row slots gen_len[b] .. gen_len[b] + K - 1 of the head-major
+    (L, B, KVH, Sg, Dh) gen cache, in place, quantized when the cache is
+    int8: one indexed write per leaf and verify step. A window that would
+    run past the cache is moved back to end at its last slot, as the
+    reference's `dynamic_update_slice` clamps its start (only rows past
+    their budget get there). Rejected candidates need no rollback: validity
+    derives from gen_len, and the next step's window covers their slots."""
+    nl, b, kq = kc.shape[:3]
+    sg = gen["k"].shape[3]
+    if kq > sg:
+        raise ValueError(f"{kq} candidates do not fit a {sg}-slot gen cache")
+    dev = kc.device
+    start = gen_len.long().clamp(0, sg - kq)
+    slots = start[:, None] + torch.arange(kq, device=dev)  # (B, K)
+    rows = torch.arange(b, device=dev)[:, None].expand(b, kq)
+    for name, t in (("k", kc), ("v", vc)):
+        # the two index tensors lead the result: (B, K, L, KVH[, Dh])
+        if "k_scale" in gen:
+            q, sc = _quantize_kv(t)
+            gen[name][:, rows, :, slots] = q.permute(1, 2, 0, 3, 4)
+            gen[name + "_scale"][:, rows, :, slots] = sc.permute(1, 2, 0, 3)
+        else:
+            gen[name][:, rows, :, slots] = t.permute(1, 2, 0, 3, 4).to(
+                gen[name].dtype)
+
+
+def _verify_attend(q, prompt_l, prompt_seg, gen_l, gen_valid, k, v,
+                   attn_impl):
+    """K5's shared gen stage (ops/decode_attention.py) unless attn_impl is
+    "plain"."""
+    fold = fold_attend_plain if attn_impl == "plain" else fold_attend_layer
+    return fold(q, prompt_l, prompt_seg, gen_l, gen_valid, q.shape[1],
+                shared_gen=True, candidates=(k, v))
+
+
+def verify_step(
+    params: Params,
+    cfg: LlamaConfig,
+    token_embeds: torch.Tensor,  # (B, K, D) [cur, draft_1 .. draft_{K-1}]
+    positions: torch.Tensor,  # (B,) absolute position of token 0
+    prompt_cache: Params,
+    prompt_seg: torch.Tensor,  # (B, Sp)
+    gen_cache: Params,  # updated in place
+    gen_len: torch.Tensor,  # (B,) valid gen-cache slots
+    attn_impl: str = "auto",
+) -> Tuple[torch.Tensor, Params]:
+    """Score K candidate tokens per row in one pass over the model
+    (ops/speculative.py drives it): (fp32 logits (B, K, V), position i's
+    next-token logits, and the gen cache with all K candidates' KV written
+    at slots gen_len .. gen_len + K - 1; the caller advances gen_len by the
+    accepted count only). Query i attends the prompt, the gen slots below
+    gen_len and the candidates j <= i, whose K/V never pass through the
+    cache (K5, shared gen stage). On a packed-int4 tree every layer matmul
+    goes through K6 at B*K rows and layer biases are not read (the
+    reference's `_verify_step_w4`); attn_impl="plain" takes the kernels'
+    plain versions."""
+    _check_supported(cfg)
+    b, kq, _ = token_embeds.shape
+    h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_size
+    sg = gen_cache["k"].shape[3]
+    dev = token_embeds.device
+    pos_k = positions[:, None] + torch.arange(kq, device=dev)[None, :]
+    cos, sin = rope_cos_sin(pos_k, dh, cfg.rope_theta, cfg.rope_scaling)
+    gen_valid = torch.arange(sg, device=dev)[None, :] < gen_len[:, None]
+    w4 = "kernel_q4p" in params["layers"]["attn"]["wq"]
+    mm = w4_dense_stacked_plain if attn_impl == "plain" else w4_dense_stacked
+    act = _mlp_act(cfg)
+
+    def proj(y, p):  # K6 over the (B*K, in) rows of a packed-int4 stack
+        if w4:
+            return mm(y.reshape(b * kq, -1), p).reshape(b, kq, -1)
+        return dense(y, p)
+
+    x = token_embeds
+    kcs, vcs = [], []
+    for li in range(cfg.num_layers):
+        lp = layer_slice(params["layers"], li)
+        ap, mp = lp["attn"], lp["mlp"]
+        y = _norm(cfg, x, lp["input_norm"]["scale"])
+        q = apply_rope(proj(y, ap["wq"]).reshape(b, kq, h, dh), cos, sin)
+        k = apply_rope(proj(y, ap["wk"]).reshape(b, kq, kvh, dh), cos, sin)
+        v = proj(y, ap["wv"]).reshape(b, kq, kvh, dh)
+        out = _verify_attend(q, _layer_cache(prompt_cache, li), prompt_seg,
+                             _layer_cache(gen_cache, li), gen_valid, k, v,
+                             attn_impl)
+        x = x + proj(out.reshape(b, kq, h * dh), ap["wo"])
+        y = _norm(cfg, x, lp["post_attn_norm"]["scale"])
+        if cfg.gated_mlp:
+            mlp = proj(act(proj(y, mp["gate"])) * proj(y, mp["up"]),
+                       mp["down"])
+        else:
+            mlp = proj(act(proj(y, mp["up"])), mp["down"])
+        x = x + mlp
+        kcs.append(k)
+        vcs.append(v)
+    hidden = _norm(cfg, x, params["final_norm"]["scale"])
+    logits = lm_logits(params, cfg, hidden)  # (B, K, V) fp32
+    write_gen_candidates(gen_cache, torch.stack(kcs), torch.stack(vcs),
+                         gen_len)
+    return logits, gen_cache

@@ -15,7 +15,8 @@ import torch
 from torch import nn
 
 from halva_tpu_torch import tree
-from halva_tpu_torch.config import IGNORE_INDEX, IMAGE_TOKEN_INDEX, LlavaConfig
+from halva_tpu_torch.config import LlavaConfig
+from halva_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from halva_tpu_torch.models import llama, projector, vit
 
 Params = Dict[str, Any]

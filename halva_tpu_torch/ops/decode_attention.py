@@ -1,4 +1,5 @@
-"""K4: fused decode attention (CUDA, csrc/decode_attn.cu) and its plain version.
+"""K4 and K5: fused decode attention (CUDA, csrc/decode_attn.cu and
+csrc/fold_attn.cu) and their plain versions.
 
 Counterpart of halva_tpu/ops/decode_attention.py. One query per row attends
 the layer's prompt cache (keys with segment id != 0) and its generated-token
@@ -22,11 +23,26 @@ counter per mode: decode_attn, decode_attn_kv8, decode_attn_kv4) and uses
 raises. Rows with no visible key: the kernel gives 0 (as the Pallas kernel),
 the plain version a uniform average (as llama._decode_attend); no caller
 reads such rows.
+
+Beams (`beam_k` > 1): q, the gen cache and gen_valid carry B*K rows while
+the prompt cache, its scales and segment ids stay at B item rows; row r
+reads prompt row r // K. By default the K beams of an item fold into one
+K5 launch (`fold_attend_layer`, per-beam gen stage), which reads the
+item's prompt cache once; `beam_route="grid"` keeps K4's own beam mode
+(counters decode_attn*_beam), which reads it once per beam.
+
+K5, `fold_attend_layer`: K queries per item, (B, K, H, Dh), against the
+item's prompt cache, then either each beam's own gen cache row (beam
+search) or, with `shared_gen`, one gen cache row per item plus K fresh
+candidate keys and values attended causally (speculative verify). Counters
+fold_attn, fold_attn_kv8, fold_attn_kv4 and the same with `_shared`. Its
+plain version, `fold_attend_plain`, gives 0 for a row with no visible key,
+as the kernel does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +52,10 @@ from halva_tpu_torch import _kernels
 KERNEL = "decode_attn"
 KERNEL_KV8 = "decode_attn_kv8"
 KERNEL_KV4 = "decode_attn_kv4"
+BEAM_SUFFIX = "_beam"  # K4's beam mode counts under <mode>_beam
+FOLD = {KERNEL: "fold_attn", KERNEL_KV8: "fold_attn_kv8",
+        KERNEL_KV4: "fold_attn_kv4"}  # K5's counter of each cache mode
+SHARED_SUFFIX = "_shared"  # K5's shared gen stage counts under <mode>_shared
 NEG_INF = -1e30
 
 Cache = Dict[str, torch.Tensor]
@@ -80,16 +100,26 @@ def decode_attend_plain(
     prompt_seg: torch.Tensor,  # (B, Sp) 0 = invalid
     gen_cache_l: Cache,
     gen_valid: torch.Tensor,  # (B, Sg) bool
+    beam_k: int = 1,
 ) -> torch.Tensor:
-    """The semantics of halva_tpu.models.llama._decode_attend: cache values
+    """The semantics of `_decode_attend` in halva_tpu/models/llama.py: cache values
     convert to q's dtype without their scale, fp32 logits times the k scale,
     one fp32 softmax over the concatenated prompt + gen logits,
     probabilities times the v scale rounded to q's dtype before PV, fp32 PV
     sums. An int4 prompt attends in even/odd token order, as the
     reference's generic decode scan does. Masked keys are selected out, so
-    their scales are never read into the result."""
+    their scales are never read into the result. beam_k > 1: q and the
+    gen side carry B*K rows, the prompt side B rows, and row r attends
+    prompt row r // K (here by repeating the prompt rows)."""
     b, _, h, dh = q.shape
     kp, vp, kps, vps, seg = _prompt_view(prompt_cache_l, prompt_seg)
+    if beam_k > 1:
+        if kp.shape[0] * beam_k != b:
+            raise ValueError(f"beam_k={beam_k}: q has {b} rows, the prompt "
+                             f"cache {kp.shape[0]}")
+        kp, vp, kps, vps, seg = (
+            None if t is None else t.repeat_interleave(beam_k, dim=0)
+            for t in (kp, vp, kps, vps, seg))
     kg, vg = gen_cache_l["k"], gen_cache_l["v"]
     kgs, vgs = gen_cache_l.get("k_scale"), gen_cache_l.get("v_scale")
     kvh, sp = kp.shape[1], kp.shape[2]
@@ -121,6 +151,85 @@ def decode_attend_plain(
     return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
+def fold_attend_plain(
+    q: torch.Tensor,  # (B, K, H, Dh)
+    prompt_cache_l: Cache,  # B item rows
+    prompt_seg: torch.Tensor,  # (B, Sp)
+    gen_cache_l: Cache,  # B*K rows, or B rows with shared_gen
+    gen_valid: torch.Tensor,  # (B*K, Sg) or (B, Sg) bool
+    fold_k: int,
+    shared_gen: bool = False,
+    candidates: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """K queries per item in one softmax over [prompt | gen | candidates].
+    Per-beam gen stage: query (b, j) attends gen row b*K + j, the semantics
+    of `_decode_attend` with `beam_k` in halva_tpu/models/llama.py. Shared
+    gen stage: one gen row per item, and query i attends the fresh
+    candidates j <= i (kc, vc (B, K, KVH, Dh), never read from the cache),
+    the semantics of `_verify_attend` there. The arithmetic is
+    `decode_attend_plain`'s; a row with no visible key gives 0."""
+    b, kq, h, dh = q.shape
+    if kq != fold_k:
+        raise ValueError(f"fold_k={fold_k} but q has {kq} queries per item")
+    if candidates is not None and not shared_gen:
+        raise ValueError("candidates come with shared_gen (speculative "
+                         "verify); beams keep their tokens in the gen cache")
+    kp, vp, kps, vps, seg = _prompt_view(prompt_cache_l, prompt_seg)
+    kg, vg = gen_cache_l["k"], gen_cache_l["v"]
+    kgs, vgs = gen_cache_l.get("k_scale"), gen_cache_l.get("v_scale")
+    kvh, sp, sg = kp.shape[1], kp.shape[2], kg.shape[2]
+    gb = 1 if shared_gen else kq
+    if kp.shape[0] != b or kg.shape[0] != b * gb or gen_valid.shape != (
+            b * gb, sg):
+        raise ValueError(
+            f"fold_attend: q {tuple(q.shape)} needs {b} prompt rows and "
+            f"{b * gb} gen rows, got {kp.shape[0]} and {kg.shape[0]} (valid "
+            f"{tuple(gen_valid.shape)})")
+    q5 = q.reshape(b, kq, kvh, h // kvh, dh).float()
+
+    def values(t):  # the cache as q's dtype would hold it, computed in fp32
+        return t.to(q.dtype).float()
+
+    def per_query(t):  # gen-side (B*gb, ...) -> (B, gb, ...), gb = K or 1
+        return None if t is None else t.reshape(b, gb, *t.shape[1:])
+
+    scale = dh**-0.5
+    lp = torch.einsum("bqngd,bnsd->bqngs", q5, values(kp)) * scale
+    if kps is not None:
+        lp = lp * kps.float()[:, None, :, None, :]
+    lg = torch.einsum("bqngd,bqnsd->bqngs", q5,
+                      values(per_query(kg)).expand(b, kq, kvh, sg, dh)) * scale
+    if kgs is not None:
+        lg = lg * per_query(kgs).float()[:, :, :, None, :]
+    live_p = (seg != 0)[:, None, None, None, :]
+    live_g = per_query(gen_valid)[:, :, None, None, :]
+    parts = [lp.masked_fill(~live_p, NEG_INF), lg.masked_fill(~live_g, NEG_INF)]
+    live_any = live_p.any(-1) | live_g.any(-1)
+    if candidates is not None:
+        kc, vc = candidates
+        lc = torch.einsum("bqngd,bjnd->bqngj", q5, values(kc)) * scale
+        idx = torch.arange(kq, device=q.device)
+        causal = (idx[:, None] >= idx[None, :])[None, :, None, None, :]
+        parts.append(lc.masked_fill(~causal, NEG_INF))
+        live_any = live_any | True
+    probs = torch.softmax(torch.cat(parts, dim=-1), dim=-1)
+    pp, pg, pc = probs[..., :sp], probs[..., sp:sp + sg], probs[..., sp + sg:]
+    # select, not multiply: a masked key's scale may hold anything
+    if vps is not None:
+        pp = torch.where(live_p, pp * vps.float()[:, None, :, None, :], 0.0)
+    if vgs is not None:
+        pg = torch.where(live_g,
+                         pg * per_query(vgs).float()[:, :, :, None, :], 0.0)
+    out = torch.einsum("bqngs,bnsd->bqngd", values(pp), values(vp))
+    out = out + torch.einsum(
+        "bqngs,bqnsd->bqngd", values(pg),
+        values(per_query(vg)).expand(b, kq, kvh, sg, dh))
+    if candidates is not None:
+        out = out + torch.einsum("bqngj,bjnd->bqngd", values(pc), values(vc))
+    out = torch.where(live_any[..., None], out, 0.0)
+    return out.reshape(b, kq, h, dh).to(q.dtype)
+
+
 def _mode(prompt_cache_l: Cache, gen_cache_l: Cache) -> str:
     gen8 = "k_scale" in gen_cache_l
     if "k4" in prompt_cache_l and gen8:
@@ -131,26 +240,20 @@ def _mode(prompt_cache_l: Cache, gen_cache_l: Cache) -> str:
             not gen8):
         return KERNEL
     raise ValueError(
-        "decode_attend_layer: the kernel takes bf16/bf16, int8/int8 or "
+        "decode attention: the kernels take bf16/bf16, int8/int8 or "
         f"int4/int8 prompt/gen caches, got prompt {sorted(prompt_cache_l)} "
         f"gen {sorted(gen_cache_l)}"
     )
 
 
-def decode_attend_layer(
-    q: torch.Tensor,
-    prompt_cache_l: Cache,
-    prompt_seg: torch.Tensor,
-    gen_cache_l: Cache,
-    gen_valid: torch.Tensor,
-) -> torch.Tensor:
-    """(B, 1, H, Dh) attention output of one decode step for one layer."""
-    if q.device.type == "cpu":
-        return decode_attend_plain(
-            q, prompt_cache_l, prompt_seg, gen_cache_l, gen_valid
-        )
+def _kernel_inputs(name, q, prompt_cache_l, prompt_seg, gen_cache_l,
+                   gen_valid, prompt_rows, gen_rows, extra=()):
+    """Check what a kernel is given (device, types, shapes, contiguity,
+    alignment) and return (mode, kp, vp, kg, vg, scales, sp_rows). q is
+    (rows, queries, H, 128); the prompt side has `prompt_rows` rows, the gen
+    side `gen_rows`; `extra` are further bf16 tensors of the launch."""
     mode = _mode(prompt_cache_l, gen_cache_l)
-    b, one, h, d = q.shape
+    h, d = q.shape[2], q.shape[3]
     sp = prompt_seg.shape[1]
     kp = prompt_cache_l["k4" if mode == KERNEL_KV4 else "k"]
     vp = prompt_cache_l["v4" if mode == KERNEL_KV4 else "v"]
@@ -160,48 +263,134 @@ def decode_attend_layer(
     scales = ((prompt_cache_l["k_scale"], prompt_cache_l["v_scale"],
                gen_cache_l["k_scale"], gen_cache_l["v_scale"])
               if quant else ())
-    tensors = (q, kp, vp, prompt_seg, kg, vg, gen_valid, *scales)
+    tensors = (q, kp, vp, prompt_seg, kg, vg, gen_valid, *scales, *extra)
     if any(not t.is_cuda or t.device != q.device for t in tensors):
-        raise ValueError("decode_attend_layer: all inputs on one CUDA device")
+        raise ValueError(f"{name}: all inputs on one CUDA device")
     cache_dt = torch.int8 if quant else torch.bfloat16
     if q.dtype != torch.bfloat16 or any(
             t.dtype != cache_dt for t in (kp, vp, kg, vg)) or any(
-            t.dtype != torch.bfloat16 for t in scales):
-        raise TypeError(f"decode_attend_layer ({mode}): q bf16, caches "
-                        f"{cache_dt}, scales bf16")
+            t.dtype != torch.bfloat16 for t in (*scales, *extra)):
+        raise TypeError(f"{name} ({mode}): q bf16, caches {cache_dt}, "
+                        "scales and candidates bf16")
     if prompt_seg.dtype != torch.int32 or gen_valid.dtype != torch.bool:
-        raise TypeError("decode_attend_layer: prompt_seg int32, gen_valid bool")
+        raise TypeError(f"{name}: prompt_seg int32, gen_valid bool")
     want_rows = -(-sp // 2) if mode == KERNEL_KV4 else sp
-    pscale = ((b, 2, kvh, sp_rows) if mode == KERNEL_KV4 else
-              (b, kvh, sp_rows))
+    pscale = ((prompt_rows, 2, kvh, sp_rows) if mode == KERNEL_KV4 else
+              (prompt_rows, kvh, sp_rows))
     if (
-        one != 1
-        or h % kvh
+        h % kvh
         or h // kvh not in (1, 2, 4, 8)
         or d != 128
         or sp_rows != want_rows
-        or kp.shape != (b, kvh, sp_rows, d)
+        or kp.shape != (prompt_rows, kvh, sp_rows, d)
         or vp.shape != kp.shape
-        or kg.shape != (b, kvh, sg, d)
+        or kg.shape != (gen_rows, kvh, sg, d)
         or vg.shape != kg.shape
-        or prompt_seg.shape != (b, sp)
-        or gen_valid.shape != (b, sg)
+        or prompt_seg.shape != (prompt_rows, sp)
+        or gen_valid.shape != (gen_rows, sg)
         or (quant and (scales[0].shape != pscale
                        or scales[1].shape != pscale
-                       or scales[2].shape != (b, kvh, sg)
-                       or scales[3].shape != (b, kvh, sg)))
+                       or scales[2].shape != (gen_rows, kvh, sg)
+                       or scales[3].shape != (gen_rows, kvh, sg)))
     ):
         raise ValueError(
-            f"decode_attend_layer ({mode}): unsupported shapes q "
-            f"{tuple(q.shape)} prompt {tuple(kp.shape)} gen {tuple(kg.shape)} "
-            f"seg {tuple(prompt_seg.shape)} valid {tuple(gen_valid.shape)} "
+            f"{name} ({mode}): unsupported shapes q {tuple(q.shape)} prompt "
+            f"{tuple(kp.shape)} gen {tuple(kg.shape)} seg "
+            f"{tuple(prompt_seg.shape)} valid {tuple(gen_valid.shape)} "
             f"scales {[tuple(t.shape) for t in scales]}"
         )
     if any(not t.is_contiguous() for t in tensors) or any(
-        t.data_ptr() % 16 for t in (q, kp, vp, kg, vg)
+        t.data_ptr() % 16 for t in (q, kp, vp, kg, vg, *extra)
     ):
-        raise ValueError("decode_attend_layer: inputs must be contiguous, "
-                         "q and caches 16-byte aligned")
+        raise ValueError(f"{name}: inputs must be contiguous, q, caches and "
+                         "candidates 16-byte aligned")
+    return mode, kp, vp, kg, vg, scales, sp_rows
+
+
+def fold_attend_layer(
+    q: torch.Tensor,  # (B, K, H, Dh)
+    prompt_cache_l: Cache,
+    prompt_seg: torch.Tensor,
+    gen_cache_l: Cache,
+    gen_valid: torch.Tensor,
+    fold_k: int,
+    shared_gen: bool = False,
+    candidates: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """(B, K, H, Dh) attention output of K queries per item for one layer
+    (K5); see `fold_attend_plain` for the function computed."""
+    if q.device.type == "cpu":
+        return fold_attend_plain(q, prompt_cache_l, prompt_seg, gen_cache_l,
+                                 gen_valid, fold_k, shared_gen, candidates)
+    b, kq, h, d = q.shape
+    if kq != fold_k or not 2 <= fold_k <= 8:
+        raise ValueError(f"fold_attend_layer: fold_k={fold_k} (2..8) but q "
+                         f"has {kq} queries per item")
+    if candidates is not None and not shared_gen:
+        raise ValueError("fold_attend_layer: candidates come with shared_gen")
+    extra = tuple(candidates) if candidates is not None else ()
+    mode, kp, vp, kg, vg, scales, sp_rows = _kernel_inputs(
+        "fold_attend_layer", q, prompt_cache_l, prompt_seg, gen_cache_l,
+        gen_valid, b, b if shared_gen else b * fold_k, extra)
+    kvh, sg = kp.shape[1], kg.shape[2]
+    if any(t.shape != (b, fold_k, kvh, d) for t in extra):
+        raise ValueError("fold_attend_layer: candidates must be "
+                         f"{(b, fold_k, kvh, d)}, got "
+                         f"{[tuple(t.shape) for t in extra]}")
+    name = FOLD[mode] + (SHARED_SUFFIX if shared_gen else "")
+    o = torch.empty_like(q)
+    ptr = [t.data_ptr() for t in scales] or [None] * 4
+    cand = [t.data_ptr() for t in extra] or [None, None]
+    fmt = (KERNEL, KERNEL_KV8, KERNEL_KV4).index(mode)
+    lib = _kernels.lib()
+    with torch.cuda.device(q.device):
+        err = lib.halva_fold_attn(
+            fmt, q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptr[0], ptr[1],
+            prompt_seg.data_ptr(), kg.data_ptr(), vg.data_ptr(), ptr[2],
+            ptr[3], gen_valid.data_ptr(), cand[0], cand[1], o.data_ptr(),
+            b, fold_k, h, kvh, prompt_seg.shape[1], sp_rows, sg, d,
+            int(shared_gen), float(d**-0.5),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(err, name)
+    _kernels.launches[name] += 1
+    return o
+
+
+def decode_attend_layer(
+    q: torch.Tensor,
+    prompt_cache_l: Cache,
+    prompt_seg: torch.Tensor,
+    gen_cache_l: Cache,
+    gen_valid: torch.Tensor,
+    beam_k: int = 1,
+    beam_route: str = "fold",
+) -> torch.Tensor:
+    """(B, 1, H, Dh) attention output of one decode step for one layer.
+    beam_k > 1: B = items * beam_k rows against an items-row prompt cache,
+    through K5 (`beam_route="fold"`) or K4's beam mode ("grid")."""
+    if beam_route not in ("fold", "grid"):
+        raise ValueError(f"beam_route must be 'fold' or 'grid', got "
+                         f"{beam_route!r}")
+    if q.device.type == "cpu":
+        return decode_attend_plain(
+            q, prompt_cache_l, prompt_seg, gen_cache_l, gen_valid, beam_k
+        )
+    b, one, h, d = q.shape
+    if one != 1 or beam_k < 1 or b % beam_k:
+        raise ValueError(f"decode_attend_layer: q {tuple(q.shape)} must be "
+                         f"(B, 1, H, Dh) with B a multiple of beam_k={beam_k}")
+    if beam_k > 1 and beam_route == "fold":
+        out = fold_attend_layer(
+            q.reshape(b // beam_k, beam_k, h, d), prompt_cache_l, prompt_seg,
+            gen_cache_l, gen_valid, fold_k=beam_k)
+        return out.reshape(b, 1, h, d)
+    mode, kp, vp, kg, vg, scales, sp_rows = _kernel_inputs(
+        "decode_attend_layer", q, prompt_cache_l, prompt_seg, gen_cache_l,
+        gen_valid, b // beam_k, b)
+    kvh, sg = kp.shape[1], kg.shape[2]
+    sp = prompt_seg.shape[1]
+    name = mode + (BEAM_SUFFIX if beam_k > 1 else "")
     o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     lib = _kernels.lib()
     scale = float(d**-0.5)
@@ -212,7 +401,7 @@ def decode_attend_layer(
                 q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                 prompt_seg.data_ptr(), kg.data_ptr(), vg.data_ptr(),
                 gen_valid.data_ptr(), o.data_ptr(),
-                b, h, kvh, sp, sg, d, scale, stream,
+                b, h, kvh, sp, sg, d, beam_k, scale, stream,
             )
         else:
             ptrs = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
@@ -222,10 +411,11 @@ def decode_attend_layer(
                     gen_valid.data_ptr(), o.data_ptr())
             if mode == KERNEL_KV8:
                 err = lib.halva_decode_attn_kv8(
-                    *ptrs, b, h, kvh, sp, sg, d, scale, stream)
+                    *ptrs, b, h, kvh, sp, sg, d, beam_k, scale, stream)
             else:
                 err = lib.halva_decode_attn_kv4(
-                    *ptrs, b, h, kvh, sp, sp_rows, sg, d, scale, stream)
-    _kernels.check(err, mode)
-    _kernels.launches[mode] += 1
+                    *ptrs, b, h, kvh, sp, sp_rows, sg, d, beam_k, scale,
+                    stream)
+    _kernels.check(err, name)
+    _kernels.launches[name] += 1
     return o

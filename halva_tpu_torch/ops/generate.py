@@ -19,7 +19,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from halva_tpu_torch.config import IMAGE_TOKEN_INDEX, LlavaConfig
+from halva_tpu_torch.config import LlavaConfig
+from halva_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from halva_tpu_torch.models import llama, llava
 
 Params = Dict[str, Any]

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from halva_tpu_torch.config import IGNORE_INDEX
+from halva_tpu_torch.constants import IGNORE_INDEX
 
 MAX_PHRASES = 16  # static upper bound on <MASK> spans per answer
 

@@ -63,11 +63,12 @@ def _tensor_to_numpy(t) -> Any:
     return t.numpy()
 
 
-def to_torch(tree, device=None):
-    """numpy tree -> torch tree (shares memory with writable arrays on the
-    CPU; copies read-only arrays and when a device is given)."""
+def to_torch(tree, device="cuda"):
+    """numpy tree -> torch tree on `device`: the card by default (with no
+    card that raises), `device="cpu"` to stay on the host, where the tree
+    shares memory with writable arrays and copies read-only ones."""
     out = map_tree(_array_to_torch, tree)
-    if device is None:
+    if torch.device(device).type == "cpu":
         return out
     return map_tree(
         lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, out
@@ -81,7 +82,7 @@ def to_numpy(tree):
 
 # --------------------------------------------------------------------------
 # Random init (the card has no JAX): the tree structure, shapes and dtypes of
-# halva_tpu.models.llava.init_params, with values from a torch.Generator.
+# halva_tpu/models/llava.py init_params, with values from a torch.Generator.
 # --------------------------------------------------------------------------
 
 
@@ -187,9 +188,11 @@ def _init_projector(ini: _Init, cfg: LlavaConfig) -> dict:
 
 
 def init_params(cfg: LlavaConfig, generator: torch.Generator,
-                dtype=torch.float32, device="cpu") -> dict:
-    """Random LLaVA tree with halva_tpu.models.llava.init_params's structure,
-    shapes, dtypes and scales (not its values: the generators differ)."""
+                dtype=torch.float32, device="cuda") -> dict:
+    """Random LLaVA tree with the structure, shapes, dtypes and scales of
+    halva_tpu/models/llava.py init_params (not its values: the generators
+    differ), on the card unless `device` says otherwise; with no card the
+    default raises."""
     ini = _Init(generator, dtype, device)
     return {
         "llm": _init_llama(ini, cfg.llm),

@@ -15,7 +15,8 @@ flash_attention_bwd_plain, which rounds P and dS to bf16 where the kernels
 do: |got - plain| <= 2e-2 * (max|plain| + |plain|) on live rows, and the
 relative norm of the difference <= 2e-3 (the bf16 output rounding, plus a
 P or dS element whose fp32 value differs in its last bits between the two
-and rounds to the neighbouring bf16 value)."""
+and rounds to the neighbouring bf16 value). K5 and K4's beam mode share
+K4's span code and its bound."""
 
 import pytest
 import torch
@@ -24,6 +25,8 @@ from halva_tpu_torch import _kernels
 from halva_tpu_torch.ops.decode_attention import (
     decode_attend_layer,
     decode_attend_plain,
+    fold_attend_layer,
+    fold_attend_plain,
 )
 from halva_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -157,6 +160,122 @@ def test_decode_attn_quantized_matches_plain(cuda, mode, kvh):
     assert _kernels.launches[name] == before + 1
     assert torch.isfinite(got).all()
     _close(got, decode_attend_plain(q, pc, seg, gc, gen_valid))
+
+
+def _fold_caches(gen, mode, b, gen_rows, kvh, sp, sg, d):
+    if mode == "bf16":
+        def r(*shape):
+            return torch.randn(*shape, generator=gen,
+                               device="cuda").bfloat16()
+
+        return ({"k": r(b, kvh, sp, d), "v": r(b, kvh, sp, d)},
+                {"k": r(gen_rows, kvh, sg, d), "v": r(gen_rows, kvh, sg, d)})
+    pc, _ = _quant_caches(gen, mode, b, kvh, sp, sg, d)
+    _, gc = _quant_caches(gen, "kv8", gen_rows, kvh, 2, sg, d)
+    return pc, gc
+
+
+FOLD_NAMES = {"bf16": "fold_attn", "kv8": "fold_attn_kv8",
+              "kv4": "fold_attn_kv4"}
+GRID_NAMES = {"bf16": "decode_attn_beam", "kv8": "decode_attn_kv8_beam",
+              "kv4": "decode_attn_kv4_beam"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "kv8", "kv4"])
+@pytest.mark.parametrize("k,h,kvh", [(4, 8, 8), (2, 8, 8), (3, 8, 2),
+                                     (8, 8, 8), (8, 8, 1), (5, 8, 2)])
+def test_fold_attn_per_beam_and_k4_beam_mode_match_plain(cuda, mode, k, h,
+                                                         kvh):
+    """K5's per-beam gen stage and K4's beam mode against their plain
+    versions and against each other: K*G = 2 .. 64 query rows per (item, kv
+    head), so one block of 2, 4 or 8 rows, padded rows (K*G = 3 -> 4) and
+    several 8-row chunks; an odd prompt length; an item with no visible
+    prompt key; a beam with a single gen slot."""
+    b, sp, sg, d = 3, 301, 128, 128
+    q = torch.randn(b, k, h, d, generator=cuda, device="cuda").bfloat16()
+    pc, gc = _fold_caches(cuda, mode, b, b * k, kvh, sp, sg, d)
+    seg = torch.ones(b, sp, dtype=torch.int32, device="cuda")
+    seg[0, 250:] = 0
+    seg[2] = 0
+    steps = torch.randint(0, sg, (b * k,), generator=cuda, device="cuda")
+    steps[0] = 0
+    gen_valid = torch.arange(sg, device="cuda")[None, :] <= steps[:, None]
+    if mode != "bf16":  # garbage in the scales of masked keys
+        gc["v_scale"][~gen_valid[:, None, :].expand_as(gc["v_scale"])] = (
+            float("inf"))
+    before = dict(_kernels.launches)
+    got = fold_attend_layer(q, pc, seg, gc, gen_valid, fold_k=k)
+    assert _kernels.launches[FOLD_NAMES[mode]] == before.get(
+        FOLD_NAMES[mode], 0) + 1
+    want = fold_attend_plain(q, pc, seg, gc, gen_valid, fold_k=k)
+    assert torch.isfinite(got).all()
+    _close(got, want)
+    q1 = q.reshape(b * k, 1, h, d)
+    grid = decode_attend_layer(q1, pc, seg, gc, gen_valid, beam_k=k,
+                               beam_route="grid")
+    assert _kernels.launches[GRID_NAMES[mode]] == before.get(
+        GRID_NAMES[mode], 0) + 1
+    _close(grid, decode_attend_plain(q1, pc, seg, gc, gen_valid, beam_k=k))
+    # the default beam route is K5
+    routed = decode_attend_layer(q1, pc, seg, gc, gen_valid, beam_k=k)
+    assert _kernels.launches[FOLD_NAMES[mode]] == before.get(
+        FOLD_NAMES[mode], 0) + 2
+    assert torch.equal(routed.reshape(b, k, h, d), got)
+    # one bf16 step between the two routes: they sum in the same order
+    torch.testing.assert_close(grid.reshape(b, k, h, d).float(), got.float(),
+                               rtol=2**-7, atol=2**-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "kv8", "kv4"])
+@pytest.mark.parametrize("k,h,kvh,sg", [(4, 8, 8, 128), (8, 8, 8, 256),
+                                        (3, 8, 2, 128), (8, 8, 2, 200)])
+def test_fold_attn_shared_gen_with_candidates_matches_plain(cuda, mode, k, h,
+                                                            kvh, sg):
+    """K5's shared gen stage: one gen cache row per item under gen_len, the
+    K fresh candidates attended causally; an item with an empty gen cache
+    and a masked prompt still sees its own candidates."""
+    b, sp, d = 3, 301, 128
+    q = torch.randn(b, k, h, d, generator=cuda, device="cuda").bfloat16()
+    kc = torch.randn(b, k, kvh, d, generator=cuda, device="cuda").bfloat16()
+    vc = torch.randn(b, k, kvh, d, generator=cuda, device="cuda").bfloat16()
+    pc, gc = _fold_caches(cuda, mode, b, b, kvh, sp, sg, d)
+    seg = torch.ones(b, sp, dtype=torch.int32, device="cuda")
+    seg[0, 250:] = 0
+    seg[2] = 0
+    gen_len = torch.tensor([40, sg - k, 0], device="cuda")
+    gen_valid = torch.arange(sg, device="cuda")[None, :] < gen_len[:, None]
+    name = FOLD_NAMES[mode] + "_shared"
+    before = _kernels.launches[name]
+    got = fold_attend_layer(q, pc, seg, gc, gen_valid, fold_k=k,
+                            shared_gen=True, candidates=(kc, vc))
+    assert _kernels.launches[name] == before + 1
+    assert torch.isfinite(got).all()
+    _close(got, fold_attend_plain(q, pc, seg, gc, gen_valid, fold_k=k,
+                                  shared_gen=True, candidates=(kc, vc)))
+    # query 0 of the item with nothing else visible returns its own value
+    g = h // kvh
+    torch.testing.assert_close(
+        got[2, 0].reshape(kvh, g, d).float(),
+        vc[2, 0][:, None, :].expand(kvh, g, d).float(), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_fold_attn_refuses_what_it_does_not_take(cuda):
+    b, k, h, sp, sg, d = 2, 4, 8, 40, 128, 128
+    q = torch.randn(b, k, h, d, generator=cuda, device="cuda").bfloat16()
+    pc, gc = _fold_caches(cuda, "bf16", b, b * k, h, sp, sg, d)
+    seg = torch.ones(b, sp, dtype=torch.int32, device="cuda")
+    gv = torch.ones(b * k, sg, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="fold_k"):
+        fold_attend_layer(q[:, :1], pc, seg, gc, gv[:b], fold_k=1)
+    with pytest.raises(TypeError):
+        fold_attend_layer(q.float(), pc, seg, gc, gv, fold_k=k)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        fold_attend_layer(q, pc, seg, gc, gv[:b], fold_k=k)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fold_attend_layer(q, pc, seg.cpu(), gc, gv, fold_k=k)
 
 
 def _close_grad(got, want):

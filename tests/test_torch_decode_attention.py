@@ -75,7 +75,7 @@ def test_plain_matches_reference(name, q_dtype):
     jdt = jnp.float32 if q_dtype == "f32" else jnp.bfloat16
     arrays = _inputs(b, h, kvh, sp, d, sg, steps, dead_row, jdt)
     q, kp, vp, kg, vg, seg, gv = arrays
-    tq, tkp, tvp, tkg, tvg, tseg, tgv = tree.to_torch(list(arrays))
+    tq, tkp, tvp, tkg, tvg, tseg, tgv = tree.to_torch(list(arrays), device="cpu")
     tol = dict(rtol=1e-5, atol=1e-5) if q_dtype == "f32" else dict(
         rtol=2**-7, atol=8e-3)
     for li in range(kp.shape[0]):
@@ -101,7 +101,7 @@ def test_plain_matches_reference(name, q_dtype):
 
 def test_cpu_wrapper_is_the_plain_version():
     arrays = _inputs(2, 8, 2, 40, 16, 8, (2, 5), False, jnp.float32)
-    q, kp, vp, kg, vg, seg, gv = tree.to_torch(list(arrays))
+    q, kp, vp, kg, vg, seg, gv = tree.to_torch(list(arrays), device="cpu")
     pc, gc = {"k": kp[0], "v": vp[0]}, {"k": kg[0], "v": vg[0]}
     torch.testing.assert_close(
         decode_attend_layer(q, pc, seg, gc, gv),
@@ -194,8 +194,8 @@ def test_quantized_caches_match_reference(name, q_dtype):
     jdt = jnp.float32 if q_dtype == "f32" else jnp.bfloat16
     q, prompt, seg, gen, gv = _quant_inputs(fmt, b, h, kvh, sp, d, sg,
                                             steps, jdt)
-    tq, tseg, tgv = tree.to_torch([q, seg, gv])
-    tprompt, tgen = tree.to_torch(prompt), tree.to_torch(gen)
+    tq, tseg, tgv = tree.to_torch([q, seg, gv], device="cpu")
+    tprompt, tgen = tree.to_torch(prompt, device="cpu"), tree.to_torch(gen, device="cpu")
     tol = dict(rtol=1e-5, atol=1e-4) if q_dtype == "f32" else dict(
         rtol=2**-6, atol=2e-2)
     for li in (0, 1):
@@ -232,9 +232,9 @@ def test_garbage_scales_of_masked_keys_do_not_leak():
     plain version selects, as the kernel must)."""
     q, prompt, seg, gen, gv = _quant_inputs(
         "int8", 2, 4, 4, 40, 128, 16, (2, 3), jnp.float32)
-    tq, tseg, tgv = tree.to_torch([q, seg, gv])
-    pc = {k: v[0] for k, v in tree.to_torch(prompt).items()}
-    gc = {k: v[0] for k, v in tree.to_torch(gen).items()}
+    tq, tseg, tgv = tree.to_torch([q, seg, gv], device="cpu")
+    pc = {k: v[0] for k, v in tree.to_torch(prompt, device="cpu").items()}
+    gc = {k: v[0] for k, v in tree.to_torch(gen, device="cpu").items()}
     want = decode_attend_plain(tq, pc, tseg, gc, tgv)
     dead = (tseg == 0)[:, None, :]
     pc["v_scale"] = pc["v_scale"].masked_fill(dead, float("nan"))

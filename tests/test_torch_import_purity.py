@@ -1,7 +1,8 @@
 """The PyTorch port imports no JAX, no Triton, and builds nothing on
 import. Checked in a fresh interpreter where `import jax` fails: every
-module of halva_tpu_torch must still import, and the only halva_tpu
-modules it may pull in are the framework-free config and constants."""
+module of halva_tpu_torch must still import, and it pulls in no module of
+halva_tpu at all, not even one that imports no JAX (the port keeps its own
+copies of config, constants, conversation and mm_utils)."""
 
 import json
 import os
@@ -20,12 +21,16 @@ import halva_tpu_torch
 from halva_tpu_torch import _kernels
 names = [m.name for m in pkgutil.walk_packages(
     halva_tpu_torch.__path__, "halva_tpu_torch.")]
+IMAGES = "halva_tpu_torch.mm_utils"  # decodes images: the one PIL user
 for name in names:
-    importlib.import_module(name)
+    if name != IMAGES:
+        importlib.import_module(name)
+pil = "PIL" in sys.modules
+importlib.import_module(IMAGES)
 print(json.dumps({
     "modules": names,
     "triton": "triton" in sys.modules,
-    "pil": "PIL" in sys.modules,
+    "pil": pil,
     "halva_tpu": sorted(m for m in sys.modules
                         if m.split(".")[0] == "halva_tpu"),
     "lib_loaded": _kernels.lib.cache_info().currsize,
@@ -45,9 +50,12 @@ def test_every_module_imports_without_jax():
     for name in ("lora", "dpa", "trainer", "checkpoint"):
         assert f"halva_tpu_torch.train.{name}" in out["modules"]
     assert not out["triton"]
-    assert not out["pil"]  # PIL is imported where an image is decoded
-    assert set(out["halva_tpu"]) <= {
-        "halva_tpu", "halva_tpu.config", "halva_tpu.constants"}
+    # PIL comes in with mm_utils, which is imported where an image is decoded
+    assert not out["pil"]
+    for name in ("config", "constants", "conversation", "ops.beam",
+                 "ops.speculative"):
+        assert f"halva_tpu_torch.{name}" in out["modules"]
+    assert out["halva_tpu"] == []
     assert out["lib_loaded"] == 0  # no kernel built or loaded on import
 
 
@@ -66,6 +74,41 @@ def test_sources_use_no_library_attention():
                     if banned.search(line):
                         hits.append(f"{path}:{i}: {line.strip()}")
     assert not hits, "\n".join(hits)
+
+
+def test_sources_name_the_reference_package_only_as_paths():
+    """No `halva_tpu.<module>` and no import of halva_tpu in any file of the
+    package or in chip_smoke.py: the reference is named by file paths
+    (halva_tpu/ops/...), as in the `replaces` fields, and nowhere else."""
+    dotted = re.compile(r"\bhalva_tpu\.(?!py\b)|from halva_tpu |"
+                        r"import halva_tpu\b(?!_torch)")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        paths += [os.path.join(root, f) for f in files
+                  if f.endswith((".py", ".cu", ".cuh"))]
+    hits = []
+    for path in paths:
+        for i, line in enumerate(open(path), 1):
+            if dotted.search(line):
+                hits.append(f"{path}:{i}: {line.strip()}")
+    assert not hits, "\n".join(hits)
+
+
+def test_decode_kernels_are_hand_written():
+    """K4's and K5's CUDA sources call no library either, and K5 shares
+    K4's span code instead of carrying a second copy."""
+    csrc = os.path.join(PKG, "csrc")
+    library = re.compile(r"cublas|cudnn|cutlass|torch|#include <(?!cuda_bf16|"
+                         r"cuda_runtime|stdint)")
+    for name in ("decode_attn.cu", "fold_attn.cu", "decode_common.cuh"):
+        text = open(os.path.join(csrc, name)).read()
+        code = "\n".join(ln.split("//")[0] for ln in text.splitlines())
+        assert not library.search(code), name
+        if name.endswith(".cu"):
+            assert '#include "decode_common.cuh"' in code, name
+            assert "attend_span<" in code, name
+    fold = open(os.path.join(csrc, "fold_attn.cu")).read()
+    assert "fold_attn_kernel" in fold and 'extern "C" int halva_fold_attn' in fold
 
 
 def test_flash_kernels_are_hand_written_and_deterministic():

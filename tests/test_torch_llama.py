@@ -30,7 +30,7 @@ from halva_tpu.ops.w4_matmul import quantize_params_int4_host
 from halva_tpu_torch import tree
 from halva_tpu_torch.models import llama
 
-from test_torch_tree import LLAVA_TINY_GQA
+from test_torch_tree import LLAVA_TINY_GQA, port_cfg
 
 torch.set_num_threads(2)
 
@@ -42,7 +42,7 @@ BF16_STEP = dict(rtol=2**-7, atol=1e-6)
 def _llm_trees(cfg):
     params = jllama.init_params(jax.random.PRNGKey(1), cfg, jnp.float32)
     np_tree = jax.tree.map(np.asarray, params)
-    return jax.tree.map(jnp.asarray, np_tree), tree.to_torch(np_tree)
+    return jax.tree.map(jnp.asarray, np_tree), tree.to_torch(np_tree, device="cpu")
 
 
 def _np(t):
@@ -59,7 +59,7 @@ def test_forward_logits(name):
     seg = np.ones((2, 24), np.int32)
     seg[1, 17:] = 0
     want = jllama.forward(jp, cfg, jnp.asarray(ids), jnp.asarray(seg))
-    got = llama.forward(tp, cfg, torch.from_numpy(ids), torch.from_numpy(seg))
+    got = llama.forward(tp, port_cfg(cfg), torch.from_numpy(ids), torch.from_numpy(seg))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(_np(got), _np(want), **F32)
 
@@ -105,7 +105,7 @@ def test_prefill_hidden_and_cache(name):
     emb, seg, pos = _prefill_inputs(cfg)
     jh, jc = jax.jit(lambda p, e, s_, q: jllama.prefill(p, cfg, e, s_, q))(
         jp, jnp.asarray(emb), jnp.asarray(seg), jnp.asarray(pos))
-    th, tc = llama.prefill(tp, cfg, torch.from_numpy(emb),
+    th, tc = llama.prefill(tp, port_cfg(cfg), torch.from_numpy(emb),
                            torch.from_numpy(seg), torch.from_numpy(pos))
     np.testing.assert_allclose(_np(th), _np(jh), **F32)
     for key in ("k", "v"):
@@ -141,10 +141,10 @@ def test_decode_step_logits_and_gen_cache(name):
     )(jp, jnp.asarray(tok_emb), jnp.asarray(positions),
       jax.tree.map(jnp.asarray, prompt_np), jnp.asarray(seg),
       jax.tree.map(jnp.asarray, gen_np))
-    gen_t = tree.to_torch(gen_np)
+    gen_t = tree.to_torch(gen_np, device="cpu")
     got_logits, got_gen = llama.decode_step(
-        tp, cfg, torch.from_numpy(tok_emb), torch.from_numpy(positions),
-        tree.to_torch(prompt_np), torch.from_numpy(seg), gen_t, step)
+        tp, port_cfg(cfg), torch.from_numpy(tok_emb), torch.from_numpy(positions),
+        tree.to_torch(prompt_np, device="cpu"), torch.from_numpy(seg), gen_t, step)
     assert got_gen is gen_t  # written in place
     np.testing.assert_allclose(_np(got_logits), _np(want_logits), **F32)
     for key in ("k", "v"):
@@ -162,7 +162,7 @@ def test_unported_branches_raise():
     for cfg in (dataclasses.replace(LLAMA_TINY, sliding_window=8),
                 dataclasses.replace(LLAMA_TINY, position_embedding="alibi")):
         with pytest.raises(NotImplementedError):
-            llama.forward(tp, cfg, torch.zeros(1, 4, dtype=torch.int32))
+            llama.forward(tp, port_cfg(cfg), torch.zeros(1, 4, dtype=torch.int32))
 
 
 def _assert_cache_close(got_t, want, key):
@@ -188,7 +188,7 @@ def test_prefill_quantized_cache(mode):
     jh, jc = jax.jit(lambda p, e, s_, q: jllama.prefill(
         p, cfg, e, s_, q, quantize_cache=mode))(
         jp, jnp.asarray(emb), jnp.asarray(seg), jnp.asarray(pos))
-    th, tc = llama.prefill(tp, cfg, torch.from_numpy(emb),
+    th, tc = llama.prefill(tp, port_cfg(cfg), torch.from_numpy(emb),
                            torch.from_numpy(seg), torch.from_numpy(pos),
                            quantize_cache=mode)
     np.testing.assert_allclose(_np(th), _np(jh), **F32)
@@ -204,7 +204,7 @@ def test_prefill_quantized_cache(mode):
     for key in tc:
         _assert_cache_close(tc[key], jc[key], key)
     with pytest.raises(ValueError):
-        llama.prefill(tp, cfg, torch.from_numpy(emb), torch.from_numpy(seg),
+        llama.prefill(tp, port_cfg(cfg), torch.from_numpy(emb), torch.from_numpy(seg),
                       torch.from_numpy(pos), quantize_cache="int5")
 
 
@@ -232,7 +232,7 @@ def test_decode_step_w4_matches_pallas_route(name, kv, monkeypatch):
     q_np = quantize_params_int4_host(jax.tree.map(np.asarray, params),
                                      group_size=64)
     jp = jax.tree.map(jnp.asarray, q_np)
-    tp = tree.to_torch(q_np)
+    tp = tree.to_torch(q_np, device="cpu")
     emb, seg, pos = _prefill_inputs(cfg, s=13)
     _, jc = jax.jit(lambda p, e, s_, q: jllama.prefill(
         p, cfg, e, s_, q, quantize_cache=kv))(
@@ -255,10 +255,10 @@ def test_decode_step_w4_matches_pallas_route(name, kv, monkeypatch):
     )(jp, jnp.asarray(tok_emb), jnp.asarray(positions),
       jax.tree.map(jnp.asarray, prompt_np), jnp.asarray(seg),
       jax.tree.map(jnp.asarray, gen_np))
-    gen_t = tree.to_torch(gen_np)
+    gen_t = tree.to_torch(gen_np, device="cpu")
     got_logits, got_gen = llama.decode_step(
-        tp, cfg, torch.from_numpy(tok_emb), torch.from_numpy(positions),
-        tree.to_torch(prompt_np), torch.from_numpy(seg), gen_t, step)
+        tp, port_cfg(cfg), torch.from_numpy(tok_emb), torch.from_numpy(positions),
+        tree.to_torch(prompt_np, device="cpu"), torch.from_numpy(seg), gen_t, step)
     assert traced  # the reference ran its Pallas route
     np.testing.assert_allclose(_np(got_logits), _np(want_logits),
                                rtol=1e-4, atol=1e-4)

@@ -30,7 +30,7 @@ from halva_tpu_torch import tree
 from halva_tpu_torch.models import llava, projector, vit
 from halva_tpu_torch.ops import generate
 
-from test_torch_tree import jax_tree, shared_trees
+from test_torch_tree import jax_tree, port_cfg, shared_trees
 
 torch.set_num_threads(2)
 
@@ -47,7 +47,7 @@ def test_vit_encode():
     jp, tp = shared_trees()
     imgs = _images(3)
     want = jvit.encode(jp["vision"], LLAVA_TINY.vision, jnp.asarray(imgs))
-    got = vit.encode(tp["vision"], LLAVA_TINY.vision, torch.from_numpy(imgs))
+    got = vit.encode(tp["vision"], port_cfg(LLAVA_TINY.vision), torch.from_numpy(imgs))
     assert got.shape == (3, LLAVA_TINY.vision.num_patches,
                          LLAVA_TINY.vision.hidden_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
@@ -61,7 +61,7 @@ def test_projector_apply(ptype):
     np_params = jax.tree.map(np.asarray, params)
     feats = np.random.RandomState(3).randn(2, 4, 32).astype(np.float32)
     want = jprojector.apply(params, cfg, jnp.asarray(feats))
-    got = projector.apply(tree.to_torch(np_params), cfg,
+    got = projector.apply(tree.to_torch(np_params, device="cpu"), port_cfg(cfg),
                           torch.from_numpy(feats))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
@@ -70,7 +70,7 @@ def test_encode_images():
     jp, tp = shared_trees()
     imgs = _images(2, seed=1)
     want = jllava.encode_images(jp, LLAVA_TINY, jnp.asarray(imgs))
-    got = llava.encode_images(tp, LLAVA_TINY, torch.from_numpy(imgs))
+    got = llava.encode_images(tp, port_cfg(LLAVA_TINY), torch.from_numpy(imgs))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
@@ -93,7 +93,7 @@ def test_splice_image_tokens():
         jp, LLAVA_TINY, jnp.asarray(ids), jnp.asarray(feats),
         jnp.asarray(seg), jnp.asarray(labels), jnp.asarray(signs))
     got = llava.splice_image_tokens(
-        tp, LLAVA_TINY, torch.from_numpy(ids), torch.from_numpy(feats),
+        tp, port_cfg(LLAVA_TINY), torch.from_numpy(ids), torch.from_numpy(feats),
         torch.from_numpy(seg), torch.from_numpy(labels),
         torch.from_numpy(signs))
     assert got._fields == want._fields
@@ -138,7 +138,7 @@ def test_generate_greedy_token_exact():
 
     with torch.inference_mode():
         got_tok, got_num = generate.generate_greedy(
-            tp, LLAVA_TINY, torch.from_numpy(ids), torch.from_numpy(imgs),
+            tp, port_cfg(LLAVA_TINY), torch.from_numpy(ids), torch.from_numpy(imgs),
             torch.from_numpy(lens), max_new_tokens=max_new, eos_id=eos)
     assert got_tok.dtype == torch.int32
     np.testing.assert_array_equal(got_tok.numpy(), want_tok)
@@ -153,7 +153,7 @@ def test_prefill_first_token_and_cache_layout():
         jp, LLAVA_TINY, jnp.asarray(ids), jnp.asarray(imgs),
         jnp.asarray(lens), 8, "auto")
     got = generate._prefill_impl(
-        tp, LLAVA_TINY, torch.from_numpy(ids), torch.from_numpy(imgs),
+        tp, port_cfg(LLAVA_TINY), torch.from_numpy(ids), torch.from_numpy(imgs),
         torch.from_numpy(lens))
     w_tok, w_logits, w_len, w_cache, w_seg = want
     g_tok, g_logits, g_len, g_cache, g_seg = got
@@ -172,7 +172,7 @@ def int4_trees():
     t = jax_tree(LLAVA_TINY)
     t["llm"]["lm_head"]["kernel"] = t["llm"]["lm_head"]["kernel"] * 100.0
     q = quantize_params_int4_host(t, group_size=32)
-    return jax.tree.map(jnp.asarray, q), tree.to_torch(q)
+    return jax.tree.map(jnp.asarray, q), tree.to_torch(q, device="cpu")
 
 
 def test_encode_images_int4_tree():
@@ -181,7 +181,7 @@ def test_encode_images_int4_tree():
     assert "kernel_q" in tp["projector"]["layers"][0]
     imgs = _images(2, seed=1)
     want = jllava.encode_images(jp, LLAVA_TINY, jnp.asarray(imgs))
-    got = llava.encode_images(tp, LLAVA_TINY, torch.from_numpy(imgs))
+    got = llava.encode_images(tp, port_cfg(LLAVA_TINY), torch.from_numpy(imgs))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
 
@@ -198,7 +198,7 @@ def test_generate_greedy_int4_tree_token_exact(kv_quant):
         jnp.asarray(lens), max_new_tokens=10, eos_id=-1, kv_quant=kv_quant)
     with torch.inference_mode():
         got_tok, got_num = generate.generate_greedy(
-            tp, LLAVA_TINY, torch.from_numpy(ids), torch.from_numpy(imgs),
+            tp, port_cfg(LLAVA_TINY), torch.from_numpy(ids), torch.from_numpy(imgs),
             torch.from_numpy(lens), max_new_tokens=10, eos_id=-1,
             kv_quant=kv_quant)
     np.testing.assert_array_equal(got_tok.numpy(), np.asarray(want_tok))
@@ -213,14 +213,14 @@ def test_prefill_quantized_cache_layout(kv_quant):
         jp, LLAVA_TINY, jnp.asarray(ids), jnp.asarray(imgs),
         jnp.asarray(lens), 8, "auto", kv_quant)
     got = generate._prefill_impl(
-        tp, LLAVA_TINY, torch.from_numpy(ids), torch.from_numpy(imgs),
+        tp, port_cfg(LLAVA_TINY), torch.from_numpy(ids), torch.from_numpy(imgs),
         torch.from_numpy(lens), kv_quant=kv_quant)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     g_cache, w_cache = got[3], want[3]
     assert sorted(g_cache) == sorted(w_cache)
     for key in g_cache:
         assert tuple(g_cache[key].shape) == w_cache[key].shape, key
-    gen_cache = generate.init_gen_cache_like(LLAVA_TINY.llm, 4, 8, g_cache)
+    gen_cache = generate.init_gen_cache_like(port_cfg(LLAVA_TINY.llm), 4, 8, g_cache)
     want_gen = jgenerate.init_gen_cache_like(LLAVA_TINY.llm, 4, 8, w_cache)
     assert sorted(gen_cache) == sorted(want_gen)
     for key in gen_cache:

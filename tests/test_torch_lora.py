@@ -24,7 +24,7 @@ from halva_tpu_torch import tree
 from halva_tpu_torch.models import llama
 from halva_tpu_torch.train import checkpoint, lora
 
-from test_torch_tree import jax_tree
+from test_torch_tree import jax_tree, port_cfg
 
 torch.set_num_threads(2)
 
@@ -54,12 +54,12 @@ def test_add_lora_matches_reference_structure(dtype):
     want = jlora.add_lora(jax.tree.map(jnp.asarray,
                                        jax_tree(LLAVA_TINY, jdtype)),
                           jax.random.PRNGKey(1), rank=4, alpha=8)
-    base = tree.init_params(LLAVA_TINY, torch.Generator().manual_seed(0),
-                            dtype)
+    base = tree.init_params(port_cfg(LLAVA_TINY), torch.Generator().manual_seed(0),
+                            dtype, device="cpu")
     got = lora.add_lora(base, torch.Generator().manual_seed(1), rank=4,
                         alpha=8)
     assert _shapes(got) == _shapes(tree.to_torch(
-        jax.tree.map(np.asarray, want)))
+        jax.tree.map(np.asarray, want), device="cpu"))
     layers = got["llm"]["layers"]
     n = LLAVA_TINY.llm.num_layers
     for name, p in list(layers["attn"].items()) + list(
@@ -88,10 +88,10 @@ def test_add_lora_on_packed_int4_base():
     q4 = quantize_params_int4_host(np_tree, group_size=32)
     want = jlora.add_lora(jax.tree.map(jnp.asarray, q4),
                           jax.random.PRNGKey(1), rank=4, alpha=8)
-    got = lora.add_lora(tree.to_torch(q4), torch.Generator().manual_seed(1),
+    got = lora.add_lora(tree.to_torch(q4, device="cpu"), torch.Generator().manual_seed(1),
                         rank=4, alpha=8)
     assert _shapes(got) == _shapes(tree.to_torch(
-        jax.tree.map(np.asarray, want)))
+        jax.tree.map(np.asarray, want), device="cpu"))
     wq = got["llm"]["layers"]["attn"]["wq"]
     assert wq["lora_b"].shape[-1] == 2 * wq["kernel_q4p"].shape[-1]
     assert wq["lora_a"].dtype == torch.bfloat16
@@ -101,12 +101,12 @@ def test_merge_lora_matches_reference():
     np_lp = _jax_lora_tree()
     want = jax.tree.map(np.asarray, jlora.merge_lora(
         jax.tree.map(jnp.asarray, np_lp)))
-    got = lora.merge_lora(tree.to_torch(np_lp))
-    assert _shapes(got) == _shapes(tree.to_torch(want))
+    got = lora.merge_lora(tree.to_torch(np_lp, device="cpu"))
+    assert _shapes(got) == _shapes(tree.to_torch(want, device="cpu"))
     for (path, g), (_, w) in zip(tree.flatten(got), tree.flatten(want)):
         np.testing.assert_allclose(g.numpy(), w, err_msg=str(path), **F32)
-    stripped = lora.strip_lora(tree.to_torch(np_lp))
-    assert _shapes(stripped) == _shapes(tree.to_torch(jax_tree(LLAVA_TINY)))
+    stripped = lora.strip_lora(tree.to_torch(np_lp, device="cpu"))
+    assert _shapes(stripped) == _shapes(tree.to_torch(jax_tree(LLAVA_TINY), device="cpu"))
 
 
 @pytest.mark.parametrize("extra", [(), (r"^projector/",)])
@@ -114,7 +114,7 @@ def test_trainable_mask_matches_reference(extra):
     np_lp = _jax_lora_tree()
     want = jlora.trainable_mask(jax.tree.map(jnp.asarray, np_lp),
                                 extra_trainable=extra)
-    got = lora.trainable_mask(tree.to_torch(np_lp), extra_trainable=extra)
+    got = lora.trainable_mask(tree.to_torch(np_lp, device="cpu"), extra_trainable=extra)
     assert dict(tree.flatten(got)) == dict(tree.flatten(want))
     assert any(v for _, v in tree.flatten(got))
 
@@ -122,7 +122,7 @@ def test_trainable_mask_matches_reference(extra):
 def test_state_dict_keys_and_values_match_reference():
     np_lp = _jax_lora_tree()
     want = jlora.lora_state_dict(jax.tree.map(jnp.asarray, np_lp))
-    got = lora.lora_state_dict(tree.to_torch(np_lp))
+    got = lora.lora_state_dict(tree.to_torch(np_lp, device="cpu"))
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k], np.asarray(want[k]))
@@ -139,13 +139,13 @@ def test_adapter_files_cross_load(tmp_path, writer):
         jcheckpoint.save_adapter(
             path, jlora.lora_state_dict(jax.tree.map(jnp.asarray, np_lp)))
         sd = checkpoint.load_adapter(path)
-        base = lora.add_lora(tree.to_torch(jax_tree(LLAVA_TINY)),
+        base = lora.add_lora(tree.to_torch(jax_tree(LLAVA_TINY), device="cpu"),
                              torch.Generator().manual_seed(9), rank=4)
         loaded = lora.load_lora_state_dict(base, sd)
         got = lora.lora_state_dict(loaded)
     else:
         checkpoint.save_adapter(path,
-                                lora.lora_state_dict(tree.to_torch(np_lp)))
+                                lora.lora_state_dict(tree.to_torch(np_lp, device="cpu")))
         sd = jcheckpoint.load_adapter(path)
         base = jlora.add_lora(jax.tree.map(jnp.asarray, jax_tree(LLAVA_TINY)),
                               jax.random.PRNGKey(9), rank=4)
@@ -167,13 +167,13 @@ def test_bf16_adapter_from_reference_loads(tmp_path):
     jcheckpoint.save_adapter(path, want)
     sd = checkpoint.load_adapter(path)
     loaded = lora.load_lora_state_dict(
-        lora.strip_lora(tree.to_torch(np_lp)), sd)
+        lora.strip_lora(tree.to_torch(np_lp, device="cpu")), sd)
     wq = loaded["llm"]["layers"]["attn"]["wq"]
     assert wq["lora_a"].dtype == torch.bfloat16
     for k, w in want.items():
         assert sd[k].tobytes() == np.asarray(w).tobytes(), k
     with pytest.raises(KeyError, match="unmatched"):
-        lora.load_lora_state_dict(tree.to_torch(np_lp),
+        lora.load_lora_state_dict(tree.to_torch(np_lp, device="cpu"),
                                   {"llm/nowhere/lora_a": sd[k]})
 
 
@@ -187,11 +187,11 @@ def test_dense_with_lora_matches_reference():
         np.float32)
     want = np.asarray(jllama.dense(jnp.asarray(x),
                                    jax.tree.map(jnp.asarray, p)))
-    got = llama.dense(torch.from_numpy(x), tree.to_torch(p))
+    got = llama.dense(torch.from_numpy(x), tree.to_torch(p, device="cpu"))
     np.testing.assert_allclose(got.numpy(), want, **F32)
     # the branch keys on lora_a: a lone lora_scale (the frozen reference
     # tree keeps it) adds nothing
-    lone = {k: v for k, v in tree.to_torch(p).items()
+    lone = {k: v for k, v in tree.to_torch(p, device="cpu").items()
             if k not in ("lora_a", "lora_b")}
     plain = {k: v for k, v in lone.items() if k != "lora_scale"}
     assert torch.equal(llama.dense(torch.from_numpy(x), lone),
@@ -205,7 +205,7 @@ def test_llama_forward_with_lora_matches_reference():
     want = np.asarray(jllama.forward(jax.tree.map(jnp.asarray,
                                                   np_lp["llm"]), cfg,
                                      jnp.asarray(ids), attn_impl="xla"))
-    got = llama.forward(tree.to_torch(np_lp)["llm"], cfg,
+    got = llama.forward(tree.to_torch(np_lp, device="cpu")["llm"], port_cfg(cfg),
                         torch.from_numpy(ids))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
     base = np.asarray(jllama.forward(

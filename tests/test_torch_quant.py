@@ -52,7 +52,7 @@ def test_quantize_params_int4_bit_exact(group_size):
     t = _tree_with_vocab_table()
     want = jw4.quantize_params_int4_host(t, group_size=group_size)
     got = tree.to_numpy(w4_matmul.quantize_params_int4(
-        tree.to_torch(t), group_size=group_size))
+        tree.to_torch(t, device="cpu"), group_size=group_size))
     _assert_trees_bit_equal(want, got)
     llm, vis = got["llm"], got["vision"]
     assert "embedding_q" in llm["embed"] and "kernel_q" in llm["lm_head"]
@@ -70,19 +70,19 @@ def test_quantize_params_int4_bit_exact(group_size):
 def test_quantize_params_int8_bit_exact():
     t = _tree_with_vocab_table()
     want = jquant.quantize_params_host(t)
-    got = tree.to_numpy(quant.quantize_params(tree.to_torch(t)))
+    got = tree.to_numpy(quant.quantize_params(tree.to_torch(t, device="cpu")))
     _assert_trees_bit_equal(want, got)
 
 
 def test_int4_group_size_that_does_not_divide_falls_back():
     w = np.random.RandomState(1).randn(2, 48, 16).astype(np.float32)
     t = {"layers": {"kernel": w}}
-    got = w4_matmul.quantize_params_int4(tree.to_torch(t), group_size=32)
+    got = w4_matmul.quantize_params_int4(tree.to_torch(t, device="cpu"), group_size=32)
     want = jw4.quantize_params_int4_host(t, group_size=32)
     assert got["layers"]["kernel_scale4p"].shape == (2, 2, 1, 8)
     _assert_trees_bit_equal(want, tree.to_numpy(got))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w4_matmul.quantize_params_int4(tree.to_torch(t), tp=2)
+        w4_matmul.quantize_params_int4(tree.to_torch(t, device="cpu"), tp=2)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -94,8 +94,8 @@ def test_int8_dense_matches_reference(dtype):
     x[0, 0] = 0  # an all-zero row quantizes with scale 1
     q = jquant.quantize_kernel(jnp.asarray(w))
     want = jquant.int8_dense(jnp.asarray(x), q["kernel_q"], q["kernel_scale"])
-    qt = tree.to_torch(jax.tree.map(np.asarray, q))
-    got = quant.int8_dense(tree.to_torch([x])[0], qt["kernel_q"],
+    qt = tree.to_torch(jax.tree.map(np.asarray, q), device="cpu")
+    got = quant.int8_dense(tree.to_torch([x], device="cpu")[0], qt["kernel_q"],
                            qt["kernel_scale"])
     assert got.shape == (3, 5, 48)
     np.testing.assert_allclose(got.float().numpy(),
@@ -104,7 +104,7 @@ def test_int8_dense_matches_reference(dtype):
     np.testing.assert_array_equal(
         quant.dequantize_kernel(qt, torch.float32).numpy(),
         np.asarray(jquant.dequantize_kernel(q, jnp.float32)))
-    w8 = quant.w8_dense(tree.to_torch([x])[0], qt["kernel_q"],
+    w8 = quant.w8_dense(tree.to_torch([x], device="cpu")[0], qt["kernel_q"],
                         qt["kernel_scale"])
     want8 = jquant.w8_dense(jnp.asarray(x), q["kernel_q"], q["kernel_scale"])
     np.testing.assert_allclose(w8.float().numpy(),
@@ -121,7 +121,7 @@ def test_w4a8_dense_matches_reference(group_size):
     q = jw4.quantize_kernel_int4_stacked_host(w, group_size=group_size)
     want = jw4.w4a8_dense(jnp.asarray(x), jnp.asarray(q["kernel_q4p"][0]),
                           jnp.asarray(q["kernel_scale4p"][0]))
-    qt = tree.to_torch(q)
+    qt = tree.to_torch(q, device="cpu")
     got = w4_matmul.w4a8_dense(torch.from_numpy(x), qt["kernel_q4p"][0],
                                qt["kernel_scale4p"][0])
     assert qt["kernel_scale4p"].shape[2] == (1 if group_size is None else 2)
@@ -133,11 +133,11 @@ def test_embed_lookup_matches_reference():
     p = jquant.quantize_params_host(t)["llm"]["embed"]
     ids = np.random.RandomState(4).randint(0, 4096, (3, 9)).astype(np.int32)
     want = jquant.embed_lookup(jax.tree.map(jnp.asarray, p), jnp.asarray(ids))
-    got = quant.embed_lookup(tree.to_torch(p), torch.from_numpy(ids).long())
+    got = quant.embed_lookup(tree.to_torch(p, device="cpu"), torch.from_numpy(ids).long())
     assert got.dtype == torch.bfloat16  # whatever the tree's dtype
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want, np.float32))
-    plain = quant.embed_lookup(tree.to_torch(t["llm"]["embed"]),
+    plain = quant.embed_lookup(tree.to_torch(t["llm"]["embed"], device="cpu"),
                                torch.from_numpy(ids).long())
     np.testing.assert_array_equal(plain.numpy(),
                                   t["llm"]["embed"]["embedding"][ids])

@@ -22,7 +22,9 @@ from halva_tpu_torch import tree
 from halva_tpu_torch.evals import runner
 
 from test_data_pipeline import SPTok
-from test_torch_tree import jax_tree, shared_trees
+from test_torch_tree import jax_tree, port_cfg, shared_trees
+
+TCFG = port_cfg(LLAVA_TINY)
 
 
 def _requests(tmp_path, module):
@@ -47,7 +49,7 @@ def test_batched_generator_texts_match_reference(tmp_path):
     want = jrunner.BatchedGenerator(
         jp, LLAVA_TINY, SPTok(), proc, attn_impl="xla", **kw
     ).run(_requests(tmp_path, jrunner))
-    gen = runner.BatchedGenerator(tp, LLAVA_TINY, SPTok(), proc, **kw)
+    gen = runner.BatchedGenerator(tp, TCFG, SPTok(), proc, **kw)
     got = gen.run(_requests(tmp_path, runner))
     assert got == want
     assert len(got) == 5 and all(isinstance(t, str) for t in got)
@@ -81,8 +83,8 @@ def test_batched_generator_quantized_tree(tmp_path, kv_quant):
               kv_quant=kv_quant)
     proc = ImageProcessor(size=28, crop_size=28)
     reqs = _requests(tmp_path, runner)[:3]
-    gen = runner.BatchedGenerator(tree.to_torch(q), LLAVA_TINY, SPTok(),
-                                  proc, **kw)
+    gen = runner.BatchedGenerator(tree.to_torch(q, device="cpu"), TCFG,
+                                  SPTok(), proc, **kw)
     assert gen.device.type == "cpu"
     seen = []
     got = gen.run(reqs, on_result=lambda r, text: seen.append(r.question_id))
@@ -93,5 +95,47 @@ def test_batched_generator_quantized_tree(tmp_path, kv_quant):
 
 def test_unported_options_raise():
     _, tp = shared_trees()
-    with pytest.raises(NotImplementedError):
-        runner.BatchedGenerator(tp, LLAVA_TINY, SPTok(), None, num_beams=2)
+    for unported in ({"temperature": 0.5}, {"continuous": True},
+                     {"mesh": object()}):
+        with pytest.raises(NotImplementedError):
+            runner.BatchedGenerator(tp, TCFG, SPTok(), None, **unported)
+    # the reference's argument checks
+    with pytest.raises(ValueError, match="drop num_beams"):
+        runner.BatchedGenerator(tp, TCFG, SPTok(), None, num_beams=2,
+                                spec_k=4)
+    with pytest.raises(ValueError, match="spec_k"):
+        runner.BatchedGenerator(tp, TCFG, SPTok(), None, spec_k=1)
+    with pytest.raises(ValueError, match="drop"):
+        jrunner.BatchedGenerator(None, LLAVA_TINY, SPTok(), None,
+                                 num_beams=2, spec_k=4)
+
+
+@pytest.mark.parametrize("length_penalty", [1.0, 2.0])
+def test_batched_generator_beams_match_reference(tmp_path, length_penalty):
+    jp, tp = shared_trees()
+    kw = dict(batch_size=2, max_new_tokens=4, prompt_bucket=16, num_beams=2,
+              length_penalty=length_penalty)
+    proc = ImageProcessor(size=28, crop_size=28)
+    want = jrunner.BatchedGenerator(
+        jp, LLAVA_TINY, SPTok(), proc, attn_impl="xla", **kw
+    ).run(_requests(tmp_path, jrunner)[:3])
+    gen = runner.BatchedGenerator(tp, TCFG, SPTok(), proc, **kw)
+    got = gen.run(_requests(tmp_path, runner)[:3])
+    assert got == want and len(got) == 3
+    assert set(gen.last_stats) == {"host_ms_per_img", "device_ms_per_img"}
+
+
+def test_batched_generator_speculative_matches_greedy(tmp_path):
+    jp, tp = shared_trees()
+    kw = dict(batch_size=2, max_new_tokens=6, prompt_bucket=16)
+    proc = ImageProcessor(size=28, crop_size=28)
+    reqs = _requests(tmp_path, runner)[:3]
+    greedy = runner.BatchedGenerator(tp, TCFG, SPTok(), proc, **kw).run(reqs)
+    gen = runner.BatchedGenerator(tp, TCFG, SPTok(), proc, spec_k=4, **kw)
+    got = gen.run(reqs)
+    assert got == greedy
+    jgen = jrunner.BatchedGenerator(jp, LLAVA_TINY, SPTok(), proc,
+                                    attn_impl="xla", spec_k=4, **kw)
+    assert jgen.run(_requests(tmp_path, jrunner)[:3]) == got
+    for key in ("spec_verify_steps", "spec_emitted_tokens"):
+        assert gen.last_stats[key] == jgen.last_stats[key] > 0

@@ -37,7 +37,7 @@ from halva_tpu_torch import tree
 from halva_tpu_torch.models import llava
 from halva_tpu_torch.train import lora, trainer
 
-from test_torch_tree import jax_tree
+from test_torch_tree import jax_tree, port_cfg
 from test_trainer import _fake_batch
 
 torch.set_num_threads(2)
@@ -65,8 +65,8 @@ def _jax_state(np_lp, **kw):
 def _torch_state(np_lp, **kw):
     tcfg = trainer.TrainConfig(**kw)
     trainable, frozen, opt, opt_state = trainer.init_train_state(
-        tree.to_torch(jax.tree.map(np.array, np_lp)), tcfg)
-    step, eval_loss = trainer.dpa_step_fns(CFG, tcfg, opt)
+        tree.to_torch(jax.tree.map(np.array, np_lp), device="cpu"), tcfg)
+    step, eval_loss = trainer.dpa_step_fns(port_cfg(CFG), tcfg, opt)
     return trainable, frozen, opt_state, step, eval_loss
 
 
@@ -198,7 +198,7 @@ def test_projector_group_updates_under_mm_projector_lr():
     start = proj.detach().clone()
     batch = _batches()[0]
     overrides = {"projector": tree.to_torch(jax.tree.map(
-        np.array, np_lp["projector"]))}
+        np.array, np_lp["projector"]), device="cpu")}
     joverrides = jax.tree.map(jnp.asarray, {"projector": np_lp["projector"]})
     for _ in range(2):
         jt, jst, _ = jax.jit(jstep)(
@@ -223,11 +223,11 @@ def test_ref_model_tree_keeps_lone_lora_scale():
     wq = ref["llm"]["layers"]["attn"]["wq"]
     assert "lora_scale" in wq and "lora_a" not in wq
     assert wq["kernel"] is tf["llm"]["layers"]["attn"]["wq"]["kernel"]
-    base = tree.to_torch(jax_tree(CFG))
+    base = tree.to_torch(jax_tree(CFG), device="cpu")
     ids = torch.from_numpy(_fake_batch()["input_ids"])
     imgs = torch.from_numpy(_fake_batch()["images"])
-    got, _ = llava.forward(ref, CFG, ids, imgs)
-    want, _ = llava.forward(base, CFG, ids, imgs)
+    got, _ = llava.forward(ref, port_cfg(CFG), ids, imgs)
+    want, _ = llava.forward(base, port_cfg(CFG), ids, imgs)
     assert torch.equal(got, want)
 
 
@@ -238,18 +238,18 @@ def test_llava_forward_matches_reference():
     want, wsp = jllava.forward(jax.tree.map(jnp.asarray, np_lp), CFG,
                                *(jnp.asarray(batch[a]) for a in args),
                                attn_impl="xla")
-    got, sp = llava.forward(tree.to_torch(np_lp), CFG,
+    got, sp = llava.forward(tree.to_torch(np_lp, device="cpu"), port_cfg(CFG),
                             *(torch.from_numpy(batch[a]) for a in args))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
     for g, w in zip(sp[1:], wsp[1:]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    hidden, _ = llava.forward(tree.to_torch(np_lp), CFG,
+    hidden, _ = llava.forward(tree.to_torch(np_lp, device="cpu"), port_cfg(CFG),
                               *(torch.from_numpy(batch[a]) for a in args),
                               return_hidden=True)
     assert hidden.shape == got.shape[:2] + (CFG.llm.hidden_size,)
     with pytest.raises(NotImplementedError, match="item 11"):
-        llava.forward(tree.to_torch(np_lp), CFG,
+        llava.forward(tree.to_torch(np_lp, device="cpu"), port_cfg(CFG),
                       torch.from_numpy(batch["input_ids"]),
                       torch.from_numpy(batch["images"])[:, None])
 
@@ -268,18 +268,18 @@ def test_remat_runs_each_layer_again_in_the_backward(monkeypatch):
 
     monkeypatch.setattr(llama, "_layer", counting)
     np_lp = _np_policy()
-    params = tree.to_torch(np_lp)["llm"]
+    params = tree.to_torch(np_lp, device="cpu")["llm"]
     params["layers"]["attn"]["wq"]["lora_b"].requires_grad_(True)
     x = torch.randn(2, 6, CFG.llm.hidden_size)
     seg = torch.ones(2, 6, dtype=torch.int32)
     pos = torch.arange(6).expand(2, 6)
-    out = llama.forward_embeds(params, CFG.llm, x, seg, pos, remat=True)
+    out = llama.forward_embeds(params, port_cfg(CFG.llm), x, seg, pos, remat=True)
     assert len(calls) == CFG.llm.num_layers
     out.sum().backward()
     assert len(calls) == 2 * CFG.llm.num_layers
     calls.clear()
     with torch.no_grad():
-        again = llama.forward_embeds(params, CFG.llm, x, seg, pos,
+        again = llama.forward_embeds(params, port_cfg(CFG.llm), x, seg, pos,
                                      remat=True)
     assert len(calls) == CFG.llm.num_layers
     torch.testing.assert_close(again, out.detach(), rtol=0, atol=0)
@@ -288,7 +288,7 @@ def test_remat_runs_each_layer_again_in_the_backward(monkeypatch):
 @pytest.mark.parametrize("what", ["adamw8bit", "mesh", "packed", "sgd"])
 def test_unported_options_raise(what):
     np_lp = _np_policy()
-    params = tree.to_torch(np_lp)
+    params = tree.to_torch(np_lp, device="cpu")
     if what == "adamw8bit":
         with pytest.raises(NotImplementedError, match="item 8"):
             trainer.init_train_state(params,
@@ -299,11 +299,11 @@ def test_unported_options_raise(what):
     elif what == "mesh":
         _, _, opt, _ = trainer.init_train_state(params, trainer.TrainConfig())
         with pytest.raises(NotImplementedError, match="item 10"):
-            trainer.dpa_step_fns(CFG, trainer.TrainConfig(), opt,
+            trainer.dpa_step_fns(port_cfg(CFG), trainer.TrainConfig(), opt,
                                  mesh=object())
     else:
         with pytest.raises(NotImplementedError, match="item 8"):
-            trainer.packed_dpa_step_fns(CFG, trainer.TrainConfig(), None, 4)
+            trainer.packed_dpa_step_fns(port_cfg(CFG), trainer.TrainConfig(), None, 4)
 
 
 def test_train_config_fields_and_defaults_match_reference():

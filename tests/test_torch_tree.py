@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from halva_tpu.config import LLAVA_TINY, LLAVA_V15_7B, LlavaConfig
 from halva_tpu.models import llava
+from halva_tpu_torch import config as tconfig
 from halva_tpu_torch import tree
 from halva_tpu_torch.models.llava import LlavaModel
 
@@ -31,6 +32,18 @@ LLAVA_TINY_GQA = dataclasses.replace(
 )
 
 
+def port_cfg(cfg):
+    """The port's own config object equal to a reference one, field for
+    field (each package gets its own: the port imports nothing of the
+    other)."""
+    cls = getattr(tconfig, type(cfg).__name__)
+    return cls(**{
+        f.name: (port_cfg(v) if dataclasses.is_dataclass(v) else v)
+        for f in dataclasses.fields(cfg)
+        for v in [getattr(cfg, f.name)]
+    })
+
+
 def jax_tree(cfg: LlavaConfig = LLAVA_TINY, dtype=jnp.float32, seed=0):
     """The reference's random tree as numpy arrays."""
     params = llava.init_params(jax.random.PRNGKey(seed), cfg, dtype)
@@ -40,7 +53,8 @@ def jax_tree(cfg: LlavaConfig = LLAVA_TINY, dtype=jnp.float32, seed=0):
 def shared_trees(cfg: LlavaConfig = LLAVA_TINY, dtype=jnp.float32, seed=0):
     """(jax tree, torch tree) holding the same values."""
     np_tree = jax_tree(cfg, dtype, seed)
-    return jax.tree.map(jnp.asarray, np_tree), tree.to_torch(np_tree)
+    return (jax.tree.map(jnp.asarray, np_tree),
+            tree.to_torch(np_tree, device="cpu"))
 
 
 def _leaves(t):
@@ -52,7 +66,7 @@ def _leaves(t):
 def test_round_trip_bit_exact(dtype):
     rng = np.random.RandomState(0)
     a = np.asarray(jnp.asarray(rng.randn(3, 5, 7) * 50).astype(dtype))
-    t = tree.to_torch({"x": a})["x"]
+    t = tree.to_torch({"x": a}, device="cpu")["x"]
     back = tree.to_numpy({"x": t})["x"]
     assert back.dtype == a.dtype and back.shape == a.shape
     assert back.tobytes() == a.tobytes()
@@ -64,7 +78,7 @@ def test_round_trip_bit_exact(dtype):
 
 def test_llava_tree_round_trip():
     np_tree = jax_tree(LLAVA_TINY, jnp.bfloat16)
-    back = tree.to_numpy(tree.to_torch(np_tree))
+    back = tree.to_numpy(tree.to_torch(np_tree, device="cpu"))
     assert jax.tree.structure(back) == jax.tree.structure(np_tree)
     for (p, a), (q, b) in zip(tree.flatten(np_tree), tree.flatten(back)):
         assert p == q and a.dtype == b.dtype
@@ -86,8 +100,8 @@ def test_init_params_matches_reference(cfg, dtype, device):
         lambda k: llava.init_params(k, cfg, dtype), jax.random.PRNGKey(0)
     )
     tdtype = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
-    got = tree.init_params(cfg, torch.Generator().manual_seed(0), tdtype,
-                           device)
+    got = tree.init_params(port_cfg(cfg), torch.Generator().manual_seed(0),
+                           tdtype, device)
     want_leaves = _leaves(want)
     got_leaves = _leaves(got)
     assert sorted(got_leaves, key=str) == sorted(want_leaves, key=str)
@@ -101,7 +115,9 @@ def test_init_params_scales_match_reference():
     """Same init scales: per-leaf std within sampling noise of the
     reference's (kernels in^-0.5, embeddings 0.02, norms ones)."""
     want = _leaves(jax_tree(LLAVA_TINY))
-    got = _leaves(tree.init_params(LLAVA_TINY, torch.Generator().manual_seed(0)))
+    got = _leaves(tree.init_params(port_cfg(LLAVA_TINY),
+                                   torch.Generator().manual_seed(0),
+                                   device="cpu"))
     for path, w in want.items():
         g = got[path].numpy()
         if np.all(w == w.flat[0]):
@@ -112,8 +128,8 @@ def test_init_params_scales_match_reference():
 
 def test_llava_model_owns_tree():
     np_tree = jax_tree(LLAVA_TINY)
-    params = tree.to_torch(np_tree)
-    model = LlavaModel(LLAVA_TINY, params)
+    params = tree.to_torch(np_tree, device="cpu")
+    model = LlavaModel(port_cfg(LLAVA_TINY), params)
     out = model.params
     assert list(_leaves(out)) == list(_leaves(params))
     assert isinstance(out["projector"]["layers"], list)
@@ -121,3 +137,27 @@ def test_llava_model_owns_tree():
         assert a is b, p
     moved = model.to(torch.float64).params
     assert moved["llm"]["embed"]["embedding"].dtype == torch.float64
+
+
+@pytest.mark.parametrize("make", ["to_torch", "init_params", "init_gen_cache"])
+def test_default_device_is_the_card(make):
+    """A caller who names no device gets tensors on the card; where there is
+    none the call raises, it does not fall back to the CPU."""
+    from halva_tpu_torch.models import llama
+
+    cfg = port_cfg(LLAVA_TINY)
+    calls = {
+        "to_torch": lambda: tree.to_torch({"x": np.zeros((2, 3), np.float32)}),
+        "init_params": lambda: tree.init_params(
+            cfg, torch.Generator().manual_seed(0)),
+        "init_gen_cache": lambda: llama.init_gen_cache(cfg.llm, 2, 4),
+    }
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            calls[make]()
+        return
+    if make == "init_params":  # the generator must live where the tensors do
+        calls[make] = lambda: tree.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+    assert all(t.is_cuda for _, t in tree.flatten(calls[make]())
+               if isinstance(t, torch.Tensor))

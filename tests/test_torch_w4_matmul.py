@@ -45,8 +45,8 @@ def test_w4_dense_stacked_matches_pallas(groups, dtype):
     lo, _ = w4_matmul.unpack_int4(torch.from_numpy(stack["kernel_q4p"]))
     assert int(lo.min()) == -8  # the quantizers never make -8; bytes do
     jstack = {key: jnp.asarray(v) for key, v in stack.items()}
-    tstack = tree.to_torch(stack)
-    tx = tree.to_torch([x])[0]
+    tstack = tree.to_torch(stack, device="cpu")
+    tx = tree.to_torch([x], device="cpu")[0]
     for li in range(layers):
         want = np.asarray(jw4.w4_dense_stacked(
             jnp.asarray(x), jstack, jnp.int32(li), block_np=64), np.float32)
@@ -66,7 +66,7 @@ def test_plain_is_the_dequant_matmul():
     the reference's dense dequant branch in fp32."""
     stack = _random_stack(1, 64, 40, 4, seed=3)
     x = np.random.RandomState(4).randn(5, 64).astype(np.float32)
-    p = {key: v[0] for key, v in tree.to_torch(stack).items()}
+    p = {key: v[0] for key, v in tree.to_torch(stack, device="cpu").items()}
     got = w4_matmul.w4_dense_stacked_plain(torch.from_numpy(x), p)
     w = w4_matmul.dequantize_int4(p["kernel_q4p"], p["kernel_scale4p"],
                                   torch.float32)
