@@ -27,9 +27,24 @@ kernel's time it prints the least time the card could take for the same
 work (bytes over 3.35 TB/s or FLOP over 989 TFLOP/s, whichever is larger)
 and, where one PyTorch call computes the same function
 (`scaled_dot_product_attention`), that call's time as a yardstick; the
-port itself never calls it. Every phase prints one line; any failure raises
-and exits non-zero. The last line is the device record {"ok": true,
-"device": {...}}.
+port itself never calls it. Then the two other model families at 7B width
+and depth, each from its own random bf16 tree: Mistral-7B (GQA 32 over 8
+heads, sliding window 4096: K1, K2 and K3 in window mode, K4 at G=4, a
+4,608-token text row that outgrows the window and decodes through the
+position-aware plain attention, a short int4g run: K6 and K4 int4 at
+Mistral's shapes) and MPT-7B (ALiBi, LayerNorm, non-gated GELU MLP, tied
+embeddings: K1, K2 and K3 in ALiBi mode, decode through the plain attention
+with the bias, as the JAX package computes it), served and trained; before
+them K1, K2 and K3 are held against their plain versions in the ALiBi,
+sliding-window modes and with a q_offset. Every phase prints one line; any
+failure raises and exits non-zero. The last line is the device record
+{"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --flash-only
+
+builds the kernels, runs only the checks and timings of K1, K2 and K3 and
+prints their rows: two builds of the flash kernels are compared by running
+this from each tree in turn on one card.
 
 Needs a CUDA device; imports no JAX.
 """
@@ -49,10 +64,22 @@ import torch
 import torch.nn.functional as F
 
 from halva_tpu_torch import _kernels, tree
-from halva_tpu_torch.config import LLAVA_V15_7B
+from halva_tpu_torch.config import (
+    CLIP_VIT_L_336,
+    LLAVA_V15_7B,
+    MISTRAL_7B,
+    MPT_7B,
+    LlavaConfig,
+)
 from halva_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from halva_tpu_torch.models import llama
+from halva_tpu_torch.models import llama, llava
 from halva_tpu_torch.models.llava import LlavaModel
+from halva_tpu_torch.ops.attention import (
+    alibi_in_kernel,
+    attention,
+    causal_alibi_bias,
+    make_attention_mask,
+)
 from halva_tpu_torch.ops.beam import (generate_beam, init_beam_state,
                                       reorder_gen_cache, select_step)
 from halva_tpu_torch.ops.decode_attention import (
@@ -62,6 +89,7 @@ from halva_tpu_torch.ops.decode_attention import (
     fold_attend_plain,
 )
 from halva_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
     flash_attention_bwd_plain,
@@ -87,7 +115,10 @@ from halva_tpu_torch.train.trainer import (
     init_train_state,
 )
 
-CFG = LLAVA_V15_7B  # the train phase's model
+CFG = LLAVA_V15_7B  # the first train phase's model
+# VILA's llava_mistral and llava_mpt compositions at 7B
+LLAVA_MISTRAL_7B = LlavaConfig(llm=MISTRAL_7B, vision=CLIP_VIT_L_336)
+LLAVA_MPT_7B = LlavaConfig(llm=MPT_7B, vision=CLIP_VIT_L_336)
 DEVICE = "cuda"
 
 # bf16 kernel vs plain version on the same bf16 inputs, elementwise
@@ -139,6 +170,10 @@ BEAMS = 4
 BEAM_TOKENS_BF16 = 8  # the short beam run on the bf16 tree
 SHORT_TOKENS = 4  # runs that only drive a further cache mode or route
 SPEC_LONG = (8, 200)  # draft_k, tokens: a 256-slot gen cache
+LONG_ROW = 4608  # a text-only Mistral row past its 4096 window
+LONG_STEPS = 4  # decode steps on the long row
+FAMILY_MICRO_STEPS = 2  # train micro-steps on the Mistral and MPT trees
+FLOOR_DRAWS = 5  # perturbations behind each train noise floor
 # the card's published peaks (H100 SXM data sheet), for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -209,6 +244,15 @@ def tensor_bytes(*tensors) -> int:
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     want = want.float()
     return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def perturbed(t: torch.Tensor, noise) -> torch.Tensor:
+    """t x (1 + 2^-7 N(0, 1)) in t's dtype, the bf16-level perturbation behind
+    every noise floor; t itself when `noise` (a CUDA generator) is None."""
+    if noise is None:
+        return t
+    eps = torch.randn(t.shape, generator=noise, device=t.device)
+    return (t.float() * (1 + 2**-7 * eps)).to(t.dtype)
 
 
 def max_abs(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -395,6 +439,248 @@ def check_flash_bwd(gen: torch.Generator) -> list:
          "halva_tpu/ops/flash_attention.py:279", "max_abs_err": worst["dkv"],
          "ms": timing["dkv"], **timing["dkv_bound"], **common},
     ]
+
+
+FLASH_SOURCES = {
+    "flash_fwd": ("halva_tpu_torch/csrc/flash_fwd.cu",
+                  "halva_tpu/ops/flash_attention.py:83"),
+    "flash_bwd_dq": ("halva_tpu_torch/csrc/flash_bwd.cu",
+                     "halva_tpu/ops/flash_attention.py:206"),
+    "flash_bwd_dkv": ("halva_tpu_torch/csrc/flash_bwd.cu",
+                      "halva_tpu/ops/flash_attention.py:279"),
+}
+
+
+def _sdpa_mask(mask, bias):
+    """The additive bf16 mask one SDPA call takes for a bool mask and an
+    ALiBi bias (the yardstick only)."""
+    if bias is None:
+        return mask
+    return bias.masked_fill(~mask, float("-inf")).bfloat16()
+
+
+def flash_mode_case(gen, label, b, s, h, kvh, lens, modes, packed_at=None,
+                    shard=None, timed=False):
+    """K1, K2 and K3 in one mode against their plain versions on random bf16
+    inputs of B rows of S tokens (padded to `lens`, two documents per row
+    from `packed_at` on). `shard` = (offset, rows): only that shard of the
+    queries runs, with q_offset, against all keys, and is also held against
+    the same rows of the full call. Returns {"fwd": .., "dq": .., "dkv": ..}
+    of max_abs_err and, when timed, ms, plain_ms, library_ms and the bound
+    on this run's live pairs."""
+    dev, d = "cuda", 128
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    q, k, v, do = r(b, s, h, d), r(b, s, kvh, d), r(b, s, kvh, d), r(
+        b, s, h, d)
+    seg = lengths_to_seg(lens, s, dev)
+    if packed_at is not None:
+        seg = seg * (1 + (torch.arange(s, device=dev) >= packed_at).int())
+    kw = dict(modes)
+    qseg = seg
+    full = None
+    if shard is not None:
+        off, n = shard
+        full_o, full_lse = flash_attention_fwd(q, k, v, seg, seg, **modes)
+        do_full = torch.zeros_like(do)
+        do_full[:, off:off + n] = do[:, off:off + n]
+        do_full[seg == 0] = 0
+        full = (full_o[:, off:off + n],
+                *flash_attention_bwd(q, k, v, seg, seg, full_o, full_lse,
+                                     do_full, **modes))
+        full = (full[0], full[1][:, off:off + n], full[2], full[3])
+        q, do, qseg = (t[:, off:off + n].contiguous() for t in (q, do, seg))
+        kw["q_offset"] = off
+    live_q, live_k = qseg != 0, seg != 0
+    do[~live_q] = 0  # dead rows never reach a loss
+    o, lse = flash_attention_fwd(q, k, v, qseg, seg, **kw)
+    delta = flash_attention_delta(o, do)
+    args = (q, k, v, qseg, seg, do, lse, delta)
+    got = (o, flash_attention_bwd_dq(*args, **kw),
+           *flash_attention_bwd_dkv(*args, **kw))
+    want = (flash_attention_plain(q, k, v, qseg, seg, **kw),
+            *flash_attention_bwd_plain(q, k, v, qseg, seg, o, lse, do, **kw))
+    torch.cuda.synchronize()
+    lives = (live_q, live_q, live_k, live_k)
+    errs, line, ok = {}, [], True
+    for name, g, w, lv in zip(("o", "dq", "dk", "dv"), got, want, lives):
+        g, w = g[lv].float(), w[lv].float()
+        err, rel = max_abs(g, w), rel_err(g, w)
+        if name == "o":
+            good = within(g, w)
+        else:
+            limit = BWD_RTOL * (w.abs().max() + w.abs())
+            good = bool((g - w).abs().le(limit).all()) and rel <= BWD_REL
+        ok = ok and good and bool(torch.isfinite(g).all())
+        errs[name] = err
+        line.append(f"{name} {err:.3e} rel {rel:.3e}")
+    if full is not None:
+        # kernel against kernel: the shard equals the full call's rows
+        for name, g, w, lv in zip(("o", "dq", "dk", "dv"), got, full, lives):
+            g, w = g[lv].float(), w[lv].float()
+            scale = 1.0 if name == "o" else float(w.abs().max())
+            same = bool((g - w).abs().le(
+                KERNEL_ATOL * scale + BWD_RTOL * w.abs()).all())
+            ok = ok and same
+            line.append(f"{name} vs the full call's rows "
+                        f"{max_abs(g, w):.3e}")
+    mask = make_attention_mask(qseg, seg, True, q_offset=kw.get("q_offset"),
+                               sliding_window=kw.get("sliding_window"))
+    pairs = h * int(mask.sum())
+    print(f"flash modes {label} B={b} Sq={q.shape[1]} Skv={s} H={h} "
+          f"KVH={kvh} {kw}: max_abs_err " + ", ".join(line)
+          + f"; {pairs / 1e6:.1f} M live pairs (limits o {KERNEL_ATOL} + "
+          f"{KERNEL_RTOL}*|plain|, grads {BWD_RTOL}*(max|plain| + |plain|), "
+          f"rel {BWD_REL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash kernels in mode {label} disagree with "
+                             "their plain versions")
+    out = {"fwd": {"max_abs_err": errs["o"]},
+           "dq": {"max_abs_err": errs["dq"]},
+           "dkv": {"max_abs_err": max(errs["dk"], errs["dv"])}}
+    if not timed:
+        return out
+    ms = {"fwd": device_ms(lambda: flash_attention_fwd(q, k, v, qseg, seg,
+                                                       **kw)),
+          "dq": device_ms(lambda: flash_attention_bwd_dq(*args, **kw)),
+          "dkv": device_ms(lambda: flash_attention_bwd_dkv(*args, **kw))}
+    plain_fwd = device_ms(lambda: flash_attention_plain(q, k, v, qseg, seg,
+                                                        **kw), iters=5)
+    plain_bwd = device_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, qseg, seg, o, lse, do, **kw), iters=5)
+    # the yardstick: one SDPA call (GQA heads repeated outside the timed
+    # call) under the same mask, the ALiBi bias folded into it; its
+    # autograd backward for K2 and K3 together
+    bias = None
+    if kw.get("alibi"):
+        bias = causal_alibi_bias(h, q.shape[1], s, dev,
+                                 kw.get("q_offset") or 0)
+    amask = _sdpa_mask(mask, bias)
+    del bias
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in
+              (q, k.repeat_interleave(h // kvh, dim=2),
+               v.repeat_interleave(h // kvh, dim=2))]
+    lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+        *[t.detach() for t in leaves], attn_mask=amask))
+    sd = F.scaled_dot_product_attention(*leaves, attn_mask=amask)
+    dot = do.transpose(1, 2)
+    lib_bwd = timed_ms(lambda: torch.autograd.grad(sd, leaves, dot,
+                                                   retain_graph=True),
+                       iters=10)
+    del sd, leaves, amask, mask
+    io = tensor_bytes(q, k, v, qseg, seg)
+    bounds = {
+        "fwd": bound(io + tensor_bytes(o, lse), 2 * 2 * d * pairs),
+        "dq": bound(io + tensor_bytes(do, lse, delta, q), 3 * 2 * d * pairs),
+        "dkv": bound(io + tensor_bytes(do, lse, delta, k, v),
+                     4 * 2 * d * pairs)}
+    flop = {"fwd": 4, "dq": 6, "dkv": 8}
+    print(f"flash modes {label} time: "
+          + "; ".join(
+              f"{name} {ms[name]:.4f} ms "
+              f"({flop[name] * d * pairs / ms[name] / 1e9:.1f} TFLOP/s live, "
+              f"bound {bounds[name]['bound_ms']:.4f} by "
+              f"{bounds[name]['bound_by']})" for name in ("fwd", "dq", "dkv"))
+          + f"; plain forward {plain_fwd:.4f} ms, plain backward (dq, dk, dv "
+          f"together) {plain_bwd:.4f} ms; SDPA with the mask"
+          f"{' and bias' if kw.get('alibi') else ''} {lib_fwd:.4f} ms, its "
+          f"backward (all three) {lib_bwd:.4f} ms")
+    if modes:
+        # the base mode on the same inputs (its own o, LSE and delta): what
+        # the mode costs or saves against plain causal attention
+        bkw = {"q_offset": kw["q_offset"]} if "q_offset" in kw else {}
+        bo, blse = flash_attention_fwd(q, k, v, qseg, seg, **bkw)
+        bargs = (q, k, v, qseg, seg, do, blse, flash_attention_delta(bo, do))
+        base = (device_ms(lambda: flash_attention_fwd(q, k, v, qseg, seg,
+                                                      **bkw)),
+                device_ms(lambda: flash_attention_bwd_dq(*bargs, **bkw)),
+                device_ms(lambda: flash_attention_bwd_dkv(*bargs, **bkw)))
+        print(f"flash modes {label}: the base mode on the same inputs takes "
+              f"fwd {base[0]:.4f}, dq {base[1]:.4f}, dkv {base[2]:.4f} ms")
+    for name in out:
+        out[name].update(
+            ms=ms[name], plain_ms=plain_fwd if name == "fwd" else plain_bwd,
+            library_ms=lib_fwd if name == "fwd" else lib_bwd, **bounds[name])
+    return out
+
+
+def check_flash_modes(gen: torch.Generator, base: dict) -> list:
+    """K1, K2 and K3 in their ALiBi and sliding-window modes and with a
+    q_offset against flash_attention_plain / flash_attention_bwd_plain: at
+    the train shape (B=4 rows of 1087 tokens, padded; H=32), with a window
+    of 256 that bites and skips tiles, with GQA and packed segments, at one
+    row of 4,608 tokens with Mistral's heads and window (4096), and on the
+    upper half of the queries against all keys. One row of the `kernels`
+    line per kernel and mode, timed at B=4, S=1087, H=KVH=32. q_offset is an
+    argument of every mode and has no row of its own (no main path passes
+    it before context parallelism over several cards): its cases' errors go
+    into the row of the mode they ran in, the base mode's into `base`, the
+    rows of flash_fwd, flash_bwd_dq and flash_bwd_dkv by kernel name."""
+    s = TRAIN_SPLICED
+    lens = (s, s - 7, s - 64, s - 301)
+    half = s // 2
+    timed = {
+        "alibi": flash_mode_case(gen, "alibi", 4, s, 32, 32, lens,
+                                 {"alibi": True}, timed=True),
+        "window": flash_mode_case(gen, "window", 4, s, 32, 32, lens,
+                                  {"sliding_window": 256}, timed=True),
+    }
+    extra = {
+        "alibi": [flash_mode_case(gen, "alibi GQA packed", 4, s, 32, 8, lens,
+                                  {"alibi": True}, packed_at=500)],
+        "window": [
+            flash_mode_case(gen, "window GQA packed", 4, s, 32, 8, lens,
+                            {"sliding_window": 256}, packed_at=500),
+            flash_mode_case(gen, "window narrower than a tile", 2, s, 32, 8,
+                            lens[:2], {"sliding_window": 40}),
+            flash_mode_case(gen, "window, the long Mistral row", 1, LONG_ROW,
+                            32, 8, (LONG_ROW,),
+                            {"sliding_window": MISTRAL_7B.sliding_window},
+                            timed=True),
+            flash_mode_case(gen, "q_offset + window, GQA", 4, s, 32, 8, lens,
+                            {"sliding_window": 256}, shard=(half, s - half))],
+        "": [flash_mode_case(gen, "q_offset (upper half)", 4, s, 32, 32, lens,
+                             {}, shard=(half, s - half), timed=True)],
+    }
+    extra["alibi"].append(
+        flash_mode_case(gen, "q_offset + alibi", 2, s, 32, 32, lens[:2],
+                        {"alibi": True}, shard=(300, 400)))
+    torch.cuda.empty_cache()
+    # the reference's dispatch for a head count the slope formula does not
+    # cover: plain attention with alibi_bias, on the card too, no launch
+    q = torch.randn(1, 200, 12, 128, generator=gen, device="cuda").bfloat16()
+    seg = torch.ones(1, 200, dtype=torch.int32, device="cuda")
+    before = sum(_kernels.launches.values())
+    got = attention(q, q, q, seg, seg, alibi=True)
+    want = attention(q, q, q, seg, seg, alibi=True, impl="plain")
+    ok = (sum(_kernels.launches.values()) == before
+          and torch.equal(got, want) and not alibi_in_kernel(12)
+          and alibi_in_kernel(MPT_7B.num_heads))
+    print("route: ALiBi with 12 heads (not a power of two) takes the plain "
+          "attention with alibi_bias, 0 launches; MPT-7B's 32 heads take K1's"
+          " ALiBi mode: the reference's dispatch by head count, "
+          f"halva_tpu/ops/attention.py:152 and ops/flash_attention.py:641 "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("non-power-of-two ALiBi did not take the plain "
+                             "attention")
+    out = []
+    for part, kernel in (("fwd", "flash_fwd"), ("dq", "flash_bwd_dq"),
+                         ("dkv", "flash_bwd_dkv")):
+        base[kernel]["max_abs_err"] = max(
+            [base[kernel]["max_abs_err"]]
+            + [e[part]["max_abs_err"] for e in extra[""]])
+        for mode in ("alibi", "window"):
+            row = dict(timed[mode][part])
+            row["max_abs_err"] = max(
+                [row["max_abs_err"]]
+                + [e[part]["max_abs_err"] for e in extra[mode]])
+            source, replaces = FLASH_SOURCES[kernel]
+            out.append({"name": f"{kernel}_{mode}", "route": "cuda",
+                        "source": source, "replaces": replaces, **row})
+    return out
 
 
 def check_decode(gen: torch.Generator) -> dict:
@@ -915,6 +1201,27 @@ def check_w4(gen: torch.Generator) -> dict:
                     timing = {"ms": ms, "plain_ms": plain_ms,
                               "library_ms": None, **lim}
         del w
+    # Mistral-7B's decode matmuls at the smoke's batch, g=128: wk/wv
+    # (N=1024), gate/up (N=14336), down (K=14336); compared, not timed
+    for k, n in ((4096, 1024), (4096, 14336), (14336, 4096)):
+        groups = k // W4_GROUP
+        p = {"kernel_q4p": torch.randint(-128, 128, (k, n // 2),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int8),
+             "kernel_scale4p": (torch.rand(2, groups, n // 2, generator=gen,
+                                           device=dev) * 0.02
+                                + 0.005).bfloat16()}
+        x = torch.randn(4, k, generator=gen, device=dev).bfloat16()
+        got, want = w4_dense_stacked(x, p), w4_dense_stacked_plain(x, p)
+        torch.cuda.synchronize()
+        err = max_abs(got, want)
+        ok = within(got, want) and bool(torch.isfinite(got).all())
+        print(f"w4_gemv B=4 K={k} N={n} G={groups} (mistral-7b): max_abs_err "
+              f"{err:.3e} rel {rel_err(got, want):.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("w4_gemv disagrees with its plain version")
+        worst = max(worst, err)
     return {"name": "w4_gemv", "route": "cuda",
             "source": "halva_tpu_torch/csrc/w4_gemv.cu",
             "replaces": "halva_tpu/ops/w4_matmul.py:313",
@@ -1144,11 +1451,8 @@ def run_int4g(q4: dict, kernels: dict) -> torch.Tensor:
             gen_cache = init_gen_cache_like(cfg.llm, b, NEW_TOKENS, cache)
             logits = []
             for step in range(COMPARE_STEPS):
-                emb = llama.embed(q4["llm"], tokens[:, step, None])
-                if run == "floor":
-                    eps = torch.randn(emb.shape, generator=noise,
-                                      device="cuda")
-                    emb = (emb.float() * (1 + 2**-7 * eps)).to(emb.dtype)
+                emb = perturbed(llama.embed(q4["llm"], tokens[:, step, None]),
+                                noise if run == "floor" else None)
                 lg, gen_cache = llama.decode_step(
                     q4["llm"], cfg.llm, emb, slen + step, cache, pseg,
                     gen_cache, step, attn_impl=impl)
@@ -1447,10 +1751,8 @@ def compare_verify(q4, cfg, inputs, tokens) -> None:
         for run, impl in (("auto", "auto"), ("plain", "plain"),
                           ("floor", "plain")):
             gen_cache = init_gen_cache_like(cfg.llm, b, NEW_TOKENS, pc)
-            emb = llama.embed(q4["llm"], tokens[:, :kq])
-            if run == "floor":
-                eps = torch.randn(emb.shape, generator=noise, device=DEVICE)
-                emb = (emb.float() * (1 + 2**-7 * eps)).to(emb.dtype)
+            emb = perturbed(llama.embed(q4["llm"], tokens[:, :kq]),
+                            noise if run == "floor" else None)
             gen_len = torch.zeros((b,), dtype=torch.int32, device=DEVICE)
             runs[run], _ = llama.verify_step(
                 q4["llm"], cfg.llm, emb, slen, pc, pseg, gen_cache, gen_len,
@@ -1524,21 +1826,25 @@ def changed(before: dict, after: dict) -> list:
     return [p for p in before if before[p] != after[p]]
 
 
-def run_train(params: dict, kernels: dict) -> None:
-    """The DPA LoRA train step of llava-v1.5-7b at full width: bf16 base,
-    bf16 LoRA r=128 alpha=256 on the 7 linears of all layers, remat per
-    layer, loss_chunk=256, micro-batch 2, AdamW with warmup and cosine
-    decay, grad_accum_steps=2; TRAIN_MICRO_STEPS micro-steps. Then one
-    micro-step on the kernel path against the plain path."""
-    cfg = CFG
+def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
+              suffix: str = "", micro_steps: int = TRAIN_MICRO_STEPS,
+              grad_accum: int = 2) -> None:
+    """The DPA LoRA train step at full width (llava-v1.5-7b unless `cfg`
+    says otherwise): bf16 base, bf16 LoRA r=128 alpha=256 on the 7 linears
+    of all layers, remat per layer, loss_chunk=256, micro-batch 2, AdamW
+    with warmup and cosine decay, `grad_accum` micro-steps per update;
+    `micro_steps` micro-steps, two updates in all (the first at lr(0) = 0).
+    `suffix` is the flash kernels' mode on this config. Then one micro-step
+    on the kernel path against the plain path."""
+    cfg = cfg or CFG
     layers = cfg.llm.num_layers
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     policy = add_lora(params, gen, rank=128, alpha=256.0)
-    tcfg = TrainConfig(grad_accum_steps=2, num_train_steps=400, remat=True,
-                       loss_chunk=256)
+    tcfg = TrainConfig(grad_accum_steps=grad_accum, num_train_steps=400,
+                       remat=True, loss_chunk=256)
     trainable, frozen, opt, opt_state = init_train_state(policy, tcfg)
     step, _ = dpa_step_fns(cfg, tcfg, opt)
-    batches = [train_batch(cfg, seed) for seed in range(TRAIN_MICRO_STEPS)]
+    batches = [train_batch(cfg, seed) for seed in range(micro_steps)]
     n_lora = sum(t.numel() for _, t in tree.flatten(trainable)
                  if t is not None)
     sums = [bit_sums(policy)]
@@ -1564,7 +1870,7 @@ def run_train(params: dict, kernels: dict) -> None:
         seen = now
         vals = [float(x) for x in m]
         ok = all(np.isfinite(vals)) and vals[3] > 0
-        print(f"train micro-step {i}: loss {vals[0]:.6f} alignment "
+        print(f"{what}train micro-step {i}: loss {vals[0]:.6f} alignment "
               f"{vals[1]:.6f} kl {vals[2]:.3e} grad_norm {vals[3]:.4e}; "
               f"{times[-1] * 1e3:.1f} ms; updates applied {opt.updates} "
               f"{'ok' if ok else 'FAIL'}")
@@ -1574,20 +1880,20 @@ def run_train(params: dict, kernels: dict) -> None:
         # per layer: K1 in the pos+neg, policy-ref and frozen-ref forwards
         # and in the remat recompute of the two forwards with grad; K2 and
         # K3 in the backward of those two
-        expect_launches(per_step, {"flash_fwd": 5 * layers,
-                                   "flash_bwd_dq": 2 * layers,
-                                   "flash_bwd_dkv": 2 * layers},
-                        f"train micro-step {i}")
-        if opt.updates and i % tcfg.grad_accum_steps == 1:
+        expect_launches(per_step, {"flash_fwd" + suffix: 5 * layers,
+                                   "flash_bwd_dq" + suffix: 2 * layers,
+                                   "flash_bwd_dkv" + suffix: 2 * layers},
+                        f"{what}train micro-step {i}")
+        if opt.updates and (i + 1) % tcfg.grad_accum_steps == 0:
             sums.append(bit_sums(policy))
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_bwd_dq" + suffix, "flash_bwd_dkv" + suffix):
         kernels[name]["launches"] = seen.get(name, 0)
 
     lora_paths = {p for p, t in tree.flatten(trainable) if t is not None}
     first, second = changed(sums[0], sums[1]), changed(sums[1], sums[2])
     ok = (opt.updates == 2 and not first and second
           and set(second) <= lora_paths)
-    print(f"train updates: {opt.updates}; leaves changed by update 1 (lr(0) "
+    print(f"{what}train updates: {opt.updates}; leaves changed by update 1 (lr(0) "
           f"= 0): {len(first)}; by update 2: {len(second)} of "
           f"{len(lora_paths)} LoRA leaves ({n_lora / 1e6:.1f} M params), "
           f"{len(set(second) - lora_paths)} others "
@@ -1596,21 +1902,26 @@ def run_train(params: dict, kernels: dict) -> None:
         raise AssertionError("the optimizer changed other leaves than LoRA's,"
                              " or none")
     steady = times[1:]
-    print(f"train main path ({gpu_line()}): "
+    print(f"{what}train main path ({gpu_line()}): "
           f"{statistics.mean(steady) * 1e3:.1f} ms per micro-step (mean of "
           f"micro-steps 1-{len(times) - 1}; all: "
           + ", ".join(f"{t * 1e3:.1f}" for t in times)
           + f" ms), B={TRAIN_B} rows of {TRAIN_SPLICED} spliced tokens, "
           f"peak memory {peak / 2**30:.2f} GiB")
     del policy, trainable, frozen, opt, opt_state, step
-    compare_train(params, batches[0])
+    compare_train(params, batches[0], cfg, what)
 
 
-def compare_train(params: dict, batch: dict) -> None:
+def compare_train(params: dict, batch: dict, cfg=None,
+                  what: str = "") -> None:
     """One micro-step's loss parts and LoRA grads, kernel path against plain
     path, beside the noise floor; on a tree whose lora_b is small and
-    nonzero (at B = 0 the KL and the lora_a grads are exactly 0)."""
-    cfg = CFG
+    nonzero (at B = 0 the KL and the lora_a grads are exactly 0). The two
+    loss parts are scalars, and the relative change of a scalar under one
+    random perturbation is itself a random draw that can land near 0: the
+    floor of each quantity is the largest of FLOOR_DRAWS independent
+    perturbations, every one of which is printed."""
+    cfg = cfg or CFG
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     cmp = add_lora(params, gen, rank=128, alpha=256.0)
     for group in ("attn", "mlp"):
@@ -1624,19 +1935,18 @@ def compare_train(params: dict, batch: dict) -> None:
     trainable, frozen, opt, _ = init_train_state(cmp, tcfg)
     table = frozen["llm"]["embed"]["embedding"]
     noise = torch.Generator(device=DEVICE).manual_seed(3)
-    eps = torch.randn(table.shape, generator=noise, device=DEVICE)
-    floor_frozen = tree.map_tree(lambda x: x, frozen)
-    floor_frozen["llm"]["embed"]["embedding"] = (
-        table.float() * (1 + 2**-7 * eps)).to(table.dtype)
-    del eps
-    for run, impl, frz in (("kernel", "auto", frozen),
-                           ("plain", "plain", frozen),
-                           ("floor", "plain", floor_frozen)):
+    for run, impl in [("kernel", "auto"), ("plain", "plain")] + [
+            (f"floor{i}", "plain") for i in range(FLOOR_DRAWS)]:
+        frz = frozen
+        if run.startswith("floor"):
+            frz = tree.map_tree(lambda x: x, frozen)
+            frz["llm"]["embed"]["embedding"] = perturbed(table, noise)
         step, _ = dpa_step_fns(cfg, dataclasses.replace(tcfg, attn_impl=impl),
                                opt)
         _, parts, grads = step.loss_and_grads(trainable, frz, None, batch)
         runs[run] = (float(parts.alignment), float(parts.divergence),
                      [g for _, g in tree.flatten(grads) if g is not None])
+        del frz, grads
         torch.cuda.synchronize()
 
     def errs(run):
@@ -1646,23 +1956,314 @@ def compare_train(params: dict, batch: dict) -> None:
         return (abs(got[0] - want[0]) / abs(want[0]),
                 abs(got[1] - want[1]) / abs(want[1]), rel_err(g, w))
 
-    got, floor = errs("kernel"), errs("floor")
+    got = errs("kernel")
+    draws = [errs(f"floor{i}") for i in range(FLOOR_DRAWS)]
+    floor = tuple(max(x) for x in zip(*draws))
     finite = all(np.isfinite(r[0]) and np.isfinite(r[1]) for r in
                  runs.values())
     ok = finite and all(e <= TRAIN_FLOOR_FACTOR * f
                         for e, f in zip(got, floor))
     names = ("alignment", "kl", "LoRA grads")
-    print("train kernel vs plain path (one micro-step, lora_b ~ "
+    print(f"{what}train kernel vs plain path (one micro-step, lora_b ~ "
           f"{LORA_B_STD} N(0,1)): plain alignment {runs['plain'][0]:.6f}, "
           f"kl {runs['plain'][1]:.4e}; rel err "
           + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, got))
           + "; noise floor (plain vs plain with the text embeddings x (1 + "
-          "2^-7 N(0,1))) "
+          f"2^-7 N(0,1)), the largest of {FLOOR_DRAWS} draws) "
           + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, floor))
+          + "; the draws: " + "; ".join(
+              "/".join(f"{e:.3e}" for e in d) for d in draws)
           + f"; bound {TRAIN_FLOOR_FACTOR:.3f} x floor "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("train kernel path disagrees with the plain path")
+        raise AssertionError(f"{what}train kernel path disagrees with the "
+                             "plain path")
+
+
+def new_tree(cfg, name: str) -> dict:
+    """A random bf16 tree of `cfg` on the card, from seed 0."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = LlavaModel(cfg, tree.init_params(cfg, gen, torch.bfloat16)).params
+    torch.cuda.synchronize()
+    llm = cfg.llm
+    print(f"model: {name}, {llm.num_layers} layers, hidden {llm.hidden_size},"
+          f" {llm.num_heads} heads over {llm.kv_heads} kv heads, MLP "
+          f"{llm.intermediate_size} ({'gated' if llm.gated_mlp else 'plain'} "
+          f"{llm.mlp_act}), {llm.norm_type}, {llm.position_embedding}, "
+          f"window {llm.sliding_window}, vocab {llm.vocab_size}"
+          f"{' tied' if llm.tie_word_embeddings else ''}; "
+          f"{sum(t.numel() for _, t in tree.flatten(params)) / 1e9:.3f} B "
+          f"random bf16 params from seed 0 in {time.perf_counter() - t0:.1f}"
+          " s")
+    return params
+
+
+def decode_route(cfg, sp: int, sg: int) -> str:
+    """Print which attention a decode step of `cfg` takes over an Sp-token
+    prompt cache and an Sg-slot gen cache: the port's own answer,
+    `llama.decode_positions`' pos_ok at these shapes."""
+    llm = cfg.llm
+    pos_ok = llama.decode_positions(
+        llm, torch.full((1,), sp, device=DEVICE),
+        torch.ones((1, sp), dtype=torch.int32, device=DEVICE),
+        torch.zeros((1, sg), dtype=torch.bool, device=DEVICE), 0)[-1]
+    route = "kernel" if pos_ok else "plain"
+    taken = ("K4" if pos_ok else
+             "decode_attend_plain with the position-aware mask and bias")
+    print(f"route: decode attention over Sp={sp}, Sg={sg} -> {taken} "
+          f"(pos_ok = {pos_ok} for {llm.position_embedding}, window "
+          f"{llm.sliding_window}, Sp + Sg = {sp + sg}): the reference's rule "
+          "pos_ok, halva_tpu/models/llama.py:896-900, from the config and "
+          "the cache shapes (the decode kernels carry no bias and no window)")
+    return route
+
+
+def family_logits(params, cfg, inputs, tokens, impl, noise=None):
+    """First-token logits and COMPARE_STEPS decode-step logits fed `tokens`,
+    on path `impl`; with `noise`, the spliced prompt embeddings and the
+    decode tokens' embeddings are perturbed by 2^-7 N(0, 1) relative."""
+    ids, images, lens = inputs
+    b, s = ids.shape
+
+    seg = (torch.arange(s, device=DEVICE)[None, :] < lens[:, None]).int()
+    sp = llava.splice_image_tokens(
+        params, cfg, ids, llava.encode_images(params, cfg, images), seg)
+    hidden, pc = llama.prefill(params["llm"], cfg.llm,
+                               perturbed(sp.embeds, noise), sp.segment_ids,
+                               sp.positions, attn_impl=impl)
+    slen = sp.segment_ids.sum(dim=1)
+    last = hidden[torch.arange(b, device=DEVICE), (slen - 1).long()][:, None]
+    logits = [llama.lm_logits(params["llm"], cfg.llm, last)[:, 0]]
+    gen_cache = init_gen_cache_like(cfg.llm, b, NEW_TOKENS, pc)
+    for step in range(COMPARE_STEPS):
+        emb = perturbed(llama.embed(params["llm"], tokens[:, step, None]),
+                        noise)
+        lg, gen_cache = llama.decode_step(
+            params["llm"], cfg.llm, emb, slen + step, pc, sp.segment_ids,
+            gen_cache, step, attn_impl=impl)
+        logits.append(lg)
+    return torch.stack(logits)  # (1 + steps, B, V)
+
+
+def floor_check(runs: dict, what: str) -> None:
+    """Kernel path against plain path, position by position, within
+    TRAIN_FLOOR_FACTOR of the noise floor measured beside it."""
+    finite = all(bool(torch.isfinite(r).all()) for r in runs.values())
+    n = runs["plain"].shape[0]
+    err = [rel_err(runs["auto"][i], runs["plain"][i]) for i in range(n)]
+    floor = [rel_err(runs["floor"][i], runs["plain"][i]) for i in range(n)]
+    agree = float((runs["auto"].argmax(-1) == runs["plain"].argmax(-1))
+                  .float().mean())
+    ok = finite and all(e <= TRAIN_FLOOR_FACTOR * f
+                        for e, f in zip(err, floor))
+    print(f"{what} kernel vs plain path: logits rel err "
+          + ", ".join(f"{e:.3e}" for e in err)
+          + "; noise floor (plain vs plain with the embeddings x (1 + 2^-7 "
+          "N(0,1))) " + ", ".join(f"{e:.3e}" for e in floor)
+          + f"; bound {TRAIN_FLOOR_FACTOR:.3f} x floor; argmax agreement "
+          f"{agree:.3f}; logits finite {finite} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: kernel path disagrees with the plain "
+                             "path")
+
+
+def decode_step_ms(params, cfg, pc, pseg, positions, token, impl) -> float:
+    """Device ms of one decode step at gen slot 8 on path `impl`, replayed
+    from a CUDA graph (no host time)."""
+    at = 8
+    gen_cache = init_gen_cache_like(cfg.llm, token.shape[0], NEW_TOKENS, pc)
+    emb = llama.embed(params["llm"], token)
+    return device_ms(lambda: llama.decode_step(
+        params["llm"], cfg.llm, emb, positions + at, pc, pseg, gen_cache, at,
+        attn_impl=impl))
+
+
+def run_family_serving(params, cfg, name: str, kernels: dict,
+                       prefill_kernel: str, decode_kernel) -> None:
+    """Greedy decode of the 4 requests on `cfg`'s bf16 tree: the main path
+    with its launches asserted (K1 in `prefill_kernel`'s mode once per
+    layer; `decode_kernel` once per layer and step, or no decode kernel at
+    all where the reference's rule takes the plain attention), then
+    first-token and decode-step logits against the plain path."""
+    layers = cfg.llm.num_layers
+    inputs = make_inputs(cfg)
+    b = inputs[0].shape[0]
+    route = decode_route(cfg, max(PROMPT_LENS), 128)
+    if (route == "kernel") != (decode_kernel is not None):
+        raise AssertionError(f"{name}: unexpected decode route {route}")
+    with torch.inference_mode():
+        generate_greedy(params, cfg, *inputs, max_new_tokens=2, eos_id=-1)
+        _, prefill_s, _ = timed_run(lambda: _prefill_impl(params, cfg,
+                                                          *inputs))
+        torch.cuda.reset_peak_memory_stats()
+        (tokens, num), total_s, launches = timed_run(lambda: generate_greedy(
+            params, cfg, *inputs, max_new_tokens=NEW_TOKENS, eos_id=-1))
+        peak = torch.cuda.max_memory_allocated()
+    want = {prefill_kernel: layers}
+    if decode_kernel is not None:
+        want[decode_kernel] = layers * NEW_TOKENS
+    expect_launches(launches, want, f"{name} main run")
+    record(kernels, launches, *want)
+    ok = in_vocab(tokens, cfg) and bool((num == NEW_TOKENS).all())
+    decode_s = total_s - prefill_s
+    print(f"{name} main path: tokens {tuple(tokens.shape)} in [0, "
+          f"{cfg.llm.vocab_size}); prefill {prefill_s * 1e3:.2f} ms (B={b}, "
+          f"{max(PROMPT_LENS)} spliced tokens), decode "
+          f"{decode_s / NEW_TOKENS * 1e3:.3f} ms/step on the "
+          f"{'kernel' if decode_kernel else 'plain position-aware'} route, "
+          f"{b * NEW_TOKENS / decode_s:.1f} decode tokens/s, "
+          f"{b * NEW_TOKENS / total_s:.1f} tokens/s end to end "
+          f"({total_s:.3f} s), peak memory {peak / 2**30:.2f} GiB "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: generated tokens out of range")
+    with torch.inference_mode():
+        _, _, slen, pc, pseg = _prefill_impl(params, cfg, *inputs)
+        step_ms = {impl: decode_step_ms(params, cfg, pc, pseg, slen,
+                                        tokens[:, 8, None], impl)
+                   for impl in ("auto", "plain")}
+        del pc
+    print(f"{name} decode step device time (a CUDA graph, gen slot 8, B={b}):"
+          f" {step_ms['auto']:.3f} ms on the "
+          f"{'K4' if decode_kernel else 'plain position-aware'} route, "
+          f"{step_ms['plain']:.3f} ms with attn_impl='plain' "
+          f"({'decode_attend_plain without a bias' if decode_kernel else 'the same route'})"
+          f"; {decode_s / NEW_TOKENS * 1e3:.3f} ms on the host clock in the "
+          f"main run: the device idles "
+          f"{1 - step_ms['auto'] / (decode_s / NEW_TOKENS * 1e3):.1%} of a "
+          "step")
+    noise = torch.Generator(device=DEVICE).manual_seed(6)
+    with torch.inference_mode():
+        runs = {"auto": family_logits(params, cfg, inputs, tokens, "auto"),
+                "plain": family_logits(params, cfg, inputs, tokens, "plain"),
+                "floor": family_logits(params, cfg, inputs, tokens, "plain",
+                                       noise)}
+    floor_check(runs, f"{name} first token and decode steps 0-"
+                f"{COMPARE_STEPS - 1}:")
+
+
+def run_long_row(params, cfg, kernels: dict) -> None:
+    """One text-only row of LONG_ROW tokens through llama.prefill and
+    decode_step on Mistral's tree: past the window, so K1's window mode
+    masks and skips key tiles, and decode takes the position-aware plain
+    attention (no decode kernel launches). Last-token and decode-step
+    logits against the plain path, beside the noise floor."""
+    llm, layers = cfg.llm, cfg.llm.num_layers
+    rng = np.random.RandomState(7)
+    ids = torch.from_numpy(rng.randint(5, 30000, (1, LONG_ROW + LONG_STEPS))
+                           .astype(np.int32)).to(DEVICE)
+    seg = torch.ones((1, LONG_ROW), dtype=torch.int32, device=DEVICE)
+    pos = torch.arange(LONG_ROW, dtype=torch.int32, device=DEVICE)[None]
+    route = decode_route(cfg, LONG_ROW, 128)
+    if route != "plain":
+        raise AssertionError("the long row should outgrow the window")
+
+    def run(impl, noise=None):
+        t0 = time.perf_counter()
+        emb = perturbed(llama.embed(params["llm"], ids[:, :LONG_ROW]), noise)
+        hidden, pc = llama.prefill(params["llm"], llm, emb, seg, pos,
+                                   attn_impl=impl)
+        logits = [llama.lm_logits(params["llm"], llm, hidden[:, -1:])[:, 0]]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        gen_cache = init_gen_cache_like(llm, 1, LONG_STEPS, pc)
+        for step in range(LONG_STEPS):
+            emb = perturbed(llama.embed(params["llm"],
+                                        ids[:, LONG_ROW + step, None]), noise)
+            lg, gen_cache = llama.decode_step(
+                params["llm"], llm, emb,
+                torch.full((1,), LONG_ROW + step, device=DEVICE), pc, seg,
+                gen_cache, step, attn_impl=impl)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0 - prefill_s) / LONG_STEPS
+        return torch.stack(logits), prefill_s, step_s
+
+    with torch.inference_mode():
+        run("auto")  # warm-up at this shape, not counted
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        auto, prefill_s, step_s = run("auto")
+        launches = dict(_kernels.launches)
+        expect_launches(launches, {"flash_fwd_window": layers},
+                        f"long Mistral row ({LONG_ROW} tokens, "
+                        f"{LONG_STEPS} decode steps: no decode kernel)")
+        emb = llama.embed(params["llm"], ids[:, :LONG_ROW])
+        _, pc = llama.prefill(params["llm"], llm, emb, seg, pos)
+        dev_ms = decode_step_ms(
+            params, cfg, pc, seg,
+            torch.full((1,), LONG_ROW, device=DEVICE), ids[:, LONG_ROW, None],
+            "auto")
+        del pc, emb
+        print(f"long row main path: prefill {prefill_s * 1e3:.1f} ms for "
+              f"{LONG_ROW} tokens (window {llm.sliding_window}), decode "
+              f"{step_s * 1e3:.2f} ms/step on the plain position-aware route "
+              f"on the host clock, {dev_ms:.3f} ms of device time (a CUDA "
+              "graph, gen slot 8)")
+        noise = torch.Generator(device=DEVICE).manual_seed(8)
+        runs = {"auto": auto, "plain": run("plain")[0],
+                "floor": run("plain", noise)[0]}
+    floor_check(runs, f"long row last token and decode steps 0-"
+                f"{LONG_STEPS - 1}:")
+
+
+def run_mistral(kernels: dict) -> None:
+    """Mistral-7B under CLIP ViT-L/14-336 (VILA's llava_mistral): serving
+    (K1 window mode, K4 at G=4), the long row, the train step (K1, K2, K3
+    in window mode, GQA in K3's group sum), and a short int4g run with int4
+    prompt KV (K6 and K4 int4 at Mistral's shapes)."""
+    cfg, name = LLAVA_MISTRAL_7B, "mistral-7b"
+    layers = cfg.llm.num_layers
+    params = new_tree(cfg, f"{name} + CLIP ViT-L/14-336")
+    run_family_serving(params, cfg, name, kernels, "flash_fwd_window",
+                       "decode_attn")
+    run_long_row(params, cfg, kernels)
+    torch.cuda.empty_cache()
+    run_train(params, kernels, cfg, f"{name} ", "_window",
+              FAMILY_MICRO_STEPS, grad_accum=1)
+    torch.cuda.empty_cache()
+    q4 = quantize_int4g(params)
+    del params
+    torch.cuda.empty_cache()
+    inputs = make_inputs(cfg)
+    with torch.inference_mode():
+        generate_greedy(q4, cfg, *inputs, max_new_tokens=1, eos_id=-1,
+                        kv_quant="int4")  # warm-up, not counted
+        (tok, num), secs, launches = timed_run(lambda: generate_greedy(
+            q4, cfg, *inputs, max_new_tokens=SHORT_TOKENS, eos_id=-1,
+            kv_quant="int4"))
+    # K6 at N=1024 (wk, wv), N=14336 (gate, up) and K=14336 (down); K4 int4
+    # at G=4
+    expect_launches(launches, {
+        "flash_fwd_window": layers,
+        "decode_attn_kv4": layers * SHORT_TOKENS,
+        "w4_gemv": 7 * layers * SHORT_TOKENS}, f"{name} int4g run")
+    ok = in_vocab(tok, cfg) and bool((num == SHORT_TOKENS).all())
+    print(f"{name} int4g run: {SHORT_TOKENS} tokens x {tok.shape[0]} rows in "
+          f"{secs:.3f} s with its prefill {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} int4g tokens out of range")
+
+
+def run_mpt(kernels: dict) -> None:
+    """MPT-7B under CLIP ViT-L/14-336 (VILA's llava_mpt): serving (K1 ALiBi
+    mode; decode through the plain attention with the bias) and the train
+    step (K1, K2, K3 in ALiBi mode)."""
+    cfg, name = LLAVA_MPT_7B, "mpt-7b"
+    params = new_tree(cfg, f"{name} + CLIP ViT-L/14-336")
+    run_family_serving(params, cfg, name, kernels, "flash_fwd_alibi", None)
+    torch.cuda.empty_cache()
+    run_train(params, kernels, cfg, f"{name} ", "_alibi", FAMILY_MICRO_STEPS,
+              grad_accum=1)
+
+
+def flash_checks(gen: torch.Generator) -> list:
+    """K1, K2 and K3 against their plain versions, base mode then the modes:
+    their rows of the `kernels` line."""
+    base = [check_flash(gen), *check_flash_bwd(gen)]
+    return base + check_flash_modes(gen, {k["name"]: k for k in base})
 
 
 def main() -> None:
@@ -1675,8 +2276,14 @@ def main() -> None:
     print(gpu_line())
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    checked = [check_flash(gen), *check_flash_bwd(gen), check_decode(gen),
-               *check_decode_quant(gen), *check_fold(gen), check_w4(gen)]
+    if sys.argv[1:] == ["--flash-only"]:
+        print(json.dumps({"flash_kernels": flash_checks(gen)}))
+        return
+    if sys.argv[1:]:
+        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+    checked = flash_checks(gen) + [
+        check_decode(gen), *check_decode_quant(gen), *check_fold(gen),
+        check_w4(gen)]
     kernels = {k["name"]: k for k in checked}
     params = run_bf16(kernels)
     run_beam_spec_bf16(params, kernels)
@@ -1687,6 +2294,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     greedy_tokens = run_int4g(q4, kernels)
     run_beam_spec_int4g(q4, kernels, greedy_tokens)
+    del q4
+    torch.cuda.empty_cache()
+    run_mistral(kernels)
+    torch.cuda.empty_cache()
+    run_mpt(kernels)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "halva_tpu"))
     if loaded:

@@ -125,11 +125,14 @@ def lib() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library once per process."""
     cdll = ctypes.CDLL(build())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    cdll.halva_flash_fwd_bf16.argtypes = [p] * 7 + [i] * 6 + [f, i, p]
+    cdll.halva_flash_fwd_bf16.argtypes = (
+        [p] * 7 + [i] * 6 + [f] + [i] * 4 + [p])
     cdll.halva_flash_fwd_bf16.restype = i
-    cdll.halva_flash_bwd_dq_bf16.argtypes = [p] * 9 + [i] * 6 + [f, i, p]
+    cdll.halva_flash_bwd_dq_bf16.argtypes = (
+        [p] * 9 + [i] * 6 + [f] + [i] * 4 + [p])
     cdll.halva_flash_bwd_dq_bf16.restype = i
-    cdll.halva_flash_bwd_dkv_bf16.argtypes = [p] * 10 + [i] * 6 + [f, i, p]
+    cdll.halva_flash_bwd_dkv_bf16.argtypes = (
+        [p] * 10 + [i] * 6 + [f] + [i] * 4 + [p])
     cdll.halva_flash_bwd_dkv_bf16.restype = i
     cdll.halva_decode_attn_bf16.argtypes = [p] * 8 + [i] * 7 + [f, p]
     cdll.halva_decode_attn_bf16.restype = i

@@ -1,5 +1,6 @@
 // K2 and K3: FlashAttention-2 backward with segment ids, causal masking and
-// GQA, bf16 in and out, fp32 accumulation.
+// GQA, bf16 in and out, fp32 accumulation; ALiBi, sliding window and a query
+// offset as modes.
 //
 // Replace the Pallas TPU kernels halva_tpu/ops/flash_attention.py:
 //   K2 _bwd_dq_kernel  (pallas_call in _flash_bwd): dQ
@@ -15,6 +16,15 @@
 //   dP = dO V^T,  dS = P * (dP - delta) * scale, rounded to bf16
 //   dQ = dS K,    dK = dS^T Q (summed over the G query heads of a kv head),
 //   dV = P^T dO   (P rounded to bf16 first), all accumulated in fp32.
+// The modes are K1's, with row = q_off + query index and col = key index:
+// causal and window (row - col < window) in the mask, the ALiBi bias
+// -slope_h * (row - col) of the query head h added to the recomputed logit
+// (no gradient flows to the slope). K2 skips the key tiles K1 skips; K3
+// starts at the first query tile that can see its keys (shifted by q_off)
+// and stops before the query tiles wholly past its keys' window; under GQA
+// it takes the slope of each of its G query heads in turn. All three are
+// uniform runtime arguments of the one kernel each: at alibi = 0, window = 0
+// and q_off = 0 the terms vanish and the results are the base mode's.
 //
 // What bounds them on an H100: at the llava-1.5-7b train shape (B=4 rows of
 // S=1087, H=32, D=128, causal) K2 does 3 and K3 4 products of 2*D FLOP per
@@ -97,7 +107,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H,
-                    int KVH, float scale, float scale_log2, int causal) {
+                    int KVH, float scale, float scale_log2, int causal,
+                    int alibi, int window, int q_shift) {
   constexpr int STR = D + 8;
   __shared__ __align__(16) __nv_bfloat16 ks[BK * STR];
   __shared__ __align__(16) __nv_bfloat16 vs[BK * STR];
@@ -110,6 +121,13 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   const int q0 = qt * BQ;
   const int r0 = q0 + warp * 16 + g;  // this thread's two query rows
   const int r1 = r0 + 8;
+  // global positions: of the tile's first row, and of this thread's two
+  const int p_tile = q0 + q_shift;
+  const int p0 = r0 + q_shift;
+  const int p1 = p0 + 8;
+  // ALiBi slope of this query head in the exp2 domain (0 = no bias)
+  const float slope2 =
+      alibi ? exp2f(-8.f * (float)(h + 1) / (float)H) * LOG2E : 0.f;
 
   const long q_row = (long)H * D;  // elements between sequence positions
   const long kv_row = (long)KVH * D;
@@ -147,11 +165,13 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
 
   int n_tiles = (Skv + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+  if (causal) n_tiles = min(n_tiles, (p_tile + BQ - 1) / BK + 1);
+  // first key tile with a pair inside the window, as K1
+  const int t_lo = window > 0 ? max((p_tile - window + 1) / BK, 0) : 0;
   const int lrow = (lane & 7) + (lane & 8);  // ldmatrix.trans addressing
   const int lcol = (lane & 16) >> 1;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_lo; t < n_tiles; ++t) {
     const int c0 = t * BK;
     __syncthreads();  // the previous tile's shared reads are done
     stage_rows<D>(ks, kb, kv_row, c0, BK, Skv);
@@ -188,12 +208,19 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
           const int col = c0 + cl;
           const int cs = kvsegs[cl];
           const bool in = col < Skv;
-          const bool ok0 = in && qs0 != 0 && cs == qs0 && (!causal || r0 >= col);
-          const bool ok1 = in && qs1 != 0 && cs == qs1 && (!causal || r1 >= col);
-          const float p0 = ok0 ? exp2f(s[nt][e] * scale_log2 - lse0) : 0.f;
-          const float p1 = ok1 ? exp2f(s[nt][2 + e] * scale_log2 - lse1) : 0.f;
-          s[nt][e] = p0 * (dp[nt][e] - dl0) * scale;
-          s[nt][2 + e] = p1 * (dp[nt][2 + e] - dl1) * scale;
+          bool ok0 = in && qs0 != 0 && cs == qs0 && (!causal || p0 >= col);
+          bool ok1 = in && qs1 != 0 && cs == qs1 && (!causal || p1 >= col);
+          float s0 = s[nt][e] * scale_log2, s1 = s[nt][2 + e] * scale_log2;
+          if (window > 0) {
+            ok0 = ok0 && p0 - col < window;
+            ok1 = ok1 && p1 - col < window;
+          }
+          s0 -= slope2 * (float)(p0 - col);
+          s1 -= slope2 * (float)(p1 - col);
+          const float prob0 = ok0 ? exp2f(s0 - lse0) : 0.f;
+          const float prob1 = ok1 ? exp2f(s1 - lse1) : 0.f;
+          s[nt][e] = prob0 * (dp[nt][e] - dl0) * scale;
+          s[nt][2 + e] = prob1 * (dp[nt][2 + e] - dl1) * scale;
         }
       }
       // dQ += dS K: the dS accumulators of key groups 2kk, 2kk+1 are the A
@@ -249,7 +276,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
-                     int KVH, float scale, float scale_log2, int causal) {
+                     int KVH, float scale, float scale_log2, int causal,
+                     int alibi, int window, int q_shift) {
   constexpr int STR = D + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -286,8 +314,16 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.f;
   }
 
-  const int qt_lo = causal ? kv0 / BQ : 0;  // first tile that can see us
-  const int n_qt = (Sq + BQ - 1) / BQ;
+  // first query tile that can see us: local row i sits at position
+  // q_shift + i, the key tile starts at position kv0
+  const int qt_lo = causal ? max(kv0 - q_shift, 0) / BQ : 0;
+  int n_qt = (Sq + BQ - 1) / BQ;
+  if (window > 0) {
+    // query tile qt lies wholly past our keys' window iff its least
+    // row - col, (qt * BQ + q_shift) - (kv0 + BK - 1), is already >= window
+    const int past = kv0 + BK - 1 + window - q_shift;
+    n_qt = min(n_qt, past > 0 ? (past + BQ - 1) / BQ : 0);
+  }
   const int lrow = (lane & 7) + (lane & 8);
   const int lcol = (lane & 16) >> 1;
   const __nv_bfloat16* ka = ks + (lk + g) * STR + tig * 2;  // A fragments
@@ -297,6 +333,9 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     const int h = kvh * G + gi;
     const long q_off = (long)b * Sq * q_row + (long)h * D;
     const long stat = ((long)b * H + h) * Sq;
+    // ALiBi slope of this query head in the exp2 domain (0 = no bias)
+    const float slope2 =
+        alibi ? exp2f(-8.f * (float)(h + 1) / (float)H) * LOG2E : 0.f;
     for (int qt = qt_lo; qt < n_qt; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // the previous tile's shared reads are done
@@ -341,13 +380,20 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int qc = sb * SUB + nt * 8 + tig * 2 + e;
-            const int qi = q0 + qc;
+            const int qi = q0 + qc + q_shift;  // the query's position
             const int qsv = qsegs[qc];
             const float l2 = lses[qc], dl = dls[qc];
-            const bool ok0 = qsv != 0 && qsv == ks0 && (!causal || qi >= kr0);
-            const bool ok1 = qsv != 0 && qsv == ks1 && (!causal || qi >= kr1);
-            const float p0 = ok0 ? exp2f(s[nt][e] * scale_log2 - l2) : 0.f;
-            const float p1 = ok1 ? exp2f(s[nt][2 + e] * scale_log2 - l2) : 0.f;
+            bool ok0 = qsv != 0 && qsv == ks0 && (!causal || qi >= kr0);
+            bool ok1 = qsv != 0 && qsv == ks1 && (!causal || qi >= kr1);
+            float s0 = s[nt][e] * scale_log2, s1 = s[nt][2 + e] * scale_log2;
+            if (window > 0) {
+              ok0 = ok0 && qi - kr0 < window;
+              ok1 = ok1 && qi - kr1 < window;
+            }
+            s0 -= slope2 * (float)(qi - kr0);
+            s1 -= slope2 * (float)(qi - kr1);
+            const float p0 = ok0 ? exp2f(s0 - l2) : 0.f;
+            const float p1 = ok1 ? exp2f(s1 - l2) : 0.f;
             s[nt][e] = p0;
             s[nt][2 + e] = p1;
             dp[nt][e] = p0 * (dp[nt][e] - dl) * scale;
@@ -404,34 +450,59 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-bool valid_args(int B, int Sq, int Skv, int H, int KVH, int D) {
+bool valid_args(int B, int Sq, int Skv, int H, int KVH, int D, int window,
+                int q_off) {
   // the head dim of every supported Llama config
-  return B > 0 && Sq > 0 && Skv > 0 && KVH > 0 && H % KVH == 0 && D == 128;
+  return B > 0 && Sq > 0 && Skv > 0 && KVH > 0 && H % KVH == 0 && D == 128 &&
+         window >= 0 && q_off >= 0;
+}
+
+// above 48 KB of dynamic shared memory needs the opt-in, once per device (the
+// first launch is never inside a CUDA graph capture: the callers warm up
+// first)
+cudaError_t dkv_smem_opt_in() {
+  static uint64_t smem_set = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!(smem_set >> dev & 1)) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<128>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dkv_smem_bytes<128>());
+    if (err != cudaSuccess) return err;
+    smem_set |= uint64_t(1) << dev;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // q, dout (B, Sq, H, D), k/v (B, Skv, KVH, D) bf16; qseg (B, Sq), kvseg
-// (B, Skv) int32; lse, delta (B, H, Sq) fp32; dq (B, Sq, H, D) bf16.
-// Returns a cudaError_t.
+// (B, Skv) int32; lse, delta (B, H, Sq) fp32; dq (B, Sq, H, D) bf16. alibi
+// 0 | 1, window 0 = none, q_off >= 0, as K1 was given them. Returns a
+// cudaError_t.
 extern "C" int halva_flash_bwd_dq_bf16(const void* q, const void* k,
                                        const void* v, const void* qseg,
                                        const void* kvseg, const void* dout,
                                        const void* lse, const void* delta,
                                        void* dq, int B, int Sq, int Skv,
                                        int H, int KVH, int D, float scale,
-                                       int causal, void* stream) {
-  if (!valid_args(B, Sq, Skv, H, KVH, D)) return (int)cudaErrorInvalidValue;
+                                       int causal, int alibi, int window,
+                                       int q_off, void* stream) {
+  if (!valid_args(B, Sq, Skv, H, KVH, D, window, q_off))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<128><<<grid, NTHREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qseg),
-      static_cast<const int*>(kvseg), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), Sq, Skv, H, KVH, scale, scale * LOG2E,
-      causal);
+  flash_bwd_dq_kernel<128>
+      <<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qseg),
+          static_cast<const int*>(kvseg),
+          static_cast<const __nv_bfloat16*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<__nv_bfloat16*>(dq), Sq, Skv, H, KVH, scale,
+          scale * LOG2E, causal, alibi, window, q_off);
   return (int)cudaGetLastError();
 }
 
@@ -442,33 +513,24 @@ extern "C" int halva_flash_bwd_dkv_bf16(const void* q, const void* k,
                                         const void* lse, const void* delta,
                                         void* dk, void* dv, int B, int Sq,
                                         int Skv, int H, int KVH, int D,
-                                        float scale, int causal,
+                                        float scale, int causal, int alibi,
+                                        int window, int q_off,
                                         void* stream) {
-  if (!valid_args(B, Sq, Skv, H, KVH, D)) return (int)cudaErrorInvalidValue;
-  constexpr int smem = dkv_smem_bytes<128>();
-  // above 48 KB needs the opt-in, once per device (the first launch is
-  // never inside a CUDA graph capture: the callers warm up first)
-  static uint64_t smem_set = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  if (!valid_args(B, Sq, Skv, H, KVH, D, window, q_off))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = dkv_smem_opt_in();
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!(smem_set >> dev & 1)) {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<128>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set |= uint64_t(1) << dev;
-  }
   const dim3 grid((Skv + BK - 1) / BK, KVH, B);
-  flash_bwd_dkv_kernel<128><<<grid, NTHREADS, smem,
+  flash_bwd_dkv_kernel<128><<<grid, NTHREADS, dkv_smem_bytes<128>(),
                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qseg),
-      static_cast<const int*>(kvseg), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Sq,
-      Skv, H, KVH, scale, scale * LOG2E, causal);
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qseg),
+          static_cast<const int*>(kvseg),
+          static_cast<const __nv_bfloat16*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+          Sq, Skv, H, KVH, scale, scale * LOG2E, causal, alibi, window,
+          q_off);
   return (int)cudaGetLastError();
 }

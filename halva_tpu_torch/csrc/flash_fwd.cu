@@ -1,11 +1,22 @@
 // K1: FlashAttention-2 forward with segment ids, causal masking and GQA,
-// bf16 in and out, fp32 accumulation and softmax statistics.
+// bf16 in and out, fp32 accumulation and softmax statistics; ALiBi, sliding
+// window and a query offset as modes.
 //
 // Replaces the Pallas TPU kernel halva_tpu/ops/flash_attention.py:_fwd_kernel
 // (pallas_call in _flash_fwd_impl). Same contract: a query attends a key
 // iff both carry the same nonzero segment id and, when causal, the key's
 // index is not past the query's; query head h reads kv head h / (H / KVH);
 // the log-sum-exp (natural log) of every row is written for the backward.
+// The modes, with row = q_off + query index and col = key index:
+//   - q_off: the position of query row 0 (a shard of the queries against
+//     all keys, Sq != Skv); the causal, window and ALiBi terms use row;
+//   - window > 0: a pair is live only if row - col < window; key tiles whose
+//     least row - col over the query tile is already >= window are skipped;
+//   - alibi: logit += -slope_h * (row - col), slope_h = 2^(-8 (h + 1) / H)
+//     of the query head h, folded into the exp2 domain; LSE includes it.
+// All three are uniform runtime arguments of the one kernel: with alibi = 0,
+// window = 0 and q_off = 0 the terms vanish and the result is the base
+// mode's, bit for bit.
 //
 // What bounds it on an H100: at the llava-1.5-7b prefill shape (B=4, H=32,
 // S=623, D=128) the live causal QK^T and PV are ~12.5 GFLOP against ~82 MB
@@ -24,8 +35,7 @@
 //     next, so P never leaves registers (the FlashAttention-2 trick);
 //   - key tiles wholly above the diagonal are never visited.
 // Not done yet (later work): wgmma, TMA, cp.async double buffering, split
-// along the key axis. The reference's ALiBi, sliding window and q_offset
-// modes are not ported; the Python wrapper refuses them.
+// along the key axis.
 //
 // Inputs are in the framework's (B, S, H, D) layout; the kernel addresses
 // rows by stride, so no transposed copy is made. Rows of a fully masked
@@ -61,7 +71,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const int* __restrict__ qseg, const int* __restrict__ kvseg,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Skv, int H, int KVH, float scale_log2,
-                 int causal) {
+                 int causal, int alibi, int window, int q_off) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   constexpr int STR = D + 8;  // padded smem row stride (bf16): 16B-aligned rows
   constexpr int CH = D / 8;   // 16-byte chunks per row
@@ -76,6 +86,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int q0 = qt * BQ;
   const int r0 = q0 + warp * 16 + g;  // this thread's two query rows
   const int r1 = r0 + 8;
+  // global positions: of the tile's first row, and of this thread's two
+  const int p_tile = q0 + q_off;
+  const int p0 = r0 + q_off;
+  const int p1 = p0 + 8;
+  // ALiBi slope of this query head in the exp2 domain (0 = no bias)
+  const float slope2 =
+      alibi ? exp2f(-8.f * (float)(h + 1) / (float)H) * LOG2E : 0.f;
 
   const long q_row = (long)H * D;     // elements between sequence positions
   const long kv_row = (long)KVH * D;
@@ -103,9 +120,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   float m0 = M_INIT, m1 = M_INIT, l0 = 0.f, l1 = 0.f;
 
   int n_tiles = (Skv + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+  if (causal) n_tiles = min(n_tiles, (p_tile + BQ - 1) / BK + 1);
+  // first key tile with a pair inside the window: tile t is wholly outside
+  // iff p_tile - (t * BK + BK - 1) >= window
+  const int t_lo = window > 0 ? max((p_tile - window + 1) / BK, 0) : 0;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_lo; t < n_tiles; ++t) {
     const int c0 = t * BK;
     __syncthreads();  // the previous tile's shared reads are done
     for (int i = threadIdx.x; i < BK * CH; i += NTHREADS) {
@@ -144,10 +164,17 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
         const int col = c0 + cl;
         const int cs = kvsegs[cl];
         const bool in = col < Skv;
-        const bool ok0 = in && qs0 != 0 && cs == qs0 && (!causal || r0 >= col);
-        const bool ok1 = in && qs1 != 0 && cs == qs1 && (!causal || r1 >= col);
-        s[nt][e] = ok0 ? s[nt][e] * scale_log2 : NEG_BIG;
-        s[nt][2 + e] = ok1 ? s[nt][2 + e] * scale_log2 : NEG_BIG;
+        bool ok0 = in && qs0 != 0 && cs == qs0 && (!causal || p0 >= col);
+        bool ok1 = in && qs1 != 0 && cs == qs1 && (!causal || p1 >= col);
+        float s0 = s[nt][e] * scale_log2, s1 = s[nt][2 + e] * scale_log2;
+        if (window > 0) {
+          ok0 = ok0 && p0 - col < window;
+          ok1 = ok1 && p1 - col < window;
+        }
+        s0 -= slope2 * (float)(p0 - col);
+        s1 -= slope2 * (float)(p1 - col);
+        s[nt][e] = ok0 ? s0 : NEG_BIG;
+        s[nt][2 + e] = ok1 ? s1 : NEG_BIG;
         mx0 = fmaxf(mx0, s[nt][e]);
         mx1 = fmaxf(mx1, s[nt][2 + e]);
       }
@@ -231,14 +258,17 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 }  // namespace
 
 // q (B, Sq, H, D), k/v (B, Skv, KVH, D) bf16; qseg (B, Sq), kvseg (B, Skv)
-// int32; o (B, Sq, H, D) bf16; lse (B, H, Sq) fp32. Returns a cudaError_t.
+// int32; o (B, Sq, H, D) bf16; lse (B, H, Sq) fp32. alibi 0 | 1, window 0 =
+// none, q_off >= 0. Returns a cudaError_t.
 extern "C" int halva_flash_fwd_bf16(const void* q, const void* k,
                                     const void* v, const void* qseg,
                                     const void* kvseg, void* o, void* lse,
                                     int B, int Sq, int Skv, int H, int KVH,
                                     int D, float scale, int causal,
+                                    int alibi, int window, int q_off,
                                     void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || KVH <= 0 || H % KVH != 0)
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || KVH <= 0 || H % KVH != 0 ||
+      window < 0 || q_off < 0)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -253,7 +283,8 @@ extern "C" int halva_flash_fwd_bf16(const void* q, const void* k,
   if (D != 128)  // the head dim of every supported Llama config
     return (int)cudaErrorInvalidValue;
   flash_fwd_kernel<128><<<grid, NTHREADS, 0, st>>>(
-      qp, kp, vp, qs, kvs, op, lp, Sq, Skv, H, KVH, sl2, causal);
+      qp, kp, vp, qs, kvs, op, lp, Sq, Skv, H, KVH, sl2, causal, alibi,
+      window, q_off);
   return (int)cudaGetLastError();
 }
 

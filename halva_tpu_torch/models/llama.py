@@ -1,4 +1,4 @@
-"""Llama-family decoder, greedy-decode subset, in plain PyTorch.
+"""Llama-family decoder (Llama, Mistral, MPT), in plain PyTorch.
 
 Counterpart of halva_tpu/models/llama.py with the same param tree: per-layer
 weights stacked on a leading `num_layers` axis, dense kernels (in, out). The
@@ -9,15 +9,21 @@ reference's `lax.scan` over layers is a Python loop over per-layer views
 Ported here: dense kernels (+ bias, + LoRA) in float, int8 (`kernel_q`:
 W8A8 or weight dequant) and packed int4 (`kernel_q4p`), int8 embeddings,
 RMSNorm / bias-free LayerNorm, RoPE (HF half-split, fp32 tables, linear
-scaling), the forward (with per-layer rematerialisation for training),
+scaling) or ALiBi (MPT: no rotation, a per-head distance bias inside the
+flash kernels), the Mistral sliding window (inside the flash kernels), the
+forward (with per-layer rematerialisation for training),
 prefill into a bf16, int8 or int4 prompt cache, and the KV-cached decode
 step over a bf16 or int8 gen cache, with `beam_k` beams per item against
 an item-row prompt cache, and the K-token speculative verify step
 (`verify_step`, K5's shared gen stage). An int4 tree decodes through
 `_decode_step_w4`, and verifies, through K6 for every layer matmul and K4
-or K5 for attention.
+or K5 for attention. The decode kernels K4 and K5 carry no bias and no
+window, as the Pallas kernels they replace: an ALiBi decode step, and a
+windowed one whose cache outgrows the window, take the position-aware plain
+attention (`decode_step`, the reference's rule). `verify_step` and per-row
+gen validity are RoPE-only without a window, as in the reference.
 Not ported yet (each raises NotImplementedError naming its ROADMAP slice):
-NF4 weights, ALiBi, sliding window and tensor parallelism.
+NF4 weights and tensor parallelism.
 
 Shapes: B batch, S sequence, D hidden, H heads, Dh head dim, V vocab.
 """
@@ -32,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from halva_tpu_torch.config import LlamaConfig
 from halva_tpu_torch.ops import quant
-from halva_tpu_torch.ops.attention import attention
+from halva_tpu_torch.ops.attention import alibi_bias, attention
 from halva_tpu_torch.ops.decode_attention import (
     decode_attend_layer,
     decode_attend_plain,
@@ -59,18 +65,6 @@ def _mlp_act(cfg: LlamaConfig):
     if cfg.mlp_act == "gelu":
         return F.gelu
     raise ValueError(f"unknown mlp_act {cfg.mlp_act!r}")
-
-
-def _check_supported(cfg: LlamaConfig) -> None:
-    if cfg.position_embedding != "rope":
-        raise NotImplementedError(
-            "ALiBi (MPT) is not ported yet (ROADMAP queue 2, K1 modes)"
-        )
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (ROADMAP queue 2, "
-            "K1 modes)"
-        )
 
 
 # --------------------------------------------------------------------------
@@ -205,16 +199,23 @@ def _mlp(cfg: LlamaConfig, y: torch.Tensor, mp: Params) -> torch.Tensor:
 
 
 def _attn_block(cfg, lp, x, cos, sin, segment_ids, attn_impl):
-    """Pre-norm attention sublayer; returns (x + attn, roped k, v)."""
+    """Pre-norm attention sublayer; returns (x + attn, k (roped under RoPE),
+    v)."""
     b, s, _ = x.shape
     h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_size
     ap = lp["attn"]
     y = _norm(cfg, x, lp["input_norm"]["scale"])
-    q = apply_rope(dense(y, ap["wq"]).reshape(b, s, h, dh), cos, sin)
-    k = apply_rope(dense(y, ap["wk"]).reshape(b, s, kvh, dh), cos, sin)
+    q = dense(y, ap["wq"]).reshape(b, s, h, dh)
+    k = dense(y, ap["wk"]).reshape(b, s, kvh, dh)
     v = dense(y, ap["wv"]).reshape(b, s, kvh, dh)
+    if cfg.position_embedding == "rope":
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    # the Mistral window and the MPT bias are computed inside the flash
+    # kernels (ops/attention.py; the plain path materializes mask and bias)
     out = attention(q, k, v, segment_ids, segment_ids, causal=True,
-                    impl=attn_impl)
+                    impl=attn_impl,
+                    alibi=cfg.position_embedding == "alibi",
+                    sliding_window=cfg.sliding_window)
     return x + dense(out.reshape(b, s, h * dh), ap["wo"]), k, v
 
 
@@ -258,7 +259,6 @@ def forward_embeds(
     nothing_saveable)` per layer): the forward keeps only the layer inputs,
     and the backward runs each layer again before its gradient (so K1 runs
     once more per layer)."""
-    _check_supported(cfg)
     cos, sin = rope_cos_sin(positions, cfg.head_size, cfg.rope_theta,
                             cfg.rope_scaling)
     x = inputs_embeds
@@ -410,7 +410,6 @@ def prefill(
     head) scales; "int4" = nibble-packed token pairs (an odd S gets one
     dead padding slot). Prompts are right-padded; padding keys carry
     segment id 0 so decode steps never attend to them."""
-    _check_supported(cfg)
     if quantize_cache not in KV_QUANT:
         raise ValueError(f"quantize_cache must be one of {KV_QUANT}, got "
                          f"{quantize_cache!r}")
@@ -467,14 +466,57 @@ def _layer_cache(cache: Params, li: int) -> Params:
 
 
 def _decode_attend(q, prompt_l, prompt_seg, gen_l, gen_valid, attn_impl,
-                   beam_k=1, beam_route="fold"):
-    """K4, or K5 for beams (ops/decode_attention.py), unless attn_impl is
-    "plain"."""
-    if attn_impl == "plain":
+                   beam_k=1, beam_route="fold", bias_p=None, bias_g=None):
+    """K4, or K5 for beams (ops/decode_attention.py); the plain version when
+    attn_impl is "plain" or a bias comes with the step (the kernels carry
+    none)."""
+    if attn_impl == "plain" or bias_p is not None:
         return decode_attend_plain(q, prompt_l, prompt_seg, gen_l, gen_valid,
-                                   beam_k)
+                                   beam_k, bias_p, bias_g)
     return decode_attend_layer(q, prompt_l, prompt_seg, gen_l, gen_valid,
                                beam_k, beam_route)
+
+
+def decode_positions(cfg: LlamaConfig, positions: torch.Tensor,
+                     prompt_seg: torch.Tensor, gen_valid: torch.Tensor,
+                     step: int, beam_k: int = 1):
+    """The position-aware part of a decode step, as the reference's
+    `decode_step` computes it: (prompt_seg, gen_valid, bias_p, bias_g,
+    pos_ok).
+
+    Cached keys sit at known positions: prompts are right-padded and
+    contiguous from 0 (position = index), gen slot s' holds position
+    positions - step + s'. A sliding window drops gen slots and, once the
+    cache can outgrow it, prompt keys (by zeroing their segment id) older
+    than the window. ALiBi gives the biases bias_p (B items, H, Sp) and
+    bias_g (B rows, H, Sg). pos_ok says whether the decode kernels compute
+    this step's attention: they carry no bias and no window, so ALiBi never
+    is, and a window only while the whole cache fits inside it (it then
+    masks nothing)."""
+    alibi = cfg.position_embedding == "alibi"
+    window = cfg.sliding_window
+    bb, sp = prompt_seg.shape
+    sg = gen_valid.shape[1]
+    pos_ok = not alibi and (window is None or sp + sg <= window)
+    bias_p = bias_g = None
+    if not alibi and window is None:
+        return prompt_seg, gen_valid, bias_p, bias_g, pos_ok
+    dev = positions.device
+    # beams of an item share positions (lockstep): every beam_k-th row
+    pos_item = positions.reshape(bb, beam_k)[:, 0]
+    kpos_p = torch.arange(sp, device=dev).expand(bb, sp)
+    kpos_g = positions[:, None] - step + torch.arange(sg, device=dev)[None]
+    if window is not None:
+        gen_valid = gen_valid & (positions[:, None] - kpos_g < window)
+        if sp + sg > window:
+            prompt_seg = torch.where(pos_item[:, None] - kpos_p < window,
+                                     prompt_seg,
+                                     torch.zeros_like(prompt_seg))
+    if alibi:
+        bias_p = alibi_bias(cfg.num_heads, pos_item[:, None], kpos_p)[:, :, 0]
+        bias_g = alibi_bias(cfg.num_heads, positions[:, None],
+                            kpos_g)[:, :, 0]
+    return prompt_seg, gen_valid.contiguous(), bias_p, bias_g, pos_ok
 
 
 def decode_step(
@@ -491,28 +533,41 @@ def decode_step(
     beam_route: str = "fold",
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step: (fp32 logits (B, V), gen cache). The new token's KV
-    goes to gen slot `step` (lockstep across rows); its RoPE position is
-    per-row `positions`. Attention goes through K4 for CUDA tensors; a
-    packed-int4 tree takes `_decode_step_w4`. attn_impl="plain" takes the
-    plain versions of the kernels instead.
+    goes to gen slot `step` (lockstep across rows); its position (RoPE,
+    ALiBi, window) is per-row `positions`. Attention goes through K4 for
+    CUDA tensors; a packed-int4 tree takes `_decode_step_w4`.
+    attn_impl="plain" takes the plain versions of the kernels instead.
+
+    An ALiBi config, and a sliding-window one whose prompt plus gen cache
+    can outgrow the window, attend through `decode_attend_plain` with the
+    step's bias and window mask on either device, as the reference sends
+    them to its XLA attention (halva_tpu/models/llama.py:896-900): the
+    decode kernels, like the Pallas ones, carry neither. That choice comes
+    from the config and the cache shapes, never from a failure. A
+    packed-int4 tree then runs the generic layer loop, whose `dense`
+    dequantizes (the reference's route too).
 
     beam_k > 1 (ops/beam.py): token_embeds, positions and the gen cache carry
     B*K beam rows while the prompt cache and prompt_seg stay at B item rows;
     row r attends prompt row r // K, through K5 (beam_route "fold") or K4's
     beam mode ("grid")."""
-    _check_supported(cfg)
     b = token_embeds.shape[0]
     if beam_k < 1 or b % beam_k or prompt_seg.shape[0] * beam_k != b:
         raise ValueError(f"decode_step: {b} rows are not beam_k={beam_k} "
                          f"beams of {prompt_seg.shape[0]} prompt rows")
     h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_size
     sg = gen_cache["k"].shape[3]
+    rope = cfg.position_embedding == "rope"
     cos, sin = rope_cos_sin(positions[:, None], dh, cfg.rope_theta,
                             cfg.rope_scaling)
     dev = token_embeds.device
     gen_valid = (torch.arange(sg, device=dev) <= step).expand(b, sg)
     gen_valid = gen_valid.contiguous()
-    if "kernel_q4p" in params["layers"]["attn"]["wq"]:
+    prompt_seg, gen_valid, bias_p, bias_g, pos_ok = decode_positions(
+        cfg, positions, prompt_seg, gen_valid, step, beam_k)
+    if not pos_ok:
+        attn_impl = "plain"  # no kernel computes this step's attention
+    elif "kernel_q4p" in params["layers"]["attn"]["wq"]:
         return _decode_step_w4(params, cfg, token_embeds, prompt_cache,
                                prompt_seg, gen_cache, step, cos, sin,
                                gen_valid, attn_impl, beam_k, beam_route)
@@ -521,13 +576,15 @@ def decode_step(
         lp = layer_slice(params["layers"], li)
         ap = lp["attn"]
         y = _norm(cfg, x, lp["input_norm"]["scale"])
-        q = apply_rope(dense(y, ap["wq"]).reshape(b, 1, h, dh), cos, sin)
-        k = apply_rope(dense(y, ap["wk"]).reshape(b, 1, kvh, dh), cos, sin)
+        q = dense(y, ap["wq"]).reshape(b, 1, h, dh)
+        k = dense(y, ap["wk"]).reshape(b, 1, kvh, dh)
         v = dense(y, ap["wv"]).reshape(b, 1, kvh, dh)
+        if rope:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         _write_gen(gen_cache, k, v, li, step)
         out = _decode_attend(q, _layer_cache(prompt_cache, li), prompt_seg,
                              _layer_cache(gen_cache, li), gen_valid,
-                             attn_impl, beam_k, beam_route)
+                             attn_impl, beam_k, beam_route, bias_p, bias_g)
         x = x + dense(out.reshape(b, 1, h * dh), ap["wo"])
         x = x + _mlp(cfg, _norm(cfg, x, lp["post_attn_norm"]["scale"]),
                      lp["mlp"])
@@ -633,8 +690,13 @@ def verify_step(
     cache (K5, shared gen stage). On a packed-int4 tree every layer matmul
     goes through K6 at B*K rows and layer biases are not read (the
     reference's `_verify_step_w4`); attn_impl="plain" takes the kernels'
-    plain versions."""
-    _check_supported(cfg)
+    plain versions. RoPE configs without a sliding window only, as in the
+    reference (its speculative entry refuses the others, and callers decode
+    greedily instead)."""
+    if cfg.position_embedding != "rope" or cfg.sliding_window is not None:
+        raise NotImplementedError(
+            "verify_step supports RoPE, no-sliding-window configs (the "
+            "reference's contract, halva_tpu/models/llama.py:1322)")
     b, kq, _ = token_embeds.shape
     h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_size
     sg = gen_cache["k"].shape[3]

@@ -101,6 +101,8 @@ def decode_attend_plain(
     gen_cache_l: Cache,
     gen_valid: torch.Tensor,  # (B, Sg) bool
     beam_k: int = 1,
+    bias_p: Optional[torch.Tensor] = None,  # (B items, H, Sp) ALiBi bias
+    bias_g: Optional[torch.Tensor] = None,  # (B, H, Sg)
 ) -> torch.Tensor:
     """The semantics of `_decode_attend` in halva_tpu/models/llama.py: cache values
     convert to q's dtype without their scale, fp32 logits times the k scale,
@@ -110,16 +112,25 @@ def decode_attend_plain(
     reference's generic decode scan does. Masked keys are selected out, so
     their scales are never read into the result. beam_k > 1: q and the
     gen side carry B*K rows, the prompt side B rows, and row r attends
-    prompt row r // K (here by repeating the prompt rows)."""
+    prompt row r // K (here by repeating the prompt rows). bias_p and bias_g
+    (ALiBi, in the order of the prompt tokens and of the gen slots) are added
+    to the logits after the k scale; the K4 and K5 kernels have no
+    counterpart of them, so llama.decode_step takes this function for an
+    ALiBi step on either device."""
     b, _, h, dh = q.shape
     kp, vp, kps, vps, seg = _prompt_view(prompt_cache_l, prompt_seg)
+    if bias_p is not None and "k4" in prompt_cache_l:
+        # the int4 view holds the keys in even/odd order (an odd tail padded)
+        if bias_p.shape[-1] % 2:
+            bias_p = F.pad(bias_p, (0, 1))
+        bias_p = torch.cat([bias_p[..., 0::2], bias_p[..., 1::2]], dim=-1)
     if beam_k > 1:
         if kp.shape[0] * beam_k != b:
             raise ValueError(f"beam_k={beam_k}: q has {b} rows, the prompt "
                              f"cache {kp.shape[0]}")
-        kp, vp, kps, vps, seg = (
+        kp, vp, kps, vps, seg, bias_p = (
             None if t is None else t.repeat_interleave(beam_k, dim=0)
-            for t in (kp, vp, kps, vps, seg))
+            for t in (kp, vp, kps, vps, seg, bias_p))
     kg, vg = gen_cache_l["k"], gen_cache_l["v"]
     kgs, vgs = gen_cache_l.get("k_scale"), gen_cache_l.get("v_scale")
     kvh, sp = kp.shape[1], kp.shape[2]
@@ -135,6 +146,10 @@ def decode_attend_plain(
     lg = torch.einsum("bngd,bnkd->bngk", q3, values(kg)) * scale
     if kgs is not None:
         lg = lg * kgs.float()[:, :, None, :]
+    if bias_p is not None:
+        lp = lp + bias_p.float().reshape(b, kvh, h // kvh, sp)
+    if bias_g is not None:
+        lg = lg + bias_g.float().reshape(b, kvh, h // kvh, kg.shape[2])
     live_p = (seg != 0)[:, None, None, :]
     live_g = gen_valid[:, None, None, :]
     lp = lp.masked_fill(~live_p, NEG_INF)

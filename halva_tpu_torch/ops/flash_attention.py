@@ -9,6 +9,23 @@ forward launches K1 and keeps o and the log-sum-exp, the backward computes
 delta = rowsum(dO * O) and launches K2 (dQ) and K3 (dK, dV). On CPU tensors
 it is `flash_attention_plain`, and autograd goes through the plain ops.
 There is no fallback: on a CUDA tensor it launches or raises.
+
+Three modes beside the base one, all computed inside the kernels:
+- `alibi`: the MPT bias -slope_h * (row - col) on the scaled logits, with
+  slope_h = 2^(-8(h+1)/H) of the query head h (power-of-two head counts
+  only; others raise, and ops/attention.py sends them to the plain path).
+  The kernels use the signed distance, the plain version |row - col|: the
+  two agree only under the causal mask, so `alibi` without `causal` raises
+  on both devices.
+- `sliding_window`: a pair is live only if row - col < window; key tiles
+  (K1, K2) and query tiles (K3) wholly outside the window are skipped.
+- `q_offset`: a host int, the position of query row 0 (a shard of the
+  queries against all keys, Sq != Skv): row = q_offset + query index in the
+  causal, window and ALiBi terms.
+Launches count under the kernel's name plus `mode_suffix`: flash_fwd,
+flash_fwd_alibi, flash_fwd_window (and flash_fwd_alibi_window), likewise
+flash_bwd_dq* and flash_bwd_dkv*; `q_offset` is an argument of each of those
+and has no counter of its own.
 """
 
 from __future__ import annotations
@@ -19,13 +36,32 @@ import torch
 
 from halva_tpu_torch import _kernels
 from halva_tpu_torch.ops.attention import (
+    alibi_in_kernel,
     attention_reference,
+    causal_alibi_bias,
     make_attention_mask,
 )
 
 KERNEL = "flash_fwd"
 KERNEL_DQ = "flash_bwd_dq"
 KERNEL_DKV = "flash_bwd_dkv"
+
+
+def mode_suffix(alibi: bool, sliding_window: Optional[int]) -> str:
+    """The launch counter's suffix for a call's modes ('' = base mode)."""
+    return ("_alibi" if alibi else "") + ("_window" if sliding_window else "")
+
+
+def _mask_and_bias(q, k, q_segment_ids, kv_segment_ids, causal, alibi,
+                   sliding_window, q_offset):
+    mask = make_attention_mask(q_segment_ids, kv_segment_ids, causal,
+                               q_offset=q_offset,
+                               sliding_window=sliding_window or None)
+    bias = None
+    if alibi:
+        bias = causal_alibi_bias(q.shape[2], q.shape[1], k.shape[1],
+                                 q.device, q_offset or 0)
+    return mask, bias
 
 
 def flash_attention_plain(
@@ -36,9 +72,13 @@ def flash_attention_plain(
     kv_segment_ids: torch.Tensor,  # (B, Skv)
     causal: bool = True,
     scale: Optional[float] = None,
+    alibi: bool = False,
+    sliding_window: Optional[int] = None,
+    q_offset: Optional[int] = None,
 ) -> torch.Tensor:
-    mask = make_attention_mask(q_segment_ids, kv_segment_ids, causal)
-    return attention_reference(q, k, v, mask=mask, scale=scale)
+    mask, bias = _mask_and_bias(q, k, q_segment_ids, kv_segment_ids, causal,
+                                alibi, sliding_window, q_offset)
+    return attention_reference(q, k, v, mask=mask, scale=scale, bias=bias)
 
 
 def flash_attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -58,9 +98,13 @@ def flash_attention_bwd_plain(
     do: torch.Tensor,  # (B, Sq, H, D)
     causal: bool = True,
     scale: Optional[float] = None,
+    alibi: bool = False,
+    sliding_window: Optional[int] = None,
+    q_offset: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in q's, k's and v's dtypes: the plain counterpart of the
-    reference's `_flash_bwd`. P is recomputed from the saved LSE and selected
+    reference's `_flash_bwd`, in every mode of the forward (the ALiBi bias
+    enters the recomputed logits; no gradient flows to its slopes). P is recomputed from the saved LSE and selected
     to 0 where masked (a fully masked row's LSE would overflow exp);
     delta = rowsum(dO * O) in fp32; P is rounded to dO's dtype before dV and
     dS = P * (dP - delta) * scale to the input dtype before dK and dQ, as the
@@ -71,10 +115,13 @@ def flash_attention_bwd_plain(
     g = h // kvh
     if scale is None:
         scale = d**-0.5
-    mask = make_attention_mask(q_segment_ids, kv_segment_ids, causal)
+    mask, bias = _mask_and_bias(q, k, q_segment_ids, kv_segment_ids, causal,
+                                alibi, sliding_window, q_offset)
     kr = k.repeat_interleave(g, dim=2).float()
     vr = v.repeat_interleave(g, dim=2).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * scale
+    if bias is not None:
+        s = s + bias
     p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
                     torch.zeros((), device=s.device))
     delta = flash_attention_delta(o, do)
@@ -119,6 +166,25 @@ def _check_cuda_args(name, q, k, v, q_segment_ids, kv_segment_ids):
                          "q, k, v 16-byte aligned")
 
 
+def _mode_args(name, h, causal, alibi, sliding_window, q_offset):
+    """The kernels' three mode arguments (alibi 0|1, window 0 = none, q_off)
+    from the wrapper's; raises on what no kernel computes."""
+    if alibi and not causal:
+        raise ValueError(
+            f"{name}: ALiBi needs causal=True (the kernels add the signed "
+            "distance, which equals -|row - col| only under the causal mask)")
+    if alibi and not alibi_in_kernel(h):
+        raise ValueError(
+            f"{name}: in-kernel ALiBi needs power-of-two head counts, got "
+            f"{h}; use the plain attention (ops/attention.py does)")
+    window = int(sliding_window or 0)
+    q_off = int(q_offset or 0)
+    if window < 0 or q_off < 0:
+        raise ValueError(f"{name}: sliding_window {sliding_window} and "
+                         f"q_offset {q_offset} must not be negative")
+    return int(bool(alibi)), window, q_off
+
+
 def flash_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -127,13 +193,19 @@ def flash_attention_fwd(
     kv_segment_ids: torch.Tensor,
     causal: bool = True,
     scale: Optional[float] = None,
+    alibi: bool = False,
+    sliding_window: Optional[int] = None,
+    q_offset: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on CUDA tensors: returns (o (B, Sq, H, D) bf16, lse
-    (B, H, Sq) fp32, natural log). Fully masked rows give o = 0."""
+    (B, H, Sq) fp32, natural log, the ALiBi bias included). Fully masked
+    rows give o = 0."""
     _check_cuda_args("flash_attention_fwd", q, k, v, q_segment_ids,
                      kv_segment_ids)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
+    modes = _mode_args("flash_attention_fwd", h, causal, alibi,
+                       sliding_window, q_offset)
     if scale is None:
         scale = d**-0.5
     o = torch.empty_like(q)
@@ -144,10 +216,11 @@ def flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             q_segment_ids.data_ptr(), kv_segment_ids.data_ptr(),
             o.data_ptr(), lse.data_ptr(),
-            b, sq, skv, h, kvh, d, float(scale), int(causal), stream,
+            b, sq, skv, h, kvh, d, float(scale), int(causal), *modes, stream,
         )
-    _kernels.check(err, KERNEL)
-    _kernels.launches[KERNEL] += 1
+    name = KERNEL + mode_suffix(alibi, sliding_window)
+    _kernels.check(err, name)
+    _kernels.launches[name] += 1
     return o, lse
 
 
@@ -171,8 +244,8 @@ def _check_bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse,
                          "16-byte aligned")
 
 
-def _bwd_args(q, k, v, q_segment_ids, kv_segment_ids, do, lse, delta,
-              causal, scale):
+def _bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse, delta,
+              causal, scale, alibi, sliding_window, q_offset):
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     if scale is None:
@@ -180,45 +253,58 @@ def _bwd_args(q, k, v, q_segment_ids, kv_segment_ids, do, lse, delta,
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             q_segment_ids.data_ptr(), kv_segment_ids.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr())
-    return ptrs, (b, sq, skv, h, kvh, d, float(scale), int(causal))
+    modes = _mode_args(name, h, causal, alibi, sliding_window, q_offset)
+    return ptrs, (b, sq, skv, h, kvh, d, float(scale), int(causal), *modes)
 
 
 def flash_attention_bwd_dq(q, k, v, q_segment_ids, kv_segment_ids, do, lse,
                            delta, causal: bool = True,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           alibi: bool = False,
+                           sliding_window: Optional[int] = None,
+                           q_offset: Optional[int] = None) -> torch.Tensor:
     """Launch K2 on CUDA tensors: dq (B, Sq, H, D) bf16."""
-    _check_bwd_args("flash_attention_bwd_dq", q, k, v, q_segment_ids,
-                    kv_segment_ids, do, lse, delta)
-    ptrs, dims = _bwd_args(q, k, v, q_segment_ids, kv_segment_ids, do, lse,
-                           delta, causal, scale)
+    name = "flash_attention_bwd_dq"
+    _check_bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse,
+                    delta)
+    ptrs, dims = _bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do,
+                           lse, delta, causal, scale, alibi, sliding_window,
+                           q_offset)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels.lib().halva_flash_bwd_dq_bf16(
             *ptrs, dq.data_ptr(), *dims, stream)
-    _kernels.check(err, KERNEL_DQ)
-    _kernels.launches[KERNEL_DQ] += 1
+    counter = KERNEL_DQ + mode_suffix(alibi, sliding_window)
+    _kernels.check(err, counter)
+    _kernels.launches[counter] += 1
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, q_segment_ids, kv_segment_ids, do, lse,
                             delta, causal: bool = True,
-                            scale: Optional[float] = None
+                            scale: Optional[float] = None,
+                            alibi: bool = False,
+                            sliding_window: Optional[int] = None,
+                            q_offset: Optional[int] = None,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3 on CUDA tensors: (dk, dv) (B, Skv, KVH, D) bf16, summed
     over each KV head's query group inside the kernel."""
-    _check_bwd_args("flash_attention_bwd_dkv", q, k, v, q_segment_ids,
-                    kv_segment_ids, do, lse, delta)
-    ptrs, dims = _bwd_args(q, k, v, q_segment_ids, kv_segment_ids, do, lse,
-                           delta, causal, scale)
+    name = "flash_attention_bwd_dkv"
+    _check_bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse,
+                    delta)
+    ptrs, dims = _bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do,
+                           lse, delta, causal, scale, alibi, sliding_window,
+                           q_offset)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels.lib().halva_flash_bwd_dkv_bf16(
             *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, stream)
-    _kernels.check(err, KERNEL_DKV)
-    _kernels.launches[KERNEL_DKV] += 1
+    counter = KERNEL_DKV + mode_suffix(alibi, sliding_window)
+    _kernels.check(err, counter)
+    _kernels.launches[counter] += 1
     return dk, dv
 
 
@@ -233,16 +319,19 @@ def flash_attention_bwd(
     do: torch.Tensor,
     causal: bool = True,
     scale: Optional[float] = None,
+    alibi: bool = False,
+    sliding_window: Optional[int] = None,
+    q_offset: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) bf16 from K2 and K3, in the inputs' layouts; o and lse
-    are K1's outputs for the same inputs."""
+    are K1's outputs for the same inputs and modes."""
     if o.shape != q.shape or o.device != q.device:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} on "
                          f"{o.device} for q {tuple(q.shape)} on {q.device}")
     do = do.contiguous()
     delta = flash_attention_delta(o, do)
     args = (q, k, v, q_segment_ids, kv_segment_ids, do, lse.contiguous(),
-            delta, causal, scale)
+            delta, causal, scale, alibi, sliding_window, q_offset)
     dq = flash_attention_bwd_dq(*args)
     dk, dv = flash_attention_bwd_dkv(*args)
     return dq, dk, dv
@@ -252,19 +341,20 @@ class _FlashAttention(torch.autograd.Function):
     """K1 forward, K2 + K3 backward (no gradient into the segment ids)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_segment_ids, kv_segment_ids, causal, scale):
+    def forward(ctx, q, k, v, q_segment_ids, kv_segment_ids, causal, scale,
+                alibi, sliding_window, q_offset):
+        ctx.modes = (causal, scale, alibi, sliding_window, q_offset)
         o, lse = flash_attention_fwd(q, k, v, q_segment_ids, kv_segment_ids,
-                                     causal, scale)
+                                     *ctx.modes)
         ctx.save_for_backward(q, k, v, q_segment_ids, kv_segment_ids, o, lse)
-        ctx.causal, ctx.scale = causal, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, q_seg, kv_seg, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, q_seg, kv_seg, o, lse, do,
-                                         ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None, None, None
+                                         *ctx.modes)
+        return (dq, dk, dv) + (None,) * 7
 
 
 def flash_attention(
@@ -277,18 +367,23 @@ def flash_attention(
     scale: Optional[float] = None,
     alibi: bool = False,
     sliding_window: Optional[int] = None,
-    q_offset=None,
+    q_offset: Optional[int] = None,
 ) -> torch.Tensor:
     """Segment-id flash attention; layout as halva_tpu's flash_attention.
-    Differentiable in q, k and v on both devices."""
-    if alibi or sliding_window is not None or q_offset is not None:
-        raise NotImplementedError(
-            "flash_attention: ALiBi, sliding window and q_offset are not "
-            "ported yet (ROADMAP queue 2, K1 modes)"
-        )
+    Differentiable in q, k and v on both devices. `q_offset` is a host int
+    (the reference takes a traced scalar), which keeps the launch
+    capturable in a CUDA graph."""
+    if q_offset is not None and not isinstance(q_offset, int):
+        raise TypeError("flash_attention: q_offset must be a host int, got "
+                        f"{type(q_offset).__name__}")
+    # the same refusals on both devices (the kernel wrappers repeat them)
+    _mode_args("flash_attention", q.shape[2], causal, alibi, sliding_window,
+               q_offset)
     if q.device.type == "cpu":
         return flash_attention_plain(
-            q, k, v, q_segment_ids, kv_segment_ids, causal, scale
+            q, k, v, q_segment_ids, kv_segment_ids, causal, scale, alibi,
+            sliding_window, q_offset,
         )
     return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids,
-                                 causal, scale)
+                                 causal, scale, alibi, sliding_window,
+                                 q_offset)

@@ -183,8 +183,8 @@ def generate_speculative(
     if (cfg.llm.position_embedding != "rope"
             or cfg.llm.sliding_window is not None):
         raise NotImplementedError(
-            "speculative decode: RoPE / no-sliding-window configs only; use "
-            "ops.generate.generate_greedy")
+            "speculative decode: RoPE / no-sliding-window configs only, as "
+            "in the reference; use ops.generate.generate_greedy")
     first_tok, _, spliced_len, prompt_cache, prompt_seg = _prefill_impl(
         params, cfg, input_ids, images, prompt_lengths, attn_impl, kv_quant)
     tokens, num, steps, emitted = _spec_decode_impl(

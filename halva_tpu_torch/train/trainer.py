@@ -371,8 +371,13 @@ def dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
         with torch.enable_grad():
             parts = loss_fn(trainable, frozen, frozen_ref_out,
                             ref_labels_spliced, batch)
-            grads = torch.autograd.grad(
-                parts.total, [x for _, x in _leaves(trainable)])
+            leaves = [x for _, x in _leaves(trainable)]
+            # a leaf the loss does not reach gets a zero grad, as in the
+            # reference: MPT's MLP is not gated, and the tree still carries
+            # a `gate` stack whose LoRA factors are trainable leaves
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(leaves, torch.autograd.grad(
+                         parts.total, leaves, allow_unused=True))]
         it = iter(grads)  # map_tree visits the leaves in flatten's order
         grad_tree = tree.map_tree(lambda t: None if t is None else next(it),
                                   trainable)

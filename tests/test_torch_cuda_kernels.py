@@ -16,7 +16,8 @@ do: |got - plain| <= 2e-2 * (max|plain| + |plain|) on live rows, and the
 relative norm of the difference <= 2e-3 (the bf16 output rounding, plus a
 P or dS element whose fp32 value differs in its last bits between the two
 and rounds to the neighbouring bf16 value). K5 and K4's beam mode share
-K4's span code and its bound."""
+K4's span code and its bound. K1, K2 and K3 in their ALiBi, sliding-window
+and q_offset modes are held to the same bounds."""
 
 import pytest
 import torch
@@ -345,3 +346,99 @@ def test_flash_attention_autograd_reaches_q_k_v(cuda):
     for t, w in zip(leaves, want):
         assert t.grad is not None
         _close_grad(t.grad[live], w[live])
+
+
+# K1, K2 and K3 in their modes: ALiBi, a window that bites (and one narrower
+# than a tile, one that ends inside the first tile), window with GQA and
+# packed segments, ALiBi with a window
+FLASH_MODES = {
+    "alibi": (8, "pad", {"alibi": True}),
+    "alibi_gqa": (2, "packed", {"alibi": True}),
+    "window": (8, "pad", {"sliding_window": 100}),
+    "window_narrow": (8, "pad", {"sliding_window": 7}),
+    "window_first_tile": (8, "pad", {"sliding_window": 40}),
+    "window_gqa_packed": (2, "packed", {"sliding_window": 70}),
+    "alibi_window": (2, "pad", {"alibi": True, "sliding_window": 90}),
+}
+
+
+def _mode_counters(modes):
+    from halva_tpu_torch.ops.flash_attention import mode_suffix
+
+    suffix = mode_suffix(modes.get("alibi", False),
+                         modes.get("sliding_window"))
+    return ["flash_fwd" + suffix, "flash_bwd_dq" + suffix,
+            "flash_bwd_dkv" + suffix]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FLASH_MODES))
+def test_flash_modes_match_plain(cuda, name):
+    kvh, layout, modes = FLASH_MODES[name]
+    b, s, h = 2, 333, 8
+    q, k, v, do, seg, live = _bwd_inputs(cuda, b, s, h, kvh, layout)
+    names = _mode_counters(modes)
+    assert names[0] != "flash_fwd"
+    before = [_kernels.launches[n] for n in names]
+    o, lse = flash_attention_fwd(q, k, v, seg, seg, **modes)
+    got = flash_attention_bwd(q, k, v, seg, seg, o, lse, do, **modes)
+    assert [_kernels.launches[n] for n in names] == [x + 1 for x in before]
+    want_o = flash_attention_plain(q, k, v, seg, seg, **modes)
+    _close(o[live], want_o[live])
+    want = flash_attention_bwd_plain(q, k, v, seg, seg, o, lse, do, **modes)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        _close_grad(g[live], w[live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modes,off,n", [
+    ({}, 166, 167), ({}, 0, 64), ({}, 67, 100),
+    ({"sliding_window": 90}, 166, 167), ({"alibi": True}, 200, 133)])
+def test_flash_q_offset_equals_full_slice(cuda, modes, off, n):
+    """A shard of the queries against all keys (Sq != Skv): o, LSE and dq
+    equal the same rows of the full call, dk and dv those of the full call
+    whose cotangent is zero outside the shard."""
+    b, s, h, kvh = 2, 333, 8, 2
+    q, k, v, do, seg, live = _bwd_inputs(cuda, b, s, h, kvh, "packed")
+    full_o, full_lse = flash_attention_fwd(q, k, v, seg, seg, **modes)
+    do_full = torch.zeros_like(do)
+    do_full[:, off:off + n] = do[:, off:off + n]
+    full = flash_attention_bwd(q, k, v, seg, seg, full_o, full_lse, do_full,
+                               **modes)
+    qs, segs, dos = (t[:, off:off + n].contiguous() for t in (q, seg, do))
+    names = _mode_counters({**modes, "q_offset": off})
+    before = [_kernels.launches[x] for x in names]
+    o, lse = flash_attention_fwd(qs, k, v, segs, seg, q_offset=off, **modes)
+    got = flash_attention_bwd(qs, k, v, segs, seg, o, lse, dos, q_offset=off,
+                              **modes)
+    assert [_kernels.launches[x] for x in names] == [x + 1 for x in before]
+    lv = segs != 0
+    _close(o[lv], full_o[:, off:off + n][lv])
+    torch.testing.assert_close(
+        lse.transpose(1, 2)[lv], full_lse[:, :, off:off + n].transpose(1, 2)[lv],
+        rtol=1e-4, atol=1e-4)
+    _close_grad(got[0][lv], full[0][:, off:off + n][lv])
+    _close_grad(got[1][live], full[1][live])
+    _close_grad(got[2][live], full[2][live])
+    want_o = flash_attention_plain(qs, k, v, segs, seg, q_offset=off, **modes)
+    _close(o[lv], want_o[lv])
+
+
+@pytest.mark.cuda
+def test_flash_modes_autograd_and_refusals(cuda):
+    b, s, h, kvh = 1, 200, 8, 2
+    q, k, v, do, seg, live = _bwd_inputs(cuda, b, s, h, kvh, "pad")
+    modes = {"alibi": True, "sliding_window": 64}
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention(*leaves, seg, seg, **modes).backward(do)
+    o, lse = flash_attention_fwd(q, k, v, seg, seg, **modes)
+    want = flash_attention_bwd_plain(q, k, v, seg, seg, o, lse, do, **modes)
+    for t, w in zip(leaves, want):
+        _close_grad(t.grad[live], w[live])
+    q6 = torch.randn(1, 16, 6, 128, device="cuda").bfloat16()
+    s16 = torch.ones(1, 16, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="power-of-two"):
+        flash_attention_fwd(q6, q6, q6, s16, s16, alibi=True)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention_fwd(q, k, v, seg, seg, alibi=True, causal=False)

@@ -6,7 +6,11 @@ plain version K2 and K3 are held against on the card) and autograd through
 the port's `flash_attention` (its plain path on CPU tensors).
 
 Inputs: fp32, the `CASES` of test_torch_flash_attention.py (causal,
-non-causal, padding, packed, GQA, a length that is no block multiple). The
+non-causal, padding, packed, GQA, a length that is no block multiple, and
+the ALiBi and sliding-window modes, the reference run with 128-wide blocks
+where a window should skip some), and `q_offset` (a shard of the queries
+against all keys: the grads of the shard equal those of the same rows of
+the full call). The
 cotangent is zero on dead rows (segment id 0): in the model their outputs
 never reach a loss, and the two forwards give them different values (the
 mean of V against 0). Tolerance: rtol = atol = 1e-4 on live rows (dq) and
@@ -21,15 +25,21 @@ import jax.numpy as jnp
 
 from halva_tpu.ops.flash_attention import flash_attention as jax_flash
 from halva_tpu_torch import _kernels
-from halva_tpu_torch.ops.attention import make_attention_mask
 from halva_tpu_torch.ops.flash_attention import (
+    _mask_and_bias,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
     flash_attention_plain,
 )
 
-from test_torch_flash_attention import CASES, _inputs
+from test_torch_flash_attention import (
+    BLOCKS,
+    CASES,
+    MODES,
+    Q_OFFSET_CASES,
+    _inputs,
+)
 
 torch.set_num_threads(2)
 
@@ -42,21 +52,25 @@ def _cotangent(b, s, h, d, seg, seed=1):
     return do
 
 
-def _jax_grads(q, k, v, seg, do, causal):
+def _jax_grads(q, k, v, seg, do, causal, **kw):
     def f(q, k, v):
         return jax_flash(q, k, v, jnp.asarray(seg), jnp.asarray(seg),
-                         causal=causal)
+                         causal=causal, **kw)
 
     _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     return [np.asarray(g) for g in vjp(jnp.asarray(do))]
 
 
-def _lse(q, k, seg, causal):
-    """The natural-log LSE of the masked logits, (B, H, Sq)."""
+def _lse(q, k, seg, causal, alibi=False, sliding_window=None, q_offset=None,
+         q_seg=None):
+    """The natural-log LSE of the masked (and biased) logits, (B, H, Sq)."""
     h, kvh, d = q.shape[2], k.shape[2], q.shape[3]
     kr = k.repeat_interleave(h // kvh, dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, kr) * d**-0.5
-    mask = make_attention_mask(seg, seg, causal)
+    mask, bias = _mask_and_bias(q, k, seg if q_seg is None else q_seg, seg,
+                                causal, alibi, sliding_window, q_offset)
+    if bias is not None:
+        logits = logits + bias
     return logits.masked_fill(~mask, -1e30).logsumexp(-1)
 
 
@@ -71,12 +85,14 @@ def test_bwd_plain_matches_pallas_interpret(name):
     b, s, h, kvh, d, causal, layout = CASES[name]
     q, k, v, seg = _inputs(b, s, h, kvh, d, layout)
     do = _cotangent(b, s, h, d, seg)
-    want = _jax_grads(q, k, v, seg, do, causal)
+    modes = MODES.get(name, {})
+    want = _jax_grads(q, k, v, seg, do, causal, **modes,
+                      **BLOCKS.get(name, {}))
     tq, tk, tv, tseg, tdo = (torch.from_numpy(x) for x in (q, k, v, seg, do))
-    o = flash_attention_plain(tq, tk, tv, tseg, tseg, causal=causal)
-    lse = _lse(tq, tk, tseg, causal)
+    o = flash_attention_plain(tq, tk, tv, tseg, tseg, causal=causal, **modes)
+    lse = _lse(tq, tk, tseg, causal, **modes)
     got = flash_attention_bwd_plain(tq, tk, tv, tseg, tseg, o, lse, tdo,
-                                    causal=causal)
+                                    causal=causal, **modes)
     for g, t in zip(got, (tq, tk, tv)):
         assert g.shape == t.shape and g.dtype == torch.float32
     _assert_grads([g.numpy() for g in got], want, seg)
@@ -87,14 +103,58 @@ def test_autograd_matches_pallas_interpret(name):
     b, s, h, kvh, d, causal, layout = CASES[name]
     q, k, v, seg = _inputs(b, s, h, kvh, d, layout)
     do = _cotangent(b, s, h, d, seg, seed=2)
-    want = _jax_grads(q, k, v, seg, do, causal)
+    modes = MODES.get(name, {})
+    want = _jax_grads(q, k, v, seg, do, causal, **modes,
+                      **BLOCKS.get(name, {}))
     leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
     tseg = torch.from_numpy(seg)
     _kernels.reset_launches()
-    out = flash_attention(*leaves, tseg, tseg, causal=causal)
+    out = flash_attention(*leaves, tseg, tseg, causal=causal, **modes)
     out.backward(torch.from_numpy(do))
     assert sum(_kernels.launches.values()) == 0  # CPU: the plain path
     _assert_grads([t.grad.numpy() for t in leaves], want, seg)
+
+
+@pytest.mark.parametrize("name", list(Q_OFFSET_CASES))
+def test_q_offset_grads(name):
+    """The grads of a query shard with q_offset (Sq != Skv): plain backward
+    and CPU autograd against the reference's Pallas backward of the same
+    shard, and against the grads of the same rows of the full call."""
+    modes, off, n = Q_OFFSET_CASES[name]
+    b, s, h, kvh, d = 2, 256, 4, 2, 32
+    q, k, v, seg = _inputs(b, s, h, kvh, d, "pad")
+    qs, segs = q[:, off:off + n], seg[:, off:off + n]
+    do = _cotangent(b, n, h, d, segs, seed=4)
+
+    def f(q_, k_, v_):
+        return jax_flash(q_, k_, v_, jnp.asarray(segs), jnp.asarray(seg),
+                         q_offset=jnp.int32(off), block_q=128, block_k=128,
+                         **modes)
+
+    _, vjp = jax.vjp(f, jnp.asarray(qs), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+    tq, tk, tv, tseg, tsegs, tdo = (torch.from_numpy(np.ascontiguousarray(x))
+                                    for x in (qs, k, v, seg, segs, do))
+    o = flash_attention_plain(tq, tk, tv, tsegs, tseg, q_offset=off, **modes)
+    lse = _lse(tq, tk, tseg, True, q_offset=off, q_seg=tsegs, **modes)
+    plain = flash_attention_bwd_plain(tq, tk, tv, tsegs, tseg, o, lse, tdo,
+                                      q_offset=off, **modes)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    flash_attention(*leaves, tsegs, tseg, q_offset=off, **modes).backward(tdo)
+    # the full call, its cotangent zero outside the shard's rows
+    full = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    do_full = torch.zeros(b, s, h, d)
+    do_full[:, off:off + n] = tdo
+    flash_attention(*full, tseg, tseg, **modes).backward(do_full)
+    want_full = [full[0].grad[:, off:off + n], full[1].grad, full[2].grad]
+    for got in ([g.numpy() for g in plain], [t.grad.numpy() for t in leaves]):
+        for name_, g, w, wf, live in zip(
+                ("dq", "dk", "dv"), got, want, want_full,
+                (segs != 0, seg != 0, seg != 0)):
+            np.testing.assert_allclose(g[live], w[live], err_msg=name_, **TOL)
+            np.testing.assert_allclose(g[live], wf.numpy()[live],
+                                       err_msg=name_, **TOL)
 
 
 def test_bwd_plain_selects_masked_rows():

@@ -3,7 +3,13 @@ halva_tpu.models.llama on the same tiny fp32 trees: the forward's logits,
 prefill's hidden states and head-major prompt cache (bf16, int8, int4),
 and one decode step's logits and updated gen cache, on float trees and on
 an int4 tree whose decode step the reference runs through its Pallas
-kernels (K6 and K4 in interpret mode, at dh=128).
+kernels (K6 and K4 in interpret mode, at dh=128). The configs include a
+tiny Mistral-like one (GQA, a sliding window smaller than the prompt) and a
+tiny MPT-like one (ALiBi, bias-free LayerNorm, non-gated GELU MLP, tied
+embeddings); for those also decode against the full forward, ALiBi with an
+int4 prompt cache, and ALiBi with beams. The same tree carries every
+backend (`to_torch` of the reference's `init_params`, an unused `gate`
+stack for MPT included).
 
 Tolerances: fp32 activations rtol = atol = 1e-5 (only summation order
 differs). The KV caches are bf16 in both packages (prefill writes
@@ -34,7 +40,13 @@ from test_torch_tree import LLAVA_TINY_GQA, port_cfg
 
 torch.set_num_threads(2)
 
-CONFIGS = {"mha": LLAMA_TINY, "gqa_tied": LLAVA_TINY_GQA.llm}
+MISTRAL_TINY = dataclasses.replace(LLAMA_TINY, num_kv_heads=2,
+                                   sliding_window=8)
+MPT_TINY = dataclasses.replace(
+    LLAMA_TINY, position_embedding="alibi", norm_type="layernorm",
+    mlp_act="gelu", gated_mlp=False, tie_word_embeddings=True)
+CONFIGS = {"mha": LLAMA_TINY, "gqa_tied": LLAVA_TINY_GQA.llm,
+           "mistral_like": MISTRAL_TINY, "mpt_like": MPT_TINY}
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16_STEP = dict(rtol=2**-7, atol=1e-6)
 
@@ -156,13 +168,137 @@ def test_unported_branches_raise():
     x = torch.zeros(2, 4)
     with pytest.raises(NotImplementedError):  # NF4
         llama.dense(x, {"kernel_q4": x, "kernel_scale4": x})
-    _, tp = _llm_trees(LLAMA_TINY)
-    # LoRA is ported (tests/test_torch_lora.py); sliding window and ALiBi
-    # are not
-    for cfg in (dataclasses.replace(LLAMA_TINY, sliding_window=8),
-                dataclasses.replace(LLAMA_TINY, position_embedding="alibi")):
-        with pytest.raises(NotImplementedError):
-            llama.forward(tp, port_cfg(cfg), torch.zeros(1, 4, dtype=torch.int32))
+    # sliding window and ALiBi run; the speculative verify step keeps the
+    # reference's contract (RoPE, no window) and refuses them as it does
+    for cfg in (MISTRAL_TINY, MPT_TINY):
+        _, tp = _llm_trees(cfg)
+        pcfg = port_cfg(cfg)
+        logits = llama.forward(tp, pcfg, torch.zeros(1, 4, dtype=torch.int32))
+        assert torch.isfinite(logits).all()
+        gen = llama.init_gen_cache(pcfg, 1, 4, device="cpu")
+        with pytest.raises(NotImplementedError, match="RoPE"):
+            llama.verify_step(tp, pcfg, torch.zeros(1, 2, cfg.hidden_size),
+                              torch.zeros(1, dtype=torch.int32), {},
+                              torch.ones(1, 4, dtype=torch.int32), gen,
+                              torch.zeros(1, dtype=torch.int32))
+
+
+def _decode_vs_full(cfg, prompt_len=12, total_len=20, kv=False, seed=6):
+    """Prefill + step-by-step decode of the port against the port's own
+    full forward, and the step logits against the reference's decode."""
+    jp, tp = _llm_trees(cfg)
+    pcfg = port_cfg(cfg)
+    rng = np.random.RandomState(seed)
+    b = 2
+    ids = rng.randint(0, cfg.vocab_size, (b, total_len)).astype(np.int32)
+    tids = torch.from_numpy(ids)
+    full = llama.forward(tp, pcfg, tids)
+    seg = np.ones((b, prompt_len), np.int32)
+    pos = np.broadcast_to(np.arange(prompt_len, dtype=np.int32),
+                          (b, prompt_len)).copy()
+    emb = llama.embed(tp, tids[:, :prompt_len])
+    _, pc = llama.prefill(tp, pcfg, emb, torch.from_numpy(seg),
+                          torch.from_numpy(pos), cache_dtype=torch.float32,
+                          quantize_cache=kv)
+    _, jpc = jllama.prefill(jp, cfg, jnp.asarray(emb.numpy()),
+                            jnp.asarray(seg), jnp.asarray(pos),
+                            cache_dtype=jnp.float32, quantize_cache=kv)
+    max_new = total_len - prompt_len
+    gen = llama.init_gen_cache(pcfg, b, max_new, dtype=torch.float32,
+                               device="cpu", quantized=bool(kv))
+    jgen = jllama.init_gen_cache(cfg, b, max_new, dtype=jnp.float32,
+                                 quantized=bool(kv))
+    for step in range(max_new):
+        t = prompt_len + step
+        positions = np.full((b,), t, np.int32)
+        logits, gen = llama.decode_step(
+            tp, pcfg, llama.embed(tp, tids[:, t:t + 1]),
+            torch.from_numpy(positions), pc, torch.from_numpy(seg), gen, step)
+        want, jgen = jllama.decode_step(
+            jp, cfg, jllama.embed(jp, jnp.asarray(ids[:, t:t + 1])),
+            jnp.asarray(positions), jpc, jnp.asarray(seg), jgen,
+            jnp.int32(step))
+        np.testing.assert_allclose(_np(logits), _np(want), rtol=1e-4,
+                                   atol=1e-4)
+        if not kv:  # a quantized cache is not the full forward's arithmetic
+            np.testing.assert_allclose(_np(logits), _np(full[:, t]),
+                                       atol=2e-4, rtol=3e-3)
+
+
+@pytest.mark.parametrize("name", ["mistral_like", "mpt_like"])
+def test_decode_matches_full_forward(name):
+    """A window smaller than the sequence must mask prompt and generated
+    keys older than it exactly as the full forward does; ALiBi must not
+    rotate and must bias both cache halves (fp32 caches; atol 2e-4, rtol
+    3e-3 against the full forward as in the reference's own test, 1e-4
+    against the reference's decode step)."""
+    _decode_vs_full(CONFIGS[name])
+
+
+@pytest.mark.parametrize("name", ["mistral_like", "mpt_like"])
+def test_decode_int4_prompt_cache(name):
+    """An int4 prompt cache (odd prompt length: one padded slot) attends in
+    even/odd key order: the ALiBi bias and the windowed segment ids must
+    follow that order. Step logits against the reference's, 1e-4."""
+    _decode_vs_full(CONFIGS[name], prompt_len=13, total_len=19, kv="int4")
+
+
+@pytest.mark.parametrize("name", ["mistral_like", "mpt_like"])
+def test_decode_step_beams(name):
+    """beam_k = 2: B*K beam rows against B prompt rows, the bias and the
+    window taken at the item's position; logits against the reference."""
+    cfg = CONFIGS[name]
+    jp, tp = _llm_trees(cfg)
+    emb, seg, pos = _prefill_inputs(cfg)
+    _, jc = jllama.prefill(jp, cfg, jnp.asarray(emb), jnp.asarray(seg),
+                           jnp.asarray(pos))
+    prompt_np = jax.tree.map(np.asarray, jc)
+    rng = np.random.RandomState(7)
+    step, k = 2, 2
+    gen_np = jax.tree.map(np.array, jllama.init_gen_cache(cfg, 2 * k, 5))
+    for key in ("k", "v"):
+        filled = rng.randn(*gen_np[key][:, :, :, :step].shape)
+        gen_np[key][:, :, :, :step] = np.asarray(
+            jnp.asarray(filled, jnp.bfloat16))
+    tok_emb = rng.randn(2 * k, 1, cfg.hidden_size).astype(np.float32)
+    positions = np.repeat(np.array([20 + step, 13 + step], np.int32), k)
+    want, _ = jllama.decode_step(
+        jp, cfg, jnp.asarray(tok_emb), jnp.asarray(positions),
+        jax.tree.map(jnp.asarray, prompt_np), jnp.asarray(seg),
+        jax.tree.map(jnp.asarray, gen_np), jnp.int32(step), beam_k=k)
+    got, _ = llama.decode_step(
+        tp, port_cfg(cfg), torch.from_numpy(tok_emb),
+        torch.from_numpy(positions), tree.to_torch(prompt_np, device="cpu"),
+        torch.from_numpy(seg), tree.to_torch(gen_np, device="cpu"), step,
+        beam_k=k)
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+
+
+@pytest.mark.parametrize("name", ["mistral-7b", "mpt-7b"])
+def test_presets_share_the_tree(name):
+    """MISTRAL_7B and MPT_7B need nothing new of the tree code: the port's
+    preset equals the reference's field for field, and `init_params` of a
+    narrowed copy gives the reference's leaves, shapes and dtypes (the
+    `gate` stack of the non-gated MPT MLP included)."""
+    from halva_tpu import config as jconfig
+    from halva_tpu_torch import config as tconfig
+
+    jcfg = jconfig.PRESETS[name]
+    assert port_cfg(jcfg) == tconfig.PRESETS[name]
+    small = dataclasses.replace(jcfg, vocab_size=64, hidden_size=32,
+                                intermediate_size=48, num_layers=2,
+                                num_heads=4,
+                                num_kv_heads=2 if jcfg.num_kv_heads else None)
+    want = jax.tree.map(np.asarray, jllama.init_params(
+        jax.random.PRNGKey(0), small, jnp.float32))
+    got = tree._init_llama(
+        tree._Init(torch.Generator().manual_seed(0), torch.float32, "cpu"),
+        port_cfg(small))
+    want_leaves = {p: (v.shape, str(v.dtype)) for p, v in tree.flatten(want)}
+    got_leaves = {p: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+                  for p, v in tree.flatten(got)}
+    assert got_leaves == want_leaves
+    assert ("layers", "mlp", "gate", "kernel") in got_leaves
 
 
 def _assert_cache_close(got_t, want, key):
