@@ -36,9 +36,26 @@ Mistral's shapes) and MPT-7B (ALiBi, LayerNorm, non-gated GELU MLP, tied
 embeddings: K1, K2 and K3 in ALiBi mode, decode through the plain attention
 with the bias, as the JAX package computes it), served and trained; before
 them K1, K2 and K3 are held against their plain versions in the ALiBi,
-sliding-window modes and with a q_offset. Every phase prints one line; any
-failure raises and exits non-zero. The last line is the device record
-{"ok": true, "device": {...}}.
+sliding-window modes and with a q_offset.
+
+The quantized frozen bases: K7 (the M-tiled packed-int4 GEMM) and K8 (the
+weight-only int8 GEMM) are held against their plain versions at the 7B and
+Mistral shapes from 9 to 4,348 rows, timed beside K6, beside dequantize +
+torch.matmul and beside W8A8's torch._int_mm. From the llava bf16 tree an
+int8 tree, an NF4 tree and the int4g tree are quantized on the card. The
+int8 tree is served on both its routes (weight-only: K8 for every quantized
+dense of the tower, the projector, the LLM and lm_head; W8A8: no K8 launch),
+one decode step of each timed on the device. The DPA LoRA train step then
+takes 2 micro-steps on each of the three bases (frozen tree as the KL
+reference), with the launches, finite losses and LoRA-only updates of the
+bf16 phase asserted, and one micro-step's LoRA grads on each base are held
+against the same micro-step on that base dequantized to a bf16 tree, beside
+a noise floor: a quantized dense whose backward is missing reads a relative
+error near 1 there. On the int4g tree the beam and verify steps (16 and 32
+rows) send their layer matmuls to K7 by the row rule W4_GEMV_MAX_ROWS, as
+does a short greedy run at batch 80; each step is timed on K7 and on K6.
+Every phase prints one line; any failure raises and exits non-zero. The
+last line is the device record {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --flash-only
 
@@ -46,12 +63,18 @@ builds the kernels, runs only the checks and timings of K1, K2 and K3 and
 prints their rows: two builds of the flash kernels are compared by running
 this from each tree in turn on one card.
 
+    python3 chip_smoke.py --quant-only
+
+runs only the quantized-base part (the checks of K7 and K8, the int8
+serving routes, the three train phases, the int4g serving, beam and verify
+runs) on a fresh random tree, with the rows of K7 and K8 alone.
+
 Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import collections
 import functools
 import json
 import statistics
@@ -74,10 +97,12 @@ from halva_tpu_torch.config import (
 from halva_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from halva_tpu_torch.models import llama, llava
 from halva_tpu_torch.models.llava import LlavaModel
+from halva_tpu_torch.ops import quant, w4_matmul
 from halva_tpu_torch.ops.attention import (
     alibi_in_kernel,
     attention,
     causal_alibi_bias,
+    kernel_route,
     make_attention_mask,
 )
 from halva_tpu_torch.ops.beam import (generate_beam, init_beam_state,
@@ -97,6 +122,7 @@ from halva_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_plain,
 )
+from halva_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
 from halva_tpu_torch.ops.generate import (
     _prefill_impl,
     generate_greedy,
@@ -104,9 +130,12 @@ from halva_tpu_torch.ops.generate import (
 )
 from halva_tpu_torch.ops.speculative import generate_speculative
 from halva_tpu_torch.ops.w4_matmul import (
+    dequantize_int4,
     quantize_params_int4,
     w4_dense_stacked,
     w4_dense_stacked_plain,
+    w4_gemm,
+    w4_gemm_plain,
 )
 from halva_tpu_torch.train.lora import add_lora
 from halva_tpu_torch.train.trainer import (
@@ -157,6 +186,11 @@ LOGITS_REL_W4 = 2.5e-2
 # plain path with the text-token embeddings perturbed by 2^-7 N(0, 1)
 # relative), the rule LOGITS_REL and LOGITS_REL_W4 follow
 TRAIN_FLOOR_FACTOR = 4 / 3
+# W8A8 against the weight-only route of the int8 tree, and the LoRA grads of
+# a W8A8 base against the dequantized bf16 tree: int8_dense rounds the
+# activations of every dense to 127 steps of the row's absmax, a
+# perturbation at every layer where the floor's is one at the embeddings
+W8A8_FLOOR_FACTOR = 4.0
 W4_GROUP = 128  # the int4g serving tree's group size
 
 PROMPT_LENS = (623, 615, 608, 623)  # spliced lengths of the 48/40/33/48 prompts
@@ -1228,6 +1262,193 @@ def check_w4(gen: torch.Generator) -> dict:
             "max_abs_err": worst, **timing}
 
 
+# K7 and K8 against their plain versions: |got - plain| <= GEMM_RTOL *
+# (max|plain| / 4 + |plain|) and the relative norm of the difference <=
+# GEMM_REL. Both sum bf16 products in fp32 and round the output to bf16 (2^-8
+# relative); a sum over thousands of products has entries near 0, so the
+# elementwise bound is relative to the output's scale. A grouped K7 also
+# rounds nibble * scale to bf16 before the product, as the Pallas kernel
+# does (2^-9 relative per weight, averaging out over K).
+GEMM_RTOL = 1e-2
+GEMM_REL = 4e-3
+MISTRAL_W4_SHAPES = ((4096, 1024), (4096, 14336), (14336, 4096))
+GEMM_ROWS = (9, 16, 32, 80, 2492, 4348)  # ragged; beams, verify, batch 80;
+# prefill (B=4 x 623) and the train step's pos+neg forward (4 x 1087)
+TRAIN_ROWS = 2 * TRAIN_SPLICED  # one forward of the micro-batch: dx's rows
+
+
+def gemm_within(got: torch.Tensor, want: torch.Tensor):
+    want = want.float()
+    diff = (got.float() - want).abs()
+    ok = bool((diff <= GEMM_RTOL * (want.abs().max() / 4 + want.abs())).all()
+              and rel_err(got, want) <= GEMM_REL
+              and torch.isfinite(got).all())
+    return ok, float(diff.max()), rel_err(got, want)
+
+
+def check_w4_gemm(gen: torch.Generator) -> dict:
+    """K7 against w4_gemm_plain at the packed-int4 matmul shapes of
+    llava-1.5-7b and Mistral-7B, per-channel and g=128 scales, at GEMM_ROWS
+    rows; timed at the 7B shapes with g=128 beside its plain version, K6 (up
+    to 80 rows) and the library route, dequantize then torch.matmul; the
+    Function's dx against g @ dequant(W).T. The JSON line carries gate/up at
+    16 rows, g=128: the beam step's shape."""
+    dev = "cuda"
+    layers = 4
+    worst = 0.0
+    timing = None
+    for k, n in W4_SHAPES + MISTRAL_W4_SHAPES:
+        np_ = n // 2
+        timed_shape = (k, n) in W4_SHAPES
+        # random bytes: every nibble occurs, -8 included; `layers` distinct
+        # weights so that timed small-M calls read device memory, not L2
+        w = torch.randint(-128, 128, (layers, k, np_), generator=gen,
+                          device=dev, dtype=torch.int8)
+        for groups in (1, k // W4_GROUP):
+            s = (torch.rand(layers, 2, groups, np_, generator=gen,
+                            device=dev) * 0.02 + 0.005).bfloat16()
+            for m in GEMM_ROWS:
+                x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+                ok, err, rel = True, 0.0, 0.0
+                for li in (0, layers - 1):
+                    got = w4_gemm(x, w[li], s[li])
+                    want = w4_gemm_plain(x, w[li], s[li])
+                    torch.cuda.synchronize()
+                    good, e, r = gemm_within(got, want)
+                    ok, err, rel = ok and good, max(err, e), max(rel, r)
+                    del got, want
+                line = (f"w4_gemm M={m} K={k} N={n} G={groups}: max_abs_err "
+                        f"{err:.3e} rel {rel:.3e} (limits {GEMM_RTOL}*(max|"
+                        f"plain|/4 + |plain|), rel {GEMM_REL})")
+                if timed_shape and groups > 1:
+                    def walk(fn):
+                        for li in range(layers):
+                            fn(x, w[li], s[li])
+
+                    ms = device_ms(lambda: walk(w4_gemm)) / layers
+                    plain_ms = device_ms(lambda: walk(w4_gemm_plain),
+                                         iters=5) / layers
+                    lib_ms = device_ms(lambda: walk(
+                        lambda x_, w_, s_: x_ @ dequantize_int4(
+                            w_, s_, torch.bfloat16))) / layers
+                    nbytes = k * np_ + 2 * groups * np_ * 2
+                    lim = bound(nbytes + tensor_bytes(x) + m * n * 2,
+                                2 * m * k * n)
+                    line += (f"; kernel {ms:.4f} ms "
+                             f"({2 * m * k * n / ms / 1e9:.1f} TFLOP/s, "
+                             f"{nbytes / ms / 1e6:.0f} GB/s of packed "
+                             f"weights), plain {plain_ms:.4f} ms, dequantize"
+                             f" + torch.matmul {lib_ms:.4f} ms, bound "
+                             f"{lim['bound_ms']:.4f} ms by {lim['bound_by']}")
+                    if m <= 80:
+                        k6 = device_ms(lambda: walk(
+                            lambda x_, w_, s_: w4_dense_stacked(
+                                x_, {"kernel_q4p": w_, "kernel_scale4p": s_}))
+                        ) / layers
+                        line += f", K6 {k6:.4f} ms"
+                    if (k, n, m) == (4096, 11008, 16):
+                        timing = {"ms": ms, "plain_ms": plain_ms,
+                                  "library_ms": lib_ms, **lim}
+                print(line + f" {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("w4_gemm disagrees with its plain "
+                                         "version")
+                worst = max(worst, err)
+            del s
+        del w
+    # the Function's backward at the rows of one train forward
+    k, n = W4_SHAPES[1]
+    w = torch.randint(-128, 128, (k, n // 2), generator=gen, device=dev,
+                      dtype=torch.int8)
+    s = (torch.rand(2, k // W4_GROUP, n // 2, generator=gen, device=dev)
+         * 0.02 + 0.005).bfloat16()
+    x = torch.randn(TRAIN_ROWS, k, generator=gen,
+                    device=dev).bfloat16().requires_grad_()
+    g = torch.randn(TRAIN_ROWS, n, generator=gen, device=dev).bfloat16()
+    (dx,) = torch.autograd.grad(w4_gemm(x, w, s), x, g)
+    want = g @ dequantize_int4(w, s, torch.bfloat16).t()
+    torch.cuda.synchronize()
+    ok = torch.equal(dx, want)
+    print(f"w4_gemm dx M={TRAIN_ROWS} K={k} N={n}: the Function's backward "
+          f"equals g @ dequant(W).T bit for bit {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("w4_gemm's backward is not g @ dequant(W).T")
+    return {"name": "w4_gemm", "route": "cuda",
+            "source": "halva_tpu_torch/csrc/dq_gemm.cu",
+            "replaces": "halva_tpu/ops/w4_matmul.py:313",
+            "max_abs_err": worst, **timing}
+
+
+# (K, N) of the int8 tree's denses: the LLM's three, lm_head, the projector's
+# first linear, and CLIP ViT-L's three
+W8_SHAPES = W4_SHAPES + ((4096, 32000), (1024, 4096), (1024, 1024),
+                         (4096, 1024))
+W8_ROWS = (4, 80, 2492)
+TOWER_ROWS = 4 * CLIP_VIT_L_336.num_positions  # 4 images of tower tokens
+
+
+def check_int8_matmul(gen: torch.Generator) -> dict:
+    """K8 against int8_matmul_plain at the shapes of the int8 tree's denses,
+    4, 80 and 2,492 rows (the tower's shapes also at its 2,308), timed beside
+    its plain version, the library route (dequantize the weights, then
+    torch.matmul: what w8_dense was) and W8A8 (int8_dense: torch._int_mm).
+    The JSON line carries gate/up at 4 rows, the decode step's shape."""
+    dev = "cuda"
+    layers = 4
+    worst = 0.0
+    timing = None
+    for k, n in W8_SHAPES:
+        q = torch.randint(-127, 128, (layers, k, n), generator=gen,
+                          device=dev, dtype=torch.int8)
+        sc = (torch.rand(layers, 1, n, generator=gen, device=dev) * 0.002
+              + 0.0005).bfloat16()
+        rows = W8_ROWS + ((TOWER_ROWS,) if k == 1024 or n == 1024 else ())
+        for m in rows:
+            x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+            ok, err, rel = True, 0.0, 0.0
+            for li in (0, layers - 1):
+                got = int8_matmul(x, q[li], sc[li])
+                want = int8_matmul_plain(x, q[li], sc[li])
+                torch.cuda.synchronize()
+                good, e, r = gemm_within(got, want)
+                ok, err, rel = ok and good, max(err, e), max(rel, r)
+                del got, want
+
+            def walk(fn):
+                for li in range(layers):
+                    fn(x, q[li], sc[li])
+
+            ms = device_ms(lambda: walk(int8_matmul)) / layers
+            plain_ms = device_ms(lambda: walk(int8_matmul_plain),
+                                 iters=5) / layers
+            lib_ms = device_ms(lambda: walk(
+                lambda x_, q_, s_: x_ @ (q_.to(x_.dtype) * s_))) / layers
+            w8a8_ms = device_ms(lambda: walk(quant.int8_dense)) / layers
+            lim = bound(k * n + n * 2 + tensor_bytes(x) + m * n * 2,
+                        2 * m * k * n)
+            print(f"int8_matmul M={m} K={k} N={n}: max_abs_err {err:.3e} rel "
+                  f"{rel:.3e} (limits {GEMM_RTOL}*(max|plain|/4 + |plain|), "
+                  f"rel {GEMM_REL}); kernel {ms:.4f} ms "
+                  f"({2 * m * k * n / ms / 1e9:.1f} TFLOP/s, "
+                  f"{k * n / ms / 1e6:.0f} GB/s of int8 weights), plain "
+                  f"{plain_ms:.4f} ms, dequantize + torch.matmul "
+                  f"{lib_ms:.4f} ms, W8A8 (int8_dense, torch._int_mm) "
+                  f"{w8a8_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms by "
+                  f"{lim['bound_by']} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("int8_matmul disagrees with its plain "
+                                     "version")
+            worst = max(worst, err)
+            if (k, n, m) == (4096, 11008, 4):
+                timing = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, **lim}
+        del q, sc
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "halva_tpu_torch/csrc/dq_gemm.cu",
+            "replaces": "halva_tpu/ops/int8_matmul.py:24",
+            "max_abs_err": worst, **timing}
+
+
 def make_inputs(cfg):
     """4 requests shaped like bench.make_inputs: 48 token slots, the image
     sentinel at index 1, prompt lengths 48/40/33/48, random pixels."""
@@ -1351,8 +1572,9 @@ def tree_bytes(params) -> int:
 
 
 def quantize_int4g(params: dict) -> dict:
-    """The int4g serving tree, quantized on the card from the bf16 tree."""
-    with torch.inference_mode():
+    """The int4g tree, quantized on the card from the bf16 tree (no_grad,
+    not inference_mode: a train step may save its leaves for backward)."""
+    with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         q4 = quantize_params_int4(params, group_size=W4_GROUP)
@@ -1370,6 +1592,13 @@ def expect_launches(launches: dict, want: dict, what: str) -> None:
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"the {what} did not run every kernel")
+
+
+def w4_mm_launches(rows: int, n: int) -> dict:
+    """{kernel: n} for n packed-int4 decode-family matmuls at `rows` rows:
+    K6 up to W4_GEMV_MAX_ROWS rows, K7 above (ops/w4_matmul.py)."""
+    name = "w4_gemm" if rows > w4_matmul.W4_GEMV_MAX_ROWS else "w4_gemv"
+    return {name: n}
 
 
 def run_int4g(q4: dict, kernels: dict) -> torch.Tensor:
@@ -1628,12 +1857,13 @@ def run_beam_spec_int4g(q4: dict, kernels: dict,
         (tok, num), beam_s, launches = timed_run(lambda: generate_beam(
             q4, cfg, *inputs, max_new_tokens=NEW_TOKENS, num_beams=BEAMS,
             stats=stats, **kv))
-        # per beam step: K5 once and K6 seven times per layer, at 16 rows
+        # per beam step: K5 once and the packed-int4 matmul seven times per
+        # layer, at 16 rows: K7 by the row rule
+        mm = w4_mm_launches(b * BEAMS, 7 * layers * NEW_TOKENS)
         expect_launches(launches, {
-            "flash_fwd": layers, "fold_attn_kv4": layers * NEW_TOKENS,
-            "w4_gemv": 7 * layers * NEW_TOKENS},
+            "flash_fwd": layers, "fold_attn_kv4": layers * NEW_TOKENS, **mm},
             f"int4g beam run ({BEAMS} beams, {NEW_TOKENS} tokens)")
-        record(kernels, launches, "fold_attn_kv4")
+        record(kernels, launches, "fold_attn_kv4", *mm)
         ok = (in_vocab(tok, cfg) and bool((num == NEW_TOKENS).all())
               and bool(torch.isfinite(stats["best_scores"]).all())
               and stats["steps"] == NEW_TOKENS)
@@ -1670,7 +1900,8 @@ def run_beam_spec_int4g(q4: dict, kernels: dict,
         ):
             (tok_x, _), _, launches = timed_run(fn)
             expect_launches(launches, {
-                "flash_fwd": layers, "w4_gemv": 7 * layers * SHORT_TOKENS,
+                "flash_fwd": layers,
+                **w4_mm_launches(b * BEAMS, 7 * layers * SHORT_TOKENS),
                 **want}, what)
             record(kernels, launches, *want)
             if not in_vocab(tok_x, cfg):
@@ -1691,10 +1922,11 @@ def run_beam_spec_int4g(q4: dict, kernels: dict,
             steps = st["verify_steps"]
             what = (f"int4g speculative run (draft_k {draft_k}, {n} tokens, "
                     f"{kv_quant} KV)")
-            # per verify step: K5 shared once, K6 seven times per layer
+            # per verify step: K5 shared once, the packed-int4 matmul seven
+            # times per layer at B * draft_k rows
             expect_launches(launches, {
                 "flash_fwd": layers, name: layers * steps,
-                "w4_gemv": 7 * layers * steps}, what)
+                **w4_mm_launches(b * draft_k, 7 * layers * steps)}, what)
             if main_path:
                 record(kernels, launches, name)
             ok = (in_vocab(tok_s, cfg) and bool((num_s == n).all())
@@ -1734,12 +1966,74 @@ def run_beam_spec_int4g(q4: dict, kernels: dict,
           f"reorder (index_select of {t['reorder_mb']:.1f} MB by parent beam) "
           f"{t['reorder']:.3f} ms ({t['reorder'] / whole:.1%}); with them the"
           f" beam step is {whole / t['greedy']:.3f} x the greedy step")
+    # the same steps with every matmul on K6 (the rule switched off), in
+    # this call: what the row rule buys
+    rule = w4_matmul.W4_GEMV_MAX_ROWS
+    w4_matmul.W4_GEMV_MAX_ROWS = 1 << 30
+    try:
+        t6 = _step_times(q4, cfg, inputs, greedy_tokens)
+    finally:
+        w4_matmul.W4_GEMV_MAX_ROWS = rule
+    print(f"route: W4_GEMV_MAX_ROWS = {rule}: a packed-int4 decode-family "
+          f"matmul takes K6 up to {rule} rows and K7 above (16 rows per beam "
+          f"step, 16 and 32 per verify step). With K6 at every row count the "
+          f"steps take: beam {t6['beam_fold']:.3f} ms (K7: "
+          f"{t['beam_fold']:.3f}), verify draft_k 4 {t6['verify_4']:.3f} "
+          f"(K7: {t['verify_4']:.3f}), draft_k {SPEC_LONG[0]} "
+          f"{t6[f'verify_{SPEC_LONG[0]}']:.3f} (K7: "
+          f"{t[f'verify_{SPEC_LONG[0]}']:.3f}), greedy at 4 rows "
+          f"{t6['greedy']:.3f} (K6 either way: {t['greedy']:.3f})")
     compare_verify(q4, cfg, inputs, greedy_tokens)
+    run_batch80(q4, cfg)
+
+
+BATCH80 = 80  # the reference benchmark's serving batch
+
+
+def run_batch80(q4, cfg) -> None:
+    """A short greedy run of 80 requests (the 4 requests 20 times) on the
+    int4g tree with int4 prompt KV: K7's rows at the serving batch; then the
+    device time of one decode step there on K7 and on K6."""
+    layers = cfg.llm.num_layers
+    inputs = tuple(t.repeat_interleave(BATCH80 // t.shape[0], dim=0)
+                   for t in make_inputs(cfg))
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        (tok, num), secs, launches = timed_run(lambda: generate_greedy(
+            q4, cfg, *inputs, max_new_tokens=SHORT_TOKENS, eos_id=-1,
+            kv_quant="int4"))
+        peak = torch.cuda.max_memory_allocated()
+        expect_launches(launches, {
+            "flash_fwd": layers, "decode_attn_kv4": layers * SHORT_TOKENS,
+            **w4_mm_launches(BATCH80, 7 * layers * SHORT_TOKENS)},
+            f"int4g greedy run at batch {BATCH80}")
+        ok = in_vocab(tok, cfg) and bool((num == SHORT_TOKENS).all())
+        _, _, slen, pc, pseg = _prefill_impl(q4, cfg, *inputs,
+                                             kv_quant="int4")
+        token = tok[:, SHORT_TOKENS - 1, None]
+        ms = {}
+        rule = w4_matmul.W4_GEMV_MAX_ROWS
+        try:
+            for name, rows in (("K7", rule), ("K6", 1 << 30)):
+                w4_matmul.W4_GEMV_MAX_ROWS = rows
+                ms[name] = decode_step_ms(q4, cfg, pc, pseg, slen, token,
+                                          "auto")
+        finally:
+            w4_matmul.W4_GEMV_MAX_ROWS = rule
+        del pc
+    print(f"int4g greedy run at batch {BATCH80}: {SHORT_TOKENS} tokens x "
+          f"{tok.shape[0]} rows in {secs:.3f} s with its prefill, peak memory "
+          f"{peak / 2**30:.2f} GiB; one decode step on the device (a CUDA "
+          f"graph, gen slot 8): {ms['K7']:.3f} ms with K7, {ms['K6']:.3f} ms "
+          f"with K6 at every row count {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"batch {BATCH80}: tokens out of range")
+    torch.cuda.empty_cache()
 
 
 def compare_verify(q4, cfg, inputs, tokens) -> None:
     """One verify step's logits (draft_k 4, the greedy run's first tokens as
-    candidates, empty gen cache), kernel path (K6 at 16 rows, K5 shared)
+    candidates, empty gen cache), kernel path (K7 at 16 rows, K5 shared)
     against plain path, beside the noise floor: plain path with the
     candidate embeddings perturbed by 2^-7 N(0, 1) relative."""
     b, kq = inputs[0].shape[0], 4
@@ -1828,14 +2122,16 @@ def changed(before: dict, after: dict) -> list:
 
 def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
               suffix: str = "", micro_steps: int = TRAIN_MICRO_STEPS,
-              grad_accum: int = 2) -> None:
+              grad_accum: int = 2, compare: bool = True) -> None:
     """The DPA LoRA train step at full width (llava-v1.5-7b unless `cfg`
     says otherwise): bf16 base, bf16 LoRA r=128 alpha=256 on the 7 linears
     of all layers, remat per layer, loss_chunk=256, micro-batch 2, AdamW
     with warmup and cosine decay, `grad_accum` micro-steps per update;
     `micro_steps` micro-steps, two updates in all (the first at lr(0) = 0).
-    `suffix` is the flash kernels' mode on this config. Then one micro-step
-    on the kernel path against the plain path."""
+    `suffix` is the flash kernels' mode on this config. Then, with
+    `compare`, one micro-step on the kernel path against the plain path. A
+    quantized `params` is the frozen base as it is (its denses launch no
+    kernel here: W8A8 is a library product, NF4 and int4 dequantize)."""
     cfg = cfg or CFG
     layers = cfg.llm.num_layers
     gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -1909,7 +2205,8 @@ def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
           + f" ms), B={TRAIN_B} rows of {TRAIN_SPLICED} spliced tokens, "
           f"peak memory {peak / 2**30:.2f} GiB")
     del policy, trainable, frozen, opt, opt_state, step
-    compare_train(params, batches[0], cfg, what)
+    if compare:
+        compare_train(params, batches[0], cfg, what)
 
 
 def compare_train(params: dict, batch: dict, cfg=None,
@@ -1922,39 +2219,18 @@ def compare_train(params: dict, batch: dict, cfg=None,
     floor of each quantity is the largest of FLOOR_DRAWS independent
     perturbations, every one of which is printed."""
     cfg = cfg or CFG
-    gen = torch.Generator(device=DEVICE).manual_seed(2)
-    cmp = add_lora(params, gen, rank=128, alpha=256.0)
-    for group in ("attn", "mlp"):
-        for p in cmp["llm"]["layers"][group].values():
-            p["lora_b"] = (torch.randn(p["lora_b"].shape, generator=gen,
-                                       device=DEVICE) * LORA_B_STD).to(
-                                           p["lora_b"].dtype)
-    runs = {}
-    tcfg = TrainConfig(grad_accum_steps=2, num_train_steps=400, remat=True,
-                       loss_chunk=256)
-    trainable, frozen, opt, _ = init_train_state(cmp, tcfg)
-    table = frozen["llm"]["embed"]["embedding"]
+    cmp = comparison_policy(params)
     noise = torch.Generator(device=DEVICE).manual_seed(3)
-    for run, impl in [("kernel", "auto"), ("plain", "plain")] + [
-            (f"floor{i}", "plain") for i in range(FLOOR_DRAWS)]:
-        frz = frozen
-        if run.startswith("floor"):
-            frz = tree.map_tree(lambda x: x, frozen)
-            frz["llm"]["embed"]["embedding"] = perturbed(table, noise)
-        step, _ = dpa_step_fns(cfg, dataclasses.replace(tcfg, attn_impl=impl),
-                               opt)
-        _, parts, grads = step.loss_and_grads(trainable, frz, None, batch)
-        runs[run] = (float(parts.alignment), float(parts.divergence),
-                     [g for _, g in tree.flatten(grads) if g is not None])
-        del frz, grads
-        torch.cuda.synchronize()
+    runs = {"kernel": micro_step_grads(cmp, batch, cfg),
+            "plain": micro_step_grads(cmp, batch, cfg, impl="plain")}
+    for i in range(FLOOR_DRAWS):
+        runs[f"floor{i}"] = micro_step_grads(cmp, batch, cfg, noise, "plain")
 
     def errs(run):
         got, want = runs[run], runs["plain"]
-        g = torch.cat([x.float().flatten() for x in got[2]])
-        w = torch.cat([x.float().flatten() for x in want[2]])
         return (abs(got[0] - want[0]) / abs(want[0]),
-                abs(got[1] - want[1]) / abs(want[1]), rel_err(g, w))
+                abs(got[1] - want[1]) / abs(want[1]),
+                rel_err(got[2], want[2]))
 
     got = errs("kernel")
     draws = [errs(f"floor{i}") for i in range(FLOOR_DRAWS)]
@@ -1978,6 +2254,230 @@ def compare_train(params: dict, batch: dict, cfg=None,
     if not ok:
         raise AssertionError(f"{what}train kernel path disagrees with the "
                              "plain path")
+
+
+def count_denses(node, key: str) -> int:
+    """How many denses of a tree hold `key`: a stacked (L, in, out) leaf
+    counts L."""
+    if isinstance(node, (list, tuple)):
+        return sum(count_denses(v, key) for v in node)
+    if not isinstance(node, dict):
+        return 0
+    if key in node:
+        return node[key].shape[0] if node[key].ndim == 3 else 1
+    return sum(count_denses(v, key) for v in node.values())
+
+
+def run_int8_serving(q8: dict, kernels: dict) -> None:
+    """Greedy decode of the 4 requests on the int8 tree (every dense kernel
+    and the embedding int8), on its two routes: weight-only (W8A8 off:
+    w8_dense, K8 for every quantized dense) and W8A8 (int8_dense,
+    torch._int_mm: no K8 launch). Launches asserted from the tree's own
+    count of denses, one decode step of each route timed on the device, and
+    the logits of the K8 route held against attn_impl="plain" and against
+    the W8A8 route beside the noise floor. The switch is restored."""
+    cfg = LLAVA_V15_7B
+    layers = cfg.llm.num_layers
+    inputs = make_inputs(cfg)
+    b = inputs[0].shape[0]
+    n = SHORT_TOKENS
+    vit = cfg.vision
+    tower_run = cfg.mm_vision_select_layer % (vit.num_layers + 1)
+    per_pass = count_denses(q8["llm"]["layers"], "kernel_q") + count_denses(
+        q8["llm"]["lm_head"], "kernel_q")
+    prefill_only = (count_denses(q8["vision"]["layers"], "kernel_q")
+                    // vit.num_layers * tower_run
+                    + count_denses(q8["projector"], "kernel_q"))
+    want_k8 = prefill_only + (1 + n) * per_pass
+    was = quant.w8a8_enabled()
+    results = {}
+    try:
+        for route, on in (("weight-only (K8)", False), ("W8A8", True)):
+            quant.set_w8a8(on)
+            with torch.inference_mode():
+                generate_greedy(q8, cfg, *inputs, max_new_tokens=1,
+                                eos_id=-1)  # warm-up, not counted
+                _, prefill_s, _ = timed_run(lambda: _prefill_impl(
+                    q8, cfg, *inputs))
+                (tok, num), secs, launches = timed_run(
+                    lambda: generate_greedy(q8, cfg, *inputs,
+                                            max_new_tokens=n, eos_id=-1))
+                want = {"flash_fwd": layers, "decode_attn": layers * n}
+                if not on:
+                    want["int8_matmul"] = want_k8
+                expect_launches(launches, want, f"int8 tree, {route} route")
+                if not on:
+                    record(kernels, launches, "int8_matmul")
+                if not (in_vocab(tok, cfg) and bool((num == n).all())):
+                    raise AssertionError(f"int8 tree, {route}: bad tokens")
+                _, _, slen, pc, pseg = _prefill_impl(q8, cfg, *inputs)
+                step_ms = decode_step_ms(q8, cfg, pc, pseg, slen,
+                                         tok[:, n - 1, None], "auto")
+                del pc
+                results[route] = (tok, prefill_s, secs, step_ms)
+        tok, prefill_s, secs, step_ms = results["weight-only (K8)"]
+        _, prefill8_s, secs8, step8_ms = results["W8A8"]
+        print(f"route: HALVA_W8A8 / quant.set_w8a8 (default on, restored to "
+              f"{was}): off -> dense sends every kernel_q to w8_dense, K8 on "
+              f"the card ({want_k8} launches for {n} tokens: {tower_run} "
+              f"tower layers x 6, the projector's 2, {per_pass} per LLM pass "
+              f"with lm_head, {1 + n} passes, counted from the tree); on -> "
+              "int8_dense, torch._int_mm, no launch")
+        print(f"int8 tree serving ({tree_bytes(q8) / 1e9:.3f} GB): "
+              f"weight-only route prefill {prefill_s * 1e3:.2f} ms, decode "
+              f"step {step_ms:.3f} ms of device time (a CUDA graph, B={b}), "
+              f"{(secs - prefill_s) / n * 1e3:.3f} ms on the host clock; "
+              f"W8A8 route prefill {prefill8_s * 1e3:.2f} ms, decode step "
+              f"{step8_ms:.3f} ms of device time, "
+              f"{(secs8 - prefill8_s) / n * 1e3:.3f} ms on the host clock")
+        # logits: K8 route kernel vs plain attention, and W8A8 vs K8 route,
+        # beside the floor (K8 route, plain, embeddings perturbed)
+        noise = torch.Generator(device=DEVICE).manual_seed(9)
+        quant.set_w8a8(False)
+        with torch.inference_mode():
+            runs = {"auto": family_logits(q8, cfg, inputs, tok, "auto"),
+                    "plain": family_logits(q8, cfg, inputs, tok, "plain"),
+                    "floor": family_logits(q8, cfg, inputs, tok, "plain",
+                                           noise)}
+            quant.set_w8a8(True)
+            w8a8 = family_logits(q8, cfg, inputs, tok, "auto")
+    finally:
+        quant.set_w8a8(was)
+    floor_check(runs, f"int8 tree (weight-only route) first token and decode "
+                f"steps 0-{COMPARE_STEPS - 1}:")
+    err = [rel_err(w8a8[i], runs["auto"][i]) for i in range(w8a8.shape[0])]
+    floor = [rel_err(runs["floor"][i], runs["plain"][i])
+             for i in range(w8a8.shape[0])]
+    ok = bool(torch.isfinite(w8a8).all()) and all(
+        e <= W8A8_FLOOR_FACTOR * f for e, f in zip(err, floor))
+    print("int8 tree W8A8 route vs weight-only route: logits rel err "
+          + ", ".join(f"{e:.3e}" for e in err)
+          + "; the floor above " + ", ".join(f"{e:.3e}" for e in floor)
+          + f"; bound {W8A8_FLOOR_FACTOR} x floor (W8A8 rounds the "
+          "activations of every dense to int8, the floor perturbs the "
+          f"embeddings once) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("int8 tree: the two routes disagree")
+
+
+def dequantized_tree(node):
+    """A quantized tree as a bf16 `kernel` / `embedding` tree of the same
+    weights: each leaf dequantized as the port's dense and embed do it."""
+    if isinstance(node, (list, tuple)):
+        return [dequantized_tree(v) for v in node]
+    if not isinstance(node, dict):
+        return node
+    out = {k: dequantized_tree(v) for k, v in node.items()
+           if k not in ("kernel_q", "kernel_scale", "kernel_q4",
+                        "kernel_scale4", "kernel_q4p", "kernel_scale4p",
+                        "embedding_q", "embedding_scale")}
+    if "kernel_q" in node:
+        out["kernel"] = quant.dequantize_kernel(node)
+    elif "kernel_q4" in node:
+        out["kernel"] = quant._nf4_dequant(
+            node["kernel_q4"], node["kernel_scale4"], torch.bfloat16)
+    elif "kernel_q4p" in node:
+        q, sc = node["kernel_q4p"], node["kernel_scale4p"]
+        if q.ndim == 3:
+            out["kernel"] = torch.stack([
+                dequantize_int4(q[li], sc[li], torch.bfloat16)
+                for li in range(q.shape[0])])
+        else:
+            out["kernel"] = dequantize_int4(q, sc, torch.bfloat16)
+    if "embedding_q" in node:
+        out["embedding"] = (node["embedding_q"].float()
+                            * node["embedding_scale"].float()).bfloat16()
+    return out
+
+
+def comparison_policy(params: dict) -> dict:
+    """`params` with LoRA r=128 whose lora_b is small and nonzero (at B = 0
+    the KL and the lora_a grads are exactly 0), from seed 2: the same
+    factors on any tree with the same denses."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    cmp = add_lora(params, gen, rank=128, alpha=256.0)
+    for group in ("attn", "mlp"):
+        for p in cmp["llm"]["layers"][group].values():
+            p["lora_b"] = (torch.randn(p["lora_b"].shape, generator=gen,
+                                       device=DEVICE) * LORA_B_STD).to(
+                                           p["lora_b"].dtype)
+    return cmp
+
+
+def micro_step_grads(policy: dict, batch: dict, cfg, noise=None,
+                     impl: str = "auto"):
+    """(alignment, kl, flat LoRA grads) of one DPA micro-step on `policy`
+    on path `impl`; with `noise`, the text-embedding table is perturbed."""
+    tcfg = TrainConfig(grad_accum_steps=1, num_train_steps=400, remat=True,
+                       loss_chunk=256, attn_impl=impl)
+    trainable, frozen, opt, _ = init_train_state(policy, tcfg)
+    if noise is not None:
+        frozen = tree.map_tree(lambda x: x, frozen)
+        frozen["llm"]["embed"]["embedding"] = perturbed(
+            frozen["llm"]["embed"]["embedding"], noise)
+    step, _ = dpa_step_fns(cfg, tcfg, opt)
+    _, parts, grads = step.loss_and_grads(trainable, frozen, None, batch)
+    flat = torch.cat([g.float().flatten() for _, g in tree.flatten(grads)
+                      if g is not None])
+    torch.cuda.synchronize()
+    return float(parts.alignment), float(parts.divergence), flat
+
+
+def run_train_quant(qtree: dict, kernels: dict, what: str,
+                    grad_factor: float) -> None:
+    """The DPA LoRA train step of llava-v1.5-7b on a quantized frozen base
+    (the bf16 phase's recipe, ref_params=None, 2 micro-steps at grad_accum
+    1), then the check that a missing backward through a quantized dense
+    fails: one micro-step's LoRA grads on this base against the same
+    micro-step on the base dequantized to a bf16 tree, by relative error of
+    the whole grad vector, within `grad_factor` of the noise floor (the
+    dequantized tree against itself with its text embeddings perturbed by
+    2^-7 N(0, 1) relative, the largest of FLOOR_DRAWS draws)."""
+    cfg = LLAVA_V15_7B
+    print(f"{what} base: {tree_bytes(qtree) / 1e9:.3f} GB, "
+          f"{count_denses(qtree, 'kernel_q')} int8, "
+          f"{count_denses(qtree, 'kernel_q4')} NF4 and "
+          f"{count_denses(qtree, 'kernel_q4p')} packed-int4 denses, "
+          f"{'int8' if 'embedding_q' in qtree['llm']['embed'] else 'float'} "
+          "embedding")
+    run_train(qtree, kernels, cfg, f"{what} base ", "", FAMILY_MICRO_STEPS,
+              grad_accum=1, compare=False)
+    torch.cuda.empty_cache()
+    batch = train_batch(cfg, 0)
+    got = micro_step_grads(comparison_policy(qtree), batch, cfg)
+    deq = dequantized_tree(qtree)
+    policy = comparison_policy(deq)
+    want = micro_step_grads(policy, batch, cfg)
+    noise = torch.Generator(device=DEVICE).manual_seed(3)
+    draws = []
+    for _ in range(FLOOR_DRAWS):
+        f = micro_step_grads(policy, batch, cfg, noise)
+        draws.append((abs(f[0] - want[0]) / abs(want[0]),
+                      abs(f[1] - want[1]) / abs(want[1]),
+                      rel_err(f[2], want[2])))
+        del f
+    floor = tuple(max(x) for x in zip(*draws))
+    errs = (abs(got[0] - want[0]) / abs(want[0]),
+            abs(got[1] - want[1]) / abs(want[1]), rel_err(got[2], want[2]))
+    finite = bool(np.isfinite(got[0]) and np.isfinite(got[1])
+                  and torch.isfinite(got[2]).all())
+    ok = finite and errs[2] <= grad_factor * floor[2]
+    names = ("alignment", "kl", "LoRA grads")
+    print(f"{what} base vs the same weights as a bf16 tree (one micro-step, "
+          f"lora_b ~ {LORA_B_STD} N(0,1)): alignment {got[0]:.6f} against "
+          f"{want[0]:.6f}, kl {got[1]:.4e} against {want[1]:.4e}; rel err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+          + "; noise floor (bf16 tree vs itself with the text embeddings x "
+          f"(1 + 2^-7 N(0,1)), the largest of {FLOOR_DRAWS} draws) "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, floor))
+          + f"; LoRA grads bound {grad_factor:.3f} x floor (a dense without "
+          "its backward reads ~1) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what} base: LoRA grads disagree with the "
+                             "dequantized tree's")
+    del deq, policy, got, want
+    torch.cuda.empty_cache()
 
 
 def new_tree(cfg, name: str) -> dict:
@@ -2279,26 +2779,68 @@ def main() -> None:
     if sys.argv[1:] == ["--flash-only"]:
         print(json.dumps({"flash_kernels": flash_checks(gen)}))
         return
-    if sys.argv[1:]:
+    quant_only = sys.argv[1:] == ["--quant-only"]
+    if sys.argv[1:] and not quant_only:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
-    checked = flash_checks(gen) + [
-        check_decode(gen), *check_decode_quant(gen), *check_fold(gen),
-        check_w4(gen)]
+    checked = [check_w4_gemm(gen), check_int8_matmul(gen)]
+    if not quant_only:
+        checked = flash_checks(gen) + [
+            check_decode(gen), *check_decode_quant(gen), *check_fold(gen),
+            check_w4(gen)] + checked
     kernels = {k["name"]: k for k in checked}
-    params = run_bf16(kernels)
-    run_beam_spec_bf16(params, kernels)
-    run_train(params, kernels)
+    if quant_only:  # the other kernels' launches are counted, not kept
+        kernels = collections.defaultdict(dict, kernels)
+    print(f"route: attn_impl='auto' at head dim {CFG.llm.head_size} -> "
+          f"{kernel_route('auto', CFG.llm.head_size)}, at head dim 64 -> "
+          f"{kernel_route('auto', 64)} (ops/attention.kernel_route, from the "
+          "config alone, on either device: K1-K5 and the packed-int4 decode "
+          "step take head dim 128 only; a caller who names 'kernel' still "
+          "gets the wrappers' ValueError)")
+    if quant_only:
+        params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
+    else:
+        params = run_bf16(kernels)
+        run_beam_spec_bf16(params, kernels)
+        run_train(params, kernels)
     torch.cuda.empty_cache()
+    # the quantized trees, each made on the card from the bf16 tree, which
+    # is freed once the last of them exists (no_grad, not inference_mode:
+    # the train step saves these leaves for its backward)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        q8 = quant.quantize_params(params)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        nf4 = quant.quantize_params(params, bits=4)
+        torch.cuda.synchronize()
+        print(f"int8 tree: quant.quantize_params on the card in "
+              f"{t1 - t0:.2f} s, {tree_bytes(q8) / 1e9:.3f} GB; NF4 tree "
+              f"(bits=4, one code index per uint8 byte, int8 embedding) in "
+              f"{time.perf_counter() - t1:.2f} s, "
+              f"{tree_bytes(nf4) / 1e9:.3f} GB")
     q4 = quantize_int4g(params)
     del params  # the bf16 tree is freed here
     torch.cuda.empty_cache()
+    run_int8_serving(q8, kernels)
+    run_train_quant(q8, kernels, "int8", W8A8_FLOOR_FACTOR)
+    del q8
+    torch.cuda.empty_cache()
+    run_train_quant(nf4, kernels, "NF4", TRAIN_FLOOR_FACTOR)
+    del nf4
+    torch.cuda.empty_cache()
+    print("route: dense on kernel_q4p at prefill and train M -> dequantize "
+          "+ torch.matmul (K7 is measured beside it in check_w4_gemm and "
+          "routed only where it wins); kernel_q4 -> nf4_dense; kernel_q -> "
+          "int8_dense (W8A8 on)")
+    run_train_quant(q4, kernels, "int4g", W8A8_FLOOR_FACTOR)
     greedy_tokens = run_int4g(q4, kernels)
     run_beam_spec_int4g(q4, kernels, greedy_tokens)
     del q4
     torch.cuda.empty_cache()
-    run_mistral(kernels)
-    torch.cuda.empty_cache()
-    run_mpt(kernels)
+    if not quant_only:
+        run_mistral(kernels)
+        torch.cuda.empty_cache()
+        run_mpt(kernels)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "halva_tpu"))
     if loaded:

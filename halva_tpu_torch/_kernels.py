@@ -19,11 +19,14 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import Dict
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attn.cu", "fold_attn.cu",
-           "w4_gemv.cu")
+           "w4_gemv.cu", "dq_gemm.cu")
 # included by sources; part of the build hash
 HEADERS = ("mma_bf16.cuh", "decode_common.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -144,6 +147,8 @@ def lib() -> ctypes.CDLL:
     cdll.halva_fold_attn.restype = i
     cdll.halva_w4_gemv.argtypes = [p] * 6 + [i] * 7 + [p]
     cdll.halva_w4_gemv.restype = i
+    cdll.halva_dq_gemm.argtypes = [i] + [p] * 6 + [i] * 7 + [p]
+    cdll.halva_dq_gemm.restype = i
     cdll.halva_cuda_error_string.argtypes = [i]
     cdll.halva_cuda_error_string.restype = ctypes.c_char_p
     return cdll
@@ -155,3 +160,19 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = lib().halva_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} at launch ({msg})")
+
+
+MAX_TICKETS = 1 << 16
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
+
+
+def tickets(device: torch.device) -> torch.Tensor:
+    """Per-device zeroed int32 tickets of the split-K reductions (K6, K7,
+    K8). The last block of a tile resets its ticket to 0, so the buffer is
+    zeroed once and reused by every launch on the device's streams in
+    order."""
+    t = _TICKETS.get(device)
+    if t is None:
+        t = torch.zeros(MAX_TICKETS, dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t

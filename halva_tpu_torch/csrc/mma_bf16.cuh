@@ -1,5 +1,6 @@
 // Tensor-core helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): mma.sync m16n8k16 bf16 -> fp32 and its operand loads.
+// flash_bwd.cu) and the quantized-weight GEMMs (dq_gemm.cu): mma.sync
+// m16n8k16 bf16 -> fp32 and its operand loads.
 //
 // Fragment layouts (lane = 4 * g + t, g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 = (row g, cols 2t..2t+1), a1 = (row g+8, same),
@@ -46,6 +47,19 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
   uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Four 8x8 bf16 matrices from shared memory as they lie. For A operands
+// (m rows x k cols) stored row-major as [m][k]: lane L gives the address of
+// row (L & 7) + (L & 8), column block (L & 16) / 2 of a 16x16 tile; r0..r3
+// are then a0..a3 of mma_16816.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4],
+                                            const __nv_bfloat16* p) {
+  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }

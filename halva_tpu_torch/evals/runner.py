@@ -8,8 +8,10 @@ dead rows (prompt length 0, zero image) that the decode marks done at step
 0. Answers are written as JSONL rows with the reference's schema.
 
 Quantized trees (int8, int4) and quantized KV caches (`kv_quant`) run.
-Not ported yet (they raise NotImplementedError): sampling, device meshes,
-continuous batching and the prefetch pool. PIL and mm_utils are imported
+The constructor takes the reference's arguments; sampling (`temperature >
+0`, `top_p < 1`), device meshes, continuous batching and the prefetch pool
+are not ported yet: their neutral values pass, any other raises
+NotImplementedError naming its ROADMAP item. PIL and mm_utils are imported
 where an image or a prompt is processed, so importing this module needs
 neither.
 """
@@ -76,17 +78,32 @@ class BatchedGenerator:
         max_new_tokens: int = 1024,
         prompt_bucket: int = 64,
         attn_impl: str = "auto",
-        kv_quant=False,  # False | True | "int8" | "int4"
+        temperature: float = 0.0,
+        top_p: float = 1.0,
         num_beams: int = 1,
         length_penalty: float = 1.0,
+        seed: int = 0,  # sampling only: greedy, beams and drafts use none
+        mesh=None,
+        prefetch_workers: int = 0,
+        kv_quant=False,  # False | True | "int8" | "int4"
+        continuous: bool = False,
         spec_k: int = 0,  # >= 2: speculative greedy decode
-        **unported,
     ):
-        if unported:
+        unported = {
+            "temperature / top_p (sampling)": (
+                temperature > 0 or top_p != 1.0, "item 9"),
+            "continuous (ContinuousEngine)": (continuous, "item 9"),
+            "mesh (multi-GPU)": (mesh is not None, "item 10"),
+            "prefetch_workers (the host prefetch pool)": (
+                prefetch_workers > 0, "item 12"),
+        }
+        asked = [f"{name}: ROADMAP queue 1 {item}"
+                 for name, (on, item) in unported.items() if on]
+        if asked:
             raise NotImplementedError(
-                f"BatchedGenerator: {sorted(unported)} not ported yet "
-                "(ROADMAP queue 1: the port runs deterministic single-device "
-                "decode: greedy, beams, speculative)"
+                "BatchedGenerator: not ported yet: " + "; ".join(asked)
+                + " (the port runs deterministic single-device decode: "
+                "greedy, beams, speculative)"
             )
         if spec_k >= 2 and num_beams > 1:
             raise ValueError(
@@ -174,6 +191,7 @@ class BatchedGenerator:
         results: List[str] = [""] * len(requests)
         stop = get_template(self.template).stop_str()
         host_s = device_s = 0.0
+        first_batch_s = None  # batch 0: first-use set-up + prefill + decode
         spec_steps = spec_emitted = 0
         for s in range(0, len(order), self.batch_size):
             idxs = order[s : s + self.batch_size]
@@ -207,7 +225,10 @@ class BatchedGenerator:
                     tokens, num = generate_greedy(*args, **kwargs)
             tokens = tokens.cpu().numpy()  # host readback = fence
             host_s += t1 - t0
-            device_s += time.perf_counter() - t1
+            batch_s = time.perf_counter() - t1
+            device_s += batch_s
+            if first_batch_s is None:
+                first_batch_s = batch_s
             texts = decode_tokens(tokens, num.cpu().numpy(), self.tok,
                                   self.eos_id, stop_strs=(stop,))
             for j, i in enumerate(idxs):
@@ -215,9 +236,15 @@ class BatchedGenerator:
                 if on_result:
                     on_result(requests[i], texts[j])
         n = max(1, len(requests))
+        # the reference's keys and rounding; `overlapped` says whether a
+        # prefetch pool hid the host work (never: not ported)
         self.last_stats = {
-            "host_ms_per_img": host_s / n * 1e3,
-            "device_ms_per_img": device_s / n * 1e3,
+            "host_ms_per_img": round(host_s / n * 1e3, 2),
+            "device_ms_per_img": round(device_s / n * 1e3, 2),
+            "host_s": round(host_s, 3),
+            "device_s": round(device_s, 3),
+            "first_batch_s": round(first_batch_s or 0.0, 3),
+            "overlapped": False,
         }
         if self.spec_k >= 2:
             self.last_stats["spec_verify_steps"] = spec_steps

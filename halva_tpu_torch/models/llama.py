@@ -7,7 +7,8 @@ reference's `lax.scan` over layers is a Python loop over per-layer views
 (L, B, KVH, S, Dh), as the decode kernel wants them.
 
 Ported here: dense kernels (+ bias, + LoRA) in float, int8 (`kernel_q`:
-W8A8 or weight dequant) and packed int4 (`kernel_q4p`), int8 embeddings,
+W8A8, or weight dequant through K8), NF4 (`kernel_q4`) and packed int4
+(`kernel_q4p`), int8 embeddings,
 RMSNorm / bias-free LayerNorm, RoPE (HF half-split, fp32 tables, linear
 scaling) or ALiBi (MPT: no rotation, a per-head distance bias inside the
 flash kernels), the Mistral sliding window (inside the flash kernels), the
@@ -16,14 +17,17 @@ prefill into a bf16, int8 or int4 prompt cache, and the KV-cached decode
 step over a bf16 or int8 gen cache, with `beam_k` beams per item against
 an item-row prompt cache, and the K-token speculative verify step
 (`verify_step`, K5's shared gen stage). An int4 tree decodes through
-`_decode_step_w4`, and verifies, through K6 for every layer matmul and K4
-or K5 for attention. The decode kernels K4 and K5 carry no bias and no
-window, as the Pallas kernels they replace: an ALiBi decode step, and a
-windowed one whose cache outgrows the window, take the position-aware plain
-attention (`decode_step`, the reference's rule). `verify_step` and per-row
-gen validity are RoPE-only without a window, as in the reference.
-Not ported yet (each raises NotImplementedError naming its ROADMAP slice):
-NF4 weights and tensor parallelism.
+`_decode_step_w4`, and verifies, through K6 (up to `W4_GEMV_MAX_ROWS` rows)
+or K7 (above) for every layer matmul and K4 or K5 for attention. A config
+whose head dim is not 128 takes the plain versions of all of them under
+attn_impl="auto" (`ops/attention.kernel_route`). The decode kernels K4 and
+K5 carry no bias and no window, as the Pallas kernels they replace: an
+ALiBi decode step, and a windowed one whose cache outgrows the window, take
+the position-aware plain attention (`decode_step`, the reference's rule).
+`verify_step` and per-row gen validity are RoPE-only without a window, as
+in the reference.
+Not ported yet (it raises NotImplementedError naming its ROADMAP slice):
+tensor parallelism.
 
 Shapes: B batch, S sequence, D hidden, H heads, Dh head dim, V vocab.
 """
@@ -38,7 +42,11 @@ from torch.utils.checkpoint import checkpoint
 
 from halva_tpu_torch.config import LlamaConfig
 from halva_tpu_torch.ops import quant
-from halva_tpu_torch.ops.attention import alibi_bias, attention
+from halva_tpu_torch.ops.attention import (
+    alibi_bias,
+    attention,
+    kernel_route,
+)
 from halva_tpu_torch.ops.decode_attention import (
     decode_attend_layer,
     decode_attend_plain,
@@ -47,14 +55,12 @@ from halva_tpu_torch.ops.decode_attention import (
 )
 from halva_tpu_torch.ops.w4_matmul import (
     dequantize_int4,
-    w4_dense_stacked,
+    w4_decode_matmul,
     w4_dense_stacked_plain,
     w4a8_dense,
 )
 
 Params = Dict[str, Any]
-
-_UNPORTED_KEYS = ("kernel_q4",)
 
 
 def _mlp_act(cfg: LlamaConfig):
@@ -75,22 +81,20 @@ def _mlp_act(cfg: LlamaConfig):
 def dense(x: torch.Tensor, p: Params) -> torch.Tensor:
     """y = x @ kernel [+ bias] [+ lora_scale * (x @ lora_a) @ lora_b]; the
     kernel may be packed int4 (`kernel_q4p`: W4A8 when the scales are per
-    channel and W4A8 is on, else bf16 dequant then matmul) or int8
-    (`kernel_q`: W8A8 when on, else weight dequant). The LoRA branch keys
-    on `lora_a`: a `lora_scale` standing alone (the frozen reference tree
-    of train/trainer.py keeps it) adds nothing."""
-    for key in _UNPORTED_KEYS:
-        if key in p:
-            raise NotImplementedError(
-                f"dense: '{key}' weights are not ported yet (ROADMAP queue "
-                "1 item 8: NF4 with the training extras)"
-            )
+    channel and W4A8 is on, else bf16 dequant then matmul), NF4
+    (`kernel_q4`) or int8 (`kernel_q`: W8A8 when on, else weight dequant,
+    K8 on the card). Every branch is differentiable in x, the quantized
+    ones with the reference's pinned backward (ops/quant.py). The LoRA
+    branch keys on `lora_a`: a `lora_scale` standing alone (the frozen
+    reference tree of train/trainer.py keeps it) adds nothing."""
     if "kernel_q4p" in p:
         if quant.w4a8_enabled() and p["kernel_scale4p"].shape[1] == 1:
             y = w4a8_dense(x, p["kernel_q4p"], p["kernel_scale4p"])
         else:
             y = x @ dequantize_int4(p["kernel_q4p"], p["kernel_scale4p"],
                                     x.dtype)
+    elif "kernel_q4" in p:
+        y = quant.nf4_dense(x, p["kernel_q4"], p["kernel_scale4"])
     elif "kernel_q" in p:
         if quant.w8a8_enabled():
             y = quant.int8_dense(x, p["kernel_q"], p["kernel_scale"])
@@ -468,9 +472,9 @@ def _layer_cache(cache: Params, li: int) -> Params:
 def _decode_attend(q, prompt_l, prompt_seg, gen_l, gen_valid, attn_impl,
                    beam_k=1, beam_route="fold", bias_p=None, bias_g=None):
     """K4, or K5 for beams (ops/decode_attention.py); the plain version when
-    attn_impl is "plain" or a bias comes with the step (the kernels carry
-    none)."""
-    if attn_impl == "plain" or bias_p is not None:
+    the route is "plain" (named, or "auto" at a head dim other than 128) or
+    a bias comes with the step (the kernels carry none)."""
+    if kernel_route(attn_impl, q.shape[-1]) == "plain" or bias_p is not None:
         return decode_attend_plain(q, prompt_l, prompt_seg, gen_l, gen_valid,
                                    beam_k, bias_p, bias_g)
     return decode_attend_layer(q, prompt_l, prompt_seg, gen_l, gen_valid,
@@ -592,15 +596,26 @@ def decode_step(
     return lm_logits(params, cfg, hidden)[:, 0], gen_cache
 
 
+def _w4_mm(attn_impl: str, head_dim: int):
+    """The packed-int4 layer matmul of a decode or verify step: K6 or K7 by
+    the number of rows (ops/w4_matmul.w4_decode_matmul) on the kernel route,
+    the plain version on the plain one."""
+    if kernel_route(attn_impl, head_dim) == "plain":
+        return w4_dense_stacked_plain
+    return w4_decode_matmul
+
+
 def _decode_step_w4(params, cfg, token_embeds, prompt_cache, prompt_seg,
                     gen_cache, step, cos, sin, gen_valid, attn_impl,
                     beam_k=1, beam_route="fold"):
     """decode_step over packed-int4 layer stacks: all 7 layer matmuls go
-    through K6 (ops/w4_matmul.w4_dense_stacked) on (B, K) rows and
-    attention through K4 (K5 for beams), each on its layer slice (a view).
-    Layer biases are not read, as in the reference. attn_impl="plain" takes both
-    kernels' plain versions."""
-    mm = w4_dense_stacked_plain if attn_impl == "plain" else w4_dense_stacked
+    through K6 or, above W4_GEMV_MAX_ROWS rows, K7
+    (ops/w4_matmul.w4_decode_matmul) on (B, K) rows and attention through
+    K4 (K5 for beams), each on its layer slice (a view).
+    Layer biases are not read, as in the reference. A plain route (named, or
+    "auto" at a head dim other than 128, where the reference does not run
+    its w4 decode step either) takes the plain versions of all of them."""
+    mm = _w4_mm(attn_impl, cfg.head_size)
     act = _mlp_act(cfg)
     b = token_embeds.shape[0]
     h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_size
@@ -663,9 +678,10 @@ def write_gen_candidates(gen: Params, kc: torch.Tensor, vc: torch.Tensor,
 
 def _verify_attend(q, prompt_l, prompt_seg, gen_l, gen_valid, k, v,
                    attn_impl):
-    """K5's shared gen stage (ops/decode_attention.py) unless attn_impl is
-    "plain"."""
-    fold = fold_attend_plain if attn_impl == "plain" else fold_attend_layer
+    """K5's shared gen stage (ops/decode_attention.py) unless the route is
+    "plain" (named, or "auto" at a head dim other than 128)."""
+    plain = kernel_route(attn_impl, q.shape[-1]) == "plain"
+    fold = fold_attend_plain if plain else fold_attend_layer
     return fold(q, prompt_l, prompt_seg, gen_l, gen_valid, q.shape[1],
                 shared_gen=True, candidates=(k, v))
 
@@ -688,7 +704,7 @@ def verify_step(
     accepted count only). Query i attends the prompt, the gen slots below
     gen_len and the candidates j <= i, whose K/V never pass through the
     cache (K5, shared gen stage). On a packed-int4 tree every layer matmul
-    goes through K6 at B*K rows and layer biases are not read (the
+    goes through K6 or K7 at B*K rows and layer biases are not read (the
     reference's `_verify_step_w4`); attn_impl="plain" takes the kernels'
     plain versions. RoPE configs without a sliding window only, as in the
     reference (its speculative entry refuses the others, and callers decode
@@ -705,10 +721,10 @@ def verify_step(
     cos, sin = rope_cos_sin(pos_k, dh, cfg.rope_theta, cfg.rope_scaling)
     gen_valid = torch.arange(sg, device=dev)[None, :] < gen_len[:, None]
     w4 = "kernel_q4p" in params["layers"]["attn"]["wq"]
-    mm = w4_dense_stacked_plain if attn_impl == "plain" else w4_dense_stacked
+    mm = _w4_mm(attn_impl, dh)
     act = _mlp_act(cfg)
 
-    def proj(y, p):  # K6 over the (B*K, in) rows of a packed-int4 stack
+    def proj(y, p):  # K6 or K7 over the (B*K, in) rows of a packed-int4 stack
         if w4:
             return mm(y.reshape(b * kq, -1), p).reshape(b, kq, -1)
         return dense(y, p)

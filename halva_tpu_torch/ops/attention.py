@@ -122,6 +122,25 @@ def alibi_in_kernel(num_heads: int) -> bool:
     return num_heads & (num_heads - 1) == 0
 
 
+KERNEL_HEAD_DIM = 128  # the head dim the attention kernels are built for
+
+
+def kernel_route(impl: str, head_dim: int) -> str:
+    """"kernel" or "plain" for a caller's `impl` at this head dim, decided
+    from the config alone, on either device: "auto" takes the kernels (K1-K5,
+    and K6 / K7 for a packed-int4 decode step) at head dim 128, the head dim
+    they are built for, and the plain versions at any other; a caller who
+    names "kernel" or "plain" gets what they name, and the kernels' wrappers
+    raise on a head dim they do not take. The reference makes the same
+    choice for its own reason (`dh % 128 == 0`, the TPU's lane width,
+    halva_tpu/models/llama.py:878)."""
+    if impl not in ("auto", "kernel", "plain"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "auto":
+        return "kernel" if head_dim == KERNEL_HEAD_DIM else "plain"
+    return impl
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -142,16 +161,16 @@ def attention(
     sliding window computed inside the kernel: the device decides, never a
     failure. ALiBi with a head count that is not a power of two takes the
     plain path on either device, as in the reference: the kernels' slope
-    formula does not cover it.
+    formula does not cover it. So does "auto" at a head dim other than 128
+    (`kernel_route`).
     """
-    if impl not in ("auto", "kernel", "plain"):
-        raise ValueError(f"unknown attention impl {impl!r}")
+    route = kernel_route(impl, q.shape[3])
     from halva_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,
     )
 
-    if impl == "plain" or (alibi and not alibi_in_kernel(q.shape[2])):
+    if route == "plain" or (alibi and not alibi_in_kernel(q.shape[2])):
         return flash_attention_plain(
             q, k, v, q_segment_ids, kv_segment_ids, causal=causal,
             alibi=alibi, sliding_window=sliding_window,

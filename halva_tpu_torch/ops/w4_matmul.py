@@ -1,5 +1,6 @@
-"""Packed int4 weights: quantizers, the prefill matmuls, and K6, the decode
-GEMV (CUDA, csrc/w4_gemv.cu) with its plain version.
+"""Packed int4 weights: quantizers, the prefill matmuls, K6, the decode
+GEMV (CUDA, csrc/w4_gemv.cu), and K7, the M-tiled GEMM (CUDA,
+csrc/dq_gemm.cu), each with its plain version.
 
 Counterpart of halva_tpu/ops/w4_matmul.py, single device (tp=1). Storage is
 the reference's: two int4 values per int8 byte, split-half, so byte [k, j]
@@ -14,6 +15,13 @@ kernel_scale4p (2, G, N/2)}` (a view of the stacked tree): torch needs no
 counterpart of the reference's scalar-prefetch layer index. It launches K6
 for CUDA tensors and uses `w4_dense_stacked_plain` for CPU tensors; on a
 CUDA tensor it launches or raises.
+
+`w4_gemm` is the same function for any number of rows, differentiable in
+x (the train step on a frozen int4 base): K7 for CUDA tensors,
+`w4_gemm_plain` for CPU tensors. K6 streams the weights once per 8-row chunk,
+K7 once: `w4_decode_matmul` sends a decode-family matmul with more than
+`W4_GEMV_MAX_ROWS` rows (beams, verify steps, large batches) to K7 and the
+rest to K6.
 """
 
 from __future__ import annotations
@@ -24,8 +32,18 @@ import torch
 
 from halva_tpu_torch import _kernels
 from halva_tpu_torch.ops import quant
+from halva_tpu_torch.ops.int8_matmul import (
+    TILE_K,
+    check_gemm_inputs,
+    launch_dq_gemm,
+)
 
 KERNEL = "w4_gemv"
+GEMM_KERNEL = "w4_gemm"
+# rows up to which a decode-family matmul takes K6 (its row chunk), above
+# which K7. 8 or 16, never more: a verify step at draft_k 8 (32 rows) takes
+# K7 whatever the measurements at 16 rows say.
+W4_GEMV_MAX_ROWS = 8
 
 Params = Dict[str, Any]
 
@@ -169,21 +187,6 @@ def plan(b: int, k: int, np_: int) -> Tuple[int, int, int]:
     return rc, _cdiv(k, ksplit), ksplit
 
 
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}
-_MAX_TILES = 1 << 16
-
-
-def _counters(device: torch.device) -> torch.Tensor:
-    """Per-device zeroed int32 tickets of the split reduction. The kernel's
-    last block of a tile resets its ticket to 0, so the buffer is zeroed
-    once and reused by every launch on the device's streams in order."""
-    c = _COUNTERS.get(device)
-    if c is None:
-        c = torch.zeros(_MAX_TILES, dtype=torch.int32, device=device)
-        _COUNTERS[device] = c
-    return c
-
-
 def w4_dense_stacked(x: torch.Tensor, p: Params) -> torch.Tensor:
     """y (B, N) = x (B, K) @ dequant(layer slice p): K6 for CUDA tensors
     (bf16 x, written straight into (B, N)), the plain version for CPU
@@ -215,13 +218,13 @@ def w4_dense_stacked(x: torch.Tensor, p: Params) -> torch.Tensor:
                          "16-byte aligned")
     rc, splits, ksplit = plan(b, k, np_)
     tiles = _cdiv(np_, TILE_NP) * _cdiv(b, rc)
-    if tiles > _MAX_TILES:
+    if tiles > _kernels.MAX_TICKETS:
         raise ValueError(f"w4_dense_stacked: {tiles} tiles exceed "
-                         f"{_MAX_TILES}")
+                         f"{_kernels.MAX_TICKETS}")
     y = torch.empty((b, 2 * np_), dtype=x.dtype, device=x.device)
     partial = torch.empty((splits if splits > 1 else 0, b, 2 * np_),
                           dtype=torch.float32, device=x.device)
-    counters = _counters(x.device)
+    counters = _kernels.tickets(x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels.lib().halva_w4_gemv(
@@ -232,3 +235,69 @@ def w4_dense_stacked(x: torch.Tensor, p: Params) -> torch.Tensor:
     _kernels.check(err, KERNEL)
     _kernels.launches[KERNEL] += 1
     return y
+
+
+def w4_gemm_plain(x: torch.Tensor, kernel_q4p: torch.Tensor,
+                  kernel_scale4p: torch.Tensor) -> torch.Tensor:
+    """y (..., N) = x (..., K) @ dequant(W): nibbles times scales in fp32
+    (exact), one fp32 matmul, cast to x's dtype: w4_dense_stacked_plain's
+    arithmetic for any leading dims."""
+    k = x.shape[-1]
+    w = dequantize_int4(kernel_q4p, kernel_scale4p, torch.float32)
+    y = (x.reshape(-1, k).float() @ w).to(x.dtype)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _w4_gemm_forward(x, w, s):
+    if x.device.type == "cpu":
+        return w4_gemm_plain(x, w, s)
+    k = x.shape[-1]
+    x2 = x.reshape(-1, k)
+    np_, ng = w.shape[-1], s.shape[1] if s.ndim == 3 else 0
+    if (
+        w.ndim != 2 or w.shape[0] != k or s.shape != (2, ng, np_) or ng < 1
+        or k % ng or x2.shape[0] < 1 or k % TILE_K or np_ % 8
+        or (ng > 1 and (k // ng) % TILE_K)
+    ):
+        raise ValueError(
+            f"w4_gemm: unsupported shapes x {tuple(x.shape)} kernel_q4p "
+            f"{tuple(w.shape)} kernel_scale4p {tuple(s.shape)} (needs K % "
+            f"{TILE_K} == 0, N/2 % 8 == 0, K % G == 0 and, for G > 1, "
+            f"(K / G) % {TILE_K} == 0)")
+    check_gemm_inputs(GEMM_KERNEL, x2, w, s)
+    y = launch_dq_gemm(1, GEMM_KERNEL, x2, w, s, 2 * np_, ng)
+    return y.reshape(*x.shape[:-1], 2 * np_)
+
+
+class _W4Gemm(torch.autograd.Function):
+    """The reference's custom VJP (halva_tpu/ops/w4_matmul.py:460-474):
+    dx = g @ dequant(W, g.dtype).T, the dequantized weights made again for
+    the backward instead of being kept; the packed weights and their scales
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, kernel_q4p, kernel_scale4p):
+        ctx.save_for_backward(kernel_q4p, kernel_scale4p)
+        return _w4_gemm_forward(x, kernel_q4p, kernel_scale4p)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = dequantize_int4(*ctx.saved_tensors, g.dtype)
+        return g @ w.t(), None, None
+
+
+def w4_gemm(x: torch.Tensor, kernel_q4p: torch.Tensor,
+            kernel_scale4p: torch.Tensor) -> torch.Tensor:
+    """y (..., N) = x (..., K) @ dequant(kernel_q4p (K, N/2), kernel_scale4p
+    (2, G, N/2)) in x's dtype, any number of rows: K7 for CUDA tensors (bf16
+    x), the plain version for CPU tensors. Differentiable in x only."""
+    return _W4Gemm.apply(x, kernel_q4p, kernel_scale4p)
+
+
+def w4_decode_matmul(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """A decode-family matmul y (B, N) = x (B, K) @ dequant(layer slice p):
+    K6 up to W4_GEMV_MAX_ROWS rows, K7 above (the same function; on CPU
+    tensors the same arithmetic)."""
+    if x.shape[0] > W4_GEMV_MAX_ROWS:
+        return w4_gemm(x, p["kernel_q4p"], p["kernel_scale4p"])
+    return w4_dense_stacked(x, p)

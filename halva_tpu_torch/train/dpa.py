@@ -1,7 +1,7 @@
 """Data-augmented Phrase Alignment (DPA) loss, the HALVA objective.
 
 Counterpart of halva_tpu/train/dpa.py (the row-per-sample losses; the packed
-variants come with packed DPA, ROADMAP queue 1 item 8):
+variants come with packed DPA, ROADMAP queue 1 item 8b):
 - per-token logps: log_softmax gathered at the label ids, shifted;
 - phrase accumulation: sum of token logps per phrase-sign id over a static
   MAX_PHRASES axis;

@@ -91,10 +91,18 @@ def add_lora(
 
 
 def merge_lora(params: Params) -> Params:
-    """Fold the adapters into the float kernels and drop the factors."""
+    """Fold the adapters into the float kernels and drop the factors. A
+    quantized base has no float `kernel` to fold into: that raises KeyError
+    here as in the reference (keep the adapters, or merge into the float
+    tree the base was quantized from)."""
     params = _copy_dicts(params)
-    for _, p in _iter_dense(params):
+    for path, p in _iter_dense(params):
         if "lora_a" in p:
+            if "kernel" not in p:
+                raise KeyError(
+                    f"merge_lora: {path} has a quantized base "
+                    f"({next(k for k in _KERNEL_KEYS if k in p)}) and no "
+                    "float 'kernel' to fold the adapter into")
             a = p["lora_a"].float()
             b = p["lora_b"].float()
             scale = p["lora_scale"].float()[..., None, None]

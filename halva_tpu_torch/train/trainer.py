@@ -204,7 +204,7 @@ class DPAOptimizer:
         if tcfg.optim == "adamw8bit":
             raise NotImplementedError(
                 "optim='adamw8bit' is not ported yet (ROADMAP queue 1 item "
-                "8, train/optim8bit.py)")
+                "8b, train/optim8bit.py)")
         if tcfg.optim != "adamw":
             raise ValueError(f"unknown optim {tcfg.optim!r}")
         self.tcfg = tcfg
@@ -408,7 +408,7 @@ def dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
 
 def packed_dpa_step_fns(*args, **kwargs):
     raise NotImplementedError(
-        "packed_dpa_step_fns is not ported yet (ROADMAP queue 1 item 8, "
+        "packed_dpa_step_fns is not ported yet (ROADMAP queue 1 item 8b, "
         "packed DPA)")
 
 

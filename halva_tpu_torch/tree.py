@@ -5,6 +5,9 @@ the reference's names and layouts: stacked (L, ...) layer weights, dense
 kernels (in, out). `to_torch` takes the tree as `jax.tree.map(np.asarray,
 params)` gives it; bf16 arrives as `ml_dtypes.bfloat16`, which
 `torch.from_numpy` refuses, so it crosses as its 16-bit pattern (bit-exact).
+NF4 code indices arrive as `ml_dtypes.uint4` (what `jnp.uint4` is in numpy)
+and cross by value into `torch.uint8`, one index per byte (torch has no
+4-bit type); `to_numpy` gives `kernel_q4` leaves back as `ml_dtypes.uint4`.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ def _array_to_torch(a) -> Any:
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    if a.dtype.name == "uint4":
+        return torch.from_numpy(a.astype(np.uint8))
     return torch.from_numpy(a)
 
 
@@ -76,8 +81,19 @@ def to_torch(tree, device="cuda"):
 
 
 def to_numpy(tree):
-    """torch tree -> numpy tree (bf16 as ml_dtypes.bfloat16)."""
-    return map_tree(_tensor_to_numpy, tree)
+    """torch tree -> numpy tree (bf16 as ml_dtypes.bfloat16, the uint8 NF4
+    indices of `kernel_q4` leaves as ml_dtypes.uint4)."""
+    if isinstance(tree, dict):
+        out = {k: to_numpy(v) for k, v in tree.items()}
+        q4 = out.get("kernel_q4")
+        if isinstance(q4, np.ndarray) and q4.dtype == np.uint8:
+            import ml_dtypes
+
+            out["kernel_q4"] = q4.astype(ml_dtypes.uint4)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(v) for v in tree]
+    return _tensor_to_numpy(tree)
 
 
 # --------------------------------------------------------------------------

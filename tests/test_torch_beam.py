@@ -162,3 +162,41 @@ def test_reorder_gen_cache_takes_parent_rows():
     out = beam.reorder_gen_cache(cache, parent)
     for key, t in cache.items():
         torch.testing.assert_close(out[key], t[:, rows], rtol=0, atol=0)
+
+
+def test_beam_on_int4_tree_row_rule_changes_no_token(tiny, monkeypatch):
+    """A packed-int4 tree under beam search: with the row rule at 1 every
+    beam step's B * K rows take w4_gemm (K7's wrapper); the tokens equal
+    those of the K6 route exactly (one arithmetic on CPU tensors)."""
+    from halva_tpu.ops.w4_matmul import quantize_params_int4_host
+    from halva_tpu_torch import tree
+    from halva_tpu_torch.ops import w4_matmul
+
+    from test_torch_tree import jax_tree
+
+    (_, _), (ids, imgs, lens) = tiny
+    tp = tree.to_torch(quantize_params_int4_host(jax_tree(LLAVA_TINY),
+                                                 group_size=32),
+                       device="cpu")
+
+    def run():
+        with torch.inference_mode():
+            return beam.generate_beam(
+                tp, port_cfg(LLAVA_TINY), torch.from_numpy(ids),
+                torch.from_numpy(imgs), torch.from_numpy(lens),
+                max_new_tokens=MAX_NEW, eos_id=-1, num_beams=2,
+                kv_quant="int4", attn_impl="kernel")
+
+    # "kernel" named: at LLAVA_TINY's head dim "auto" takes the plain route
+    want_tok, want_num = run()
+    calls = []
+    real = w4_matmul.w4_gemm
+    monkeypatch.setattr(w4_matmul, "W4_GEMV_MAX_ROWS", 1)
+    monkeypatch.setattr(w4_matmul, "w4_gemm",
+                        lambda *a: calls.append(a[0].shape[0]) or real(*a))
+    tok, num = run()
+    torch.testing.assert_close(tok, want_tok, rtol=0, atol=0)
+    torch.testing.assert_close(num, want_num, rtol=0, atol=0)
+    layers = LLAVA_TINY.llm.num_layers
+    assert calls and set(calls) == {ids.shape[0] * 2}
+    assert len(calls) % (7 * layers) == 0

@@ -17,7 +17,12 @@ relative norm of the difference <= 2e-3 (the bf16 output rounding, plus a
 P or dS element whose fp32 value differs in its last bits between the two
 and rounds to the neighbouring bf16 value). K5 and K4's beam mode share
 K4's span code and its bound. K1, K2 and K3 in their ALiBi, sliding-window
-and q_offset modes are held to the same bounds."""
+and q_offset modes are held to the same bounds. K7 and K8 (the M-tiled
+GEMMs over packed int4 and int8 weights) sum bf16 products in fp32 like
+their plain versions; a grouped K7 rounds nibble * scale to bf16 first (the
+Pallas kernel's order), 2^-9 relative per weight: the same bound, taken
+relative to the output's scale (|got - plain| <= 1e-2 * (max|plain| / 4 +
+|plain|)), since a sum of thousands of products has entries near 0."""
 
 import pytest
 import torch
@@ -36,9 +41,14 @@ from halva_tpu_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_plain,
 )
+from halva_tpu_torch.ops import quant
+from halva_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
 from halva_tpu_torch.ops.w4_matmul import (
+    dequantize_int4,
     w4_dense_stacked,
     w4_dense_stacked_plain,
+    w4_gemm,
+    w4_gemm_plain,
 )
 
 
@@ -442,3 +452,174 @@ def test_flash_modes_autograd_and_refusals(cuda):
         flash_attention_fwd(q6, q6, q6, s16, s16, alibi=True)
     with pytest.raises(ValueError, match="causal"):
         flash_attention_fwd(q, k, v, seg, seg, alibi=True, causal=False)
+
+
+def _gemm_close(got, want):
+    want = want.float()
+    diff = (got.float() - want).abs()
+    limit = 1e-2 * (want.abs().max() / 4 + want.abs())
+    assert bool(torch.isfinite(got).all())
+    assert bool((diff <= limit).all()), float((diff - limit).max())
+
+
+def _w4_weights(gen, k, np_, groups):
+    w = torch.randint(-128, 128, (k, np_), generator=gen, device="cuda",
+                      dtype=torch.int8)  # every nibble, -8 included
+    s = (torch.rand(2, groups, np_, generator=gen, device="cuda") * 0.02
+         + 0.005).bfloat16()
+    return w, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,np_,groups", [
+    (4096, 2048, 1), (4096, 2048, 32), (4096, 5504, 32), (11008, 2048, 86),
+    (4096, 512, 32), (14336, 2048, 112), (256, 72, 2)])
+@pytest.mark.parametrize("m", [9, 16, 32, 80, 300])
+def test_w4_gemm_matches_plain(cuda, m, k, np_, groups):
+    w, s = _w4_weights(cuda, k, np_, groups)
+    x = torch.randn(m, k, generator=cuda, device="cuda").bfloat16()
+    before = _kernels.launches["w4_gemm"]
+    got = w4_gemm(x, w, s)
+    assert _kernels.launches["w4_gemm"] == before + 1
+    assert got.shape == (m, 2 * np_) and got.dtype == torch.bfloat16
+    _gemm_close(got, w4_gemm_plain(x, w, s))
+    # the same function as K6, and the same bits from run to run (the split
+    # reduction sums in split order)
+    if m <= 80:
+        _gemm_close(got, w4_dense_stacked(
+            x, {"kernel_q4p": w, "kernel_scale4p": s}))
+    assert torch.equal(got, w4_gemm(x, w, s))
+
+
+@pytest.mark.cuda
+def test_w4_gemm_large_m_leading_dims_and_dx(cuda):
+    k, np_, groups = 4096, 2048, 32
+    w, s = _w4_weights(cuda, k, np_, groups)
+    x = torch.randn(2, 1087, k, generator=cuda, device="cuda").bfloat16()
+    x.requires_grad_()
+    y = w4_gemm(x, w, s)
+    assert y.shape == (2, 1087, 2 * np_)
+    _gemm_close(y, w4_gemm_plain(x.detach(), w, s))
+    g = torch.randn(y.shape, generator=cuda, device="cuda").bfloat16()
+    (dx,) = torch.autograd.grad(y, x, g)
+    want = g @ dequantize_int4(w, s, torch.bfloat16).t()
+    torch.testing.assert_close(dx, want, rtol=0, atol=0)
+    assert not s.requires_grad and not w.is_floating_point()
+
+
+@pytest.mark.cuda
+def test_w4_gemm_refuses_what_it_does_not_take(cuda):
+    w, s = _w4_weights(cuda, 256, 64, 1)
+    x = torch.randn(4, 256, generator=cuda, device="cuda").bfloat16()
+    with pytest.raises(TypeError):
+        w4_gemm(x.float(), w, s)
+    with pytest.raises(TypeError):
+        w4_gemm(x, w, s.float())
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        w4_gemm(x[:, :200].contiguous(), w[:200].contiguous(), s)  # K % 64
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        w4_gemm(x, w[:, :60].contiguous(), s[:, :, :60].contiguous())
+    w8, s8 = _w4_weights(cuda, 256, 64, 8)  # groups of 32 rows
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        w4_gemm(x, w8, s8)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        w4_gemm(x, w.cpu(), s)
+    w2, s2 = _w4_weights(cuda, 256, 64, 2)  # groups of 128 rows: taken
+    w4_gemm(x, w2, s2)
+    with pytest.raises(ValueError, match="contiguous"):
+        w4_gemm(x, w2, s2.transpose(0, 1).contiguous().transpose(0, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008), (11008, 4096),
+                                 (4096, 32000), (1024, 4096), (1024, 1024),
+                                 (4096, 1024), (128, 72)])
+@pytest.mark.parametrize("m", [4, 80, 577])
+def test_int8_matmul_matches_plain(cuda, m, k, n):
+    q = torch.randint(-127, 128, (k, n), generator=cuda, device="cuda",
+                      dtype=torch.int8)
+    scale = (torch.rand(1, n, generator=cuda, device="cuda") * 0.002
+             + 0.0005).bfloat16()
+    x = torch.randn(m, k, generator=cuda, device="cuda").bfloat16()
+    before = _kernels.launches["int8_matmul"]
+    got = int8_matmul(x, q, scale)
+    assert _kernels.launches["int8_matmul"] == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    _gemm_close(got, int8_matmul_plain(x, q, scale))
+    assert torch.equal(got, int8_matmul(x, q, scale.reshape(-1)))
+
+
+@pytest.mark.cuda
+def test_w8_dense_launches_k8_and_differentiates(cuda):
+    k, n = 1024, 512
+    q = torch.randint(-127, 128, (k, n), generator=cuda, device="cuda",
+                      dtype=torch.int8)
+    scale = (torch.rand(1, n, generator=cuda, device="cuda") * 0.002
+             + 0.0005).bfloat16()
+    x = torch.randn(3, 7, k, generator=cuda, device="cuda").bfloat16()
+    x.requires_grad_()
+    before = _kernels.launches["int8_matmul"]
+    y = quant.w8_dense(x, q, scale)
+    assert _kernels.launches["int8_matmul"] == before + 1
+    _gemm_close(y, int8_matmul_plain(x.detach(), q, scale))
+    g = torch.randn(y.shape, generator=cuda, device="cuda").bfloat16()
+    (dx,) = torch.autograd.grad(y, x, g)
+    want = g @ (q.bfloat16() * scale).t()
+    torch.testing.assert_close(dx, want, rtol=0, atol=0)
+    # W8A8 keeps the library product and the same backward
+    y8 = quant.int8_dense(x, q, scale)
+    assert _kernels.launches["int8_matmul"] == before + 1
+    (dx8,) = torch.autograd.grad(y8, x, g)
+    torch.testing.assert_close(dx8, want, rtol=0, atol=0)
+    with pytest.raises(TypeError):
+        int8_matmul(x.detach().float(), q, scale)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        int8_matmul(x.detach(), q[:, :500].contiguous(),
+                    scale[:, :500].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["float", "int4"])
+def test_head_dim_64_model_decodes_on_the_card_as_on_the_cpu(cuda, weights):
+    """A config whose head dim the kernels do not take (64) runs on the card
+    under attn_impl="auto" by the rule of ops/attention.kernel_route, with
+    no kernel launch and no failure caught: greedy tokens equal its CPU
+    run's (fp32 tree, full-fp32 matmuls on both devices)."""
+    from halva_tpu_torch import tree
+    from halva_tpu_torch.config import LlamaConfig, LlavaConfig, ViTConfig
+    from halva_tpu_torch.ops.generate import generate_greedy
+    from halva_tpu_torch.ops.w4_matmul import quantize_params_int4
+
+    cfg = LlavaConfig(
+        llm=LlamaConfig(vocab_size=512, hidden_size=128,
+                        intermediate_size=256, num_layers=2, num_heads=2,
+                        max_position_embeddings=256),
+        vision=ViTConfig(image_size=28, patch_size=14, hidden_size=64,
+                         intermediate_size=128, num_layers=2, num_heads=2))
+    assert cfg.llm.head_size == 64
+    params = tree.init_params(cfg, torch.Generator().manual_seed(0),
+                              torch.float32, device="cpu")
+    if weights == "int4":
+        params = quantize_params_int4(params, group_size=64)
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(5, 500, (3, 12), generator=g, dtype=torch.int32)
+    ids[:, 1] = -200
+    images = torch.randn(3, 3, 28, 28, generator=g)
+    lens = torch.tensor([12, 9, 11], dtype=torch.int32)
+    ids[1, 9:] = 0
+    ids[2, 11:] = 0
+    kw = dict(max_new_tokens=6, eos_id=-1)
+    with torch.inference_mode():
+        want, want_n = generate_greedy(params, cfg, ids, images, lens, **kw)
+        on_card = tree.map_tree(lambda t: t.cuda(), params)
+        _kernels.reset_launches()
+        got, got_n = generate_greedy(on_card, cfg, ids.cuda(), images.cuda(),
+                                     lens.cuda(), **kw)
+        assert sum(_kernels.launches.values()) == 0
+        assert torch.equal(got.cpu(), want) and torch.equal(got_n.cpu(),
+                                                            want_n)
+        # a caller who names the kernel still gets the wrapper's refusal
+        # (of the fp32 tensors, before it comes to their head dim)
+        with pytest.raises((TypeError, ValueError)):
+            generate_greedy(on_card, cfg, ids.cuda(), images.cuda(),
+                            lens.cuda(), attn_impl="kernel", **kw)

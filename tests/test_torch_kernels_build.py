@@ -101,3 +101,50 @@ def test_non_cpu_non_cuda_tensors_raise():
     with pytest.raises(ValueError, match="CUDA"):
         w4_dense_stacked(torch.empty(2, 128, dtype=torch.bfloat16, **meta), w)
     assert sum(_kernels.launches.values()) == 0
+
+
+def test_every_source_is_built_and_hashed(tmp_path, monkeypatch):
+    """Every .cu under csrc/ is in SOURCES and every .cuh in HEADERS (K7 and
+    K8 live in dq_gemm.cu), and a change to any of them changes the build
+    hash."""
+    on_disk = sorted(os.listdir(_kernels.CSRC))
+    assert sorted(_kernels.SOURCES + _kernels.HEADERS) == on_disk
+    assert "dq_gemm.cu" in _kernels.SOURCES
+    copy = tmp_path / "csrc"
+    copy.mkdir()
+    for name in on_disk:
+        (copy / name).write_bytes(
+            open(os.path.join(_kernels.CSRC, name), "rb").read())
+    monkeypatch.setattr(_kernels, "CSRC", str(copy))
+    base = _kernels._source_hash()
+    for name in ("dq_gemm.cu", "mma_bf16.cuh"):
+        path = copy / name
+        original = path.read_bytes()
+        path.write_bytes(original + b"\n// touched\n")
+        assert _kernels._source_hash() != base, name
+        path.write_bytes(original)
+    assert _kernels._source_hash() == base
+
+
+def test_gemm_wrappers_refuse_non_cpu_non_cuda_tensors():
+    """K7's and K8's wrappers, and w8_dense, which launches K8: the plain
+    version is for CPU tensors only."""
+    from halva_tpu_torch.ops import quant
+    from halva_tpu_torch.ops.int8_matmul import int8_matmul
+    from halva_tpu_torch.ops.w4_matmul import w4_decode_matmul, w4_gemm
+
+    meta = dict(device="meta")
+    x = torch.empty(20, 128, dtype=torch.bfloat16, **meta)
+    w = torch.empty(128, 64, dtype=torch.int8, **meta)
+    s4 = torch.empty(2, 1, 64, dtype=torch.bfloat16, **meta)
+    s8 = torch.empty(1, 64, dtype=torch.bfloat16, **meta)
+    _kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        w4_gemm(x, w, s4)
+    with pytest.raises(ValueError, match="CUDA"):
+        w4_decode_matmul(x, {"kernel_q4p": w, "kernel_scale4p": s4})
+    with pytest.raises(ValueError, match="CUDA"):
+        int8_matmul(x, w, s8)
+    with pytest.raises(ValueError, match="CUDA"):
+        quant.w8_dense(x, w, s8)
+    assert sum(_kernels.launches.values()) == 0

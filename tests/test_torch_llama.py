@@ -165,9 +165,11 @@ def test_decode_step_logits_and_gen_cache(name):
 
 
 def test_unported_branches_raise():
-    x = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError):  # NF4
-        llama.dense(x, {"kernel_q4": x, "kernel_scale4": x})
+    # NF4 is a dense like the others now: no branch of `dense` raises
+    x = torch.ones(2, 4)
+    y = llama.dense(x, {"kernel_q4": torch.full((4, 3), 15, dtype=torch.uint8),
+                        "kernel_scale4": torch.full((1, 3), 0.5)})
+    torch.testing.assert_close(y, torch.full((2, 3), 2.0))  # 4 x 1.0 x 0.5
     # sliding window and ALiBi run; the speculative verify step keeps the
     # reference's contract (RoPE, no window) and refuses them as it does
     for cfg in (MISTRAL_TINY, MPT_TINY):
@@ -358,6 +360,27 @@ W4_CFGS = {
 @pytest.mark.parametrize("kv", ["int4", "int8"])
 @pytest.mark.parametrize("name", list(W4_CFGS))
 def test_decode_step_w4_matches_pallas_route(name, kv, monkeypatch):
+    _check_decode_step_w4(name, kv, monkeypatch)
+
+
+@pytest.mark.parametrize("kv", ["int4", "int8"])
+@pytest.mark.parametrize("name", list(W4_CFGS))
+def test_decode_step_w4_on_the_gemm_route(name, kv, monkeypatch):
+    """With the row rule at 1 the step's 2 rows take w4_gemm (K7's wrapper)
+    for all 7 matmuls of each layer; K6's and K7's plain versions are one
+    arithmetic, so every expectation of the K6 route stands."""
+    from halva_tpu_torch.ops import w4_matmul
+
+    calls = []
+    real = w4_matmul.w4_gemm
+    monkeypatch.setattr(w4_matmul, "W4_GEMV_MAX_ROWS", 1)
+    monkeypatch.setattr(w4_matmul, "w4_gemm",
+                        lambda *a: calls.append(a[0].shape[0]) or real(*a))
+    _check_decode_step_w4(name, kv, monkeypatch)
+    assert calls == [2] * (7 * W4_CFGS[name].num_layers)
+
+
+def _check_decode_step_w4(name, kv, monkeypatch):
     traced = []
     real = jllama._decode_step_w4
     monkeypatch.setattr(jllama, "_decode_step_w4",
@@ -400,3 +423,62 @@ def test_decode_step_w4_matches_pallas_route(name, kv, monkeypatch):
                                rtol=1e-4, atol=1e-4)
     for key in gen_np:
         _assert_cache_close(got_gen[key], want_gen[key], key)
+
+
+def test_head_dim_rule_picks_the_route_from_the_config(monkeypatch):
+    """attn_impl="auto" takes the kernels at head dim 128 and the plain
+    versions at any other, on either device, by `kernel_route`: never by a
+    failure. The kernel entry points are replaced by ones that raise, so a
+    head-dim-64 config that reached one would fail here."""
+    from halva_tpu_torch.ops import attention as attn
+    from halva_tpu_torch.ops import flash_attention as fa
+    from halva_tpu_torch.ops import w4_matmul
+
+    assert attn.kernel_route("auto", 128) == "kernel"
+    assert attn.kernel_route("auto", 64) == "plain"
+    assert attn.kernel_route("auto", 256) == "plain"
+    assert attn.kernel_route("kernel", 64) == "kernel"  # named: not overruled
+    assert attn.kernel_route("plain", 128) == "plain"
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        attn.kernel_route("xla", 128)
+    assert llama._w4_mm("auto", 64) is w4_matmul.w4_dense_stacked_plain
+    assert llama._w4_mm("auto", 128) is w4_matmul.w4_decode_matmul
+    assert llama._w4_mm("kernel", 64) is w4_matmul.w4_decode_matmul
+    assert llama._w4_mm("plain", 128) is w4_matmul.w4_dense_stacked_plain
+
+    def refuse(*a, **k):
+        raise AssertionError("a kernel entry point was reached")
+
+    monkeypatch.setattr(fa, "flash_attention", refuse)
+    monkeypatch.setattr(llama, "decode_attend_layer", refuse)
+    monkeypatch.setattr(llama, "fold_attend_layer", refuse)
+    monkeypatch.setattr(w4_matmul, "w4_dense_stacked", refuse)
+    monkeypatch.setattr(w4_matmul, "w4_gemm", refuse)
+    cfg = LlamaConfig(vocab_size=64, hidden_size=128, intermediate_size=128,
+                      num_layers=2, num_heads=2, max_position_embeddings=64)
+    assert cfg.head_size == 64
+    params = jllama.init_params(jax.random.PRNGKey(0), cfg, jnp.float32)
+    q_np = quantize_params_int4_host(jax.tree.map(np.asarray, params),
+                                     group_size=64)
+    pcfg = port_cfg(cfg)
+    for np_tree in (jax.tree.map(np.asarray, params), q_np):
+        tp = tree.to_torch(np_tree, device="cpu")
+        emb, seg, pos = _prefill_inputs(cfg, s=9)
+        args = (torch.from_numpy(emb), torch.from_numpy(seg),
+                torch.from_numpy(pos))
+        hidden, pc = llama.prefill(tp, pcfg, *args)  # "auto"
+        want, _ = llama.prefill(tp, pcfg, *args, attn_impl="plain")
+        torch.testing.assert_close(hidden, want, rtol=0, atol=0)
+        gen = llama.init_gen_cache(pcfg, 2, 8, dtype=torch.float32,
+                                   device="cpu")
+        tok = torch.zeros(2, 1, cfg.hidden_size)
+        logits, _ = llama.decode_step(tp, pcfg, tok,
+                                      torch.tensor([9, 9]), pc, args[1],
+                                      gen, 0)
+        assert torch.isfinite(logits).all()
+        vl, _ = llama.verify_step(tp, pcfg, tok.expand(2, 3, -1),
+                                  torch.tensor([9, 9]), pc, args[1], gen,
+                                  torch.zeros(2, dtype=torch.int32))
+        assert vl.shape == (2, 3, cfg.vocab_size)
+    with pytest.raises(AssertionError, match="kernel entry point"):
+        llama.prefill(tp, pcfg, *args, attn_impl="kernel")

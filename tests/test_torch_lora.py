@@ -215,6 +215,66 @@ def test_llama_forward_with_lora_matches_reference():
 
 
 def test_dense_on_kernel_q4_still_raises():
+    """An NF4 dense needs both its leaves: indices without their scales
+    still raise; with them `dense` is nf4_dense."""
+    from halva_tpu_torch.ops import quant
+
     p = {"kernel_q4": torch.zeros(4, 2, dtype=torch.uint8)}
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(KeyError, match="kernel_scale4"):
         llama.dense(torch.zeros(1, 4), p)
+    p["kernel_scale4"] = torch.full((1, 2), 0.5, dtype=torch.bfloat16)
+    x = torch.arange(4, dtype=torch.float32)[None]
+    torch.testing.assert_close(
+        llama.dense(x, p), quant.nf4_dense(x, p["kernel_q4"],
+                                           p["kernel_scale4"]))
+    assert float(llama.dense(x, p)[0, 0]) == -0.5 * 6  # code 0 is -1
+
+
+@pytest.mark.parametrize("base", ["nf4", "int8", "int4"])
+def test_add_lora_and_adapter_round_trip_on_quantized_base(base):
+    """A quantized base (NF4 indices are uint8 in the port) gets bf16
+    factors of the float kernel's d_out, as the reference gives them, and
+    the adapter state dict round-trips and never holds a quantized leaf."""
+    from halva_tpu.ops import quant as jquant
+    from halva_tpu_torch.ops import quant
+
+    np_tree = jax_tree(LLAVA_TINY)
+    jt = jax.tree.map(jnp.asarray, np_tree)
+    if base == "int4":
+        jq = jax.tree.map(jnp.asarray,
+                          quantize_params_int4_host(np_tree, group_size=32))
+    else:
+        jq = jquant.quantize_params(jt, bits=4 if base == "nf4" else 8)
+    want = jlora.add_lora(jq, jax.random.PRNGKey(1), rank=4, alpha=8)
+    tq = tree.to_torch(jax.tree.map(np.asarray, jq), device="cpu")
+    got = lora.add_lora(tq, torch.Generator().manual_seed(1), rank=4, alpha=8)
+    assert _shapes(got) == _shapes(tree.to_torch(
+        jax.tree.map(np.asarray, want), device="cpu"))
+    down = got["llm"]["layers"]["mlp"]["down"]
+    d_out = np_tree["llm"]["layers"]["mlp"]["down"]["kernel"].shape[-1]
+    assert down["lora_b"].shape[-1] == d_out
+    assert down["lora_a"].dtype == down["lora_b"].dtype == torch.bfloat16
+    if base == "nf4":
+        assert down["kernel_q4"].dtype == torch.uint8
+        same = quant.quantize_params(tree.to_torch(np_tree, device="cpu"),
+                                     bits=4)
+        assert torch.equal(same["llm"]["layers"]["mlp"]["down"]["kernel_q4"],
+                           down["kernel_q4"])
+    # strip_lora gives the base back, quantized leaves in place
+    stripped = lora.strip_lora(got)
+    assert _shapes(stripped) == _shapes(tq)
+    sd = lora.lora_state_dict(got)
+    assert sd and all(k.rsplit("/", 1)[1] in ("lora_a", "lora_b",
+                                              "lora_scale") for k in sd)
+    assert sorted(sd) == sorted(jlora.lora_state_dict(want))
+    sd["llm/layers/mlp/down/lora_b"] = sd["llm/layers/mlp/down/lora_b"] + 1
+    loaded = lora.load_lora_state_dict(tq, sd)
+    back = lora.lora_state_dict(loaded)
+    assert sorted(back) == sorted(sd)
+    for k in sd:
+        assert back[k].tobytes() == np.asarray(sd[k]).tobytes(), k
+    # a quantized base has no float kernel to fold into, in either package
+    with pytest.raises(KeyError):
+        lora.merge_lora(got)
+    with pytest.raises(KeyError):
+        jlora.merge_lora(want)

@@ -25,6 +25,9 @@ from test_data_pipeline import SPTok
 from test_torch_tree import jax_tree, port_cfg, shared_trees
 
 TCFG = port_cfg(LLAVA_TINY)
+# the reference's last_stats keys (halva_tpu/evals/runner.py)
+STATS = {"host_ms_per_img", "device_ms_per_img", "host_s", "device_s",
+         "first_batch_s", "overlapped"}
 
 
 def _requests(tmp_path, module):
@@ -46,14 +49,21 @@ def test_batched_generator_texts_match_reference(tmp_path):
     jp, tp = shared_trees()
     kw = dict(batch_size=2, max_new_tokens=4, prompt_bucket=16)
     proc = ImageProcessor(size=28, crop_size=28)
-    want = jrunner.BatchedGenerator(
-        jp, LLAVA_TINY, SPTok(), proc, attn_impl="xla", **kw
-    ).run(_requests(tmp_path, jrunner))
+    jgen = jrunner.BatchedGenerator(
+        jp, LLAVA_TINY, SPTok(), proc, attn_impl="xla", **kw)
+    want = jgen.run(_requests(tmp_path, jrunner))
     gen = runner.BatchedGenerator(tp, TCFG, SPTok(), proc, **kw)
     got = gen.run(_requests(tmp_path, runner))
     assert got == want
     assert len(got) == 5 and all(isinstance(t, str) for t in got)
-    assert set(gen.last_stats) == {"host_ms_per_img", "device_ms_per_img"}
+    assert set(gen.last_stats) == set(jgen.last_stats) == STATS
+    st = gen.last_stats
+    assert st["overlapped"] is False and st["first_batch_s"] > 0
+    assert st["device_s"] >= st["first_batch_s"]
+    for key in ("host_s", "device_s", "first_batch_s"):
+        assert st[key] == round(st[key], 3)
+    for key in ("host_ms_per_img", "device_ms_per_img"):
+        assert st[key] == round(st[key], 2)
 
 
 def test_answers_jsonl_schema(tmp_path):
@@ -90,15 +100,20 @@ def test_batched_generator_quantized_tree(tmp_path, kv_quant):
     got = gen.run(reqs, on_result=lambda r, text: seen.append(r.question_id))
     assert len(got) == 3 and all(isinstance(x, str) for x in got)
     assert sorted(seen) == [0, 1, 2]
-    assert set(gen.last_stats) == {"host_ms_per_img", "device_ms_per_img"}
+    assert set(gen.last_stats) == STATS
 
 
 def test_unported_options_raise():
     _, tp = shared_trees()
-    for unported in ({"temperature": 0.5}, {"continuous": True},
-                     {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
+    for unported, item in (({"temperature": 0.5}, "item 9"),
+                           ({"top_p": 0.9}, "item 9"),
+                           ({"continuous": True}, "item 9"),
+                           ({"mesh": object()}, "item 10"),
+                           ({"prefetch_workers": 2}, "item 12")):
+        with pytest.raises(NotImplementedError, match=item):
             runner.BatchedGenerator(tp, TCFG, SPTok(), None, **unported)
+    with pytest.raises(TypeError):  # not an argument of either package
+        runner.BatchedGenerator(tp, TCFG, SPTok(), None, no_such_option=1)
     # the reference's argument checks
     with pytest.raises(ValueError, match="drop num_beams"):
         runner.BatchedGenerator(tp, TCFG, SPTok(), None, num_beams=2,
@@ -122,7 +137,7 @@ def test_batched_generator_beams_match_reference(tmp_path, length_penalty):
     gen = runner.BatchedGenerator(tp, TCFG, SPTok(), proc, **kw)
     got = gen.run(_requests(tmp_path, runner)[:3])
     assert got == want and len(got) == 3
-    assert set(gen.last_stats) == {"host_ms_per_img", "device_ms_per_img"}
+    assert set(gen.last_stats) == STATS
 
 
 def test_batched_generator_speculative_matches_greedy(tmp_path):
@@ -139,3 +154,27 @@ def test_batched_generator_speculative_matches_greedy(tmp_path):
     assert jgen.run(_requests(tmp_path, jrunner)[:3]) == got
     for key in ("spec_verify_steps", "spec_emitted_tokens"):
         assert gen.last_stats[key] == jgen.last_stats[key] > 0
+
+
+def test_reference_arguments_pass_at_their_neutral_values(tmp_path):
+    """A caller written for the reference passes every argument of its
+    constructor; at their neutral values the port takes them all, by the
+    reference's names and defaults."""
+    import inspect
+
+    want = inspect.signature(jrunner.BatchedGenerator.__init__).parameters
+    got = inspect.signature(runner.BatchedGenerator.__init__).parameters
+    assert list(got) == list(want)
+    for name, p in want.items():
+        if name not in ("self", "image_processor"):
+            assert got[name].default == p.default, name
+    _, tp = shared_trees()
+    proc = ImageProcessor(size=28, crop_size=28)
+    kw = dict(batch_size=2, max_new_tokens=3, prompt_bucket=16)
+    neutral = dict(temperature=0.0, top_p=1.0, seed=7, mesh=None,
+                   prefetch_workers=0, continuous=False, num_beams=1,
+                   length_penalty=1.0, spec_k=0, kv_quant=False)
+    reqs = _requests(tmp_path, runner)[:2]
+    plain = runner.BatchedGenerator(tp, TCFG, SPTok(), proc, **kw).run(reqs)
+    assert runner.BatchedGenerator(tp, TCFG, SPTok(), proc, **kw,
+                                   **neutral).run(reqs) == plain

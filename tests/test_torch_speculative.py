@@ -209,6 +209,26 @@ def test_verify_step_matches_reference(cache):
 def test_verify_step_w4_matches_reference(cache_mode):
     """The head-dim-128 packed-int4 tree, as the reference's own test of its
     fused verify runs it."""
+    _check_verify_step_w4(cache_mode)
+
+
+@pytest.mark.parametrize("cache_mode", ["int8", "int4"])
+def test_verify_step_w4_on_the_gemm_route(cache_mode, monkeypatch):
+    """With the row rule at 1 the B * K = 8 rows of a verify step take
+    w4_gemm (K7's wrapper) for all 7 matmuls of each layer, and every
+    expectation of the K6 route stands (one arithmetic on CPU tensors)."""
+    from halva_tpu_torch.ops import w4_matmul
+
+    calls = []
+    real = w4_matmul.w4_gemm
+    monkeypatch.setattr(w4_matmul, "W4_GEMV_MAX_ROWS", 1)
+    monkeypatch.setattr(w4_matmul, "w4_gemm",
+                        lambda *a: calls.append(a[0].shape[0]) or real(*a))
+    _check_verify_step_w4(cache_mode)
+    assert calls == [8] * (7 * 2 * 2)  # 7 matmuls x 2 layers x 2 steps
+
+
+def _check_verify_step_w4(cache_mode):
     cfg = LlamaConfig(
         vocab_size=128, hidden_size=256, intermediate_size=320,
         num_layers=2, num_heads=2, max_position_embeddings=512)

@@ -16,6 +16,23 @@ exactly 0, and a comparison would prove little).
   turns a tiny grad difference into a visible one where a grad is near 0,
   so the bound is stated against the learning rate: every param within
   lr / 10 of the reference's (each update moves a param by up to ~lr).
+- One micro-step on LLAVA_TINY's quantized frozen bases (int8 W8A8, NF4,
+  packed int4 per channel and with groups of 32; ref_params=None, bf16
+  adapters as `add_lora` gives a quantized base) against the reference on
+  the tree carried across. The LLM computes in fp32 (the tiny vocabulary
+  keeps its float table), so the bounds stay tight: loss parts rtol = 1e-4;
+  the grads are bf16 leaves, like the factors, so each is held within one
+  bf16 step of its leaf's largest |grad| (2^-7; the two frameworks round
+  the same fp32 value to neighbouring bf16 values where it lies at a
+  rounding boundary). The quantized denses' pinned backward multiplies by
+  the dequantized weights in the gradient's dtype on both sides. The int8
+  base (W8A8) rounds every dense's activations to int8, where a last-bit
+  difference between the frameworks moves a value across a rounding
+  boundary (one int8 step of one activation): its loss parts rtol = 2e-3
+  (measured 7.7e-4). With a vocab-sized table the
+  int8 embedding gives bf16 rows and the LLM computes in bf16, where the two
+  frameworks round at different places: loss parts rtol = 5e-2, grads by
+  relative error of the whole vector <= 0.15.
 - Only LoRA leaves change; the projector group updates under
   mm_projector_lr; the frozen reference tree tolerates a lone lora_scale;
   the entry points that are not ported raise naming their ROADMAP item."""
@@ -85,6 +102,79 @@ def _assert_grads_close(got_tree, want_tree, rel=1e-4):
         assert scale > 0, path
         np.testing.assert_allclose(g, w, rtol=0, atol=rel * scale,
                                    err_msg=str(path))
+
+
+def _np_quant_policy(base, seed_b=5, b_std=0.05, vocab_table=False):
+    """LLAVA_TINY quantized by the reference, then LoRA r=4 (bf16 factors on
+    a quantized base) with a perturbed lora_b, as numpy arrays."""
+    from halva_tpu.ops import quant as jquant
+    from halva_tpu.ops.w4_matmul import quantize_params_int4_host
+
+    t = jax_tree(CFG)
+    if vocab_table:  # >= 4096 rows: the int8 pass quantizes the table
+        t["llm"]["embed"]["embedding"] = np.random.RandomState(3).randn(
+            4096, CFG.llm.hidden_size).astype(np.float32) * 0.02
+    if base.startswith("int4"):
+        q = jax.tree.map(jnp.asarray, quantize_params_int4_host(
+            t, group_size=32 if base == "int4g" else None))
+    else:
+        q = jquant.quantize_params(jax.tree.map(jnp.asarray, t),
+                                   bits=4 if base == "nf4" else 8)
+    lp = jlora.add_lora(q, jax.random.PRNGKey(1), rank=4, alpha=8)
+    rng = np.random.RandomState(seed_b)
+    for _, p in jlora._iter_dense(lp):
+        if "lora_b" in p:
+            p["lora_b"] = jnp.asarray(
+                rng.randn(*p["lora_b"].shape) * b_std, p["lora_b"].dtype)
+    return jax.tree.map(np.asarray, lp)
+
+
+def _quant_micro_step(np_lp):
+    kw = dict(grad_accum_steps=1, num_train_steps=10, remat=True,
+              loss_chunk=8)
+    batch = _batches()[0]
+    jt, jf, _, jstep, _ = _jax_state(np_lp, **kw)
+    _, jparts, jg = jax.jit(jstep.loss_and_grads)(
+        jt, jf, None, {k: jnp.asarray(v) for k, v in batch.items()})
+    tt, tf, _, tstep, _ = _torch_state(np_lp, **kw)
+    _, tparts, tg = tstep.loss_and_grads(
+        tt, tf, None, {k: torch.from_numpy(v) for k, v in batch.items()})
+    return tparts, jparts, tg, jg
+
+
+@pytest.mark.parametrize("base", ["int8", "nf4", "int4", "int4g"])
+def test_quantized_base_micro_step_matches_reference(base):
+    np_lp = _np_quant_policy(base)
+    leaf = {"int8": "kernel_q", "nf4": "kernel_q4"}.get(base, "kernel_q4p")
+    wq = np_lp["llm"]["layers"]["attn"]["wq"]
+    assert leaf in wq and wq["lora_a"].dtype.name == "bfloat16"
+    assert "embedding" in np_lp["llm"]["embed"]  # float table: fp32 LLM
+    tparts, jparts, tg, jg = _quant_micro_step(np_lp)
+    rtol = 2e-3 if base == "int8" else 1e-4
+    for got, want in zip(tparts, jparts):
+        np.testing.assert_allclose(float(got), float(want), rtol=rtol)
+    assert float(tparts.divergence) > 0
+    got = tree.map_tree(lambda g: None if g is None else g.float(), tg)
+    _assert_grads_close(got, jax.tree.map(
+        lambda g: np.asarray(g, np.float32), jg), rel=2**-7)
+
+
+@pytest.mark.parametrize("base", ["int8", "int4g"])
+def test_quantized_base_with_int8_embedding_micro_step(base):
+    """The vocab-sized table is int8, so the LLM runs in bf16."""
+    np_lp = _np_quant_policy(base, vocab_table=True)
+    assert "embedding_q" in np_lp["llm"]["embed"]
+    tparts, jparts, tg, jg = _quant_micro_step(np_lp)
+    for got, want in zip(tparts, jparts):
+        np.testing.assert_allclose(float(got), float(want), rtol=5e-2)
+    want = np.concatenate([np.asarray(g, np.float32).ravel() for _, g in
+                           tree.flatten(jax.tree.map(np.asarray, jg))
+                           if g is not None])
+    got = np.concatenate([g.float().numpy().ravel() for _, g in
+                          tree.flatten(tg) if g is not None])
+    assert got.shape == want.shape
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel <= 0.15, rel
 
 
 @pytest.mark.parametrize("remat", [False, True])

@@ -161,3 +161,39 @@ def test_default_device_is_the_card(make):
             cfg, torch.Generator(device="cuda").manual_seed(0))
     assert all(t.is_cuda for _, t in tree.flatten(calls[make]())
                if isinstance(t, torch.Tensor))
+
+
+def test_uint4_leaves_cross_by_value_both_ways():
+    """NF4 code indices: `jnp.uint4` arrives in numpy as ml_dtypes.uint4 and
+    crosses into torch.uint8 by value, one index per byte; to_numpy gives a
+    `kernel_q4` leaf back as ml_dtypes.uint4 and leaves any other uint8 leaf
+    alone."""
+    import ml_dtypes
+
+    from halva_tpu.ops import quant as jquant
+
+    w = np.random.RandomState(0).randn(2, 16, 8).astype(np.float32)
+    q = jax.tree.map(np.asarray, jquant.quantize_kernel_nf4(jnp.asarray(w)))
+    assert q["kernel_q4"].dtype == ml_dtypes.uint4
+    node = {"wq": dict(q, bias=np.zeros(8, np.float32)),
+            "mask": np.arange(4, dtype=np.uint8)}
+    t = tree.to_torch(node, device="cpu")
+    assert t["wq"]["kernel_q4"].dtype == torch.uint8
+    assert t["wq"]["kernel_q4"].shape == (2, 16, 8)
+    np.testing.assert_array_equal(t["wq"]["kernel_q4"].numpy(),
+                                  q["kernel_q4"].astype(np.uint8))
+    assert int(t["wq"]["kernel_q4"].max()) <= 15
+    back = tree.to_numpy(t)
+    assert back["wq"]["kernel_q4"].dtype == ml_dtypes.uint4
+    np.testing.assert_array_equal(back["wq"]["kernel_q4"].astype(np.uint8),
+                                  q["kernel_q4"].astype(np.uint8))
+    assert back["wq"]["kernel_scale4"].tobytes() == q[
+        "kernel_scale4"].tobytes()
+    assert back["mask"].dtype == np.uint8
+    # the reference takes the tree that came back
+    x = jnp.ones((1, 16), jnp.float32)
+    np.testing.assert_array_equal(
+        np.asarray(jquant.nf4_dense(x, jnp.asarray(back["wq"]["kernel_q4"][0]),
+                                    jnp.asarray(q["kernel_scale4"][0]))),
+        np.asarray(jquant.nf4_dense(x, jnp.asarray(q["kernel_q4"][0]),
+                                    jnp.asarray(q["kernel_scale4"][0]))))
