@@ -63,6 +63,12 @@ builds the kernels, runs only the checks and timings of K1, K2 and K3 and
 prints their rows: two builds of the flash kernels are compared by running
 this from each tree in turn on one card.
 
+    python3 chip_smoke.py --decode-only
+
+builds the kernels, runs only K4's checks and timings (bf16, int8/int8,
+int4/int8 and the beam mode at B=4, int4/int8 at batch 80, and the B=4
+shapes under forced key-axis plans) and prints their rows.
+
     python3 chip_smoke.py --quant-only
 
 runs only the quantized-base part (the checks of K7 and K8, the int8
@@ -110,8 +116,10 @@ from halva_tpu_torch.ops.beam import (generate_beam, init_beam_state,
 from halva_tpu_torch.ops.decode_attention import (
     decode_attend_layer,
     decode_attend_plain,
+    decode_plan,
     fold_attend_layer,
     fold_attend_plain,
+    sm_count,
 )
 from halva_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
@@ -717,6 +725,14 @@ def check_flash_modes(gen: torch.Generator, base: dict) -> list:
     return out
 
 
+def k4_plan(rows: int, kvh: int, sp: int, sg: int) -> str:
+    """K4's launch plan at these shapes on this card, as the wrapper makes
+    it (ops/decode_attention.decode_plan)."""
+    splits, tps = decode_plan(rows, kvh, sp, sg,
+                              sm_count(torch.device("cuda")))
+    return f"splits {splits}, {tps} prompt tiles each"
+
+
 def check_decode(gen: torch.Generator) -> dict:
     """K4 against decode_attend_plain at the 7B decode shape."""
     dev = "cuda"
@@ -785,7 +801,8 @@ def check_decode(gen: torch.Generator) -> dict:
         del kcat, vcat
         lim = bound(read + 2 * tensor_bytes(q) + tensor_bytes(seg, gen_valid),
                     4 * d * h * live_keys)
-        print(f"decode_attn time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        print(f"decode_attn time ({k4_plan(b, kvh, sp, sg)}): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms,"
               f" SDPA over concatenated keys {lib_ms:.4f} ms, bound "
               f"{lim['bound_ms']:.4f} ms by {lim['bound_by']};"
               f" cache bytes {nominal / 1e6:.1f} MB allocated, "
@@ -882,7 +899,8 @@ def check_decode_quant(gen: torch.Generator) -> list:
             lim = bound(
                 read + 2 * tensor_bytes(q) + tensor_bytes(seg, gen_valid),
                 4 * d * h * live_keys)
-            print(f"{name} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+            print(f"{name} time ({k4_plan(b, kvh, sp, sg)}): kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms,"
                   f" bound {lim['bound_ms']:.4f} ms by {lim['bound_by']} (no "
                   f"library call takes these caches); {read / 1e6:.2f} MB "
                   f"live -> {read / ms / 1e6:.0f} GB/s live")
@@ -893,6 +911,104 @@ def check_decode_quant(gen: torch.Generator) -> list:
                     "replaces": "halva_tpu/ops/decode_attention.py:82",
                     "max_abs_err": worst, **timing})
     return out
+
+
+def _k4_inputs(gen, mode, layers, b, kvh, sp, sg, d=128, h=32):
+    """q (b, 1, h, d) and `layers` stacked prompt / gen caches of one K4
+    mode (bf16 | kv8 | kv4)."""
+    dev = "cuda"
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev).bfloat16()
+    if mode != "bf16":
+        return (q, *_quant_caches(gen, mode, layers, b, kvh, sp, sg, d))
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+
+    return (q, {"k": r(layers, b, kvh, sp, d), "v": r(layers, b, kvh, sp, d)},
+            {"k": r(layers, b, kvh, sg, d), "v": r(layers, b, kvh, sg, d)})
+
+
+def check_decode_b80(gen: torch.Generator) -> None:
+    """K4 int4/int8 at the reference's serving batch (`bench.py`: 80 rows,
+    the four prompts 20 times, H=KVH=32, Sp=623, Sg=128, random gen steps):
+    against its plain version on one layer, timed over two layers (a
+    layer's caches, 288 MB, outgrow the 50 MB L2), with its plan. Printed
+    only: the `kernels` line keeps the B=4 rows."""
+    b, kvh, sp, sg, d, layers = 80, 32, 623, 128, 128, 2
+    seg = lengths_to_seg(PROMPT_LENS * (b // len(PROMPT_LENS)), sp, "cuda")
+    steps = torch.randint(0, sg, (b,), generator=gen, device="cuda")
+    gen_valid = torch.arange(sg, device="cuda")[None, :] <= steps[:, None]
+    q, pc, gc = _k4_inputs(gen, "kv4", layers, b, kvh, sp, sg, d)
+
+    def call(fn, li):
+        return fn(q, {k: v[li] for k, v in pc.items()}, seg,
+                  {k: v[li] for k, v in gc.items()}, gen_valid)
+
+    got, want = call(decode_attend_layer, 0), call(decode_attend_plain, 0)
+    torch.cuda.synchronize()
+    ok = within(got, want) and bool(torch.isfinite(got).all())
+    print(f"decode_attn_kv4 B={b} H={kvh} KVH={kvh} Sp={sp} Sg={sg} D={d}: "
+          f"max_abs_err {max_abs(got, want):.3e} rel {rel_err(got, want):.3e}"
+          f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("decode_attn_kv4 at batch 80 disagrees with its "
+                             "plain version")
+    del got, want
+    ms = device_ms(lambda: [call(decode_attend_layer, li)
+                            for li in range(layers)]) / layers
+    plain_ms = device_ms(lambda: [call(decode_attend_plain, li)
+                                  for li in range(layers)]) / layers
+    live_keys = b // len(PROMPT_LENS) * sum(PROMPT_LENS)
+    live_gen = int((steps + 1).sum())
+    read = (live_keys * _cache_row_bytes("kv4", kvh, d, True)
+            + live_gen * _cache_row_bytes("kv4", kvh, d, False))
+    lim = bound(read + 2 * tensor_bytes(q) + tensor_bytes(seg, gen_valid),
+                4 * d * kvh * (live_keys + live_gen))
+    print(f"decode_attn_kv4 time at batch {b} ({k4_plan(b, kvh, sp, sg)}): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{lim['bound_ms']:.4f} ms by {lim['bound_by']}; {read / 1e6:.1f} "
+          f"MB live -> {read / ms / 1e6:.0f} GB/s")
+
+
+def decode_plan_sweep(gen: torch.Generator) -> None:
+    """K4's time under forced plans at the B=4 decode shape of check_decode
+    (and 4 beams an item), every mode: what the plan's aim trades. Printed
+    only."""
+    b, kvh, sp, sg, layers = 4, 32, 623, 128, 8
+    seg = lengths_to_seg(PROMPT_LENS, sp, "cuda")
+    for mode in ("bf16", "kv8", "kv4"):
+        for beam_k in (1, BEAMS):
+            rows = b * beam_k
+            steps = torch.tensor([0, 37, 100, 127] * beam_k, device="cuda")
+            gen_valid = (torch.arange(sg, device="cuda")[None, :]
+                         <= steps[:, None])
+            q = torch.randn(rows, 1, kvh, 128, generator=gen,
+                            device="cuda").bfloat16()
+            _, pc, _ = _k4_inputs(gen, mode, layers, b, kvh, sp, sg)
+            _, _, gc = _k4_inputs(gen, mode, layers, rows, kvh, 2, sg)
+            times = []
+            for forced in (1, 2, 3, 4, 5, 6, 8, 11):
+                plan = decode_plan(rows, kvh, sp, sg, 0, forced)
+                ms = device_ms(lambda: [decode_attend_layer(
+                    q, {k: v[li] for k, v in pc.items()}, seg,
+                    {k: v[li] for k, v in gc.items()}, gen_valid,
+                    beam_k=beam_k, beam_route="grid", splits=forced)
+                    for li in range(layers)]) / layers
+                times.append(f"{plan[0]}: {ms:.4f}")
+            print(f"decode_attn {mode} rows={rows} (beam_k {beam_k}) ms by "
+                  f"splits: {', '.join(times)}; planned "
+                  f"{k4_plan(rows, kvh, sp, sg)}")
+            del pc, gc
+
+
+def decode_checks(gen: torch.Generator) -> list:
+    """K4 in every mode at B=4, then at batch 80 and under forced plans:
+    its rows of the `kernels` line."""
+    rows = [check_decode(gen), *check_decode_quant(gen),
+            *check_fold(gen, with_k5=False)]
+    check_decode_b80(gen)
+    decode_plan_sweep(gen)
+    return rows
 
 
 FOLD_SOURCE = "halva_tpu_torch/csrc/fold_attn.cu"
@@ -923,14 +1039,15 @@ def _cache_row_bytes(mode, kvh, d, prompt):
     return kvh * (d if (mode == "kv4" and prompt) else 2 * d) + 4 * kvh
 
 
-def check_fold(gen: torch.Generator) -> list:
+def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
     """K5 against fold_attend_plain, and K4's beam mode against
     decode_attend_plain(beam_k=4), at the 7B shapes of the beam and verify
     steps: B=4 items, H=32, Sp=623 (odd), D=128. Per-beam gen stage at K=4,
     Sg=128 in the three cache modes (and GQA, KVH=8); shared gen stage with
     candidates at K=4 (Sg=128) and K=8 (Sg=256). One row of the `kernels`
     line per cache mode and stage; the times are the K=4 MHA ones. Also the
-    two beam routes against each other at B=80 items, printed only."""
+    two beam routes against each other at B=80 items, printed only. With
+    `with_k5` False, only K4's beam mode: its checks, times and rows."""
     dev = "cuda"
     b, h, sp, d, layers = 4, 32, 623, 128, 4
     seg = lengths_to_seg(PROMPT_LENS, sp, dev)
@@ -975,11 +1092,12 @@ def check_fold(gen: torch.Generator) -> list:
                                            beam_k=k, beam_route="grid")
 
             for li in (0, layers - 1):
-                want = fold(fold_attend_plain, li)
                 tag = f"B={b} K={k} H={h} KVH={kvh} Sp={sp} Sg={sg} D={d}"
-                worst["fold"] = max(worst["fold"], compare(
-                    f"fold_attn{names[mode]} {tag}",
-                    fold(fold_attend_layer, li), want))
+                if with_k5:
+                    worst["fold"] = max(worst["fold"], compare(
+                        f"fold_attn{names[mode]} {tag}",
+                        fold(fold_attend_layer, li),
+                        fold(fold_attend_plain, li)))
                 want1 = decode_attend_plain(
                     q1, layer(pc, li), seg, layer(gc, li), gen_valid,
                     beam_k=k)
@@ -992,10 +1110,11 @@ def check_fold(gen: torch.Generator) -> list:
                 for li in range(layers):
                     fn(li)
 
-            ms = device_ms(lambda: walk(
-                lambda li: fold(fold_attend_layer, li))) / layers
-            plain_ms = device_ms(lambda: walk(
-                lambda li: fold(fold_attend_plain, li))) / layers
+            if with_k5:
+                ms = device_ms(lambda: walk(
+                    lambda li: fold(fold_attend_layer, li))) / layers
+                plain_ms = device_ms(lambda: walk(
+                    lambda li: fold(fold_attend_plain, li))) / layers
             grid_ms = device_ms(lambda: walk(grid)) / layers
             grid_plain_ms = device_ms(lambda: walk(
                 lambda li: decode_attend_plain(
@@ -1035,25 +1154,31 @@ def check_fold(gen: torch.Generator) -> list:
                 lib_ms = device_ms(walk_sdpa) / layers
                 del kcat, vcat
             lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-            print(f"fold_attn{names[mode]} time: K5 {ms:.4f} ms (plain "
-                  f"{plain_ms:.4f}), K4 beam route {grid_ms:.4f} ms (plain "
-                  f"{grid_plain_ms:.4f}), bound {lim['bound_ms']:.4f} ms by "
-                  f"{lim['bound_by']}; {(prompt_bytes + gen_bytes) / 1e6:.2f}"
-                  f" MB live caches -> K5 "
-                  f"{(prompt_bytes + gen_bytes) / ms / 1e6:.0f} GB/s; SDPA "
-                  f"at B*K rows over repeated prompt keys {lib}")
-            fold_t = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      **lim}
+            k5 = (f"K5 {ms:.4f} ms (plain {plain_ms:.4f}), " if with_k5
+                  else "")
+            print(f"fold_attn{names[mode]} time: {k5}K4 beam route "
+                  f"{grid_ms:.4f} ms (plain {grid_plain_ms:.4f}; "
+                  f"{k4_plan(b * k, kvh, sp, sg)}), bound "
+                  f"{lim['bound_ms']:.4f} ms by {lim['bound_by']}; "
+                  f"{(prompt_bytes + gen_bytes) / 1e6:.2f} MB live caches; "
+                  f"SDPA at B*K rows over repeated prompt keys {lib}")
+            if with_k5:
+                fold_t = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, **lim}
             grid_t = {"ms": grid_ms, "plain_ms": grid_plain_ms,
                       "library_ms": lib_ms, **lim}
-        out.append({"name": "fold_attn" + names[mode], "route": "cuda",
-                    "source": FOLD_SOURCE, "replaces": FOLD_REPLACES,
-                    "max_abs_err": worst["fold"], **fold_t})
+        if with_k5:
+            out.append({"name": "fold_attn" + names[mode], "route": "cuda",
+                        "source": FOLD_SOURCE, "replaces": FOLD_REPLACES,
+                        "max_abs_err": worst["fold"], **fold_t})
         out.append({"name": f"decode_attn{names[mode]}_beam", "route": "cuda",
                     "source": "halva_tpu_torch/csrc/decode_attn.cu",
                     "replaces": "halva_tpu/ops/decode_attention.py:82",
                     "max_abs_err": worst["grid"], **grid_t})
         del pc, gc
+
+    if not with_k5:
+        return out
 
     # ---- the two beam routes where a layer's prompt cache outgrows the L2:
     # batch 80 (the reference's serving batch), times only, not in the
@@ -1231,9 +1356,16 @@ def check_w4(gen: torch.Generator) -> dict:
                                          "version")
                 worst = max(worst, err)
                 if (k, n, groups, b) == (4096, 11008, 4096 // W4_GROUP, 4):
-                    # no PyTorch call multiplies by packed int4 weights
+                    # no PyTorch call multiplies by packed int4 weights: the
+                    # yardstick is K7's, dequantize + torch.matmul
+                    lib_ms = device_ms(lambda: walk(
+                        lambda x_, p: x_ @ dequantize_int4(
+                            p["kernel_q4p"], p["kernel_scale4p"],
+                            torch.bfloat16))) / layers
+                    print(f"w4_gemv B={b} K={k} N={n} G={groups}: dequantize"
+                          f" + torch.matmul {lib_ms:.4f} ms")
                     timing = {"ms": ms, "plain_ms": plain_ms,
-                              "library_ms": None, **lim}
+                              "library_ms": lib_ms, **lim}
         del w
     # Mistral-7B's decode matmuls at the smoke's batch, g=128: wk/wv
     # (N=1024), gate/up (N=14336), down (K=14336); compared, not timed
@@ -2778,6 +2910,9 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if sys.argv[1:] == ["--flash-only"]:
         print(json.dumps({"flash_kernels": flash_checks(gen)}))
+        return
+    if sys.argv[1:] == ["--decode-only"]:
+        print(json.dumps({"decode_kernels": decode_checks(gen)}))
         return
     quant_only = sys.argv[1:] == ["--quant-only"]
     if sys.argv[1:] and not quant_only:

@@ -137,11 +137,11 @@ def lib() -> ctypes.CDLL:
     cdll.halva_flash_bwd_dkv_bf16.argtypes = (
         [p] * 10 + [i] * 6 + [f] + [i] * 4 + [p])
     cdll.halva_flash_bwd_dkv_bf16.restype = i
-    cdll.halva_decode_attn_bf16.argtypes = [p] * 8 + [i] * 7 + [f, p]
+    cdll.halva_decode_attn_bf16.argtypes = [p] * 10 + [i] * 9 + [f, p]
     cdll.halva_decode_attn_bf16.restype = i
-    cdll.halva_decode_attn_kv8.argtypes = [p] * 12 + [i] * 7 + [f, p]
+    cdll.halva_decode_attn_kv8.argtypes = [p] * 14 + [i] * 9 + [f, p]
     cdll.halva_decode_attn_kv8.restype = i
-    cdll.halva_decode_attn_kv4.argtypes = [p] * 12 + [i] * 8 + [f, p]
+    cdll.halva_decode_attn_kv4.argtypes = [p] * 14 + [i] * 10 + [f, p]
     cdll.halva_decode_attn_kv4.restype = i
     cdll.halva_fold_attn.argtypes = [i] + [p] * 14 + [i] * 9 + [f, p]
     cdll.halva_fold_attn.restype = i
@@ -167,8 +167,9 @@ _TICKETS: Dict[torch.device, torch.Tensor] = {}
 
 
 def tickets(device: torch.device) -> torch.Tensor:
-    """Per-device zeroed int32 tickets of the split-K reductions (K6, K7,
-    K8). The last block of a tile resets its ticket to 0, so the buffer is
+    """Per-device zeroed int32 tickets of the split reductions (K4's key
+    splits, K6's, K7's and K8's split-K). The last block of a tile resets
+    its ticket to 0, so the buffer is
     zeroed once and reused by every launch on the device's streams in
     order."""
     t = _TICKETS.get(device)

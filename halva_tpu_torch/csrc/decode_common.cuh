@@ -1,8 +1,9 @@
-// Device code shared by the decode-attention kernels (decode_attn.cu: one
-// query per row; fold_attn.cu: K queries per item): cache-row loads in the
-// three formats, and `attend_span`, which merges one span of keys (a prompt
-// cache, a gen cache, or a row of fresh candidate keys) into a block's running
-// online softmax for up to 8 query rows at once.
+// Device code of the decode-attention kernels: the cache formats and nibble
+// and byte conversions (decode_attn.cu, fold_attn.cu), cache-row loads in
+// the three formats, and `attend_span` (fold_attn.cu: K queries per item;
+// decode_attn.cu has its own staged tile loop), which merges one span of
+// keys (a prompt cache, a gen cache, or a row of fresh candidate keys) into
+// a block's running online softmax for up to 8 query rows at once.
 //
 // A block has NT threads and carries G query rows that share their keys. Per
 // tile of TK keys: D/8 lanes per key row each load 8 dims and reduce the G dot

@@ -22,7 +22,9 @@ counter per mode: decode_attn, decode_attn_kv8, decode_attn_kv4) and uses
 `decode_attend_plain` for CPU tensors; on a CUDA tensor it launches or
 raises. Rows with no visible key: the kernel gives 0 (as the Pallas kernel),
 the plain version a uniform average (as llama._decode_attend); no caller
-reads such rows.
+reads such rows. K4 splits the key axis across blocks by `decode_plan` and
+merges the splits in the same launch; `decode_attend_split_plain` is that
+split and merge in plain ops, for the tests and `chip_smoke.py`.
 
 Beams (`beam_k` > 1): q, the gen cache and gen_valid carry B*K rows while
 the prompt cache, its scales and segment ids stay at B item rows; row r
@@ -42,7 +44,8 @@ as the kernel does.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,8 +60,64 @@ FOLD = {KERNEL: "fold_attn", KERNEL_KV8: "fold_attn_kv8",
         KERNEL_KV4: "fold_attn_kv4"}  # K5's counter of each cache mode
 SHARED_SUFFIX = "_shared"  # K5's shared gen stage counts under <mode>_shared
 NEG_INF = -1e30
+# K4's key-axis split (csrc/decode_attn.cu): keys per tile, and the blocks
+# per SM the plan aims at (a bf16 block holds a two-stage ring of 32 KB
+# tiles, ~70 KB of shared memory: three fit on an SM)
+TILE = 64
+BLOCKS_PER_SM = 3
+M_INIT = -1e29  # the kernel's running max before any visible key
 
 Cache = Dict[str, torch.Tensor]
+Plan = Tuple[int, int]  # (splits, prompt tiles per split)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def decode_plan(rows: int, kvh: int, sp: int, sg: int, sms: int,
+                splits: Optional[int] = None) -> Plan:
+    """K4's launch plan: (splits, prompt tiles per split), a pure function
+    of the shapes and the SM count. The grid is (KVH, rows, splits). Split z
+    owns prompt tiles [z * tps, min((z + 1) * tps, ceil(sp / TILE))) (so an
+    int4 boundary falls on an even token) and, if it is the last, the whole
+    gen span; with more than one split and a gen span, the gen span is a
+    split of its own. The count aims at BLOCKS_PER_SM blocks on every SM
+    (`splits` forces another aim: the tests' forced plans); 1 where rows *
+    kvh blocks alone fill the card. No split is empty: the count may come
+    out below the aim."""
+    ptiles, gtiles = _cdiv(sp, TILE), _cdiv(sg, TILE)
+    want = splits if splits is not None else _cdiv(BLOCKS_PER_SM * sms,
+                                                    rows * kvh)
+    if want < 1:
+        raise ValueError(f"decode_plan: splits={want}")
+    if want == 1 or ptiles == 0:
+        return 1, ptiles
+    psplits = max(1, min(ptiles, want - (1 if gtiles else 0)))
+    tps = _cdiv(ptiles, psplits)
+    return _cdiv(ptiles, tps) + (1 if gtiles else 0), tps
+
+
+def split_ranges(plan: Plan, sp: int, sg: int) -> List[List[Tuple[str, int,
+                                                                  int]]]:
+    """The key ranges of each split of `plan`: [("prompt" | "gen", first
+    token, end)], in the kernel's order."""
+    splits, tps = plan
+    out = []
+    for z in range(splits):
+        mine = []
+        lo, hi = z * tps * TILE, min((z + 1) * tps * TILE, sp)
+        if lo < hi:
+            mine.append(("prompt", lo, hi))
+        if z == splits - 1 and sg:
+            mine.append(("gen", 0, sg))
+        out.append(mine)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def seg_even_odd(seg: torch.Tensor) -> torch.Tensor:
@@ -163,6 +222,103 @@ def decode_attend_plain(
         pg = torch.where(live_g, pg * vgs.float()[:, :, None, :], 0.0)
     out = torch.einsum("bngk,bnkd->bngd", values(pp), values(vp))
     out = out + torch.einsum("bngk,bnkd->bngd", values(pg), values(vg))
+    return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def _prompt_tokens(prompt_cache_l: Cache, sp: int):
+    """(k, v, k_scale, v_scale) of the prompt cache in token order (an int4
+    cache unpacked: token 2r from byte row r's low nibble, 2r + 1 from its
+    high one), the order K4's tiles walk."""
+    if "k4" not in prompt_cache_l:
+        return (prompt_cache_l["k"], prompt_cache_l["v"],
+                prompt_cache_l.get("k_scale"), prompt_cache_l.get("v_scale"))
+
+    def tokens(lo_hi):
+        x = torch.stack(lo_hi, dim=3)  # (B, KVH, R, 2, D)
+        return x.reshape(x.shape[0], x.shape[1], -1, x.shape[-1])[:, :, :sp]
+
+    def scales(s):  # (B, 2, KVH, R) -> (B, KVH, 2R)
+        x = torch.stack([s[:, 0], s[:, 1]], dim=-1)
+        return x.reshape(x.shape[0], x.shape[1], -1)[..., :sp]
+
+    return (tokens(unpack_kv4(prompt_cache_l["k4"])),
+            tokens(unpack_kv4(prompt_cache_l["v4"])),
+            scales(prompt_cache_l["k_scale"]),
+            scales(prompt_cache_l["v_scale"]))
+
+
+def _merge(partials):
+    """(max in the exp2 domain, denominator, unnormalised accumulator)
+    partials -> one, in list order, as K4's last block merges its splits:
+    a partial with no visible key (max M_INIT, denominator 0) weighs 0."""
+    mx = partials[0][0]
+    for m, _, _ in partials[1:]:
+        mx = torch.maximum(mx, m)
+    den = torch.zeros_like(mx)
+    acc = torch.zeros_like(partials[0][2])
+    for m, l, a in partials:
+        w = torch.exp2(m - mx)
+        den = den + w * l
+        acc = acc + w[..., None] * a
+    return mx, den, acc
+
+
+def decode_attend_split_plain(
+    q: torch.Tensor,  # (B, 1, H, Dh)
+    prompt_cache_l: Cache,
+    prompt_seg: torch.Tensor,
+    gen_cache_l: Cache,
+    gen_valid: torch.Tensor,
+    plan: Plan,
+    beam_k: int = 1,
+) -> torch.Tensor:
+    """K4's split and merge in plain ops: the function of
+    `decode_attend_plain`, computed as the kernel computes it under `plan`
+    (`decode_plan`). Each key range of `split_ranges` gives an fp32 partial
+    (max of its visible logits in the exp2 domain, or M_INIT; denominator;
+    accumulator of probability times v scale times V), the ranges of a
+    split merge into its partial, and the splits merge in split order. The
+    cache values convert to q's dtype, the probabilities stay fp32, and a
+    row with no visible key gives 0, as the kernel does."""
+    b, _, h, dh = q.shape
+    sp, sg = prompt_seg.shape[1], gen_valid.shape[1]
+    kp, vp, kps, vps = _prompt_tokens(prompt_cache_l, sp)
+    live_p = prompt_seg != 0
+    if beam_k > 1:
+        kp, vp, kps, vps, live_p = (
+            None if t is None else t.repeat_interleave(beam_k, dim=0)
+            for t in (kp, vp, kps, vps, live_p))
+    spans = {"prompt": (kp, vp, kps, vps, live_p),
+             "gen": (gen_cache_l["k"], gen_cache_l["v"],
+                     gen_cache_l.get("k_scale"), gen_cache_l.get("v_scale"),
+                     gen_valid)}
+    kvh = kp.shape[1]
+    qs = q[:, 0].reshape(b, kvh, h // kvh, dh).float() * (
+        dh**-0.5 * 1.4426950408889634)
+
+    def values(t):  # the cache as q's dtype would hold it, computed in fp32
+        return t.to(q.dtype).float()
+
+    def partial(name, lo, hi):
+        k, v, ks, vs, live = spans[name]
+        s = torch.einsum("bngd,bnkd->bngk", qs, values(k[:, :, lo:hi]))
+        vis = live[:, None, None, lo:hi]
+        if ks is not None:
+            s = s * ks[:, :, None, lo:hi].float()
+        m = torch.where(vis, s, M_INIT).amax(-1).clamp_min(M_INIT)
+        p = torch.where(vis, torch.exp2(s - m[..., None]), 0.0)
+        pw = p if vs is None else torch.where(
+            vis, p * vs[:, :, None, lo:hi].float(), 0.0)
+        return m, p.sum(-1), torch.einsum("bngk,bnkd->bngd", pw,
+                                          values(v[:, :, lo:hi]))
+
+    empty = (torch.full((b, kvh, h // kvh), M_INIT, device=q.device),
+             torch.zeros((b, kvh, h // kvh), device=q.device),
+             torch.zeros((b, kvh, h // kvh, dh), device=q.device))
+    splits = [_merge([empty] + [partial(*r) for r in ranges])
+              for ranges in split_ranges(plan, sp, sg)]
+    _, den, acc = _merge(splits)
+    out = torch.where(den[..., None] > 0, acc / den[..., None], 0.0)
     return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
@@ -380,10 +536,13 @@ def decode_attend_layer(
     gen_valid: torch.Tensor,
     beam_k: int = 1,
     beam_route: str = "fold",
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
     """(B, 1, H, Dh) attention output of one decode step for one layer.
     beam_k > 1: B = items * beam_k rows against an items-row prompt cache,
-    through K5 (`beam_route="fold"`) or K4's beam mode ("grid")."""
+    through K5 (`beam_route="fold"`) or K4's beam mode ("grid"). `splits`
+    forces the aim of K4's plan (`decode_plan`) instead of the SM count's;
+    the function computed is the same."""
     if beam_route not in ("fold", "grid"):
         raise ValueError(f"beam_route must be 'fold' or 'grid', got "
                          f"{beam_route!r}")
@@ -406,7 +565,15 @@ def decode_attend_layer(
     kvh, sg = kp.shape[1], kg.shape[2]
     sp = prompt_seg.shape[1]
     name = mode + (BEAM_SUFFIX if beam_k > 1 else "")
+    n_split, tps = decode_plan(b, kvh, sp, sg, sm_count(q.device), splits)
+    if n_split > 1 and b * kvh > _kernels.MAX_TICKETS:
+        raise ValueError(f"decode_attend_layer: {b * kvh} (row, kv head) "
+                         f"pairs exceed {_kernels.MAX_TICKETS} tickets")
     o = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    # per split: fp32 accumulator (G x D), running max and denominator (G)
+    part = torch.empty(b * n_split * h * (d + 2) if n_split > 1 else 0,
+                       dtype=torch.float32, device=q.device)
+    scratch = (part.data_ptr(), _kernels.tickets(q.device).data_ptr())
     lib = _kernels.lib()
     scale = float(d**-0.5)
     with torch.cuda.device(q.device):
@@ -415,22 +582,23 @@ def decode_attend_layer(
             err = lib.halva_decode_attn_bf16(
                 q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                 prompt_seg.data_ptr(), kg.data_ptr(), vg.data_ptr(),
-                gen_valid.data_ptr(), o.data_ptr(),
-                b, h, kvh, sp, sg, d, beam_k, scale, stream,
+                gen_valid.data_ptr(), o.data_ptr(), *scratch,
+                b, h, kvh, sp, sg, d, beam_k, n_split, tps, scale, stream,
             )
         else:
             ptrs = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                     scales[0].data_ptr(), scales[1].data_ptr(),
                     prompt_seg.data_ptr(), kg.data_ptr(), vg.data_ptr(),
                     scales[2].data_ptr(), scales[3].data_ptr(),
-                    gen_valid.data_ptr(), o.data_ptr())
+                    gen_valid.data_ptr(), o.data_ptr(), *scratch)
             if mode == KERNEL_KV8:
                 err = lib.halva_decode_attn_kv8(
-                    *ptrs, b, h, kvh, sp, sg, d, beam_k, scale, stream)
+                    *ptrs, b, h, kvh, sp, sg, d, beam_k, n_split, tps, scale,
+                    stream)
             else:
                 err = lib.halva_decode_attn_kv4(
-                    *ptrs, b, h, kvh, sp, sp_rows, sg, d, beam_k, scale,
-                    stream)
+                    *ptrs, b, h, kvh, sp, sp_rows, sg, d, beam_k, n_split,
+                    tps, scale, stream)
     _kernels.check(err, name)
     _kernels.launches[name] += 1
     return o

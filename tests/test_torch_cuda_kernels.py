@@ -289,6 +289,111 @@ def test_fold_attn_refuses_what_it_does_not_take(cuda):
         fold_attend_layer(q, pc, seg.cpu(), gc, gv, fold_k=k)
 
 
+def _split_inputs(gen, mode, items, beam_k, h, kvh, sp=301, sg=128, d=128):
+    """K4's inputs for its key-axis split: an odd prompt length (int4); item
+    0 with prompt tile [64, 128) masked (a whole split of the finest plan
+    sees no prompt key); item 1 with its gen cache all invalid; the last
+    item with no visible key at all (it must come out as 0); garbage in
+    the scales of every masked key."""
+    rows = items * beam_k
+    q = torch.randn(rows, 1, h, d, generator=gen, device="cuda").bfloat16()
+    pc, gc = _fold_caches(gen, mode, items, rows, kvh, sp, sg, d)
+    seg = torch.ones(items, sp, dtype=torch.int32, device="cuda")
+    seg[0, 64:128] = 0
+    seg[0, 250:] = 0
+    seg[-1] = 0
+    steps = torch.randint(0, sg, (rows,), generator=gen, device="cuda")
+    gen_valid = torch.arange(sg, device="cuda")[None, :] <= steps[:, None]
+    gen_valid[beam_k:2 * beam_k] = False
+    gen_valid[-beam_k:] = False
+    if mode != "bf16":
+        dead = seg == 0
+        if mode == "kv4":  # token t's scale sits at plane t % 2, row t // 2
+            s2 = pc["v_scale"].shape[-1]
+            dead = torch.nn.functional.pad(dead, (0, 2 * s2 - sp), value=True)
+            dead = dead.reshape(items, s2, 2).permute(0, 2, 1)[:, :, None, :]
+        else:
+            dead = dead[:, None, :]
+        pc["v_scale"][dead.expand_as(pc["v_scale"])] = float("nan")
+        gc["v_scale"][~gen_valid[:, None, :].expand_as(gc["v_scale"])] = (
+            float("inf"))
+    return q, pc, seg, gc, gen_valid
+
+
+def _split_check(got, want, split_want, beam_k):
+    """Live rows against the plain versions, the dead item's rows exactly 0."""
+    dead = slice(got.shape[0] - beam_k, None)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[dead], torch.zeros_like(got[dead]))
+    _close(got[:-beam_k], want[:-beam_k])
+    _close(got, split_want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [1, 2, None, 64])
+@pytest.mark.parametrize("kvh", [8, 2])
+@pytest.mark.parametrize("mode", ["bf16", "kv8", "kv4"])
+def test_decode_attn_split_plans_match_plain(cuda, mode, kvh, forced):
+    """K4 under forced plans (1 split, 2, the planned count, the most the
+    prompt allows: one 64-key tile a split) at G = 1 and G = 4."""
+    from halva_tpu_torch.ops.decode_attention import (
+        decode_attend_split_plain, decode_plan, sm_count)
+
+    items, h = 3, 8
+    q, pc, seg, gc, gv = _split_inputs(cuda, mode, items, 1, h, kvh)
+    plan = decode_plan(items, kvh, seg.shape[1], gv.shape[1],
+                       sm_count(q.device), forced)
+    name = {"bf16": "decode_attn"}.get(mode, "decode_attn_" + mode)
+    before = _kernels.launches[name]
+    got = decode_attend_layer(q, pc, seg, gc, gv, splits=forced)
+    assert _kernels.launches[name] == before + 1
+    _split_check(got, decode_attend_plain(q, pc, seg, gc, gv),
+                 decode_attend_split_plain(q, pc, seg, gc, gv, plan), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [1, 2, 64])
+@pytest.mark.parametrize("mode", ["bf16", "kv8", "kv4"])
+def test_decode_attn_split_beam_mode_matches_plain(cuda, mode, forced):
+    """K4's beam mode (4 beams an item, the grid route) under forced plans."""
+    from halva_tpu_torch.ops.decode_attention import (
+        decode_attend_split_plain, decode_plan, sm_count)
+
+    items, k, h, kvh = 3, 4, 8, 2
+    q, pc, seg, gc, gv = _split_inputs(cuda, mode, items, k, h, kvh)
+    plan = decode_plan(items * k, kvh, seg.shape[1], gv.shape[1],
+                       sm_count(q.device), forced)
+    got = decode_attend_layer(q, pc, seg, gc, gv, beam_k=k,
+                              beam_route="grid", splits=forced)
+    _split_check(got, decode_attend_plain(q, pc, seg, gc, gv, beam_k=k),
+                 decode_attend_split_plain(q, pc, seg, gc, gv, plan,
+                                           beam_k=k), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "kv4"])
+def test_decode_attn_split_is_deterministic_and_graph_capturable(cuda, mode):
+    """Two calls give the same bits (the splits merge in split order, no
+    float atomics, the tickets are left at 0), and one call captured in a
+    CUDA graph and replayed gives the eager call's bits."""
+    q, pc, seg, gc, gv = _split_inputs(cuda, mode, 3, 1, 8, 8)
+    first = decode_attend_layer(q, pc, seg, gc, gv, splits=4)
+    again = decode_attend_layer(q, pc, seg, gc, gv, splits=4)
+    assert torch.equal(first, again)
+    assert int(_kernels.tickets(q.device).abs().sum()) == 0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attend_layer(q, pc, seg, gc, gv, splits=4)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = decode_attend_layer(q, pc, seg, gc, gv, splits=4)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
 def _close_grad(got, want):
     want = want.float()
     scale = float(want.abs().max())

@@ -19,6 +19,8 @@ rtol = 2^-6, atol = 2e-2 there. Every row here is live (gen slot 0 is
 always visible, as in decode): on a row with no visible key the Pallas
 kernel gives 0 and the oracle a uniform average."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -242,3 +244,171 @@ def test_garbage_scales_of_masked_keys_do_not_leak():
     got = decode_attend_plain(tq, pc, tseg, gc, tgv)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ---- K4's key-axis split: the launch plan, and the split-then-merge plain
+# version held against the reference under forced plans
+
+from halva_tpu_torch import _kernels  # noqa: E402
+from halva_tpu_torch.ops.decode_attention import (  # noqa: E402
+    TILE,
+    decode_attend_split_plain,
+    decode_plan,
+    split_ranges,
+)
+
+# (rows, kvh, sp, sg, int4 prompt, sms, forced aim)
+PLAN_CASES = {
+    "llava_b4": (4, 32, 623, 128, False, 132, None),
+    "llava_b4_int4": (4, 32, 623, 128, True, 132, None),
+    "llava_b80_int4": (80, 32, 623, 128, True, 132, None),
+    "llava_beams": (16, 32, 623, 128, True, 132, None),
+    "mistral_b4": (4, 8, 623, 128, False, 132, None),
+    "odd_int4": (2, 8, 301, 128, True, 132, None),
+    "prompt_under_a_tile": (2, 8, 40, 16, False, 132, None),
+    "no_gen_span": (2, 4, 300, 0, False, 132, None),
+    "no_prompt": (2, 4, 0, 128, True, 132, None),
+    "long_prompt": (1, 1, 4097, 256, True, 132, None),
+    "small_card": (4, 32, 623, 128, True, 8, None),
+    "forced_1": (2, 8, 517, 128, True, 132, 1),
+    "forced_2": (2, 8, 517, 128, True, 132, 2),
+    "forced_5": (2, 8, 517, 128, True, 132, 5),
+    "forced_past_the_tiles": (2, 8, 517, 128, True, 132, 64),
+}
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_split_plan_covers_every_key_once(name):
+    rows, kvh, sp, sg, int4, sms, forced = PLAN_CASES[name]
+    plan = decode_plan(rows, kvh, sp, sg, sms, forced)
+    splits, tps = plan
+    ranges = split_ranges(plan, sp, sg)
+    assert len(ranges) == splits >= 1
+    assert all(ranges) or sp == sg == 0, "an empty split"
+    seen = {"prompt": np.zeros(sp, int), "gen": np.zeros(sg, int)}
+    for mine in ranges:
+        for span, lo, hi in mine:
+            assert lo < hi
+            seen[span][lo:hi] += 1
+            if span == "prompt":
+                assert lo % TILE == 0 and (hi % TILE == 0 or hi == sp)
+                if int4:  # a boundary never splits a packed token pair
+                    assert lo % 2 == 0 and (hi % 2 == 0 or hi == sp)
+    assert (seen["prompt"] == 1).all() and (seen["gen"] == 1).all()
+    # the gen span is whole, in the last split, and alone there if split
+    gens = [i for i, mine in enumerate(ranges) for s, _, _ in mine
+            if s == "gen"]
+    assert gens == ([splits - 1] if sg else [])
+    if splits > 1 and sg:
+        assert ranges[-1] == [("gen", 0, sg)]
+        assert rows * kvh <= _kernels.MAX_TICKETS
+    if forced is not None:
+        assert splits <= max(forced, 1)
+
+
+def test_split_plan_fills_the_card_or_stays_whole():
+    """At B=4 the 7B shape (128 (row, kv head) pairs) splits until at least
+    three blocks fall to every one of 132 SMs; at batch 80 (2,560 pairs) it
+    does not split."""
+    splits, _ = decode_plan(4, 32, 623, 128, 132)
+    assert splits > 1 and 4 * 32 * splits >= 3 * 132
+    assert decode_plan(80, 32, 623, 128, 132) == (1, 10)
+    assert decode_plan(80, 32, 623, 128, 132, splits=1) == (1, 10)
+    with pytest.raises(ValueError):
+        decode_plan(4, 32, 623, 128, 132, splits=0)
+
+
+SPLIT_MODES = {  # mode: (b, h, kvh, sp, d, sg)
+    "bf16": (3, 8, 2, 517, 64, 16),
+    "int8": (3, 4, 4, 517, 128, 16),
+    "int4": (3, 8, 2, 517, 128, 16),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(mode, q_dtype):
+    """Inputs (row 0 with prompt tile [64, 128) masked, so a whole split of
+    a fine plan sees no prompt key; row 2 with no visible key at all) and
+    the reference's outputs: the oracle on the live rows, the Pallas kernel
+    (interpret mode) on every row."""
+    b, h, kvh, sp, d, sg = SPLIT_MODES[mode]
+    jdt = jnp.float32 if q_dtype == "f32" else jnp.bfloat16
+    steps = (3, 7, 0)
+    if mode == "bf16":
+        q, kp, vp, kg, vg, seg, gv = _inputs(b, h, kvh, sp, d, sg, steps,
+                                             False, jdt)
+        prompt, gen = {"k": kp, "v": vp}, {"k": kg, "v": vg}
+    else:
+        q, prompt, seg, gen, gv = _quant_inputs(mode, b, h, kvh, sp, d, sg,
+                                                steps, jdt)
+    seg[0, 64:128] = 0
+    seg[2] = 0
+    gv[2] = False
+    pallas = np.asarray(jax_layer(
+        jnp.asarray(q), jax.tree.map(jnp.asarray, prompt), jnp.asarray(seg),
+        jax.tree.map(jnp.asarray, gen), jnp.asarray(gv), jnp.int32(0)),
+        np.float32)
+    oracle = _oracle(q, prompt, seg, gen, gv, 0) if mode != "bf16" else (
+        np.asarray(jax.jit(jax_decode_attend)(
+            jnp.asarray(q), jnp.asarray(prompt["k"][0]),
+            jnp.asarray(prompt["v"][0]), jnp.asarray(gen["k"][0]),
+            jnp.asarray(gen["v"][0]), jnp.asarray(seg), jnp.asarray(gv)),
+            np.float32))
+    return q, prompt, seg, gen, gv, pallas, oracle
+
+
+@pytest.mark.parametrize("forced", list(range(1, 9)))
+@pytest.mark.parametrize("q_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", list(SPLIT_MODES))
+def test_split_then_merge_matches_reference(mode, q_dtype, forced):
+    """The plain split-then-merge version under forced plans of 1 to 8
+    splits (at most the 9 prompt tiles and the gen span allow) against the
+    oracle on the live rows and the Pallas kernel on every row: the row
+    with no visible key comes out as exactly 0, as both kernels give it.
+    Tolerances as in test_plain_matches_reference and
+    test_quantized_caches_match_reference: the merge is exact algebra, only
+    the fp32 summation order differs."""
+    q, prompt, seg, gen, gv, pallas, oracle = _split_case(mode, q_dtype)
+    b, _, _, sp, _, sg = SPLIT_MODES[mode]
+    plan = decode_plan(b, prompt["k4" if mode == "int4" else "k"].shape[2],
+                       sp, sg, 132, forced)
+    tq, tseg, tgv = tree.to_torch([q, seg, gv], device="cpu")
+    tprompt = {k: v[0] for k, v in tree.to_torch(prompt,
+                                                  device="cpu").items()}
+    tgen = {k: v[0] for k, v in tree.to_torch(gen, device="cpu").items()}
+    got = decode_attend_split_plain(tq, tprompt, tseg, tgen, tgv, plan)
+    assert got.dtype == tq.dtype and got.shape == q.shape
+    got = got.float().numpy()
+    if q_dtype == "f32":
+        tol = dict(rtol=1e-5, atol=1e-5 if mode == "bf16" else 1e-4)
+    else:
+        tol = dict(rtol=2**-7, atol=8e-3) if mode == "bf16" else dict(
+            rtol=2**-6, atol=2e-2)
+    assert (got[2] == 0).all()
+    np.testing.assert_allclose(got, pallas, **tol)
+    np.testing.assert_allclose(got[:2], oracle[:2], **tol)
+
+
+@pytest.mark.parametrize("forced", [1, 3, 8])
+@pytest.mark.parametrize("mode", list(SPLIT_MODES))
+def test_split_then_merge_beam_mode(mode, forced):
+    """Beam mode (2 beams an item, the prompt stored once per item): the
+    split version against decode_attend_plain(beam_k), fp32 queries."""
+    q, prompt, seg, gen, gv, _, _ = _split_case(mode, "f32")
+    b, h, kvh, sp, d, sg = SPLIT_MODES[mode]
+    rng = np.random.RandomState(1)
+    tq = torch.from_numpy(rng.randn(2 * b, 1, h, d).astype(np.float32))
+    tseg = torch.from_numpy(seg)
+    tgv = torch.from_numpy(np.repeat(gv, 2, axis=0))
+    tgv[1] = False  # a beam with an empty gen cache
+    tprompt = {k: v[0] for k, v in tree.to_torch(prompt,
+                                                  device="cpu").items()}
+    tgen = {k: v[0].repeat_interleave(2, dim=0)
+            for k, v in tree.to_torch(gen, device="cpu").items()}
+    plan = decode_plan(2 * b, kvh, sp, sg, 132, forced)
+    got = decode_attend_split_plain(tq, tprompt, tseg, tgen, tgv, plan,
+                                    beam_k=2)
+    want = decode_attend_plain(tq, tprompt, tseg, tgen, tgv, beam_k=2)
+    live = slice(0, 2 * b - 2)  # the last item sees no key
+    assert (got[live.stop:] == 0).all()
+    torch.testing.assert_close(got[live], want[live], rtol=1e-5, atol=1e-4)

@@ -95,8 +95,10 @@ def test_sources_name_the_reference_package_only_as_paths():
 
 
 def test_decode_kernels_are_hand_written():
-    """K4's and K5's CUDA sources call no library either, and K5 shares
-    K4's span code instead of carrying a second copy."""
+    """K4's and K5's CUDA sources call no library either; both take the
+    cache formats from the shared header, K5 the header's span loop, K4 its
+    own staged tile loop (cp.async) with the one-launch merge of its key
+    splits (a ticket, no float atomics)."""
     csrc = os.path.join(PKG, "csrc")
     library = re.compile(r"cublas|cudnn|cutlass|torch|#include <(?!cuda_bf16|"
                          r"cuda_runtime|stdint)")
@@ -106,9 +108,13 @@ def test_decode_kernels_are_hand_written():
         assert not library.search(code), name
         if name.endswith(".cu"):
             assert '#include "decode_common.cuh"' in code, name
-            assert "attend_span<" in code, name
     fold = open(os.path.join(csrc, "fold_attn.cu")).read()
     assert "fold_attn_kernel" in fold and 'extern "C" int halva_fold_attn' in fold
+    assert "attend_span<" in fold
+    k4 = open(os.path.join(csrc, "decode_attn.cu")).read()
+    assert "attend_span<" not in k4 and "cp.async" in k4
+    assert "atomicAdd(&tickets[head], 1)" in k4
+    assert not re.search(r"atomicAdd\((?!&tickets)", k4)
 
 
 def test_flash_kernels_are_hand_written_and_deterministic():
