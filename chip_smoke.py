@@ -69,6 +69,12 @@ builds the kernels, runs only K4's checks and timings (bf16, int8/int8,
 int4/int8 and the beam mode at B=4, int4/int8 at batch 80, and the B=4
 shapes under forced key-axis plans) and prints their rows.
 
+    python3 chip_smoke.py --fold-only
+
+builds the kernels, runs only K5's checks and timings (both stages, every
+mode, MHA and GQA, forced key-axis plans, K4's beam route beside it at B=4
+and at batch 80, the route "auto" takes) and prints their rows.
+
     python3 chip_smoke.py --quant-only
 
 runs only the quantized-base part (the checks of K7 and K8, the int8
@@ -114,11 +120,14 @@ from halva_tpu_torch.ops.attention import (
 from halva_tpu_torch.ops.beam import (generate_beam, init_beam_state,
                                       reorder_gen_cache, select_step)
 from halva_tpu_torch.ops.decode_attention import (
+    auto_beam_route,
     decode_attend_layer,
     decode_attend_plain,
     decode_plan,
     fold_attend_layer,
     fold_attend_plain,
+    fold_attend_split_plain,
+    fold_plan,
     sm_count,
 )
 from halva_tpu_torch.ops.flash_attention import (
@@ -1039,15 +1048,31 @@ def _cache_row_bytes(mode, kvh, d, prompt):
     return kvh * (d if (mode == "kv4" and prompt) else 2 * d) + 4 * kvh
 
 
+FOLD_FORCED = (1, 2, 3, 5)  # forced aims of K5's plan, beside the SM count's
+
+
+def k5_plan(items, kvh, rows, group, sp, sg, shared, splits=None) -> str:
+    """K5's launch plan at these shapes on this card, as the wrapper makes
+    it (ops/decode_attention.fold_plan)."""
+    p = fold_plan(items, kvh, rows, group, sp, sg,
+                  sm_count(torch.device("cuda")), shared, splits)
+    return (f"{p.splits} splits: {p.psplits} of {p.tps} prompt tiles + "
+            f"{p.gsplits} gen, {p.chunks} chunk(s)")
+
+
 def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
     """K5 against fold_attend_plain, and K4's beam mode against
     decode_attend_plain(beam_k=4), at the 7B shapes of the beam and verify
     steps: B=4 items, H=32, Sp=623 (odd), D=128. Per-beam gen stage at K=4,
-    Sg=128 in the three cache modes (and GQA, KVH=8); shared gen stage with
-    candidates at K=4 (Sg=128) and K=8 (Sg=256). One row of the `kernels`
-    line per cache mode and stage; the times are the K=4 MHA ones. Also the
-    two beam routes against each other at B=80 items, printed only. With
-    `with_k5` False, only K4's beam mode: its checks, times and rows."""
+    Sg=128 in the three cache modes, MHA and GQA (KVH=8: Mistral's 16 rows
+    an item); shared gen stage with candidates at K=4 (Sg=128), K=8
+    (Sg=256) and GQA. Each K5 shape also under forced plans of 1, 2, 3 and
+    5 splits, against fold_attend_split_plain under that plan and against
+    fold_attend_plain, timed. One row of the `kernels` line per cache mode
+    and stage; the times are the K=4 MHA ones. Then the two beam routes
+    against each other at B=4 and B=80 items in every mode, and the route
+    `beam_route="auto"` takes at each, printed only. With `with_k5` False,
+    only K4's beam mode: its checks, times and rows."""
     dev = "cuda"
     b, h, sp, d, layers = 4, 32, 623, 128, 4
     seg = lengths_to_seg(PROMPT_LENS, sp, dev)
@@ -1068,6 +1093,29 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
     def layer(t, li):
         return {key: v[li] for key, v in t.items()}
 
+    def forced_plans(label, call, split_plain, kvh, rows, sp_, sg_, shared):
+        """K5 under each forced plan: against its split plain version on
+        layer 0, bit-stable across two calls, and timed over the layers.
+        call(li, splits) runs the kernel, split_plain(li, plan) the plain
+        split. Returns the worst error and prints the times."""
+        worst, times = 0.0, []
+        for forced in FOLD_FORCED:
+            plan = fold_plan(b, kvh, rows, h // kvh, sp_, sg_,
+                             sm_count(torch.device(dev)), shared, forced)
+            got = call(0, forced)
+            worst = max(worst, compare(
+                f"{label} forced {forced} ({plan.splits} splits) vs split "
+                "plain", got, split_plain(0, plan)))
+            if not torch.equal(got, call(0, forced)):
+                raise AssertionError(f"{label}: two calls differ")
+            ms = device_ms(lambda: [call(li, forced)
+                                    for li in range(layers)]) / layers
+            times.append(f"{plan.splits}: {ms:.4f}")
+        print(f"{label} ms by splits (forced aims {FOLD_FORCED}): "
+              f"{', '.join(times)}; planned "
+              f"{k5_plan(b, kvh, rows, h // kvh, sp_, sg_, shared)}")
+        return worst
+
     # ---- per-beam gen stage (beam search), and K4's beam mode beside it
     k, sg = BEAMS, 128
     steps = torch.randint(0, sg, (b * k,), generator=gen, device=dev)
@@ -1082,17 +1130,17 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
             q1 = q.reshape(b * k, 1, h, d)
             pc, gc = _fold_caches(gen, mode, layers, b, b * k, kvh, sp, sg, d)
 
-            def fold(fn, li):
+            def fold(fn, li, **kw):
                 return fn(q, layer(pc, li), seg, layer(gc, li), gen_valid,
-                          fold_k=k)
+                          fold_k=k, **kw)
 
             def grid(li):
                 return decode_attend_layer(q1, layer(pc, li), seg,
                                            layer(gc, li), gen_valid,
                                            beam_k=k, beam_route="grid")
 
+            tag = f"B={b} K={k} H={h} KVH={kvh} Sp={sp} Sg={sg} D={d}"
             for li in (0, layers - 1):
-                tag = f"B={b} K={k} H={h} KVH={kvh} Sp={sp} Sg={sg} D={d}"
                 if with_k5:
                     worst["fold"] = max(worst["fold"], compare(
                         f"fold_attn{names[mode]} {tag}",
@@ -1103,8 +1151,14 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
                     beam_k=k)
                 worst["grid"] = max(worst["grid"], compare(
                     f"decode_attn{names[mode]}_beam {tag}", grid(li), want1))
-            if kvh != h:
-                continue
+            rows = k * h // kvh
+            if with_k5:
+                worst["fold"] = max(worst["fold"], forced_plans(
+                    f"fold_attn{names[mode]} {tag}",
+                    lambda li, z: fold(fold_attend_layer, li, splits=z),
+                    lambda li, plan: fold(fold_attend_split_plain, li,
+                                          plan=plan),
+                    kvh, rows, sp, sg, False))
 
             def walk(fn):
                 for li in range(layers):
@@ -1129,7 +1183,7 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
             # mode computes is the same, so its bound is the same
             lim = bound(prompt_bytes + gen_bytes + small, flops)
             lib_ms = None
-            if mode == "bf16":
+            if mode == "bf16" and kvh == h:
                 # the yardstick: one SDPA call at B*K rows over [prompt of
                 # the row's item | the row's gen cache] keys, repeated and
                 # concatenated outside the timed call (so it reads the
@@ -1154,19 +1208,22 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
                 lib_ms = device_ms(walk_sdpa) / layers
                 del kcat, vcat
             lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-            k5 = (f"K5 {ms:.4f} ms (plain {plain_ms:.4f}), " if with_k5
-                  else "")
-            print(f"fold_attn{names[mode]} time: {k5}K4 beam route "
+            k5 = (f"K5 {ms:.4f} ms (plain {plain_ms:.4f}; "
+                  f"{k5_plan(b, kvh, rows, h // kvh, sp, sg, False)}), "
+                  if with_k5 else "")
+            print(f"fold_attn{names[mode]} {tag} time: {k5}K4 beam route "
                   f"{grid_ms:.4f} ms (plain {grid_plain_ms:.4f}; "
                   f"{k4_plan(b * k, kvh, sp, sg)}), bound "
                   f"{lim['bound_ms']:.4f} ms by {lim['bound_by']}; "
                   f"{(prompt_bytes + gen_bytes) / 1e6:.2f} MB live caches; "
                   f"SDPA at B*K rows over repeated prompt keys {lib}")
-            if with_k5:
-                fold_t = {"ms": ms, "plain_ms": plain_ms,
+            if kvh == h:
+                if with_k5:
+                    fold_t = {"ms": ms, "plain_ms": plain_ms,
+                              "library_ms": lib_ms, **lim}
+                grid_t = {"ms": grid_ms, "plain_ms": grid_plain_ms,
                           "library_ms": lib_ms, **lim}
-            grid_t = {"ms": grid_ms, "plain_ms": grid_plain_ms,
-                      "library_ms": lib_ms, **lim}
+            del pc, gc
         if with_k5:
             out.append({"name": "fold_attn" + names[mode], "route": "cuda",
                         "source": FOLD_SOURCE, "replaces": FOLD_REPLACES,
@@ -1175,19 +1232,19 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
                     "source": "halva_tpu_torch/csrc/decode_attn.cu",
                     "replaces": "halva_tpu/ops/decode_attention.py:82",
                     "max_abs_err": worst["grid"], **grid_t})
-        del pc, gc
 
     if not with_k5:
         return out
 
-    # ---- the two beam routes where a layer's prompt cache outgrows the L2:
-    # batch 80 (the reference's serving batch), times only, not in the
-    # `kernels` line
+    # ---- the two beam routes at B=4 (above) and where a layer's prompt
+    # cache outgrows the L2: batch 80 (the reference's serving batch), in
+    # every mode, times only, not in the `kernels` line; and the route
+    # beam_route="auto" takes at each
     b80, k, sg, layers80 = 80, BEAMS, 128, 2
     seg80 = lengths_to_seg(PROMPT_LENS * (b80 // len(PROMPT_LENS)), sp, dev)
     steps = torch.randint(0, sg, (b80 * k,), generator=gen, device=dev)
     gen_valid = torch.arange(sg, device=dev)[None, :] <= steps[:, None]
-    for mode in ("bf16", "kv4"):
+    for mode in ("bf16", "kv8", "kv4"):
         q = torch.randn(b80, k, h, d, generator=gen, device=dev).bfloat16()
         q1 = q.reshape(b80 * k, 1, h, d)
         pc, gc = _fold_caches(gen, mode, layers80, b80, b80 * k, h, sp, sg, d)
@@ -1214,9 +1271,19 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
                      * _cache_row_bytes(mode, h, d, True) / 1e6)
         print(f"fold_attn{names[mode]} at batch {b80} ({prompt_mb:.0f} MB of "
               f"live prompt cache per layer, L2 50 MB): K5 "
-              f"{ms / layers80:.4f} ms, K4 beam route "
+              f"{ms / layers80:.4f} ms "
+              f"({k5_plan(b80, h, k, 1, sp, sg, False)}), K4 beam route "
               f"{grid_ms / layers80:.4f} ms")
         del pc, gc
+    routes = []
+    for items in (b, b80):
+        for mode in ("bf16", "kv8", "kv4"):
+            pc, _ = _fold_caches(gen, mode, 1, items, 1, h, sp, 1, d)
+            routes.append(f"B={items} {mode}: " + auto_beam_route(
+                layer(pc, 0), seg80[:items], k))
+            del pc
+    print("route: beam_route='auto' (ops/decode_attention.auto_beam_route) "
+          f"at K={k}, H=KVH={h}, Sp={sp}: {'; '.join(routes)}")
 
     # ---- shared gen stage with candidates (speculative verify)
     for mode in ("bf16", "kv8", "kv4"):
@@ -1231,15 +1298,20 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
             gen_valid = torch.arange(sg, device=dev)[None, :] < gen_len[:, None]
             pc, gc = _fold_caches(gen, mode, layers, b, b, kvh, sp, sg, d)
 
-            def fold(fn, li):
+            def fold(fn, li, **kw):
                 return fn(q, layer(pc, li), seg, layer(gc, li), gen_valid,
-                          fold_k=k, shared_gen=True, candidates=(kc, vc))
+                          fold_k=k, shared_gen=True, candidates=(kc, vc), **kw)
 
+            tag = f"B={b} K={k} H={h} KVH={kvh} Sp={sp} Sg={sg} D={d}"
             for li in (0, layers - 1):
                 worst = max(worst, compare(
-                    f"fold_attn{names[mode]}_shared B={b} K={k} H={h} "
-                    f"KVH={kvh} Sp={sp} Sg={sg} D={d}",
+                    f"fold_attn{names[mode]}_shared {tag}",
                     fold(fold_attend_layer, li), fold(fold_attend_plain, li)))
+            worst = max(worst, forced_plans(
+                f"fold_attn{names[mode]}_shared {tag}",
+                lambda li, z: fold(fold_attend_layer, li, splits=z),
+                lambda li, plan: fold(fold_attend_split_plain, li, plan=plan),
+                kvh, k * h // kvh, sp, sg, True))
             if kvh != h:
                 continue
 
@@ -1283,9 +1355,10 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
                 del kcat, vcat
             lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
             print(f"fold_attn{names[mode]}_shared K={k} Sg={sg} time: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA over "
-                  f"concatenated keys {lib}, bound {lim['bound_ms']:.4f} ms "
-                  f"by {lim['bound_by']}")
+                  f"{ms:.4f} ms ({k5_plan(b, kvh, k, 1, sp, sg, True)}), "
+                  f"plain {plain_ms:.4f} ms, SDPA over concatenated keys "
+                  f"{lib}, bound {lim['bound_ms']:.4f} ms by "
+                  f"{lim['bound_by']}")
             if k == BEAMS:
                 timing = {"ms": ms, "plain_ms": plain_ms,
                           "library_ms": lib_ms, **lim}
@@ -1862,22 +1935,39 @@ def record(kernels: dict, launches: dict, *names) -> None:
         kernels[name]["launches"] = launches[name]
 
 
+def beam_routes(params, cfg, inputs, kv_quant, suffix: str):
+    """The kernel that beam_route="auto" (ops/decode_attention.
+    auto_beam_route) takes for this tree's prompt caches, then the other
+    route and its kernel: the beam runs' expected launches."""
+    _, _, _, pc, pseg = _prefill_impl(params, cfg, *inputs, kv_quant=kv_quant)
+    route = auto_beam_route({k: v[0] for k, v in pc.items()}, pseg, BEAMS)
+    del pc
+    names = {"fold": "fold_attn" + suffix,
+             "grid": "decode_attn" + suffix + "_beam"}
+    other = "grid" if route == "fold" else "fold"
+    print(f"route: beam_route='auto' with {kv_quant or 'bf16'} prompt KV at "
+          f"B={inputs[0].shape[0]}, {BEAMS} beams -> {route} "
+          f"({names[route]})")
+    return names[route], other, names[other]
+
+
 def run_beam_spec_bf16(params: dict, kernels: dict) -> None:
     """Beam search and speculative decode on the bf16 tree, short: K5's bf16
-    modes and K4's bf16 beam mode through the entry points."""
+    modes and K4's bf16 beam mode through the entry points (the beam run on
+    the route "auto" takes, then a short run on the other)."""
     cfg = LLAVA_V15_7B
     layers = cfg.llm.num_layers
     inputs = make_inputs(cfg)
     n = BEAM_TOKENS_BF16
     with torch.inference_mode():
+        main, other_route, other = beam_routes(params, cfg, inputs, False, "")
         stats = {}
         (tok, num), secs, launches = timed_run(lambda: generate_beam(
             params, cfg, *inputs, max_new_tokens=n, eos_id=-1,
             num_beams=BEAMS, stats=stats))
-        expect_launches(launches, {"flash_fwd": layers,
-                                   "fold_attn": layers * n},
+        expect_launches(launches, {"flash_fwd": layers, main: layers * n},
                         f"bf16 beam run ({BEAMS} beams, {n} tokens)")
-        record(kernels, launches, "fold_attn")
+        record(kernels, launches, main)
         ok = (in_vocab(tok, cfg) and bool((num == n).all())
               and bool(torch.isfinite(stats["best_scores"]).all())
               and stats["steps"] == n)
@@ -1890,13 +1980,14 @@ def run_beam_spec_bf16(params: dict, kernels: dict) -> None:
 
         (tok_g, _), _, launches = timed_run(lambda: generate_beam(
             params, cfg, *inputs, max_new_tokens=SHORT_TOKENS, eos_id=-1,
-            num_beams=BEAMS, beam_route="grid"))
+            num_beams=BEAMS, beam_route=other_route))
         expect_launches(launches, {"flash_fwd": layers,
-                                   "decode_attn_beam": layers * SHORT_TOKENS},
-                        "bf16 beam run on K4's beam route")
-        record(kernels, launches, "decode_attn_beam")
+                                   other: layers * SHORT_TOKENS},
+                        f"bf16 beam run on the {other_route} route")
+        record(kernels, launches, other)
         if not in_vocab(tok_g, cfg):
-            raise AssertionError("bf16 grid-route beam tokens out of range")
+            raise AssertionError(f"bf16 {other_route}-route beam tokens out "
+                                 "of range")
 
         (tok_s, num_s, st), _, launches = timed_run(
             lambda: generate_speculative(
@@ -1935,7 +2026,8 @@ def _step_times(q4, cfg, inputs, tokens):
                 q4["llm"], cfg.llm, emb, pos, pc, pseg, gen_cache, at, **kw))
 
         out["greedy"] = decode(b)
-        out["beam_fold"] = decode(b * BEAMS, beam_k=BEAMS)
+        out["beam"] = decode(b * BEAMS, beam_k=BEAMS)  # the "auto" route
+        out["beam_fold"] = decode(b * BEAMS, beam_k=BEAMS, beam_route="fold")
         out["beam_grid"] = decode(b * BEAMS, beam_k=BEAMS, beam_route="grid")
 
         # the beam loop's other two parts at the run's shapes: the selection
@@ -1970,8 +2062,9 @@ def run_beam_spec_int4g(q4: dict, kernels: dict,
     """Beam search (4 beams, 32 tokens) and speculative greedy decode
     (draft_k 4 over 32 tokens, draft_k 8 over 200) on the int4g tree with an
     int4 prompt KV cache, each beside the greedy decode of the same tree and
-    batch in this call; short runs of the int8 KV modes and of K4's beam
-    route; one verify step against the plain path."""
+    batch in this call (the beam run on the route beam_route="auto" takes);
+    short runs of the other beam route and of the int8 KV modes on both
+    routes; one verify step against the plain path."""
     cfg = LLAVA_V15_7B
     layers = cfg.llm.num_layers
     inputs = make_inputs(cfg)
@@ -1985,17 +2078,22 @@ def run_beam_spec_int4g(q4: dict, kernels: dict,
         greedy_ms = (greedy_s - prefill_s) / NEW_TOKENS * 1e3
 
         # ---- the beam main path
+        main, other_route, other = beam_routes(q4, cfg, inputs, "int4",
+                                               "_kv4")
+        main8, other_route8, other8 = beam_routes(q4, cfg, inputs, "int8",
+                                                  "_kv8")
         stats = {}
         (tok, num), beam_s, launches = timed_run(lambda: generate_beam(
             q4, cfg, *inputs, max_new_tokens=NEW_TOKENS, num_beams=BEAMS,
             stats=stats, **kv))
-        # per beam step: K5 once and the packed-int4 matmul seven times per
-        # layer, at 16 rows: K7 by the row rule
+        # per beam step: the beam route's attention once and the
+        # packed-int4 matmul seven times per layer, at 16 rows: K7 by the
+        # row rule
         mm = w4_mm_launches(b * BEAMS, 7 * layers * NEW_TOKENS)
         expect_launches(launches, {
-            "flash_fwd": layers, "fold_attn_kv4": layers * NEW_TOKENS, **mm},
+            "flash_fwd": layers, main: layers * NEW_TOKENS, **mm},
             f"int4g beam run ({BEAMS} beams, {NEW_TOKENS} tokens)")
-        record(kernels, launches, "fold_attn_kv4", *mm)
+        record(kernels, launches, main, *mm)
         ok = (in_vocab(tok, cfg) and bool((num == NEW_TOKENS).all())
               and bool(torch.isfinite(stats["best_scores"]).all())
               and stats["steps"] == NEW_TOKENS)
@@ -2012,23 +2110,24 @@ def run_beam_spec_int4g(q4: dict, kernels: dict,
 
         # ---- further modes and routes, short
         for what, fn, want in (
-            ("int4g beam run on K4's beam route",
+            (f"int4g beam run on the {other_route} route",
              lambda: generate_beam(q4, cfg, *inputs,
                                    max_new_tokens=SHORT_TOKENS,
-                                   num_beams=BEAMS, beam_route="grid", **kv),
-             {"decode_attn_kv4_beam": layers * SHORT_TOKENS}),
+                                   num_beams=BEAMS, beam_route=other_route,
+                                   **kv),
+             {other: layers * SHORT_TOKENS}),
             ("int8-KV beam run",
              lambda: generate_beam(q4, cfg, *inputs,
                                    max_new_tokens=SHORT_TOKENS,
                                    num_beams=BEAMS, eos_id=-1,
                                    kv_quant="int8"),
-             {"fold_attn_kv8": layers * SHORT_TOKENS}),
-            ("int8-KV beam run on K4's beam route",
+             {main8: layers * SHORT_TOKENS}),
+            (f"int8-KV beam run on the {other_route8} route",
              lambda: generate_beam(q4, cfg, *inputs,
                                    max_new_tokens=SHORT_TOKENS,
                                    num_beams=BEAMS, eos_id=-1,
-                                   kv_quant="int8", beam_route="grid"),
-             {"decode_attn_kv8_beam": layers * SHORT_TOKENS}),
+                                   kv_quant="int8", beam_route=other_route8),
+             {other8: layers * SHORT_TOKENS}),
         ):
             (tok_x, _), _, launches = timed_run(fn)
             expect_launches(launches, {
@@ -2084,16 +2183,17 @@ def run_beam_spec_int4g(q4: dict, kernels: dict,
     # ---- device time of one step of each kind, same cache, CUDA graphs
     t = _step_times(q4, cfg, inputs, greedy_tokens)
     print("int4g step device times (CUDA-graph replays, gen slot 8): greedy "
-          f"{t['greedy']:.3f} ms; beam step {t['beam_fold']:.3f} ms with K5 "
-          f"(ratio {t['beam_fold'] / t['greedy']:.3f}), "
+          f"{t['greedy']:.3f} ms; beam step {t['beam']:.3f} ms on the "
+          f"'auto' route (ratio {t['beam'] / t['greedy']:.3f}): "
+          f"{t['beam_fold']:.3f} ms with K5, "
           f"{t['beam_grid']:.3f} ms with K4's beam route; verify step "
           f"draft_k 4 {t['verify_4']:.3f} ms (ratio "
           f"{t['verify_4'] / t['greedy']:.3f}), draft_k {SPEC_LONG[0]} "
           f"{t[f'verify_{SPEC_LONG[0]}']:.3f} ms (ratio "
           f"{t[f'verify_{SPEC_LONG[0]}'] / t['greedy']:.3f})")
-    whole = t["beam_fold"] + t["select"] + t["reorder"]
+    whole = t["beam"] + t["select"] + t["reorder"]
     print(f"int4g beam loop parts on the device (a graph each): model step "
-          f"{t['beam_fold']:.3f} ms ({t['beam_fold'] / whole:.1%}), selection "
+          f"{t['beam']:.3f} ms ({t['beam'] / whole:.1%}), selection "
           f"{t['select']:.3f} ms ({t['select'] / whole:.1%}), gen-cache "
           f"reorder (index_select of {t['reorder_mb']:.1f} MB by parent beam) "
           f"{t['reorder']:.3f} ms ({t['reorder'] / whole:.1%}); with them the"
@@ -2109,8 +2209,8 @@ def run_beam_spec_int4g(q4: dict, kernels: dict,
     print(f"route: W4_GEMV_MAX_ROWS = {rule}: a packed-int4 decode-family "
           f"matmul takes K6 up to {rule} rows and K7 above (16 rows per beam "
           f"step, 16 and 32 per verify step). With K6 at every row count the "
-          f"steps take: beam {t6['beam_fold']:.3f} ms (K7: "
-          f"{t['beam_fold']:.3f}), verify draft_k 4 {t6['verify_4']:.3f} "
+          f"steps take: beam {t6['beam']:.3f} ms (K7: "
+          f"{t['beam']:.3f}), verify draft_k 4 {t6['verify_4']:.3f} "
           f"(K7: {t['verify_4']:.3f}), draft_k {SPEC_LONG[0]} "
           f"{t6[f'verify_{SPEC_LONG[0]}']:.3f} (K7: "
           f"{t[f'verify_{SPEC_LONG[0]}']:.3f}), greedy at 4 rows "
@@ -2913,6 +3013,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--decode-only"]:
         print(json.dumps({"decode_kernels": decode_checks(gen)}))
+        return
+    if sys.argv[1:] == ["--fold-only"]:
+        print(json.dumps({"fold_kernels": check_fold(gen)}))
         return
     quant_only = sys.argv[1:] == ["--quant-only"]
     if sys.argv[1:] and not quant_only:

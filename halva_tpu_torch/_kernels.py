@@ -143,7 +143,7 @@ def lib() -> ctypes.CDLL:
     cdll.halva_decode_attn_kv8.restype = i
     cdll.halva_decode_attn_kv4.argtypes = [p] * 14 + [i] * 10 + [f, p]
     cdll.halva_decode_attn_kv4.restype = i
-    cdll.halva_fold_attn.argtypes = [i] + [p] * 14 + [i] * 9 + [f, p]
+    cdll.halva_fold_attn.argtypes = [i] + [p] * 16 + [i] * 12 + [f, p]
     cdll.halva_fold_attn.restype = i
     cdll.halva_w4_gemv.argtypes = [p] * 6 + [i] * 7 + [p]
     cdll.halva_w4_gemv.restype = i
@@ -167,11 +167,10 @@ _TICKETS: Dict[torch.device, torch.Tensor] = {}
 
 
 def tickets(device: torch.device) -> torch.Tensor:
-    """Per-device zeroed int32 tickets of the split reductions (K4's key
-    splits, K6's, K7's and K8's split-K). The last block of a tile resets
-    its ticket to 0, so the buffer is
-    zeroed once and reused by every launch on the device's streams in
-    order."""
+    """Per-device zeroed int32 tickets of the split reductions (K4's and
+    K5's key splits, K6's, K7's and K8's split-K). The last block of a tile
+    resets its ticket to 0, so the buffer is zeroed once and reused by every
+    launch on the device's streams in order."""
     t = _TICKETS.get(device)
     if t is None:
         t = torch.zeros(MAX_TICKETS, dtype=torch.int32, device=device)

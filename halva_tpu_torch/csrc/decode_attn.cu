@@ -84,6 +84,11 @@
 namespace {
 
 using halva_decode::BF16;
+using halva_decode::BF16_ONE;
+using halva_decode::bf16_bits;
+using halva_decode::cp_async16;
+using halva_decode::cp_async_commit;
+using halva_decode::cp_async_wait_all;
 using halva_decode::I4;
 using halva_decode::I8;
 using halva_decode::LOG2E;
@@ -98,7 +103,6 @@ constexpr int TILE = 64;            // keys per tile (int4: 32 byte rows)
 constexpr int WARPS = NT / 32;
 constexpr int LPR = 16;             // logit lanes per cache row, 8 dims each
 constexpr int RPP = NT / LPR;       // cache rows per logit pass
-constexpr uint16_t BF16_ONE = 0x3F80;
 static_assert(TILE == 64, "the softmax takes two keys per lane");
 
 template <int F>
@@ -112,27 +116,6 @@ __host__ __device__ constexpr int tile_bytes() {
 }
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-// 16 bytes global -> shared; zero-filled and nothing read when !live
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool live) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float bf16_bits(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
 
 // One (row, kv head)'s cache of one kind: the prompt or the gen cache.
 struct Keys {

@@ -470,7 +470,7 @@ def _layer_cache(cache: Params, li: int) -> Params:
 
 
 def _decode_attend(q, prompt_l, prompt_seg, gen_l, gen_valid, attn_impl,
-                   beam_k=1, beam_route="fold", bias_p=None, bias_g=None):
+                   beam_k=1, beam_route="auto", bias_p=None, bias_g=None):
     """K4, or K5 for beams (ops/decode_attention.py); the plain version when
     the route is "plain" (named, or "auto" at a head dim other than 128) or
     a bias comes with the step (the kernels carry none)."""
@@ -534,7 +534,7 @@ def decode_step(
     step: int,  # decode step = gen slot to write
     attn_impl: str = "auto",
     beam_k: int = 1,
-    beam_route: str = "fold",
+    beam_route: str = "auto",
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step: (fp32 logits (B, V), gen cache). The new token's KV
     goes to gen slot `step` (lockstep across rows); its position (RoPE,
@@ -553,8 +553,8 @@ def decode_step(
 
     beam_k > 1 (ops/beam.py): token_embeds, positions and the gen cache carry
     B*K beam rows while the prompt cache and prompt_seg stay at B item rows;
-    row r attends prompt row r // K, through K5 (beam_route "fold") or K4's
-    beam mode ("grid")."""
+    row r attends prompt row r // K, through K5 (beam_route "fold"), K4's
+    beam mode ("grid"), or the one `auto_beam_route` picks ("auto")."""
     b = token_embeds.shape[0]
     if beam_k < 1 or b % beam_k or prompt_seg.shape[0] * beam_k != b:
         raise ValueError(f"decode_step: {b} rows are not beam_k={beam_k} "
@@ -607,7 +607,7 @@ def _w4_mm(attn_impl: str, head_dim: int):
 
 def _decode_step_w4(params, cfg, token_embeds, prompt_cache, prompt_seg,
                     gen_cache, step, cos, sin, gen_valid, attn_impl,
-                    beam_k=1, beam_route="fold"):
+                    beam_k=1, beam_route="auto"):
     """decode_step over packed-int4 layer stacks: all 7 layer matmuls go
     through K6 or, above W4_GEMV_MAX_ROWS rows, K7
     (ops/w4_matmul.w4_decode_matmul) on (B, K) rows and attention through

@@ -168,7 +168,7 @@ def generate_beam(
     attn_impl: str = "auto",
     kv_quant=False,
     mesh=None,
-    beam_route: str = "fold",
+    beam_route: str = "auto",
     stats: Optional[Dict[str, Any]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam-search decode: (tokens (B, max_new) int32, num_generated (B,)).
@@ -178,7 +178,8 @@ def generate_beam(
     hypothesis. `num_generated` counts content tokens (a trailing eos
     excluded), the contract of `generate_greedy`. Rows with prompt length 0
     are dead rows that return empty hypotheses. `beam_route` picks the
-    decode-attention kernel of the beams (K5 "fold", K4 "grid"). `stats`,
+    decode-attention kernel of the beams (K5 "fold", K4 "grid", or "auto":
+    ops/decode_attention.auto_beam_route). `stats`,
     when given, receives "steps" (loop iterations) and "best_scores" ((B,)
     penalized score of each returned hypothesis)."""
     if num_beams < 2:

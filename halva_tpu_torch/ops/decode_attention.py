@@ -28,10 +28,11 @@ split and merge in plain ops, for the tests and `chip_smoke.py`.
 
 Beams (`beam_k` > 1): q, the gen cache and gen_valid carry B*K rows while
 the prompt cache, its scales and segment ids stay at B item rows; row r
-reads prompt row r // K. By default the K beams of an item fold into one
-K5 launch (`fold_attend_layer`, per-beam gen stage), which reads the
-item's prompt cache once; `beam_route="grid"` keeps K4's own beam mode
-(counters decode_attn*_beam), which reads it once per beam.
+reads prompt row r // K. `beam_route="fold"` folds the K beams of an item
+into one K5 launch (`fold_attend_layer`, per-beam gen stage), which reads
+the item's prompt cache once; `"grid"` takes K4's own beam mode (counters
+decode_attn*_beam), which reads it once per beam; `"auto"` (the default)
+picks by `auto_beam_route`, from the shapes alone.
 
 K5, `fold_attend_layer`: K queries per item, (B, K, H, Dh), against the
 item's prompt cache, then either each beam's own gen cache row (beam
@@ -39,13 +40,15 @@ search) or, with `shared_gen`, one gen cache row per item plus K fresh
 candidate keys and values attended causally (speculative verify). Counters
 fold_attn, fold_attn_kv8, fold_attn_kv4 and the same with `_shared`. Its
 plain version, `fold_attend_plain`, gives 0 for a row with no visible key,
-as the kernel does.
+as the kernel does. K5 splits the key axis by `fold_plan` and merges the
+splits in the same launch; `fold_attend_split_plain` is that split and
+merge in plain ops, for the tests and `chip_smoke.py`.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +69,15 @@ NEG_INF = -1e30
 TILE = 64
 BLOCKS_PER_SM = 3
 M_INIT = -1e29  # the kernel's running max before any visible key
+LOG2E = 1.4426950408889634
+# K5's blocks (csrc/fold_attn.cu): query rows per block (the mma's 16), and
+# the blocks per SM its plan aims at (a split plan's blocks run a three-stage
+# ring, 87-107 KB of shared memory: two fit on an SM)
+FOLD_ROWS = 16
+FOLD_BLOCKS_PER_SM = 2
+BEAM_ROUTES = ("auto", "fold", "grid")
+# `auto_beam_route`: K5 above this many bytes of a layer's prompt cache
+FOLD_MIN_PROMPT_BYTES = 25_000_000
 
 Cache = Dict[str, torch.Tensor]
 Plan = Tuple[int, int]  # (splits, prompt tiles per split)
@@ -112,6 +124,84 @@ def split_ranges(plan: Plan, sp: int, sg: int) -> List[List[Tuple[str, int,
         if z == splits - 1 and sg:
             mine.append(("gen", 0, sg))
         out.append(mine)
+    return out
+
+
+class FoldPlan(NamedTuple):
+    """K5's launch plan (`fold_plan`): the grid is (KVH, items * chunks,
+    psplits + gsplits)."""
+    chunks: int   # blocks of up to FOLD_ROWS query rows per (item, kv head)
+    beams: int    # beams a chunk holds (per-beam stage)
+    psplits: int  # prompt splits, tps 64-key tiles each
+    tps: int
+    gsplits: int  # gen splits: 0 (the last split takes the gen spans), one
+    #               per beam of a chunk (per-beam stage) or 1 (shared stage)
+
+    @property
+    def splits(self) -> int:
+        return self.psplits + self.gsplits
+
+
+def fold_plan(items: int, kvh: int, rows: int, group: int, sp: int, sg: int,
+              sms: int, shared_gen: bool,
+              splits: Optional[int] = None) -> FoldPlan:
+    """K5's launch plan, a pure function of the shapes and the SM count.
+    `rows` = K * G query rows per (item, kv head), `group` = G. A block
+    carries up to FOLD_ROWS of them (a chunk: every beam of the item up to
+    16 rows, else 16 / G beams). The prompt is cut into `psplits` ranges of
+    `tps` 64-key tiles, so an int4 boundary falls on an even token; the gen
+    spans take splits of their own: one per beam of the chunk in the
+    per-beam stage (only that beam's G rows see it), one for the shared gen
+    span and the candidates in the shared stage. The prompt splits aim at
+    FOLD_BLOCKS_PER_SM blocks on every SM (`splits` forces another aim);
+    where the work items alone fill the card the plan is one split, which
+    takes every span. No prompt split is empty."""
+    fold_k = rows // group
+    chunks = _cdiv(rows, FOLD_ROWS)
+    beams = fold_k if rows <= FOLD_ROWS else FOLD_ROWS // group
+    ptiles, gtiles = _cdiv(sp, TILE), _cdiv(sg, TILE)
+    want = splits if splits is not None else _cdiv(
+        FOLD_BLOCKS_PER_SM * sms, items * kvh * chunks)
+    if want < 1:
+        raise ValueError(f"fold_plan: splits={want}")
+    gsplits = 1 if shared_gen else (beams if gtiles else 0)
+    if want == 1 or (gsplits == 0 and ptiles <= 1):
+        return FoldPlan(chunks, beams, 1, ptiles, 0)
+    psplits = min(ptiles, want)
+    tps = _cdiv(ptiles, psplits) if psplits else 0
+    return FoldPlan(chunks, beams, _cdiv(ptiles, tps) if tps else 0, tps,
+                    gsplits)
+
+
+def fold_split_ranges(plan: FoldPlan, sp: int, sg: int, fold_k: int,
+                      shared_gen: bool) -> List[List[List[tuple]]]:
+    """The key ranges of every split of every chunk under `plan`, in the
+    kernel's order: ("prompt", first token, end), ("gen", beam, 0, sg) (beam
+    None: the shared gen row) and ("cand",) (the candidates, shared stage)."""
+    out = []
+    for c in range(plan.chunks):
+        j0 = c * plan.beams
+        j1 = min(fold_k, j0 + plan.beams)
+        chunk = []
+        for z in range(plan.splits):
+            mine = []
+            if z < plan.psplits:
+                lo = z * plan.tps * TILE
+                hi = min((z + 1) * plan.tps * TILE, sp)
+                if lo < hi:
+                    mine.append(("prompt", lo, hi))
+            if (z == plan.splits - 1 if plan.gsplits == 0
+                    else z >= plan.psplits):
+                if shared_gen:
+                    mine += [("gen", None, 0, sg)] if sg else []
+                    mine.append(("cand",))
+                else:
+                    first = j0 if plan.gsplits == 0 else j0 + z - plan.psplits
+                    last = j1 if plan.gsplits == 0 else min(first + 1, j1)
+                    mine += [("gen", j, 0, sg) for j in range(first, last)
+                             if sg]
+            chunk.append(mine)
+        out.append(chunk)
     return out
 
 
@@ -294,7 +384,7 @@ def decode_attend_split_plain(
                      gen_valid)}
     kvh = kp.shape[1]
     qs = q[:, 0].reshape(b, kvh, h // kvh, dh).float() * (
-        dh**-0.5 * 1.4426950408889634)
+        dh**-0.5 * LOG2E)
 
     def values(t):  # the cache as q's dtype would hold it, computed in fp32
         return t.to(q.dtype).float()
@@ -401,6 +491,94 @@ def fold_attend_plain(
     return out.reshape(b, kq, h, dh).to(q.dtype)
 
 
+
+def fold_attend_split_plain(
+    q: torch.Tensor,  # (B, K, H, Dh)
+    prompt_cache_l: Cache,
+    prompt_seg: torch.Tensor,
+    gen_cache_l: Cache,
+    gen_valid: torch.Tensor,
+    fold_k: int,
+    plan: FoldPlan,
+    shared_gen: bool = False,
+    candidates: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """K5's split and merge in plain ops: the function of
+    `fold_attend_plain`, computed as the kernel computes it under `plan`
+    (`fold_plan`). Query row r = beam * G + g of an item lies in chunk r //
+    FOLD_ROWS; each key range of the chunk's splits (`fold_split_ranges`)
+    gives an fp32 partial of those rows (max of the visible logits in the
+    exp2 domain, or M_INIT; denominator; accumulator of probability times v
+    scale times V), the ranges of a split merge into its partial and the
+    splits merge in split order, as `decode_attend_split_plain` does for
+    K4. The cache values convert to q's dtype, the probabilities stay fp32,
+    and a row with no visible key gives 0."""
+    b, kq, h, dh = q.shape
+    sp, sg = prompt_seg.shape[1], gen_valid.shape[1]
+    kp, vp, kps, vps = _prompt_tokens(prompt_cache_l, sp)
+    kvh = kp.shape[1]
+    grp = h // kvh
+    rows = kq * grp
+    live_p = prompt_seg != 0
+    qs = (q.reshape(b, kq, kvh, grp, dh).permute(0, 2, 1, 3, 4)
+          .reshape(b, kvh, rows, dh).float() * (dh**-0.5 * LOG2E))
+    kg, vg = gen_cache_l["k"], gen_cache_l["v"]
+    kgs, vgs = gen_cache_l.get("k_scale"), gen_cache_l.get("v_scale")
+    beam_of = torch.arange(rows, device=q.device) // grp
+
+    def values(t):  # the cache as q's dtype would hold it, computed in fp32
+        return t.to(q.dtype).float()
+
+    def gen_row(t, j):  # beam j's gen row of every item (None: the shared one)
+        if t is None or j is None:
+            return t
+        return t.reshape(b, kq, *t.shape[1:])[:, j]
+
+    def partial(rs, span):
+        """(max, denominator, accumulator) of rows rs over one key range."""
+        qr = qs[:, :, rs]
+        if span[0] == "prompt":
+            lo, hi = span[1:]
+            k, v = kp[:, :, lo:hi], vp[:, :, lo:hi]
+            ks = None if kps is None else kps[:, :, lo:hi]
+            vs = None if vps is None else vps[:, :, lo:hi]
+            vis = live_p[:, None, None, lo:hi]
+        elif span[0] == "gen":
+            j = span[1]
+            k, v, ks, vs = (gen_row(t, j) for t in (kg, vg, kgs, vgs))
+            vis = gen_row(gen_valid, j)[:, None, None, :]
+            if j is not None:  # only beam j's rows see its gen row
+                vis = vis & (beam_of[rs] == j)[None, None, :, None]
+        else:
+            k, v = (t.transpose(1, 2) for t in candidates)
+            ks = vs = None
+            cand = torch.arange(kq, device=q.device)
+            vis = (cand[None, :] <= beam_of[rs][:, None])[None, None]
+        s = torch.einsum("bnrd,bnkd->bnrk", qr, values(k))
+        if ks is not None:
+            s = s * ks[:, :, None, :].float()
+        m = torch.where(vis, s, M_INIT).amax(-1).clamp_min(M_INIT)
+        p = torch.where(vis, torch.exp2(s - m[..., None]), 0.0)
+        pw = p if vs is None else torch.where(
+            vis, p * vs[:, :, None, :].float(), 0.0)
+        return m, p.sum(-1), torch.einsum("bnrk,bnkd->bnrd", pw, values(v))
+
+    out = []
+    for c, chunk in enumerate(fold_split_ranges(plan, sp, sg, fold_k,
+                                                shared_gen)):
+        rs = slice(c * FOLD_ROWS, min(rows, (c + 1) * FOLD_ROWS))
+        n = rs.stop - rs.start
+        empty = (torch.full((b, kvh, n), M_INIT, device=q.device),
+                 torch.zeros((b, kvh, n), device=q.device),
+                 torch.zeros((b, kvh, n, dh), device=q.device))
+        splits = [_merge([empty] + [partial(rs, r) for r in ranges
+                                    if r[0] != "cand" or candidates])
+                  for ranges in chunk]
+        _, den, acc = _merge(splits)
+        out.append(torch.where(den[..., None] > 0, acc / den[..., None], 0.0))
+    o = torch.cat(out, dim=2).reshape(b, kvh, kq, grp, dh)
+    return o.permute(0, 2, 1, 3, 4).reshape(b, kq, h, dh).to(q.dtype)
+
 def _mode(prompt_cache_l: Cache, gen_cache_l: Cache) -> str:
     gen8 = "k_scale" in gen_cache_l
     if "k4" in prompt_cache_l and gen8:
@@ -487,9 +665,12 @@ def fold_attend_layer(
     fold_k: int,
     shared_gen: bool = False,
     candidates: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
     """(B, K, H, Dh) attention output of K queries per item for one layer
-    (K5); see `fold_attend_plain` for the function computed."""
+    (K5); see `fold_attend_plain` for the function computed. `splits`
+    forces the aim of K5's plan (`fold_plan`) instead of the SM count's;
+    the function computed is the same."""
     if q.device.type == "cpu":
         return fold_attend_plain(q, prompt_cache_l, prompt_seg, gen_cache_l,
                                  gen_valid, fold_k, shared_gen, candidates)
@@ -504,12 +685,24 @@ def fold_attend_layer(
         "fold_attend_layer", q, prompt_cache_l, prompt_seg, gen_cache_l,
         gen_valid, b, b if shared_gen else b * fold_k, extra)
     kvh, sg = kp.shape[1], kg.shape[2]
+    sp = prompt_seg.shape[1]
     if any(t.shape != (b, fold_k, kvh, d) for t in extra):
         raise ValueError("fold_attend_layer: candidates must be "
                          f"{(b, fold_k, kvh, d)}, got "
                          f"{[tuple(t.shape) for t in extra]}")
     name = FOLD[mode] + (SHARED_SUFFIX if shared_gen else "")
+    grp = h // kvh
+    plan = fold_plan(b, kvh, fold_k * grp, grp, sp, sg, sm_count(q.device),
+                     shared_gen, splits)
+    work = b * plan.chunks * kvh
+    if plan.splits > 1 and work > _kernels.MAX_TICKETS:
+        raise ValueError(f"fold_attend_layer: {work} (item, chunk, kv head) "
+                         f"work items exceed {_kernels.MAX_TICKETS} tickets")
     o = torch.empty_like(q)
+    # per split: fp32 accumulator (16 x D), running max and denominator (16)
+    part = torch.empty(work * plan.splits * FOLD_ROWS * (d + 2)
+                       if plan.splits > 1 else 0,
+                       dtype=torch.float32, device=q.device)
     ptr = [t.data_ptr() for t in scales] or [None] * 4
     cand = [t.data_ptr() for t in extra] or [None, None]
     fmt = (KERNEL, KERNEL_KV8, KERNEL_KV4).index(mode)
@@ -519,13 +712,33 @@ def fold_attend_layer(
             fmt, q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ptr[0], ptr[1],
             prompt_seg.data_ptr(), kg.data_ptr(), vg.data_ptr(), ptr[2],
             ptr[3], gen_valid.data_ptr(), cand[0], cand[1], o.data_ptr(),
-            b, fold_k, h, kvh, prompt_seg.shape[1], sp_rows, sg, d,
-            int(shared_gen), float(d**-0.5),
+            part.data_ptr(), _kernels.tickets(q.device).data_ptr(),
+            b, fold_k, h, kvh, sp, sp_rows, sg, d, int(shared_gen),
+            plan.psplits, plan.tps, plan.gsplits, float(d**-0.5),
             torch.cuda.current_stream().cuda_stream,
         )
     _kernels.check(err, name)
     _kernels.launches[name] += 1
     return o
+
+
+def auto_beam_route(prompt_cache_l: Cache, prompt_seg: torch.Tensor,
+                    beam_k: int) -> str:
+    """The beam route `beam_route="auto"` takes, from the shapes alone (the
+    reference has no such choice, and no route changes a token): K5
+    ("fold") where the layer's prompt cache (values and scales) outgrows
+    FOLD_MIN_PROMPT_BYTES, half the H100's 50 MB L2, so that K4's beam mode
+    would read it from device memory once per beam; K4's beam mode
+    ("grid") below that, where its re-reads come from the L2, and for a
+    beam count K5 does not take (2..8). Measured on the card
+    (`chip_smoke.py --fold-only`): K5 wins at 4 items of bf16 caches and at
+    80 items in every format, K4's beam mode at 4 items of int8 and int4
+    caches and under GQA."""
+    if not 2 <= beam_k <= 8:
+        return "grid"
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in prompt_cache_l.values())
+    return "fold" if nbytes > FOLD_MIN_PROMPT_BYTES else "grid"
 
 
 def decode_attend_layer(
@@ -535,16 +748,17 @@ def decode_attend_layer(
     gen_cache_l: Cache,
     gen_valid: torch.Tensor,
     beam_k: int = 1,
-    beam_route: str = "fold",
+    beam_route: str = "auto",
     splits: Optional[int] = None,
 ) -> torch.Tensor:
     """(B, 1, H, Dh) attention output of one decode step for one layer.
     beam_k > 1: B = items * beam_k rows against an items-row prompt cache,
-    through K5 (`beam_route="fold"`) or K4's beam mode ("grid"). `splits`
-    forces the aim of K4's plan (`decode_plan`) instead of the SM count's;
-    the function computed is the same."""
-    if beam_route not in ("fold", "grid"):
-        raise ValueError(f"beam_route must be 'fold' or 'grid', got "
+    through K5 (`beam_route="fold"`), K4's beam mode ("grid"), or the one
+    `auto_beam_route` picks from the shapes ("auto"). `splits` forces the
+    aim of the kernel's plan (`decode_plan` or `fold_plan`) instead of the
+    SM count's; the function computed is the same."""
+    if beam_route not in BEAM_ROUTES:
+        raise ValueError(f"beam_route must be one of {BEAM_ROUTES}, got "
                          f"{beam_route!r}")
     if q.device.type == "cpu":
         return decode_attend_plain(
@@ -554,10 +768,12 @@ def decode_attend_layer(
     if one != 1 or beam_k < 1 or b % beam_k:
         raise ValueError(f"decode_attend_layer: q {tuple(q.shape)} must be "
                          f"(B, 1, H, Dh) with B a multiple of beam_k={beam_k}")
+    if beam_route == "auto":
+        beam_route = auto_beam_route(prompt_cache_l, prompt_seg, beam_k)
     if beam_k > 1 and beam_route == "fold":
         out = fold_attend_layer(
             q.reshape(b // beam_k, beam_k, h, d), prompt_cache_l, prompt_seg,
-            gen_cache_l, gen_valid, fold_k=beam_k)
+            gen_cache_l, gen_valid, fold_k=beam_k, splits=splits)
         return out.reshape(b, 1, h, d)
     mode, kp, vp, kg, vg, scales, sp_rows = _kernel_inputs(
         "decode_attend_layer", q, prompt_cache_l, prompt_seg, gen_cache_l,

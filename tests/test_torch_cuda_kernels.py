@@ -15,8 +15,9 @@ flash_attention_bwd_plain, which rounds P and dS to bf16 where the kernels
 do: |got - plain| <= 2e-2 * (max|plain| + |plain|) on live rows, and the
 relative norm of the difference <= 2e-3 (the bf16 output rounding, plus a
 P or dS element whose fp32 value differs in its last bits between the two
-and rounds to the neighbouring bf16 value). K5 and K4's beam mode share
-K4's span code and its bound. K1, K2 and K3 in their ALiBi, sliding-window
+and rounds to the neighbouring bf16 value). K5 rounds probability times v
+scale to bf16 for its tensor-core PV product, as K1 does: the same bound,
+for it and K4's beam mode. K1, K2 and K3 in their ALiBi, sliding-window
 and q_offset modes are held to the same bounds. K7 and K8 (the M-tiled
 GEMMs over packed int4 and int8 weights) sum bf16 products in fp32 like
 their plain versions; a grouped K7 rounds nibble * scale to bf16 first (the
@@ -228,8 +229,9 @@ def test_fold_attn_per_beam_and_k4_beam_mode_match_plain(cuda, mode, k, h,
     assert _kernels.launches[GRID_NAMES[mode]] == before.get(
         GRID_NAMES[mode], 0) + 1
     _close(grid, decode_attend_plain(q1, pc, seg, gc, gen_valid, beam_k=k))
-    # the default beam route is K5
-    routed = decode_attend_layer(q1, pc, seg, gc, gen_valid, beam_k=k)
+    # the fold route is K5
+    routed = decode_attend_layer(q1, pc, seg, gc, gen_valid, beam_k=k,
+                                 beam_route="fold")
     assert _kernels.launches[FOLD_NAMES[mode]] == before.get(
         FOLD_NAMES[mode], 0) + 2
     assert torch.equal(routed.reshape(b, k, h, d), got)
@@ -273,6 +275,27 @@ def test_fold_attn_shared_gen_with_candidates_matches_plain(cuda, mode, k, h,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 12])
+def test_auto_beam_route_decodes_any_beam_count(cuda, k):
+    """beam_route="auto" (the default) takes the route auto_beam_route
+    names, and a beam count K5 does not take (K > 8) goes to K4's beam
+    mode instead of raising."""
+    from halva_tpu_torch.ops.decode_attention import auto_beam_route
+
+    b, h, sp, sg, d = 2, 8, 301, 128, 128
+    pc, gc = _fold_caches(cuda, "bf16", b, b * k, h, sp, sg, d)
+    q = torch.randn(b * k, 1, h, d, generator=cuda, device="cuda").bfloat16()
+    seg = torch.ones(b, sp, dtype=torch.int32, device="cuda")
+    gv = torch.ones(b * k, sg, dtype=torch.bool, device="cuda")
+    route = auto_beam_route(pc, seg, k)
+    name = "fold_attn" if route == "fold" else "decode_attn_beam"
+    before = _kernels.launches[name]
+    got = decode_attend_layer(q, pc, seg, gc, gv, beam_k=k)
+    assert _kernels.launches[name] == before + 1
+    _close(got, decode_attend_plain(q, pc, seg, gc, gv, beam_k=k))
+
+
+@pytest.mark.cuda
 def test_fold_attn_refuses_what_it_does_not_take(cuda):
     b, k, h, sp, sg, d = 2, 4, 8, 40, 128, 128
     q = torch.randn(b, k, h, d, generator=cuda, device="cuda").bfloat16()
@@ -287,6 +310,118 @@ def test_fold_attn_refuses_what_it_does_not_take(cuda):
         fold_attend_layer(q, pc, seg, gc, gv[:b], fold_k=k)
     with pytest.raises(ValueError, match="one CUDA device"):
         fold_attend_layer(q, pc, seg.cpu(), gc, gv, fold_k=k)
+
+
+# name: (k, h, kvh, shared_gen): R = K*G = 4 (MHA, 4 beams), 8 (8 candidates),
+# 16 (GQA G=4, 4 beams: Mistral's heads)
+FOLD_SPLIT_CASES = {"mha_k4": (4, 8, 8, False), "shared_k8": (8, 8, 8, True),
+                    "gqa_g4_k4": (4, 8, 2, False)}
+
+
+def _fold_split_inputs(gen, mode, k, h, kvh, shared, items=3, sp=301, sg=128,
+                       d=128):
+    """K5's inputs for its key-axis split: an odd prompt length; item 0 with
+    prompt tile [64, 128) masked; item 1 with an empty gen cache; the last
+    item with no visible prompt or gen key (per-beam stage: its rows come
+    out as 0); garbage in the scales of every masked key."""
+    q = torch.randn(items, k, h, d, generator=gen, device="cuda").bfloat16()
+    gen_rows = items if shared else items * k
+    pc, gc = _fold_caches(gen, mode, items, gen_rows, kvh, sp, sg, d)
+    seg = torch.ones(items, sp, dtype=torch.int32, device="cuda")
+    seg[0, 64:128] = 0
+    seg[0, 250:] = 0
+    seg[-1] = 0
+    steps = torch.randint(0, sg - k, (gen_rows,), generator=gen,
+                          device="cuda")
+    gen_valid = torch.arange(sg, device="cuda")[None, :] <= steps[:, None]
+    per = gen_rows // items
+    gen_valid[per:2 * per] = False
+    gen_valid[-per:] = False
+    cand = None
+    if shared:
+        cand = tuple(torch.randn(items, k, kvh, d, generator=gen,
+                                 device="cuda").bfloat16() for _ in range(2))
+    if mode != "bf16":
+        dead = seg == 0
+        if mode == "kv4":  # token t's scale sits at plane t % 2, row t // 2
+            s2 = pc["v_scale"].shape[-1]
+            dead = torch.nn.functional.pad(dead, (0, 2 * s2 - sp), value=True)
+            dead = dead.reshape(items, s2, 2).permute(0, 2, 1)[:, :, None, :]
+        else:
+            dead = dead[:, None, :]
+        pc["v_scale"][dead.expand_as(pc["v_scale"])] = float("nan")
+        gc["v_scale"][~gen_valid[:, None, :].expand_as(gc["v_scale"])] = (
+            float("inf"))
+    return q, pc, seg, gc, gen_valid, cand
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [1, 2, 3, 5, None])
+@pytest.mark.parametrize("case", list(FOLD_SPLIT_CASES))
+@pytest.mark.parametrize("mode", ["bf16", "kv8", "kv4"])
+def test_fold_attn_split_plans_match_plain(cuda, mode, case, forced):
+    """K5 under forced plans (1, 2, 3 and 5 splits, and the SM count's) at
+    R = 4, 8 and 16 rows a block, against fold_attend_split_plain under the
+    same plan and against fold_attend_plain."""
+    from halva_tpu_torch.ops.decode_attention import (
+        fold_attend_split_plain, fold_plan, sm_count)
+
+    k, h, kvh, shared = FOLD_SPLIT_CASES[case]
+    q, pc, seg, gc, gv, cand = _fold_split_inputs(cuda, mode, k, h, kvh,
+                                                  shared)
+    items = q.shape[0]
+    plan = fold_plan(items, kvh, k * h // kvh, h // kvh, seg.shape[1],
+                     gv.shape[1], sm_count(q.device), shared, forced)
+    name = FOLD_NAMES[mode] + ("_shared" if shared else "")
+    before = _kernels.launches[name]
+    got = fold_attend_layer(q, pc, seg, gc, gv, fold_k=k, shared_gen=shared,
+                            candidates=cand, splits=forced)
+    assert _kernels.launches[name] == before + 1
+    assert torch.isfinite(got).all()
+    want = fold_attend_plain(q, pc, seg, gc, gv, fold_k=k, shared_gen=shared,
+                             candidates=cand)
+    _close(got, want)
+    _close(got, fold_attend_split_plain(q, pc, seg, gc, gv, k, plan,
+                                        shared_gen=shared, candidates=cand))
+    if not shared:  # the last item sees no key at all
+        assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FOLD_SPLIT_CASES))
+@pytest.mark.parametrize("mode", ["bf16", "kv4"])
+def test_fold_attn_split_is_deterministic_and_graph_capturable(cuda, mode,
+                                                               case):
+    """Two K5 calls give the same bits (the splits merge in split order, no
+    float atomics, the tickets are left at 0), one call captured in a CUDA
+    graph and replayed gives the eager call's bits, and each call counts one
+    launch."""
+    k, h, kvh, shared = FOLD_SPLIT_CASES[case]
+    q, pc, seg, gc, gv, cand = _fold_split_inputs(cuda, mode, k, h, kvh,
+                                                  shared)
+    name = FOLD_NAMES[mode] + ("_shared" if shared else "")
+
+    def call():
+        return fold_attend_layer(q, pc, seg, gc, gv, fold_k=k,
+                                 shared_gen=shared, candidates=cand,
+                                 splits=4)
+
+    before = _kernels.launches[name]
+    first, again = call(), call()
+    assert _kernels.launches[name] == before + 2
+    assert torch.equal(first, again)
+    assert int(_kernels.tickets(q.device).abs().sum()) == 0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
 
 
 def _split_inputs(gen, mode, items, beam_k, h, kvh, sp=301, sg=128, d=128):

@@ -227,7 +227,7 @@ def test_cpu_wrappers_are_the_plain_versions():
         fold_attend_layer(tq, pc, tseg, gc, tgv, fold_k=3),
         fold_attend_plain(tq, pc, tseg, gc, tgv, fold_k=3), rtol=0, atol=0)
     q1 = tq.reshape(6, 1, 8, D)
-    for route in ("fold", "grid"):
+    for route in ("auto", "fold", "grid"):
         torch.testing.assert_close(
             decode_attend_layer(q1, pc, tseg, gc, tgv, beam_k=3,
                                 beam_route=route),
@@ -266,7 +266,7 @@ def test_argument_checks():
                           candidates=(tq[:, :, :4], tq[:, :, :4]))
     with pytest.raises(ValueError, match="beam_route"):
         decode_attend_layer(tq.reshape(4, 1, 4, D), pc, tseg, gc, tgv,
-                            beam_k=2, beam_route="auto")
+                            beam_k=2, beam_route="folded")
     with pytest.raises(ValueError, match="beam_k=3"):
         decode_attend_plain(tq.reshape(4, 1, 4, D), pc, tseg, gc, tgv,
                             beam_k=3)

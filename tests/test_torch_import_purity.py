@@ -96,9 +96,9 @@ def test_sources_name_the_reference_package_only_as_paths():
 
 def test_decode_kernels_are_hand_written():
     """K4's and K5's CUDA sources call no library either; both take the
-    cache formats from the shared header, K5 the header's span loop, K4 its
-    own staged tile loop (cp.async) with the one-launch merge of its key
-    splits (a ticket, no float atomics)."""
+    cache formats and the cp.async copies from the shared header, and each
+    runs its own staged tile loop with the one-launch merge of its key
+    splits (a ticket, no float atomics); K5's products are mma.sync."""
     csrc = os.path.join(PKG, "csrc")
     library = re.compile(r"cublas|cudnn|cutlass|torch|#include <(?!cuda_bf16|"
                          r"cuda_runtime|stdint)")
@@ -110,11 +110,14 @@ def test_decode_kernels_are_hand_written():
             assert '#include "decode_common.cuh"' in code, name
     fold = open(os.path.join(csrc, "fold_attn.cu")).read()
     assert "fold_attn_kernel" in fold and 'extern "C" int halva_fold_attn' in fold
-    assert "attend_span<" in fold
+    assert "cp_async16(" in fold and "mma_16816(" in fold
+    assert "atomicAdd(&a.tickets[work], 1)" in fold
     k4 = open(os.path.join(csrc, "decode_attn.cu")).read()
-    assert "attend_span<" not in k4 and "cp.async" in k4
+    assert "cp_async16(" in k4
     assert "atomicAdd(&tickets[head], 1)" in k4
-    assert not re.search(r"atomicAdd\((?!&tickets)", k4)
+    for src in (k4, fold):
+        assert not re.search(r"atomicAdd\((?!&(a\.)?tickets)", src)
+    assert "cp.async" in open(os.path.join(csrc, "decode_common.cuh")).read()
 
 
 def test_flash_kernels_are_hand_written_and_deterministic():
