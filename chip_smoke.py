@@ -75,6 +75,15 @@ builds the kernels, runs only K5's checks and timings (both stages, every
 mode, MHA and GQA, forced key-axis plans, K4's beam route beside it at B=4
 and at batch 80, the route "auto" takes) and prints their rows.
 
+    python3 chip_smoke.py --gemm-only
+
+builds the kernels, runs only the checks and timings of K7 and K8 (every
+row count, each line with its launch plan; forced split plans at CLIP's
+tower shape and at batch 80; the wrappers' host time per call on each
+path) and the batch-80 int4g decode step on a fresh random tree: two
+builds of csrc/dq_gemm.cu are compared by running this script from each
+tree in turn on one card (an older tree prints no plans).
+
     python3 chip_smoke.py --quant-only
 
 runs only the quantized-base part (the checks of K7 and K8, the int8
@@ -109,6 +118,7 @@ from halva_tpu_torch.config import (
 from halva_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from halva_tpu_torch.models import llama, llava
 from halva_tpu_torch.models.llava import LlavaModel
+from halva_tpu_torch.ops import int8_matmul as int8_ops
 from halva_tpu_torch.ops import quant, w4_matmul
 from halva_tpu_torch.ops.attention import (
     alibi_in_kernel,
@@ -1480,6 +1490,7 @@ MISTRAL_W4_SHAPES = ((4096, 1024), (4096, 14336), (14336, 4096))
 GEMM_ROWS = (9, 16, 32, 80, 2492, 4348)  # ragged; beams, verify, batch 80;
 # prefill (B=4 x 623) and the train step's pos+neg forward (4 x 1087)
 TRAIN_ROWS = 2 * TRAIN_SPLICED  # one forward of the micro-batch: dx's rows
+TOWER_ROWS = 4 * CLIP_VIT_L_336.num_positions  # 4 images of tower tokens
 
 
 def gemm_within(got: torch.Tensor, want: torch.Tensor):
@@ -1489,6 +1500,19 @@ def gemm_within(got: torch.Tensor, want: torch.Tensor):
               and rel_err(got, want) <= GEMM_REL
               and torch.isfinite(got).all())
     return ok, float(diff.max()), rel_err(got, want)
+
+
+def gemm_plan_text(m: int, k: int, n: int, row_bytes: int) -> str:
+    """The launch plan csrc/dq_gemm.cu gets for this call, "" for a tree
+    whose gemm_plan has no path (--gemm-only also times older trees)."""
+    if not hasattr(int8_ops, "GemmPlan"):
+        return ""
+    p = int8_ops.gemm_plan(m, k, n, row_bytes)
+    return f" [{p.path}, {p.splits} x {p.tps} K tiles]"
+
+
+SUMMARY_ROWS = (80, TOWER_ROWS, 2492)  # the wgmma path's rows in the summary
+HOST_CALLS = 200  # calls behind the wrappers' host time
 
 
 def check_w4_gemm(gen: torch.Generator) -> dict:
@@ -1502,6 +1526,7 @@ def check_w4_gemm(gen: torch.Generator) -> dict:
     layers = 4
     worst = 0.0
     timing = None
+    summary = []
     for k, n in W4_SHAPES + MISTRAL_W4_SHAPES:
         np_ = n // 2
         timed_shape = (k, n) in W4_SHAPES
@@ -1522,7 +1547,8 @@ def check_w4_gemm(gen: torch.Generator) -> dict:
                     good, e, r = gemm_within(got, want)
                     ok, err, rel = ok and good, max(err, e), max(rel, r)
                     del got, want
-                line = (f"w4_gemm M={m} K={k} N={n} G={groups}: max_abs_err "
+                line = (f"w4_gemm M={m} K={k} N={n} G={groups}"
+                        f"{gemm_plan_text(m, k, n, np_)}: max_abs_err "
                         f"{err:.3e} rel {rel:.3e} (limits {GEMM_RTOL}*(max|"
                         f"plain|/4 + |plain|), rel {GEMM_REL})")
                 if timed_shape and groups > 1:
@@ -1554,6 +1580,9 @@ def check_w4_gemm(gen: torch.Generator) -> dict:
                     if (k, n, m) == (4096, 11008, 16):
                         timing = {"ms": ms, "plain_ms": plain_ms,
                                   "library_ms": lib_ms, **lim}
+                    if m in SUMMARY_ROWS:
+                        summary.append((f"K7 {k}x{n} g={W4_GROUP}", m, ms,
+                                        plain_ms, lib_ms, lim))
                 print(line + f" {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError("w4_gemm disagrees with its plain "
@@ -1581,7 +1610,7 @@ def check_w4_gemm(gen: torch.Generator) -> dict:
     return {"name": "w4_gemm", "route": "cuda",
             "source": "halva_tpu_torch/csrc/dq_gemm.cu",
             "replaces": "halva_tpu/ops/w4_matmul.py:313",
-            "max_abs_err": worst, **timing}
+            "max_abs_err": worst, **timing, "summary": summary}
 
 
 # (K, N) of the int8 tree's denses: the LLM's three, lm_head, the projector's
@@ -1589,7 +1618,6 @@ def check_w4_gemm(gen: torch.Generator) -> dict:
 W8_SHAPES = W4_SHAPES + ((4096, 32000), (1024, 4096), (1024, 1024),
                          (4096, 1024))
 W8_ROWS = (4, 80, 2492)
-TOWER_ROWS = 4 * CLIP_VIT_L_336.num_positions  # 4 images of tower tokens
 
 
 def check_int8_matmul(gen: torch.Generator) -> dict:
@@ -1602,6 +1630,7 @@ def check_int8_matmul(gen: torch.Generator) -> dict:
     layers = 4
     worst = 0.0
     timing = None
+    summary = []
     for k, n in W8_SHAPES:
         q = torch.randint(-127, 128, (layers, k, n), generator=gen,
                           device=dev, dtype=torch.int8)
@@ -1631,7 +1660,8 @@ def check_int8_matmul(gen: torch.Generator) -> dict:
             w8a8_ms = device_ms(lambda: walk(quant.int8_dense)) / layers
             lim = bound(k * n + n * 2 + tensor_bytes(x) + m * n * 2,
                         2 * m * k * n)
-            print(f"int8_matmul M={m} K={k} N={n}: max_abs_err {err:.3e} rel "
+            print(f"int8_matmul M={m} K={k} N={n}"
+                  f"{gemm_plan_text(m, k, n, n)}: max_abs_err {err:.3e} rel "
                   f"{rel:.3e} (limits {GEMM_RTOL}*(max|plain|/4 + |plain|), "
                   f"rel {GEMM_REL}); kernel {ms:.4f} ms "
                   f"({2 * m * k * n / ms / 1e9:.1f} TFLOP/s, "
@@ -1647,11 +1677,97 @@ def check_int8_matmul(gen: torch.Generator) -> dict:
             if (k, n, m) == (4096, 11008, 4):
                 timing = {"ms": ms, "plain_ms": plain_ms,
                           "library_ms": lib_ms, **lim}
+            if m in SUMMARY_ROWS:
+                summary.append((f"K8 {k}x{n}", m, ms, plain_ms, lib_ms, lim))
         del q, sc
     return {"name": "int8_matmul", "route": "cuda",
             "source": "halva_tpu_torch/csrc/dq_gemm.cu",
             "replaces": "halva_tpu/ops/int8_matmul.py:24",
-            "max_abs_err": worst, **timing}
+            "max_abs_err": worst, **timing, "summary": summary}
+
+
+def gemm_summary(checked: list) -> None:
+    """One line per K7 / K8 call above 32 rows at 80, 2,308 and 2,492 rows:
+    ms, bound, plain version, dequantize + torch.matmul."""
+    for kern in checked:
+        for what, m, ms, plain_ms, lib_ms, lim in kern["summary"]:
+            print(f"{kern['name']} above 32 rows, {what} at M={m}: kernel "
+                  f"{ms:.4f} ms, bound {lim['bound_ms']:.4f} ms by "
+                  f"{lim['bound_by']} ({lim['bound_ms'] / ms:.1%} of it), "
+                  f"plain {plain_ms:.4f} ms, dequantize + torch.matmul "
+                  f"{lib_ms:.4f} ms ({lib_ms / ms:.2f}x the kernel's time)")
+
+
+def gemm_plan_sweep(gen: torch.Generator) -> None:
+    """K8 at CLIP's fc2 (4096 x 1024) at the tower's rows and K7 gate/up
+    (g=128) at batch 80, each under forced K-split plans beside its own
+    plan; then the wrappers' host time per call on the mma.sync path (32
+    rows) and on the TMA + wgmma path (80 rows: two tensor maps encoded per
+    call). Needs a tree whose gemm_plan has paths."""
+    if not hasattr(int8_ops, "GemmPlan"):
+        print("gemm plans: this tree's gemm_plan has no paths; not swept")
+        return
+    dev, layers = "cuda", 4
+    cases = []
+    k, n = 4096, 1024
+    q = torch.randint(-127, 128, (layers, k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    sc = (torch.rand(layers, n, generator=gen, device=dev) * 0.002
+          + 0.0005).bfloat16()
+    cases.append(("K8", 0, TOWER_ROWS, k, n, q, sc, 1, (1, 3, 5, 8)))
+    k, n = W4_SHAPES[1]
+    w = torch.randint(-128, 128, (layers, k, n // 2), generator=gen,
+                      device=dev, dtype=torch.int8)
+    s4 = (torch.rand(layers, 2, k // W4_GROUP, n // 2, generator=gen,
+                     device=dev) * 0.02 + 0.005).bfloat16()
+    cases.append(("K7", 1, BATCH80, k, n, w, s4, k // W4_GROUP, (1, 2, 3, 6)))
+    for what, mode, m, k, n, wt, st, groups, forced in cases:
+        x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+        own = int8_ops.gemm_plan(m, k, n, wt.shape[-1])
+        want = int8_ops.launch_dq_gemm(mode, "sweep", x, wt[0], st[0], n,
+                                       groups)
+        parts = []
+        for want_splits in sorted(set(forced) | {own.splits}):
+            splits, tps = int8_ops.split_k(k // int8_ops.TILE_K,
+                                           want_splits)
+            plan = own._replace(splits=splits, tps=tps)
+
+            def walk():
+                for li in range(layers):
+                    int8_ops.launch_dq_gemm(mode, "sweep", x, wt[li], st[li],
+                                            n, groups, plan)
+
+            got = int8_ops.launch_dq_gemm(mode, "sweep", x, wt[0], st[0], n,
+                                          groups, plan)
+            if not gemm_within(got, want)[0]:
+                raise AssertionError(f"{what} under plan {plan} disagrees "
+                                     "with its own plan")
+            ms = device_ms(walk) / layers
+            mark = " (its plan)" if plan == own else ""
+            parts.append(f"{plan.splits} x {plan.tps}{mark} {ms:.4f} ms")
+        print(f"gemm plans, {what} M={m} K={k} N={n}: " + ", ".join(parts))
+    _kernels.launches.pop("sweep", None)
+    k, n = W4_SHAPES[0]
+    w = torch.randint(-128, 128, (k, n // 2), generator=gen, device=dev,
+                      dtype=torch.int8)
+    s4 = (torch.rand(2, k // W4_GROUP, n // 2, generator=gen, device=dev)
+          * 0.02 + 0.005).bfloat16()
+    host = {}
+    small = int8_ops.SMALL_M
+    for m in (small, BATCH80):
+        x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+        for _ in range(10):
+            w4_gemm(x, w, s4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            w4_gemm(x, w, s4)
+        host[m] = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+        torch.cuda.synchronize()
+    print(f"gemm host time per w4_gemm call (wq, {HOST_CALLS} calls, "
+          f"enqueue only): {host[small]:.1f} us at {small} rows "
+          f"(mma.sync path), {host[BATCH80]:.1f} us at {BATCH80} rows (TMA "
+          f"+ wgmma path, two tensor maps encoded per call)")
 
 
 def make_inputs(cfg):
@@ -3017,10 +3133,22 @@ def main() -> None:
     if sys.argv[1:] == ["--fold-only"]:
         print(json.dumps({"fold_kernels": check_fold(gen)}))
         return
+    if sys.argv[1:] == ["--gemm-only"]:
+        checked = [check_w4_gemm(gen), check_int8_matmul(gen)]
+        gemm_summary(checked)
+        gemm_plan_sweep(gen)
+        q4 = quantize_int4g(new_tree(LLAVA_V15_7B, "llava-v1.5-7b"))
+        run_batch80(q4, LLAVA_V15_7B)
+        keys = ("name", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "library_ms")
+        print(json.dumps({"gemm_kernels": [{k: kern[k] for k in keys}
+                                           for kern in checked]}))
+        return
     quant_only = sys.argv[1:] == ["--quant-only"]
     if sys.argv[1:] and not quant_only:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     checked = [check_w4_gemm(gen), check_int8_matmul(gen)]
+    gemm_summary(checked)
     if not quant_only:
         checked = flash_checks(gen) + [
             check_decode(gen), *check_decode_quant(gen), *check_fold(gen),

@@ -21,39 +21,60 @@
 // most 2^-9 relative per weight, inside the stated tolerance. A K tile (64
 // rows) lies in one scale group, so gs must be a multiple of 64.
 //
-// What bounds it on an H100. At decode-family M (16 to 80 rows) the weight
-// bytes: every packed byte is read once for all rows, where K6 reads them
-// once per 8-row chunk. At prefill and train M (thousands of rows) the
-// tensor-core rate of mma.sync. The design is one tiled loop for both:
-//   - K does not stay whole per block (the TPU kernel holds (K, bnp) in VMEM):
-//     a block owns BM rows and BN output channels (for K7 BN/2 packed
-//     columns: channels j .. and N/2 + j .. of one packed tile) and walks K
-//     in tiles of 64 through a ring of cp.async stages holding the bf16 x
-//     tile and the raw weight tile;
-//   - each stage's raw tile is converted once per block into a bf16 tile in
-//     shared memory, several values per instruction: int4 by the magic
-//     number trick (nibble ^ 8 ored into the mantissa of bf16 128.0, minus
-//     136.0, two values per __hsub2; no I2F, K6's cost per nibble), int8
-//     through the mantissa of fp32 2^23; the warps then read it with
-//     ldmatrix.trans as the B operand of mma.sync m16n8k16 (bf16, fp32 sums);
-//   - up to 32 rows the tile is 32 rows x 256 channels (warps 1 x 8), so
-//     that a block reads row segments of 128 (K7) or 256 (K8) bytes: with
-//     128 channels (64-byte segments of packed int4) the 7B gate matmul at
-//     16 rows took 0.0430 ms against 0.0382 on an NVIDIA H100 80GB HBM3 at
-//     700 W; above, 128 rows x 128 channels (warps 2 x 4, 64 x 32 per warp);
-//     rows past M load as zeros and are never stored;
-//   - small M must fill the card: K is split across blocks (the plan is made
-//     by the Python wrapper), each split writes its fp32 partial tile, and
-//     the last block of a tile to finish (a ticket taken with atomicAdd after
-//     a __threadfence) sums the partials in split order, scales and writes y:
-//     deterministic, one launch, no float atomics. It resets its ticket.
-// Measured on that card: at 16 rows 5-6x the byte bound (each K tile costs a
-// block 2.1-2.5 us whatever its bytes, and ~10 us are fixed), 2.6x faster
-// than K6 there; at 2,492 rows ~237 TFLOP/s, 5 % slower than dequantize +
-// cuBLAS. Not done yet (later work): finding what a K tile waits for, wgmma
-// with the converted tile as its shared memory operand, TMA loads, a
-// producer warp, a persistent grid.
+// Conversion, on both paths: int4 by the magic number (nibble ^ 8 ored into
+// the mantissa of bf16 128.0, minus 136.0, two values per __hsub2; no I2F),
+// int8 through the mantissa of fp32 2^23. K does not stay whole per block
+// (the TPU kernel holds (K, bnp) in VMEM): a block walks K in tiles of 64
+// rows through a ring of stages. Where the output tiles leave SMs idle, K is
+// split across blocks (the plan is the Python wrapper's, ops/int8_matmul.py:
+// gemm_plan); each split writes its fp32 partial tile and the last block of
+// a tile to finish (a ticket taken with atomicAdd after a __threadfence)
+// sums the partials in split order, scales and writes y: deterministic, one
+// launch, no float atomics. It resets its ticket.
+//
+// Two paths, chosen by the plan.
+//   - Up to 32 rows (decode-family M, bound by the weight bytes: every
+//     packed byte is read once for all rows): 32 rows x 256 channels, eight
+//     warps; cp.async stages of the x tile and the raw tile, a conversion
+//     pass into a bf16 tile between two barriers, ldmatrix.trans and
+//     mma.sync m16n8k16. Also every launch whose weight rows are not a
+//     multiple of 16 bytes (TMA's stride rule), at any M.
+//   - Above 32 rows (K7 at batch 80, K8 at prefill and tower rows): 128 rows
+//     x 256 channels, warp specialised. Stamped with clock64, the old
+//     128-row loop spent a K tile (~2.1 us) on the copy issue, the
+//     conversion and the mma.sync issue one after another on the same eight
+//     warps, waiting for no copy (scripts/dq_gemm_phases.py). Here one
+//     producer warp (registers lowered by setmaxnreg) keeps TMA loads of the
+//     x tile (128-byte swizzle: rows past M arrive as zeros, no copy issued)
+//     and the raw tile (and, for K7 with G > 1, the tile's group of scales)
+//     in flight in a ring of 5 (int8) or 6 (int4) stages, each with a full
+//     and an empty mbarrier. Two consumer warpgroups own 128 channels each
+//     (K7: the low and the high nibbles of the same 128 packed columns);
+//     each converts its half of the raw tile, 16 bytes a store, into its
+//     own bf16 tile in wgmma's 128-byte-swizzled N-major layout (two
+//     buffers), then issues wgmma m64n128k16 with A = the x tile (K-major)
+//     and B = that tile (trans-b), one group in flight: converting tile i+1
+//     overlaps the tensor work on tile i, and no barrier spans the two
+//     warpgroups. A block whose second 64 rows lie past M issues one m64
+//     tile, not two. The fp32 sums stay in registers; the epilogue scales
+//     (K8, K7 G = 1) and stores bf16 rows below M. A split plan's last
+//     block reads the partials back through TMA (a third tensor map) in
+//     units of 32 rows x 256 channels, six in flight in the freed ring:
+//     summed with per-thread loads, one SM was bound by the loads it could
+//     keep in flight. Tensor maps are encoded on the host per launch
+//     (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint: the library
+//     needs no -lcuda) and passed as __grid_constant__ parameters. What
+//     bounds a tile now is its conversion, which shares shared memory with
+//     the wgmma operand reads; at 80 rows the 128-row tile also computes 48
+//     rows of zeros (scripts/dq_gemm_phases.py stamps both loops).
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py
+// --gemm-only; more in PERF.md section 6): K8 gate/up (4096 x 11008) at
+// 2,492 rows 0.48 ms, dequantize + torch.matmul 0.54, the 128-row mma.sync
+// loop before 0.96; K7 g=128 at 80 rows 0.029 / 0.041 / 0.044 ms for wq /
+// gate/up / down (before: 0.045 / 0.074 / 0.077), 5-10x their byte bounds;
+// up to 32 rows K7 gate/up at 16 rows 0.039 ms, 5.5x its byte bound.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -382,6 +403,574 @@ dq_gemm_kernel(const __nv_bfloat16* __restrict__ x,
   if (tid == 0) tickets[tile] = 0;
 }
 
+// ---------------------------------------------------------------------------
+// Above SMALL_M rows: TMA loads, a producer warp, wgmma on the converted tile.
+
+constexpr int WS_BM = 128;        // rows per block: two m64 wgmma tiles
+constexpr int WS_BN = 256;        // output channels per block
+constexpr int WS_CH = 128;        // channels of one consumer warpgroup
+constexpr int WS_THREADS = 288;   // two consumer warpgroups + the producer warp
+constexpr int WS_X_BYTES = WS_BM * BK * 2;    // one bf16 x tile, 16 KB
+constexpr int WS_CONV_BYTES = BK * WS_CH * 2;  // one converted tile, 16 KB
+constexpr int WS_ATOM_BYTES = BK * 128;  // 64 channels x 64 K rows of it
+constexpr int WS_SUM_ROWS = 32;  // rows of a unit of the split sum
+constexpr int WS_SUM_BYTES = WS_SUM_ROWS * WS_BN * 4;  // fp32, 32 KB
+constexpr int WS_SUM_BUFS = 6;  // units of it in flight
+
+template <int MODE>
+struct WsShape {
+  static constexpr int RAWB = MODE == W8 ? WS_BN : WS_BN / 2;  // bytes/K row
+  static constexpr int RAW_BYTES = BK * RAWB;
+  // K7 with G > 1: a stage also holds the scales of its group, both halves
+  static constexpr int SCALE_BYTES = MODE == W4_GROUPED ? 2 * 128 * 2 : 0;
+  static constexpr int STAGES = MODE == W8 ? 5 : 6;
+  static constexpr int STAGE_BYTES = WS_X_BYTES + RAW_BYTES + SCALE_BYTES;
+  // 1 KB of slack to align the swizzled tiles to 1024 bytes
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES +
+                              4 * WS_CONV_BYTES +
+                              (2 * STAGES + WS_SUM_BUFS) * 8;
+  // the split sum's buffers of 64 partial rows x 256 channels (fp32) reuse
+  // the x, converted and raw tiles
+  static_assert(STAGES * STAGE_BYTES + 4 * WS_CONV_BYTES >=
+                    WS_SUM_BUFS * WS_SUM_BYTES,
+                "split-sum buffers");
+};
+// a block's shared memory: 227 KB less the 1 KB of static shared memory
+// the 1024-byte alignment costs
+static_assert(WsShape<W8>::SMEM <= 232448 - 1024 &&
+              WsShape<W4_GROUPED>::SMEM <= 232448 - 1024,
+              "shared memory of one block");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// a 2-D box of `map` at (c0 innermost, c1) into shared memory; its bytes
+// complete a transaction of `bar`. Out-of-range elements arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// a wgmma shared-memory operand in the 128-byte swizzle: start address,
+// leading and stride byte offsets (PTX ISA, matrix descriptor format)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | uint64_t(1) << 62;
+}
+
+// d (64 x 128 fp32, the warpgroup's fragment) += A (64 x 16 bf16, K-major in
+// shared memory) * B (16 x 128 bf16, N-major in shared memory: trans-b = 1)
+__device__ __forceinline__ void wgmma_128(float d[64], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// 8 raw int4 values of one nibble half (`shift` 0: low, 4: high) of the
+// packed words v0, v1 (biased by the xor with 0x88888888) as 8 bf16: value
+// + 8 or-ed into the mantissa of bf16 128.0, minus 136.0, two per __hsub2;
+// times the group's scales (pairs (0, 2), (1, 3) of each word) if GROUPED
+template <bool GROUPED>
+__device__ __forceinline__ uint4 int4x8_to_bf16(uint32_t v0, uint32_t v1,
+                                                int shift, uint4 sc) {
+  constexpr uint32_t MASK = 0x000F000Fu, ONE28 = 0x43004300u;
+  constexpr uint32_t BIAS = 0x43084308u;  // bf16 136.0 twice
+  uint32_t out[4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t u = (h ? v1 : v0) >> shift;
+    uint32_t v02 = bf2_sub((u & MASK) | ONE28, BIAS);
+    uint32_t v13 = bf2_sub(((u >> 8) & MASK) | ONE28, BIAS);
+    if (GROUPED) {
+      const uint32_t lo = h ? sc.z : sc.x, hi = h ? sc.w : sc.y;
+      v02 = bf2_mul(v02, __byte_perm(lo, hi, 0x5410));
+      v13 = bf2_mul(v13, __byte_perm(lo, hi, 0x7632));
+    }
+    out[2 * h] = __byte_perm(v02, v13, 0x5410);
+    out[2 * h + 1] = __byte_perm(v02, v13, 0x7632);
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// 8 int8 values (biased by the xor with 0x80808080) as 8 bf16
+__device__ __forceinline__ uint4 int8x8_to_bf16(uint32_t v0, uint32_t v1) {
+  return make_uint4(
+      pack_bf16(s8_to_float(v0, 0x7440), s8_to_float(v0, 0x7441)),
+      pack_bf16(s8_to_float(v0, 0x7442), s8_to_float(v0, 0x7443)),
+      pack_bf16(s8_to_float(v1, 0x7440), s8_to_float(v1, 0x7441)),
+      pack_bf16(s8_to_float(v1, 0x7442), s8_to_float(v1, 0x7443)));
+}
+
+// One consumer warpgroup (128 threads, `wg` 0 or 1) of a block: MT m64 tiles
+// (1 when the block's second 64 rows are all past M) by this warpgroup's 128
+// channels. It waits for a stage, converts its half of the raw tile into its
+// own bf16 tile, waits for its previous wgmma group, and issues the next:
+// converting tile i+1 overlaps the tensor work on tile i. Then the epilogue.
+template <int MODE, int MT>
+__device__ __forceinline__ void ws_consume(
+    int wg, uint32_t xs, uint32_t cs, const unsigned char* raw,
+    const unsigned char* scales, uint32_t bars, const CUtensorMap* pmap,
+    const __nv_bfloat16* __restrict__ s,
+    __nv_bfloat16* __restrict__ y, float* __restrict__ partial,
+    int* __restrict__ tickets, int* is_last, int M, int K, int N, int G,
+    int splits, int kt0, int nkt) {
+  using S = WsShape<MODE>;
+  constexpr bool W4 = MODE != W8;
+  const int wtid = threadIdx.x & 127, lane = threadIdx.x & 31;
+  // this thread converts 8 bytes (K8: 8 channels; K7: 8 packed columns, of
+  // which warpgroup 0 takes the low nibbles and 1 the high) of K rows
+  // rw + 8 j into 16 bytes of its warpgroup's tile: 64-channel atom
+  // wc / 8, 16-byte chunk (wc % 8) xor (r % 8) (the 128-byte swizzle)
+  const int wc = wtid & 15;
+  const int rw = wtid >> 4;
+  const int LD = W4 ? N / 2 : N;
+  const int c0 = blockIdx.x * S::RAWB;
+  const int m0 = blockIdx.y * WS_BM;
+  const uint32_t full = bars, empty = bars + 8 * S::STAGES;
+  const int dst0 = (wc >> 3) * WS_ATOM_BYTES;
+  const int chunk = wc & 7;
+  const int pair = MODE == W8 ? wg * 16 + wc : wc;  // raw 8-byte column
+  const int shift = wg * 4;
+
+
+  float acc[MT][64];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[mt][e] = 0.f;
+
+  for (int i = 0; i < nkt; ++i) {
+    const int st = i % S::STAGES;
+    mbar_wait(full + 8 * st, (i / S::STAGES) & 1);
+    // K7 with G > 1: the 8 scales of this thread's channels, of its half
+    const uint4 sc =
+        MODE == W4_GROUPED
+            ? *reinterpret_cast<const uint4*>(
+                  scales + st * S::SCALE_BYTES + (wg * 128 + 8 * wc) * 2)
+            : make_uint4(0u, 0u, 0u, 0u);
+    const uint2* wr = reinterpret_cast<const uint2*>(raw + st * S::RAW_BYTES);
+    unsigned char* cv = reinterpret_cast<unsigned char*>(
+        __cvta_shared_to_generic(cs + (i & 1) * WS_CONV_BYTES));
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const int r = rw + 8 * j;
+      const uint2 v = wr[r * (S::RAWB / 8) + pair];
+      const uint4 out =
+          W4 ? int4x8_to_bf16<MODE == W4_GROUPED>(
+                   v.x ^ 0x88888888u, v.y ^ 0x88888888u, shift, sc)
+             : int8x8_to_bf16(v.x ^ 0x80808080u, v.y ^ 0x80808080u);
+      *reinterpret_cast<uint4*>(cv + dst0 + r * 128 +
+                                ((chunk ^ (r & 7)) << 4)) = out;
+    }
+    // the converted tile is read by wgmma (the async proxy); the previous
+    // group is done on every warp of the warpgroup once it passes the
+    // barrier, so that group's x stage is released and the converted tile
+    // it read is free for tile i + 1
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    named_sync(1 + wg, 128);
+    if (i > 0 && wtid == 0) mbar_arrive(empty + 8 * ((i - 1) % S::STAGES));
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const uint32_t xa = xs + st * WS_X_BYTES;
+    const uint32_t cb = cs + (i & 1) * WS_CONV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // B: 16 K rows (two 8-row groups, SBO apart) by two 64-channel atoms
+      // (LBO apart); A: 32 bytes further along each 128-byte x row
+      const uint64_t db = sw128_desc(cb + kk * 16 * 128, WS_ATOM_BYTES, 1024);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        wgmma_128(acc[mt], sw128_desc(xa + mt * 64 * 128 + kk * 32, 16, 1024),
+                  db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+
+  // fragment e of an m64n128 tile: row 16 (warp % 4) + lane / 4 + 8 ((e / 2)
+  // % 2), column 8 (e / 4) + 2 (lane % 4) + e % 2 of the warpgroup's channels
+  const int row0 = m0 + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  // output channel of column c of this warpgroup's 128 (false past the edge)
+  auto channel = [&](int c, int& n) {
+    if (W4) {
+      n = wg * LD + c0 + c;
+      return c0 + c < LD;
+    }
+    n = c0 + wg * WS_CH + c;
+    return n < N;
+  };
+  auto scale_of = [&](int n) {
+    return MODE == W4_GROUPED ? 1.f : __bfloat162float(s[n]);
+  };
+
+  if (splits == 1) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      int n;
+      if (!channel(8 * j + col0, n)) continue;
+      const float s0 = scale_of(n), s1 = scale_of(n + 1);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + 64 * mt + 8 * h;
+          if (r < M)
+            *reinterpret_cast<uint32_t*>(y + (long)r * N + n) =
+                pack_bf16(acc[mt][4 * j + 2 * h] * s0,
+                          acc[mt][4 * j + 2 * h + 1] * s1);
+        }
+    }
+    return;
+  }
+
+  float* mine = partial + (long)blockIdx.z * M * N;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    int n;
+    if (!channel(8 * j + col0, n)) continue;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 64 * mt + 8 * h;
+        if (r < M)
+          *reinterpret_cast<float2*>(mine + (long)r * N + n) = make_float2(
+              acc[mt][4 * j + 2 * h], acc[mt][4 * j + 2 * h + 1]);
+      }
+  }
+  __threadfence();  // this block's partials reach L2 before its ticket
+  named_sync(3, 2 * 128);
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0)
+    *is_last = atomicAdd(&tickets[tile], 1) == splits - 1;
+  named_sync(3, 2 * 128);
+  if (!*is_last) return;
+  if (threadIdx.x == 0) tickets[tile] = 0;  // every block has taken its own
+  // The last block sums the partials in split order, whichever block it is.
+  // TMA brings them into shared memory (the ring and the converted tiles
+  // are free now) in units of 32 rows x 256 channels, one split at a time,
+  // WS_SUM_BUFS units in flight; a unit all past M is skipped, and rows
+  // past M in the others arrive as zeros and cost no bytes. Warp w of the
+  // 8 sums row-segments q * 8 + w of a unit (row (q * 8 + w) / 2, channel
+  // half w % 2), 4 channels a lane, and stores rows below M.
+  const uint32_t sbars = bars + 16 * WsShape<MODE>::STAGES;
+  // every split of rows 0-31, then of 32-63, ... up to the last row below M
+  const int units =
+      (min(M - m0, 64 * MT) + WS_SUM_ROWS - 1) / WS_SUM_ROWS * splits;
+  auto load_unit = [&](int u) {
+    const int b = u % WS_SUM_BUFS;
+    const uint32_t buf = xs + b * WS_SUM_BYTES, bar = sbars + 8 * b;
+    mbar_expect_tx(bar, WS_SUM_BYTES);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      tma_load_3d(buf + h * (WS_SUM_BYTES / 2), pmap, bar,
+                  W4 ? h * LD + c0 : c0 + h * WS_CH,
+                  m0 + WS_SUM_ROWS * (u / splits), u % splits);
+  };
+  if (threadIdx.x == 0) {
+    // the other blocks' partials were written through the generic proxy
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    for (int u = 0; u < WS_SUM_BUFS && u < units; ++u) load_unit(u);
+  }
+  const int cw = threadIdx.x >> 5;
+  const int half = cw & 1;
+  const int n = W4 ? half * LD + c0 + 4 * lane : c0 + half * WS_CH + 4 * lane;
+  const bool live = W4 ? c0 + 4 * lane < LD : n < N;
+  float sv[4] = {1.f, 1.f, 1.f, 1.f};
+  if (MODE != W4_GROUPED && live) {
+    const uint2 v = *reinterpret_cast<const uint2*>(s + n);
+    sv[0] = __uint_as_float(v.x << 16);
+    sv[1] = __uint_as_float(v.x & 0xFFFF0000u);
+    sv[2] = __uint_as_float(v.y << 16);
+    sv[3] = __uint_as_float(v.y & 0xFFFF0000u);
+  }
+  constexpr int Q = WS_SUM_ROWS * 2 / 8;  // row-segments of a unit per warp
+  float4 sum[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) sum[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int u = 0; u < units; ++u) {
+    mbar_wait(sbars + 8 * (u % WS_SUM_BUFS), (u / WS_SUM_BUFS) & 1);
+    const float4* b = reinterpret_cast<const float4*>(__cvta_shared_to_generic(
+        xs + (u % WS_SUM_BUFS) * WS_SUM_BYTES + half * (WS_SUM_BYTES / 2)));
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const float4 p = b[((q * 8 + cw) >> 1) * 32 + lane];
+      sum[q].x += p.x;
+      sum[q].y += p.y;
+      sum[q].z += p.z;
+      sum[q].w += p.w;
+    }
+    named_sync(3, 2 * 128);  // buffer u % WS_SUM_BUFS is read
+    if (threadIdx.x == 0 && u + WS_SUM_BUFS < units)
+      load_unit(u + WS_SUM_BUFS);
+    if (u % splits != splits - 1) continue;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int r = m0 + WS_SUM_ROWS * (u / splits) + ((q * 8 + cw) >> 1);
+      if (live && r < M)
+        *reinterpret_cast<uint2*>(y + (long)r * N + n) =
+            make_uint2(pack_bf16(sum[q].x * sv[0], sum[q].y * sv[1]),
+                       pack_bf16(sum[q].z * sv[2], sum[q].w * sv[3]));
+      sum[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+// grid (channel tiles of WS_BN, row tiles of WS_BM, K splits). Warps 0-7 are
+// the two consumer warpgroups; warp 8 the producer: one thread keeps the TMA
+// loads of the x tile (128-byte swizzle, the wgmma A layout) and the raw
+// weight tile in flight, STAGES ahead, each stage with a full and an empty
+// mbarrier.
+template <int MODE>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+dq_gemm_ws_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap pmap,
+                  const __grid_constant__ CUtensorMap smap,
+                  const __nv_bfloat16* __restrict__ s,
+                  __nv_bfloat16* __restrict__ y, float* __restrict__ partial,
+                  int* __restrict__ tickets, int M, int K, int N, int G,
+                  int splits, int tps) {
+  using S = WsShape<MODE>;
+  extern __shared__ __align__(1024) unsigned char ws_smem[];
+  __shared__ int is_last;
+  const uint32_t raw_base = smem_u32(ws_smem);
+  const uint32_t base = (raw_base + 1023) & ~1023u;
+  const uint32_t xs = base;  // STAGES x tiles
+  const uint32_t cs = xs + S::STAGES * WS_X_BYTES;  // 2 x 2 converted tiles
+  const uint32_t rs = cs + 4 * WS_CONV_BYTES;  // STAGES raw weight tiles
+  const uint32_t ss = rs + S::STAGES * S::RAW_BYTES;  // STAGES scale tiles
+  // full, empty, then the split sum's
+  const uint32_t bars = ss + S::STAGES * S::SCALE_BYTES;
+  const int warp = threadIdx.x >> 5;
+  const int kt0 = blockIdx.z * tps;
+  const int nkt = min(K / BK, kt0 + tps) - kt0;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S::STAGES; ++st) {
+      mbar_init(bars + 8 * st, 1);                   // the producer's arrival
+      mbar_init(bars + 8 * (S::STAGES + st), 2);     // one per warpgroup
+    }
+    for (int b = 0; b < WS_SUM_BUFS; ++b)
+      mbar_init(bars + 16 * S::STAGES + 8 * b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if ((threadIdx.x & 31) == 0) {
+      const int m0 = blockIdx.y * WS_BM, c0 = blockIdx.x * S::RAWB;
+      for (int i = 0; i < nkt; ++i) {
+        const int st = i % S::STAGES;
+        if (i >= S::STAGES)
+          mbar_wait(bars + 8 * (S::STAGES + st), (i / S::STAGES - 1) & 1);
+        const uint32_t full = bars + 8 * st;
+        mbar_expect_tx(full, S::STAGE_BYTES);
+        const int k0 = (kt0 + i) * BK;
+        tma_load_2d(xs + st * WS_X_BYTES, &xmap, full, k0, m0);
+        tma_load_2d(rs + st * S::RAW_BYTES, &wmap, full, c0, k0);
+        if (MODE == W4_GROUPED)  // a K tile lies in one group of K / G rows
+          tma_load_3d(ss + st * S::SCALE_BYTES, &smap, full, c0,
+                      k0 / (K / G), 0);
+      }
+    }
+    return;
+  }
+  const int wg = warp >> 2;
+  const unsigned char* raw = ws_smem + (rs - raw_base);
+  const unsigned char* scales = ws_smem + (ss - raw_base);
+  const uint32_t mine = cs + wg * 2 * WS_CONV_BYTES;
+  if (blockIdx.y * WS_BM + 64 < M)
+    ws_consume<MODE, 2>(wg, xs, mine, raw, scales, bars, &pmap, s, y,
+                        partial, tickets,
+                        &is_last, M, K, N, G, splits, kt0, nkt);
+  else
+    ws_consume<MODE, 1>(wg, xs, mine, raw, scales, bars, &pmap, s, y,
+                        partial, tickets,
+                        &is_last, M, K, N, G, splits, kt0, nkt);
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query, so that the library links without -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major tensor of `rank` dims (innermost first) and row strides in
+// bytes, loaded in boxes of `box`
+int encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+           int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+           const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, type, rank, const_cast<void*>(ptr), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int MODE>
+int launch_ws(cudaStream_t st, const __nv_bfloat16* x, const uint8_t* w,
+              const __nv_bfloat16* s, __nv_bfloat16* y, float* partial,
+              int* tickets, int M, int K, int N, int G, int splits, int tps) {
+  using S = WsShape<MODE>;
+  static uint64_t smem_set = 0;
+  auto kernel = dq_gemm_ws_kernel<MODE>;
+  const int ld = MODE == W8 ? N : N / 2;
+  // x (M, K) bf16 in 128-row x 64 boxes, swizzled for wgmma; w (K, ld)
+  // bytes in 64 x RAWB boxes; the partials (splits, M, N) fp32 in 64-row x
+  // 128-channel boxes, encoded only for a split plan
+  CUtensorMap xmap, wmap, pmap = {};
+  const cuuint64_t xdims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t xstride[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t xbox[2] = {BK, WS_BM};
+  int err = encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 2, xdims,
+                   xstride, xbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  const cuuint64_t wdims[2] = {(cuuint64_t)ld, (cuuint64_t)K};
+  const cuuint64_t wstride[1] = {(cuuint64_t)ld};
+  const cuuint32_t wbox[2] = {S::RAWB, BK};
+  err = encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, 2, wdims, wstride,
+               wbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err) return err;
+  CUtensorMap smap = {};
+  if (MODE == W4_GROUPED) {  // s (2, G, ld) bf16 in boxes of 2 x 1 x 128
+    const cuuint64_t sdims[3] = {(cuuint64_t)ld, (cuuint64_t)G, 2};
+    const cuuint64_t sstride[2] = {(cuuint64_t)ld * 2, (cuuint64_t)G * ld * 2};
+    const cuuint32_t sbox[3] = {128, 1, 2};
+    err = encode(&smap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s, 3, sdims,
+                 sstride, sbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err) return err;
+  }
+  if (splits > 1) {
+    const cuuint64_t pdims[3] = {(cuuint64_t)N, (cuuint64_t)M,
+                                 (cuuint64_t)splits};
+    const cuuint64_t pstride[2] = {(cuuint64_t)N * 4, (cuuint64_t)M * N * 4};
+    const cuuint32_t pbox[3] = {WS_CH, WS_SUM_ROWS, 1};
+    err = encode(&pmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, partial, 3, pdims,
+                 pstride, pbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err) return err;
+  }
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!(smem_set >> dev & 1)) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    smem_set |= uint64_t(1) << dev;
+  }
+  const dim3 grid((N + WS_BN - 1) / WS_BN, (M + WS_BM - 1) / WS_BM, splits);
+  kernel<<<grid, WS_THREADS, S::SMEM, st>>>(xmap, wmap, pmap, smap, s, y,
+                                            partial, tickets, M, K, N, G,
+                                            splits, tps);
+  return (int)cudaGetLastError();
+}
+
 // above 48 KB of dynamic shared memory needs the opt-in, once per kernel and
 // device (the first launch is never inside a CUDA graph capture: the callers
 // warm up first)
@@ -409,8 +998,8 @@ int launch(cudaStream_t st, const __nv_bfloat16* x,
   return (int)cudaGetLastError();
 }
 
-// The two tilings: 32 rows x 256 channels (the weight-bound shape: row
-// segments of 128 packed or 256 int8 bytes) and 128 rows x 128 channels.
+// The two paths: 32 rows x 256 channels (mma.sync; row segments of 128
+// packed or 256 int8 bytes) and 128 rows x 256 channels (TMA + wgmma).
 template <int MODE>
 int launch_mode(int bm, cudaStream_t st, const __nv_bfloat16* x,
                 const uint8_t* w, const __nv_bfloat16* s, __nv_bfloat16* y,
@@ -419,9 +1008,9 @@ int launch_mode(int bm, cudaStream_t st, const __nv_bfloat16* x,
   if (bm == 32)
     return launch<32, 256, 1, 8, MODE, MODE == W8 ? 3 : 4, 2>(
         st, x, w, s, y, partial, tickets, M, K, N, G, splits, tps);
-  if (bm == 128)
-    return launch<128, 128, 2, 4, MODE, 3, 2>(
-        st, x, w, s, y, partial, tickets, M, K, N, G, splits, tps);
+  if (bm == WS_BM)
+    return launch_ws<MODE>(st, x, w, s, y, partial, tickets, M, K, N, G,
+                           splits, tps);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -430,10 +1019,11 @@ int launch_mode(int bm, cudaStream_t st, const __nv_bfloat16* x,
 // mode 0: K8, w (K, N) int8, s (N) bf16. mode 1: K7, w (K, N/2) int8 packed,
 // s (2, G, N/2) bf16 with G scale groups along K (G = 1: per channel).
 // x (M, K) bf16; y (M, N) bf16; partial (splits, M, N) fp32 scratch (unused
-// when splits == 1); tickets: >= ceil(N/bn) * ceil(M/bm) zeroed int32. bm
-// is the row tile, 32 (with bn = 256 channels per block) or 128 (bn = 128);
-// splits * tps covers the K/64 tiles of K with no empty split. Returns a
-// cudaError_t.
+// when splits == 1); tickets: >= ceil(N/256) * ceil(M/bm) zeroed int32. bm
+// is the row tile and picks the path: 32 (mma.sync) or 128 (TMA + wgmma,
+// which needs the weights' row of N (K8) or N/2 (K7) bytes to be a multiple
+// of 16); both take 256 channels per block. splits * tps covers the K/64
+// tiles of K with no empty split. Returns a cudaError_t.
 extern "C" int halva_dq_gemm(int mode, const void* x, const void* w,
                              const void* s, void* y, void* partial,
                              void* tickets, int M, int K, int N, int G,
@@ -445,6 +1035,8 @@ extern "C" int halva_dq_gemm(int mode, const void* x, const void* w,
     return (int)cudaErrorInvalidValue;
   if (mode == 0 ? (N % 8 != 0 || G != 1)
                 : (mode != 1 || N % 16 != 0 || (G > 1 && (K / G) % BK != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (bm == WS_BM && (mode == 0 ? N : N / 2) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);

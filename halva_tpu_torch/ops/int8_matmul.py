@@ -13,7 +13,7 @@ bf16 copy of the weights on every call.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -21,55 +21,95 @@ from halva_tpu_torch import _kernels
 
 KERNEL = "int8_matmul"
 
-# the tiled loop of csrc/dq_gemm.cu, shared with K7 (ops/w4_matmul.w4_gemm)
+# the launch plan of csrc/dq_gemm.cu, shared with K7 (ops/w4_matmul.w4_gemm)
 TILE_K = 64
-SMALL_M = 32  # rows up to which the 32-row tile runs, else the 128-row one
-TILES = {32: 256, 128: 128}  # row tile -> output channels per block
-TARGET_BLOCKS = 264  # two blocks per SM of an H100's 132
+TILE_N = 256  # output channels per block, on both paths
+SMALL_M = 32  # rows up to which the 32-row mma.sync path runs
+WGMMA_M = 128  # row tile of the TMA + wgmma path above SMALL_M
+TMA_STRIDE = 16  # bytes: TMA wants every global row stride a multiple of it
+SM_COUNT = 132  # an H100's SMs: one block each on the wgmma path
+MMA_BLOCKS = 2 * SM_COUNT  # two blocks per SM on the mma.sync path
 MIN_TILES_PER_SPLIT = 4
 MAX_SPLITS = 16
+# a split's cost on the wgmma path: its fp32 partials (m x n x 4 bytes) are
+# written and read back at about PARTIAL_BYTES_PER_S, while a block takes
+# about KTILE_S per K tile (NVIDIA H100 80GB HBM3; chip_smoke.py --gemm-only)
+PARTIAL_BYTES_PER_S = 2.5e12
+KTILE_S = 1.1e-6
+
+
+class GemmPlan(NamedTuple):
+    path: str  # "mma" (32-row tiles, mma.sync) or "wgmma" (128-row, TMA)
+    bm: int  # row tile
+    splits: int  # K splits
+    tps: int  # K tiles per split
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def gemm_plan(m: int, k: int, n: int) -> Tuple[int, int, int]:
-    """Launch plan of the dequantizing GEMM: (row tile, K splits, K tiles
-    per split). While the row and column tiles alone leave SMs idle, K is
-    split until the grid holds about two blocks per SM, each split at least
-    MIN_TILES_PER_SPLIT K tiles and none empty. The splits' fp32 partial
-    tiles are summed in split order by the last block to finish
-    (csrc/dq_gemm.cu)."""
-    bm = 32 if m <= SMALL_M else 128
-    tiles = _cdiv(m, bm) * _cdiv(n, TILES[bm])
-    kt = k // TILE_K
-    splits = max(1, min(TARGET_BLOCKS // tiles, kt // MIN_TILES_PER_SPLIT,
-                        MAX_SPLITS))
+def split_k(kt: int, splits: int) -> Tuple[int, int]:
+    """(splits, tps) with splits * tps covering kt K tiles, none empty."""
     tps = _cdiv(kt, splits)
-    return bm, _cdiv(kt, tps), tps
+    return _cdiv(kt, tps), tps
+
+
+def gemm_plan(m: int, k: int, n: int, row_bytes: int) -> GemmPlan:
+    """Launch plan of the dequantizing GEMM for x (m, k) and n output
+    channels whose weight rows are `row_bytes` long (n for K8, n/2 for K7).
+
+    Above SMALL_M rows the TMA + wgmma path (128 x 256 tiles, one block per
+    SM), unless the weight rows are not a multiple of TMA_STRIDE bytes: those
+    go to the 32-row tiles, which take any M by tiling rows. While the tiles
+    alone leave SMs idle K is split, each split at least MIN_TILES_PER_SPLIT
+    K tiles and none empty: on the mma.sync path until the grid holds about
+    two blocks per SM; on the wgmma path by the split count that finishes
+    first, in K-tile times: a block's K tiles per wave of SM_COUNT blocks,
+    plus the traffic of the partials. The splits' fp32 partial tiles are
+    summed in split order by the last block to finish (csrc/dq_gemm.cu)."""
+    kt = k // TILE_K
+    most = max(1, min(kt // MIN_TILES_PER_SPLIT, MAX_SPLITS))
+    if m <= SMALL_M or row_bytes % TMA_STRIDE:
+        tiles = _cdiv(m, SMALL_M) * _cdiv(n, TILE_N)
+        splits = max(1, min(MMA_BLOCKS // tiles, most))
+        return GemmPlan("mma", SMALL_M, *split_k(kt, splits))
+    tiles = _cdiv(m, WGMMA_M) * _cdiv(n, TILE_N)
+    best, best_cost = (1, kt), _cdiv(tiles, SM_COUNT) * kt
+    if tiles < SM_COUNT:
+        per_split = m * n * 8 / (PARTIAL_BYTES_PER_S * KTILE_S)
+        for want in range(2, most + 1):
+            splits, tps = split_k(kt, want)
+            cost = (_cdiv(tiles * splits, SM_COUNT) * tps
+                    + per_split * splits)
+            if cost < best_cost:
+                best, best_cost = (splits, tps), cost
+    return GemmPlan("wgmma", WGMMA_M, *best)
 
 
 def launch_dq_gemm(mode: int, name: str, x2: torch.Tensor, w: torch.Tensor,
-                   s: torch.Tensor, n: int, groups: int) -> torch.Tensor:
+                   s: torch.Tensor, n: int, groups: int,
+                   plan: Optional[GemmPlan] = None) -> torch.Tensor:
     """One launch of csrc/dq_gemm.cu on checked 2-D inputs: mode 0 = K8,
-    1 = K7. Counts the launch under `name`."""
+    1 = K7. Counts the launch under `name`. `plan` replaces gemm_plan's (for
+    measuring other plans)."""
     m, k = x2.shape
-    bm, splits, tps = gemm_plan(m, k, n)
-    tiles = _cdiv(m, bm) * _cdiv(n, TILES[bm])
-    if splits > 1 and tiles > _kernels.MAX_TICKETS:
+    if plan is None:
+        plan = gemm_plan(m, k, n, w.shape[-1])
+    tiles = _cdiv(m, plan.bm) * _cdiv(n, TILE_N)
+    if plan.splits > 1 and tiles > _kernels.MAX_TICKETS:
         raise ValueError(f"{name}: {tiles} tiles exceed "
                          f"{_kernels.MAX_TICKETS}")
     y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    partial = torch.empty((splits if splits > 1 else 0, m, n),
+    partial = torch.empty((plan.splits if plan.splits > 1 else 0, m, n),
                           dtype=torch.float32, device=x2.device)
     tickets = _kernels.tickets(x2.device)
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels.lib().halva_dq_gemm(
             mode, x2.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(),
-            partial.data_ptr(), tickets.data_ptr(), m, k, n, groups, bm,
-            splits, tps, stream,
+            partial.data_ptr(), tickets.data_ptr(), m, k, n, groups, plan.bm,
+            plan.splits, plan.tps, stream,
         )
     _kernels.check(err, name)
     _kernels.launches[name] += 1

@@ -710,11 +710,19 @@ def _w4_weights(gen, k, np_, groups):
     return w, s
 
 
+# rows: the mma.sync path (up to 32), then the TMA + wgmma path: its first
+# row (33), one m64 tile full (64), a 128-row tile one short of full (127)
+# and one row into the next (129), batch 80, prefill (2492)
+GEMM_ROWS = [9, 16, 32, 33, 64, 80, 127, 129, 300, 2492]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,np_,groups", [
     (4096, 2048, 1), (4096, 2048, 32), (4096, 5504, 32), (11008, 2048, 86),
-    (4096, 512, 32), (14336, 2048, 112), (256, 72, 2)])
-@pytest.mark.parametrize("m", [9, 16, 32, 80, 300])
+    (4096, 512, 32), (14336, 2048, 112), (256, 72, 2),
+    # N = 2080: not a multiple of the 256-channel tile, on the wgmma path
+    (1024, 1040, 1), (1024, 1040, 8)])
+@pytest.mark.parametrize("m", GEMM_ROWS)
 def test_w4_gemm_matches_plain(cuda, m, k, np_, groups):
     w, s = _w4_weights(cuda, k, np_, groups)
     x = torch.randn(m, k, generator=cuda, device="cuda").bfloat16()
@@ -773,8 +781,8 @@ def test_w4_gemm_refuses_what_it_does_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008), (11008, 4096),
                                  (4096, 32000), (1024, 4096), (1024, 1024),
-                                 (4096, 1024), (128, 72)])
-@pytest.mark.parametrize("m", [4, 80, 577])
+                                 (4096, 1024), (128, 72), (1024, 1040)])
+@pytest.mark.parametrize("m", [4, 33, 64, 80, 127, 129, 577, 2492])
 def test_int8_matmul_matches_plain(cuda, m, k, n):
     q = torch.randint(-127, 128, (k, n), generator=cuda, device="cuda",
                       dtype=torch.int8)
@@ -787,6 +795,58 @@ def test_int8_matmul_matches_plain(cuda, m, k, n):
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     _gemm_close(got, int8_matmul_plain(x, q, scale))
     assert torch.equal(got, int8_matmul(x, q, scale.reshape(-1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,groups", [(0, 1), (1, 1), (1, 16)])
+@pytest.mark.parametrize("m", [33, 80, 300])
+def test_dq_gemm_plans_agree_and_repeat_bitwise(cuda, mode, groups, m):
+    """K8 and K7 (per-channel and grouped scales) under forced plans: the
+    wgmma path with 1, 3 and 5 K splits and the mma.sync path beside it
+    agree with the plain version, and each split plan gives the same bits
+    on every run (the last block sums the partials in split order)."""
+    from halva_tpu_torch.ops.int8_matmul import (GemmPlan, TILE_K,
+                                                 launch_dq_gemm, split_k)
+
+    k, n = 2048, 2080  # N: not a multiple of the 256-channel tile
+    if mode == 0:
+        w = torch.randint(-127, 128, (k, n), generator=cuda, device="cuda",
+                          dtype=torch.int8)
+        s = (torch.rand(n, generator=cuda, device="cuda") * 0.002
+             + 0.0005).bfloat16()
+        want = int8_matmul_plain
+    else:
+        w, s = _w4_weights(cuda, k, n // 2, groups)
+        want = w4_gemm_plain
+    x = torch.randn(m, k, generator=cuda, device="cuda").bfloat16()
+    plain = want(x, w, s)
+    for path, bm in (("wgmma", 128), ("mma", 32)):
+        for splits in (1, 3, 5):
+            plan = GemmPlan(path, bm, *split_k(k // TILE_K, splits))
+            got = launch_dq_gemm(mode, "plans", x, w, s, n, groups, plan)
+            _gemm_close(got, plain)
+            assert torch.equal(got, launch_dq_gemm(mode, "plans", x, w, s,
+                                                   n, groups, plan))
+    _kernels.launches.pop("plans")
+
+
+@pytest.mark.cuda
+def test_dq_gemm_stride_rule_runs_every_shape(cuda):
+    """Weight rows that are no multiple of 16 bytes (TMA's stride rule) go
+    to the 32-row tiles at any M; the wgmma path refuses them."""
+    from halva_tpu_torch.ops.int8_matmul import GemmPlan, launch_dq_gemm
+
+    k, n = 128, 72
+    q = torch.randint(-127, 128, (k, n), generator=cuda, device="cuda",
+                      dtype=torch.int8)
+    scale = (torch.rand(n, generator=cuda, device="cuda") * 0.002
+             + 0.0005).bfloat16()
+    x = torch.randn(577, k, generator=cuda, device="cuda").bfloat16()
+    _gemm_close(int8_matmul(x, q, scale), int8_matmul_plain(x, q, scale))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch_dq_gemm(0, "plans", x, q, scale, n, 1,
+                       GemmPlan("wgmma", 128, 1, 2))
+    _kernels.launches.pop("plans", None)
 
 
 @pytest.mark.cuda

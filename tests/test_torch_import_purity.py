@@ -120,6 +120,30 @@ def test_decode_kernels_are_hand_written():
     assert "cp.async" in open(os.path.join(csrc, "decode_common.cuh")).read()
 
 
+def test_dq_gemm_is_hand_written_with_one_path_per_row_range():
+    """K7's and K8's source calls no library (cuda.h only for the tensor-map
+    types; the encoder is looked up at run time). Above 32 rows it
+    runs the TMA + wgmma kernel, with its split partials summed by the last
+    block's ticket (no float atomics); the mma.sync loop is instantiated for
+    the 32-row tile alone."""
+    from halva_tpu_torch import _kernels
+
+    text = open(os.path.join(PKG, "csrc", "dq_gemm.cu")).read()
+    code = "\n".join(ln.split("//")[0] for ln in text.splitlines())
+    library = re.compile(r"cublas|cudnn|cutlass|cute|torch|#include <(?!cuda\."
+                         r"h>|cuda_bf16|cuda_runtime|stdint)")
+    assert not library.search(code)
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor.2d",
+                "setmaxnreg.dec", "mbarrier.try_wait"):
+        assert ptx in code, ptx
+    assert "__grid_constant__ CUtensorMap" in code
+    assert "cudaGetDriverEntryPoint" in code and "-lcuda" not in " ".join(
+        _kernels.NVCC_FLAGS)
+    assert re.findall(r"launch<(\d+),", code) == ["32"]
+    assert "atomicAdd(&tickets[tile], 1)" in code
+    assert not re.search(r"atomicAdd\((?!&tickets)", code)
+
+
 def test_flash_kernels_are_hand_written_and_deterministic():
     """The flash kernels' CUDA sources call no library (no cuBLAS, cuDNN,
     CUTLASS or torch) and K3 sums dK and dV over the query heads of a KV

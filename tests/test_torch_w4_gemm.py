@@ -162,21 +162,100 @@ def test_w4_gemm_dx_in_bf16_dequantizes_in_g_dtype():
 
 
 @pytest.mark.parametrize(
-    "m,k,n,want",
+    "m,k,n,row_bytes,want",
     [
-        (16, 4096, 4096, (32, 16, 4)),    # 16 tiles of 256 channels
-        (16, 4096, 11008, (32, 6, 11)),   # gate/up: 43 tiles
-        (32, 11008, 4096, (32, 16, 11)),  # down: 172 K tiles
-        (80, 4096, 4096, (128, 8, 8)),    # above 32 rows: the 128-row tile
-        (2492, 4096, 11008, (128, 1, 64)),  # prefill M fills the card
-        (4, 1024, 4096, (32, 4, 4)),      # no split under 4 K tiles
-        (9, 128, 64, (32, 1, 2)),
+        # up to 32 rows: 32 x 256 tiles, about two blocks per SM
+        (16, 4096, 4096, 2048, ("mma", 32, 16, 4)),   # 16 tiles
+        (16, 4096, 11008, 5504, ("mma", 32, 6, 11)),  # gate/up: 43 tiles
+        (32, 11008, 4096, 2048, ("mma", 32, 16, 11)),  # down: 172 K tiles
+        # above 32 rows: the TMA + wgmma path, 128 x 256 tiles, one block
+        # per SM, K split while tiles underfill the 132 SMs
+        (80, 4096, 4096, 4096, ("wgmma", 128, 8, 8)),
+        (2492, 4096, 11008, 11008, ("wgmma", 128, 1, 64)),  # 860 tiles
+        (4, 1024, 4096, 4096, ("mma", 32, 4, 4)),     # no split under 4
+        (9, 128, 64, 32, ("mma", 32, 1, 2)),
     ],
 )
-def test_gemm_launch_plan(m, k, n, want):
+def test_gemm_launch_plan(m, k, n, row_bytes, want):
     from halva_tpu_torch.ops.int8_matmul import TILE_K, gemm_plan
 
-    bm, splits, tps = gemm_plan(m, k, n)
-    assert (bm, splits, tps) == want
+    plan = gemm_plan(m, k, n, row_bytes)
+    assert tuple(plan) == want
     kt = k // TILE_K
-    assert (splits - 1) * tps < kt <= splits * tps
+    assert (plan.splits - 1) * plan.tps < kt <= plan.splits * plan.tps
+
+
+@pytest.mark.parametrize(
+    "m,k,n,row_bytes,want",
+    [
+        (33, 4096, 4096, 2048, ("wgmma", 128, 8, 8)),  # the first row above
+        (64, 4096, 4096, 4096, ("wgmma", 128, 8, 8)),
+        (127, 4096, 11008, 5504, ("wgmma", 128, 3, 22)),
+        (129, 4096, 11008, 5504, ("wgmma", 128, 3, 22)),  # 2 x 43 tiles
+        # K7 at batch 80 (int4g, rows of 2048 / 5504 / 2048 packed bytes):
+        # wq 16 tiles, gate/up 43 tiles, down 16 tiles of 172 K tiles
+        (80, 4096, 4096, 2048, ("wgmma", 128, 8, 8)),
+        (80, 4096, 11008, 5504, ("wgmma", 128, 3, 22)),
+        (80, 11008, 4096, 2048, ("wgmma", 128, 8, 22)),
+        # CLIP ViT-L's fc2 at 4 images of tower rows: 76 tiles on 132 SMs,
+        # and no split: three would take 2 waves of 22 K tiles, but their
+        # partials (3 x 2308 x 1024 fp32, written and read back) cost more
+        # than the 20 K tiles they save
+        (2308, 4096, 1024, 1024, ("wgmma", 128, 1, 64)),
+        (2308, 1024, 4096, 4096, ("wgmma", 128, 1, 16)),  # 304 tiles
+        (4348, 4096, 11008, 5504, ("wgmma", 128, 1, 64)),
+    ],
+)
+def test_gemm_plan_above_32_rows(m, k, n, row_bytes, want):
+    from halva_tpu_torch.ops.int8_matmul import TILE_K, gemm_plan
+
+    plan = gemm_plan(m, k, n, row_bytes)
+    assert tuple(plan) == want
+    kt = k // TILE_K
+    assert (plan.splits - 1) * plan.tps < kt <= plan.splits * plan.tps
+
+
+@pytest.mark.parametrize("m", [33, 80, 300, 577, 2492])
+@pytest.mark.parametrize("k,n,row_bytes", [
+    (128, 72, 72),    # K8 with N = 72: a 72-byte weight row
+    (256, 144, 72),   # K7 with N/2 = 72
+    (4096, 11016, 5508),  # a 5,508-byte row: 4 past a multiple of 16
+])
+def test_gemm_plan_tma_stride_rule(m, k, n, row_bytes):
+    """TMA takes global strides that are multiples of 16 bytes: weight rows
+    of another length go to the 32-row tiles at every row count."""
+    from halva_tpu_torch.ops.int8_matmul import (SMALL_M, TMA_STRIDE,
+                                                 TILE_K, gemm_plan)
+
+    assert row_bytes % TMA_STRIDE
+    plan = gemm_plan(m, k, n, row_bytes)
+    assert (plan.path, plan.bm) == ("mma", SMALL_M)
+    kt = k // TILE_K
+    assert (plan.splits - 1) * plan.tps < kt <= plan.splits * plan.tps
+    assert gemm_plan(m, k, n, row_bytes + TMA_STRIDE - row_bytes
+                     % TMA_STRIDE).path == "wgmma"
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 32, 33, 80, 128, 129, 2308, 4348])
+@pytest.mark.parametrize("k", [64, 128, 256, 1024, 4096, 11008, 14336])
+def test_gemm_plan_splits_cover_k(m, k):
+    """Every plan: splits * tps covers K's tiles with no empty split, at
+    most MAX_SPLITS and at least MIN_TILES_PER_SPLIT a split when split,
+    and a split plan's tiles within the ticket buffer."""
+    from halva_tpu_torch import _kernels
+    from halva_tpu_torch.ops.int8_matmul import (MAX_SPLITS,
+                                                 MIN_TILES_PER_SPLIT,
+                                                 TILE_K, TILE_N, gemm_plan)
+
+    for n, row_bytes in ((n, b) for n in (64, 1024, 4096, 11008, 14336,
+                                          32000) for b in (n, n // 2)):
+        plan = gemm_plan(m, k, n, row_bytes)
+        kt = k // TILE_K
+        assert (plan.splits - 1) * plan.tps < kt <= plan.splits * plan.tps
+        assert 1 <= plan.splits <= MAX_SPLITS
+        if plan.splits > 1:
+            assert plan.tps >= MIN_TILES_PER_SPLIT
+            tiles = -(-m // plan.bm) * -(-n // TILE_N)
+            assert tiles <= _kernels.MAX_TICKETS
+        assert plan.path == ("wgmma" if m > 32 and row_bytes % 16 == 0
+                             else "mma")
