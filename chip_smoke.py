@@ -59,9 +59,11 @@ last line is the device record {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --flash-only
 
-builds the kernels, runs only the checks and timings of K1, K2 and K3 and
-prints their rows: two builds of the flash kernels are compared by running
-this from each tree in turn on one card.
+builds the kernels, runs only the checks and timings of K1, K2 and K3 (K1
+also in the base mode on the 4,608-token row beside SDPA, its bitwise
+repeat and CUDA-graph replay, its launch plan beside each time) and prints
+their rows: two builds of the flash kernels are compared by running this
+from each tree in turn on one card (an older tree prints no plans).
 
     python3 chip_smoke.py --decode-only
 
@@ -140,6 +142,7 @@ from halva_tpu_torch.ops.decode_attention import (
     fold_plan,
     sm_count,
 )
+from halva_tpu_torch.ops import flash_attention as flash_ops
 from halva_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
     flash_attention_bwd_dkv,
@@ -180,8 +183,9 @@ DEVICE = "cuda"
 # bf16 kernel vs plain version on the same bf16 inputs, elementwise
 # |got - plain| <= KERNEL_ATOL + KERNEL_RTOL * |plain|, and the relative
 # norm of the difference <= KERNEL_RTOL. Both round the output to bf16 (one
-# step is 2^-8..2^-7 relative); the kernels also round P to bf16 for the
-# tensor-core PV product, as the Pallas kernels do.
+# step is 2^-8..2^-7 relative); the decode kernels also round P to bf16 for
+# the tensor-core PV product, as the Pallas kernels do (K1 keeps ~16 bits
+# of P as two bf16 terms).
 KERNEL_ATOL = 1e-2
 KERNEL_RTOL = 1e-2
 LSE_MAX_ABS = 1e-3  # fp32 statistic: only the summation order differs
@@ -342,6 +346,17 @@ def phase_build() -> None:
         print(f"  ptxas: {ln}")
 
 
+def k1_plan(b: int, sq: int, skv: int, h: int) -> str:
+    """K1's launch plan as the wrapper picks it (an older tree, run for an
+    A/B comparison, has none to report)."""
+    plan_of = getattr(flash_ops, "flash_fwd_plan", None)
+    if plan_of is None:
+        return "plan: not reported by this tree"
+    plan = plan_of(b, sq, skv, h)
+    return (f"plan: {plan.bq}-row blocks, {plan.bk}-key tiles, "
+            f"{plan.stages} stages, {plan.blocks} blocks")
+
+
 def check_flash(gen: torch.Generator) -> dict:
     """K1 against flash_attention_plain at the 7B prefill shape."""
     dev = "cuda"
@@ -399,7 +414,8 @@ def check_flash(gen: torch.Generator) -> dict:
             print(f"flash_fwd time: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
                   f"ms, SDPA with the mask {lib_ms:.4f} ms, bound "
                   f"{lim['bound_ms']:.4f} ms by {lim['bound_by']}; "
-                  f"{flops / ms / 1e9:.1f} TFLOP/s on live causal pairs")
+                  f"{flops / ms / 1e9:.1f} TFLOP/s on live causal pairs; "
+                  f"{k1_plan(b, s, s, h)}")
             timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                       **lim}
             del mask
@@ -407,6 +423,82 @@ def check_flash(gen: torch.Generator) -> dict:
             "source": "halva_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "halva_tpu/ops/flash_attention.py:83",
             "max_abs_err": worst, **timing}
+
+
+def check_flash_long(gen: torch.Generator) -> None:
+    """K1 in the base mode (causal, no window) on one 4,608-token row with
+    Mistral's heads (H=32 over KVH=8) against flash_attention_plain, timed
+    beside one SDPA call (causal, the KV heads repeated outside the timed
+    call) and the bound on its live pairs."""
+    n, h, kvh, d = LONG_ROW, 32, 8, 128
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q, k, v = r(1, n, h, d), r(1, n, kvh, d), r(1, n, kvh, d)
+    seg = torch.ones(1, n, dtype=torch.int32, device="cuda")
+    o, lse = flash_attention_fwd(q, k, v, seg, seg)
+    want = flash_attention_plain(q, k, v, seg, seg)
+    torch.cuda.synchronize()
+    err, rel = max_abs(o, want), rel_err(o, want)
+    ok = within(o, want) and bool(torch.isfinite(lse).all())
+    print(f"flash_fwd one {n}-token row H={h} KVH={kvh} causal: max_abs_err "
+          f"{err:.3e} rel {rel:.3e} (limits {KERNEL_ATOL} + {KERNEL_RTOL}"
+          f"*|plain|, rel {KERNEL_RTOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash_fwd disagrees with its plain version on "
+                             "the long row")
+    del want
+    ms = device_ms(lambda: flash_attention_fwd(q, k, v, seg, seg))
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    flops = 4 * h * d * n * (n + 1) / 2
+    lim = bound(tensor_bytes(q, k, v, seg, o, lse), flops)
+    print(f"flash_fwd one {n}-token row, causal, time: kernel {ms:.4f} ms, "
+          f"SDPA (causal) {lib_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms by "
+          f"{lim['bound_by']}; {flops / ms / 1e9:.1f} TFLOP/s; "
+          f"{k1_plan(1, n, n, h)}")
+
+
+def check_flash_repeat(gen: torch.Generator) -> None:
+    """K1 at the prefill shape in each mode: two launches give the same
+    bits (no float atomics), and a CUDA graph that captured the launch
+    replays it on new inputs, bit for bit as an eager launch on them."""
+    b, s, h = 4, 623, 32
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    seg = lengths_to_seg(PROMPT_LENS, s, "cuda")
+    for modes in ({}, {"alibi": True}, {"sliding_window": 256}):
+        q, k, v = r(b, s, h, 128), r(b, s, h, 128), r(b, s, h, 128)
+        first = flash_attention_fwd(q, k, v, seg, seg, **modes)
+        again = flash_attention_fwd(q, k, v, seg, seg, **modes)
+        side = side_stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            flash_attention_fwd(q, k, v, seg, seg, **modes)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = flash_attention_fwd(q, k, v, seg, seg, **modes)
+        for t in (q, k, v):
+            t.copy_(r(*t.shape))
+        graph.replay()
+        eager = flash_attention_fwd(q, k, v, seg, seg, **modes)
+        torch.cuda.synchronize()
+        ok = (all(torch.equal(x, y) for x, y in zip(first, again))
+              and all(torch.equal(x, y) for x, y in zip(captured, eager))
+              and not torch.equal(first[0], eager[0]))
+        print(f"flash_fwd {modes or 'base mode'} B={b} S={s}: bitwise repeat "
+              f"and CUDA-graph replay on new inputs {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash_fwd is not bitwise repeatable or "
+                                 "does not replay from a CUDA graph")
+        del graph
 
 
 def check_flash_bwd(gen: torch.Generator) -> list:
@@ -638,7 +730,7 @@ def flash_mode_case(gen, label, b, s, h, kvh, lens, modes, packed_at=None,
         "dkv": bound(io + tensor_bytes(do, lse, delta, k, v),
                      4 * 2 * d * pairs)}
     flop = {"fwd": 4, "dq": 6, "dkv": 8}
-    print(f"flash modes {label} time: "
+    print(f"flash modes {label} time ({k1_plan(b, q.shape[1], s, h)}): "
           + "; ".join(
               f"{name} {ms[name]:.4f} ms "
               f"({flop[name] * d * pairs / ms[name] / 1e9:.1f} TFLOP/s live, "
@@ -3111,6 +3203,8 @@ def flash_checks(gen: torch.Generator) -> list:
     """K1, K2 and K3 against their plain versions, base mode then the modes:
     their rows of the `kernels` line."""
     base = [check_flash(gen), *check_flash_bwd(gen)]
+    check_flash_long(gen)
+    check_flash_repeat(gen)
     return base + check_flash_modes(gen, {k["name"]: k for k in base})
 
 

@@ -28,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attn.cu", "fold_attn.cu",
            "w4_gemv.cu", "dq_gemm.cu")
 # included by sources; part of the build hash
-HEADERS = ("mma_bf16.cuh", "decode_common.cuh")
+HEADERS = ("mma_bf16.cuh", "decode_common.cuh", "hopper_common.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -129,7 +129,7 @@ def lib() -> ctypes.CDLL:
     cdll = ctypes.CDLL(build())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     cdll.halva_flash_fwd_bf16.argtypes = (
-        [p] * 7 + [i] * 6 + [f] + [i] * 4 + [p])
+        [p] * 7 + [i] * 6 + [f] + [i] * 5 + [p])
     cdll.halva_flash_fwd_bf16.restype = i
     cdll.halva_flash_bwd_dq_bf16.argtypes = (
         [p] * 9 + [i] * 6 + [f] + [i] * 4 + [p])

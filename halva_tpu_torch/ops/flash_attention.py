@@ -30,13 +30,15 @@ and has no counter of its own.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from halva_tpu_torch import _kernels
 from halva_tpu_torch.ops.attention import (
     alibi_in_kernel,
+    alibi_slopes,
     attention_reference,
     causal_alibi_bias,
     make_attention_mask,
@@ -45,6 +47,154 @@ from halva_tpu_torch.ops.attention import (
 KERNEL = "flash_fwd"
 KERNEL_DQ = "flash_bwd_dq"
 KERNEL_DKV = "flash_bwd_dkv"
+
+# K1's geometry (csrc/flash_fwd.cu): a block owns FWD_BQ query rows of one
+# (batch row, head), FWD_WG_ROWS per consumer warpgroup, and walks the keys
+# in tiles of bk through a ring of FWD_STAGES[bk] stages
+FWD_BQ = 128
+FWD_WG_ROWS = 64
+FWD_STAGES = {64: 4, 128: 2}
+# the key tile: 64 up to FWD_LONG_KEYS keys, 128 above (measured on an H100,
+# PERF.md section 6: 64 wins at the prefill and train rows, 128 on a
+# 4,608-token row)
+FWD_LONG_KEYS = 2048
+# the logit of a masked pair and the running max's start, in the exp2
+# domain: exp2(NEG_BIG - M_INIT) is 0, and a row with no live key keeps
+# M_INIT, so its LSE is M_INIT * ln 2
+NEG_BIG = -1e30
+M_INIT = -1e29
+LOG2E = 1.4426950408889634
+
+
+class FwdPlan(NamedTuple):
+    bq: int  # query rows per block
+    bk: int  # keys per tile
+    stages: int  # tiles in flight in the ring
+    blocks: int  # thread blocks of the launch (one per SM at a time)
+
+
+def flash_fwd_plan(b: int, sq: int, skv: int, h: int,
+                   bk: Optional[int] = None) -> FwdPlan:
+    """K1's launch plan for B rows of Sq queries against Skv keys and H
+    query heads; `bk` forces the key tile."""
+    if bk is None:
+        bk = 128 if skv > FWD_LONG_KEYS else 64
+    if bk not in FWD_STAGES:
+        raise ValueError(f"flash_fwd: key tile {bk} is not one of "
+                         f"{sorted(FWD_STAGES)}")
+    return FwdPlan(FWD_BQ, bk, FWD_STAGES[bk], b * h * -(-sq // FWD_BQ))
+
+
+def flash_tile_kind(c0: int, bk: int, skv: int, kmin: int, kmax: int,
+                    qmin: int, qmax: int, p_lo: int, p_hi: int, causal: bool,
+                    window: int) -> str:
+    """K1's rule for key tile [c0, c0 + bk) and query rows at positions
+    [p_lo, p_hi] (q_offset + row index) whose segment ids span [qmin, qmax]
+    (both 0: no live row), the tile's ids below skv spanning [kmin, kmax].
+
+    "skip": no pair can be live (every id 0 on one side, disjoint id ranges,
+    the whole tile above the causal diagonal or behind the window); "full":
+    every pair is live (one nonzero id on both sides, no ragged end, the
+    tile wholly below the diagonal and inside the window); "masked": the
+    per-pair mask decides."""
+    c_last = min(c0 + bk, skv) - 1
+    if ((qmin == 0 and qmax == 0) or (kmin == 0 and kmax == 0)
+            or kmax < qmin or kmin > qmax):
+        return "skip"
+    if causal and c0 > p_hi:
+        return "skip"
+    if window > 0 and p_lo - c_last >= window:
+        return "skip"
+    full = (c0 + bk <= skv and qmin == qmax == kmin == kmax
+            and (not causal or p_lo >= c_last)
+            and (window == 0 or p_hi - c0 < window))
+    return "full" if full else "masked"
+
+
+def flash_attention_tiled_plain(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, KVH, D)
+    v: torch.Tensor,
+    q_segment_ids: torch.Tensor,  # (B, Sq)
+    kv_segment_ids: torch.Tensor,  # (B, Skv)
+    causal: bool = True,
+    scale: Optional[float] = None,
+    alibi: bool = False,
+    sliding_window: Optional[int] = None,
+    q_offset: Optional[int] = None,
+    bq: int = FWD_WG_ROWS,
+    bk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's loop in torch ops: (o (B, Sq, H, D) in q's dtype, lse (B, H, Sq)
+    fp32, natural log). Each tile of bq query rows walks its key tiles of bk
+    in order, skips those `flash_tile_kind` calls "skip", masks pairs only
+    on "masked" tiles, and keeps the online softmax in the exp2 domain (the
+    logits scaled by scale * log2 e, the ALiBi term -slope_h (row - col) *
+    log2 e); P is rounded to v's dtype for the PV product, as the Pallas
+    kernel rounds it (K1 keeps ~16 bits of it, as two bf16 terms). A row
+    with no live key gives o = 0 and LSE = M_INIT * ln 2. The model of
+    csrc/flash_fwd.cu's consumer warpgroups (bq = 64), held on the CPU
+    against the Pallas kernel."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d**-0.5
+    window = int(sliding_window or 0)
+    off = int(q_offset or 0)
+    dev = q.device
+    kr = k.repeat_interleave(h // kvh, dim=2).float()
+    vr = v.repeat_interleave(h // kvh, dim=2)
+    slope2 = (alibi_slopes(h, dev) * LOG2E if alibi
+              else torch.zeros(h, device=dev))
+    o = torch.zeros(b, sq, h, d, dtype=torch.float32, device=dev)
+    lse = torch.empty(b, h, sq, dtype=torch.float32, device=dev)
+    for bi in range(b):
+        qs = q_segment_ids[bi].tolist()
+        ks = kv_segment_ids[bi].tolist()
+        for r0 in range(0, sq, bq):
+            r1 = min(r0 + bq, sq)
+            rows = torch.arange(r0, r1, device=dev)
+            p_lo, p_hi = off + r0, off + r1 - 1
+            qmin, qmax = min(qs[r0:r1]), max(qs[r0:r1])
+            qt = q[bi, r0:r1].float().transpose(0, 1)  # (H, n, D)
+            m = torch.full((h, r1 - r0), M_INIT, device=dev)
+            l = torch.zeros(h, r1 - r0, device=dev)
+            acc = torch.zeros(h, r1 - r0, d, device=dev)
+            for c0 in range(0, skv, bk):
+                c1 = min(c0 + bk, skv)
+                kind = flash_tile_kind(c0, bk, skv, min(ks[c0:c1]),
+                                       max(ks[c0:c1]), qmin, qmax, p_lo,
+                                       p_hi, causal, window)
+                if kind == "skip":
+                    continue
+                cols = torch.arange(c0, c1, device=dev)
+                s = qt @ kr[bi, c0:c1].transpose(0, 1).transpose(1, 2)
+                s = s * (scale * LOG2E)
+                dist = (off + rows[:, None] - cols[None, :]).float()
+                if alibi:
+                    s = s - slope2[:, None, None] * dist
+                if kind == "masked":
+                    qv = q_segment_ids[bi, r0:r1, None]
+                    live = (qv == kv_segment_ids[bi, None, c0:c1]) & (qv != 0)
+                    if causal:
+                        live = live & (dist >= 0)
+                    if window:
+                        live = live & (dist < window)
+                    s = torch.where(live, s, torch.full_like(s, NEG_BIG))
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                pv = p.to(v.dtype).float() @ vr[bi, c0:c1].float().transpose(
+                    0, 1)
+                acc = acc * alpha[..., None] + pv
+                m = m_new
+            inv = torch.where(l > 0, 1 / torch.where(l > 0, l, 1.0),
+                              torch.zeros_like(l))
+            o[bi, r0:r1] = (acc * inv[..., None]).transpose(0, 1)
+            lse[bi, :, r0:r1] = m * math.log(2) + torch.log(
+                torch.where(l > 0, l, torch.ones_like(l)))
+    return o.to(q.dtype), lse
 
 
 def mode_suffix(alibi: bool, sliding_window: Optional[int]) -> str:
@@ -196,10 +346,12 @@ def flash_attention_fwd(
     alibi: bool = False,
     sliding_window: Optional[int] = None,
     q_offset: Optional[int] = None,
+    bk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on CUDA tensors: returns (o (B, Sq, H, D) bf16, lse
     (B, H, Sq) fp32, natural log, the ALiBi bias included). Fully masked
-    rows give o = 0."""
+    rows give o = 0. `bk` (64 or 128 keys a tile) forces the kernel's
+    instance; by default `flash_fwd_plan` picks it from Skv."""
     _check_cuda_args("flash_attention_fwd", q, k, v, q_segment_ids,
                      kv_segment_ids)
     b, sq, h, d = q.shape
@@ -208,6 +360,7 @@ def flash_attention_fwd(
                        sliding_window, q_offset)
     if scale is None:
         scale = d**-0.5
+    plan = flash_fwd_plan(b, sq, skv, h, bk)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -216,7 +369,8 @@ def flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             q_segment_ids.data_ptr(), kv_segment_ids.data_ptr(),
             o.data_ptr(), lse.data_ptr(),
-            b, sq, skv, h, kvh, d, float(scale), int(causal), *modes, stream,
+            b, sq, skv, h, kvh, d, float(scale), int(causal), *modes,
+            plan.bk, stream,
         )
     name = KERNEL + mode_suffix(alibi, sliding_window)
     _kernels.check(err, name)

@@ -139,6 +139,20 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
     return y.to(x.dtype).reshape(*x.shape[:-1], q.shape[-1])
 
 
+def int8_matmul_takes(x: torch.Tensor, q: torch.Tensor,
+                      scale: torch.Tensor) -> bool:
+    """Whether K8 takes these operands, from their shapes and dtypes alone:
+    bf16 x and scales, int8 q (K, N) with K % TILE_K == 0 and N % 8 == 0,
+    at least one row."""
+    if q.ndim != 2:
+        return False
+    k, n = q.shape
+    return (x.dtype == torch.bfloat16 and q.dtype == torch.int8
+            and scale.dtype == torch.bfloat16 and x.shape[-1] == k
+            and scale.numel() == n and x.numel() >= k and k % TILE_K == 0
+            and n % 8 == 0)
+
+
 def int8_matmul(x: torch.Tensor, q: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """y (..., N) = (x (..., K) @ q (K, N) int8) * scale in x's dtype: K8

@@ -14,7 +14,7 @@ the straight-through estimator: round() has zero derivative almost
 everywhere, and plain autograd would reach x only through the absmax scale.
 The int8 product of W8A8 is a library product (`torch._int_mm`), as the
 reference leaves it to XLA; the weight-dequant product of `w8_dense` is K8
-(ops/int8_matmul.py) for CUDA tensors.
+(ops/int8_matmul.py) for the CUDA tensors it takes.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Any, Dict
 
 import torch
 
-from halva_tpu_torch.ops.int8_matmul import int8_matmul
+from halva_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_takes
 
 Params = Dict[str, Any]
 
@@ -194,7 +194,8 @@ class _W8Dense(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel_q, kernel_scale):
         ctx.save_for_backward(kernel_q, kernel_scale)
-        if x.device.type == "cpu":
+        if x.device.type == "cpu" or not int8_matmul_takes(
+                x, kernel_q, kernel_scale):
             return x @ (kernel_q.to(x.dtype) * kernel_scale.to(x.dtype))
         return int8_matmul(x, kernel_q, kernel_scale)
 
@@ -206,8 +207,11 @@ class _W8Dense(torch.autograd.Function):
 def w8_dense(x: torch.Tensor, kernel_q: torch.Tensor,
              kernel_scale: torch.Tensor) -> torch.Tensor:
     """Weight-dequant int8 matmul, x @ (kernel_q * kernel_scale) in x's
-    dtype: K8 (ops/int8_matmul.py) for CUDA tensors, which scales the fp32
-    sum instead of the weights; that expression itself for CPU tensors.
+    dtype: K8 (ops/int8_matmul.py) for CUDA tensors that it takes
+    (`int8_matmul_takes`: bf16 x and scales, K % 64 == 0, N % 8 == 0),
+    which scales the fp32 sum instead of the weights; that expression itself
+    for CPU tensors and for the rest (an fp32 tree's tower), as the
+    reference computes it for every shape.
     Backward dx = g @ dequant(W).T."""
     return _W8Dense.apply(x, kernel_q, kernel_scale)
 

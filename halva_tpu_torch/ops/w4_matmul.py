@@ -21,7 +21,9 @@ x (the train step on a frozen int4 base): K7 for CUDA tensors,
 `w4_gemm_plain` for CPU tensors. K6 streams the weights once per 8-row chunk,
 K7 once: `w4_decode_matmul` sends a decode-family matmul with more than
 `W4_GEMV_MAX_ROWS` rows (beams, verify steps, large batches) to K7 and the
-rest to K6.
+rest to K6, and so does it with shapes K7 refuses (scale groups that are no
+multiple of its 64-row K tile) at any row count: `w4_route` decides from
+the shapes alone.
 """
 
 from __future__ import annotations
@@ -255,9 +257,8 @@ def _w4_gemm_forward(x, w, s):
     x2 = x.reshape(-1, k)
     np_, ng = w.shape[-1], s.shape[1] if s.ndim == 3 else 0
     if (
-        w.ndim != 2 or w.shape[0] != k or s.shape != (2, ng, np_) or ng < 1
-        or k % ng or x2.shape[0] < 1 or k % TILE_K or np_ % 8
-        or (ng > 1 and (k // ng) % TILE_K)
+        w.ndim != 2 or w.shape[0] != k or s.shape != (2, ng, np_)
+        or x2.shape[0] < 1 or not w4_gemm_takes(k, np_, ng)
     ):
         raise ValueError(
             f"w4_gemm: unsupported shapes x {tuple(x.shape)} kernel_q4p "
@@ -294,10 +295,30 @@ def w4_gemm(x: torch.Tensor, kernel_q4p: torch.Tensor,
     return _W4Gemm.apply(x, kernel_q4p, kernel_scale4p)
 
 
+def w4_gemm_takes(k: int, n_half: int, groups: int) -> bool:
+    """Whether K7 takes weights of K rows, N/2 packed columns and G scale
+    groups: its K tiles of TILE_K rows each lie in one scale group."""
+    return (groups >= 1 and k % groups == 0 and k % TILE_K == 0
+            and n_half % 8 == 0
+            and (groups == 1 or (k // groups) % TILE_K == 0))
+
+
+def w4_route(rows: int, k: int, n_half: int, groups: int) -> str:
+    """The kernel of a decode-family packed-int4 matmul, from its shapes
+    alone: "w4_gemm" (K7) above W4_GEMV_MAX_ROWS rows where K7 takes the
+    weights, else "w4_gemv" (K6, which takes any K % G == 0)."""
+    if rows > W4_GEMV_MAX_ROWS and w4_gemm_takes(k, n_half, groups):
+        return GEMM_KERNEL
+    return KERNEL
+
+
 def w4_decode_matmul(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """A decode-family matmul y (B, N) = x (B, K) @ dequant(layer slice p):
-    K6 up to W4_GEMV_MAX_ROWS rows, K7 above (the same function; on CPU
+    """A decode-family matmul y (B, N) = x (B, K) @ dequant(layer slice p)
+    on the kernel `w4_route` names: K6 up to W4_GEMV_MAX_ROWS rows and for
+    the scale groups K7 refuses, K7 above (the same function; on CPU
     tensors the same arithmetic)."""
-    if x.shape[0] > W4_GEMV_MAX_ROWS:
-        return w4_gemm(x, p["kernel_q4p"], p["kernel_scale4p"])
+    w, s = p["kernel_q4p"], p["kernel_scale4p"]
+    route = w4_route(x.shape[0], w.shape[0], w.shape[-1], s.shape[1])
+    if route == GEMM_KERNEL:
+        return w4_gemm(x, w, s)
     return w4_dense_stacked(x, p)

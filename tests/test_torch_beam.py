@@ -164,10 +164,9 @@ def test_reorder_gen_cache_takes_parent_rows():
         torch.testing.assert_close(out[key], t[:, rows], rtol=0, atol=0)
 
 
-def test_beam_on_int4_tree_row_rule_changes_no_token(tiny, monkeypatch):
-    """A packed-int4 tree under beam search: with the row rule at 1 every
-    beam step's B * K rows take w4_gemm (K7's wrapper); the tokens equal
-    those of the K6 route exactly (one arithmetic on CPU tensors)."""
+def _beam_int4_route(tiny, monkeypatch, group_size):
+    """Beam tokens on a packed-int4 tree with the row rule at W4_GEMV_MAX_ROWS
+    and at 1, and the row counts that reached w4_gemm (K7's wrapper)."""
     from halva_tpu.ops.w4_matmul import quantize_params_int4_host
     from halva_tpu_torch import tree
     from halva_tpu_torch.ops import w4_matmul
@@ -176,7 +175,7 @@ def test_beam_on_int4_tree_row_rule_changes_no_token(tiny, monkeypatch):
 
     (_, _), (ids, imgs, lens) = tiny
     tp = tree.to_torch(quantize_params_int4_host(jax_tree(LLAVA_TINY),
-                                                 group_size=32),
+                                                 group_size=group_size),
                        device="cpu")
 
     def run():
@@ -197,6 +196,24 @@ def test_beam_on_int4_tree_row_rule_changes_no_token(tiny, monkeypatch):
     tok, num = run()
     torch.testing.assert_close(tok, want_tok, rtol=0, atol=0)
     torch.testing.assert_close(num, want_num, rtol=0, atol=0)
+    return calls, ids.shape[0]
+
+
+def test_beam_on_int4_tree_row_rule_changes_no_token(tiny, monkeypatch):
+    """A packed-int4 tree under beam search: with the row rule at 1 every
+    beam step's B * K rows take w4_gemm (K7's wrapper); the tokens equal
+    those of the K6 route exactly (one arithmetic on CPU tensors). Scale
+    groups of 64 rows, which K7 takes at LLAVA_TINY's K of 64 and 128 (at
+    32 rows a group, `w4_route` keeps them on K6: the test below)."""
+    calls, b = _beam_int4_route(tiny, monkeypatch, group_size=64)
     layers = LLAVA_TINY.llm.num_layers
-    assert calls and set(calls) == {ids.shape[0] * 2}
+    assert calls and set(calls) == {b * 2}
     assert len(calls) % (7 * layers) == 0
+
+
+def test_beam_on_int4_group32_tree_stays_on_k6(tiny, monkeypatch):
+    """Scale groups of 32 rows, which K7 refuses: `w4_route` sends every
+    beam step's matmuls to K6 whatever the row rule, and the tokens are
+    those of the K6 route (on the card K7's wrapper used to raise here)."""
+    calls, _ = _beam_int4_route(tiny, monkeypatch, group_size=32)
+    assert calls == []

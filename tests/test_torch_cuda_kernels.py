@@ -923,3 +923,208 @@ def test_head_dim_64_model_decodes_on_the_card_as_on_the_cpu(cuda, weights):
         with pytest.raises((TypeError, ValueError)):
             generate_greedy(on_card, cfg, ids.cuda(), images.cuda(),
                             lens.cuda(), attn_impl="kernel", **kw)
+
+
+# K1 on TMA + wgmma: query lengths that are no multiple of its 128-row
+# blocks or its key tiles, GQA, against the whole-row plain version and the
+# tiled plain version that walks K1's tiles (o within the bound above, LSE
+# within 1e-3: an fp32 statistic summed in another order)
+K1_SHAPES = [(1, 8), (64, 32), (127, 8), (129, 2), (623, 32), (623, 8)]
+
+
+def _k1_inputs(gen, b, sq, skv, h, kvh):
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q, k, v = r(b, sq, h, 128), r(b, skv, kvh, 128), r(b, skv, kvh, 128)
+    kvseg = torch.ones(b, skv, dtype=torch.int32, device="cuda")
+    if b > 1:
+        kvseg[1, skv - skv // 5:] = 0  # a padded row
+    qseg = kvseg[:, skv - sq:].contiguous()
+    return q, k, v, qseg, kvseg
+
+
+def _k1_check(o, lse, want, want_lse, qseg):
+    from halva_tpu_torch.ops.flash_attention import M_INIT
+
+    live = qseg != 0
+    _close(o[live], want[live])
+    lv = live[:, None, :].expand_as(lse)
+    torch.testing.assert_close(lse[lv], want_lse[lv], rtol=0, atol=1e-3)
+    assert (o[~live] == 0).all()
+    dead = lse[~lv]
+    torch.testing.assert_close(
+        dead, torch.full_like(dead, M_INIT * 0.6931471805599453), rtol=1e-6,
+        atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bk", [64, 128])
+@pytest.mark.parametrize("sq,kvh", K1_SHAPES)
+def test_flash_fwd_k1_matches_plain_and_tiled(cuda, sq, kvh, bk):
+    from halva_tpu_torch.ops.flash_attention import flash_attention_tiled_plain
+
+    q, k, v, qseg, kvseg = _k1_inputs(cuda, 2, sq, sq, 32, kvh)
+    before = _kernels.launches["flash_fwd"]
+    o, lse = flash_attention_fwd(q, k, v, qseg, kvseg, bk=bk)
+    assert _kernels.launches["flash_fwd"] == before + 1
+    want, want_lse = flash_attention_tiled_plain(q, k, v, qseg, kvseg,
+                                                 bq=128, bk=128)
+    _k1_check(o, lse, want, want_lse, qseg)
+    live = qseg != 0
+    _close(o[live], flash_attention_plain(q, k, v, qseg, kvseg)[live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bk", [64, 128])
+@pytest.mark.parametrize("sq,skv,modes", [
+    (100, 333, {}), (1, 400, {}), (167, 1087, {"sliding_window": 256}),
+    (90, 300, {"alibi": True})])
+def test_flash_fwd_k1_query_shard(cuda, sq, skv, modes, bk):
+    """Sq != Skv: the last Sq positions of Skv keys, q_offset = Skv - Sq."""
+    from halva_tpu_torch.ops.flash_attention import flash_attention_tiled_plain
+
+    q, k, v, qseg, kvseg = _k1_inputs(cuda, 2, sq, skv, 8, 2)
+    kw = dict(q_offset=skv - sq, **modes)
+    o, lse = flash_attention_fwd(q, k, v, qseg, kvseg, bk=bk, **kw)
+    want, want_lse = flash_attention_tiled_plain(q, k, v, qseg, kvseg,
+                                                 bq=128, bk=128, **kw)
+    _k1_check(o, lse, want, want_lse, qseg)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_k1_long_windowed_row(cuda):
+    """Mistral's long-row prefill: one 4,608-token row, H=32 over KVH=8,
+    window 4096, on the plan's key tile (128 here) and on 64."""
+    from halva_tpu_torch.ops.flash_attention import (
+        flash_attention_tiled_plain,
+        flash_fwd_plan,
+    )
+
+    n = 4608
+    q, k, v, qseg, kvseg = _k1_inputs(cuda, 1, n, n, 32, 8)
+    assert flash_fwd_plan(1, n, n, 32).bk == 128
+    want, want_lse = flash_attention_tiled_plain(
+        q, k, v, qseg, kvseg, sliding_window=4096, bq=128, bk=128)
+    for bk in (None, 64):
+        o, lse = flash_attention_fwd(q, k, v, qseg, kvseg, bk=bk,
+                                     sliding_window=4096)
+        _k1_check(o, lse, want, want_lse, qseg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_k1_fully_masked_rows(cuda, causal):
+    """A batch row that is padding throughout, and packed documents with
+    gaps of padding between them: o = 0 and LSE = M_INIT * ln 2 there."""
+    from halva_tpu_torch.ops.flash_attention import flash_attention_tiled_plain
+
+    q, k, v, _, _ = _k1_inputs(cuda, 3, 700, 700, 8, 8)
+    seg = torch.zeros(3, 700, dtype=torch.int32, device="cuda")
+    seg[0, :200] = 1
+    seg[0, 330:600] = 2
+    seg[1, :641] = 7
+    o, lse = flash_attention_fwd(q, k, v, seg, seg, causal=causal)
+    want, want_lse = flash_attention_tiled_plain(q, k, v, seg, seg,
+                                                 causal=causal, bq=128,
+                                                 bk=128)
+    _k1_check(o, lse, want, want_lse, seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modes", [{}, {"alibi": True},
+                                   {"sliding_window": 256}])
+def test_flash_fwd_k1_repeats_bitwise_and_replays_from_a_graph(cuda, modes):
+    """No float atomics: two launches give the same bits, and a CUDA graph
+    that captured the launch replays it on new inputs copied into the
+    captured tensors, bit for bit as an eager launch on them."""
+    q, k, v, qseg, kvseg = _k1_inputs(cuda, 2, 623, 623, 32, 8)
+    o1, l1 = flash_attention_fwd(q, k, v, qseg, kvseg, **modes)
+    o2, l2 = flash_attention_fwd(q, k, v, qseg, kvseg, **modes)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention_fwd(q, k, v, qseg, kvseg, **modes)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        og, lg = flash_attention_fwd(q, k, v, qseg, kvseg, **modes)
+    nq, nk, nv, _, _ = _k1_inputs(cuda, 2, 623, 623, 32, 8)
+    q.copy_(nq)
+    k.copy_(nk)
+    v.copy_(nv)
+    graph.replay()
+    torch.cuda.synchronize()
+    o3, l3 = flash_attention_fwd(q, k, v, qseg, kvseg, **modes)
+    assert not torch.equal(o3, o1)
+    assert torch.equal(og, o3) and torch.equal(lg, l3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 80])
+def test_w4_decode_matmul_group32_takes_k6_above_8_rows(cuda, rows):
+    """A tree packed with group_size=32 (groups K7 refuses) above 8 rows:
+    `w4_route` sends it to K6, which matches its plain version; it used to
+    raise in K7's wrapper."""
+    from halva_tpu_torch.ops.w4_matmul import (
+        quantize_kernel_int4_stacked,
+        w4_decode_matmul,
+    )
+
+    w = torch.randn(1, 4096, 2048, generator=cuda, device="cuda") * 0.02
+    packed = quantize_kernel_int4_stacked(w, group_size=32)
+    p = {name: t[0].contiguous() for name, t in packed.items()}
+    x = torch.randn(rows, 4096, generator=cuda, device="cuda").bfloat16()
+    before = dict(_kernels.launches)
+    got = w4_decode_matmul(x, p)
+    assert _kernels.launches["w4_gemv"] == before.get("w4_gemv", 0) + 1
+    assert _kernels.launches["w4_gemm"] == before.get("w4_gemm", 0)
+    _gemm_close(got, w4_dense_stacked_plain(x, p))
+
+
+@pytest.mark.cuda
+def test_w8_dense_fp32_x_is_the_references_expression(cuda):
+    """fp32 x (K8 takes bf16 only): the reference's x @ (q * scale) in x's
+    dtype, no launch; it used to raise in K8's wrapper."""
+    p = quant.quantize_kernel(
+        torch.randn(1024, 512, generator=cuda, device="cuda") * 0.05)
+    x = torch.randn(7, 1024, generator=cuda, device="cuda")
+    before = sum(_kernels.launches.values())
+    got = quant.w8_dense(x, p["kernel_q"], p["kernel_scale"])
+    assert sum(_kernels.launches.values()) == before
+    want = x @ (p["kernel_q"].float() * p["kernel_scale"].float())
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_encode_images_int8_fp32_tree_on_the_card_as_on_the_cpu(
+        cuda, monkeypatch):
+    """The CLIP tower of an fp32 tree quantized to int8 with W8A8 off runs
+    every quantized dense in fp32 through the reference's expression on the
+    card (its first dense used to raise), as on the CPU: full-fp32 matmuls
+    and convolutions on both devices, fp32 summation orders apart."""
+    from halva_tpu_torch import tree
+    from halva_tpu_torch.config import LlamaConfig, LlavaConfig, ViTConfig
+    from halva_tpu_torch.models.llava import encode_images
+
+    monkeypatch.setattr(quant, "_W8A8", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = LlavaConfig(
+        llm=LlamaConfig(vocab_size=512, hidden_size=128,
+                        intermediate_size=256, num_layers=1, num_heads=1,
+                        max_position_embeddings=256),
+        vision=ViTConfig(image_size=56, patch_size=14, hidden_size=128,
+                         intermediate_size=256, num_layers=2, num_heads=2))
+    params = quant.quantize_params(tree.init_params(
+        cfg, torch.Generator().manual_seed(0), torch.float32, device="cpu"))
+    images = torch.randn(2, 3, 56, 56, generator=torch.Generator()
+                         .manual_seed(1))
+    want = encode_images(params, cfg, images)
+    on_card = tree.map_tree(lambda t: t.cuda(), params)
+    before = sum(_kernels.launches.values())
+    got = encode_images(on_card, cfg, images.cuda())
+    assert sum(_kernels.launches.values()) == before
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -128,8 +128,12 @@ def test_dq_gemm_is_hand_written_with_one_path_per_row_range():
     the 32-row tile alone."""
     from halva_tpu_torch import _kernels
 
-    text = open(os.path.join(PKG, "csrc", "dq_gemm.cu")).read()
-    code = "\n".join(ln.split("//")[0] for ln in text.splitlines())
+    # with the header of Hopper helpers it includes, which holds the PTX
+    code = ""
+    for name in ("dq_gemm.cu", "hopper_common.cuh"):
+        text = open(os.path.join(PKG, "csrc", name)).read()
+        code += "\n".join(ln.split("//")[0] for ln in text.splitlines())
+    assert '#include "hopper_common.cuh"' in code
     library = re.compile(r"cublas|cudnn|cutlass|cute|torch|#include <(?!cuda\."
                          r"h>|cuda_bf16|cuda_runtime|stdint)")
     assert not library.search(code)
@@ -146,16 +150,32 @@ def test_dq_gemm_is_hand_written_with_one_path_per_row_range():
 
 def test_flash_kernels_are_hand_written_and_deterministic():
     """The flash kernels' CUDA sources call no library (no cuBLAS, cuDNN,
-    CUTLASS or torch) and K3 sums dK and dV over the query heads of a KV
-    head without atomics, so the backward is deterministic."""
+    CUTLASS or torch; cuda.h only for the tensor-map types, the encoder is
+    looked up at run time) and K3 sums dK and dV over the query heads of a
+    KV head without atomics, so the backward is deterministic. K1 is one
+    Hopper kernel: TMA copies and a producer warpgroup whose registers
+    setmaxnreg moves, mbarrier waits, wgmma for both products; no mma.sync
+    and no atomics, so the forward is deterministic too."""
     csrc = os.path.join(PKG, "csrc")
-    library = re.compile(r"cublas|cudnn|cutlass|torch|#include <(?!cuda_bf16|"
-                         r"cuda_runtime|stdint)")
+    library = re.compile(r"cublas|cudnn|cutlass|cute|torch|#include <(?!cuda\."
+                         r"h>|cuda_bf16|cuda_runtime|stdint)")
     code = {}
-    for name in ("flash_fwd.cu", "flash_bwd.cu", "mma_bf16.cuh"):
+    for name in ("flash_fwd.cu", "flash_bwd.cu", "mma_bf16.cuh",
+                 "hopper_common.cuh"):
         text = open(os.path.join(csrc, name)).read()
         code[name] = "\n".join(ln.split("//")[0] for ln in text.splitlines())
         assert not library.search(code[name]), name
+    fwd = code["flash_fwd.cu"]
+    assert '#include "hopper_common.cuh"' in fwd
+    assert '#include "mma_bf16.cuh"' not in fwd
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
+                "setmaxnreg"):
+        assert ptx in fwd + code["hopper_common.cuh"], ptx
+    assert "setmaxnreg.dec" in fwd and "setmaxnreg.inc" in fwd
+    assert "__grid_constant__ CUtensorMap" in fwd
+    assert "mma_16816" not in fwd and "mma.sync" not in fwd
+    assert "atomic" not in fwd
+    assert len(re.findall(r"__global__ void", fwd)) == 1
     bwd = code["flash_bwd.cu"]
     assert "atomic" not in bwd
     for kernel in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
