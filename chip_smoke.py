@@ -336,14 +336,19 @@ def lengths_to_seg(lens, s, dev) -> torch.Tensor:
 
 
 def phase_build() -> None:
+    """Builds the kernels; prints ptxas's registers, spills and shared
+    memory for each entry function by name."""
     t0 = time.perf_counter()
     _kernels.lib()
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _kernels.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
     print(f"build: {secs:.1f} s for {', '.join(_kernels.SOURCES)}")
-    for ln in ptxas:
-        print(f"  ptxas: {ln}")
+    entry = ""
+    for ln in _kernels.build_log().splitlines():
+        ln = ln.strip()
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "spill" in ln or "registers" in ln:
+            print(f"  ptxas: {entry}: {ln}")
 
 
 def k1_plan(b: int, sq: int, skv: int, h: int) -> str:
@@ -1475,11 +1480,24 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
 W4_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 
 
+def k6_plan_text(b: int, k: int, np_: int, groups: int) -> str:
+    """K6's launch plan as the wrapper picks it (an older tree's plan takes
+    no scale groups)."""
+    try:
+        rc, splits, ksplit = w4_matmul.plan(b, k, np_, groups)
+    except TypeError:
+        rc, splits, ksplit = w4_matmul.plan(b, k, np_)
+    return f"plan: rows {rc}, {splits} x {ksplit} K rows"
+
+
 def check_w4(gen: torch.Generator) -> dict:
     """K6 against w4_dense_stacked_plain at the 7B decode matmul shapes,
     per-channel and g=128 scales, B = 4 (the smoke's batch), 16 and 32 (the
     rows of 4 beams and of an 8-token verify step) and 80 (the reference's
-    serving batch). The JSON line carries gate/up at B=4, g=128."""
+    serving batch), each line with its launch plan, bound and rate; at B=4
+    also against the loop's own arithmetic in torch ops
+    (w4_dense_stacked_split_plain) and beside dequantize + torch.matmul. The
+    JSON line carries gate/up at B=4, g=128."""
     dev = "cuda"
     layers = 4
     worst = 0.0
@@ -1519,18 +1537,36 @@ def check_w4(gen: torch.Generator) -> dict:
                 nbytes = k * np_ + 2 * groups * np_ * 2
                 lim = bound(nbytes + tensor_bytes(x) + b * n * 2,
                             2 * b * k * n)
-                print(f"w4_gemv B={b} K={k} N={n} G={groups}: max_abs_err "
+                split = ""
+                if b == 4:
+                    # the loop's own arithmetic: its rounding and its order
+                    # of sums up to the tensor cores' within a range
+                    got = call(w4_dense_stacked, 0)
+                    # (an attribute: --gemm-only also runs on older trees)
+                    want = call(w4_matmul.w4_dense_stacked_split_plain,
+                                0).float()
+                    torch.cuda.synchronize()
+                    diff = (got.float() - want).abs()
+                    close = bool((diff <= 2**-7 * want.abs() + 2**-10
+                                  * want.abs().max()).all())
+                    ok = ok and close
+                    split = (f"; against its split version max_abs_err "
+                             f"{float(diff.max()):.3e} (limit 2^-7 |split| "
+                             f"+ 2^-10 max|split|)")
+                print(f"w4_gemv B={b} K={k} N={n} G={groups} "
+                      f"[{k6_plan_text(b, k, np_, groups)}]: max_abs_err "
                       f"{err:.3e} rel {rel:.3e} (limits {KERNEL_ATOL} + "
-                      f"{KERNEL_RTOL}*|plain|, rel {KERNEL_RTOL}); kernel "
-                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                      f"{lim['bound_ms']:.4f} ms by {lim['bound_by']}; "
+                      f"{KERNEL_RTOL}*|plain|, rel {KERNEL_RTOL}){split}; "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{lim['bound_ms']:.4f} ms by {lim['bound_by']} "
+                      f"({lim['bound_ms'] / ms:.1%} of it); "
                       f"{nbytes / 1e6:.2f} MB packed weights + scales -> "
                       f"{nbytes / ms / 1e6:.0f} GB/s {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError("w4_gemv disagrees with its plain "
                                          "version")
                 worst = max(worst, err)
-                if (k, n, groups, b) == (4096, 11008, 4096 // W4_GROUP, 4):
+                if b == 4:
                     # no PyTorch call multiplies by packed int4 weights: the
                     # yardstick is K7's, dequantize + torch.matmul
                     lib_ms = device_ms(lambda: walk(
@@ -1539,6 +1575,7 @@ def check_w4(gen: torch.Generator) -> dict:
                             torch.bfloat16))) / layers
                     print(f"w4_gemv B={b} K={k} N={n} G={groups}: dequantize"
                           f" + torch.matmul {lib_ms:.4f} ms")
+                if (k, n, groups, b) == (4096, 11008, 4096 // W4_GROUP, 4):
                     timing = {"ms": ms, "plain_ms": plain_ms,
                               "library_ms": lib_ms, **lim}
         del w
@@ -1778,6 +1815,47 @@ def check_int8_matmul(gen: torch.Generator) -> dict:
             "max_abs_err": worst, **timing, "summary": summary}
 
 
+K6_ROWS = (1, 2, 4, 8)
+
+
+def k6_rows_table(gen: torch.Generator) -> None:
+    """K6 at 1, 2, 4 and 8 rows at the 7B decode shapes, g=128: device ms
+    from CUDA-graph replays, plan and bound; runs on an older tree too, so
+    that two builds of it are timed in one call."""
+    dev, layers = "cuda", 4
+    for k, n in W4_SHAPES:
+        np_, groups = n // 2, k // W4_GROUP
+        w = torch.randint(-128, 128, (layers, k, np_), generator=gen,
+                          device=dev, dtype=torch.int8)
+        s = (torch.rand(layers, 2, groups, np_, generator=gen, device=dev)
+             * 0.02 + 0.005).bfloat16()
+        for b in K6_ROWS:
+            x = torch.randn(b, k, generator=gen, device=dev).bfloat16()
+
+            def walk():
+                for li in range(layers):
+                    w4_dense_stacked(x, {"kernel_q4p": w[li],
+                                         "kernel_scale4p": s[li]})
+
+            ms = device_ms(walk) / layers
+            nbytes = k * np_ + 2 * groups * np_ * 2
+            lim = bound(nbytes + tensor_bytes(x) + b * n * 2, 2 * b * k * n)
+            print(f"K6 rows table: B={b} K={k} N={n} G={groups} "
+                  f"[{k6_plan_text(b, k, np_, groups)}]: kernel {ms:.4f} ms, "
+                  f"bound {lim['bound_ms']:.4f} ms by {lim['bound_by']}, "
+                  f"{nbytes / ms / 1e6:.0f} GB/s")
+        # one PyTorch kernel over the same bytes: what a kernel that only
+        # streams them takes on this card at this size
+        sum_ms = device_ms(lambda: [w[li].view(torch.int32).sum(
+            dtype=torch.int32) for li in range(layers)]) / layers
+        clone_ms = device_ms(lambda: [w[li].clone()
+                                      for li in range(layers)]) / layers
+        print(f"K6 rows table: K={k} N={n}: torch.sum of the "
+              f"{k * np_ / 1e6:.2f} MB of packed weights {sum_ms:.4f} ms, "
+              f"a clone of them {clone_ms:.4f} ms")
+        del w, s
+
+
 def gemm_summary(checked: list) -> None:
     """One line per K7 / K8 call above 32 rows at 80, 2,308 and 2,492 rows:
     ms, bound, plain version, dequantize + torch.matmul."""
@@ -1792,10 +1870,11 @@ def gemm_summary(checked: list) -> None:
 
 def gemm_plan_sweep(gen: torch.Generator) -> None:
     """K8 at CLIP's fc2 (4096 x 1024) at the tower's rows and K7 gate/up
-    (g=128) at batch 80, each under forced K-split plans beside its own
-    plan; then the wrappers' host time per call on the mma.sync path (32
-    rows) and on the TMA + wgmma path (80 rows: two tensor maps encoded per
-    call). Needs a tree whose gemm_plan has paths."""
+    (g=128) at batch 80, then K6 at 4 rows and K7 at 16 (the decode-row
+    loop), each under forced K-split plans beside its own plan; then the
+    wrappers' host time per call on the mma.sync path (32 rows) and on the
+    TMA + wgmma path (80 rows: two tensor maps encoded per call). Needs a
+    tree whose gemm_plan has paths."""
     if not hasattr(int8_ops, "GemmPlan"):
         print("gemm plans: this tree's gemm_plan has no paths; not swept")
         return
@@ -1838,6 +1917,47 @@ def gemm_plan_sweep(gen: torch.Generator) -> None:
             mark = " (its plan)" if plan == own else ""
             parts.append(f"{plan.splits} x {plan.tps}{mark} {ms:.4f} ms")
         print(f"gemm plans, {what} M={m} K={k} N={n}: " + ", ".join(parts))
+    # the decode-row loop: K6 at the smoke's batch and K7 at a beam step's
+    # rows, gate/up g=128, under forced split counts beside the plan's
+    k, n = W4_SHAPES[1]
+    kt = k // int8_ops.TILE_K
+    x4 = torch.randn(4, k, generator=gen, device=dev).bfloat16()
+    x16 = torch.randn(16, k, generator=gen, device=dev).bfloat16()
+    try:
+        own = w4_matmul.plan(4, k, n // 2, k // W4_GROUP)
+    except TypeError:
+        own = None  # an older tree's K6 takes no forced plan
+    if own is not None:
+        parts = []
+        for want_splits in sorted({1, 2, 3, 4, 6, own[1]}):
+            tps = -(-2 * kt // want_splits)
+            plan = (own[0], -(-2 * kt // tps), tps * 32)
+
+            def walk6():
+                for li in range(layers):
+                    w4_dense_stacked(x4, {"kernel_q4p": w[li],
+                                          "kernel_scale4p": s4[li]}, plan)
+
+            mark = " (its plan)" if plan == own else ""
+            parts.append(f"{plan[1]} x {plan[2]} rows{mark} "
+                         f"{device_ms(walk6) / layers:.4f} ms")
+        print(f"gemm plans, K6 B=4 K={k} N={n}: " + ", ".join(parts))
+    own = int8_ops.gemm_plan(16, k, n, n // 2)
+    parts = []
+    for want_splits in sorted({1, 2, 3, 4, 6, own.splits}):
+        splits, tps = int8_ops.split_k(kt, want_splits)
+        plan = own._replace(splits=splits, tps=tps)
+
+        def walk7():
+            for li in range(layers):
+                int8_ops.launch_dq_gemm(1, "sweep", x16, w[li], s4[li], n,
+                                        k // W4_GROUP, plan)
+
+        mark = " (its plan)" if plan == own else ""
+        parts.append(f"{plan.splits} x {plan.tps}{mark} "
+                     f"{device_ms(walk7) / layers:.4f} ms")
+    print(f"gemm plans, K7 M=16 K={k} N={n} [{own.path}, {own.bm}-row "
+          f"tiles]: " + ", ".join(parts))
     _kernels.launches.pop("sweep", None)
     k, n = W4_SHAPES[0]
     w = torch.randint(-128, 128, (k, n // 2), generator=gen, device=dev,
@@ -3230,6 +3350,7 @@ def main() -> None:
     if sys.argv[1:] == ["--gemm-only"]:
         checked = [check_w4_gemm(gen), check_int8_matmul(gen)]
         gemm_summary(checked)
+        k6_rows_table(gen)
         gemm_plan_sweep(gen)
         q4 = quantize_int4g(new_tree(LLAVA_V15_7B, "llava-v1.5-7b"))
         run_batch80(q4, LLAVA_V15_7B)

@@ -28,7 +28,8 @@ CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attn.cu", "fold_attn.cu",
            "w4_gemv.cu", "dq_gemm.cu")
 # included by sources; part of the build hash
-HEADERS = ("mma_bf16.cuh", "decode_common.cuh", "hopper_common.cuh")
+HEADERS = ("mma_bf16.cuh", "decode_common.cuh", "hopper_common.cuh",
+           "dq_rows.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -16,10 +16,9 @@
 // end, as the Pallas kernels do. K7 with G > 1 scales the converted weights:
 // nibble (exact in bf16) times scale, rounded to bf16 (one __hmul2), then
 // the tensor-core product: the order and the rounding of the Pallas kernel,
-// which computes nibble * scale in fp32 (exact) and rounds it to bf16. The
-// plain version multiplies in fp32 without that rounding: a difference of at
-// most 2^-9 relative per weight, inside the stated tolerance. A K tile (64
-// rows) lies in one scale group, so gs must be a multiple of 64.
+// which computes nibble * scale in fp32 (exact) and rounds it to bf16; so
+// does the plain version. A K tile (64 rows) lies in one scale group, so gs
+// must be a multiple of 64.
 //
 // Conversion, on both paths: int4 by the magic number (nibble ^ 8 ored into
 // the mantissa of bf16 128.0, minus 136.0, two values per __hsub2; no I2F),
@@ -34,11 +33,14 @@
 //
 // Two paths, chosen by the plan.
 //   - Up to 32 rows (decode-family M, bound by the weight bytes: every
-//     packed byte is read once for all rows): 32 rows x 256 channels, eight
-//     warps; cp.async stages of the x tile and the raw tile, a conversion
-//     pass into a bf16 tile between two barriers, ldmatrix.trans and
-//     mma.sync m16n8k16. Also every launch whose weight rows are not a
-//     multiple of 16 bytes (TMA's stride rule), at any M.
+//     packed byte is read once for all rows): the loop of csrc/dq_rows.cuh,
+//     shared with K6. The weights are mma.sync's A operand, converted in
+//     registers straight from the raw tile (no bf16 tile, no block barrier
+//     in the loop), x^T its B operand in chunks of 8, 16 or 32 rows; each
+//     of a block's four warps streams its quarter of the K split through
+//     its own ring of cp.async stages. Also every launch whose weight rows
+//     are not a multiple of 16 bytes (TMA's stride rule), at any M, in
+//     32-row chunks.
 //   - Above 32 rows (K7 at batch 80, K8 at prefill and tower rows): 128 rows
 //     x 256 channels, warp specialised. Stamped with clock64, the old
 //     128-row loop spent a K tile (~2.1 us) on the copy issue, the
@@ -71,14 +73,14 @@
 // --gemm-only; more in PERF.md section 6): K8 gate/up (4096 x 11008) at
 // 2,492 rows 0.48 ms, dequantize + torch.matmul 0.54, the 128-row mma.sync
 // loop before 0.96; K7 g=128 at 80 rows 0.029 / 0.041 / 0.044 ms for wq /
-// gate/up / down (before: 0.045 / 0.074 / 0.077), 5-10x their byte bounds;
-// up to 32 rows K7 gate/up at 16 rows 0.039 ms, 5.5x its byte bound.
+// gate/up / down (before: 0.045 / 0.074 / 0.077), 5-10x their byte bounds.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dq_rows.cuh"
 #include "hopper_common.cuh"
 #include "mma_bf16.cuh"
 
@@ -94,41 +96,11 @@ using halva::smem_u32;
 using halva::sw128_desc;
 using halva::tma_load_2d;
 using halva::tma_load_3d;
-using halva::ldmatrix_x4;
-using halva::ldmatrix_x4_trans;
-using halva::mma_16816;
 using halva::pack_bf16;
 
-constexpr int NT = 256;       // threads per block, 8 warps
-constexpr int BK = 64;        // K rows per tile
-constexpr int ASTR = BK + 8;  // bf16 per x row in shared memory (padded)
+constexpr int BK = 64;  // K rows per tile of the wgmma path and the plan
 
 enum Mode { W8 = 0, W4_CHANNEL = 1, W4_GROUPED = 2 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          int bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
   const __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
@@ -146,272 +118,6 @@ __device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
 // becomes the low mantissa bits of 2^23, minus 2^23 + 128
 __device__ __forceinline__ float s8_to_float(uint32_t w, uint32_t sel) {
   return __uint_as_float(__byte_perm(w, 0x4B000000u, sel)) - 8388736.f;
-}
-
-template <int BM, int BN, int MODE, int STAGES>
-constexpr int smem_bytes() {
-  return STAGES * (BM * ASTR * 2 + BK * (MODE == W8 ? BN : BN / 2)) +
-         BK * (BN + 8) * 2;
-}
-
-// grid (column tiles, row tiles, K splits). A block owns BM rows and BN
-// output channels. LD is the weights' row length in bytes: N/2 for K7, N for
-// K8. tps: K tiles per split.
-template <int BM, int BN, int WM, int WN, int MODE, int STAGES, int MINB>
-__global__ void __launch_bounds__(NT, MINB)
-dq_gemm_kernel(const __nv_bfloat16* __restrict__ x,
-               const uint8_t* __restrict__ w,
-               const __nv_bfloat16* __restrict__ s,
-               __nv_bfloat16* __restrict__ y, float* __restrict__ partial,
-               int* __restrict__ tickets, int M, int K, int N, int G,
-               int splits, int tps) {
-  constexpr bool W4 = MODE != W8;
-  constexpr int RAWB = W4 ? BN / 2 : BN;  // raw bytes per K row of the tile
-  constexpr int BSTR = BN + 8;  // bf16 per converted weight row (padded)
-  constexpr int WPR = RAWB / 4;  // 32-bit words per raw row
-  constexpr int RPP = NT / WPR;  // rows one pass of the block converts
-  static_assert(NT % WPR == 0 && BK % RPP == 0, "convert passes");
-  constexpr int A_ELEMS = BM * ASTR;
-  constexpr int RAW_BYTES = BK * RAWB;
-  constexpr int WTM = BM / WM, WTN = BN / WN;  // warp tile
-  constexpr int MT = WTM / 16, NT8 = WTN / 8;
-  static_assert(WM * WN * 32 == NT, "8 warps");
-  static_assert(MT >= 1 && NT8 >= 2 && NT8 % 2 == 0, "warp tile");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  uint8_t* Ws = smem + STAGES * A_ELEMS * 2;
-  __nv_bfloat16* Bs =
-      reinterpret_cast<__nv_bfloat16*>(Ws + STAGES * RAW_BYTES);
-  __shared__ int is_last;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm0 = (warp / WN) * WTM, wn0 = (warp % WN) * WTN;
-  const int m0 = blockIdx.y * BM;
-  const int LD = W4 ? N / 2 : N;
-  const int c0 = blockIdx.x * RAWB;  // first packed column (K7) or channel
-  const int split = blockIdx.z;
-  const int kt0 = split * tps;
-  const int nkt = min(K / BK, kt0 + tps) - kt0;
-
-  auto load_tile = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-    __nv_bfloat16* as = As + stage * A_ELEMS;
-    for (int c = tid; c < BM * (BK / 8); c += NT) {
-      const int r = c / (BK / 8), cc = c % (BK / 8);
-      const int row = m0 + r;
-      cp_async16(as + r * ASTR + cc * 8,
-                 x + (long)min(row, M - 1) * K + k0 + cc * 8,
-                 row < M ? 16 : 0);
-    }
-    uint8_t* ws = Ws + stage * RAW_BYTES;
-    for (int c = tid; c < BK * (RAWB / 8); c += NT) {
-      const int r = c / (RAWB / 8), cc = c % (RAWB / 8);
-      const int col = c0 + cc * 8;
-      const bool in = col < LD;  // LD % 8 == 0: a chunk is all in or out
-      cp_async8(ws + r * RAWB + cc * 8,
-                w + (long)(k0 + r) * LD + (in ? col : 0), in ? 8 : 0);
-    }
-  };
-
-  // K7, G > 1: this thread's 4 + 4 scales of the current group, paired as
-  // the converted values are: (col 0, col 2) and (col 1, col 3)
-  uint32_t sl02 = 0, sl13 = 0, sh02 = 0, sh13 = 0;
-  int cur_group = -1;
-  const int gs = K / G;
-
-  auto convert_tile = [&](int stage, int kt) {
-    const uint32_t* wr =
-        reinterpret_cast<const uint32_t*>(Ws + stage * RAW_BYTES);
-    // this thread converts word wc of rows tid / WPR + RPP j
-    const int wc = tid % WPR;
-    if (W4) {
-      if (MODE == W4_GROUPED) {
-        const int group = kt * BK / gs;
-        if (group != cur_group) {
-          cur_group = group;
-          const int pc = c0 + 4 * wc;
-          uint2 lo = make_uint2(0u, 0u), hi = make_uint2(0u, 0u);
-          if (pc < LD) {
-            lo = *reinterpret_cast<const uint2*>(s + (long)group * LD + pc);
-            hi = *reinterpret_cast<const uint2*>(s + (long)(G + group) * LD +
-                                                 pc);
-          }
-          sl02 = __byte_perm(lo.x, lo.y, 0x5410);
-          sl13 = __byte_perm(lo.x, lo.y, 0x7632);
-          sh02 = __byte_perm(hi.x, hi.y, 0x5410);
-          sh13 = __byte_perm(hi.x, hi.y, 0x7632);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < BK / RPP; ++j) {
-        const int r = tid / WPR + RPP * j;
-        // nibble ^ 8 = value + 8 in [0, 15]; 0x4300 | that = bf16 128 + it
-        const uint32_t v = wr[r * WPR + wc] ^ 0x88888888u;
-        constexpr uint32_t MASK = 0x000F000Fu, ONE28 = 0x43004300u;
-        constexpr uint32_t BIAS = 0x43084308u;  // bf16 136.0 twice
-        uint32_t lo02 = bf2_sub((v & MASK) | ONE28, BIAS);
-        uint32_t hi02 = bf2_sub(((v >> 4) & MASK) | ONE28, BIAS);
-        uint32_t lo13 = bf2_sub(((v >> 8) & MASK) | ONE28, BIAS);
-        uint32_t hi13 = bf2_sub(((v >> 12) & MASK) | ONE28, BIAS);
-        if (MODE == W4_GROUPED) {
-          lo02 = bf2_mul(lo02, sl02);
-          lo13 = bf2_mul(lo13, sl13);
-          hi02 = bf2_mul(hi02, sh02);
-          hi13 = bf2_mul(hi13, sh13);
-        }
-        __nv_bfloat16* row = Bs + r * BSTR + 4 * wc;
-        *reinterpret_cast<uint2*>(row) =
-            make_uint2(__byte_perm(lo02, lo13, 0x5410),
-                       __byte_perm(lo02, lo13, 0x7632));
-        *reinterpret_cast<uint2*>(row + BN / 2) =
-            make_uint2(__byte_perm(hi02, hi13, 0x5410),
-                       __byte_perm(hi02, hi13, 0x7632));
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < BK / RPP; ++j) {
-        const int r = tid / WPR + RPP * j;
-        const uint32_t v = wr[r * WPR + wc] ^ 0x80808080u;
-        *reinterpret_cast<uint2*>(Bs + r * BSTR + 4 * wc) = make_uint2(
-            pack_bf16(s8_to_float(v, 0x7440), s8_to_float(v, 0x7441)),
-            pack_bf16(s8_to_float(v, 0x7442), s8_to_float(v, 0x7443)));
-      }
-    }
-  };
-
-  float acc[MT][NT8][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT8; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < nkt) load_tile(st, kt0 + st);
-    cp_async_commit();
-  }
-  const int lrow = (lane & 7) + (lane & 8);
-  const int lcol = (lane & 16) >> 1;
-  for (int i = 0; i < nkt; ++i) {
-    cp_async_wait<STAGES - 2>();  // tile i has landed (this thread's copies)
-    __syncthreads();              // everyone's; and tile i-1 is consumed
-    const int nxt = i + STAGES - 1;
-    if (nxt < nkt) load_tile(nxt % STAGES, kt0 + nxt);
-    cp_async_commit();
-    const int stage = i % STAGES;
-    convert_tile(stage, kt0 + i);
-    __syncthreads();
-    const __nv_bfloat16* as = As + stage * A_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(a[mt], as + (wm0 + mt * 16 + lrow) * ASTR + kk * 16 +
-                               lcol);
-      const __nv_bfloat16* br = Bs + (kk * 16 + lrow) * BSTR + wn0 + lcol;
-#pragma unroll
-      for (int nt = 0; nt < NT8; nt += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, br + nt * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_16816(acc[mt][nt], a[mt], b[0], b[1]);
-          mma_16816(acc[mt][nt + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // column c (even) of the block tile -> output channel n; false past the
-  // edge. K7: the first BN/2 columns are the low-nibble channels, the rest
-  // the high-nibble ones
-  auto channel = [&](int c, int& n) {
-    if (W4) {
-      const int pc = c0 + (c & (BN / 2 - 1));
-      n = (c >= BN / 2 ? LD : 0) + pc;
-      return pc < LD;
-    }
-    n = c0 + c;
-    return n < N;
-  };
-  // the per-channel scale multiplies the fp32 sum; a grouped K7 has scaled
-  // its weights already. (2, 1, N/2) flat is indexed by the channel too.
-  auto scale_of = [&](int n) {
-    return MODE == W4_GROUPED ? 1.f : __bfloat162float(s[n]);
-  };
-
-  if (splits == 1) {
-#pragma unroll
-    for (int nt = 0; nt < NT8; ++nt) {
-      int n;
-      if (!channel(wn0 + nt * 8 + 2 * t, n)) continue;
-      const float s0 = scale_of(n), s1 = scale_of(n + 1);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int r0 = m0 + wm0 + mt * 16 + g, r1 = r0 + 8;
-        if (r0 < M)
-          *reinterpret_cast<uint32_t*>(y + (long)r0 * N + n) =
-              pack_bf16(acc[mt][nt][0] * s0, acc[mt][nt][1] * s1);
-        if (r1 < M)
-          *reinterpret_cast<uint32_t*>(y + (long)r1 * N + n) =
-              pack_bf16(acc[mt][nt][2] * s0, acc[mt][nt][3] * s1);
-      }
-    }
-    return;
-  }
-
-  float* mine = partial + (long)split * M * N;
-#pragma unroll
-  for (int nt = 0; nt < NT8; ++nt) {
-    int n;
-    if (!channel(wn0 + nt * 8 + 2 * t, n)) continue;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int r0 = m0 + wm0 + mt * 16 + g, r1 = r0 + 8;
-      if (r0 < M)
-        *reinterpret_cast<float2*>(mine + (long)r0 * N + n) =
-            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      if (r1 < M)
-        *reinterpret_cast<float2*>(mine + (long)r1 * N + n) =
-            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-    }
-  }
-  __threadfence();  // this block's partials reach L2 before its ticket
-  __syncthreads();
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  if (tid == 0) is_last = atomicAdd(&tickets[tile], 1) == splits - 1;
-  __syncthreads();
-  if (!is_last) return;
-#pragma unroll
-  for (int nt = 0; nt < NT8; ++nt) {
-    int n;
-    if (!channel(wn0 + nt * 8 + 2 * t, n)) continue;
-    const float s0 = scale_of(n), s1 = scale_of(n + 1);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + wm0 + mt * 16 + g + 8 * h;
-        if (r >= M) continue;
-        const long off = (long)r * N + n;
-        float2 v = make_float2(0.f, 0.f);
-        for (int sp = 0; sp < splits; ++sp) {
-          const float2 p = __ldcg(
-              reinterpret_cast<const float2*>(partial + (long)sp * M * N +
-                                              off));
-          v.x += p.x;
-          v.y += p.y;
-        }
-        *reinterpret_cast<uint32_t*>(y + off) =
-            pack_bf16(v.x * s0, v.y * s1);
-      }
-    }
-  }
-  if (tid == 0) tickets[tile] = 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -838,43 +544,38 @@ int launch_ws(cudaStream_t st, const __nv_bfloat16* x, const uint8_t* w,
   return (int)cudaGetLastError();
 }
 
-// above 48 KB of dynamic shared memory needs the opt-in, once per kernel and
-// device (the first launch is never inside a CUDA graph capture: the callers
-// warm up first)
-template <int BM, int BN, int WM, int WN, int MODE, int STAGES, int MINB>
-int launch(cudaStream_t st, const __nv_bfloat16* x,
-           const uint8_t* w, const __nv_bfloat16* s, __nv_bfloat16* y,
-           float* partial, int* tickets, int M, int K, int N, int G,
-           int splits, int tps) {
-  static uint64_t smem_set = 0;
-  constexpr int bytes = smem_bytes<BM, BN, MODE, STAGES>();
-  auto kernel = dq_gemm_kernel<BM, BN, WM, WN, MODE, STAGES, MINB>;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!(smem_set >> dev & 1)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    smem_set |= uint64_t(1) << dev;
-  }
-  kernel<<<grid, NT, bytes, st>>>(x, w, s, y, partial, tickets, M, K, N, G,
-                                  splits, tps);
-  return (int)cudaGetLastError();
-}
-
-// The two paths: 32 rows x 256 channels (mma.sync; row segments of 128
-// packed or 256 int8 bytes) and 128 rows x 256 channels (TMA + wgmma).
+// The two paths: up to 32 rows a block on the loop of csrc/dq_rows.cuh
+// (mma.sync; 64 weight bytes a row per block, rows in chunks of bm = 8, 16
+// or 32; the plan's K tiles of 64 rows are two of its 32-row tiles), and
+// 128 rows x 256 channels (TMA + wgmma).
 template <int MODE>
 int launch_mode(int bm, cudaStream_t st, const __nv_bfloat16* x,
                 const uint8_t* w, const __nv_bfloat16* s, __nv_bfloat16* y,
                 float* partial, int* tickets, int M, int K, int N, int G,
                 int splits, int tps) {
-  if (bm == 32)
-    return launch<32, 256, 1, 8, MODE, MODE == W8 ? 3 : 4, 2>(
-        st, x, w, s, y, partial, tickets, M, K, N, G, splits, tps);
+  if (bm == 8 || bm == 16 || bm == 32) {
+    halva_rows::Args a;
+    a.x = x;
+    a.w = w;
+    a.s = s;
+    a.y = y;
+    a.partial = partial;
+    a.tickets = tickets;
+    a.M = M;
+    a.K = K;
+    a.ldx = K;
+    a.ld = MODE == W8 ? N : N / 2;
+    a.N = N;
+    a.G = G;
+    a.splits = splits;
+    a.tps = tps * (BK / halva_rows::BK);
+    a.w16 = a.ld % 16 == 0;
+    a.tpg = (K / G) / halva_rows::BK;
+    constexpr int RMODE = MODE == W8           ? halva_rows::W8
+                          : MODE == W4_CHANNEL ? halva_rows::W4_CHANNEL
+                                               : halva_rows::W4_GROUPED;
+    return halva_rows::launch_rows_mode<RMODE>(bm, a, st);
+  }
   if (bm == WS_BM)
     return launch_ws<MODE>(st, x, w, s, y, partial, tickets, M, K, N, G,
                            splits, tps);
@@ -886,11 +587,12 @@ int launch_mode(int bm, cudaStream_t st, const __nv_bfloat16* x,
 // mode 0: K8, w (K, N) int8, s (N) bf16. mode 1: K7, w (K, N/2) int8 packed,
 // s (2, G, N/2) bf16 with G scale groups along K (G = 1: per channel).
 // x (M, K) bf16; y (M, N) bf16; partial (splits, M, N) fp32 scratch (unused
-// when splits == 1); tickets: >= ceil(N/256) * ceil(M/bm) zeroed int32. bm
-// is the row tile and picks the path: 32 (mma.sync) or 128 (TMA + wgmma,
-// which needs the weights' row of N (K8) or N/2 (K7) bytes to be a multiple
-// of 16); both take 256 channels per block. splits * tps covers the K/64
-// tiles of K with no empty split. Returns a cudaError_t.
+// when splits == 1); tickets: >= (column tiles) * ceil(M/bm) zeroed int32.
+// bm is the row tile and picks the path: 8, 16 or 32 (csrc/dq_rows.cuh,
+// column tiles of 64 weight bytes) or 128 (TMA + wgmma, column tiles of 256
+// channels; it needs the weights' row of N (K8) or N/2 (K7) bytes to be a
+// multiple of 16). splits * tps covers the K/64 tiles of K with no empty
+// split. Returns a cudaError_t.
 extern "C" int halva_dq_gemm(int mode, const void* x, const void* w,
                              const void* s, void* y, void* partial,
                              void* tickets, int M, int K, int N, int G,

@@ -3,8 +3,8 @@ and its plain version.
 
 Counterpart of halva_tpu/ops/int8_matmul.py. x (..., K), q (K, N) int8,
 scale (1, N) or (N,); leading dims of x are flattened for the product and
-restored. The kernel dequantizes weight tiles in shared memory, so device
-memory sees only the int8 bytes; `x @ (q * scale)` writes and re-reads a
+restored. The kernel dequantizes weight tiles on chip, so device memory
+sees only the int8 bytes; `x @ (q * scale)` writes and re-reads a
 bf16 copy of the weights on every call.
 
 `int8_matmul` launches K8 for CUDA tensors (bf16 x and scale) and uses
@@ -13,7 +13,7 @@ bf16 copy of the weights on every call.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,12 +23,23 @@ KERNEL = "int8_matmul"
 
 # the launch plan of csrc/dq_gemm.cu, shared with K7 (ops/w4_matmul.w4_gemm)
 TILE_K = 64
-TILE_N = 256  # output channels per block, on both paths
-SMALL_M = 32  # rows up to which the 32-row mma.sync path runs
+TILE_N = 256  # output channels per block on the wgmma path
+SMALL_M = 32  # rows up to which the decode-row loop (csrc/dq_rows.cuh) runs
+ROW_CHUNKS = (8, 16, 32)  # its row tiles: one to four n8 tiles of mma.sync
+ROWS_TILE_BYTES = 64  # its column tile: weight bytes a row per block
+ROWS_TILE_K = 32  # its K tile; each warp of a block takes a share of a
+ROWS_WARPS = 4  # split's, in order
 WGMMA_M = 128  # row tile of the TMA + wgmma path above SMALL_M
 TMA_STRIDE = 16  # bytes: TMA wants every global row stride a multiple of it
 SM_COUNT = 132  # an H100's SMs: one block each on the wgmma path
-MMA_BLOCKS = 2 * SM_COUNT  # two blocks per SM on the mma.sync path
+# blocks an SM the decode-row loop's plans aim at; the kernel holds up to
+# four (csrc/dq_rows.cuh, Shape::BLOCKS), but fewer, longer warps measured
+# faster (NVIDIA H100 80GB HBM3; chip_smoke.py --gemm-only, "gemm plans")
+ROWS_BLOCKS_PER_SM = 2
+# a split plan's partial tiles and last-block merge, in a warp's K-tile times
+# a split (csrc/dq_rows.cuh stamped: scripts/w4_gemv_phases.py)
+SPLIT_MERGE_TILES = 1.5
+WAVE_TILES = 3  # a wave's start (its first copies) and its epilogue
 MIN_TILES_PER_SPLIT = 4
 MAX_SPLITS = 16
 # a split's cost on the wgmma path: its fp32 partials (m x n x 4 bytes) are
@@ -39,8 +50,8 @@ KTILE_S = 1.1e-6
 
 
 class GemmPlan(NamedTuple):
-    path: str  # "mma" (32-row tiles, mma.sync) or "wgmma" (128-row, TMA)
-    bm: int  # row tile
+    path: str  # "mma" (the decode-row loop, mma.sync) or "wgmma" (TMA)
+    bm: int  # row tile: 8, 16 or 32 on "mma", 128 on "wgmma"
     splits: int  # K splits
     tps: int  # K tiles per split
 
@@ -55,25 +66,88 @@ def split_k(kt: int, splits: int) -> Tuple[int, int]:
     return _cdiv(kt, tps), tps
 
 
+def row_chunk(m: int) -> int:
+    """The decode-row loop's row tile for m rows: the least of ROW_CHUNKS
+    that holds them, 32-row chunks above."""
+    return next(c for c in ROW_CHUNKS if c >= min(m, SMALL_M))
+
+
+def row_ranges(k: int, splits: int, tiles_per_split: int
+               ) -> List[List[Tuple[int, int]]]:
+    """The K rows each warp of the decode-row loop sums, split by split:
+    [[(first, end) of warp w for w in 0..ROWS_WARPS-1] for each split]. A split
+    owns `tiles_per_split` tiles of ROWS_TILE_K rows (the last split what is
+    left); warp w takes the w-th share of them, rounded up, so a warp's
+    range may be empty. Every row below k lies in exactly one range."""
+    kt = _cdiv(k, ROWS_TILE_K)
+    out = []
+    for z in range(splits):
+        t0 = z * tiles_per_split
+        n = min(kt, t0 + tiles_per_split) - t0
+        q = _cdiv(n, ROWS_WARPS)
+        out.append([(min(k, (t0 + min(n, w * q)) * ROWS_TILE_K),
+                     min(k, (t0 + min(n, (w + 1) * q)) * ROWS_TILE_K))
+                    for w in range(ROWS_WARPS)])
+    return out
+
+
+def rows_splits(blocks: int, tiles: int, granule: int, most: int,
+                sms: int = SM_COUNT) -> Tuple[int, int]:
+    """(splits, tiles per split) of the decode-row loop for `blocks` output
+    tiles and `tiles` K tiles of `granule` 32-row tiles each: the count up
+    to `most` that finishes first, in a warp's K-tile times: the waves of
+    ROWS_BLOCKS_PER_SM blocks an SM times a warp's share of a split and
+    WAVE_TILES, plus SPLIT_MERGE_TILES a split for the merge of a split
+    plan; the fewer splits on a tie. No split is empty."""
+    best = None
+    for want in range(1, most + 1):
+        tps = _cdiv(tiles, want)
+        splits = _cdiv(tiles, tps)
+        cost = (_cdiv(blocks * splits, ROWS_BLOCKS_PER_SM * sms)
+                * (_cdiv(tps * granule, ROWS_WARPS) + WAVE_TILES)
+                + (SPLIT_MERGE_TILES * splits if splits > 1 else 0))
+        if best is None or cost < best[0]:
+            best = (cost, splits, tps)
+    return best[1], best[2]
+
+
+def split_sum_plain(x2: torch.Tensor, w: torch.Tensor,
+                    ranges: List[List[Tuple[int, int]]]) -> torch.Tensor:
+    """x2 (m, k) @ w (k, n) in fp32 in the decode-row loop's order: each
+    warp's range a product, the warps of a split summed in warp order, the
+    splits in split order."""
+    xf, wf = x2.float(), w.float()
+    total = None
+    for split in ranges:
+        part = None
+        for b, e in split:
+            d = xf[:, b:e] @ wf[b:e]
+            part = d if part is None else part + d
+        total = part if total is None else total + part
+    return total
+
+
 def gemm_plan(m: int, k: int, n: int, row_bytes: int) -> GemmPlan:
     """Launch plan of the dequantizing GEMM for x (m, k) and n output
     channels whose weight rows are `row_bytes` long (n for K8, n/2 for K7).
 
-    Above SMALL_M rows the TMA + wgmma path (128 x 256 tiles, one block per
-    SM), unless the weight rows are not a multiple of TMA_STRIDE bytes: those
-    go to the 32-row tiles, which take any M by tiling rows. While the tiles
-    alone leave SMs idle K is split, each split at least MIN_TILES_PER_SPLIT
-    K tiles and none empty: on the mma.sync path until the grid holds about
-    two blocks per SM; on the wgmma path by the split count that finishes
-    first, in K-tile times: a block's K tiles per wave of SM_COUNT blocks,
-    plus the traffic of the partials. The splits' fp32 partial tiles are
-    summed in split order by the last block to finish (csrc/dq_gemm.cu)."""
+    Up to SMALL_M rows the decode-row loop (csrc/dq_rows.cuh): row tiles of
+    8, 16 or 32 (`row_chunk`), column tiles of ROWS_TILE_BYTES weight bytes,
+    K split by `rows_splits`. Above SMALL_M rows the TMA + wgmma path (128 x
+    256 tiles, one block per SM), unless the weight rows are not a multiple
+    of TMA_STRIDE bytes: those go to the decode-row loop in 32-row chunks.
+    Each split is at least MIN_TILES_PER_SPLIT K tiles and none is empty; on
+    the wgmma path the split count is the one that finishes first, in K-tile
+    times: a block's K tiles per wave of SM_COUNT blocks, plus the traffic
+    of the partials. The splits' fp32 partial tiles are summed in split
+    order by the last block to finish."""
     kt = k // TILE_K
     most = max(1, min(kt // MIN_TILES_PER_SPLIT, MAX_SPLITS))
     if m <= SMALL_M or row_bytes % TMA_STRIDE:
-        tiles = _cdiv(m, SMALL_M) * _cdiv(n, TILE_N)
-        splits = max(1, min(MMA_BLOCKS // tiles, most))
-        return GemmPlan("mma", SMALL_M, *split_k(kt, splits))
+        bm = row_chunk(m)
+        tiles = _cdiv(m, bm) * _cdiv(row_bytes, ROWS_TILE_BYTES)
+        return GemmPlan("mma", bm, *rows_splits(
+            tiles, kt, TILE_K // ROWS_TILE_K, most))
     tiles = _cdiv(m, WGMMA_M) * _cdiv(n, TILE_N)
     best, best_cost = (1, kt), _cdiv(tiles, SM_COUNT) * kt
     if tiles < SM_COUNT:
@@ -87,6 +161,13 @@ def gemm_plan(m: int, k: int, n: int, row_bytes: int) -> GemmPlan:
     return GemmPlan("wgmma", WGMMA_M, *best)
 
 
+def plan_tiles(plan: GemmPlan, m: int, n: int, row_bytes: int) -> int:
+    """The output tiles of a launch under `plan`: its split tickets."""
+    if plan.path == "mma":
+        return _cdiv(m, plan.bm) * _cdiv(row_bytes, ROWS_TILE_BYTES)
+    return _cdiv(m, plan.bm) * _cdiv(n, TILE_N)
+
+
 def launch_dq_gemm(mode: int, name: str, x2: torch.Tensor, w: torch.Tensor,
                    s: torch.Tensor, n: int, groups: int,
                    plan: Optional[GemmPlan] = None) -> torch.Tensor:
@@ -96,7 +177,7 @@ def launch_dq_gemm(mode: int, name: str, x2: torch.Tensor, w: torch.Tensor,
     m, k = x2.shape
     if plan is None:
         plan = gemm_plan(m, k, n, w.shape[-1])
-    tiles = _cdiv(m, plan.bm) * _cdiv(n, TILE_N)
+    tiles = plan_tiles(plan, m, n, w.shape[-1])
     if plan.splits > 1 and tiles > _kernels.MAX_TICKETS:
         raise ValueError(f"{name}: {tiles} tiles exceed "
                          f"{_kernels.MAX_TICKETS}")
@@ -137,6 +218,25 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,
     k = x.shape[-1]
     y = (x.reshape(-1, k).float() @ q.float()) * scale.reshape(1, -1).float()
     return y.to(x.dtype).reshape(*x.shape[:-1], q.shape[-1])
+
+
+def int8_matmul_split_plain(x: torch.Tensor, q: torch.Tensor,
+                            scale: torch.Tensor,
+                            plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """K8's arithmetic on the decode-row loop (a "mma" plan: up to 32 rows
+    and the TMA stride rule's shapes), in torch ops: int8 weights (exact in
+    bf16) times x in fp32, summed in the loop's K ranges and merge order
+    (`row_ranges`, `split_sum_plain`), the fp32 sum times the channel scale,
+    cast to x's dtype. `plan` replaces gemm_plan's."""
+    k, n = q.shape
+    x2 = x.reshape(-1, k)
+    if plan is None:
+        plan = gemm_plan(x2.shape[0], k, n, n)
+    if plan.path != "mma":
+        raise ValueError(f"int8_matmul_split_plain: a 'mma' plan, got {plan}")
+    ranges = row_ranges(k, plan.splits, plan.tps * TILE_K // ROWS_TILE_K)
+    y = split_sum_plain(x2, q, ranges) * scale.reshape(1, -1).float()
+    return y.to(x.dtype).reshape(*x.shape[:-1], n)
 
 
 def int8_matmul_takes(x: torch.Tensor, q: torch.Tensor,

@@ -18,12 +18,14 @@ CUDA tensor it launches or raises.
 
 `w4_gemm` is the same function for any number of rows, differentiable in
 x (the train step on a frozen int4 base): K7 for CUDA tensors,
-`w4_gemm_plain` for CPU tensors. K6 streams the weights once per 8-row chunk,
+`w4_gemm_plain` for CPU tensors. Up to 32 rows K6 and K7 run one loop
+(csrc/dq_rows.cuh); above, K6 streams the weights once per 32-row chunk,
 K7 once: `w4_decode_matmul` sends a decode-family matmul with more than
 `W4_GEMV_MAX_ROWS` rows (beams, verify steps, large batches) to K7 and the
 rest to K6, and so does it with shapes K7 refuses (scale groups that are no
 multiple of its 64-row K tile) at any row count: `w4_route` decides from
-the shapes alone.
+the shapes alone. `w4_dense_stacked_split_plain` and `w4_gemm_split_plain`
+are that loop's arithmetic in torch ops, for the tests.
 """
 
 from __future__ import annotations
@@ -35,9 +37,20 @@ import torch
 from halva_tpu_torch import _kernels
 from halva_tpu_torch.ops import quant
 from halva_tpu_torch.ops.int8_matmul import (
+    ROW_CHUNKS,
+    ROWS_TILE_BYTES,
+    ROWS_TILE_K,
+    ROWS_WARPS,
+    SM_COUNT,
     TILE_K,
+    GemmPlan,
     check_gemm_inputs,
+    gemm_plan,
     launch_dq_gemm,
+    row_chunk,
+    row_ranges,
+    rows_splits,
+    split_sum_plain,
 )
 
 KERNEL = "w4_gemv"
@@ -49,12 +62,12 @@ W4_GEMV_MAX_ROWS = 8
 
 Params = Dict[str, Any]
 
-# K6 geometry (csrc/w4_gemv.cu): a block owns TILE_NP packed columns and a
-# split of K; rows of x go in chunks of at most 8.
-TILE_NP = 64
-K_LANES = 32
-TARGET_BLOCKS = 264  # two blocks per SM of an H100's 132
-ROW_CHUNKS = (1, 2, 4, 8)
+# K6 geometry: the decode-row loop of csrc/dq_rows.cuh. A block of
+# ROWS_WARPS warps owns TILE_NP packed columns, a chunk of up to 32 rows of
+# x and a split of K in tiles of K_TILE rows.
+TILE_NP = ROWS_TILE_BYTES
+K_TILE = ROWS_TILE_K
+MIN_WARP_TILES = 2  # K tiles each warp of a split gets at the least
 
 
 def quantize_kernel_int4_stacked(
@@ -163,10 +176,20 @@ def w4a8_dense(x: torch.Tensor, kernel_q4p: torch.Tensor,
     return (acc * sx).to(x.dtype).reshape(*lead, -1)
 
 
+def plain_weights(kernel_q4p: torch.Tensor, kernel_scale4p: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    """(K, N) fp32 weights as the Pallas kernel multiplies them: nibble *
+    scale in fp32 (exact: 4-bit by 8-bit mantissas), rounded to `dtype` (x's)
+    for grouped scales (G > 1), which scale the weights before the dot; per
+    channel (G = 1) the exact product, the scale of the dot's output."""
+    w = dequantize_int4(kernel_q4p, kernel_scale4p, torch.float32)
+    return w.to(dtype).float() if kernel_scale4p.shape[1] > 1 else w
+
+
 def w4_dense_stacked_plain(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """y (B, N) = x (B, K) @ dequant(p): nibbles times scales in fp32 (exact:
-    4-bit by 8-bit mantissas), one fp32 matmul, cast to x's dtype."""
-    w = dequantize_int4(p["kernel_q4p"], p["kernel_scale4p"], torch.float32)
+    """y (B, N) = x (B, K) @ dequant(p): the weights of `plain_weights`, one
+    fp32 matmul, cast to x's dtype."""
+    w = plain_weights(p["kernel_q4p"], p["kernel_scale4p"], x.dtype)
     return (x.float() @ w).to(x.dtype)
 
 
@@ -174,25 +197,72 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(b: int, k: int, np_: int) -> Tuple[int, int, int]:
-    """K6 launch plan: (rows per chunk, K splits, rows per split).
+def odd_groups(k: int, groups: int) -> bool:
+    """Grouped scales whose groups are no multiple of K_TILE rows: K6 reads
+    those weights' scales from device memory (csrc/dq_rows.cuh, W4_ODD),
+    8 rows a chunk."""
+    return groups > 1 and (k // groups) % K_TILE != 0
 
-    Rows of x go in chunks of 1/2/4/8 (the fp32 partial sums a thread keeps
-    in registers); K is split so that column tiles x row chunks x splits
-    reaches about two blocks per SM, each split a multiple of the block's
-    K_LANES rows and at least 8 of them. A split's partial sums are reduced
-    by the last of its blocks to finish (csrc/w4_gemv.cu)."""
-    rc = next(c for c in ROW_CHUNKS if c >= min(b, ROW_CHUNKS[-1]))
+
+def plan(b: int, k: int, np_: int, groups: int = 1,
+         sms: int = SM_COUNT) -> Tuple[int, int, int]:
+    """K6 launch plan: (rows per chunk, K splits, rows per split), a pure
+    function of the shapes and the SM count.
+
+    Rows of x go in chunks of 8, 16 or 32 (one to four n8 tiles of
+    mma.sync; 8 for odd groups); K is split by `rows_splits` (the count
+    that finishes first on `sms` SMs), each split a multiple of K_TILE rows
+    and at most so many that every warp of a split gets MIN_WARP_TILES K
+    tiles. No split is empty. A split's partial sums are reduced by the
+    last of its blocks to finish (csrc/dq_rows.cuh)."""
+    rc = ROW_CHUNKS[0] if odd_groups(k, groups) else row_chunk(b)
     blocks = _cdiv(np_, TILE_NP) * _cdiv(b, rc)
-    splits = max(1, min(_cdiv(TARGET_BLOCKS, blocks), k // (8 * K_LANES)))
-    ksplit = _cdiv(_cdiv(k, splits), K_LANES) * K_LANES
-    return rc, _cdiv(k, ksplit), ksplit
+    kt = _cdiv(k, K_TILE)
+    most = max(1, kt // (ROWS_WARPS * MIN_WARP_TILES))
+    splits, tps = rows_splits(blocks, kt, 1, most, sms)
+    return rc, splits, tps * K_TILE
 
 
-def w4_dense_stacked(x: torch.Tensor, p: Params) -> torch.Tensor:
+def _w4_split_plain(x2: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+                    ranges) -> torch.Tensor:
+    """The decode-row loop's arithmetic for packed int4 (csrc/dq_rows.cuh):
+    the weights as the tensor cores get them (nibbles; with G > 1 nibble *
+    scale in fp32, rounded to x's dtype, the Pallas kernel's rounding),
+    summed in fp32 in the loop's K ranges and merge order, times the
+    channel scale for G = 1, cast to x's dtype."""
+    ng = s.shape[1]
+    if ng == 1:
+        wt = dequantize_int4(w, torch.ones_like(s), torch.float32)
+    else:
+        wt = plain_weights(w, s, x2.dtype)
+    y = split_sum_plain(x2, wt, ranges)
+    if ng == 1:
+        y = y * torch.cat([s[0, 0], s[1, 0]]).float()
+    return y.to(x2.dtype)
+
+
+def w4_dense_stacked_split_plain(x: torch.Tensor, p: Params,
+                                 plan_: Optional[Tuple[int, int, int]] = None
+                                 ) -> torch.Tensor:
+    """K6's arithmetic in torch ops, under `plan_` (plan's by default): its
+    K splits, each split's four warp ranges, the merge order and the bf16
+    rounding of nibble * scale for grouped scales. The kernel sums each
+    range in another order (the tensor cores'), so the two agree to the
+    fp32 rounding of the sums and the bf16 rounding of the output."""
+    w, s = p["kernel_q4p"], p["kernel_scale4p"]
+    b, k = x.shape
+    if plan_ is None:
+        plan_ = plan(b, k, w.shape[1], s.shape[1])
+    _, splits, ksplit = plan_
+    return _w4_split_plain(x, w, s, row_ranges(k, splits, ksplit // K_TILE))
+
+
+def w4_dense_stacked(x: torch.Tensor, p: Params,
+                     plan_: Optional[Tuple[int, int, int]] = None
+                     ) -> torch.Tensor:
     """y (B, N) = x (B, K) @ dequant(layer slice p): K6 for CUDA tensors
     (bf16 x, written straight into (B, N)), the plain version for CPU
-    tensors."""
+    tensors. `plan_` replaces plan's (for tests and measurement)."""
     w, s = p["kernel_q4p"], p["kernel_scale4p"]
     if x.device.type == "cpu":
         return w4_dense_stacked_plain(x, p)
@@ -218,11 +288,13 @@ def w4_dense_stacked(x: torch.Tensor, p: Params) -> torch.Tensor:
             t.data_ptr() % 16 for t in (x, w, s)):
         raise ValueError("w4_dense_stacked: inputs must be contiguous and "
                          "16-byte aligned")
-    rc, splits, ksplit = plan(b, k, np_)
+    rc, splits, ksplit = plan(b, k, np_, ng) if plan_ is None else plan_
     tiles = _cdiv(np_, TILE_NP) * _cdiv(b, rc)
     if tiles > _kernels.MAX_TICKETS:
         raise ValueError(f"w4_dense_stacked: {tiles} tiles exceed "
                          f"{_kernels.MAX_TICKETS}")
+    if k % 8:  # the kernel's 16-byte copies of x want rows of 8 elements
+        x = torch.nn.functional.pad(x, (0, 8 - k % 8))
     y = torch.empty((b, 2 * np_), dtype=x.dtype, device=x.device)
     partial = torch.empty((splits if splits > 1 else 0, b, 2 * np_),
                           dtype=torch.float32, device=x.device)
@@ -241,13 +313,31 @@ def w4_dense_stacked(x: torch.Tensor, p: Params) -> torch.Tensor:
 
 def w4_gemm_plain(x: torch.Tensor, kernel_q4p: torch.Tensor,
                   kernel_scale4p: torch.Tensor) -> torch.Tensor:
-    """y (..., N) = x (..., K) @ dequant(W): nibbles times scales in fp32
-    (exact), one fp32 matmul, cast to x's dtype: w4_dense_stacked_plain's
+    """y (..., N) = x (..., K) @ dequant(W): w4_dense_stacked_plain's
     arithmetic for any leading dims."""
     k = x.shape[-1]
-    w = dequantize_int4(kernel_q4p, kernel_scale4p, torch.float32)
+    w = plain_weights(kernel_q4p, kernel_scale4p, x.dtype)
     y = (x.reshape(-1, k).float() @ w).to(x.dtype)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def w4_gemm_split_plain(x: torch.Tensor, kernel_q4p: torch.Tensor,
+                        kernel_scale4p: torch.Tensor,
+                        plan_: Optional[GemmPlan] = None) -> torch.Tensor:
+    """K7's arithmetic on the decode-row loop (a "mma" plan: up to 32 rows
+    and the TMA stride rule's shapes), in torch ops: K6's
+    (`w4_dense_stacked_split_plain`) under gemm_plan's K splits, for any
+    leading dims. `plan_` replaces gemm_plan's."""
+    k = x.shape[-1]
+    x2 = x.reshape(-1, k)
+    np_ = kernel_q4p.shape[-1]
+    if plan_ is None:
+        plan_ = gemm_plan(x2.shape[0], k, 2 * np_, np_)
+    if plan_.path != "mma":
+        raise ValueError(f"w4_gemm_split_plain: a 'mma' plan, got {plan_}")
+    ranges = row_ranges(k, plan_.splits, plan_.tps * TILE_K // K_TILE)
+    y = _w4_split_plain(x2, kernel_q4p, kernel_scale4p, ranges)
+    return y.reshape(*x.shape[:-1], 2 * np_)
 
 
 def _w4_gemm_forward(x, w, s):

@@ -8,9 +8,9 @@ elsewhere. They import no JAX, so they also run where JAX is not installed:
 Tolerance: bf16 outputs within one bf16 step plus the P rounding of the
 kernels' tensor-core PV product (or of the plain version's bf16 P times v
 scale): |got - plain| <= 1e-2 + 1e-2 * |plain| on live rows (the same bound
-chip_smoke.py states). K6 and its plain version both compute nibble *
-scale in fp32 and sum in fp32; only the summation order and the bf16
-output rounding differ. K2 and K3 (the flash backward) against
+chip_smoke.py states). K6 and its plain version both round nibble *
+scale to bf16 for grouped scales (the Pallas kernel's rounding) and sum in
+fp32; only the summation order and the bf16 output rounding differ. K2 and K3 (the flash backward) against
 flash_attention_bwd_plain, which rounds P and dS to bf16 where the kernels
 do: |got - plain| <= 2e-2 * (max|plain| + |plain|) on live rows, and the
 relative norm of the difference <= 2e-3 (the bf16 output rounding, plus a
@@ -1128,3 +1128,178 @@ def test_encode_images_int8_fp32_tree_on_the_card_as_on_the_cpu(
     assert sum(_kernels.launches.values()) == before
     assert got.dtype == torch.float32 and got.shape == want.shape
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# The decode-row loop (csrc/dq_rows.cuh): K6, and K7 / K8 up to 32 rows.
+# Against the plain version (the bound above) and against the loop's own
+# arithmetic in torch ops, the split plain versions, which round as the
+# kernel does and sum in its order up to the tensor cores' order within a
+# range: one bf16 step of the output either way, |got - split| <= 2^-7
+# |split| + 2^-10 max|split|.
+def _split_close(got, want):
+    want = want.float()
+    diff = (got.float() - want).abs()
+    limit = 2**-7 * want.abs() + 2**-10 * want.abs().max()
+    assert bool((diff <= limit).all()), float((diff - limit).max())
+
+
+# (K, N/2, G): the 7B shapes with per-channel scales, groups of 128 rows and
+# (down) groups of 344 rows, no multiple of the 32-row tile; N/2 = 8 x 171
+K6_SHAPES = [(4096, 2048, 1), (4096, 2048, 32), (4096, 5504, 1),
+             (4096, 5504, 32), (11008, 2048, 1), (11008, 2048, 86),
+             (11008, 2048, 32), (4096, 1368, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,np_,groups", K6_SHAPES)
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 6, 7, 8, 80])
+def test_k6_matches_plain_and_its_split_version(cuda, b, k, np_, groups):
+    from halva_tpu_torch.ops.w4_matmul import w4_dense_stacked_split_plain
+
+    w, s = _w4_weights(cuda, k, np_, groups)
+    x = torch.randn(b, k, generator=cuda, device="cuda").bfloat16()
+    p = {"kernel_q4p": w, "kernel_scale4p": s}
+    before = _kernels.launches["w4_gemv"]
+    got = w4_dense_stacked(x, p)
+    assert _kernels.launches["w4_gemv"] == before + 1
+    assert got.shape == (b, 2 * np_) and got.dtype == torch.bfloat16
+    _gemm_close(got, w4_dense_stacked_plain(x, p))
+    _split_close(got, w4_dense_stacked_split_plain(x, p))
+
+
+DQ_ROWS = [1, 4, 8, 9, 16, 17, 31, 32]
+
+
+def _dq_operands(gen, mode, k, n, groups):
+    """mode 0: K8 (int8 q, (N,) scales); 1: K7 (packed int4, G groups)."""
+    if mode == 0:
+        q = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = (torch.rand(n, generator=gen, device="cuda") * 0.002
+             + 0.0005).bfloat16()
+        return q, s
+    return _w4_weights(gen, k, n // 2, groups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,groups", [(0, 1), (1, 1), (1, 32)])
+@pytest.mark.parametrize("m", DQ_ROWS)
+def test_dq_rows_path_matches_plain_and_its_split_version(cuda, m, mode,
+                                                          groups):
+    """Up to 32 rows K7 and K8 run the decode-row loop ('mma' plans, row
+    tiles of 8, 16 or 32) in each of their three modes."""
+    from halva_tpu_torch.ops.int8_matmul import (gemm_plan,
+                                                 int8_matmul_split_plain,
+                                                 row_chunk)
+    from halva_tpu_torch.ops.w4_matmul import w4_gemm_split_plain
+
+    k, n = 4096, 11008
+    w, s = _dq_operands(cuda, mode, k, n, groups)
+    x = torch.randn(m, k, generator=cuda, device="cuda").bfloat16()
+    plan = gemm_plan(m, k, n, w.shape[-1])
+    assert plan.path == "mma" and plan.bm == row_chunk(m)
+    name = "int8_matmul" if mode == 0 else "w4_gemm"
+    before = _kernels.launches[name]
+    if mode == 0:
+        got = int8_matmul(x, w, s)
+        plain, split = int8_matmul_plain(x, w, s), int8_matmul_split_plain(
+            x, w, s)
+    else:
+        got = w4_gemm(x, w, s)
+        plain, split = w4_gemm_plain(x, w, s), w4_gemm_split_plain(x, w, s)
+    assert _kernels.launches[name] == before + 1
+    _gemm_close(got, plain)
+    _split_close(got, split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,groups", [(0, 1), (1, 1), (1, 2)])
+def test_dq_rows_path_takes_the_stride_rule_shapes_at_577_rows(cuda, mode,
+                                                               groups):
+    """Weight rows that are no multiple of 16 bytes (N = 72 int8 bytes, N/2
+    = 72 packed bytes): the decode-row loop in 32-row chunks, 8-byte
+    copies."""
+    from halva_tpu_torch.ops.int8_matmul import gemm_plan
+
+    k, n = 256, 72 if mode == 0 else 144
+    w, s = _dq_operands(cuda, mode, k, n, groups)
+    x = torch.randn(577, k, generator=cuda, device="cuda").bfloat16()
+    assert gemm_plan(577, k, n, w.shape[-1])[:2] == ("mma", 32)
+    if mode == 0:
+        _gemm_close(int8_matmul(x, w, s), int8_matmul_plain(x, w, s))
+    else:
+        _gemm_close(w4_gemm(x, w, s), w4_gemm_plain(x, w, s))
+
+
+def _replays(launch, refill):
+    """launch() twice (the same bits: the split merge sums in split order),
+    then from a CUDA graph after refill() wrote new inputs in place: the
+    same bits as an eager launch on them."""
+    one, two = launch(), launch()
+    assert torch.equal(one, two)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = launch()
+    refill()
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = launch()
+    assert not torch.equal(eager, one)
+    assert torch.equal(captured, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forced", [1, 2, 3, 8])
+@pytest.mark.parametrize("b,groups", [(4, 32), (4, 1), (16, 32), (80, 128)])
+def test_k6_forced_plans_agree_repeat_and_replay(cuda, b, groups, forced):
+    from halva_tpu_torch.ops.w4_matmul import (K_TILE, plan,
+                                               w4_dense_stacked_split_plain)
+
+    k, np_ = 4096, 5504
+    w, s = _w4_weights(cuda, k, np_, groups)
+    x = torch.randn(b, k, generator=cuda, device="cuda").bfloat16()
+    p = {"kernel_q4p": w, "kernel_scale4p": s}
+    rc, _, _ = plan(b, k, np_, groups)
+    kt = k // K_TILE
+    tps = -(-kt // forced)
+    forced_plan = (rc, -(-kt // tps), tps * K_TILE)
+    want = w4_dense_stacked_split_plain(x, p, forced_plan)
+    _split_close(w4_dense_stacked(x, p, forced_plan), want)
+
+    def refill():
+        x.copy_(torch.randn(b, k, generator=cuda, device="cuda"))
+
+    _replays(lambda: w4_dense_stacked(x, p, forced_plan), refill)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,groups", [(0, 1), (1, 1), (1, 32)])
+@pytest.mark.parametrize("m,splits", [(4, 1), (4, 3), (16, 2), (32, 5)])
+def test_dq_rows_forced_plans_agree_repeat_and_replay(cuda, mode, groups, m,
+                                                      splits):
+    from halva_tpu_torch.ops.int8_matmul import (TILE_K, gemm_plan,
+                                                 int8_matmul_split_plain,
+                                                 launch_dq_gemm, split_k)
+    from halva_tpu_torch.ops.w4_matmul import w4_gemm_split_plain
+
+    k, n = 4096, 4096
+    w, s = _dq_operands(cuda, mode, k, n, groups)
+    x = torch.randn(m, k, generator=cuda, device="cuda").bfloat16()
+    plan = gemm_plan(m, k, n, w.shape[-1])
+    plan = plan._replace(**dict(zip(("splits", "tps"),
+                                    split_k(k // TILE_K, splits))))
+    split = (int8_matmul_split_plain if mode == 0 else w4_gemm_split_plain)
+    _split_close(launch_dq_gemm(mode, "plans", x, w, s, n, groups, plan),
+                 split(x, w, s, plan))
+
+    def refill():
+        x.copy_(torch.randn(m, k, generator=cuda, device="cuda"))
+
+    _replays(lambda: launch_dq_gemm(mode, "plans", x, w, s, n, groups, plan),
+             refill)
+    _kernels.launches.pop("plans")

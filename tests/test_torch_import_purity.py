@@ -124,16 +124,19 @@ def test_dq_gemm_is_hand_written_with_one_path_per_row_range():
     """K7's and K8's source calls no library (cuda.h only for the tensor-map
     types; the encoder is looked up at run time). Above 32 rows it
     runs the TMA + wgmma kernel, with its split partials summed by the last
-    block's ticket (no float atomics); the mma.sync loop is instantiated for
-    the 32-row tile alone."""
+    block's ticket (no float atomics); up to 32 rows the decode-row loop of
+    dq_rows.cuh (shared with K6), instantiated for row chunks of 8, 16 and
+    32 rows (one to four n8 tiles), and no other mma.sync loop."""
     from halva_tpu_torch import _kernels
 
-    # with the header of Hopper helpers it includes, which holds the PTX
+    # with the headers it includes: the Hopper helpers, which hold the PTX,
+    # and the decode-row loop
     code = ""
-    for name in ("dq_gemm.cu", "hopper_common.cuh"):
+    for name in ("dq_gemm.cu", "hopper_common.cuh", "dq_rows.cuh"):
         text = open(os.path.join(PKG, "csrc", name)).read()
         code += "\n".join(ln.split("//")[0] for ln in text.splitlines())
     assert '#include "hopper_common.cuh"' in code
+    assert '#include "dq_rows.cuh"' in code
     library = re.compile(r"cublas|cudnn|cutlass|cute|torch|#include <(?!cuda\."
                          r"h>|cuda_bf16|cuda_runtime|stdint)")
     assert not library.search(code)
@@ -143,9 +146,35 @@ def test_dq_gemm_is_hand_written_with_one_path_per_row_range():
     assert "__grid_constant__ CUtensorMap" in code
     assert "cudaGetDriverEntryPoint" in code and "-lcuda" not in " ".join(
         _kernels.NVCC_FLAGS)
-    assert re.findall(r"launch<(\d+),", code) == ["32"]
+    assert re.findall(r"launch_rows<(\d+), MODE>", code) == ["1", "2", "4"]
+    assert "dq_gemm_kernel" not in code
     assert "atomicAdd(&tickets[tile], 1)" in code
-    assert not re.search(r"atomicAdd\((?!&tickets)", code)
+    assert not re.search(r"atomicAdd\((?!&(a\.)?tickets)", code)
+
+
+def test_w4_gemv_is_hand_written_on_the_decode_row_loop():
+    """K6's source, with the decode-row loop it runs, calls no library; its
+    only atomicAdd is the split merge's ticket; its products are
+    tensor-core mma.sync with fp32 sums, its int4 conversion the magic
+    number (no int-to-float conversion of a nibble), and its weight tiles
+    stream through shared memory by cp.async."""
+    code = ""
+    for name in ("w4_gemv.cu", "dq_rows.cuh", "mma_bf16.cuh"):
+        text = open(os.path.join(PKG, "csrc", name)).read()
+        code += "\n".join(ln.split("//")[0] for ln in text.splitlines())
+    assert '#include "dq_rows.cuh"' in code
+    library = re.compile(r"cublas|cudnn|cutlass|cute|torch|#include <(?!cuda_"
+                         r"bf16|cuda_runtime|stdint)")
+    assert not library.search(code)
+    assert 'extern "C" int halva_w4_gemv' in code
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in code
+    assert "cp.async.cg.shared.global" in code
+    assert "cp.async.wait_group" in code
+    assert "atomicAdd(&a.tickets[tile], 1)" in code
+    assert len(re.findall(r"atomicAdd\(", code)) == 1
+    # the magic number: nibble ^ 8 in the mantissa of bf16 128.0, minus 136
+    assert "0x000F000Fu" in code and "0x43084308u" in code
+    assert not re.search(r"\(float\)|__int2float|__i2f", code)
 
 
 def test_flash_kernels_are_hand_written_and_deterministic():

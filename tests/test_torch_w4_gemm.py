@@ -164,16 +164,17 @@ def test_w4_gemm_dx_in_bf16_dequantizes_in_g_dtype():
 @pytest.mark.parametrize(
     "m,k,n,row_bytes,want",
     [
-        # up to 32 rows: 32 x 256 tiles, about two blocks per SM
-        (16, 4096, 4096, 2048, ("mma", 32, 16, 4)),   # 16 tiles
-        (16, 4096, 11008, 5504, ("mma", 32, 6, 11)),  # gate/up: 43 tiles
-        (32, 11008, 4096, 2048, ("mma", 32, 16, 11)),  # down: 172 K tiles
+        # up to 32 rows: the decode-row loop, row tiles of 8 / 16 / 32 and
+        # 64 weight bytes a row, one wave of at most two blocks per SM
+        (16, 4096, 4096, 2048, ("mma", 16, 4, 16)),   # 32 tiles
+        (16, 4096, 11008, 5504, ("mma", 16, 3, 22)),  # gate/up: 86 tiles
+        (32, 11008, 4096, 2048, ("mma", 32, 8, 22)),  # down: 172 K tiles
         # above 32 rows: the TMA + wgmma path, 128 x 256 tiles, one block
         # per SM, K split while tiles underfill the 132 SMs
         (80, 4096, 4096, 4096, ("wgmma", 128, 8, 8)),
         (2492, 4096, 11008, 11008, ("wgmma", 128, 1, 64)),  # 860 tiles
-        (4, 1024, 4096, 4096, ("mma", 32, 4, 4)),     # no split under 4
-        (9, 128, 64, 32, ("mma", 32, 1, 2)),
+        (4, 1024, 4096, 4096, ("mma", 8, 2, 8)),      # 64 tiles
+        (9, 128, 64, 32, ("mma", 16, 1, 2)),
     ],
 )
 def test_gemm_launch_plan(m, k, n, row_bytes, want):

@@ -80,16 +80,16 @@ def test_plain_is_the_dequant_matmul():
 @pytest.mark.parametrize(
     "b,k,np_,want",
     [
-        (4, 4096, 2048, (4, 9, 480)),    # wq/wk/wv/wo: 32 tiles
-        (4, 4096, 5504, (4, 4, 1024)),   # gate/up: 86 tiles
-        (4, 11008, 2048, (4, 9, 1248)),  # down
-        (1, 4096, 2048, (1, 9, 480)),
-        (80, 4096, 2048, (8, 1, 4096)),  # 10 row chunks fill the card
-        (3, 64, 96, (4, 1, 64)),         # small K is never split
+        (4, 4096, 2048, (8, 4, 1024)),   # wq/wk/wv/wo: 32 tiles x 4 splits
+        (4, 4096, 5504, (8, 3, 1376)),   # gate/up: 86 tiles x 3 splits
+        (4, 11008, 2048, (8, 8, 1376)),  # down
+        (1, 4096, 2048, (8, 4, 1024)),
+        (80, 4096, 2048, (32, 2, 2048)),  # 3 row chunks of 32
+        (3, 64, 96, (8, 1, 64)),         # small K is never split
     ],
 )
 def test_launch_plan(b, k, np_, want):
     rc, splits, ksplit = w4_matmul.plan(b, k, np_)
     assert (rc, splits, ksplit) == want
-    assert ksplit % w4_matmul.K_LANES == 0
+    assert ksplit % w4_matmul.K_TILE == 0
     assert (splits - 1) * ksplit < k <= splits * ksplit
