@@ -59,11 +59,12 @@ last line is the device record {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --flash-only
 
-builds the kernels, runs only the checks and timings of K1, K2 and K3 (K1
-also in the base mode on the 4,608-token row beside SDPA, its bitwise
-repeat and CUDA-graph replay, its launch plan beside each time) and prints
-their rows: two builds of the flash kernels are compared by running this
-from each tree in turn on one card (an older tree prints no plans).
+builds the kernels, runs only the checks and timings of K1, K2 and K3 (all
+three also in the base mode on the 4,608-token row beside SDPA and its
+backward, their bitwise repeat and CUDA-graph replay, their launch plans
+beside each time) and prints their rows: two builds of the flash kernels
+are compared by running this from each tree in turn on one card (an older
+tree prints no plans).
 
     python3 chip_smoke.py --decode-only
 
@@ -337,7 +338,7 @@ def lengths_to_seg(lens, s, dev) -> torch.Tensor:
 
 def phase_build() -> None:
     """Builds the kernels; prints ptxas's registers, spills and shared
-    memory for each entry function by name."""
+    memory for each entry function by name, and any wgmma it serialized."""
     t0 = time.perf_counter()
     _kernels.lib()
     secs = time.perf_counter() - t0
@@ -347,7 +348,7 @@ def phase_build() -> None:
         ln = ln.strip()
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
-        elif "spill" in ln or "registers" in ln:
+        elif "spill" in ln or "registers" in ln or "wgmma" in ln:
             print(f"  ptxas: {entry}: {ln}")
 
 
@@ -360,6 +361,20 @@ def k1_plan(b: int, sq: int, skv: int, h: int) -> str:
     plan = plan_of(b, sq, skv, h)
     return (f"plan: {plan.bq}-row blocks, {plan.bk}-key tiles, "
             f"{plan.stages} stages, {plan.blocks} blocks")
+
+
+def bwd_plan(b: int, sq: int, skv: int, h: int, kvh: int) -> str:
+    """K2's and K3's launch plans as the wrappers pick them (an older tree,
+    run for an A/B comparison, has none to report)."""
+    plan_of = getattr(flash_ops, "flash_bwd_plan", None)
+    if plan_of is None:
+        return "K2/K3 plan: not reported by this tree"
+    plan = plan_of(b, sq, skv, h, kvh, sms=sm_count(torch.device("cuda")))
+    return (f"K2 plan: {plan.dq.rows}-row blocks, {plan.dq.tile}-key tiles, "
+            f"{plan.dq.stages} stages, {plan.dq.blocks} blocks, "
+            f"{plan.dq.order}; K3 plan: {plan.dkv.rows}-key blocks, "
+            f"{plan.dkv.tile}-query tiles, {plan.dkv.stages} stages, "
+            f"{plan.dkv.blocks} blocks, {plan.dkv.order}")
 
 
 def check_flash(gen: torch.Generator) -> dict:
@@ -431,10 +446,11 @@ def check_flash(gen: torch.Generator) -> dict:
 
 
 def check_flash_long(gen: torch.Generator) -> None:
-    """K1 in the base mode (causal, no window) on one 4,608-token row with
-    Mistral's heads (H=32 over KVH=8) against flash_attention_plain, timed
-    beside one SDPA call (causal, the KV heads repeated outside the timed
-    call) and the bound on its live pairs."""
+    """K1, K2 and K3 in the base mode (causal, no window) on one 4,608-token
+    row with Mistral's heads (H=32 over KVH=8) against their plain
+    versions, timed beside one SDPA call and its backward (causal, the KV
+    heads repeated outside the timed call); K1 beside the bound on its live
+    pairs."""
     n, h, kvh, d = LONG_ROW, 32, 8, 128
 
     def r(*shape):
@@ -466,6 +482,69 @@ def check_flash_long(gen: torch.Generator) -> None:
           f"SDPA (causal) {lib_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms by "
           f"{lim['bound_by']}; {flops / ms / 1e9:.1f} TFLOP/s; "
           f"{k1_plan(1, n, n, h)}")
+    # K2 and K3 on the same row against the plain backward, timed beside
+    # autograd's backward of the SDPA call above (dq, dk and dv together)
+    do = r(1, n, h, d)
+    delta = flash_attention_delta(o, do)
+    args = (q, k, v, seg, seg, do, lse, delta)
+    got = (flash_attention_bwd_dq(*args), *flash_attention_bwd_dkv(*args))
+    want = flash_attention_bwd_plain(q, k, v, seg, seg, o, lse, do)
+    torch.cuda.synchronize()
+    line, ok = [], True
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        err, rel = max_abs(g, w), rel_err(g, w)
+        ok = ok and bool((g - w).abs().le(
+            BWD_RTOL * (w.abs().max() + w.abs())).all()) and (
+                rel <= BWD_REL) and bool(torch.isfinite(g).all())
+        line.append(f"{name} max_abs_err {err:.3e} rel {rel:.3e}")
+    print(f"flash_bwd one {n}-token row H={h} KVH={kvh} causal: "
+          f"{', '.join(line)} (limits {BWD_RTOL}*(max|plain| + |plain|), "
+          f"rel {BWD_REL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash_bwd disagrees with its plain version on "
+                             "the long row")
+    del want, got
+    dq_ms = device_ms(lambda: flash_attention_bwd_dq(*args))
+    dkv_ms = device_ms(lambda: flash_attention_bwd_dkv(*args))
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_bwd = timed_ms(lambda: torch.autograd.grad(out, leaves, dot,
+                                                   retain_graph=True),
+                       iters=10)
+    del leaves, out, dot
+    print(f"flash_bwd one {n}-token row, causal, time: K2 (dq) {dq_ms:.4f} "
+          f"ms, {6 * h * d * n * (n + 1) / 2 / dq_ms / 1e9:.1f} TFLOP/s; K3 "
+          f"(dk, dv) {dkv_ms:.4f} ms, "
+          f"{8 * h * d * n * (n + 1) / 2 / dkv_ms / 1e9:.1f} TFLOP/s; "
+          f"together {dq_ms + dkv_ms:.4f} ms, SDPA backward (causal, all "
+          f"three) {lib_bwd:.4f} ms; {bwd_plan(1, n, n, h, kvh)}")
+
+
+def repeats_and_replays(call, refill) -> bool:
+    """Whether call() (launches returning a tuple of tensors) gives the
+    same bits twice (no float atomics), and a CUDA graph that captured it,
+    replayed once refill() has put new values into its inputs, gives the
+    bits of an eager call on those inputs (and not the first call's)."""
+    first, again = call(), call()
+    side = side_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    refill()
+    graph.replay()
+    eager = call()
+    torch.cuda.synchronize()
+    ok = (all(torch.equal(x, y) for x, y in zip(first, again))
+          and all(torch.equal(x, y) for x, y in zip(captured, eager))
+          and not torch.equal(first[0], eager[0]))
+    del graph
+    return ok
 
 
 def check_flash_repeat(gen: torch.Generator) -> None:
@@ -480,30 +559,60 @@ def check_flash_repeat(gen: torch.Generator) -> None:
     seg = lengths_to_seg(PROMPT_LENS, s, "cuda")
     for modes in ({}, {"alibi": True}, {"sliding_window": 256}):
         q, k, v = r(b, s, h, 128), r(b, s, h, 128), r(b, s, h, 128)
-        first = flash_attention_fwd(q, k, v, seg, seg, **modes)
-        again = flash_attention_fwd(q, k, v, seg, seg, **modes)
-        side = side_stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            flash_attention_fwd(q, k, v, seg, seg, **modes)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            captured = flash_attention_fwd(q, k, v, seg, seg, **modes)
-        for t in (q, k, v):
-            t.copy_(r(*t.shape))
-        graph.replay()
-        eager = flash_attention_fwd(q, k, v, seg, seg, **modes)
-        torch.cuda.synchronize()
-        ok = (all(torch.equal(x, y) for x, y in zip(first, again))
-              and all(torch.equal(x, y) for x, y in zip(captured, eager))
-              and not torch.equal(first[0], eager[0]))
+
+        def refill():
+            for t in (q, k, v):
+                t.copy_(r(*t.shape))
+
+        ok = repeats_and_replays(
+            lambda: flash_attention_fwd(q, k, v, seg, seg, **modes), refill)
         print(f"flash_fwd {modes or 'base mode'} B={b} S={s}: bitwise repeat "
               f"and CUDA-graph replay on new inputs {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("flash_fwd is not bitwise repeatable or "
                                  "does not replay from a CUDA graph")
-        del graph
+
+
+def check_flash_bwd_repeat(gen: torch.Generator) -> None:
+    """K2 and K3 at the train shape in each mode: two launches give the same
+    bits (no float atomics; K3's GQA sum stays in the block), and a CUDA
+    graph that captured both launches replays them on new inputs (new q, k,
+    v, dO and the o, LSE and delta of K1 on them), bit for bit as eager
+    launches on those inputs."""
+    b, s, h, kvh = 4, TRAIN_SPLICED, 32, 8
+    lens = (s, s - 7, s - 64, s - 301)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    seg = lengths_to_seg(lens, s, "cuda")
+    for modes in ({}, {"alibi": True}, {"sliding_window": 256}):
+        q, k, v, do = r(b, s, h, 128), r(b, s, kvh, 128), r(
+            b, s, kvh, 128), r(b, s, h, 128)
+        do[seg == 0] = 0
+        o, lse = flash_attention_fwd(q, k, v, seg, seg, **modes)
+        delta = flash_attention_delta(o, do)
+        args = (q, k, v, seg, seg, do, lse, delta)
+
+        def both():
+            return (flash_attention_bwd_dq(*args, **modes),
+                    *flash_attention_bwd_dkv(*args, **modes))
+
+        def refill():
+            for t in (q, k, v, do):
+                t.copy_(r(*t.shape))
+            do[seg == 0] = 0
+            o, new_lse = flash_attention_fwd(q, k, v, seg, seg, **modes)
+            lse.copy_(new_lse)
+            delta.copy_(flash_attention_delta(o, do))
+
+        ok = repeats_and_replays(both, refill)
+        print(f"flash_bwd {modes or 'base mode'} B={b} S={s} H={h} "
+              f"KVH={kvh}: bitwise repeat and CUDA-graph replay on new "
+              f"inputs {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash_bwd is not bitwise repeatable or "
+                                 "does not replay from a CUDA graph")
 
 
 def check_flash_bwd(gen: torch.Generator) -> list:
@@ -583,7 +692,8 @@ def check_flash_bwd(gen: torch.Generator) -> list:
                   f"{timing['library']:.4f} ms; bounds "
                   f"{timing['dq_bound']['bound_ms']:.4f} and "
                   f"{timing['dkv_bound']['bound_ms']:.4f} ms by "
-                  f"{timing['dq_bound']['bound_by']}; on live causal pairs")
+                  f"{timing['dq_bound']['bound_by']}; on live causal pairs; "
+                  f"{bwd_plan(b, s, s, h, kvh)}")
         del q, k, v, do, o, lse, delta, got, want
     # library_ms: the one SDPA backward computes what K2 and K3 compute
     # together
@@ -735,7 +845,8 @@ def flash_mode_case(gen, label, b, s, h, kvh, lens, modes, packed_at=None,
         "dkv": bound(io + tensor_bytes(do, lse, delta, k, v),
                      4 * 2 * d * pairs)}
     flop = {"fwd": 4, "dq": 6, "dkv": 8}
-    print(f"flash modes {label} time ({k1_plan(b, q.shape[1], s, h)}): "
+    print(f"flash modes {label} time ({k1_plan(b, q.shape[1], s, h)}; "
+          f"{bwd_plan(b, q.shape[1], s, h, kvh)}): "
           + "; ".join(
               f"{name} {ms[name]:.4f} ms "
               f"({flop[name] * d * pairs / ms[name] / 1e9:.1f} TFLOP/s live, "
@@ -3325,6 +3436,7 @@ def flash_checks(gen: torch.Generator) -> list:
     base = [check_flash(gen), *check_flash_bwd(gen)]
     check_flash_long(gen)
     check_flash_repeat(gen)
+    check_flash_bwd_repeat(gen)
     return base + check_flash_modes(gen, {k["name"]: k for k in base})
 
 

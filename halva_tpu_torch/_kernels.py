@@ -29,7 +29,7 @@ SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attn.cu", "fold_attn.cu",
            "w4_gemv.cu", "dq_gemm.cu")
 # included by sources; part of the build hash
 HEADERS = ("mma_bf16.cuh", "decode_common.cuh", "hopper_common.cuh",
-           "dq_rows.cuh")
+           "flash_common.cuh", "dq_rows.cuh")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -133,10 +133,10 @@ def lib() -> ctypes.CDLL:
         [p] * 7 + [i] * 6 + [f] + [i] * 5 + [p])
     cdll.halva_flash_fwd_bf16.restype = i
     cdll.halva_flash_bwd_dq_bf16.argtypes = (
-        [p] * 9 + [i] * 6 + [f] + [i] * 4 + [p])
+        [p] * 9 + [i] * 6 + [f] + [i] * 5 + [p])
     cdll.halva_flash_bwd_dq_bf16.restype = i
     cdll.halva_flash_bwd_dkv_bf16.argtypes = (
-        [p] * 10 + [i] * 6 + [f] + [i] * 4 + [p])
+        [p] * 10 + [i] * 6 + [f] + [i] * 5 + [p])
     cdll.halva_flash_bwd_dkv_bf16.restype = i
     cdll.halva_decode_attn_bf16.argtypes = [p] * 10 + [i] * 9 + [f, p]
     cdll.halva_decode_attn_bf16.restype = i

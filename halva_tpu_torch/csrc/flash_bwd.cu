@@ -28,509 +28,950 @@
 //
 // What bounds them on an H100: at the llava-1.5-7b train shape (B=4 rows of
 // S=1087, H=32, D=128, causal) K2 does 3 and K3 4 products of 2*D FLOP per
-// live (query, key) pair, ~58 and ~78 GFLOP, against ~250 MB of q, k, v, dO
-// and the three gradients: ~500 FLOP per byte, above the H100's ~295 ridge,
-// so the tensor cores bound them (~60 and ~80 us at 989 TFLOP/s). These
-// first versions are far from that, bound by latency like K1: synchronous
-// tile loads, mma.sync m16n8k16, 4 warps a block.
+// live (query, key) pair, ~49 and ~66 GFLOP, against ~140 MB of q, k, v, dO,
+// the statistics and the gradients: ~500 FLOP per byte, above the H100's
+// ~295 ridge, so the tensor cores bound them (~53 and ~67 us at 989
+// TFLOP/s).
 //
-// Design:
-//   - K2: one block of 4 warps per (64-query tile, head, batch row), as K1;
-//     each warp keeps its 16 rows of Q and dO as A fragments in registers
-//     and its dQ accumulator (16 x 128 fp32) for the whole key loop; K and V
-//     tiles of 64 keys are staged in shared memory (padded rows, conflict-free
-//     fragment reads). Per 32-key half tile: S and dP (two products whose B
-//     operands are K and V rows), P and dS in registers, then dS, packed to
-//     bf16 as an A operand, times K read transposed with ldmatrix.trans. The
-//     key loop stops at the diagonal (the reference's causal block skip).
-//   - K3: one block of 4 warps per (64-key tile, kv head, batch row); each
-//     warp owns 16 keys and keeps dK and dV (16 x 128 fp32 each) in registers
-//     across every query tile of every query head of its kv head: the GQA sum
-//     happens in registers, with no second pass and no atomics, so the result
-//     is deterministic. It works on the transposed problem, S^T = K Q^T, so
-//     P^T and dS^T come out of the accumulators already in the A-operand
-//     layout of dV += P^T dO and dK += dS^T Q, whose B operands (dO and Q
-//     rows) are read transposed from shared memory. The query loop starts at
-//     the first tile that can see the key tile.
-//   - Tails: rows past Sq or Skv load as zeros with segment id 0, so they
-//     are masked, and are never stored; S = 1087 needs no padding by the
-//     caller.
-// Not done yet (later work): wgmma, TMA or cp.async pipelining, a split of
-// the query loop of K3 for the long causal tiles. Head dim 128 only, as K1.
+// The design is K1's (flash_fwd.cu), the shape FlashAttention-3 takes on
+// Hopper: 384 threads a block, two consumer warpgroups of one wgmma m64 tile
+// each and a producer warpgroup whose registers setmaxnreg lowers so that
+// the consumers' can rise; one warp of it works. Its lane 0 brings the
+// operands a block keeps with TMA once and streams the walked tiles through
+// a ring of stages with full and empty mbarriers (tensor maps over the
+// (D, heads, S, B) strides, 128-byte swizzle, rows past S zero-filled); the
+// warp's 32 lanes bring the tile's segment ids (and for K3 the queries' LSE
+// and delta) into the stage with plain loads and reduce their id range. A
+// consumer warpgroup decides the tile's kind by ops/flash_attention.py's
+// flash_tile_kind: "skip" tiles pass through the ring without a copy, the
+// per-pair mask runs only on "masked" ones. Per tile a warpgroup issues its
+// two products from shared memory (S and dP), computes P while the second
+// runs, then dS, both in registers on the accumulator layout, and feeds
+// them, packed to bf16, as wgmma's A operand from registers into the last
+// products, their B the same swizzled tile read N-major through the
+// transpose bit (as K1 feeds P into P V). Every branch around a wgmma is on
+// a value broadcast from lane 0, so the compiler keeps the wgmma
+// asynchronous.
+//   - K2 (dQ): a block owns 128 query rows of one (batch row, query head),
+//     64 a warpgroup, and keeps Q and dO in shared memory; K and V tiles of
+//     64 keys go through a ring of 4 stages with their key segment ids; the
+//     rows' LSE and delta sit in registers. Per tile: S = Q K^T and dP =
+//     dO V^T (wgmma m64n64k16, both K-major), then dQ += dS K (m64n128k16,
+//     K N-major). Query tiles run last-first, as in K1.
+//   - K3 (dK, dV): a block owns the keys of one (batch row, kv head) and
+//     keeps them in shared memory; it walks the query tiles (64 queries of
+//     Q and dO, a ring of 4 stages) that can see them, for each of the G
+//     query heads of the group in turn. Per tile it works on the transposed
+//     problem: S^T = K Q^T and dP^T = V dO^T (m64n64k16, Q and dO K-major),
+//     P^T and dS^T in registers, then dV += P^T dO and dK += dS^T Q
+//     (m64n128k16, dO and Q N-major). dK and dV (2 x 64 fp32 a thread) stay
+//     in registers across the whole walk: the GQA sum happens there, with
+//     no second pass and no atomics. Two layouts, picked by the plan
+//     (flash_bwd_plan): 128 keys a block, 64 a warpgroup, both reading
+//     every stage; or 64 keys a block, the two warpgroups taking alternate
+//     query tiles (each its own 2 of the 4 stages) and summing their dK and
+//     dV through shared memory at the end, in a fixed order. Key tiles run
+//     first-first: under the causal mask the first have the most work.
+// No float atomics: the results are bitwise repeatable and a CUDA graph can
+// capture the launches. One block per SM; the rings are in dynamic shared
+// memory, opted in for every instance at the first launch on a device.
+// ops/flash_attention.py:flash_attention_bwd_tiled_plain walks the tiles in
+// these kernels' order. Inputs are in the framework's (B, S, H, D) layout;
+// S = 1087 needs no padding by the caller. Head dim 128 only, as K1.
 
+#include <cuda.h>  // CUtensorMap (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-using halva::ld32;
-using halva::ldmatrix_x4_trans;
-using halva::mma_16816;
-using halva::pack_bf16;
+using halva::mbar_arrive;
+using halva::mbar_expect_tx;
+using halva::mbar_init;
+using halva::mbar_wait;
+using halva::named_sync;
+using halva::smem_u32;
+using halva::sw128_desc;
+using halva::tma_load_4d;
+using halva::flash::D;
+using halva::flash::HALF_COLS;
+using halva::flash::IMAX;
+using halva::flash::IMIN;
+using halva::flash::LOG2E;
+using halva::flash::MASKED;
+using halva::flash::SKIP;
+using halva::flash::fast_exp2;
+using halva::flash::pack_bf16;
+using halva::flash::tile_kind;
+using halva::flash::warp_range;
 
-constexpr int BQ = 64;       // queries per tile
-constexpr int BK = 64;       // keys per tile
-constexpr int SUB = 32;      // queries (K3) or keys (K2) per inner step
-constexpr int NWARPS = 4;    // 16 rows (K2: queries, K3: keys) per warp
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr int NTHREADS = 384;  // two consumer warpgroups + the producer's
+constexpr int WG_ROWS = 64;    // rows of one warpgroup's wgmma tile
+constexpr int TILE = 64;       // K2: keys per tile; K3: queries per tile
+constexpr int TILE_HALF = TILE * 128;       // bytes of one half of a tile
+constexpr int TILE_BYTES = 2 * TILE_HALF;   // 16 KB: 64 rows x 128 dims
 
-// Stage `rows` rows of D bf16 (row stride `row_elems` in global memory) into
-// shared memory with padded row stride D + 8; rows at or past `limit` are 0.
-template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long row_elems, int first,
-                                           int rows, int limit) {
-  constexpr int STR = D + 8;
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * CH; i += NTHREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (first + r < limit)
-      x = *reinterpret_cast<const uint4*>(src + (first + r) * row_elems + c);
-    *reinterpret_cast<uint4*>(dst + r * STR + c) = x;
+// K2's geometry
+struct DqPlan {
+  static constexpr int BQ = 128;  // query rows per block
+  static constexpr int STAGES = 4;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  static constexpr int Q_HALF = BQ * 128;     // bytes of one half of Q
+  static constexpr int Q_BYTES = 2 * Q_HALF;  // 32 KB (and as much for dO)
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // K then V
+  static constexpr int SEG_INTS = TILE + 4;  // the ids, then {min, max}
+  // 1 KB of slack to align the swizzled tiles to 1024 bytes
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + STAGES * STAGE_BYTES +
+                              STAGES * SEG_INTS * 4 + (2 * STAGES + 1) * 8;
+};
+
+// K3's geometry for KEYS keys a block
+template <int KEYS>
+struct DkvPlan {
+  // 64: the two warpgroups share the keys and take alternate query tiles
+  static constexpr bool SPLIT = KEYS == 64;
+  // even, so that under SPLIT each stage serves one warpgroup only
+  static constexpr int STAGES = 4;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = 240;
+  static constexpr int K_HALF = KEYS * 128;   // bytes of one half of K
+  static constexpr int KV_BYTES = 2 * K_HALF;  // the K (or V) tile
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // Q then dO
+  // the queries' segment ids, LSE * log2 e, delta; then {min, max} of ids
+  static constexpr int INFO_INTS = 3 * TILE + 2;
+  static constexpr int SMEM = 1024 + 2 * KV_BYTES + STAGES * STAGE_BYTES +
+                              STAGES * INFO_INTS * 4 + (2 * STAGES + 1) * 8;
+  static_assert(!SPLIT || STAGES * STAGE_BYTES >= 128 * 2 * 64 * 4,
+                "the ring holds one warpgroup's dK and dV for the merge");
+};
+
+// A K-major operand (rows x 128 dims in two 128-byte swizzled halves
+// `half` bytes apart) at k-step kk (16 dims) of a 64-row slice
+__device__ __forceinline__ uint64_t kmajor(uint32_t rows, int half, int kk) {
+  return sw128_desc(rows + (kk >> 2) * half + (kk & 3) * 32, 16, 1024);
+}
+
+// The same tile as an N-major B operand (16 of its rows by its 128 dims) at
+// k-step kk, read through the transpose bit: 8-row groups SBO apart, the
+// two 64-dim halves LBO apart
+__device__ __forceinline__ uint64_t nmajor(uint32_t tile, int half, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, half, 1024);
+}
+
+// d (64 x 64) = A (64 rows x 128 dims) B^T (64 rows x 128 dims), both
+// K-major in shared memory
+__device__ __forceinline__ void product_64x64(float (&d)[32], uint32_t a,
+                                              int a_half, uint32_t b,
+                                              int b_half) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    halva::wgmma_m64n64_ss<0>(d, kmajor(a, a_half, kk), kmajor(b, b_half, kk),
+                              kk > 0);
+}
+
+// The 64 x 64 accumulator as wgmma's A fragments, bf16: k-step kk takes
+// columns 16 kk .. 16 kk + 15 (n-tiles 2 kk, 2 kk + 1)
+__device__ __forceinline__ void pack_a(const float (&x)[32],
+                                       uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// d (64 x 128) += A (64 x 64, registers) B (64 rows x 128 dims, N-major)
+__device__ __forceinline__ void product_rs(float (&d)[64],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t b, int b_half) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    halva::wgmma_m64n128_rs<1>(d, a[kk], nmajor(b, b_half, kk), 1);
+}
+
+// K2's P of one key tile on S's accumulator layout (this thread's rows at
+// positions p0 and p0 + 8, columns 8 j + 2 tig + {0, 1}): exp2 of the
+// exp2-domain logit less the row's LSE * log2 e, left in s. MASKED: pairs
+// the mask rules out are selected to 0 (a full tile skips every test);
+// ALIBI: the bias -slope2 (row - col).
+template <bool MASKED, bool ALIBI>
+__device__ __forceinline__ void dq_probs(float (&s)[32], const int* sg, int c0,
+                                         int p0, int p1, int qs0, int qs1,
+                                         float l0, float l1, int tig, int Skv,
+                                         int causal, int window,
+                                         float scale_log2, float slope2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int cl = 8 * j + 2 * tig;
+    int2 cs = make_int2(0, 0);
+    if (MASKED) cs = *reinterpret_cast<const int2*>(sg + cl);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = c0 + cl + (e & 1);
+      const int pr = (e & 2) ? p1 : p0;
+      float x = fmaf(s[4 * j + e], scale_log2, (e & 2) ? -l1 : -l0);
+      if (ALIBI) x = fmaf(-slope2, (float)(pr - col), x);
+      float p = fast_exp2(x);
+      if (MASKED) {
+        const int qs = (e & 2) ? qs1 : qs0;
+        const int c = (e & 1) ? cs.y : cs.x;
+        bool ok = col < Skv && c == qs && qs != 0;
+        if (causal) ok = ok && pr >= col;
+        if (window > 0) ok = ok && pr - col < window;
+        p = ok ? p : 0.f;
+      }
+      s[4 * j + e] = p;
+    }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
+// K3's P^T of one query tile on S^T's accumulator layout (this thread's keys
+// k0 and k0 + 8 with ids ks0, ks1; columns 8 j + 2 tig + {0, 1} the tile's
+// queries, rows r0 + column at positions pq0 + column): as dq_probs, the
+// queries' ids and LSE * log2 e read from the stage
+template <bool MASKED, bool ALIBI>
+__device__ __forceinline__ void dkv_probs(float (&s)[32], const int* info,
+                                          int pq0, int k0, int k1, int ks0,
+                                          int ks1, int tig, int causal,
+                                          int window, float scale_log2,
+                                          float slope2) {
+  const float* l2 = reinterpret_cast<const float*>(info + TILE);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int ql = 8 * j + 2 * tig;
+    const float2 lv = *reinterpret_cast<const float2*>(l2 + ql);
+    int2 qs = make_int2(0, 0);
+    if (MASKED) qs = *reinterpret_cast<const int2*>(info + ql);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = (e & 2) ? k1 : k0;
+      const int pq = pq0 + ql + (e & 1);
+      float x = fmaf(s[4 * j + e], scale_log2, (e & 1) ? -lv.y : -lv.x);
+      if (ALIBI) x = fmaf(-slope2, (float)(pq - key), x);
+      float p = fast_exp2(x);
+      if (MASKED) {
+        const int q = (e & 1) ? qs.y : qs.x;
+        bool ok = q == ((e & 2) ? ks1 : ks0) && q != 0;
+        if (causal) ok = ok && pq >= key;
+        if (window > 0) ok = ok && pq - key < window;
+        p = ok ? p : 0.f;
+      }
+      s[4 * j + e] = p;
+    }
+  }
+}
+
+// A warpgroup's id range of its rows (or keys) below `limit`: each thread
+// holds two, ids v0 at index i0 and v1 at i0 + 8; [0, 0] if none
+__device__ __forceinline__ int2 wg_id_range(int2 (&slots)[2][4], int wg,
+                                            int wq, int lane, int i0, int v0,
+                                            int v1, int limit) {
+  int mn = IMAX, mx = IMIN;
+  if (i0 < limit) mn = mx = v0;
+  if (i0 + 8 < limit) {
+    mn = min(mn, v1);
+    mx = max(mx, v1);
+  }
+  warp_range(mn, mx);
+  if (lane == 0) slots[wg][wq] = make_int2(mn, mx);
+  named_sync(1 + wg, 128);
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    mn = min(mn, slots[wg][w].x);
+    mx = max(mx, slots[wg][w].y);
+  }
+  return mn > mx ? make_int2(0, 0) : make_int2(mn, mx);
+}
+
+// The epilogue of a warpgroup's 64 x 128 fp32 accumulator (this thread's
+// rows 16 wq + g and + 8, columns 8 j + 2 tig + {0, 1}): packed to bf16
+// into `buf`, 64 rows of two 128-byte halves `half` bytes apart (the
+// warpgroup's own rows of a tile it no longer reads), each row's 16-byte
+// chunks XOR-swizzled by the row so that neither the packing nor the
+// read-out conflicts on the banks; then, after the warpgroup's barrier,
+// written out in 16-byte stores, 16 threads a 256-byte row
+__device__ __forceinline__ void stage_rows(const float (&acc)[64],
+                                           unsigned char* buf, int half,
+                                           int wq, int g, int tig) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = 16 * wq + g + 8 * u;
+      *reinterpret_cast<uint32_t*>(buf + (j >> 3) * half + r * 128 +
+                                   (((j & 7) ^ (r & 7)) << 4) + 4 * tig) =
+          pack_bf16(acc[4 * j + 2 * u], acc[4 * j + 2 * u + 1]);
+    }
+}
+
+// rows first .. first + 63 of `out` (row_stride elements apart) from the
+// staged tile, those below `limit` only
+__device__ __forceinline__ void write_rows(const unsigned char* buf, int half,
+                                           __nv_bfloat16* out,
+                                           long row_stride, int first,
+                                           int limit) {
+  const int t = threadIdx.x & 127;
+#pragma unroll
+  for (int k = 0; k < WG_ROWS * 16 / 128; ++k) {
+    const int r = (t >> 4) + 8 * k, c = t & 15;
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        buf + (c >> 3) * half + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+    if (first + r < limit)
+      *reinterpret_cast<uint4*>(out + (first + r) * row_stride + 8 * c) = v;
+  }
+}
+
+// before generic stores into shared memory that TMA wrote and wgmma read
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ALiBi slope of query head h in the exp2 domain (0 = no bias)
+__device__ __forceinline__ float alibi_slope2(int alibi, int h, int H) {
+  return alibi ? exp2f(-8.f * (float)(h + 1) / (float)H) * LOG2E : 0.f;
+}
+
+// grid (H, B, query tiles), last query tile first. Warps 0-7 are the two
+// consumer warpgroups; warps 8-11 the producer warpgroup, of which warp 8
+// works and the others only give up their registers.
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap domap,
                     const int* __restrict__ qseg,
                     const int* __restrict__ kvseg,
-                    const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H,
                     int KVH, float scale, float scale_log2, int causal,
-                    int alibi, int window, int q_shift) {
-  constexpr int STR = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * STR];
-  __shared__ __align__(16) __nv_bfloat16 vs[BK * STR];
-  __shared__ int kvsegs[BK];
+                    int alibi, int window, int q_off) {
+  using P = DqPlan;
+  constexpr int BQ = P::BQ, STAGES = P::STAGES;
+  static_assert(P::SMEM <= 232448 - 1024, "shared memory of one block");
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __shared__ int2 wg_range[2][4];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t do_s = q_s + P::Q_BYTES;
+  const uint32_t kv_s = do_s + P::Q_BYTES;  // stage st: K at + st * STAGE_BYTES
+  const uint32_t seg_s = kv_s + STAGES * P::STAGE_BYTES;
+  const uint32_t full = seg_s + STAGES * P::SEG_INTS * 4;
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t qbar = empty + 8 * STAGES;
+  int* segs = reinterpret_cast<int*>(smem + (seg_s - raw));
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
   const int kvh = h / (H / KVH);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int q0 = qt * BQ;
-  const int r0 = q0 + warp * 16 + g;  // this thread's two query rows
-  const int r1 = r0 + 8;
-  // global positions: of the tile's first row, and of this thread's two
-  const int p_tile = q0 + q_shift;
-  const int p0 = r0 + q_shift;
-  const int p1 = p0 + 8;
-  // ALiBi slope of this query head in the exp2 domain (0 = no bias)
-  const float slope2 =
-      alibi ? exp2f(-8.f * (float)(h + 1) / (float)H) * LOG2E : 0.f;
 
-  const long q_row = (long)H * D;  // elements between sequence positions
-  const long kv_row = (long)KVH * D;
-  const long q_off = (long)b * Sq * q_row + (long)h * D;
-  const __nv_bfloat16* qb = q + q_off;
-  const __nv_bfloat16* dob = dout + q_off;
-  const __nv_bfloat16* kb = k + (long)b * Skv * kv_row + (long)kvh * D;
-  const __nv_bfloat16* vb = v + (long)b * Skv * kv_row + (long)kvh * D;
+  // the block's key tiles [t_lo, t_hi): causal and window bounds of its rows
+  const int bp_lo = q_off + q0, bp_hi = q_off + min(q0 + BQ, Sq) - 1;
+  int t_hi = (Skv + TILE - 1) / TILE;
+  if (causal) t_hi = min(t_hi, bp_hi / TILE + 1);
+  const int t_lo =
+      window > 0 && bp_lo - window + 1 > 0 ? (bp_lo - window + 1) / TILE : 0;
+  const int n = max(t_hi - t_lo, 0);
 
-  // Q and dO as A operands, for the whole key loop
-  uint32_t qf[D / 16][4], df[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    qf[kk][0] = r0 < Sq ? ld32(qb + r0 * q_row + c) : 0u;
-    qf[kk][1] = r1 < Sq ? ld32(qb + r1 * q_row + c) : 0u;
-    qf[kk][2] = r0 < Sq ? ld32(qb + r0 * q_row + c + 8) : 0u;
-    qf[kk][3] = r1 < Sq ? ld32(qb + r1 * q_row + c + 8) : 0u;
-    df[kk][0] = r0 < Sq ? ld32(dob + r0 * q_row + c) : 0u;
-    df[kk][1] = r1 < Sq ? ld32(dob + r1 * q_row + c) : 0u;
-    df[kk][2] = r0 < Sq ? ld32(dob + r0 * q_row + c + 8) : 0u;
-    df[kk][3] = r1 < Sq ? ld32(dob + r1 * q_row + c + 8) : 0u;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + 8 * st, 32);  // every producer lane
+      mbar_init(empty + 8 * st, 8);  // every consumer warp
+    }
+    mbar_init(qbar, 1);
+    halva::mbar_init_fence();
   }
-  const int qs0 = r0 < Sq ? qseg[(long)b * Sq + r0] : 0;
-  const int qs1 = r1 < Sq ? qseg[(long)b * Sq + r1] : 0;
-  const long stat = ((long)b * H + h) * Sq;
-  const float lse0 = r0 < Sq ? lse[stat + r0] * LOG2E : 0.f;
-  const float lse1 = r1 < Sq ? lse[stat + r1] * LOG2E : 0.f;
-  const float dl0 = r0 < Sq ? delta[stat + r0] : 0.f;
-  const float dl1 = r1 < Sq ? delta[stat + r1] : 0.f;
+  __syncthreads();
 
-  float acc[D / 8][4];
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        P::PRODUCER_REGS));
+    if (warp > 8) return;
+    if (lane == 0) {
+      mbar_expect_tx(qbar, 2 * P::Q_BYTES);
+      tma_load_4d(q_s, &qmap, qbar, 0, h, q0, b);
+      tma_load_4d(q_s + P::Q_HALF, &qmap, qbar, HALF_COLS, h, q0, b);
+      tma_load_4d(do_s, &domap, qbar, 0, h, q0, b);
+      tma_load_4d(do_s + P::Q_HALF, &domap, qbar, HALF_COLS, h, q0, b);
+    }
+    // the segment-id range of the block's rows below Sq
+    int qmin = IMAX, qmax = IMIN;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  int n_tiles = (Skv + BK - 1) / BK;
-  if (causal) n_tiles = min(n_tiles, (p_tile + BQ - 1) / BK + 1);
-  // first key tile with a pair inside the window, as K1
-  const int t_lo = window > 0 ? max((p_tile - window + 1) / BK, 0) : 0;
-  const int lrow = (lane & 7) + (lane & 8);  // ldmatrix.trans addressing
-  const int lcol = (lane & 16) >> 1;
-
-  for (int t = t_lo; t < n_tiles; ++t) {
-    const int c0 = t * BK;
-    __syncthreads();  // the previous tile's shared reads are done
-    stage_rows<D>(ks, kb, kv_row, c0, BK, Skv);
-    stage_rows<D>(vs, vb, kv_row, c0, BK, Skv);
-    if (threadIdx.x < BK)
-      kvsegs[threadIdx.x] =
-          c0 + threadIdx.x < Skv ? kvseg[(long)b * Skv + c0 + threadIdx.x] : 0;
-    __syncthreads();
-
-#pragma unroll 1
-    for (int sb = 0; sb < BK / SUB; ++sb) {
-      // S = Q K^T and dP = dO V^T for 16 rows x 32 keys; B operand b0 =
-      // K[key g][dims 2t..2t+1] (and V's), read straight from row-major smem
-      float s[SUB / 8][4], dp[SUB / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < SUB / 8; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-        const int kr = (sb * SUB + nt * 8 + g) * STR + tig * 2;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          mma_16816(s[nt], qf[kk], ld32(ks + kr + kk * 16),
-                    ld32(ks + kr + kk * 16 + 8));
-          mma_16816(dp[nt], df[kk], ld32(vs + kr + kk * 16),
-                    ld32(vs + kr + kk * 16 + 8));
-        }
-      }
-      // P by the mask (selected), then dS in place of S
-#pragma unroll
-      for (int nt = 0; nt < SUB / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int cl = sb * SUB + nt * 8 + tig * 2 + e;
-          const int col = c0 + cl;
-          const int cs = kvsegs[cl];
-          const bool in = col < Skv;
-          bool ok0 = in && qs0 != 0 && cs == qs0 && (!causal || p0 >= col);
-          bool ok1 = in && qs1 != 0 && cs == qs1 && (!causal || p1 >= col);
-          float s0 = s[nt][e] * scale_log2, s1 = s[nt][2 + e] * scale_log2;
-          if (window > 0) {
-            ok0 = ok0 && p0 - col < window;
-            ok1 = ok1 && p1 - col < window;
-          }
-          s0 -= slope2 * (float)(p0 - col);
-          s1 -= slope2 * (float)(p1 - col);
-          const float prob0 = ok0 ? exp2f(s0 - lse0) : 0.f;
-          const float prob1 = ok1 ? exp2f(s1 - lse1) : 0.f;
-          s[nt][e] = prob0 * (dp[nt][e] - dl0) * scale;
-          s[nt][2 + e] = prob1 * (dp[nt][2 + e] - dl1) * scale;
-        }
-      }
-      // dQ += dS K: the dS accumulators of key groups 2kk, 2kk+1 are the A
-      // operand of k-step kk; B (keys x dims) from row-major K via
-      // ldmatrix.trans
-#pragma unroll
-      for (int kk = 0; kk < SUB / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        const __nv_bfloat16* kr = ks + (sb * SUB + kk * 16 + lrow) * STR + lcol;
-#pragma unroll
-        for (int dt = 0; dt < D / 8; dt += 2) {
-          uint32_t bk[4];
-          ldmatrix_x4_trans(bk, kr + dt * 8);
-          mma_16816(acc[dt], pa, bk[0], bk[1]);
-          mma_16816(acc[dt + 1], pa, bk[2], bk[3]);
-        }
+    for (int j = 0; j < BQ / 32; ++j) {
+      const int r = q0 + lane + 32 * j;
+      if (r < Sq) {
+        const int v = qseg[(long)b * Sq + r];
+        qmin = min(qmin, v);
+        qmax = max(qmax, v);
       }
     }
-  }
-
-  __nv_bfloat16* dqb = dq + q_off;
+    warp_range(qmin, qmax);
+    const int* ks = kvseg + (long)b * Skv;
+    int next[TILE / 32];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + tig * 2;
-    if (r0 < Sq)
-      *reinterpret_cast<uint32_t*>(dqb + r0 * q_row + c) =
-          pack_bf16(acc[dt][0], acc[dt][1]);
-    if (r1 < Sq)
-      *reinterpret_cast<uint32_t*>(dqb + r1 * q_row + c) =
-          pack_bf16(acc[dt][2], acc[dt][3]);
+    for (int j = 0; j < TILE / 32; ++j) {
+      const int c = t_lo * TILE + lane + 32 * j;
+      next[j] = n > 0 && c < Skv ? ks[c] : 0;
+    }
+    for (int i = 0; i < n; ++i) {
+      const int st = i % STAGES;
+      const int c0 = (t_lo + i) * TILE;
+      int sv[TILE / 32];
+#pragma unroll
+      for (int j = 0; j < TILE / 32; ++j) {
+        sv[j] = next[j];
+        const int c = c0 + TILE + lane + 32 * j;
+        next[j] = i + 1 < n && c < Skv ? ks[c] : 0;
+      }
+      int kmin = IMAX, kmax = IMIN;
+#pragma unroll
+      for (int j = 0; j < TILE / 32; ++j) {
+        if (c0 + lane + 32 * j < Skv) {
+          kmin = min(kmin, sv[j]);
+          kmax = max(kmax, sv[j]);
+        }
+      }
+      warp_range(kmin, kmax);
+      const int kind = tile_kind<TILE>(c0, kmin, kmax, qmin, qmax, bp_lo,
+                                       bp_hi, Skv, causal, window);
+      if (i >= STAGES) mbar_wait(empty + 8 * st, (i / STAGES - 1) & 1);
+      int* sg = segs + st * P::SEG_INTS;
+#pragma unroll
+      for (int j = 0; j < TILE / 32; ++j) sg[lane + 32 * j] = sv[j];
+      if (lane == 0) {
+        sg[TILE] = kmin;
+        sg[TILE + 1] = kmax;
+      }
+      const uint32_t fb = full + 8 * st;
+      if (lane == 0 && kind != SKIP) {
+        const uint32_t kd = kv_s + st * P::STAGE_BYTES;
+        const uint32_t vd = kd + TILE_BYTES;
+        mbar_expect_tx(fb, P::STAGE_BYTES);
+        tma_load_4d(kd, &kmap, fb, 0, kvh, c0, b);
+        tma_load_4d(kd + TILE_HALF, &kmap, fb, HALF_COLS, kvh, c0, b);
+        tma_load_4d(vd, &vmap, fb, 0, kvh, c0, b);
+        tma_load_4d(vd + TILE_HALF, &vmap, fb, HALF_COLS, kvh, c0, b);
+      } else {
+        mbar_arrive(fb);
+      }
+    }
+    return;
   }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      P::CONSUMER_REGS));
+  const int wg = warp >> 2, wq = warp & 3;
+  const int g = lane >> 2, tig = lane & 3;
+  const int row_base = q0 + wg * WG_ROWS;
+  const int r0 = row_base + wq * 16 + g, r1 = r0 + 8;  // this thread's rows
+  const int p0 = q_off + r0, p1 = p0 + 8;
+  const int qs0 = r0 < Sq ? qseg[(long)b * Sq + r0] : 0;
+  const int qs1 = r1 < Sq ? qseg[(long)b * Sq + r1] : 0;
+  const int2 qr =
+      wg_id_range(wg_range, wg, wq, lane, r0, qs0, qs1, Sq);
+  const long stat = ((long)b * H + h) * Sq;
+  const float l0 = r0 < Sq ? lse[stat + r0] * LOG2E : 0.f;
+  const float l1 = r1 < Sq ? lse[stat + r1] * LOG2E : 0.f;
+  const float dl0 = r0 < Sq ? delta[stat + r0] : 0.f;
+  const float dl1 = r1 < Sq ? delta[stat + r1] : 0.f;
+  const int p_lo = q_off + row_base;
+  const int p_hi = q_off + min(row_base + WG_ROWS, Sq) - 1;
+  const float slope2 = alibi_slope2(alibi, h, H);
+
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  const uint32_t qa = q_s + wg * WG_ROWS * 128;
+  const uint32_t doa = do_s + wg * WG_ROWS * 128;
+#define PROBS_ARGS                                                         \
+  s, sg, c0, p0, p1, qs0, qs1, l0, l1, tig, Skv, causal, window,           \
+      scale_log2, slope2
+  mbar_wait(qbar, 0);
+
+  // a tile's dQ product runs on under the next tile's S and dP: `held` is
+  // its stage, released once the product has been waited (-1: none)
+  int held = -1;
+  for (int i = 0; i < n; ++i) {
+    const int st = i % STAGES;
+    const int c0 = (t_lo + i) * TILE;
+    mbar_wait(full + 8 * st, (i / STAGES) & 1);
+    const int* sg = segs + st * P::SEG_INTS;
+    // broadcast from lane 0: the compiler then knows the branches around
+    // the wgmma instructions are warp-uniform and does not serialize them
+    const int kind = __shfl_sync(
+        0xffffffffu,
+        tile_kind<TILE>(c0, sg[TILE], sg[TILE + 1], qr.x, qr.y, p_lo, p_hi,
+                        Skv, causal, window),
+        0);
+    if (kind != SKIP) {
+      const uint32_t kb = kv_s + st * P::STAGE_BYTES;
+      const uint32_t vb = kb + TILE_BYTES;
+      float s[32], dp[32];
+      halva::wgmma_fence();
+      product_64x64(s, qa, P::Q_HALF, kb, TILE_HALF);  // S = Q K^T
+      halva::wgmma_commit();
+      product_64x64(dp, doa, P::Q_HALF, vb, TILE_HALF);  // dP = dO V^T
+      halva::wgmma_commit();
+      halva::wgmma_wait<2>();  // the previous tile's dQ product
+      if (held >= 0 && lane == 0) mbar_arrive(empty + 8 * held);
+      halva::wgmma_wait<1>();
+      if (kind == MASKED)
+        alibi ? dq_probs<true, true>(PROBS_ARGS)
+              : dq_probs<true, false>(PROBS_ARGS);
+      else
+        alibi ? dq_probs<false, true>(PROBS_ARGS)
+              : dq_probs<false, false>(PROBS_ARGS);
+      halva::wgmma_wait<0>();
+      // dS = P (dP - delta) scale, in place of dP
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        dp[e] = s[e] * (dp[e] - ((e & 2) ? dl1 : dl0)) * scale;
+      uint32_t da[4][4];
+      pack_a(dp, da);
+      halva::wgmma_fence();
+      product_rs(acc, da, kb, TILE_HALF);  // dQ += dS K
+      halva::wgmma_commit();
+      held = st;
+    } else {
+      // nothing of this warp reads the stage; release the held one too, or
+      // the producer could wait for it while this warp waits for a fill
+      halva::wgmma_wait<0>();
+      if (lane == 0) {
+        if (held >= 0) mbar_arrive(empty + 8 * held);
+        mbar_arrive(empty + 8 * st);
+      }
+      held = -1;
+    }
+  }
+  halva::wgmma_wait<0>();
+  if (held >= 0 && lane == 0) mbar_arrive(empty + 8 * held);
+#undef PROBS_ARGS
+
+  // dQ through this warpgroup's rows of the Q tile
+  unsigned char* buf = smem + (qa - raw);
+  proxy_fence();
+  stage_rows(acc, buf, P::Q_HALF, wq, g, tig);
+  named_sync(1 + wg, 128);
+  const long q_row = (long)H * D;  // elements between sequence positions
+  write_rows(buf, P::Q_HALF, dq + (long)b * Sq * q_row + (long)h * D, q_row,
+             row_base, Sq);
 }
 
-template <int D>
-constexpr int dkv_smem_bytes() {
-  // K, V (BK rows), Q, dO (BQ rows), padded; query segment ids, LSE, delta
-  return (2 * BK + 2 * BQ) * (D + 8) * 2 + 3 * BQ * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
+// grid (KVH, B, key tiles), first key tile first. Warps as in K2.
+template <int KEYS>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap domap,
                      const int* __restrict__ qseg,
                      const int* __restrict__ kvseg,
-                     const __nv_bfloat16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
                      int KVH, float scale, float scale_log2, int causal,
-                     int alibi, int window, int q_shift) {
-  constexpr int STR = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + BK * STR;
-  __nv_bfloat16* qs = vs + BK * STR;
-  __nv_bfloat16* dos = qs + BQ * STR;
-  int* qsegs = reinterpret_cast<int*>(dos + BQ * STR);
-  float* lses = reinterpret_cast<float*>(qsegs + BQ);
-  float* dls = lses + BQ;
+                     int alibi, int window, int q_off) {
+  using P = DkvPlan<KEYS>;
+  constexpr int STAGES = P::STAGES;
+  static_assert(KEYS == 64 || KEYS == 128, "keys a block");
+  static_assert(P::SMEM <= 232448 - 1024, "shared memory of one block");
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __shared__ int2 wg_range[2][4];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t k_s = base;
+  const uint32_t v_s = k_s + P::KV_BYTES;
+  const uint32_t ring = v_s + P::KV_BYTES;  // stage st: Q, then dO
+  const uint32_t info_s = ring + STAGES * P::STAGE_BYTES;
+  const uint32_t full = info_s + STAGES * P::INFO_INTS * 4;
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t kvbar = empty + 8 * STAGES;
+  int* infos = reinterpret_cast<int*>(smem + (info_s - raw));
 
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int kv0 = blockIdx.z * KEYS;
   const int G = H / KVH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int kv0 = kt * BK;
-  const int lk = warp * 16;        // this warp's first key row in the tile
-  const int kr0 = kv0 + lk + g;    // this thread's two key rows
-  const int kr1 = kr0 + 8;
 
-  const long q_row = (long)H * D;
+  // the walk: query tiles [qt_lo, qt_hi) of each of the G heads in turn.
+  // Under the causal mask local row i sits at position q_off + i and the
+  // block's keys start at kv0; a query tile is wholly past the window of
+  // the block's last key iff its least row - col is >= window
+  const int kv_last = min(kv0 + KEYS, Skv) - 1;
+  const int qt_lo = causal ? max(kv0 - q_off, 0) / TILE : 0;
+  int qt_hi = (Sq + TILE - 1) / TILE;
+  if (window > 0) {
+    const int past = kv_last + window - q_off;
+    qt_hi = min(qt_hi, past > 0 ? (past + TILE - 1) / TILE : 0);
+  }
+  const int per_head = max(qt_hi - qt_lo, 0);
+  const int n = G * per_head;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + 8 * st, 32);  // every producer lane
+      // every consumer warp that reads the stage
+      mbar_init(empty + 8 * st, P::SPLIT ? 4 : 8);
+    }
+    mbar_init(kvbar, 1);
+    halva::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        P::PRODUCER_REGS));
+    if (warp > 8) return;
+    if (lane == 0 && n > 0) {
+      mbar_expect_tx(kvbar, 2 * P::KV_BYTES);
+      tma_load_4d(k_s, &kmap, kvbar, 0, kvh, kv0, b);
+      tma_load_4d(k_s + P::K_HALF, &kmap, kvbar, HALF_COLS, kvh, kv0, b);
+      tma_load_4d(v_s, &vmap, kvbar, 0, kvh, kv0, b);
+      tma_load_4d(v_s + P::K_HALF, &vmap, kvbar, HALF_COLS, kvh, kv0, b);
+    }
+    // the segment-id range of the block's keys below Skv
+    int kmin = IMAX, kmax = IMIN;
+#pragma unroll
+    for (int j = 0; j < KEYS / 32; ++j) {
+      const int c = kv0 + lane + 32 * j;
+      if (c < Skv) {
+        const int v = kvseg[(long)b * Skv + c];
+        kmin = min(kmin, v);
+        kmax = max(kmax, v);
+      }
+    }
+    warp_range(kmin, kmax);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % STAGES;
+      const int h = kvh * G + i / per_head;
+      const int r0 = (qt_lo + i % per_head) * TILE;
+      // the tile's queries: ids, LSE * log2 e and delta (0 past Sq)
+      const long stat = ((long)b * H + h) * Sq;
+      int qv[TILE / 32];
+      float lv[TILE / 32], dl[TILE / 32];
+      int qmin = IMAX, qmax = IMIN;
+#pragma unroll
+      for (int j = 0; j < TILE / 32; ++j) {
+        const int r = r0 + lane + 32 * j;
+        const bool in = r < Sq;
+        qv[j] = in ? qseg[(long)b * Sq + r] : 0;
+        lv[j] = in ? lse[stat + r] * LOG2E : 0.f;
+        dl[j] = in ? delta[stat + r] : 0.f;
+        if (in) {
+          qmin = min(qmin, qv[j]);
+          qmax = max(qmax, qv[j]);
+        }
+      }
+      warp_range(qmin, qmax);
+      if (qmin > qmax) qmin = qmax = 0;
+      const int kind =
+          tile_kind<KEYS>(kv0, kmin, kmax, qmin, qmax, q_off + r0,
+                          q_off + min(r0 + TILE, Sq) - 1, Skv, causal,
+                          window);
+      if (i >= STAGES) mbar_wait(empty + 8 * st, (i / STAGES - 1) & 1);
+      int* info = infos + st * P::INFO_INTS;
+#pragma unroll
+      for (int j = 0; j < TILE / 32; ++j) {
+        info[lane + 32 * j] = qv[j];
+        info[TILE + lane + 32 * j] = __float_as_int(lv[j]);
+        info[2 * TILE + lane + 32 * j] = __float_as_int(dl[j]);
+      }
+      if (lane == 0) {
+        info[3 * TILE] = qmin;
+        info[3 * TILE + 1] = qmax;
+      }
+      const uint32_t fb = full + 8 * st;
+      if (lane == 0 && kind != SKIP) {
+        const uint32_t qd = ring + st * P::STAGE_BYTES;
+        const uint32_t dd = qd + TILE_BYTES;
+        mbar_expect_tx(fb, P::STAGE_BYTES);
+        tma_load_4d(qd, &qmap, fb, 0, h, r0, b);
+        tma_load_4d(qd + TILE_HALF, &qmap, fb, HALF_COLS, h, r0, b);
+        tma_load_4d(dd, &domap, fb, 0, h, r0, b);
+        tma_load_4d(dd + TILE_HALF, &domap, fb, HALF_COLS, h, r0, b);
+      } else {
+        mbar_arrive(fb);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      P::CONSUMER_REGS));
+  // warp-uniform by construction; broadcast so that the compiler knows it
+  // (the walk below runs wgmma under it)
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int wq = warp & 3;
+  const int g = lane >> 2, tig = lane & 3;
+  const int c0 = kv0 + (P::SPLIT ? 0 : wg * WG_ROWS);  // this warpgroup's keys
+  const int k0 = c0 + wq * 16 + g, k1 = k0 + 8;        // this thread's keys
+  // segment 0 past Skv: such a key matches no query
+  const int ks0 = k0 < Skv ? kvseg[(long)b * Skv + k0] : 0;
+  const int ks1 = k1 < Skv ? kvseg[(long)b * Skv + k1] : 0;
+  const int2 kr = wg_id_range(wg_range, wg, wq, lane, k0, ks0, ks1, Skv);
+
+  float dka[64], dva[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) dka[e] = dva[e] = 0.f;
+  // A operands: this warpgroup's 64 keys of K and V
+  const uint32_t ka = k_s + (P::SPLIT ? 0 : wg * WG_ROWS * 128);
+  const uint32_t va = v_s + (P::SPLIT ? 0 : wg * WG_ROWS * 128);
+#define PROBS_ARGS                                                         \
+  s, info, pq0, k0, k1, ks0, ks1, tig, causal, window, scale_log2, slope2
+  if (n > 0) mbar_wait(kvbar, 0);
+
+  for (int i = P::SPLIT ? wg : 0; i < n; i += P::SPLIT ? 2 : 1) {
+    const int st = i % STAGES;
+    const int h = kvh * G + i / per_head;
+    const int r0 = (qt_lo + i % per_head) * TILE;
+    const int pq0 = q_off + r0;
+    mbar_wait(full + 8 * st, (i / STAGES) & 1);
+    const int* info = infos + st * P::INFO_INTS;
+    // the tile rule with the walked query tile in the role of K1's rows
+    const int kind = __shfl_sync(
+        0xffffffffu,
+        tile_kind<WG_ROWS>(c0, kr.x, kr.y, info[3 * TILE],
+                           info[3 * TILE + 1], pq0,
+                           q_off + min(r0 + TILE, Sq) - 1, Skv, causal,
+                           window),
+        0);
+    if (kind != SKIP) {
+      const float slope2 = alibi_slope2(alibi, h, H);
+      const uint32_t qb = ring + st * P::STAGE_BYTES;
+      const uint32_t db = qb + TILE_BYTES;
+      float s[32], dp[32];
+      halva::wgmma_fence();
+      product_64x64(s, ka, P::K_HALF, qb, TILE_HALF);  // S^T = K Q^T
+      halva::wgmma_commit();
+      product_64x64(dp, va, P::K_HALF, db, TILE_HALF);  // dP^T = V dO^T
+      halva::wgmma_commit();
+      halva::wgmma_wait<1>();
+      if (kind == MASKED)
+        alibi ? dkv_probs<true, true>(PROBS_ARGS)
+              : dkv_probs<true, false>(PROBS_ARGS);
+      else
+        alibi ? dkv_probs<false, true>(PROBS_ARGS)
+              : dkv_probs<false, false>(PROBS_ARGS);
+      halva::wgmma_wait<0>();
+      // dS^T = P^T (dP^T - delta) scale, in place of dP^T (delta by query)
+      const float* dls = reinterpret_cast<const float*>(info + 2 * TILE);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(dls + 8 * j +
+                                                          2 * tig);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] =
+              s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d.y : d.x)) * scale;
+      }
+      uint32_t pa[4][4], da[4][4];
+      pack_a(s, pa);
+      pack_a(dp, da);
+      halva::wgmma_fence();
+      product_rs(dva, pa, db, TILE_HALF);  // dV += P^T dO
+      product_rs(dka, da, qb, TILE_HALF);  // dK += dS^T Q
+      halva::wgmma_commit();
+      halva::wgmma_wait<0>();
+    }
+    // this warp's reads of the stage are done (its wgmma groups waited)
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  }
+#undef PROBS_ARGS
+
+  if (P::SPLIT) {
+    // warpgroup 1's sums into the ring, once both walks are done (no copy
+    // is in flight: every stage was waited), then warpgroup 0 adds them to
+    // its own in a fixed order
+    float* red = reinterpret_cast<float*>(smem + (ring - raw));
+    const int t = threadIdx.x & 127;
+    named_sync(3, 256);
+    if (wg == 1) {
+      proxy_fence();
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        red[e * 128 + t] = dka[e];
+        red[(64 + e) * 128 + t] = dva[e];
+      }
+    }
+    named_sync(3, 256);
+    if (wg == 1) return;
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      dka[e] += red[e * 128 + t];
+      dva[e] += red[(64 + e) * 128 + t];
+    }
+  }
+
+  // dK and dV through this warpgroup's rows of the K and V tiles
+  unsigned char* kbuf = smem + (ka - raw);
+  unsigned char* vbuf = smem + (va - raw);
+  proxy_fence();
+  stage_rows(dka, kbuf, P::K_HALF, wq, g, tig);
+  stage_rows(dva, vbuf, P::K_HALF, wq, g, tig);
+  named_sync(1 + wg, 128);
   const long kv_row = (long)KVH * D;
   const long kv_off = (long)b * Skv * kv_row + (long)kvh * D;
-  // segment 0 past Skv: such a key matches no query
-  const int ks0 = kr0 < Skv ? kvseg[(long)b * Skv + kr0] : 0;
-  const int ks1 = kr1 < Skv ? kvseg[(long)b * Skv + kr1] : 0;
-
-  stage_rows<D>(ks, k + kv_off, kv_row, kv0, BK, Skv);
-  stage_rows<D>(vs, v + kv_off, kv_row, kv0, BK, Skv);
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    dka[dt][0] = dka[dt][1] = dka[dt][2] = dka[dt][3] = 0.f;
-    dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.f;
-  }
-
-  // first query tile that can see us: local row i sits at position
-  // q_shift + i, the key tile starts at position kv0
-  const int qt_lo = causal ? max(kv0 - q_shift, 0) / BQ : 0;
-  int n_qt = (Sq + BQ - 1) / BQ;
-  if (window > 0) {
-    // query tile qt lies wholly past our keys' window iff its least
-    // row - col, (qt * BQ + q_shift) - (kv0 + BK - 1), is already >= window
-    const int past = kv0 + BK - 1 + window - q_shift;
-    n_qt = min(n_qt, past > 0 ? (past + BQ - 1) / BQ : 0);
-  }
-  const int lrow = (lane & 7) + (lane & 8);
-  const int lcol = (lane & 16) >> 1;
-  const __nv_bfloat16* ka = ks + (lk + g) * STR + tig * 2;  // A fragments
-  const __nv_bfloat16* va = vs + (lk + g) * STR + tig * 2;
-
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const long q_off = (long)b * Sq * q_row + (long)h * D;
-    const long stat = ((long)b * H + h) * Sq;
-    // ALiBi slope of this query head in the exp2 domain (0 = no bias)
-    const float slope2 =
-        alibi ? exp2f(-8.f * (float)(h + 1) / (float)H) * LOG2E : 0.f;
-    for (int qt = qt_lo; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // the previous tile's shared reads are done
-      stage_rows<D>(qs, q + q_off, q_row, q0, BQ, Sq);
-      stage_rows<D>(dos, dout + q_off, q_row, q0, BQ, Sq);
-      if (threadIdx.x < BQ) {
-        const int r = q0 + threadIdx.x;
-        const bool in = r < Sq;
-        qsegs[threadIdx.x] = in ? qseg[(long)b * Sq + r] : 0;
-        lses[threadIdx.x] = in ? lse[stat + r] * LOG2E : 0.f;
-        dls[threadIdx.x] = in ? delta[stat + r] : 0.f;
-      }
-      __syncthreads();
-
-#pragma unroll 1
-      for (int sb = 0; sb < BQ / SUB; ++sb) {
-        // S^T = K Q^T and dP^T = V dO^T for 16 keys x 32 queries: A = this
-        // warp's K (V) rows, B operand b0 = Q[query g][dims 2t..2t+1]
-        float s[SUB / 8][4], dp[SUB / 8][4];
-#pragma unroll
-        for (int nt = 0; nt < SUB / 8; ++nt) {
-          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-          dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-        }
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const int c = kk * 16;
-          const uint32_t kf[4] = {ld32(ka + c), ld32(ka + 8 * STR + c),
-                                  ld32(ka + c + 8), ld32(ka + 8 * STR + c + 8)};
-          const uint32_t vf[4] = {ld32(va + c), ld32(va + 8 * STR + c),
-                                  ld32(va + c + 8), ld32(va + 8 * STR + c + 8)};
-#pragma unroll
-          for (int nt = 0; nt < SUB / 8; ++nt) {
-            const int qr = (sb * SUB + nt * 8 + g) * STR + tig * 2 + c;
-            mma_16816(s[nt], kf, ld32(qs + qr), ld32(qs + qr + 8));
-            mma_16816(dp[nt], vf, ld32(dos + qr), ld32(dos + qr + 8));
-          }
-        }
-        // P^T by the mask (selected) into s, dS^T into dp
-#pragma unroll
-        for (int nt = 0; nt < SUB / 8; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qc = sb * SUB + nt * 8 + tig * 2 + e;
-            const int qi = q0 + qc + q_shift;  // the query's position
-            const int qsv = qsegs[qc];
-            const float l2 = lses[qc], dl = dls[qc];
-            bool ok0 = qsv != 0 && qsv == ks0 && (!causal || qi >= kr0);
-            bool ok1 = qsv != 0 && qsv == ks1 && (!causal || qi >= kr1);
-            float s0 = s[nt][e] * scale_log2, s1 = s[nt][2 + e] * scale_log2;
-            if (window > 0) {
-              ok0 = ok0 && qi - kr0 < window;
-              ok1 = ok1 && qi - kr1 < window;
-            }
-            s0 -= slope2 * (float)(qi - kr0);
-            s1 -= slope2 * (float)(qi - kr1);
-            const float p0 = ok0 ? exp2f(s0 - l2) : 0.f;
-            const float p1 = ok1 ? exp2f(s1 - l2) : 0.f;
-            s[nt][e] = p0;
-            s[nt][2 + e] = p1;
-            dp[nt][e] = p0 * (dp[nt][e] - dl) * scale;
-            dp[nt][2 + e] = p1 * (dp[nt][2 + e] - dl) * scale;
-          }
-        }
-        // dV += P^T dO and dK += dS^T Q: the accumulators of query groups
-        // 2kk, 2kk+1 are the A operand of k-step kk; B (queries x dims) from
-        // row-major dO and Q via ldmatrix.trans
-#pragma unroll
-        for (int kk = 0; kk < SUB / 16; ++kk) {
-          uint32_t pa[4], da[4];
-          pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-          pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-          pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-          pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-          da[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-          da[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-          da[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-          da[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-          const int row = (sb * SUB + kk * 16 + lrow) * STR + lcol;
-#pragma unroll
-          for (int dt = 0; dt < D / 8; dt += 2) {
-            uint32_t bd[4], bq[4];
-            ldmatrix_x4_trans(bd, dos + row + dt * 8);
-            mma_16816(dva[dt], pa, bd[0], bd[1]);
-            mma_16816(dva[dt + 1], pa, bd[2], bd[3]);
-            ldmatrix_x4_trans(bq, qs + row + dt * 8);
-            mma_16816(dka[dt], da, bq[0], bq[1]);
-            mma_16816(dka[dt + 1], da, bq[2], bq[3]);
-          }
-        }
-      }
-    }
-  }
-
-  __nv_bfloat16* dkb = dk + kv_off;
-  __nv_bfloat16* dvb = dv + kv_off;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + tig * 2;
-    if (kr0 < Skv) {
-      *reinterpret_cast<uint32_t*>(dkb + kr0 * kv_row + c) =
-          pack_bf16(dka[dt][0], dka[dt][1]);
-      *reinterpret_cast<uint32_t*>(dvb + kr0 * kv_row + c) =
-          pack_bf16(dva[dt][0], dva[dt][1]);
-    }
-    if (kr1 < Skv) {
-      *reinterpret_cast<uint32_t*>(dkb + kr1 * kv_row + c) =
-          pack_bf16(dka[dt][2], dka[dt][3]);
-      *reinterpret_cast<uint32_t*>(dvb + kr1 * kv_row + c) =
-          pack_bf16(dva[dt][2], dva[dt][3]);
-    }
-  }
+  write_rows(kbuf, P::K_HALF, dk + kv_off, kv_row, c0, Skv);
+  write_rows(vbuf, P::K_HALF, dv + kv_off, kv_row, c0, Skv);
 }
 
-bool valid_args(int B, int Sq, int Skv, int H, int KVH, int D, int window,
+bool valid_args(int B, int Sq, int Skv, int H, int KVH, int D_, int window,
                 int q_off) {
   // the head dim of every supported Llama config
-  return B > 0 && Sq > 0 && Skv > 0 && KVH > 0 && H % KVH == 0 && D == 128 &&
+  return B > 0 && Sq > 0 && Skv > 0 && KVH > 0 && H % KVH == 0 && D_ == D &&
          window >= 0 && q_off >= 0;
 }
 
-// above 48 KB of dynamic shared memory needs the opt-in, once per device (the
-// first launch is never inside a CUDA graph capture: the callers warm up
-// first)
-cudaError_t dkv_smem_opt_in() {
-  static uint64_t smem_set = 0;
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Every kernel instance the plan can choose, prepared once per device at
+// the first launch there: its opt-in to above 48 KB of dynamic shared
+// memory, and the check that its setmaxnreg pool suffices (a shortfall
+// would hang: refused instead). The first launch on a device is never
+// inside a CUDA graph capture (the callers warm up first), and a later
+// launch of another instance finds it done.
+int prepare_device() {
+  static uint64_t prepared = 0;
+  static const int pools = [] {
+    using halva::flash::setmaxnreg_pool_ok;
+    int e = setmaxnreg_pool_ok(flash_bwd_dq_kernel, NTHREADS, 256,
+                               DqPlan::CONSUMER_REGS, DqPlan::PRODUCER_REGS);
+    if (!e)
+      e = setmaxnreg_pool_ok(flash_bwd_dkv_kernel<128>, NTHREADS, 256,
+                             DkvPlan<128>::CONSUMER_REGS,
+                             DkvPlan<128>::PRODUCER_REGS);
+    if (!e)
+      e = setmaxnreg_pool_ok(flash_bwd_dkv_kernel<64>, NTHREADS, 256,
+                             DkvPlan<64>::CONSUMER_REGS,
+                             DkvPlan<64>::PRODUCER_REGS);
+    return e;
+  }();
+  if (pools) return pools;
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (!(smem_set >> dev & 1)) {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<128>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dkv_smem_bytes<128>());
-    if (err != cudaSuccess) return err;
-    smem_set |= uint64_t(1) << dev;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!(prepared >> dev & 1)) {
+    if ((err = set_smem(flash_bwd_dq_kernel, DqPlan::SMEM))) return err;
+    if ((err = set_smem(flash_bwd_dkv_kernel<128>, DkvPlan<128>::SMEM)))
+      return err;
+    if ((err = set_smem(flash_bwd_dkv_kernel<64>, DkvPlan<64>::SMEM)))
+      return err;
+    prepared |= uint64_t(1) << dev;
   }
-  return cudaSuccess;
+  return 0;
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const int *qseg, *kvseg;
+  const float *lse, *delta;
+  int B, Sq, Skv, H, KVH;
+  float scale;
+  int causal, alibi, window, q_off;
+  cudaStream_t stream;
+};
+
+// the four tensor maps: Q and dO in boxes of q_rows positions, K and V of
+// kv_rows
+int encode_maps(const Args& a, int q_rows, int kv_rows, CUtensorMap* maps) {
+  using halva::flash::encode_bshd;
+  int err;
+  if ((err = encode_bshd(&maps[0], a.q, a.B, a.Sq, a.H, q_rows))) return err;
+  if ((err = encode_bshd(&maps[1], a.k, a.B, a.Skv, a.KVH, kv_rows)))
+    return err;
+  if ((err = encode_bshd(&maps[2], a.v, a.B, a.Skv, a.KVH, kv_rows)))
+    return err;
+  return encode_bshd(&maps[3], a.dout, a.B, a.Sq, a.H, q_rows);
+}
+
+int launch_dq(const Args& a, __nv_bfloat16* dq) {
+  CUtensorMap m[4];
+  int err = encode_maps(a, DqPlan::BQ, TILE, m);
+  if (err) return err;
+  const dim3 grid(a.H, a.B, (a.Sq + DqPlan::BQ - 1) / DqPlan::BQ);
+  flash_bwd_dq_kernel<<<grid, NTHREADS, DqPlan::SMEM, a.stream>>>(
+      m[0], m[1], m[2], m[3], a.qseg, a.kvseg, a.lse, a.delta, dq, a.Sq,
+      a.Skv, a.H, a.KVH, a.scale, a.scale * LOG2E, a.causal, a.alibi,
+      a.window, a.q_off);
+  return (int)cudaGetLastError();
+}
+
+template <int KEYS>
+int launch_dkv(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv) {
+  CUtensorMap m[4];
+  int err = encode_maps(a, TILE, KEYS, m);
+  if (err) return err;
+  const dim3 grid(a.KVH, a.B, (a.Skv + KEYS - 1) / KEYS);
+  flash_bwd_dkv_kernel<KEYS>
+      <<<grid, NTHREADS, DkvPlan<KEYS>::SMEM, a.stream>>>(
+          m[0], m[1], m[2], m[3], a.qseg, a.kvseg, a.lse, a.delta, dk, dv,
+          a.Sq, a.Skv, a.H, a.KVH, a.scale, a.scale * LOG2E, a.causal,
+          a.alibi, a.window, a.q_off);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, dout (B, Sq, H, D), k/v (B, Skv, KVH, D) bf16; qseg (B, Sq), kvseg
-// (B, Skv) int32; lse, delta (B, H, Sq) fp32; dq (B, Sq, H, D) bf16. alibi
-// 0 | 1, window 0 = none, q_off >= 0, as K1 was given them. Returns a
-// cudaError_t.
+// q, dout (B, Sq, H, D), k/v (B, Skv, KVH, D) bf16, 16-byte aligned; qseg
+// (B, Sq), kvseg (B, Skv) int32; lse, delta (B, H, Sq) fp32; dq (B, Sq, H, D)
+// bf16. alibi 0 | 1, window 0 = none, q_off >= 0, as K1 was given them; bk:
+// keys per tile, 64 (the plan's). Returns a cudaError_t.
 extern "C" int halva_flash_bwd_dq_bf16(const void* q, const void* k,
                                        const void* v, const void* qseg,
                                        const void* kvseg, const void* dout,
                                        const void* lse, const void* delta,
                                        void* dq, int B, int Sq, int Skv,
-                                       int H, int KVH, int D, float scale,
+                                       int H, int KVH, int D_, float scale,
                                        int causal, int alibi, int window,
-                                       int q_off, void* stream) {
-  if (!valid_args(B, Sq, Skv, H, KVH, D, window, q_off))
+                                       int q_off, int bk, void* stream) {
+  if (!valid_args(B, Sq, Skv, H, KVH, D_, window, q_off) || bk != TILE)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<128>
-      <<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qseg),
-          static_cast<const int*>(kvseg),
-          static_cast<const __nv_bfloat16*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<__nv_bfloat16*>(dq), Sq, Skv, H, KVH, scale,
-          scale * LOG2E, causal, alibi, window, q_off);
-  return (int)cudaGetLastError();
+  const int err = prepare_device();
+  if (err) return err;
+  const Args a{q, k, v, dout,
+               static_cast<const int*>(qseg), static_cast<const int*>(kvseg),
+               static_cast<const float*>(lse), static_cast<const float*>(delta),
+               B, Sq, Skv, H, KVH, scale, causal, alibi, window, q_off,
+               static_cast<cudaStream_t>(stream)};
+  return launch_dq(a, static_cast<__nv_bfloat16*>(dq));
 }
 
-// As above; dk, dv (B, Skv, KVH, D) bf16, summed over each kv head's group.
+// As above; dk, dv (B, Skv, KVH, D) bf16, summed over each kv head's group;
+// keys: keys per block, 128 or 64 (the plan's layout).
 extern "C" int halva_flash_bwd_dkv_bf16(const void* q, const void* k,
                                         const void* v, const void* qseg,
                                         const void* kvseg, const void* dout,
                                         const void* lse, const void* delta,
                                         void* dk, void* dv, int B, int Sq,
-                                        int Skv, int H, int KVH, int D,
+                                        int Skv, int H, int KVH, int D_,
                                         float scale, int causal, int alibi,
-                                        int window, int q_off,
+                                        int window, int q_off, int keys,
                                         void* stream) {
-  if (!valid_args(B, Sq, Skv, H, KVH, D, window, q_off))
+  if (!valid_args(B, Sq, Skv, H, KVH, D_, window, q_off) ||
+      (keys != 128 && keys != 64))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = dkv_smem_opt_in();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Skv + BK - 1) / BK, KVH, B);
-  flash_bwd_dkv_kernel<128><<<grid, NTHREADS, dkv_smem_bytes<128>(),
-                              static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(qseg),
-          static_cast<const int*>(kvseg),
-          static_cast<const __nv_bfloat16*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-          Sq, Skv, H, KVH, scale, scale * LOG2E, causal, alibi, window,
-          q_off);
-  return (int)cudaGetLastError();
+  const int err = prepare_device();
+  if (err) return err;
+  const Args a{q, k, v, dout,
+               static_cast<const int*>(qseg), static_cast<const int*>(kvseg),
+               static_cast<const float*>(lse), static_cast<const float*>(delta),
+               B, Sq, Skv, H, KVH, scale, causal, alibi, window, q_off,
+               static_cast<cudaStream_t>(stream)};
+  auto* dkp = static_cast<__nv_bfloat16*>(dk);
+  auto* dvp = static_cast<__nv_bfloat16*>(dv);
+  return keys == 128 ? launch_dkv<128>(a, dkp, dvp)
+                     : launch_dkv<64>(a, dkp, dvp);
 }

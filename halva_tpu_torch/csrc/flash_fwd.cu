@@ -80,6 +80,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "hopper_common.cuh"
 
 namespace {
@@ -92,23 +93,28 @@ using halva::named_sync;
 using halva::smem_u32;
 using halva::sw128_desc;
 using halva::tma_load_4d;
+using halva::flash::D;
+using halva::flash::HALF_COLS;
+using halva::flash::IMAX;
+using halva::flash::IMIN;
+using halva::flash::LOG2E;
+using halva::flash::MASKED;
+using halva::flash::SKIP;
+using halva::flash::fast_exp2;
+using halva::flash::pack_bf16;
+using halva::flash::tile_kind;
+using halva::flash::warp_range;
 
-constexpr int D = 128;          // head dim
 constexpr int BQ = 128;         // query rows per block
 constexpr int WG_ROWS = 64;     // rows per consumer warpgroup
 constexpr int NTHREADS = 384;   // two consumer warpgroups + the producer's
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
-constexpr int HALF_COLS = 64;   // head-dim columns of one 128-byte swizzle row
 constexpr int Q_HALF = BQ * 128;          // bytes of one half of the Q tile
 constexpr int Q_BYTES = 2 * Q_HALF;       // 32 KB
 constexpr float NEG_BIG = -1e30f;  // logit of a masked pair (selected, not added)
 constexpr float M_INIT = -1e29f;   // running-max start above NEG_BIG: masked p = 0
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int IMAX = 0x7fffffff, IMIN = -IMAX - 1;  // empty id ranges
-
-enum TileKind { SKIP = 0, MASKED = 1, FULL = 2 };
 
 template <int BK, int STAGES>
 struct Plan {
@@ -120,37 +126,6 @@ struct Plan {
                               STAGES * SEG_INTS * 4 + (2 * STAGES + 1) * 8;
 };
 
-// The kind of key tile [c0, c0 + BK) for query rows at positions [p_lo,
-// p_hi] whose segment ids span [qmin, qmax] (qmin == qmax == 0: no live
-// row), the tile's ids (of keys below Skv) spanning [kmin, kmax]. As
-// ops/flash_attention.py:flash_tile_kind.
-template <int BK>
-__device__ __forceinline__ int tile_kind(int c0, int kmin, int kmax, int qmin,
-                                         int qmax, int p_lo, int p_hi,
-                                         int Skv, int causal, int window) {
-  const int c_last = min(c0 + BK, Skv) - 1;
-  if ((qmin == 0 && qmax == 0) || (kmin == 0 && kmax == 0) || kmax < qmin ||
-      kmin > qmax)
-    return SKIP;
-  if (causal && c0 > p_hi) return SKIP;
-  if (window > 0 && p_lo - c_last >= window) return SKIP;
-  const bool full = c0 + BK <= Skv && qmin == qmax && kmin == kmax &&
-                    qmin == kmin && (!causal || p_lo >= c_last) &&
-                    (window == 0 || p_hi - c0 < window);
-  return full ? FULL : MASKED;
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // (lo, hi) as two bf16 pairs whose sum keeps ~16 mantissa bits of each:
 // the rounded values and what the rounding left
 __device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t& big,
@@ -159,14 +134,6 @@ __device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t& big,
   const float2 bf = __bfloat1622float2(b);
   big = *reinterpret_cast<const uint32_t*>(&b);
   rest = pack_bf16(lo - bf.x, hi - bf.y);
-}
-
-__device__ __forceinline__ void warp_range(int& mn, int& mx) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
-    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  }
 }
 
 // S (64 x BK) = Q (this warpgroup's 64 rows) K^T: both K-major, each row's
@@ -512,42 +479,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// A (B, S, heads, D) bf16 tensor as (D, heads, S, B), loaded in boxes of 64
-// head-dim columns (128 bytes, swizzled for wgmma) x `rows` positions of one
-// head
-int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-                int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {HALF_COLS, 1, (cuuint32_t)rows, 1};
-  return halva::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 4, dims,
-                       strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 template <int BK, int STAGES>
 auto kernel_of() {
   return flash_fwd_kernel<BK, STAGES>;
 }
 
-// The registers a consumer warpgroup asks for with setmaxnreg come from the
-// pool the block holds at launch: 12 warps x the entry register count (168
-// for 384 threads, 64,512 in all: 2 x 128 x 240 + 128 x 24). A kernel
-// whose entry count leaves too few would wait forever: refuse it.
+// setmaxnreg's pool, checked once per instance (a shortfall would hang)
 template <int BK, int STAGES>
 int check_registers() {
-  static int checked = 0;  // 1 = enough, -1 = too few
-  if (checked == 0) {
-    cudaFuncAttributes attr;
-    const cudaError_t e = cudaFuncGetAttributes(&attr, kernel_of<BK, STAGES>());
-    if (e != cudaSuccess) return (int)e;
-    checked = attr.numRegs * NTHREADS >=
-                      256 * CONSUMER_REGS + 128 * PRODUCER_REGS
-                  ? 1
-                  : -1;
-  }
-  return checked == 1 ? 0 : (int)cudaErrorInvalidConfiguration;
+  static const int ok = halva::flash::setmaxnreg_pool_ok(
+      kernel_of<BK, STAGES>(), NTHREADS, 256, CONSUMER_REGS, PRODUCER_REGS);
+  return ok;
 }
 
 template <int BK, int STAGES>
@@ -560,9 +502,9 @@ int launch(cudaStream_t st, const void* q, const void* k, const void* v,
   int err = check_registers<BK, STAGES>();
   if (err) return err;
   CUtensorMap qmap, kmap, vmap;
-  if ((err = encode_bshd(&qmap, q, B, Sq, H, BQ))) return err;
-  if ((err = encode_bshd(&kmap, k, B, Skv, KVH, BK))) return err;
-  if ((err = encode_bshd(&vmap, v, B, Skv, KVH, BK))) return err;
+  if ((err = halva::flash::encode_bshd(&qmap, q, B, Sq, H, BQ))) return err;
+  if ((err = halva::flash::encode_bshd(&kmap, k, B, Skv, KVH, BK))) return err;
+  if ((err = halva::flash::encode_bshd(&vmap, v, B, Skv, KVH, BK))) return err;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;

@@ -9,6 +9,9 @@ forward launches K1 and keeps o and the log-sum-exp, the backward computes
 delta = rowsum(dO * O) and launches K2 (dQ) and K3 (dK, dV). On CPU tensors
 it is `flash_attention_plain`, and autograd goes through the plain ops.
 There is no fallback: on a CUDA tensor it launches or raises.
+`flash_fwd_plan` and `flash_bwd_plan` give the kernels' launch plans;
+`flash_attention_tiled_plain` and `flash_attention_bwd_tiled_plain` walk
+the tiles in the kernels' order with the tile rule `flash_tile_kind`.
 
 Three modes beside the base one, all computed inside the kernels:
 - `alibi`: the MPT bias -slope_h * (row - col) on the scaled logits, with
@@ -43,6 +46,7 @@ from halva_tpu_torch.ops.attention import (
     causal_alibi_bias,
     make_attention_mask,
 )
+from halva_tpu_torch.ops.decode_attention import sm_count
 
 KERNEL = "flash_fwd"
 KERNEL_DQ = "flash_bwd_dq"
@@ -66,6 +70,22 @@ M_INIT = -1e29
 LOG2E = 1.4426950408889634
 
 
+# K2's and K3's geometry (csrc/flash_bwd.cu): a K2 block owns BWD_DQ_ROWS
+# query rows of one (batch row, head) and walks the keys in tiles of
+# BWD_TILE; a K3 block owns 128 keys (64 a consumer warpgroup) or 64 keys
+# (both warpgroups, alternate query tiles) of one (batch row, kv head) and
+# walks the query tiles of BWD_TILE rows; both rings have BWD_STAGES stages
+BWD_DQ_ROWS = 128
+BWD_TILE = 64
+BWD_STAGES = 4
+BWD_DKV_KEYS = (128, 64)
+# K3 takes 64-key blocks where 128-key ones would give fewer than this many
+# blocks an SM (measured on an H100, PERF.md section 6: 64 wins at Mistral's
+# B=2 train shape, 1.1 blocks an SM at 128, and loses at 2.2 and more)
+BWD_DKV_MIN_BLOCKS_PER_SM = 2
+H100_SMS = 132
+
+
 class FwdPlan(NamedTuple):
     bq: int  # query rows per block
     bk: int  # keys per tile
@@ -83,6 +103,39 @@ def flash_fwd_plan(b: int, sq: int, skv: int, h: int,
         raise ValueError(f"flash_fwd: key tile {bk} is not one of "
                          f"{sorted(FWD_STAGES)}")
     return FwdPlan(FWD_BQ, bk, FWD_STAGES[bk], b * h * -(-sq // FWD_BQ))
+
+
+class BwdKernelPlan(NamedTuple):
+    rows: int  # K2: query rows per block; K3: keys per block
+    tile: int  # K2: keys per tile; K3: queries per tile
+    stages: int  # tiles in flight in the ring
+    blocks: int  # thread blocks of the launch (one per SM at a time)
+    order: str  # which blocks the grid issues first
+
+
+class BwdPlan(NamedTuple):
+    dq: BwdKernelPlan  # K2
+    dkv: BwdKernelPlan  # K3
+
+
+def flash_bwd_plan(b: int, sq: int, skv: int, h: int, kvh: int,
+                   dkv_keys: Optional[int] = None,
+                   sms: int = H100_SMS) -> BwdPlan:
+    """K2's and K3's launch plans for B rows of Sq queries (H heads) against
+    Skv keys (KVH heads) on a card of `sms` SMs; `dkv_keys` forces K3's
+    keys a block (128 or 64)."""
+    dq = BwdKernelPlan(BWD_DQ_ROWS, BWD_TILE, BWD_STAGES,
+                       b * h * -(-sq // BWD_DQ_ROWS), "last query tile first")
+    if dkv_keys is None:
+        wide = b * kvh * -(-skv // BWD_DKV_KEYS[0])
+        dkv_keys = BWD_DKV_KEYS[
+            wide < BWD_DKV_MIN_BLOCKS_PER_SM * sms]
+    if dkv_keys not in BWD_DKV_KEYS:
+        raise ValueError(f"flash_bwd_dkv: {dkv_keys} keys a block is not "
+                         f"one of {sorted(BWD_DKV_KEYS)}")
+    dkv = BwdKernelPlan(dkv_keys, BWD_TILE, BWD_STAGES,
+                        b * kvh * -(-skv // dkv_keys), "first key tile first")
+    return BwdPlan(dq, dkv)
 
 
 def flash_tile_kind(c0: int, bk: int, skv: int, kmin: int, kmax: int,
@@ -195,6 +248,160 @@ def flash_attention_tiled_plain(
             lse[bi, :, r0:r1] = m * math.log(2) + torch.log(
                 torch.where(l > 0, l, torch.ones_like(l)))
     return o.to(q.dtype), lse
+
+
+def _tile_range(ids) -> Tuple[int, int]:
+    return int(ids.min()), int(ids.max())
+
+
+def _bwd_tile(qt, kt, vt, dot, l2, dl, pos, cols, qs, ks, kind, slope2,
+              scale, causal, window, p_dtype, ds_dtype):
+    """P and dS of one tile as K2 and K3 compute them, for heads n: q, dO
+    (n, r, D), k, v (n, c, D) fp32; l2 = LSE * log2 e and delta (n, r);
+    positions pos (r,) and key indices cols (c,); ids qs (r,), ks (c,);
+    slope2 (n,). Returns (P rounded to p_dtype, dS rounded to ds_dtype),
+    both as fp32 (n, r, c)."""
+    x = qt @ kt.transpose(1, 2) * (scale * LOG2E) - l2[..., None]
+    dist = (pos[:, None] - cols[None, :]).float()
+    x = x - slope2[:, None, None] * dist
+    p = torch.exp2(x)
+    if kind == "masked":
+        live = (qs[:, None] == ks[None, :]) & (qs[:, None] != 0)
+        if causal:
+            live = live & (dist >= 0)
+        if window:
+            live = live & (dist < window)
+        p = torch.where(live, p, torch.zeros((), device=p.device))
+    dp = dot @ vt.transpose(1, 2)
+    ds = p * (dp - dl[..., None]) * scale
+    return p.to(p_dtype).float(), ds.to(ds_dtype).float()
+
+
+def flash_attention_bwd_tiled_plain(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Skv, KVH, D)
+    v: torch.Tensor,
+    q_segment_ids: torch.Tensor,  # (B, Sq)
+    kv_segment_ids: torch.Tensor,  # (B, Skv)
+    o: torch.Tensor,  # (B, Sq, H, D) the forward's output
+    lse: torch.Tensor,  # (B, H, Sq) fp32, natural log
+    do: torch.Tensor,  # (B, Sq, H, D)
+    causal: bool = True,
+    scale: Optional[float] = None,
+    alibi: bool = False,
+    sliding_window: Optional[int] = None,
+    q_offset: Optional[int] = None,
+    dkv_keys: int = BWD_DKV_KEYS[0],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in q's, k's and v's dtypes by K2's key walk and K3's
+    query walk in torch ops, tile by tile in the kernels' order: the model
+    of csrc/flash_bwd.cu, held on the CPU against the Pallas backward.
+
+    K2: each warpgroup's 64 query rows walk the key tiles of BWD_TILE from
+    the block's first key tile in the window to its last under the causal
+    mask, skip what `flash_tile_kind` calls "skip" and mask pairs only on
+    "masked" tiles. K3: each block of `dkv_keys` keys walks the query tiles
+    of BWD_TILE rows from the first that can see its keys (shifted by
+    q_offset) to the last inside its keys' window, for each query head of
+    its group in turn; each warpgroup's 64 keys (128 a block) or every
+    other query tile (64 a block, the two sums added at the end) take the
+    tile rule with the query tile in the role of K1's rows. P = exp2 of the
+    exp2-domain logit (scale * log2 e, the ALiBi term -slope_h (row - col)
+    * log2 e) less LSE * log2 e, selected where masked; P is rounded to
+    dO's dtype before dV and dS = P (dP - delta) scale to q's dtype before
+    dK and dQ, as the kernels round them; sums in fp32."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    grp = h // kvh
+    if scale is None:
+        scale = d**-0.5
+    if dkv_keys not in BWD_DKV_KEYS:
+        raise ValueError(f"flash_bwd_dkv: {dkv_keys} keys a block is not "
+                         f"one of {sorted(BWD_DKV_KEYS)}")
+    window = int(sliding_window or 0)
+    off = int(q_offset or 0)
+    dev = q.device
+    tile, wg_rows = BWD_TILE, BWD_DQ_ROWS // 2
+    slope2 = (alibi_slopes(h, dev) * LOG2E if alibi
+              else torch.zeros(h, device=dev))
+    l2 = lse.float() * LOG2E
+    delta = flash_attention_delta(o, do)
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    kvmap = torch.arange(h, device=dev) // grp
+    dq = torch.zeros(b, h, sq, d, device=dev)
+    dk = torch.zeros(b, kvh, skv, d, device=dev)
+    dv = torch.zeros(b, kvh, skv, d, device=dev)
+    args = dict(scale=scale, causal=causal, window=window, p_dtype=do.dtype,
+                ds_dtype=q.dtype)
+    for bi in range(b):
+        qseg, kseg = q_segment_ids[bi], kv_segment_ids[bi]
+        # K2: 64 rows of every head at once (the heads' walks are alike)
+        for r0 in range(0, sq, wg_rows):
+            r1 = min(r0 + wg_rows, sq)
+            blk = r0 - r0 % BWD_DQ_ROWS  # the block's first row
+            bp_lo = off + blk
+            bp_hi = off + min(blk + BWD_DQ_ROWS, sq) - 1
+            t_hi = -(-skv // tile)
+            if causal:
+                t_hi = min(t_hi, bp_hi // tile + 1)
+            t_lo = (max(bp_lo - window + 1, 0) // tile) if window else 0
+            pos = torch.arange(off + r0, off + r1, device=dev)
+            qr = _tile_range(qseg[r0:r1])
+            for t in range(t_lo, t_hi):
+                c0, c1 = t * tile, min(t * tile + tile, skv)
+                kind = flash_tile_kind(c0, tile, skv, *_tile_range(
+                    kseg[c0:c1]), *qr, off + r0, off + r1 - 1, causal,
+                    window)
+                if kind == "skip":
+                    continue
+                _, ds = _bwd_tile(
+                    qf[bi, :, r0:r1], kf[bi, kvmap, c0:c1],
+                    vf[bi, kvmap, c0:c1], dof[bi, :, r0:r1],
+                    l2[bi, :, r0:r1], delta[bi, :, r0:r1], pos,
+                    torch.arange(c0, c1, device=dev), qseg[r0:r1],
+                    kseg[c0:c1], kind, slope2, **args)
+                dq[bi, :, r0:r1] += ds @ kf[bi, kvmap, c0:c1]
+        # K3: every kv head at once, query head kvh * G + gi of each
+        split = dkv_keys == 64
+        for kv0 in range(0, skv, dkv_keys):
+            kv_last = min(kv0 + dkv_keys, skv) - 1
+            qt_lo = max(kv0 - off, 0) // tile if causal else 0
+            qt_hi = -(-sq // tile)
+            if window:
+                past = kv_last + window - off
+                qt_hi = min(qt_hi, -(-past // tile) if past > 0 else 0)
+            walk = [(gi, qt) for gi in range(grp)
+                    for qt in range(qt_lo, qt_hi)]
+            for c0 in range(kv0, kv_last + 1, wg_rows):
+                c1 = min(c0 + wg_rows, skv)
+                cols = torch.arange(c0, c1, device=dev)
+                kr = _tile_range(kseg[c0:c1])
+                sums = [torch.zeros(2, kvh, c1 - c0, d, device=dev)
+                        for _ in range(2 if split else 1)]
+                for i, (gi, qt) in enumerate(walk):
+                    r0, r1 = qt * tile, min(qt * tile + tile, sq)
+                    kind = flash_tile_kind(c0, wg_rows, skv, *kr,
+                                           *_tile_range(qseg[r0:r1]),
+                                           off + r0, off + r1 - 1, causal,
+                                           window)
+                    if kind == "skip":
+                        continue
+                    heads = torch.arange(kvh, device=dev) * grp + gi
+                    p, ds = _bwd_tile(
+                        qf[bi, heads, r0:r1], kf[bi, :, c0:c1],
+                        vf[bi, :, c0:c1], dof[bi, heads, r0:r1],
+                        l2[bi, heads, r0:r1], delta[bi, heads, r0:r1],
+                        torch.arange(off + r0, off + r1, device=dev), cols,
+                        qseg[r0:r1], kseg[c0:c1], kind, slope2[heads],
+                        **args)
+                    acc = sums[i % 2 if split else 0]
+                    acc[0] += ds.transpose(1, 2) @ qf[bi, heads, r0:r1]
+                    acc[1] += p.transpose(1, 2) @ dof[bi, heads, r0:r1]
+                total = sums[0] + sums[1] if split else sums[0]
+                dk[bi, :, c0:c1] = total[0]
+                dv[bi, :, c0:c1] = total[1]
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
 
 
 def mode_suffix(alibi: bool, sliding_window: Optional[int]) -> str:
@@ -399,7 +606,9 @@ def _check_bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse,
 
 
 def _bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse, delta,
-              causal, scale, alibi, sliding_window, q_offset):
+              causal, scale, alibi, sliding_window, q_offset, dkv_keys=None):
+    """The kernels' pointers, their shape and mode arguments, and the
+    launch plan on q's card."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     if scale is None:
@@ -408,7 +617,9 @@ def _bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse, delta,
             q_segment_ids.data_ptr(), kv_segment_ids.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr())
     modes = _mode_args(name, h, causal, alibi, sliding_window, q_offset)
-    return ptrs, (b, sq, skv, h, kvh, d, float(scale), int(causal), *modes)
+    plan = flash_bwd_plan(b, sq, skv, h, kvh, dkv_keys, sm_count(q.device))
+    return ptrs, (b, sq, skv, h, kvh, d, float(scale), int(causal),
+                  *modes), plan
 
 
 def flash_attention_bwd_dq(q, k, v, q_segment_ids, kv_segment_ids, do, lse,
@@ -417,18 +628,19 @@ def flash_attention_bwd_dq(q, k, v, q_segment_ids, kv_segment_ids, do, lse,
                            alibi: bool = False,
                            sliding_window: Optional[int] = None,
                            q_offset: Optional[int] = None) -> torch.Tensor:
-    """Launch K2 on CUDA tensors: dq (B, Sq, H, D) bf16."""
+    """Launch K2 on CUDA tensors: dq (B, Sq, H, D) bf16, by the plan of
+    `flash_bwd_plan`."""
     name = "flash_attention_bwd_dq"
     _check_bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse,
                     delta)
-    ptrs, dims = _bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do,
-                           lse, delta, causal, scale, alibi, sliding_window,
-                           q_offset)
+    ptrs, dims, plan = _bwd_args(name, q, k, v, q_segment_ids,
+                                 kv_segment_ids, do, lse, delta, causal,
+                                 scale, alibi, sliding_window, q_offset)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels.lib().halva_flash_bwd_dq_bf16(
-            *ptrs, dq.data_ptr(), *dims, stream)
+            *ptrs, dq.data_ptr(), *dims, plan.dq.tile, stream)
     counter = KERNEL_DQ + mode_suffix(alibi, sliding_window)
     _kernels.check(err, counter)
     _kernels.launches[counter] += 1
@@ -441,21 +653,26 @@ def flash_attention_bwd_dkv(q, k, v, q_segment_ids, kv_segment_ids, do, lse,
                             alibi: bool = False,
                             sliding_window: Optional[int] = None,
                             q_offset: Optional[int] = None,
+                            dkv_keys: Optional[int] = None,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K3 on CUDA tensors: (dk, dv) (B, Skv, KVH, D) bf16, summed
-    over each KV head's query group inside the kernel."""
+    over each KV head's query group inside the kernel, by the plan of
+    `flash_bwd_plan`; `dkv_keys` (128 or 64 keys a block) forces its
+    layout."""
     name = "flash_attention_bwd_dkv"
     _check_bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse,
                     delta)
-    ptrs, dims = _bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do,
-                           lse, delta, causal, scale, alibi, sliding_window,
-                           q_offset)
+    ptrs, dims, plan = _bwd_args(name, q, k, v, q_segment_ids,
+                                 kv_segment_ids, do, lse, delta, causal,
+                                 scale, alibi, sliding_window, q_offset,
+                                 dkv_keys)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels.lib().halva_flash_bwd_dkv_bf16(
-            *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, stream)
+            *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, plan.dkv.rows,
+            stream)
     counter = KERNEL_DKV + mode_suffix(alibi, sliding_window)
     _kernels.check(err, counter)
     _kernels.launches[counter] += 1

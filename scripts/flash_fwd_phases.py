@@ -104,7 +104,8 @@ def stamped_source() -> str:
 def build() -> ctypes.CDLL:
     out = os.path.join(ROOT, "build", "probe", "flash_phases")
     os.makedirs(out, exist_ok=True)
-    shutil.copy(os.path.join(_kernels.CSRC, "hopper_common.cuh"), out)
+    for header in ("hopper_common.cuh", "flash_common.cuh"):
+        shutil.copy(os.path.join(_kernels.CSRC, header), out)
     src = os.path.join(out, "flash_fwd.cu")
     with open(src, "w") as f:
         f.write(stamped_source())

@@ -36,9 +36,12 @@ from halva_tpu_torch.ops.decode_attention import (
     fold_attend_plain,
 )
 from halva_tpu_torch.ops.flash_attention import (
+    BWD_DKV_KEYS,
     flash_attention,
     flash_attention_bwd,
+    flash_attention_bwd_dkv,
     flash_attention_bwd_plain,
+    flash_attention_delta,
     flash_attention_fwd,
     flash_attention_plain,
 )
@@ -639,6 +642,28 @@ def test_flash_modes_match_plain(cuda, name):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         _close_grad(g[live], w[live])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys", BWD_DKV_KEYS)
+@pytest.mark.parametrize("kvh,layout,modes", [
+    (8, "pad", {}), (2, "packed", {"alibi": True}),
+    (2, "pad", {"sliding_window": 70})])
+def test_flash_bwd_dkv_layouts_match_plain(cuda, keys, kvh, layout, modes):
+    """K3 under each layout the plan can choose (128 keys a block, or 64
+    with the two warpgroups on alternate query tiles and their sums added
+    in shared memory) matches the plain backward and repeats bit for bit."""
+    b, s, h = 2, 333, 8
+    q, k, v, do, seg, live = _bwd_inputs(cuda, b, s, h, kvh, layout)
+    o, lse = flash_attention_fwd(q, k, v, seg, seg, **modes)
+    args = (q, k, v, seg, seg, do, lse, flash_attention_delta(o, do))
+    got = flash_attention_bwd_dkv(*args, **modes, dkv_keys=keys)
+    want = flash_attention_bwd_plain(q, k, v, seg, seg, o, lse, do, **modes)
+    for g, w in zip(got, want[1:]):
+        assert torch.isfinite(g).all()
+        _close_grad(g[live], w[live])
+    again = flash_attention_bwd_dkv(*args, **modes, dkv_keys=keys)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda

@@ -182,15 +182,16 @@ def test_flash_kernels_are_hand_written_and_deterministic():
     CUTLASS or torch; cuda.h only for the tensor-map types, the encoder is
     looked up at run time) and K3 sums dK and dV over the query heads of a
     KV head without atomics, so the backward is deterministic. K1 is one
-    Hopper kernel: TMA copies and a producer warpgroup whose registers
-    setmaxnreg moves, mbarrier waits, wgmma for both products; no mma.sync
-    and no atomics, so the forward is deterministic too."""
+    Hopper kernel, and K2 and K3 one each: TMA copies and a producer
+    warpgroup whose registers setmaxnreg moves, mbarrier waits, wgmma for
+    every product; no mma.sync and no atomics, so the forward is
+    deterministic too."""
     csrc = os.path.join(PKG, "csrc")
     library = re.compile(r"cublas|cudnn|cutlass|cute|torch|#include <(?!cuda\."
                          r"h>|cuda_bf16|cuda_runtime|stdint)")
     code = {}
     for name in ("flash_fwd.cu", "flash_bwd.cu", "mma_bf16.cuh",
-                 "hopper_common.cuh"):
+                 "hopper_common.cuh", "flash_common.cuh"):
         text = open(os.path.join(csrc, name)).read()
         code[name] = "\n".join(ln.split("//")[0] for ln in text.splitlines())
         assert not library.search(code[name]), name
@@ -206,6 +207,14 @@ def test_flash_kernels_are_hand_written_and_deterministic():
     assert "atomic" not in fwd
     assert len(re.findall(r"__global__ void", fwd)) == 1
     bwd = code["flash_bwd.cu"]
+    assert '#include "hopper_common.cuh"' in bwd
+    assert '#include "mma_bf16.cuh"' not in bwd
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
+                "setmaxnreg"):
+        assert ptx in bwd + code["hopper_common.cuh"], ptx
+    assert "setmaxnreg.dec" in bwd and "setmaxnreg.inc" in bwd
+    assert "__grid_constant__ CUtensorMap" in bwd
+    assert "mma_16816" not in bwd and "mma.sync" not in bwd
     assert "atomic" not in bwd
     for kernel in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
-        assert f"__global__ void __launch_bounds__(NTHREADS)\n{kernel}" in bwd
+        assert f"__global__ void __launch_bounds__(NTHREADS, 1)\n{kernel}" in bwd
