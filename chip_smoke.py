@@ -66,6 +66,17 @@ PEFT adapter that the smoke writes under build/ from the bf16 tree, int4g
 cold and warm from the tree cache, each bitwise equal to the merge
 quantized in memory, and `python -m halva_tpu_torch.bench` runs in its own
 process and prints its JSON line.
+
+The train entry point (train/run.py, after the loader, on the bf16 tree):
+the tree written by train/checkpoint.save_params is the base of
+`train.run.train` at full width and depth (4 micro-steps of 2 pre-tokenized
+samples at the recipe's shapes, grad_accum 2, LoRA r=128, a checkpoint
+every 2 steps, the component dirs at the end), with its K1/K2/K3 launches
+per micro-step equal to the train phase's, its host clock per micro-step
+beside that phase's device time, and each checkpoint save's seconds and
+bytes; a second run stopped at step 2 and resumed equals it at steps 3-4;
+the component checkpoint, loaded by models/builder.py, is merge_lora of
+the trained tree bit for bit and decodes the same 8 greedy tokens (K4).
 Every phase prints one line; any failure raises and exits non-zero. The
 last line is the device record {"ok": true, "device": {...}}.
 
@@ -104,6 +115,11 @@ tree in turn on one card (an older tree prints no plans).
 runs only the quantized-base part (the checks of K7 and K8, the int8
 serving routes, the three train phases, the int4g serving, beam and verify
 runs) on a fresh random tree, with the rows of K7 and K8 alone.
+
+    python3 chip_smoke.py --train-cli-only
+
+runs only the train step (no plain-path comparison) for its time per
+micro-step, then the train entry point's phase, on a fresh random tree.
 
 Needs a CUDA device; imports no JAX.
 """
@@ -2820,7 +2836,7 @@ def changed(before: dict, after: dict) -> list:
 
 def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
               suffix: str = "", micro_steps: int = TRAIN_MICRO_STEPS,
-              grad_accum: int = 2, compare: bool = True) -> None:
+              grad_accum: int = 2, compare: bool = True) -> float:
     """The DPA LoRA train step at full width (llava-v1.5-7b unless `cfg`
     says otherwise): bf16 base, bf16 LoRA r=128 alpha=256 on the 7 linears
     of all layers, remat per layer, loss_chunk=256, micro-batch 2, AdamW
@@ -2829,7 +2845,8 @@ def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
     `suffix` is the flash kernels' mode on this config. Then, with
     `compare`, one micro-step on the kernel path against the plain path. A
     quantized `params` is the frozen base as it is (its denses launch no
-    kernel here: W8A8 is a library product, NF4 and int4 dequantize)."""
+    kernel here: W8A8 is a library product, NF4 and int4 dequantize).
+    Returns the mean ms per micro-step after the first."""
     cfg = cfg or CFG
     layers = cfg.llm.num_layers
     gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -2905,6 +2922,7 @@ def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
     del policy, trainable, frozen, opt, opt_state, step
     if compare:
         compare_train(params, batches[0], cfg, what)
+    return statistics.mean(steady) * 1e3
 
 
 def compare_train(params: dict, batch: dict, cfg=None,
@@ -3848,6 +3866,279 @@ def run_loader(params, cfg) -> None:
         torch.cuda.empty_cache()
 
 
+# ---- the train CLI (train/run.py) at full width ----------------------------
+
+CLI_SAMPLES = 8  # one epoch of 4 micro-batches of TRAIN_B: two updates
+CLI_STEPS = 4
+CLI_DECODE = 8  # greedy tokens decoded from the trained checkpoint
+CLI_RTOL = 1e-5  # the resumed run's loss and kl (tests/test_train_e2e.py)
+
+
+class CliSamples:
+    """HallDataset.__getitem__'s samples at the recipe's shapes (those of
+    train_batch: TRAIN_TEXT tokens with the image sentinel at 1, labels on
+    the second half, two phrase spans, random pixels), made from a seed.
+    The card's machine has no tokenizer library and no Pillow: the text
+    encoding and the image decode are held on the CPU in tests. The
+    sampler reads `modality_lengths`."""
+
+    def __init__(self, cfg, n: int = CLI_SAMPLES):
+        rng = np.random.RandomState(7)
+        t, size = TRAIN_TEXT, cfg.vision.image_size
+        hi = min(30000, cfg.llm.vocab_size)
+
+        def seq(phrases: bool):
+            ids = rng.randint(5, hi, t).astype(np.int32)
+            ids[1] = IMAGE_TOKEN_INDEX
+            lab = ids.copy()
+            lab[: t // 2] = IGNORE_INDEX
+            sg = np.zeros(t, np.int32)
+            if phrases:
+                sg[t // 2: t // 2 + 3] = 1
+                sg[t // 2 + 4: t // 2 + 7] = 2
+            return ids, lab, sg
+
+        self.items = []
+        for _ in range(n):
+            (i1, l1, g1), (i2, l2, g2), (i3, l3, _) = (
+                seq(True), seq(True), seq(False))
+            self.items.append(dict(
+                input_ids=i1, labels=l1, pos_signs=g1, neg_input_ids=i2,
+                neg_labels=l2, neg_signs=g2, ref_input_ids=i3,
+                ref_labels=l3,
+                image=rng.randn(3, size, size).astype(np.float32),
+                ref_image=rng.randn(3, size, size).astype(np.float32)))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+    @property
+    def modality_lengths(self):
+        return [len(s["input_ids"]) for s in self.items]
+
+
+class _CliProbe:
+    """The train CLI's host clock and checkpoint saves, read from the
+    outside: StepTimer's tick intervals (one micro-step each, the loop's
+    fetch, copy, launch and metrics sync included) and each
+    CheckpointManager.save's seconds and bytes. Installed on the run
+    module's names for one call; nothing of the step changes."""
+
+    def __init__(self, run_lib, ckpt_lib):
+        probe = self
+        self.dts, self.saves = [], []
+
+        class Timer(run_lib.StepTimer):
+            def tick(self):
+                dt = super().tick()
+                if dt is not None:
+                    probe.dts.append(dt)
+                return dt
+
+        class Manager(ckpt_lib.CheckpointManager):
+            def save(self, step, trainable, opt_state):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                done = super().save(step, trainable, opt_state)
+                if done:
+                    probe.saves.append((step, time.perf_counter() - t0,
+                                        dir_bytes(self._step_dir(step))))
+                return done
+
+        self._names = ((run_lib, "StepTimer", Timer),
+                       (ckpt_lib, "CheckpointManager", Manager))
+
+    def __enter__(self):
+        self._was = [getattr(m, n) for m, n, _ in self._names]
+        for m, n, v in self._names:
+            setattr(m, n, v)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n, _), v in zip(self._names, self._was):
+            setattr(m, n, v)
+
+
+def _metrics(path: str) -> dict:
+    with open(path) as f:
+        return {m["step"]: m for m in map(json.loads, f)}
+
+
+def _greedy_one(params, cfg) -> tuple:
+    ids, images, lens = make_inputs(cfg)
+    _kernels.reset_launches()
+    with torch.inference_mode():
+        tokens, _ = generate_greedy(params, cfg, ids[:1], images[:1],
+                                    lens[:1], max_new_tokens=CLI_DECODE,
+                                    eos_id=-1)
+    torch.cuda.synchronize()
+    return tokens, dict(_kernels.launches)
+
+
+def run_train_cli(params, cfg, train_ms: float) -> None:
+    """train.run.train, the train CLI's entry, at llava-v1.5-7b's full width
+    and depth on the bf16 tree: its save_params dir as the base (no orbax);
+    run A, 4 micro-steps of 2 rows at grad_accum 2, LoRA r=128, a save
+    every 2, the component dirs at the end, with its K1-K3 launches per
+    micro-step equal to run_train's; run B stopped at 2 and resumed to 4,
+    whose steps 3 and 4 equal A's; the component checkpoint loaded by the
+    eval builder, bit for bit merge_lora of A's tree, and 8 greedy tokens
+    decoded from it through the graph loop (K4) equal to the in-memory
+    merged tree's. Every directory under build/ is removed, and each tree
+    freed, once its check is done."""
+    from halva_tpu_torch.train import checkpoint as ckpt_lib
+    from halva_tpu_torch.train import lora as lora_lib
+    from halva_tpu_torch.train import run as run_lib
+
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, "build", f"smoke_train_cli_{os.getpid()}")
+    base = os.path.join(root, "base")
+    layers = cfg.llm.num_layers
+    try:
+        os.makedirs(root)
+        need = 2.5 * tree_bytes(params)
+        free = shutil.disk_usage(root).free
+        if free < need:
+            raise AssertionError(f"train CLI: {free / 1e9:.1f} GB free "
+                                 f"under build/, {need / 1e9:.1f} GB needed")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt_lib.save_params(base, params)
+        save_s = time.perf_counter() - t0
+        print(f"train CLI: save_params of the bf16 tree: "
+              f"{dir_bytes(base) / 1e9:.3f} GB in {save_s:.1f} s "
+              f"({dir_bytes(base) / 1e9 / save_s:.2f} GB/s)")
+        ds = CliSamples(cfg)
+
+        def rcfg(out, max_steps, components=False):
+            return run_lib.RunConfig(
+                model="llava-v1.5-7b", model_path=base,
+                output_dir=os.path.join(root, out), per_device_batch=TRAIN_B,
+                grad_accum_steps=2, lora_r=128, lora_alpha=256.0,
+                max_steps=max_steps, save_steps=2,
+                save_component_dirs=components, device=DEVICE)
+
+        # run A: the main path of this phase; counts start at 0 right
+        # before it
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        with _CliProbe(run_lib, ckpt_lib) as probe:
+            final = run_lib.train(rcfg("A", CLI_STEPS, components=True),
+                                  None, dataset=ds)
+        torch.cuda.synchronize()
+        a_s = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+        per_step = {k: v / CLI_STEPS for k, v in launches.items()}
+        want = {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
+                "flash_bwd_dkv": 2 * layers}
+        expect_launches(per_step, want, "train CLI run A, per micro-step "
+                        "(run_train's)")
+        a = _metrics(os.path.join(root, "A", "metrics.jsonl"))
+        finite = set(a) == set(range(1, CLI_STEPS + 1)) and all(
+            np.isfinite(a[s][k]) for s in a for k in ("loss", "kl",
+                                                      "grad_norm"))
+        # tick intervals: the first after micro-step 1; the one after the
+        # step-2 save holds that save
+        dts = [d * 1e3 for d in probe.dts]
+        saved_at = {s for s, _, _ in probe.saves}
+        clean = [d for i, d in enumerate(dts, 2) if i - 1 not in saved_at]
+        host_ms = statistics.mean(clean)
+        print(f"train CLI run A ({gpu_line()}): {CLI_STEPS} micro-steps in "
+              f"{a_s:.1f} s with the base load, the saves and the exports; "
+              f"host ms per micro-step from StepTimer "
+              + ", ".join(f"{d:.1f}" for d in dts)
+              + f" (mean without a save: {host_ms:.1f}) beside run_train's "
+              f"device {train_ms:.1f} ms per micro-step: "
+              f"{host_ms / train_ms:.3f}x (the CLI's loss takes whole "
+              "logits, run_train's loss_chunk=256); loss "
+              + ", ".join(f"{a[s]['loss']:.6f}" for s in sorted(a))
+              + f"; kl {a[max(a)]['kl']:.3e} "
+              f"{'ok' if finite else 'FAIL'}")
+        for step, sec, nbytes in probe.saves:
+            print(f"train CLI checkpoint save at step {step}: "
+                  f"{nbytes / 1e9:.3f} GB (LoRA leaves, Adam moments and "
+                  f"count, accumulators) in {sec:.2f} s")
+        if not finite:
+            raise AssertionError("train CLI: a metric is missing or not "
+                                 "finite")
+
+        # the component checkpoint, loaded by the eval builder, against the
+        # merge of A's tree; then a greedy decode from each
+        with torch.no_grad():
+            merged = lora_lib.merge_lora(final)
+        del final
+        torch.cuda.empty_cache()
+        comp = os.path.join(root, "A", "components")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded, lcfg = load_pretrained_model(comp, device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = same_tree(loaded, merged) and lcfg == cfg
+        tok_l, launch_l = _greedy_one(loaded, lcfg)
+        expect_launches(launch_l, {"flash_fwd": layers,
+                                   "decode_attn": layers * CLI_DECODE},
+                        "greedy decode of the trained checkpoint")
+        tok_m, _ = _greedy_one(merged, cfg)
+        tokens_same = torch.equal(tok_l, tok_m)
+        ok = same and tokens_same and in_vocab(tok_l, lcfg)
+        print(f"train CLI components: {dir_bytes(comp) / 1e9:.3f} GB "
+              f"(llm/, vision_tower/, mm_projector/, config.json) loaded by "
+              f"load_pretrained_model in {load_s:.1f} s with the LoRA merge; "
+              f"tree == merge_lora of run A's {same}; {CLI_DECODE} greedy "
+              f"tokens from it {tok_l.tolist()} == the in-memory merge's "
+              f"{tokens_same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train CLI: the component checkpoint "
+                                 "differs")
+        del loaded, merged
+        shutil.rmtree(comp)
+        torch.cuda.empty_cache()
+
+        # run B: stopped at 2, resumed to 4
+        with _CliProbe(run_lib, ckpt_lib) as probe_b:
+            run_lib.train(rcfg("B", 2), None, dataset=ds)  # tree freed
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            run_lib.train(rcfg("B", CLI_STEPS), None, dataset=ds)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        b = _metrics(os.path.join(root, "B", "metrics.jsonl"))
+        diff = {k: max(abs(b[s][k] - a[s][k]) for s in (3, 4))
+                for k in ("loss", "kl")}
+        close = set(b) == set(range(1, CLI_STEPS + 1)) and all(
+            abs(b[s][k] - a[s][k]) <= CLI_RTOL * abs(a[s][k])
+            for s in (3, 4) for k in ("loss", "kl"))
+        with np.load(os.path.join(root, "A", "adapter.npz")) as za, \
+                np.load(os.path.join(root, "B", "adapter.npz")) as zb:
+            adapter_diff = max(
+                float((tree.to_torch(za[k], "cpu").float()
+                       - tree.to_torch(zb[k], "cpu").float()).abs().max())
+                for k in za.files)
+        ok = close
+        print(f"train CLI run B: stopped at 2, resumed to {CLI_STEPS} in "
+              f"{resume_s:.1f} s (base load, restore, 2 micro-steps, save, "
+              f"export); steps 3-4 against run A: largest |loss diff| "
+              f"{diff['loss']:.3e}, |kl diff| {diff['kl']:.3e} (rtol "
+              f"{CLI_RTOL}); final adapters' largest |A - B| "
+              f"{adapter_diff:.3e}; saves "
+              + ", ".join(f"step {s} {sec:.2f} s" for s, sec, _ in
+                          probe_b.saves)
+              + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("train CLI: the resumed run differs from "
+                                 "the uninterrupted one")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"train CLI phase: {time.perf_counter() - t_phase:.1f} s wall")
+
+
 def flash_checks(gen: torch.Generator) -> list:
     """K1, K2 and K3 against their plain versions, base mode then the modes:
     their rows of the `kernels` line."""
@@ -3889,6 +4180,13 @@ def main() -> None:
         print(json.dumps({"gemm_kernels": [{k: kern[k] for k in keys}
                                            for kern in checked]}))
         return
+    if sys.argv[1:] == ["--train-cli-only"]:
+        params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
+        train_ms = run_train(params, collections.defaultdict(dict),
+                             compare=False)
+        torch.cuda.empty_cache()
+        run_train_cli(params, LLAVA_V15_7B, train_ms)
+        return
     quant_only = sys.argv[1:] == ["--quant-only"]
     if sys.argv[1:] and not quant_only:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -3912,10 +4210,11 @@ def main() -> None:
     else:
         params = run_bf16(kernels)
         run_beam_spec_bf16(params, kernels)
-        run_train(params, kernels)
+        train_ms = run_train(params, kernels)
         torch.cuda.empty_cache()
         run_graph_loops(params, LLAVA_V15_7B, int4=False)
         run_loader(params, LLAVA_V15_7B)
+        run_train_cli(params, LLAVA_V15_7B, train_ms)
     torch.cuda.empty_cache()
     # the quantized trees, each made on the card from the bf16 tree, which
     # is freed once the last of them exists (no_grad, not inference_mode:

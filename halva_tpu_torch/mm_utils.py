@@ -22,7 +22,6 @@ from io import BytesIO
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-from PIL import Image
 
 from halva_tpu_torch.constants import IMAGE_TOKEN_INDEX
 
@@ -35,7 +34,17 @@ SIGLIP_MEAN = (0.5, 0.5, 0.5)
 SIGLIP_STD = (0.5, 0.5, 0.5)
 
 
+def _pil():
+    """PIL, imported where an image is decoded or resized: the rest of this
+    module (and the train data pipeline over pre-processed pixels) runs
+    without Pillow."""
+    from PIL import Image
+
+    return Image
+
+
 def load_image_from_base64(image: str) -> Image.Image:
+    Image = _pil()
     return Image.open(BytesIO(base64.b64decode(image)))
 
 
@@ -45,10 +54,10 @@ def expand2square(pil_img: Image.Image, background_color) -> Image.Image:
     if width == height:
         return pil_img
     if width > height:
-        result = Image.new(pil_img.mode, (width, width), background_color)
+        result = _pil().new(pil_img.mode, (width, width), background_color)
         result.paste(pil_img, (0, (width - height) // 2))
         return result
-    result = Image.new(pil_img.mode, (height, height), background_color)
+    result = _pil().new(pil_img.mode, (height, height), background_color)
     result.paste(pil_img, ((height - width) // 2, 0))
     return result
 
@@ -63,7 +72,7 @@ def _resize_shortest_edge(img: Image.Image, size: int) -> Image.Image:
         new_short = size
         new_long = int(size * long / short)
     new_w, new_h = (new_short, new_long) if w <= h else (new_long, new_short)
-    return img.resize((new_w, new_h), resample=Image.BICUBIC)
+    return img.resize((new_w, new_h), resample=_pil().BICUBIC)
 
 
 def _center_crop(arr: np.ndarray, crop: int) -> np.ndarray:
@@ -112,7 +121,8 @@ class ImageProcessor:
         if image.mode != "RGB":
             image = image.convert("RGB")
         if self.square_resize:
-            image = image.resize((self.size, self.size), resample=Image.BICUBIC)
+            image = image.resize((self.size, self.size),
+                                 resample=_pil().BICUBIC)
             arr = np.asarray(image, dtype=np.float32)
         else:
             image = _resize_shortest_edge(image, self.size)

@@ -4,10 +4,19 @@ quantization and the quantized-tree disk cache.
 Counterpart of halva_tpu/models/builder.py (which replaces the reference
 eval builder, llava/model/builder.py:11-109: base model ->
 non_lora_trainables -> PEFT adapter -> merge_and_unload) with pure tree ops
-over the same param format. The source is an HF-format LLaVA checkpoint dir
-(pytorch_model*.bin, or *.safetensors where the safetensors package is
-installed: the released liuhaotian/llava-v1.5-* and pritamqu/halva*-lora
-layouts), converted through models/convert_hf.py. PEFT adapter weights
+over the same param format. Three sources are supported:
+
+- HF-format LLaVA checkpoint dirs (pytorch_model*.bin, or *.safetensors
+  where the safetensors package is installed: the released
+  liuhaotian/llava-v1.5-* and pritamqu/halva*-lora layouts), converted
+  through models/convert_hf.py;
+- VILA component checkpoints (llm/ vision_tower/ mm_projector/ and a
+  config.json, written by the train CLI under save_component_dirs;
+  train/vila.py);
+- native dirs written by train/checkpoint.save_params (where the reference
+  reads its orbax dirs).
+
+PEFT adapter weights
 (adapter_model.bin / .safetensors with base_model.model.* keys,
 lora_A/lora_B) are translated into lora_a/lora_b factors so released HALVA
 adapters load directly; the reference's own adapter.npz loads too.
@@ -19,9 +28,8 @@ same: an fp32 copy is made only where the reference computes in fp32 on
 something that is not the file's value (a LoRA merge, a vocab extension),
 so the tree equals the reference's leaf for leaf, bit for bit.
 
-Not ported yet: VILA component checkpoints (model_path with llm/ and
-mm_projector/ dirs, written by the train CLI; ROADMAP queue 1 item 6's
-second half) and tensor-parallel int4 packing (quant_tp > 1, item 10).
+Not ported yet: tensor-parallel int4 packing (quant_tp > 1, ROADMAP queue
+1 item 10).
 """
 
 from __future__ import annotations
@@ -212,10 +220,21 @@ def apply_non_lora_trainables(params: Params, sd: Dict[str, Any],
     return params
 
 
-def is_component_checkpoint(directory: str) -> bool:
-    """The VILA per-component layout (halva_tpu/train/vila.py:120)."""
-    return (os.path.isdir(os.path.join(directory, "llm"))
-            and os.path.isdir(os.path.join(directory, "mm_projector")))
+def params_dir_config(directory: str, params: Params) -> LlavaConfig:
+    """The config of a save_params dir: its config.json (the train CLI's
+    {"halva_tpu_config": ...} record or an HF config), else the llava-v1.5
+    preset of the tree's width, as config_from_hf picks it."""
+    path = os.path.join(directory, "config.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            d = json.load(f)
+        if "halva_tpu_config" in d:
+            from halva_tpu_torch.config import llava_config_from_dict
+
+            return llava_config_from_dict(d["halva_tpu_config"])
+        return config_from_hf(directory)
+    width = params["llm"]["embed"]["embedding"].shape[-1]
+    return LLAVA_V15_13B if width == 5120 else LLAVA_V15_7B
 
 
 def _merge_lora_fp32(params: Params) -> None:
@@ -263,6 +282,13 @@ def load_pretrained_model(
 ) -> Tuple[Params, LlavaConfig]:
     """The reference's eval loader contract (builder.py:11):
 
+    - model_path is a per-component dir (llm/ vision_tower/
+      mm_projector/ + config.json, written by train with
+      save_component_dirs=True): the config from the saved metadata, each
+      component loaded, the LoRA factors training saved merged
+      (merge_lora, in the kernels' dtype, as the reference's);
+    - model_path is a save_params dir: the tree as saved, any LoRA factors
+      merged the same way;
     - model_base given (LoRA checkpoint): load the base, apply
       non_lora_trainables and the PEFT adapter (or an adapter.npz of
       either package), merge;
@@ -289,11 +315,6 @@ def load_pretrained_model(
         raise NotImplementedError(
             "tensor-parallel int4 packing (quant_tp > 1) is not ported yet "
             "(ROADMAP queue 1 item 10, multi-GPU)")
-    if is_component_checkpoint(model_path):
-        raise NotImplementedError(
-            f"{model_path} is a VILA component checkpoint (llm/, "
-            "mm_projector/); loading one is not ported yet (ROADMAP queue 1 "
-            "item 6, second half: the train CLI and its checkpoints)")
 
     def put_leaf(x: torch.Tensor) -> torch.Tensor:
         # int8 payloads, bf16 scales and integer metadata keep their dtype
@@ -320,8 +341,22 @@ def load_pretrained_model(
                     _fence(device)
                 return params, cfg
 
+    from halva_tpu_torch.train import checkpoint as ckpt_lib
+    from halva_tpu_torch.train import vila as vila_lib
+
     with phase("checkpoint_load"):
-        if model_base is not None:
+        if vila_lib.is_component_checkpoint(model_path):
+            cfg = vila_lib.load_component_config(model_path)
+            params = vila_lib.load_components(model_path, device=device)
+            # training saves UNMERGED LoRA factors; eval merges them
+            # (merge_and_unload semantics) — the fused decode paths read
+            # kernels only, so unmerged adapters would be silently dropped
+            params = lora_lib.merge_lora(params)
+        elif ckpt_lib.is_params_dir(model_path):
+            params = lora_lib.merge_lora(
+                ckpt_lib.load_params(model_path, device=device))
+            cfg = params_dir_config(model_path, params)
+        elif model_base is not None:
             cfg = config_from_hf(model_base)
             params = llava_params_from_hf(
                 load_hf_state_dict(model_base, device), cfg)

@@ -37,8 +37,8 @@ def apply(params: Params, cfg: LlavaConfig,
     """(B, N, mm_hidden) -> (B, N, llm_hidden)."""
     if cfg.mm_projector_type == "mlp_downsample":
         raise NotImplementedError(
-            "mlp_downsample (VILA) is not ported yet (ROADMAP queue 1, "
-            "alt backends)"
+            "mlp_downsample (VILA) is not ported yet (ROADMAP queue 1 item "
+            "11, VILA and the other backends)"
         )
     if num_linears(cfg.mm_projector_type) == 0:  # identity
         return features

@@ -79,8 +79,8 @@ def encode(
     i = output of layer i), "patch" drops the prefix tokens."""
     if cfg.norm_type != "layernorm" or cfg.qk_norm or cfg.layer_scale:
         raise NotImplementedError(
-            "InternViT towers are not ported yet (ROADMAP queue 1, alt "
-            "backends)"
+            "InternViT towers are not ported yet (ROADMAP queue 1 item 11, "
+            "VILA and the other backends)"
         )
     if select_feature not in ("patch", "cls_patch"):
         raise ValueError(f"unexpected select feature {select_feature!r}")

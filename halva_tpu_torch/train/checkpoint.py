@@ -1,34 +1,241 @@
-"""Adapter export: the flat `lora_state_dict` as one npz file.
+"""Checkpoint/resume + adapter export.
 
-Counterpart of halva_tpu/train/checkpoint.py:save_adapter/load_adapter, the
-same file format, so an adapter saved by either package loads in the other.
-np.savez writes a bfloat16 array as 2-byte void ("|V2"), which np.load gives
-back as such; `load_adapter` reads those as bfloat16 (the only 2-byte float
-an adapter holds). The orbax CheckpointManager of the reference comes with
-the port of train/run.py.
+Counterpart of halva_tpu/train/checkpoint.py, covering the same save
+formats (SURVEY.md §5):
+(a) LoRA adapter + non-lora trainables (train_halva.py:1230-1240) —
+    `save_adapter`/`load_adapter` as a flat npz, the reference's file
+    format, so an adapter saved by either package loads in the other;
+(b) full train state for resume (HF Trainer checkpoint-* dirs,
+    train_halva.py:1222-1225) — `CheckpointManager` with step discovery
+    and retention;
+(c) a whole param tree (a merged model for eval, a base for training) —
+    `save_params`/`load_params`.
+
+The reference writes (b) and (c) with orbax, which needs JAX. Here both are
+the tree file of utils/treecache.py (`write_tree`/`read_tree`: skeleton,
+dtypes, one npz entry per leaf), written atomically, so that neither needs
+anything beyond numpy. A directory written by one package is not read by
+the other; the trees in them are equal.
+
+A bf16 adapter leaf is written as 2-byte void from a uint16 view of the
+tensor: the payload and shape np.savez writes for the reference's
+ml_dtypes.bfloat16 array. Any 2-byte void entry reads back as bf16 through
+int16 (`tree.to_torch`), so nothing here needs ml_dtypes.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+import re
+import shutil
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from halva_tpu_torch import tree
+from halva_tpu_torch.utils import treecache
+
+Params = Dict[str, Any]
+
+PARAMS_FILE = "params.npz"
+STATE_FILE = "state.npz"
+
+_BF16_ON_DISK = np.dtype("V2")
+
+
+# ---- (a) adapters ---------------------------------------------------------
+
+
+def _adapter_array(v) -> np.ndarray:
+    a = np.asarray(v)
+    # an ml_dtypes.bfloat16 array (lora_state_dict where ml_dtypes is
+    # installed, or the reference's): its bytes as 2-byte void
+    return a.view(_BF16_ON_DISK) if a.dtype.name == "bfloat16" else a
 
 
 def save_adapter(path: str, adapter_sd: Dict[str, np.ndarray]) -> None:
+    """Flat adapter-only export (reference adapter_model.bin equivalent),
+    from `lora.lora_state_dict`; bf16 goes to disk as 2-byte void."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savez(path, **{k: np.asarray(v) for k, v in adapter_sd.items()})
+    np.savez(path, **{k: _adapter_array(v) for k, v in adapter_sd.items()})
 
 
 def load_adapter(path: str) -> Dict[str, np.ndarray]:
-    out = {}
+    """The adapter as host numpy arrays. A 2-byte void entry ('<V2' from
+    the reference, '|V2' from here) is bf16: it stays void here, and
+    `lora.load_lora_state_dict` (through `tree.to_torch`) reads it as
+    torch.bfloat16 through int16."""
     with np.load(path) as z:
-        for k in z.files:
-            a = z[k]
-            if a.dtype.kind == "V" and a.dtype.itemsize == 2:
-                import ml_dtypes  # only a bf16 adapter needs it
+        return {k: z[k] for k in z.files}
 
-                a = a.view(ml_dtypes.bfloat16)
-            out[k] = a
-    return out
+
+# ---- (c) whole param trees -------------------------------------------------
+
+
+def save_params(directory: str, params: Params) -> None:
+    """The tree (nested dicts and lists of tensors on any device) as one
+    tree file in `directory`, written atomically."""
+    os.makedirs(directory, exist_ok=True)
+    treecache.write_tree(os.path.join(directory, PARAMS_FILE), params)
+
+
+def is_params_dir(directory: str) -> bool:
+    return os.path.isfile(os.path.join(directory, PARAMS_FILE))
+
+
+def load_params(directory: str, like: Optional[Params] = None,
+                device="cuda") -> Params:
+    """like=None restores the tree exactly as saved (structure, dtypes,
+    shapes), each leaf put on `device` (the card unless the caller names
+    the CPU) as its entry is read, so that the host holds one leaf at a
+    time. With `like`, the tree must have its paths and shapes, and each
+    leaf takes its template's dtype."""
+    path = os.path.join(directory, PARAMS_FILE)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no {PARAMS_FILE} in {directory}")
+    params, _ = treecache.read_tree(path, put=lambda t: t.to(device))
+    if like is None:
+        return params
+    got = dict(tree.flatten(params))
+    want = dict(tree.flatten(like))
+    if set(got) != set(want):
+        raise ValueError(
+            f"{directory}: tree differs from the template: "
+            f"{sorted(set(got) ^ set(want), key=str)[:5]}")
+    for p, t in want.items():
+        if tuple(got[p].shape) != tuple(t.shape):
+            raise ValueError(f"{directory}: {p} has shape "
+                             f"{tuple(got[p].shape)}, not {tuple(t.shape)}")
+    return _cast_like(params, like)
+
+
+def _cast_like(params, like):
+    if isinstance(params, dict):
+        return {k: _cast_like(v, like[k]) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [_cast_like(v, w) for v, w in zip(params, like)]
+    return params.to(like.dtype)
+
+
+# ---- (b) train state --------------------------------------------------------
+
+
+def _key(path) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def _trainable_leaves(trainable: Params) -> List[Tuple[str, torch.Tensor]]:
+    return [(_key(p), x) for p, x in tree.flatten(trainable)
+            if x is not None]
+
+
+class CheckpointManager:
+    """save/restore (trainable, opt_state, step), one directory per step
+    (`<directory>/<step>/state.npz`) with the reference's step discovery
+    (the largest complete step) and retention (the newest `max_to_keep`).
+
+    `opt_state` is the trainer's DPAOptimizer (train/trainer.py), whose
+    state is saved whole, as optax's MultiSteps state is in the
+    reference's save: AdamW's exp_avg, exp_avg_sq and step per trainable
+    leaf and the gradient accumulators, keyed by the leaf's path in the
+    trainable tree; the schedule's update count and the mini-step in the
+    meta record. A save is written under a temporary name and renamed, so
+    an interrupted save leaves the last complete step readable."""
+
+    def __init__(self, directory: str, max_to_keep: int = 2):
+        self._dir = os.path.abspath(directory)
+        self._keep = max_to_keep
+        os.makedirs(self._dir, exist_ok=True)
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self._dir, str(step))
+
+    def all_steps(self) -> List[int]:
+        return sorted(
+            int(n) for n in os.listdir(self._dir)
+            if re.fullmatch(r"\d+", n)
+            and os.path.isfile(os.path.join(self._dir, n, STATE_FILE)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, trainable: Params, opt_state) -> bool:
+        """Write `step`; returns whether it did. As the reference's orbax
+        manager, a step at or below the latest saved one is not written
+        again (the train loop's closing save after a save_steps save, or
+        after a resume that had nothing left to run)."""
+        latest = self.latest_step()
+        if latest is not None and step <= latest:
+            return False
+        leaves = _trainable_leaves(trainable)
+        adamw = opt_state.adamw.state
+        state: Dict[str, Dict[str, torch.Tensor]] = {
+            "params": {}, "exp_avg": {}, "exp_avg_sq": {}, "step": {}}
+        for key, x in leaves:
+            state["params"][key] = x
+            for name, v in adamw.get(x, {}).items():
+                state[name][key] = v
+        if opt_state.acc is not None:
+            state["acc"] = {key: a for (key, _), a in
+                            zip(leaves, opt_state.acc)}
+        tmp = os.path.join(self._dir, f".{step}.{os.getpid()}.tmp")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        treecache.write_tree(
+            os.path.join(tmp, STATE_FILE), state, step=step,
+            updates=opt_state.scheduler.last_epoch,
+            mini_step=opt_state.mini_step)
+        final = self._step_dir(step)
+        if os.path.isdir(final):  # a step dir left without its file
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        for old in self.all_steps()[:-self._keep] if self._keep else []:
+            shutil.rmtree(self._step_dir(old), ignore_errors=True)
+        return True
+
+    @torch.no_grad()
+    def restore(self, trainable_like: Params, opt_state_like,
+                step: Optional[int] = None) -> Tuple[Params, Any, int]:
+        """Write the saved step into the given trainable leaves and
+        optimizer, in place, on their devices; returns them and the
+        step."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self._dir}")
+        state, meta = treecache.read_tree(
+            os.path.join(self._step_dir(step), STATE_FILE))
+        opt = opt_state_like
+        leaves = _trainable_leaves(trainable_like)
+        if set(state["params"]) != {k for k, _ in leaves}:
+            raise ValueError(
+                f"checkpoint {step} holds other trainable leaves: "
+                f"{sorted(set(state['params']) ^ {k for k, _ in leaves})[:5]}")
+        for key, x in leaves:
+            x.copy_(state["params"][key])
+            if key in state.get("exp_avg", {}):
+                opt.adamw.state[x] = {
+                    "step": state["step"][key].clone(),
+                    "exp_avg": state["exp_avg"][key].to(x.device),
+                    "exp_avg_sq": state["exp_avg_sq"][key].to(x.device),
+                }
+            else:
+                opt.adamw.state.pop(x, None)
+        if "acc" in state:
+            opt.acc = [state["acc"][key].to(x.device) for key, x in leaves]
+        elif opt.acc is not None:
+            for a in opt.acc:
+                a.zero_()
+        opt.mini_step = int(meta["mini_step"])
+        sched = opt.scheduler
+        sched.last_epoch = int(meta["updates"])
+        lrs = [base * fn(sched.last_epoch)
+               for fn, base in zip(sched.lr_lambdas, sched.base_lrs)]
+        for group, lr in zip(opt.adamw.param_groups, lrs):
+            group["lr"] = lr
+        sched._last_lr = lrs
+        return trainable_like, opt, step
+
+    def close(self):
+        pass

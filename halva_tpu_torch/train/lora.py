@@ -145,13 +145,18 @@ def trainable_mask(params: Params,
 
 
 def lora_state_dict(params: Params) -> Dict[str, np.ndarray]:
-    """The adapters as a flat {"path/lora_a": array} dict (bf16 as
-    ml_dtypes.bfloat16, as the reference's np.asarray gives it)."""
+    """The adapters as a flat {"path/lora_a": array} dict of host numpy
+    arrays; bf16 as `tree.bf16_array` gives it (ml_dtypes.bfloat16, as the
+    reference's np.asarray gives it, or 2-byte void where ml_dtypes is not
+    installed)."""
     out = {}
     for path, p in _iter_dense(params):
         for k in _LORA_KEYS:
             if k in p:
-                out[f"{path}/{k}"] = tree.to_numpy(p[k])
+                t = p[k]
+                out[f"{path}/{k}"] = (tree.bf16_array(t)
+                                      if t.dtype == torch.bfloat16
+                                      else t.detach().cpu().numpy().copy())
     return out
 
 

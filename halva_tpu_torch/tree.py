@@ -4,7 +4,9 @@ A param tree is nested dicts (and, for the projector, lists) of arrays with
 the reference's names and layouts: stacked (L, ...) layer weights, dense
 kernels (in, out). `to_torch` takes the tree as `jax.tree.map(np.asarray,
 params)` gives it; bf16 arrives as `ml_dtypes.bfloat16`, which
-`torch.from_numpy` refuses, so it crosses as its 16-bit pattern (bit-exact).
+`torch.from_numpy` refuses, so it crosses as its 16-bit pattern (bit-exact);
+2-byte void, what np.savez writes for bf16 and what `bf16_array` gives where
+ml_dtypes is missing, crosses the same way.
 NF4 code indices arrive as `ml_dtypes.uint4` (what `jnp.uint4` is in numpy)
 and cross by value into `torch.uint8`, one index per byte (torch has no
 4-bit type); `to_numpy` gives `kernel_q4` leaves back as `ml_dtypes.uint4`.
@@ -50,11 +52,24 @@ def _array_to_torch(a) -> Any:
     if not a.flags.writeable:  # e.g. np.asarray of a jax array
         a = a.copy()
     a = np.ascontiguousarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                      and a.dtype.itemsize == 2):
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     if a.dtype.name == "uint4":
         return torch.from_numpy(a.astype(np.uint8))
     return torch.from_numpy(a)
+
+
+def bf16_array(t: torch.Tensor) -> np.ndarray:
+    """A bf16 tensor's host copy as numpy: ml_dtypes.bfloat16 where that
+    package is installed (it comes with JAX), else 2-byte void. The bytes
+    are the tensor's either way, and np.savez writes the same payload."""
+    u = t.detach().cpu().contiguous().view(torch.int16).numpy()
+    try:
+        import ml_dtypes
+    except ImportError:
+        return u.view(np.dtype("V2"))
+    return u.view(ml_dtypes.bfloat16)
 
 
 def _tensor_to_numpy(t) -> Any:

@@ -21,6 +21,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import zipfile
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -126,9 +127,12 @@ def _rebuild(spec, leaves):
     return leaves[spec["i"]]
 
 
-def save_tree(path: str, params, cfg: LlavaConfig) -> None:
-    """Atomic write (tmp + rename): a crashed save never half-populates
-    the cache. Leaves are torch tensors on any device."""
+def write_tree(path: str, params, **meta) -> None:
+    """The tree file: a JSON `__meta__` record (schema, skeleton, per-leaf
+    dtypes and any `meta` entries) and one npz entry per leaf, a0..aN,
+    bfloat16 through a uint16 view. Atomic (tmp + rename): a crashed save
+    never leaves a half-written file under `path`. Leaves are torch
+    tensors on any device, copied to the host one at a time."""
     leaves = _leaves(params)
     counter = [0]
     spec = _skeleton(params, counter)
@@ -137,30 +141,39 @@ def save_tree(path: str, params, cfg: LlavaConfig) -> None:
         "schema": SCHEMA,
         "skeleton": spec,
         "dtypes": [dtype_name(l.dtype) for l in leaves],
-        "config": config_to_dict(cfg),
+        **meta,
     }
-    arrays = {}
-    for i, l in enumerate(leaves):
-        t = l.detach().contiguous().cpu()
-        if t.dtype == torch.bfloat16:
-            a = t.view(torch.int16).numpy().view(np.uint16)
-        else:
-            a = t.numpy()
-        arrays[f"a{i}"] = a
+
+    def arrays():
+        for i, l in enumerate(leaves):
+            t = l.detach().contiguous().cpu()
+            if t.dtype == torch.bfloat16:
+                yield f"a{i}", t.view(torch.int16).numpy().view(np.uint16)
+            else:
+                yield f"a{i}", t.numpy()
+
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, __meta__=np.frombuffer(
-            json.dumps(meta).encode(), np.uint8
-        ), **arrays)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        # np.savez's layout, an entry at a time: the host holds one leaf
+        _zip_array(zf, "__meta__", np.frombuffer(
+            json.dumps(meta).encode(), np.uint8))
+        for name, a in arrays():
+            _zip_array(zf, name, a)
     os.replace(tmp, path)
 
 
-def load_tree(path: str, put=None) -> Tuple[Any, LlavaConfig]:
-    """Rebuild the cached tree as torch tensors on the CPU. With `put`
-    (tensor -> tensor, e.g. a copy to the card), each leaf is handed to it
-    right after its npz entry is read, so that the host holds one leaf at a
-    time."""
+def _zip_array(zf: zipfile.ZipFile, name: str, a: np.ndarray) -> None:
+    with zf.open(name + ".npy", "w", force_zip64=True) as f:
+        np.lib.format.write_array(f, np.asanyarray(a), allow_pickle=False)
+
+
+def read_tree(path: str, put=None) -> Tuple[Any, Dict[str, Any]]:
+    """The tree of a `write_tree` file (or the reference's treecache npz)
+    as torch tensors, and its meta record. With `put` (tensor -> tensor,
+    e.g. a copy to the card), each leaf is handed to it right after its
+    npz entry is read, so that the host holds one leaf at a time."""
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         if meta.get("schema") != SCHEMA:
@@ -173,7 +186,19 @@ def load_tree(path: str, put=None) -> Tuple[Any, LlavaConfig]:
             else:
                 t = torch.from_numpy(a)
             leaves.append(put(t) if put is not None else t)
-    params = _rebuild(meta["skeleton"], leaves)
+            del a, t
+    return _rebuild(meta["skeleton"], leaves), meta
+
+
+def save_tree(path: str, params, cfg: LlavaConfig) -> None:
+    """The quantized tree and its model config, in one atomic write."""
+    write_tree(path, params, config=config_to_dict(cfg))
+
+
+def load_tree(path: str, put=None) -> Tuple[Any, LlavaConfig]:
+    """Rebuild the cached tree as torch tensors on the CPU, or handed to
+    `put` a leaf at a time (see read_tree)."""
+    params, meta = read_tree(path, put)
     return params, llava_config_from_dict(meta["config"])
 
 

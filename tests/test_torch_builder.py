@@ -266,10 +266,12 @@ def test_refusals(dirs, tmp_path):
         dirs["no_tower"], vision_tower_path=_tower_dir(tmp_path),
         device="cpu")
     assert "vision" in tp
+    # a component checkpoint loads since the train CLI's port
+    # (test_torch_checkpoint.py); one without its config.json is refused
     comp = tmp_path / "components"
     (comp / "llm").mkdir(parents=True)
     (comp / "mm_projector").mkdir()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         builder.load_pretrained_model(str(comp), device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         builder.load_pretrained_model(dirs["bin"], quant="int4",

@@ -1332,19 +1332,25 @@ def test_dq_rows_forced_plans_agree_repeat_and_replay(cuda, mode, groups, m,
 
 # ---- the decode loops from CUDA graphs (ops/graph_loop.py) ---------------
 
-def _graph_model(kind):
-    """A 2-layer LLaVA with head dim 128 (the kernels' width) on the card:
-    bf16, int4g (packed int4 with 128-row groups) or NF4."""
-    from halva_tpu_torch import tree
+def _graph_cfg():
+    """A 2-layer LLaVA with head dim 128 (the kernels' width)."""
     from halva_tpu_torch.config import LlamaConfig, LlavaConfig, ViTConfig
-    from halva_tpu_torch.ops.w4_matmul import quantize_params_int4
 
-    cfg = LlavaConfig(
+    return LlavaConfig(
         llm=LlamaConfig(vocab_size=1000, hidden_size=512,
                         intermediate_size=1024, num_layers=2, num_heads=4,
                         max_position_embeddings=2048),
         vision=ViTConfig(image_size=28, patch_size=14, hidden_size=32,
                          intermediate_size=64, num_layers=2, num_heads=2))
+
+
+def _graph_model(kind):
+    """_graph_cfg's model on the card: bf16, int4g (packed int4 with
+    128-row groups) or NF4."""
+    from halva_tpu_torch import tree
+    from halva_tpu_torch.ops.w4_matmul import quantize_params_int4
+
+    cfg = _graph_cfg()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = tree.init_params(cfg, gen, torch.bfloat16)
     with torch.no_grad():
@@ -1446,3 +1452,117 @@ def test_a_failing_capture_raises(cuda):
         graph_loop.run_loop([body], lambda: True, 4, "cuda")
     torch.cuda.synchronize()
     assert float(x) == 1  # the eager first step ran, nothing after it
+
+
+# ---- the train CLI on the card (train/run.py, train/checkpoint.py) -------
+
+class _PreTokenized:
+    """HallDataset.__getitem__'s samples made from a seed (the card's
+    machine has no tokenizer library and no Pillow), with the
+    `modality_lengths` the sampler reads."""
+
+    def __init__(self, n, text, image_size, vocab):
+        import numpy as np
+
+        rng = np.random.RandomState(0)
+        self.items = []
+        for _ in range(n):
+            def seq(signs):
+                ids = rng.randint(5, vocab, text).astype(np.int32)
+                ids[1] = -200
+                lab = ids.copy()
+                lab[: text // 2] = -100
+                sg = np.zeros(text, np.int32)
+                if signs:
+                    sg[text // 2: text // 2 + 3] = 1
+                    sg[text // 2 + 4: text // 2 + 7] = 2
+                return ids, lab, sg
+
+            (i1, l1, g1), (i2, l2, g2), (i3, l3, _) = (seq(1), seq(1),
+                                                       seq(0))
+            img = rng.randn(3, image_size, image_size).astype(np.float32)
+            self.items.append(dict(
+                input_ids=i1, labels=l1, pos_signs=g1, neg_input_ids=i2,
+                neg_labels=l2, neg_signs=g2, ref_input_ids=i3,
+                ref_labels=l3, image=img, ref_image=img))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+    @property
+    def modality_lengths(self):
+        return [len(s["input_ids"]) for s in self.items]
+
+
+def _tiny128_preset(monkeypatch):
+    from halva_tpu_torch.config import PRESETS
+
+    cfg = _graph_cfg()
+    monkeypatch.setitem(PRESETS, "tiny128", cfg)
+    return cfg
+
+
+@pytest.mark.cuda
+def test_train_cli_runs_and_resumes_on_the_card(cuda, tmp_path, monkeypatch):
+    """train.run.train on the card: 2 micro-steps through K1-K3, and the
+    same 2 steps stopped after 1 and resumed give the same metrics."""
+    import json
+
+    from halva_tpu_torch.train import run
+
+    cfg = _tiny128_preset(monkeypatch)
+    ds = _PreTokenized(8, 64, 28, cfg.llm.vocab_size)
+
+    def go(out, max_steps):
+        return run.train(run.RunConfig(
+            model="tiny128", output_dir=str(tmp_path / out),
+            per_device_batch=2, grad_accum_steps=1, learning_rate=1e-3,
+            lora_r=8, max_steps=max_steps, device="cuda"), None, dataset=ds)
+
+    _kernels.reset_launches()
+    final = go("full", 2)
+    assert _kernels.launches["flash_fwd"] > 0
+    assert _kernels.launches["flash_bwd_dq"] > 0
+    assert final["llm"]["embed"]["embedding"].is_cuda
+    go("split", 1)
+    go("split", 2)
+
+    def metrics(out):
+        return {m["step"]: m for m in map(json.loads, open(
+            tmp_path / out / "metrics.jsonl"))}
+
+    full, split = metrics("full"), metrics("split")
+    assert set(full) == set(split) == {1, 2}
+    for key in ("loss", "kl", "alignment"):
+        assert abs(split[2][key] - full[2][key]) <= 1e-5 * abs(full[2][key])
+
+
+@pytest.mark.cuda
+def test_bf16_adapter_round_trip_on_the_card(cuda, tmp_path):
+    """A bf16 adapter of a tree on the card is written (2-byte void) and
+    read back into the card's tensors bit for bit, without ml_dtypes."""
+    import numpy as np
+
+    from halva_tpu_torch.train import checkpoint, lora
+
+    params, _, _ = _graph_model("bf16")
+    policy = lora.add_lora(params, cuda, rank=8)
+    for _, p in lora._iter_dense(policy):
+        if "lora_b" in p:
+            p["lora_b"] = torch.randn(p["lora_b"].shape, generator=cuda,
+                                      device="cuda").bfloat16()
+    path = str(tmp_path / "adapter.npz")
+    checkpoint.save_adapter(path, lora.lora_state_dict(policy))
+    with np.load(path) as z:
+        assert all(z[k].dtype.kind == "V" for k in z.files)
+    back = lora.load_lora_state_dict(lora.strip_lora(params),
+                                     checkpoint.load_adapter(path))
+    for (path_a, a), (path_b, b) in zip(
+            lora._iter_dense(policy), lora._iter_dense(back)):
+        for k in ("lora_a", "lora_b", "lora_scale"):
+            if k in a:
+                assert b[k].is_cuda and b[k].dtype == torch.bfloat16
+                assert torch.equal(a[k], b[k]), (path_a, k)

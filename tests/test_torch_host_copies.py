@@ -6,6 +6,7 @@ rendered prompt, and `tokenizer_image_token` / the image processors on
 seeded inputs, exactly."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -120,7 +121,8 @@ def test_processor_for_vision_equal():
 
 COPIED = ["evals/lemmatize", "evals/chair", "evals/pope", "evals/amber",
           "evals/mme", "evals/mmhal", "evals/hallusion", "evals/judge",
-          "evals/merge", "utils/phases"]
+          "evals/merge", "utils/phases", "train/data", "utils/cluster",
+          "data/wids", "data/mixtures"]
 
 
 def _source(pkg, name):
@@ -133,8 +135,11 @@ def _source(pkg, name):
 
 @pytest.mark.parametrize("name", COPIED)
 def test_host_modules_are_copies(name):
-    """The scorers and the phase timer are the reference's text, with the
-    package name in their imports changed and nothing else."""
+    """The scorers, the phase timer and the train CLI's host modules (data,
+    cluster lifecycle, the wids reader and the dataset mixtures; the
+    sampler differs in its docstring and is held by its outputs) are the
+    reference's text, with the package name in their imports
+    changed and nothing else."""
     want = _source("halva_tpu", name).replace("halva_tpu.",
                                               "halva_tpu_torch.")
     assert _source("halva_tpu_torch", name) == want
@@ -349,3 +354,180 @@ def test_request_builders_equal_the_reference(tmp_path):
           {"visual_input": "0", "question": "Text only?", "category": "VS"}]
     same(trunner.hallusion_requests(hb, "/imgs"),
          jrunner.hallusion_requests(hb, "/imgs"))
+
+
+# ---- the train CLI's host modules on the reference tests' own inputs ------
+#
+# Each case is one test function of the reference's own test files, run with
+# the reference modules it exercises swapped for the port's: its names
+# rebound, and the modules it imports inside its body (conversation,
+# checkpoint, tario) taken from the port. The reference's assertions then
+# hold the port on the reference's inputs; the plain run of the same file
+# holds the reference. Cases whose inputs are JAX or orbax objects are held
+# in test_torch_checkpoint.py and below instead.
+
+SWAPPED = {
+    "test_data_pipeline": ("train.data", "mm_utils", "conversation",
+                           "constants"),
+    "test_sampler": ("train.sampler",),
+    "test_vila_cluster": ("train.vila", "utils.cluster"),
+    "test_wids": ("data.tario", "data.wids"),
+    "test_mixtures": ("data.mixtures",),
+}
+NOT_SWAPPED = {
+    # save_components of a JAX tree: test_torch_checkpoint.py
+    ("test_vila_cluster", "test_component_checkpoint_roundtrip"),
+}
+
+
+def _reference_cases():
+    import importlib
+
+    out = []
+    for mod_name in SWAPPED:
+        mod = importlib.import_module(mod_name)
+        for name, fn in vars(mod).items():
+            if (name.startswith("test_") and callable(fn)
+                    and (mod_name, name) not in NOT_SWAPPED):
+                out.append((mod_name, name))
+    return out
+
+
+def _rebound(fn, swaps):
+    """fn with the names of its module that come from a swapped reference
+    module bound to the port's objects of the same names."""
+    import types
+
+    g = dict(fn.__globals__)
+    for name, val in fn.__globals__.items():
+        if isinstance(val, types.ModuleType) and val.__name__ in swaps:
+            g[name] = swaps[val.__name__]
+        elif getattr(val, "__module__", None) in swaps and hasattr(
+                val, "__name__") and not name.isupper():
+            g[name] = getattr(swaps[val.__module__], val.__name__)
+    return types.FunctionType(fn.__code__, g, fn.__name__, fn.__defaults__,
+                              fn.__closure__)
+
+
+@pytest.mark.parametrize("mod_name,name", _reference_cases())
+def test_reference_tests_hold_the_port(mod_name, name, tmp_path,
+                                       monkeypatch):
+    import importlib
+    import inspect
+    import sys
+
+    swaps = {}
+    for sub in SWAPPED[mod_name]:
+        ref = importlib.import_module("halva_tpu." + sub)
+        port = importlib.import_module("halva_tpu_torch." + sub)
+        swaps[ref.__name__] = port
+        monkeypatch.setitem(sys.modules, ref.__name__, port)
+        parent, _, child = ref.__name__.rpartition(".")
+        monkeypatch.setattr(sys.modules[parent], child, port)
+    fn = getattr(importlib.import_module(mod_name), name)
+    args = {"tmp_path": tmp_path, "monkeypatch": monkeypatch}
+    params = inspect.signature(fn).parameters
+    assert set(params) <= set(args), params
+    if mod_name == "test_mixtures":  # the file's autouse registry fixture
+        swaps["halva_tpu.data.mixtures"].DATASETS.clear()
+    try:
+        _rebound(fn, swaps)(**{k: args[k] for k in params})
+    finally:
+        if mod_name == "test_mixtures":
+            swaps["halva_tpu.data.mixtures"].DATASETS.clear()
+
+
+def test_port_tario_builds_apart_from_the_source():
+    """The port's reader builds native/tario.cpp into its own build
+    directory, never beside the source."""
+    from halva_tpu_torch.data import tario
+
+    lib = tario._get_lib()
+    assert lib is not None
+    assert os.path.dirname(lib._name) == tario._BUILD
+    assert os.path.dirname(tario._SRC) != tario._BUILD
+
+
+def _delta_tree(rng, vocab=32):
+    from test_delta import _tree
+
+    return _tree(rng, vocab)
+
+
+def _np(tree_):
+    """A delta result as numpy (torch leaves through the tree bridge)."""
+    from halva_tpu_torch import tree
+
+    return tree.to_numpy(tree_)
+
+
+@pytest.mark.parametrize("case", ["round_trip", "vocab_extension",
+                                  "target_only", "fp32"])
+def test_delta_equals_the_reference(case):
+    """make_delta / apply_delta on test_delta.py's trees: the port's leaves
+    (CPU tensors) equal the reference's numpy leaves, dtype for dtype, bit
+    for bit."""
+    from halva_tpu.utils import delta as jdelta
+    from halva_tpu_torch.utils import delta as tdelta
+
+    rng = np.random.RandomState(
+        {"round_trip": 0, "vocab_extension": 1, "target_only": 2,
+         "fp32": 5}[case])
+    base = _delta_tree(rng)
+    target = _delta_tree(rng, vocab=36 if case == "vocab_extension" else 32)
+    if case == "target_only":
+        target["new_head"] = {"kernel": rng.randn(4, 4).astype(np.float32)}
+    if case == "fp32":
+        base = {"p": {"k": rng.randn(6, 5).astype(np.float32) * 1e3}}
+        target = {"p": {"k": rng.randn(6, 5).astype(np.float32) * 1e-3}}
+    want_d = jdelta.make_delta(target, base)
+    got_d = tdelta.make_delta(target, base)
+    want_t = jdelta.apply_delta(want_d, base)
+    got_t = tdelta.apply_delta(got_d, base)
+    for got, want in ((got_d, want_d), (got_t, want_t)):
+        g, w = dict(_flat(_np(got))), dict(_flat(want))
+        assert set(g) == set(w)
+        for k in w:
+            assert g[k].dtype == w[k].dtype, k
+            assert g[k].tobytes() == w[k].tobytes(), k
+    for bad in ({"only_in_base": {"w": np.zeros(3, np.float32)}},):
+        with pytest.raises(ValueError, match="absent from target"):
+            tdelta.make_delta(target, dict(base, **bad))
+    with pytest.raises(ValueError, match="does not extend"):
+        tdelta.make_delta(_delta_tree(rng, 30), _delta_tree(rng, 32))
+
+
+def _flat(t, prefix=()):
+    for k, v in t.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def test_delta_cli_round_trips_save_params_dirs(tmp_path):
+    """The CLI's make / apply / consolidate on save_params dirs of the
+    port: apply(make(target, base), base) is the target, as the
+    reference's test_delta holds it, and consolidate rewrites a dir."""
+    from halva_tpu_torch import tree
+    from halva_tpu_torch.train.checkpoint import load_params, save_params
+    from halva_tpu_torch.utils import delta as tdelta
+
+    rng = np.random.RandomState(4)
+    base, target = _delta_tree(rng), _delta_tree(rng)
+    for name, t in (("base", base), ("target", target)):
+        save_params(str(tmp_path / name), tree.to_torch(t, "cpu"))
+    d = {n: str(tmp_path / n) for n in ("base", "target", "delta", "out",
+                                        "copy")}
+    tdelta.main(["make", "--base", d["base"], "--target", d["target"],
+                 "--delta", d["delta"]])
+    tdelta.main(["apply", "--base", d["base"], "--delta", d["delta"],
+                 "--target", d["out"]])
+    tdelta.consolidate(d["out"], d["copy"])
+    from halva_tpu.utils import delta as jdelta
+
+    want = jdelta.apply_delta(jdelta.make_delta(target, base), base)
+    for name in ("out", "copy"):
+        got = dict(_flat(_np(load_params(d[name], device="cpu"))))
+        for k, w in _flat(want):
+            assert got[k].dtype == w.dtype and got[k].tobytes() == w.tobytes()

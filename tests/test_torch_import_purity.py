@@ -1,8 +1,11 @@
 """The PyTorch port imports no JAX, no Triton, and builds nothing on
-import. Checked in a fresh interpreter where `import jax` fails: every
-module of halva_tpu_torch must still import, and it pulls in no module of
-halva_tpu at all, not even one that imports no JAX (the port keeps its own
-copies of config, constants, conversation and mm_utils)."""
+import. Checked in a fresh interpreter where `import jax`, `import orbax`
+and `import ml_dtypes` fail: every module of halva_tpu_torch must still
+import, and it pulls in no module of halva_tpu at all, not even one that
+imports no JAX (the port keeps its own copies of config, constants,
+conversation, mm_utils and the train CLI's host modules). A second fresh
+interpreter is the card's machine: no JAX, no ml_dtypes, no Pillow and no
+transformers, and every module still imports."""
 
 import json
 import os
@@ -15,7 +18,8 @@ PKG = os.path.join(REPO, "halva_tpu_torch")
 
 CHILD = r"""
 import importlib, json, pkgutil, sys
-sys.modules["jax"] = None  # any `import jax` now raises ImportError
+for banned in ("jax", "orbax", "ml_dtypes"):
+    sys.modules[banned] = None  # any `import jax` now raises ImportError
 sys.path.insert(0, %r)
 import halva_tpu_torch
 from halva_tpu_torch import _kernels
@@ -47,8 +51,12 @@ def test_every_module_imports_without_jax():
     out = json.loads(p.stdout.strip().splitlines()[-1])
     assert "halva_tpu_torch.evals.runner" in out["modules"]
     assert "halva_tpu_torch.ops.generate" in out["modules"]
-    for name in ("lora", "dpa", "trainer", "checkpoint"):
+    for name in ("lora", "dpa", "trainer", "checkpoint", "run", "data",
+                 "sampler", "vila"):
         assert f"halva_tpu_torch.train.{name}" in out["modules"]
+    for name in ("utils.logging", "utils.cluster", "utils.delta",
+                 "data.tario", "data.wids", "data.mixtures"):
+        assert f"halva_tpu_torch.{name}" in out["modules"]
     assert not out["triton"]
     # PIL comes in with mm_utils, which is imported where an image is decoded
     assert not out["pil"]
@@ -64,12 +72,41 @@ def test_every_module_imports_without_jax():
     assert out["lib_loaded"] == 0  # no kernel built or loaded on import
 
 
+CARD = r"""
+import importlib, json, pkgutil, sys
+for banned in ("jax", "orbax", "ml_dtypes", "PIL", "transformers"):
+    sys.modules[banned] = None
+sys.path.insert(0, %r)
+import halva_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    halva_tpu_torch.__path__, "halva_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps(names))
+"""
+
+
+def test_every_module_imports_on_the_cards_machine():
+    """Without Pillow and transformers too (the card's machine has
+    neither): the train CLI, its data pipeline over pre-processed pixels
+    and the checkpoints import; only decoding an image or loading a
+    tokenizer needs them, inside the call."""
+    p = subprocess.run(
+        [sys.executable, "-c", CARD % REPO], capture_output=True,
+        text=True, cwd=REPO, timeout=300,
+    )
+    assert p.returncode == 0, p.stderr[-3000:]
+    names = json.loads(p.stdout.strip().splitlines()[-1])
+    assert "halva_tpu_torch.train.run" in names
+    assert "halva_tpu_torch.mm_utils" in names
+
+
 def test_sources_use_no_library_attention():
     """No JAX, Triton, library attention or torch.compile anywhere in the
     package (the train modules and the flash backward included)."""
     banned = re.compile(
         r"import jax|from jax|scaled_dot_product_attention|torch\.compile"
-        r"|import triton|flash_attn")
+        r"|import triton|flash_attn|import orbax|from orbax")
     hits = []
     for root, _, files in os.walk(PKG):
         for f in files:
