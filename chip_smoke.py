@@ -77,6 +77,23 @@ beside that phase's device time, and each checkpoint save's seconds and
 bytes; a second run stopped at step 2 and resumed equals it at steps 3-4;
 the component checkpoint, loaded by models/builder.py, is merge_lora of
 the trained tree bit for bit and decodes the same 8 greedy tokens (K4).
+
+The eval path's decode variants, on the int4g tree with int4 prompt KV
+(after its graph loops; briefly on the bf16 tree, where temperature 0 is
+greedy): nucleus sampling (`generate`, temperature 0.7, top_p 0.9) at batch
+80 over 128 tokens from CUDA graphs, its graph loop against its eager body
+token for token with every eager draw inside its step's nucleus, a seed
+that repeats and one that differs, temperature 0 against generate_greedy,
+the sampled step's device time beside the greedy step's, and the sampler
+alone on full-vocab logits against the float64 filtered softmax by a
+chi-square test; then the continuous-batching engine (ops/continuous.py)
+on bench_continuous's workload (240 requests with CHAIR-like budgets,
+batch 80, cap 128) at chunk 16 and 8, its chunk-16 graph run against its
+eager run token for token, every request against the drain with each
+divergence at a drain top-two margin within a measured bf16 noise floor,
+imgs/s against the drain's, and one decode step with the engine's ring
+mask on K4 against the plain path. Their K1, K4 and K7 launches are added
+to the `kernels` line.
 Every phase prints one line; any failure raises and exits non-zero. The
 last line is the device record {"ok": true, "device": {...}}.
 
@@ -99,7 +116,9 @@ shapes under forced key-axis plans) and prints their rows.
 
 builds the kernels, runs only K5's checks and timings (both stages, every
 mode, MHA and GQA, forced key-axis plans, K4's beam route beside it at B=4
-and at batch 80, the route "auto" takes) and prints their rows.
+and at batch 80, the route "auto" takes), then times K5 against K4's beam
+mode with int8 and int4 prompt caches at 4, 8, 16, 32 and 80 items beside
+the route "auto" takes at each, and prints their rows.
 
     python3 chip_smoke.py --gemm-only
 
@@ -121,6 +140,12 @@ runs) on a fresh random tree, with the rows of K7 and K8 alone.
 runs only the train step (no plain-path comparison) for its time per
 micro-step, then the train entry point's phase, on a fresh random tree.
 
+    python3 chip_smoke.py --serve-variants-only
+
+runs only the decode variants' phases (sampling, the sampler's frequencies,
+continuous batching) on a fresh random tree quantized to int4g, and prints
+their launches.
+
 Needs a CUDA device; imports no JAX.
 """
 
@@ -135,6 +160,7 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -187,12 +213,18 @@ from halva_tpu_torch.ops.flash_attention import (
 )
 from halva_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
 from halva_tpu_torch.models.builder import load_pretrained_model
+from halva_tpu_torch import bench_continuous
+from halva_tpu_torch.ops import generate as generate_mod
+from halva_tpu_torch.ops.continuous import ContinuousEngine, Request, _ring_valid
 from halva_tpu_torch.ops.generate import (
+    FIRST_STEP,
     _decode_impl,
     _prefill_impl,
+    decode_loop,
+    generate,
     generate_greedy,
-    greedy_loop,
     init_gen_cache_like,
+    nucleus_logits,
 )
 from halva_tpu_torch.ops.speculative import (
     _spec_decode_impl,
@@ -1627,6 +1659,70 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
                     "source": FOLD_SOURCE, "replaces": FOLD_REPLACES,
                     "max_abs_err": worst, **timing})
     return out
+
+
+BEAM_SWEEP_ITEMS = (4, 8, 16, 32, 80)
+BEAM_SWEEP_BYTES = 200e6  # prompt cache a timing walks: 4x the L2
+
+
+def beam_route_sweep(gen: torch.Generator) -> None:
+    """K5 against K4's beam mode with int8 and int4 prompt caches at 4 to 80
+    items (4 beams, H=KVH=32, Sp=623, int8 gen cache of 128 slots), each
+    timed over enough layers that the caches walked outgrow the L2, beside
+    the route `auto_beam_route` takes (its 25 MB rule): where the rule
+    switches against where the times cross. Printed only."""
+    k, h, d, sp, sg, dev = BEAMS, 32, 128, 623, 128, "cuda"
+
+    def layer(t, li):
+        return {key: v[li] for key, v in t.items()}
+
+    for mode in ("kv8", "kv4"):
+        rows = []
+        for items in BEAM_SWEEP_ITEMS:
+            seg = lengths_to_seg(PROMPT_LENS * (items // len(PROMPT_LENS)),
+                                 sp, dev)
+            steps = torch.randint(0, sg, (items * k,), generator=gen,
+                                  device=dev)
+            gen_valid = torch.arange(sg, device=dev)[None, :] <= steps[:, None]
+            q = torch.randn(items, k, h, d, generator=gen,
+                            device=dev).bfloat16()
+            q1 = q.reshape(items * k, 1, h, d)
+            pc, gc = _fold_caches(gen, mode, 1, items, items * k, h, sp, sg,
+                                  d)
+            per_layer = sum(t.numel() * t.element_size() for t in pc.values())
+            layers = min(32, max(2, -(-int(BEAM_SWEEP_BYTES) // per_layer)))
+            del pc, gc
+            pc, gc = _fold_caches(gen, mode, layers, items, items * k, h, sp,
+                                  sg, d)
+
+            def fold(li):
+                return fold_attend_layer(q, layer(pc, li), seg, layer(gc, li),
+                                         gen_valid, fold_k=k)
+
+            def grid(li):
+                return decode_attend_layer(q1, layer(pc, li), seg,
+                                           layer(gc, li), gen_valid,
+                                           beam_k=k, beam_route="grid")
+
+            fold_ms = device_ms(lambda: [fold(li) for li in range(layers)])
+            grid_ms = device_ms(lambda: [grid(li) for li in range(layers)])
+            route = auto_beam_route(layer(pc, 0), seg, k)
+            rows.append((items, per_layer / 1e6, fold_ms / layers,
+                         grid_ms / layers, route))
+            del pc, gc
+            torch.cuda.empty_cache()
+        faster = ["fold" if f < g else "grid" for _, _, f, g, _ in rows]
+        cross = next((r[0] for r, w in zip(rows, faster) if w == "fold"),
+                     None)
+        switch = next((r[0] for r in rows if r[4] == "fold"), None)
+        agree = sum(r[4] == w for r, w in zip(rows, faster))
+        print(f"beam route sweep {mode} ({gpu_line()}): "
+              + "; ".join(f"{n} items ({mb:.1f} MB a layer): K5 {f:.4f} ms, "
+                          f"K4 beam {g:.4f} ms, faster {w}, auto {r}"
+                          for (n, mb, f, g, r), w in zip(rows, faster))
+              + f"; the 25 MB rule switches to K5 at {switch} items, the "
+              f"times cross at {cross} items; the rule picks the faster "
+              f"route at {agree} of {len(rows)} batches")
 
 
 # (K, N) of the 7B decode matmuls: wq/wk/wv/wo, gate/up, down
@@ -3518,7 +3614,7 @@ def body_device_ms(kind, params, cfg, inputs, prefill, k) -> float:
     ids, _, lens = inputs
     first_tok, first_logits, slen, pc, pseg = prefill
     if kind == "greedy":
-        state, bodies = greedy_loop(params, cfg, first_tok, slen, pc, pseg,
+        state, bodies = decode_loop(params, cfg, first_tok, slen, pc, pseg,
                                     GRAPH_AT + 64, -1)
         state.step.fill_(GRAPH_AT)
         return device_ms(bodies[0])
@@ -4139,6 +4235,463 @@ def run_train_cli(params, cfg, train_ms: float) -> None:
     print(f"train CLI phase: {time.perf_counter() - t_phase:.1f} s wall")
 
 
+# ---- the decode variants of the eval path: nucleus sampling in the graph
+# loop, and the continuous-batching engine (ops/continuous.py) -------------
+
+SAMPLE_T, SAMPLE_P = 0.7, 0.9  # the sampled runs' temperature and top_p
+SAMPLE_SEED = 1234
+SAMPLE_TOKENS = 128  # the sampled main path: batch 80, as the bench
+SAMPLE_SHORT = 32  # the repeat, the other seed, temperature 0 vs greedy
+CHI2_ROWS = 4  # full-vocab rows of the sampler's frequency test
+CHI2_REPEAT = 1024  # copies of each row a call
+CHI2_CALLS = 8  # calls (steps): CHI2_REPEAT * CHI2_CALLS draws a row
+CHI2_P = 1e-3
+CB_REQUESTS, CB_CAP = 240, 128  # bench_continuous's workload
+CB_CHUNKS = (16, 8)  # its default chunk and one smaller
+CB_FLOOR_ROWS = 16  # rows decoded at a refill's size for the noise floor
+CB_RING_ROWS = 16  # rows refilled for the ring-mask step on K4
+CB_PREFILL_ROWS = (16, 10, 80)  # the refill sizes at batch 80, and a batch
+# a greedy divergence between the engine and the drain must start where the
+# drain's top-two margin is within the bf16 noise: a flip needs the two
+# logits to move by the margin, and each moves by at most the floor; 4/3 as
+# every floor rule of this script
+CB_MARGIN_FACTOR = 2 * TRAIN_FLOOR_FACTOR
+
+
+def add_launches(kernels: dict, launches: dict) -> None:
+    """A further main path's counts, added to its kernels' `launches`."""
+    for name, n in launches.items():
+        kernels[name]["launches"] = kernels[name].get("launches", 0) + n
+
+
+def run_sampling_bf16(params, cfg) -> None:
+    """Briefly on the bf16 tree: generate(temperature=0) is generate_greedy,
+    token for token, both from CUDA graphs."""
+    inputs = make_inputs(cfg)
+    with torch.inference_mode():
+        want, _ = generate_greedy(params, cfg, *inputs,
+                                  max_new_tokens=SAMPLE_SHORT, eos_id=-1)
+        got, _ = generate(params, cfg, *inputs, max_new_tokens=SAMPLE_SHORT,
+                          eos_id=-1, temperature=0.0, seed=SAMPLE_SEED)
+        sampled, _ = generate(params, cfg, *inputs,
+                              max_new_tokens=SAMPLE_SHORT, eos_id=-1,
+                              temperature=SAMPLE_T, top_p=SAMPLE_P,
+                              seed=SAMPLE_SEED)
+    ok = torch.equal(got, want) and in_vocab(sampled, cfg)
+    print(f"sampling on the bf16 tree: generate(temperature=0) == "
+          f"generate_greedy over {SAMPLE_SHORT} tokens x {got.shape[0]} rows "
+          f"{torch.equal(got, want)}; a sampled run (T={SAMPLE_T}, top_p="
+          f"{SAMPLE_P}) agrees with greedy on "
+          f"{float((sampled == want).float().mean()):.3f} of its tokens "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("bf16 tree: temperature 0 is not greedy")
+
+
+def nucleus_recorder(seen: list):
+    """_select_token that also records, for each call, whether every chosen
+    token lies in its step's nucleus (eager runs only)."""
+    select = generate_mod._select_token
+
+    def recording(logits, temperature, top_p, seed, step):
+        tok = select(logits, temperature, top_p, seed, step)
+        kept = nucleus_logits(logits, temperature, top_p)
+        seen.append(bool(torch.isfinite(kept.gather(1, tok.long()[:, None]))
+                         .all()))
+        return tok
+
+    return recording
+
+
+def step_body_ms(params, cfg, prefill, temperature) -> float:
+    """Device ms of one decode-loop step at gen slot GRAPH_AT, replayed from
+    a CUDA graph, greedy or sampled."""
+    first_tok, _, slen, pc, pseg = prefill
+    state, bodies = decode_loop(params, cfg, first_tok, slen, pc, pseg,
+                                GRAPH_AT + 64, -1, temperature=temperature,
+                                top_p=SAMPLE_P, seed=SAMPLE_SEED)
+    state.step.fill_(GRAPH_AT)
+    return device_ms(bodies[0])
+
+
+def run_sampling(q4, cfg, kernels: dict) -> None:
+    """Nucleus sampling on the int4g tree with int4 prompt KV at batch 80:
+    generate() from CUDA graphs as a user calls it (its launches counted);
+    the graph loop against its eager body on one prefill, token for token,
+    every eager draw inside its step's nucleus; on the 4 requests a seed
+    repeats, another differs, temperature 0 is greedy; the sampled step's
+    device time beside the greedy step's."""
+    layers = cfg.llm.num_layers
+    inputs = tuple(t.repeat_interleave(BATCH80 // t.shape[0], dim=0)
+                   for t in make_inputs(cfg))
+    kw = dict(eos_id=-1, kv_quant="int4")
+    sample = dict(temperature=SAMPLE_T, top_p=SAMPLE_P)
+    with torch.inference_mode():
+        (tok, num), secs, launches = timed_run(lambda: generate(
+            q4, cfg, *inputs, max_new_tokens=SAMPLE_TOKENS,
+            seed=SAMPLE_SEED, **sample, **kw))
+        expect_launches(launches, {
+            "flash_fwd": layers, "decode_attn_kv4": layers * SAMPLE_TOKENS,
+            **w4_mm_launches(BATCH80, 7 * layers * SAMPLE_TOKENS)},
+            f"sampled int4g run at batch {BATCH80}")
+        add_launches(kernels, launches)
+        prefill = _prefill_impl(q4, cfg, *inputs, kv_quant="int4")
+        first_tok, first_logits, slen, pc, pseg = prefill
+        seen = []
+        first = nucleus_recorder(seen)(first_logits, SAMPLE_T, SAMPLE_P,
+                                       SAMPLE_SEED, FIRST_STEP)
+        runs = {}
+        for graph in (None, False):
+            st = {}
+            rec = nucleus_recorder(seen) if graph is False else (
+                generate_mod._select_token)
+            with mock.patch.object(generate_mod, "_select_token", rec):
+                runs[graph] = _decode_impl(
+                    q4, cfg, first, slen, pc, pseg, SAMPLE_TOKENS, -1,
+                    graph=graph, loop_stats=st, seed=SAMPLE_SEED,
+                    **sample)[0]
+            if st["graph"] is not (graph is None):
+                raise AssertionError("sampled loop: wrong graph mode")
+        # the short runs on the 4 requests: a seed twice, another seed,
+        # temperature 0 and generate_greedy
+        few = make_inputs(cfg)
+        short = [generate(q4, cfg, *few, max_new_tokens=SAMPLE_SHORT,
+                          seed=seed, **sample, **kw)[0]
+                 for seed in (SAMPLE_SEED, SAMPLE_SEED, SAMPLE_SEED + 1)]
+        zero, _ = generate(q4, cfg, *few, max_new_tokens=SAMPLE_SHORT,
+                           temperature=0.0, seed=SAMPLE_SEED, **kw)
+        greedy, _ = generate_greedy(q4, cfg, *few,
+                                    max_new_tokens=SAMPLE_SHORT, **kw)
+        sampled_ms = step_body_ms(q4, cfg, prefill, SAMPLE_T)
+        greedy_ms = step_body_ms(q4, cfg, prefill, 0.0)
+        del prefill, pc
+    same_graph = torch.equal(runs[None], runs[False])
+    same_first = torch.equal(tok, runs[None])
+    repeats = torch.equal(short[0], short[1])
+    differs = not torch.equal(short[2], short[0])
+    zero_greedy = torch.equal(zero, greedy)
+    in_nucleus = len(seen) == SAMPLE_TOKENS + 1 and all(seen)
+    ok = (same_graph and same_first and repeats and differs and zero_greedy
+          and in_nucleus and in_vocab(tok, cfg)
+          and bool((num == SAMPLE_TOKENS).all()))
+    print(f"sampled int4g run at batch {BATCH80} ({gpu_line()}): "
+          f"generate(temperature={SAMPLE_T}, top_p={SAMPLE_P}) "
+          f"{SAMPLE_TOKENS} tokens x {BATCH80} rows in {secs:.3f} s with its "
+          f"prefill; graph loop == its eager body {same_graph} (and == "
+          f"generate's run on another prefill {same_first}); every eager "
+          f"draw in its step's nucleus {in_nucleus} ({len(seen)} steps); "
+          f"{SAMPLE_SHORT} tokens x {len(TEXT_LENS)} rows: seed "
+          f"{SAMPLE_SEED} repeats {repeats}, seed {SAMPLE_SEED + 1} differs "
+          f"{differs}, temperature 0 == generate_greedy "
+          f"{zero_greedy}; one step on the device (a CUDA graph, gen slot "
+          f"{GRAPH_AT}): sampled {sampled_ms:.3f} ms, greedy "
+          f"{greedy_ms:.3f} ms ({sampled_ms - greedy_ms:+.3f} ms for the "
+          f"sort, softmax, cumsum and draw over {cfg.llm.vocab_size} "
+          f"logits) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("sampled decode: a check failed")
+
+
+def chi2_p(counts: np.ndarray, probs: np.ndarray) -> float:
+    """Pearson's chi-square p value of `counts` against `probs`: the tokens
+    expected at least 5 times each a bin, the rest of the nucleus one
+    bin."""
+    from scipy import stats
+
+    expected = probs * counts.sum()
+    big = expected >= 5
+    small = (~big) & (probs > 0)
+    obs = list(counts[big]) + ([counts[small].sum()] if small.any() else [])
+    exp = list(expected[big]) + ([expected[small].sum()] if small.any()
+                                 else [])
+    obs, exp = np.asarray(obs, np.float64), np.asarray(exp, np.float64)
+    return float(stats.chisquare(obs, exp * obs.sum() / exp.sum()).pvalue)
+
+
+def check_sampler_frequencies(cfg) -> None:
+    """The sampler alone on full-vocab logits: per row, the frequencies of
+    CHI2_REPEAT * CHI2_CALLS draws against the filtered softmax computed in
+    float64, by a chi-square test; no draw outside the nucleus."""
+    v = cfg.llm.vocab_size
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    rows = torch.randn(CHI2_ROWS, v, generator=gen, device=DEVICE) * 0.5
+    for r in range(CHI2_ROWS):  # a peaked head of 64 tokens over the bulk
+        idx = torch.randperm(v, generator=gen, device=DEVICE)[:64]
+        rows[r, idx] = torch.linspace(4.0, 10.0, 64, device=DEVICE)
+    probs = torch.softmax(nucleus_logits(rows, SAMPLE_T, SAMPLE_P).double(),
+                          dim=-1).cpu().numpy()
+    counts = torch.zeros(CHI2_ROWS, v, dtype=torch.long, device=DEVICE)
+    x = rows.repeat_interleave(CHI2_REPEAT, dim=0)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for step in range(CHI2_CALLS):
+            tok = generate_mod._select_token(x, SAMPLE_T, SAMPLE_P,
+                                             SAMPLE_SEED, step)
+            counts.scatter_add_(1, tok.long().view(CHI2_ROWS, CHI2_REPEAT),
+                                torch.ones(CHI2_ROWS, CHI2_REPEAT,
+                                           dtype=torch.long, device=DEVICE))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = counts.cpu().numpy()
+    pvals = [chi2_p(counts[r], probs[r]) for r in range(CHI2_ROWS)]
+    outside = int(counts[probs == 0].sum())
+    nucleus = [(probs[r] > 0).sum() for r in range(CHI2_ROWS)]
+    ok = outside == 0 and min(pvals) > CHI2_P
+    print(f"sampler frequencies: {CHI2_ROWS} rows of {v} logits, "
+          f"{CHI2_REPEAT * CHI2_CALLS} draws a row (T={SAMPLE_T}, top_p="
+          f"{SAMPLE_P}; nuclei of {', '.join(str(int(n)) for n in nucleus)} "
+          f"tokens) in {secs:.2f} s; chi-square p against the float64 "
+          f"filtered softmax " + ", ".join(f"{p:.3g}" for p in pvals)
+          + f" (each > {CHI2_P}); draws outside the nucleus {outside} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("sampler frequencies differ from the filtered "
+                             "softmax")
+
+
+def margin_recorder(margins: torch.Tensor, logits_out=None):
+    """A capturable _select_token for greedy drain runs: argmax, and the
+    top-two margin of each row's fp32 logits written at the step's row of
+    `margins` (steps, B); `logits_out` (steps, rows, V), when given, takes
+    the first rows' logits."""
+    select = generate_mod._select_token
+
+    def recording(logits, temperature, top_p, seed, step):
+        idx = step.reshape(1).long()
+        top = logits.float().topk(2, dim=-1).values
+        margins.index_copy_(0, idx, (top[:, 0] - top[:, 1])[None])
+        if logits_out is not None:
+            logits_out.index_copy_(
+                0, idx, logits[:logits_out.shape[1]].float()[None])
+        return select(logits, temperature, top_p, seed, step)
+
+    return recording
+
+
+def drain_with_margins(q4, cfg, ids, images, batch, rows_logits=0):
+    """Greedy drain batches of `batch` rows (CB_CAP tokens, CUDA graphs) with
+    each token's top-two margin: (tokens (n, cap), margins (n, cap): the
+    margin of the logits that chose each token), and the first
+    `rows_logits` rows' logits of batch 0 by step (the first token's from
+    the prefill at index 0)."""
+    n = len(ids)
+    toks, margins, first_logits = [], [], []
+    kept = None
+    prefill = _prefill_impl
+
+    def prefill_rec(*a, **k):
+        out = prefill(*a, **k)
+        first_logits.append(out[1].float())
+        return out
+
+    lens = torch.full((batch,), bench_continuous.PROMPT_LEN,
+                      dtype=torch.int32, device=DEVICE)
+    for s in range(0, n, batch):
+        m = torch.zeros(CB_CAP, batch, device=DEVICE)
+        out = None
+        if rows_logits and s == 0:
+            out = torch.zeros(CB_CAP, rows_logits, cfg.llm.vocab_size,
+                              device=DEVICE)
+        with mock.patch.object(generate_mod, "_select_token", margin_recorder(m, out)), \
+                mock.patch.object(generate_mod, "_prefill_impl", prefill_rec):
+            tok, _ = generate_greedy(
+                q4, cfg, torch.from_numpy(ids[s:s + batch]).to(DEVICE),
+                torch.from_numpy(images[s:s + batch]).to(DEVICE), lens,
+                CB_CAP, eos_id=-1, kv_quant="int4")
+        top = first_logits[-1].topk(2, dim=-1).values
+        # token t was chosen by the prefill (t = 0) or by step t - 1
+        m = torch.cat([(top[:, 0] - top[:, 1])[None], m[:-1]])
+        toks.append(tok.cpu().numpy())
+        margins.append(m.t().cpu().numpy())
+        if out is not None:
+            kept = torch.cat([first_logits[-1][:rows_logits][None],
+                              out[:-1]])  # by token index, as the margins
+    return np.concatenate(toks), np.concatenate(margins), kept
+
+
+def bf16_floor(q4, cfg, ids, images, drain_tok, drain_logits) -> float:
+    """The largest |logit| difference between the drain's first
+    CB_FLOOR_ROWS rows and the same requests decoded as a batch of
+    CB_FLOOR_ROWS (the engine's refill size: the refill's prefill rows and
+    another matmul row count), over every token index whose earlier tokens
+    agree in both runs."""
+    r = CB_FLOOR_ROWS
+    tok, _, logits = drain_with_margins(q4, cfg, ids[:r], images[:r], r,
+                                        rows_logits=r)
+    agree = np.cumprod(tok == drain_tok[:r], axis=1)  # token t agrees
+    live = np.concatenate([np.ones((r, 1), bool), agree[:, :-1] == 1], 1)
+    diff = (logits - drain_logits).abs().amax(dim=-1).t().cpu().numpy()
+    return float(diff[live].max())
+
+
+def run_continuous_phase(q4, cfg, kernels: dict) -> None:
+    """bench_continuous's workload in process on the smoke's int4g tree
+    (int4 prompt KV): 240 requests, batch 80, cap 128, at chunk 16 and 8,
+    timed after a warm-up (the chunk-16 run's launches counted); the chunk-16
+    graph run against the engine's own eager run, token for token; every
+    request against the drain (greedy batches of 80, cut to its budget), each
+    divergence at a drain margin within the bf16 noise floor; the drain
+    timed; one decode step with the ring mask on K4 against the plain
+    path."""
+    layers = cfg.llm.num_layers
+    budgets = bench_continuous.chair_like_budgets(CB_REQUESTS, CB_CAP)
+    ids, images = bench_continuous.workload(cfg, CB_REQUESTS)
+    reqs = [Request(ids=ids[i], image=images[i], budget=int(budgets[i]))
+            for i in range(CB_REQUESTS)]
+    runs = {}
+    with torch.inference_mode():
+        for chunk in CB_CHUNKS:
+            eng, out, wall = bench_continuous.run_continuous(
+                q4, cfg, ids, images, budgets, BATCH80, CB_CAP, chunk, "int4",
+                DEVICE, on_timed=_kernels.reset_launches)
+            torch.cuda.synchronize()
+            launches = dict(_kernels.launches)
+            st = dict(eng.stats)
+            expect_launches(launches, {
+                "flash_fwd": layers * st["refills"],
+                "decode_attn_kv4": layers * st["steps"],
+                **w4_mm_launches(BATCH80, 7 * layers * st["steps"])},
+                f"continuous run at chunk {chunk}")
+            if chunk == CB_CHUNKS[0]:
+                add_launches(kernels, launches)
+                # a state mid-stream: one refill of CB_RING_ROWS slots, one
+                # chunk; their rows' valid slots lie in no prefix
+                eng._scatter(list(range(CB_RING_ROWS)), *eng._prefill(
+                    reqs[:CB_RING_ROWS], CB_RING_ROWS))
+                eng._run_chunk()
+                ring = ring_step_check(q4, cfg, eng.state)
+            runs[chunk] = (out, wall, st, launches)
+            del eng
+            torch.cuda.empty_cache()
+        # the engine's own eager run at the first chunk, after the same
+        # warm-up: the ring's write slots follow the global step
+        t0 = time.perf_counter()
+        eager = ContinuousEngine(q4, cfg, batch=BATCH80,
+                                 max_new_tokens=CB_CAP, eos_id=-1,
+                                 prompt_pad=bench_continuous.PROMPT_LEN,
+                                 chunk=CB_CHUNKS[0], kv_quant="int4",
+                                 graph=False)
+        eager.run(reqs[:BATCH80])
+        out_e = eager.run(reqs)
+        eager_s = time.perf_counter() - t0
+        del eager
+        torch.cuda.empty_cache()
+        drain_s, nb = bench_continuous.run_drain(
+            q4, cfg, ids, images, BATCH80, CB_CAP, "int4", DEVICE)
+        drain_tok, drain_margin, drain_logits = drain_with_margins(
+            q4, cfg, ids, images, BATCH80, rows_logits=CB_FLOOR_ROWS)
+        floor = bf16_floor(q4, cfg, ids, images, drain_tok, drain_logits)
+        del drain_logits
+        torch.cuda.empty_cache()
+        prefill_ms = {}
+        for rows in CB_PREFILL_ROWS:
+            args = [torch.from_numpy(a[:rows]).to(DEVICE) for a in (
+                ids, images)]
+            lens = torch.full((rows,), bench_continuous.PROMPT_LEN,
+                              dtype=torch.int32, device=DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _prefill_impl(q4, cfg, *args, lens, kv_quant="int4")
+            torch.cuda.synchronize()
+            prefill_ms[rows] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.empty_cache()
+    out16 = runs[CB_CHUNKS[0]][0]
+    graph_eager = all(n == ne and np.array_equal(t, te)
+                      for (t, n), (te, ne) in zip(out16, out_e))
+    drain_ips = nb * BATCH80 / drain_s
+    ideal = float(budgets.sum()) / BATCH80
+    lines, ok = [], graph_eager and ring
+    for chunk, (out, wall, st, launches) in runs.items():
+        at_budget = [n for _, n in out] == budgets.tolist()
+        equal, worst, diverged = 0, 0.0, []
+        for i, (t, n) in enumerate(out):
+            d = np.nonzero(t[:n] != drain_tok[i, :n])[0]
+            if not len(d):
+                equal += 1
+                continue
+            margin = float(drain_margin[i, d[0]])
+            diverged.append(margin)
+            worst = max(worst, margin)
+        explained = worst <= CB_MARGIN_FACTOR * floor
+        ok = ok and at_budget and explained
+        per_chunk = {k: round(v / st["chunks"], 1)
+                     for k, v in launches.items()}
+        emitted = int(budgets.sum())
+        lines.append(
+            f"chunk {chunk}: {CB_REQUESTS / wall:.3f} imgs/s ({wall:.2f} s), "
+            f"{st['steps']} lockstep steps, {st['chunks']} chunks, "
+            f"{st['refills']} refills ({st['steps'] - ideal:.1f} steps over "
+            f"the sum of budgets / batch), occupancy "
+            f"{emitted / (st['steps'] * BATCH80):.3f}, launches per chunk "
+            f"{per_chunk}, {CB_REQUESTS / wall / drain_ips:.3f}x the drain; "
+            f"rows equal to the drain in full {equal}/{CB_REQUESTS}, "
+            f"{len(diverged)} diverge, at drain margins up to {worst:.4f} "
+            f"(limit {CB_MARGIN_FACTOR:.3f} x floor {floor:.4f}) "
+            f"{'ok' if at_budget and explained else 'FAIL'}")
+    print(f"continuous vs drain ({gpu_line()}; int4g, int4 prompt KV, batch "
+          f"{BATCH80}, {CB_REQUESTS} requests, cap {CB_CAP}, budgets mean "
+          f"{budgets.mean():.1f}, their sum / batch {ideal:.1f} steps): drain "
+          f"{drain_ips:.3f} imgs/s ({drain_s:.2f} s for {nb} full-budget "
+          f"batches, {nb * CB_CAP} steps); prefill on the host clock "
+          + ", ".join(f"{r} rows {ms:.1f} ms ({ms / r:.2f} ms a row)"
+                      for r, ms in prefill_ms.items())
+          + "; " + "; ".join(lines)
+          + f"; the chunk-{CB_CHUNKS[0]} graph run == the engine's eager run "
+          f"{graph_eager} (eager {eager_s:.1f} s) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("continuous batching: a check failed")
+
+
+def ring_step_check(q4, cfg, st) -> bool:
+    """One decode step on the engine's state with its ring mask, on K4
+    against the plain path (copies of the gen cache), beside the noise floor
+    (the plain path with its token embeddings perturbed at the bf16
+    level)."""
+    sg = st.gen_cache["k"].shape[3]
+    g = st.global_step.clone()
+    valid = _ring_valid(g, st.row_start, sg)
+    prefix = (valid.long().cumsum(1) == torch.arange(
+        1, sg + 1, device=DEVICE)).sum(1) == valid.sum(1)
+    ragged = int((~prefix).sum())
+    pos = st.base_len + (g - st.row_start)
+    noise = torch.Generator(device=DEVICE).manual_seed(1)
+    out = {}
+    for run, impl in (("auto", "auto"), ("plain", "plain"),
+                      ("floor", "plain")):
+        gen = {k: v.clone() for k, v in st.gen_cache.items()}
+        emb = perturbed(llama.embed(q4["llm"], st.cur[:, None]),
+                        noise if run == "floor" else None)
+        _kernels.reset_launches()
+        out[run], _ = llama.decode_step(
+            q4["llm"], cfg.llm, emb, pos, st.prompt_cache, st.prompt_seg,
+            gen, g, attn_impl=impl, gen_valid_override=valid,
+            write_slot=torch.remainder(g, sg))
+        if run == "auto" and not _kernels.launches.get("decode_attn_kv4"):
+            raise AssertionError("ring step: K4 did not run")
+        del gen
+    rel = rel_err(out["auto"], out["plain"])
+    floor = rel_err(out["floor"], out["plain"])
+    ok = ragged > 0 and rel <= LOGITS_REL_W4
+    print(f"ring validity on K4: one decode step at global step {int(g)} "
+          f"with the engine's ring mask ({ragged} of {valid.shape[0]} rows "
+          f"valid in no prefix), kernel vs plain path logits rel err "
+          f"{rel:.3e} (limit {LOGITS_REL_W4}; noise floor {floor:.3e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_serve_variants(q4, kernels: dict) -> None:
+    cfg = LLAVA_V15_7B
+    t0 = time.perf_counter()
+    run_sampling(q4, cfg, kernels)
+    torch.cuda.empty_cache()
+    check_sampler_frequencies(cfg)
+    torch.cuda.empty_cache()
+    run_continuous_phase(q4, cfg, kernels)
+    torch.cuda.empty_cache()
+    print(f"serve variants phase: {time.perf_counter() - t0:.1f} s wall")
+
+
 def flash_checks(gen: torch.Generator) -> list:
     """K1, K2 and K3 against their plain versions, base mode then the modes:
     their rows of the `kernels` line."""
@@ -4166,7 +4719,9 @@ def main() -> None:
         print(json.dumps({"decode_kernels": decode_checks(gen)}))
         return
     if sys.argv[1:] == ["--fold-only"]:
-        print(json.dumps({"fold_kernels": check_fold(gen)}))
+        fold = check_fold(gen)
+        beam_route_sweep(gen)
+        print(json.dumps({"fold_kernels": fold}))
         return
     if sys.argv[1:] == ["--gemm-only"]:
         checked = [check_w4_gemm(gen), check_int8_matmul(gen)]
@@ -4186,6 +4741,17 @@ def main() -> None:
                              compare=False)
         torch.cuda.empty_cache()
         run_train_cli(params, LLAVA_V15_7B, train_ms)
+        return
+    if sys.argv[1:] == ["--serve-variants-only"]:
+        params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
+        run_sampling_bf16(params, LLAVA_V15_7B)
+        q4 = quantize_int4g(params)
+        del params
+        torch.cuda.empty_cache()
+        launches = collections.defaultdict(dict)
+        run_serve_variants(q4, launches)
+        print(json.dumps({"serve_variant_launches": {
+            name: k["launches"] for name, k in sorted(launches.items())}}))
         return
     quant_only = sys.argv[1:] == ["--quant-only"]
     if sys.argv[1:] and not quant_only:
@@ -4213,6 +4779,7 @@ def main() -> None:
         train_ms = run_train(params, kernels)
         torch.cuda.empty_cache()
         run_graph_loops(params, LLAVA_V15_7B, int4=False)
+        run_sampling_bf16(params, LLAVA_V15_7B)
         run_loader(params, LLAVA_V15_7B)
         run_train_cli(params, LLAVA_V15_7B, train_ms)
     torch.cuda.empty_cache()
@@ -4250,6 +4817,7 @@ def main() -> None:
     run_beam_spec_int4g(q4, kernels, greedy_tokens)
     if not quant_only:
         run_graph_loops(q4, LLAVA_V15_7B, int4=True)
+        run_serve_variants(q4, kernels)
     del q4
     torch.cuda.empty_cache()
     if not quant_only:

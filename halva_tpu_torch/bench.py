@@ -27,7 +27,9 @@ int4 trees — int4g prefill dequantizes to bf16).
 
 Two departures from the reference, both on purpose: there is no batch
 ladder that catches a failure and tries a smaller batch, and no re-exec
-down the int4g -> int8 -> bf16 chain. A run that fails raises.
+down the int4g -> int8 -> bf16 chain. A run that fails prints the
+reference's failure line (its metric, "value": 0.0, "unit",
+"vs_baseline": 0.0 and "error"), its traceback on stderr, and exits 1.
 
 Run it on the card: `python -m halva_tpu_torch.bench`.
 """
@@ -38,6 +40,7 @@ import json
 import os
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -264,5 +267,24 @@ def main(device="cuda") -> dict:
     return out
 
 
+def fail_line(msg: str) -> dict:
+    """The reference bench's line for a run that failed (bench.py:_fail)."""
+    return {"metric": "chair500_eval_throughput", "value": 0.0,
+            "unit": "imgs/sec", "vs_baseline": 0.0, "error": msg[:800]}
+
+
+def run(device="cuda") -> int:
+    """`main` as the command runs it: the exit code; a failure prints
+    `fail_line` as the one JSON line."""
+    try:
+        main(device)
+    except Exception as exc:  # the run's one line must report any failure
+        traceback.print_exc(file=sys.stderr)
+        print(json.dumps(fail_line(f"{type(exc).__name__}: {exc}")),
+              flush=True)
+        return 1
+    return 0
+
+
 if __name__ == "__main__":
-    main()
+    sys.exit(run())

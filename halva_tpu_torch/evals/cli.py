@@ -10,10 +10,10 @@ only when OPENAI_API_KEY is set, matching the reference's optional judge
 plumbing. The tokenizer comes from `transformers` and the images are
 decoded with Pillow, both on the host.
 
-The reference's arguments are kept. Not ported yet, and refused before
+The reference's arguments are kept: sampling (--temperature, --top-p) and
+--continuous run as in the reference. Not ported yet, and refused before
 anything loads: device meshes (--mesh-data other than 0, --mesh-model
-other than 1; ROADMAP queue 1 item 10), sampling (--temperature > 0,
---top-p < 1) and --continuous (item 9). --device (default cuda) names the
+other than 1; ROADMAP queue 1 item 10). --device (default cuda) names the
 device; the CPU runs the kernels' plain versions.
 
 Usage:
@@ -75,7 +75,10 @@ def _add_model_args(p: argparse.ArgumentParser):
                    help="host image-preprocess threads overlapped with "
                         "device decode (0 = serial)")
     p.add_argument("--continuous", action="store_true",
-                   help="continuous batching (not ported yet, item 9)")
+                   help="continuous batching: EOS-freed rows refill "
+                        "from the queue (ops/continuous.py), so the "
+                        "longest caption no longer gates the batch. "
+                        "Greedy only")
     p.add_argument("--spec", type=int, default=0, metavar="K",
                    help="speculative greedy decode: prompt-lookup "
                         "drafts verified K tokens per model pass "
@@ -92,9 +95,6 @@ def check_ported(args) -> None:
     unported = {
         "--mesh-data / --mesh-model (device meshes)": (
             args.mesh_data != 0 or args.mesh_model != 1, "item 10"),
-        "--temperature / --top-p (sampling)": (
-            args.temperature > 0 or args.top_p < 1, "item 9"),
-        "--continuous (continuous batching)": (args.continuous, "item 9"),
     }
     asked = [f"{name}: ROADMAP queue 1 {item}"
              for name, (on, item) in unported.items() if on]
@@ -153,6 +153,7 @@ def _build_generator(args):
         length_penalty=getattr(args, "length_penalty", 1.0),
         prefetch_workers=getattr(args, "prefetch_workers", 0),
         kv_quant=getattr(args, "kv_quant", False),
+        continuous=getattr(args, "continuous", False),
         spec_k=getattr(args, "spec", 0),
     )
 

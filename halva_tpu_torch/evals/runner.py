@@ -1,21 +1,22 @@
-"""Batched evaluation generation, single-device deterministic decode.
+"""Batched evaluation generation on one device.
 
 Counterpart of halva_tpu/evals/runner.py's BatchedGenerator for greedy
-decode, beam search (`num_beams`) and speculative greedy decode (`spec_k`):
-prompts are tokenized with the conversation template, sorted by
-length, batched, right-padded to a bucket, and tail batches are filled with
-dead rows (prompt length 0, zero image) that the decode marks done at step
-0. Answers are written as JSONL rows with the reference's schema.
+decode, nucleus sampling (`temperature` > 0, `top_p`), beam search
+(`num_beams`), speculative greedy decode (`spec_k`) and continuous batching
+(`continuous`, ops/continuous.py): prompts are tokenized with the
+conversation template, sorted by length, batched, right-padded to a bucket,
+and tail batches are filled with dead rows (prompt length 0, zero image)
+that the decode marks done at step 0. Answers are written as JSONL rows
+with the reference's schema.
 
 Quantized trees (int8, int4) and quantized KV caches (`kv_quant`) run.
 With `prefetch_workers` > 0 the host work of each batch (image decode on a
 thread pool, padding) runs in a lookahead thread (utils/prefetch.py) while
 the device decodes the batch before. The constructor takes the
-reference's arguments; sampling (`temperature > 0`, `top_p < 1`), device
-meshes and continuous batching are not ported yet: their neutral values
-pass, any other raises NotImplementedError naming its ROADMAP item. PIL and
-mm_utils are imported where an image or a prompt is processed, so importing
-this module needs neither.
+reference's arguments; device meshes are not ported yet: `mesh=None`
+passes, any other raises NotImplementedError naming its ROADMAP item. PIL
+and mm_utils are imported where an image or a prompt is processed, so
+importing this module needs neither.
 
 The request builders of the reference's loader scripts (`chair_requests`,
 `vqa_requests`, `amber_requests`, `mmhal_requests`, `hallusion_requests`)
@@ -37,7 +38,7 @@ import torch
 from halva_tpu_torch import tree
 from halva_tpu_torch.config import LlavaConfig
 from halva_tpu_torch.ops.beam import generate_beam
-from halva_tpu_torch.ops.generate import decode_tokens, generate_greedy
+from halva_tpu_torch.ops.generate import decode_tokens, generate
 from halva_tpu_torch.ops.speculative import generate_speculative
 
 CHAIR_PROMPT = "Describe the image in detail."
@@ -86,9 +87,10 @@ def build_prompt(text: str, template_name: str = "v1",
 
 
 class BatchedGenerator:
-    """Length-bucketed batched decode over a prepared model: greedy, beam
-    search (num_beams > 1, HF semantics) or speculative greedy (spec_k >= 2,
-    the verify width). The device is the device of the params' LLM
+    """Length-bucketed batched decode over a prepared model: greedy by
+    default, nucleus sampling when temperature > 0, beam search (num_beams >
+    1, HF semantics), speculative greedy (spec_k >= 2, the verify width) or
+    continuous batching. The device is the device of the params' LLM
     tensors."""
 
     def __init__(
@@ -107,32 +109,30 @@ class BatchedGenerator:
         top_p: float = 1.0,
         num_beams: int = 1,
         length_penalty: float = 1.0,
-        seed: int = 0,  # sampling only: greedy, beams and drafts use none
+        seed: int = 0,  # sampling only: batch bi draws from seed + bi * B
         mesh=None,
         prefetch_workers: int = 0,
         kv_quant=False,  # False | True | "int8" | "int4"
         continuous: bool = False,
         spec_k: int = 0,  # >= 2: speculative greedy decode
     ):
-        unported = {
-            "temperature / top_p (sampling)": (
-                temperature > 0 or top_p != 1.0, "item 9"),
-            "continuous (ContinuousEngine)": (continuous, "item 9"),
-            "mesh (multi-GPU)": (mesh is not None, "item 10"),
-        }
-        asked = [f"{name}: ROADMAP queue 1 {item}"
-                 for name, (on, item) in unported.items() if on]
-        if asked:
+        if mesh is not None:
             raise NotImplementedError(
-                "BatchedGenerator: not ported yet: " + "; ".join(asked)
-                + " (the port runs deterministic single-device decode: "
-                "greedy, beams, speculative)"
-            )
-        if spec_k >= 2 and num_beams > 1:
+                "BatchedGenerator: not ported yet: mesh (multi-GPU): "
+                "ROADMAP queue 1 item 10 (the port runs single-device "
+                "decode)")
+        if spec_k >= 2 and (num_beams > 1 or temperature > 0 or continuous):
             raise ValueError(
                 "spec_k is single-device greedy decode (ops/speculative.py); "
-                "drop num_beams"
+                "drop num_beams / temperature / continuous"
             )
+        if continuous and (num_beams > 1 or temperature > 0):
+            raise ValueError(
+                "continuous is greedy single-beam decode "
+                "(ops/continuous.py); drop num_beams / temperature")
+        if num_beams > 1 and temperature > 0:
+            raise ValueError("beam search is deterministic; drop "
+                             "temperature or num_beams")
         if spec_k == 1 or spec_k < 0 or num_beams < 1:
             raise ValueError(
                 f"spec_k must be 0 or >= 2 and num_beams >= 1, got "
@@ -149,6 +149,10 @@ class BatchedGenerator:
         self.bucket = prompt_bucket
         self.attn_impl = attn_impl
         self.kv_quant = kv_quant
+        self.temperature = temperature
+        self.top_p = top_p
+        self.seed = seed
+        self.continuous = continuous
         self.num_beams = num_beams
         self.length_penalty = length_penalty
         self.spec_k = spec_k
@@ -207,6 +211,69 @@ class BatchedGenerator:
         lens = np.concatenate([lens, np.zeros(pad, np.int32)])
         return idxs, batch_ids, imgs, lens, time.perf_counter() - t0
 
+    def _run_continuous(self, requests, on_result):
+        """Rows freed by EOS refill from the queue (ops/continuous.py), so
+        the longest caption no longer gates the batch. Images load lazily,
+        ahead of the engine on the prefetch pool; budget exits are trimmed
+        as EOS."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from halva_tpu_torch.conversation import get_template
+        from halva_tpu_torch.ops.continuous import ContinuousEngine, Request
+
+        t_all = time.perf_counter()
+        ids_all = [self._tokenize(r) for r in requests]
+        max_len = max((len(x) for x in ids_all), default=1)
+        pad = -(-max_len // self.bucket) * self.bucket
+        pool = None
+        futures = {}
+        if self.prefetch_workers > 0:
+            pool = ThreadPoolExecutor(max_workers=self.prefetch_workers)
+            ahead = 2 * self.batch_size
+
+            def image_for(i):
+                # serve from the lookahead window; top it up as we go
+                for j in range(i, min(i + ahead, len(requests))):
+                    if j not in futures:
+                        futures[j] = pool.submit(self._load_image,
+                                                 requests[j])
+                return futures.pop(i).result()
+        else:
+            def image_for(i):
+                return self._load_image(requests[i])
+
+        engine = ContinuousEngine(
+            self.params, self.cfg, batch=self.batch_size,
+            max_new_tokens=self.max_new_tokens, eos_id=self.eos_id,
+            prompt_pad=pad, chunk=int(os.environ.get("HALVA_CB_CHUNK", "16")),
+            kv_quant=self.kv_quant, attn_impl=self.attn_impl)
+        reqs = [Request(ids=np.asarray(ids_all[i], np.int32),
+                        image=(lambda i=i: image_for(i)),
+                        budget=self.max_new_tokens)
+                for i in range(len(requests))]
+        try:
+            with torch.inference_mode():
+                out = engine.run(reqs)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=False, cancel_futures=True)
+        stop = get_template(self.template).stop_str()
+        results = []
+        for i, (toks, n) in enumerate(out):
+            toks = toks.copy()
+            toks[n:] = self.eos_id  # budget exits carry no eos marker
+            text = decode_tokens(toks[None], np.asarray([n]), self.tok,
+                                 self.eos_id, stop_strs=(stop,))[0]
+            results.append(text)
+            if on_result:
+                on_result(requests[i], text)
+        self.last_stats = {
+            "continuous": True,
+            "wall_s": round(time.perf_counter() - t_all, 3),
+            **engine.stats,
+        }
+        return results
+
     def run(
         self,
         requests: Sequence[EvalRequest],
@@ -218,6 +285,9 @@ class BatchedGenerator:
 
         from halva_tpu_torch.conversation import get_template
         from halva_tpu_torch.utils.prefetch import prefetch
+
+        if self.continuous:
+            return self._run_continuous(requests, on_result)
 
         ids_all = [self._tokenize(r) for r in requests]
         order = sorted(range(len(requests)), key=lambda i: len(ids_all[i]))
@@ -236,7 +306,7 @@ class BatchedGenerator:
         if pool is not None:
             it = prefetch(it, depth=2)
         try:
-            for idxs, batch_ids, imgs, lens, bh in it:
+            for bi, (idxs, batch_ids, imgs, lens, bh) in enumerate(it):
                 host_s += bh
                 t1 = time.perf_counter()
                 args = (
@@ -263,7 +333,10 @@ class BatchedGenerator:
                             *args, num_beams=self.num_beams,
                             length_penalty=self.length_penalty, **kwargs)
                     else:
-                        tokens, num = generate_greedy(*args, **kwargs)
+                        tokens, num = generate(
+                            *args, temperature=self.temperature,
+                            top_p=self.top_p,
+                            seed=self.seed + bi * self.batch_size, **kwargs)
                 tokens = tokens.cpu().numpy()  # host readback = fence
                 batch_s = time.perf_counter() - t1
                 device_s += batch_s

@@ -549,6 +549,8 @@ def decode_step(
     attn_impl: str = "auto",
     beam_k: int = 1,
     beam_route: str = "auto",
+    gen_valid_override: Optional[torch.Tensor] = None,
+    write_slot: Optional[Step] = None,
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step: (fp32 logits (B, V), gen cache). The new token's KV
     goes to gen slot `step` (lockstep across rows; a host int or, as the
@@ -570,7 +572,15 @@ def decode_step(
     beam_k > 1 (ops/beam.py): token_embeds, positions and the gen cache carry
     B*K beam rows while the prompt cache and prompt_seg stay at B item rows;
     row r attends prompt row r // K, through K5 (beam_route "fold"), K4's
-    beam mode ("grid"), or the one `auto_beam_route` picks ("auto")."""
+    beam mode ("grid"), or the one `auto_beam_route` picks ("auto").
+
+    gen_valid_override (B, Sg) bool / write_slot (an int or a 0-d tensor):
+    the continuous-batching engine (ops/continuous.py) runs rows at per-row
+    local steps over a ring-buffered gen cache. The KV write goes to the one
+    slot `write_slot` instead of `step`, and validity is the caller's per-row
+    ring mask instead of the lockstep `slot <= step`. K4 reads validity per
+    slot either way. RoPE only, without a window, as in the reference: the
+    key positions of ALiBi and a window assume lockstep gen slots."""
     b = token_embeds.shape[0]
     if beam_k < 1 or b % beam_k or prompt_seg.shape[0] * beam_k != b:
         raise ValueError(f"decode_step: {b} rows are not beam_k={beam_k} "
@@ -581,15 +591,25 @@ def decode_step(
     cos, sin = rope_cos_sin(positions[:, None], dh, cfg.rope_theta,
                             cfg.rope_scaling)
     dev = token_embeds.device
-    gen_valid = (torch.arange(sg, device=dev) <= step).expand(b, sg)
-    gen_valid = gen_valid.contiguous()
+    if gen_valid_override is not None:
+        if not rope or cfg.sliding_window:
+            raise NotImplementedError(
+                "per-row gen validity (continuous batching) supports RoPE "
+                "without a sliding window: the key positions of a window "
+                "or ALiBi assume lockstep gen slots")
+        gen_valid = gen_valid_override.contiguous()
+    else:
+        gen_valid = (torch.arange(sg, device=dev) <= step).expand(b, sg)
+        gen_valid = gen_valid.contiguous()
+    if write_slot is None:
+        write_slot = step
     prompt_seg, gen_valid, bias_p, bias_g, pos_ok = decode_positions(
         cfg, positions, prompt_seg, gen_valid, step, beam_k)
     if not pos_ok:
         attn_impl = "plain"  # no kernel computes this step's attention
     elif "kernel_q4p" in params["layers"]["attn"]["wq"]:
         return _decode_step_w4(params, cfg, token_embeds, prompt_cache,
-                               prompt_seg, gen_cache, step, cos, sin,
+                               prompt_seg, gen_cache, write_slot, cos, sin,
                                gen_valid, attn_impl, beam_k, beam_route)
     x = token_embeds
     for li in range(cfg.num_layers):
@@ -601,7 +621,7 @@ def decode_step(
         v = dense(y, ap["wv"]).reshape(b, 1, kvh, dh)
         if rope:
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        _write_gen(gen_cache, k, v, li, step)
+        _write_gen(gen_cache, k, v, li, write_slot)
         out = _decode_attend(q, _layer_cache(prompt_cache, li), prompt_seg,
                              _layer_cache(gen_cache, li), gen_valid,
                              attn_impl, beam_k, beam_route, bias_p, bias_g)
@@ -622,7 +642,7 @@ def _w4_mm(attn_impl: str, head_dim: int):
 
 
 def _decode_step_w4(params, cfg, token_embeds, prompt_cache, prompt_seg,
-                    gen_cache, step, cos, sin, gen_valid, attn_impl,
+                    gen_cache, write_slot, cos, sin, gen_valid, attn_impl,
                     beam_k=1, beam_route="auto"):
     """decode_step over packed-int4 layer stacks: all 7 layer matmuls go
     through K6 or, above W4_GEMV_MAX_ROWS rows, K7
@@ -643,7 +663,7 @@ def _decode_step_w4(params, cfg, token_embeds, prompt_cache, prompt_seg,
         q = apply_rope(mm(y2, ap["wq"]).reshape(b, 1, h, dh), cos, sin)
         k = apply_rope(mm(y2, ap["wk"]).reshape(b, 1, kvh, dh), cos, sin)
         v = mm(y2, ap["wv"]).reshape(b, 1, kvh, dh)
-        _write_gen(gen_cache, k, v, li, step)
+        _write_gen(gen_cache, k, v, li, write_slot)
         out = _decode_attend(q, _layer_cache(prompt_cache, li), prompt_seg,
                              _layer_cache(gen_cache, li), gen_valid,
                              attn_impl, beam_k, beam_route)

@@ -50,8 +50,8 @@ def encode_images(params: Params, cfg: LlavaConfig,
     unless one of its leaves requires grad (mm_projector_lr training)."""
     if cfg.vision_tower_type != "vit":
         raise NotImplementedError(
-            "the RADIO tower is not ported yet (ROADMAP queue 1, alt "
-            "backends)"
+            "the RADIO tower is not ported yet (ROADMAP queue 1 item 11, "
+            "alt backends)"
         )
     with torch.no_grad():
         feats = vit.encode(

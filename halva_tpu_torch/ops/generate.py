@@ -1,17 +1,24 @@
-"""Batched KV-cached greedy decoding.
+"""Batched KV-cached decoding: greedy, or nucleus sampling.
 
-Counterpart of halva_tpu/ops/generate.py, greedy single-device path. The
-prefill encodes the images, splices them into the prompts, fills the
-head-major prompt cache and takes the first token; the decode loop then
-emits one token per step from a small generated-token cache until every row
-hit EOS or the budget. Rows with prompt length 0 are dead rows: done at
-step 0, they emit eos_id.
+Counterpart of halva_tpu/ops/generate.py, single-device path. The prefill
+encodes the images, splices them into the prompts, fills the head-major
+prompt cache and takes the first token; the decode loop then emits one
+token per step from a small generated-token cache until every row hit EOS
+or the budget. Rows with prompt length 0 are dead rows: done at step 0,
+they emit eos_id.
 
 The reference compiles both phases into one XLA program with a
 `lax.while_loop`. Here the prefill runs eagerly and the decode loop is a
-body over fixed-shape device tensors (`GreedyState`) that `graph_loop`
+body over fixed-shape device tensors (`DecodeState`) that `graph_loop`
 replays from a CUDA graph on the card; testing `done.all()` syncs the host
 once per step, the reference's `cond`.
+
+Sampling (temperature > 0) draws inside that body. The reference's draw,
+`jax.random.categorical` under `fold_in(rng, step)`, is Gumbel-max; here the
+Gumbel noise is a pure function of (seed, step, row, vocab index), a
+counter-based hash in integer tensor ops keyed by the 0-d device step. So
+every replay of the graph draws fresh numbers without a host read, and one
+seed gives the same tokens from a graph, eagerly, and on the CPU.
 """
 
 from __future__ import annotations
@@ -63,6 +70,74 @@ def _prefill_impl(
     return first_tok, first_logits, spliced_len, prompt_cache, sp.segment_ids
 
 
+_M32 = 0xFFFFFFFF
+FIRST_STEP = 0x7FFFFFFF  # the step key of the first token's draw
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32): the constant in 16-bit
+    halves, so that no product leaves int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer mix (lowbias32) of int64 x in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(seed: int, step, rows: int, vocab: int,
+                 device) -> torch.Tensor:
+    """(rows, vocab) fp32 standard Gumbel noise, a pure function of (seed,
+    step, row, vocab index); `step` is a host int or a 0-d device tensor,
+    which nothing reads on the host. Uniforms carry 23 bits, so that
+    (k + 0.5) / 2**23 stays exact in fp32 and below 1: the noise is
+    finite."""
+    if isinstance(step, torch.Tensor):
+        step = step.long()
+    key = _hash32(_hash32(torch.full((), seed & _M32, dtype=torch.long,
+                                     device=device)) ^ (step & _M32))
+    ctr = torch.arange(rows * vocab, dtype=torch.long,
+                       device=device).view(rows, vocab)
+    bits = _hash32(_hash32(ctr ^ key) ^ _hash32(key ^ 0x9E3779B9))
+    u = ((bits >> 9).float() + 0.5) * (1.0 / (1 << 23))
+    return -torch.log(-torch.log(u))
+
+
+def nucleus_logits(logits: torch.Tensor, temperature: float,
+                   top_p: float) -> torch.Tensor:
+    """logits / temperature with every token outside the nucleus at -inf:
+    the cutoff is the smallest logit of the shortest sorted prefix whose
+    probability before the token is < top_p; ties with it stay in
+    (halva_tpu/ops/generate.py:_select_token)."""
+    logits = logits.float() / temperature
+    if top_p < 1.0:
+        srt = logits.sort(dim=-1, descending=True).values
+        probs = srt.softmax(dim=-1)
+        keep = probs.cumsum(dim=-1) - probs < top_p
+        cutoff = torch.where(keep, srt, torch.full_like(srt, float("inf"))
+                             ).amin(dim=-1, keepdim=True)
+        logits = torch.where(logits >= cutoff, logits,
+                             torch.full_like(logits, float("-inf")))
+    return logits
+
+
+def _select_token(logits: torch.Tensor, temperature: float, top_p: float,
+                  seed: int, step) -> torch.Tensor:
+    """Greedy (temperature 0) or nucleus sampling, (B,) int32: argmax of
+    the filtered logits plus this step's Gumbel noise."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1).to(torch.int32)
+    filtered = nucleus_logits(logits, temperature, top_p)
+    b, v = filtered.shape
+    noise = gumbel_noise(seed, step, b, v, filtered.device)
+    return (filtered + noise).argmax(dim=-1).to(torch.int32)
+
+
 def init_gen_cache_like(cfg_llm, rows: int, max_new_tokens: int,
                         prompt_cache: Params) -> Params:
     """Generated-token cache on the prompt cache's device: int8 for an int8
@@ -74,8 +149,8 @@ def init_gen_cache_like(cfg_llm, rows: int, max_new_tokens: int,
                                 quantized="k_scale" in prompt_cache)
 
 
-class GreedyState(NamedTuple):
-    """The greedy loop's state, advanced in place by its body."""
+class DecodeState(NamedTuple):
+    """The decode loop's state, advanced in place by its body."""
     tokens: torch.Tensor  # (B, max_new) int32 emitted tokens
     cur: torch.Tensor  # (B,) int32 token to emit at this step
     done: torch.Tensor  # (B,) bool
@@ -83,7 +158,7 @@ class GreedyState(NamedTuple):
     gen_cache: Params  # (L, B, KVH, Sg, Dh) leaves
 
 
-def greedy_loop(
+def decode_loop(
     params: Params,
     cfg: LlavaConfig,
     first_tok: torch.Tensor,
@@ -93,14 +168,18 @@ def greedy_loop(
     max_new_tokens: int,
     eos_id: int,
     attn_impl: str = "auto",
-) -> Tuple[GreedyState, List[Callable[[], None]]]:
-    """The greedy loop's state, made before any step (a CUDA graph captures
+    temperature: float = 0.0,
+    top_p: float = 1.0,
+    seed: int = 0,
+) -> Tuple[DecodeState, List[Callable[[], None]]]:
+    """The decode loop's state, made before any step (a CUDA graph captures
     the body over it), and its body: one step, in place — emit `cur`
     (eos_id on done rows), embed it, `decode_step` at the device step,
-    argmax, step + 1 — reading nothing on the host."""
+    select the next token (`_select_token` keyed by that step), step + 1 —
+    reading nothing on the host."""
     b = first_tok.shape[0]
     dev = first_tok.device
-    state = GreedyState(
+    state = DecodeState(
         tokens=torch.zeros((b, max_new_tokens), dtype=torch.int32,
                            device=dev),
         cur=first_tok.to(torch.int32).clone(),
@@ -119,7 +198,7 @@ def greedy_loop(
         logits, _ = llama.decode_step(
             params["llm"], cfg.llm, embeds, spliced_len + step, prompt_cache,
             prompt_seg, gen_cache, step, attn_impl=attn_impl)
-        cur.copy_(logits.argmax(dim=-1))
+        cur.copy_(_select_token(logits, temperature, top_p, seed, step))
         step.add_(1)
 
     return state, [body]
@@ -137,13 +216,16 @@ def _decode_impl(
     attn_impl: str = "auto",
     graph: Optional[bool] = None,
     loop_stats: Optional[dict] = None,
+    temperature: float = 0.0,
+    top_p: float = 1.0,
+    seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Greedy loop: (tokens (B, max_new) int32, num_generated (B,), steps).
+    """Decode loop: (tokens (B, max_new) int32, num_generated (B,), steps).
     Slots past the last step hold 0; tokens after a row's EOS are eos_id.
     `graph`, `loop_stats`: graph_loop.run_loop's `graph` and `stats`."""
-    state, bodies = greedy_loop(params, cfg, first_tok, spliced_len,
+    state, bodies = decode_loop(params, cfg, first_tok, spliced_len,
                                 prompt_cache, prompt_seg, max_new_tokens,
-                                eos_id, attn_impl)
+                                eos_id, attn_impl, temperature, top_p, seed)
     steps = graph_loop.run_loop(
         bodies, lambda: not bool(state.done.all()), max_new_tokens,
         first_tok.device, graph, loop_stats)
@@ -151,6 +233,57 @@ def _decode_impl(
     written = torch.arange(max_new_tokens, device=tokens.device)[None] < steps
     num = ((tokens != eos_id) & written).sum(dim=1).to(torch.int32)
     return tokens, num, steps
+
+
+def generate(
+    params: Params,
+    cfg: LlavaConfig,
+    input_ids: torch.Tensor,  # (B, S) right-padded, -200 image sentinel
+    images: torch.Tensor,  # (B, 3, H, W)
+    prompt_lengths: torch.Tensor,  # (B,) valid tokens before the splice
+    max_new_tokens: int,
+    eos_id: int,
+    attn_impl: str = "auto",
+    temperature: float = 0.0,
+    top_p: float = 1.0,
+    seed: int = 0,
+    kv_quant=False,
+    mesh=None,
+    graph: Optional[bool] = None,
+    loop_stats: Optional[dict] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(tokens (B, max_new) int32, num_generated (B,)).
+
+    temperature 0 is greedy (the reference's do_sample=temperature>0
+    convention); otherwise nucleus sampling with `top_p`, the first token
+    included, drawn from `seed` (the reference's `rng` key): the first
+    token under the step key FIRST_STEP, each later one under its decode
+    step. Rows stop at EOS; finished rows keep emitting eos_id. Rows with
+    prompt length 0 are dead rows: they emit eos_id at once.
+
+    kv_quant: False = bf16 prompt cache; True | "int8" = int8 values +
+    per-(token, head) scales; "int4" = nibble-packed token pairs. The gen
+    cache is int8 whenever the prompt cache is quantized. The decode loop
+    runs from a CUDA graph on the card (`graph`, `loop_stats`:
+    graph_loop.run_loop's `graph` and `stats`)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "generate(mesh=...): not ported yet: device meshes are ROADMAP "
+            "queue 1 item 10")
+    if temperature < 0 or not 0.0 < top_p <= 1.0:
+        raise ValueError(f"temperature must be >= 0 and top_p in (0, 1], "
+                         f"got {temperature}, {top_p}")
+    first_tok, first_logits, spliced_len, prompt_cache, prompt_seg = (
+        _prefill_impl(params, cfg, input_ids, images, prompt_lengths,
+                      attn_impl, kv_quant))
+    if temperature > 0.0:
+        first_tok = _select_token(first_logits, temperature, top_p, seed,
+                                  FIRST_STEP)
+    tokens, num, _ = _decode_impl(
+        params, cfg, first_tok, spliced_len, prompt_cache, prompt_seg,
+        max_new_tokens, eos_id, attn_impl, graph, loop_stats, temperature,
+        top_p, seed)
+    return tokens, num
 
 
 def generate_greedy(
@@ -166,18 +299,11 @@ def generate_greedy(
     graph: Optional[bool] = None,
     loop_stats: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy decoding: (tokens (B, max_new) int32, num_generated (B,)).
-    kv_quant: False = bf16 prompt cache; True | "int8" = int8 values +
-    per-(token, head) scales; "int4" = nibble-packed token pairs. The gen
-    cache is int8 whenever the prompt cache is quantized. The decode loop
-    runs from a CUDA graph on the card (`graph`, `loop_stats`:
-    graph_loop.run_loop's `graph` and `stats`)."""
-    first_tok, _, spliced_len, prompt_cache, prompt_seg = _prefill_impl(
-        params, cfg, input_ids, images, prompt_lengths, attn_impl, kv_quant)
-    tokens, num, _ = _decode_impl(
-        params, cfg, first_tok, spliced_len, prompt_cache, prompt_seg,
-        max_new_tokens, eos_id, attn_impl, graph, loop_stats)
-    return tokens, num
+    """Greedy decoding (the HALVA eval default): `generate` at temperature
+    0."""
+    return generate(params, cfg, input_ids, images, prompt_lengths,
+                    max_new_tokens, eos_id, attn_impl, kv_quant=kv_quant,
+                    graph=graph, loop_stats=loop_stats)
 
 
 def decode_tokens(tokens, num_generated, tokenizer, eos_id: int,

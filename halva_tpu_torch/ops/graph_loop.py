@@ -18,6 +18,12 @@ the reference's `cond`.
 On the CPU the same body runs eagerly. That choice comes from the device,
 never from a failure: a capture that fails raises.
 
+A capture may outlive one loop: the continuous-batching engine
+(ops/continuous.py) runs its chunks as loops over one body, and refills
+rows between them by writing into the captured state in place. It passes
+one `LoopGraphs` to every `run_loop` call: the first call captures into
+it, and every later call replays from its first step.
+
 Launch counts: a kernel's wrapper adds one to `_kernels.launches` where it
 launches, which under a graph happens once, at capture, when nothing runs.
 `StepGraph` takes the counts recorded at its capture back out and adds them
@@ -68,6 +74,14 @@ class StepGraph:
         _kernels.launches.update(self.launches)
 
 
+class LoopGraphs:
+    """The graphs of a loop's bodies, kept across `run_loop` calls over the
+    same bodies and the same state tensors."""
+
+    def __init__(self):
+        self.graphs = None
+
+
 def run_loop(
     bodies: Sequence[Callable[[], None]],
     more: Callable[[], bool],
@@ -75,6 +89,7 @@ def run_loop(
     device: torch.device,
     graph: Optional[bool] = None,
     stats: Optional[dict] = None,
+    keep: Optional[LoopGraphs] = None,
 ) -> int:
     """Run step n = 0, 1, ... with `bodies[n % len(bodies)]` while n <
     max_steps and `more()`; return the number of steps. Several bodies take
@@ -88,13 +103,14 @@ def run_loop(
     test after the first step returned (the eager step, done on the device;
     0 without such a test), and
     "loop_s" for the whole loop, its device work included (the card is
-    synchronized at the end)."""
+    synchronized at the end). `keep`: the graphs captured by an earlier call
+    over these bodies, replayed from step 0, or filled by this call."""
     device = torch.device(device)
     use_graph = device.type == "cuda" if graph is None else graph
     if use_graph and device.type != "cuda":
         raise ValueError("a CUDA graph loop needs its state on the card, "
                          f"not on {device}")
-    graphs = None
+    graphs = keep.graphs if keep is not None else None
     capture_s = first_step_s = 0.0
     t0 = time.perf_counter()
     n = 0
@@ -107,7 +123,7 @@ def run_loop(
         k = n % len(bodies)
         if not use_graph:
             bodies[k]()
-        elif n == 0:
+        elif n == 0 and graphs is None:
             side = _side_stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):
@@ -119,6 +135,8 @@ def run_loop(
                 pool = torch.cuda.graph_pool_handle()
                 graphs = [StepGraph(b, pool) for b in bodies]
                 capture_s = time.perf_counter() - tc
+                if keep is not None:
+                    keep.graphs = graphs
             graphs[k].replay()
         n += 1
     if stats is not None:

@@ -115,3 +115,23 @@ def test_synth_tree_has_the_references_layout(weights):
     if weights == "int4g":
         s = got["llm"]["layers"]["mlp"]["down"]["kernel_scale4p"]
         assert s.shape[2] == 2  # K = 256: one scale row per 128 rows
+
+
+def test_a_failed_run_prints_the_references_failure_line(tiny_env,
+                                                         monkeypatch,
+                                                         capsys):
+    """A run that fails exits 1 and prints one JSON line with the keys of the
+    reference's `_fail` line, value 0.0 and the error."""
+    monkeypatch.setenv("HALVA_BENCH_WEIGHTS", "no-such-mode")
+    assert bench.run(device="cpu") == 1
+    line = capsys.readouterr().out.strip().splitlines()
+    assert len(line) == 1
+    got = json.loads(line[0])
+    with pytest.raises(SystemExit) as exit_:
+        jbench._fail("a failure")
+    assert exit_.value.code == 1
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(got) == set(want)
+    assert got["metric"] == want["metric"] and got["unit"] == want["unit"]
+    assert got["value"] == 0.0 and got["vs_baseline"] == 0.0
+    assert "no-such-mode" in got["error"]

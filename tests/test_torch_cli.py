@@ -9,8 +9,9 @@ tokenizer from tests/tokutil.py, PNG images, `--prefetch-workers 2`.
   tree (the reference's texts may differ: its bf16 tree rounds in another
   framework);
 - `pope` with an annotation dir scores with the copied POPE scorer;
-- the reference's options the port does not run yet raise, naming their
-  ROADMAP items, before anything is loaded;
+- `--temperature`, `--top-p` and `--continuous` run end to end; the
+  reference's options the port does not run yet (device meshes) raise,
+  naming their ROADMAP item, before anything is loaded;
 - the runner's prefetch pool gives the texts of the serial run.
 """
 
@@ -133,9 +134,6 @@ def test_pope_cli_scores_with_the_annotations(setup, tmp_path, capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--mesh-data", "2"], "item 10"),
     (["--mesh-model", "2"], "item 10"),
-    (["--temperature", "0.5"], "item 9"),
-    (["--top-p", "0.9"], "item 9"),
-    (["--continuous"], "item 9"),
 ])
 def test_unported_flags_raise_naming_their_items(setup, tmp_path, flags,
                                                  item, monkeypatch):
@@ -146,6 +144,25 @@ def test_unported_flags_raise_naming_their_items(setup, tmp_path, flags,
     with pytest.raises(NotImplementedError, match=item):
         cli.main(_args(setup, "pope", str(tmp_path / "a.jsonl"))
                  + ["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--temperature", "0.5"],
+    ["--top-p", "0.9"],
+    ["--continuous", "--batch-size", "8"],
+])
+def test_decode_variant_flags_answer_every_question(setup, tmp_path, flags):
+    """The reference's sampling and continuous-batching flags run end to end
+    on the CPU and write a row for every question; top-p alone and
+    continuous batching are greedy, so they answer as the default run."""
+    out = str(tmp_path / "port.jsonl")
+    cli.main(_args(setup, "pope", out) + ["--device", "cpu", *flags])
+    got = _rows(out)
+    assert [r["question_id"] for r in got] == list(range(5))
+    assert all(isinstance(r["text"], str) for r in got)
+    if flags[0] != "--temperature":
+        reqs = runner.vqa_requests(setup["qfile"], setup["pope_imgs"])
+        assert [r["text"] for r in got] == _port_texts(setup, reqs)
 
 
 def test_prefetch_pool_answers_like_the_serial_run(setup):

@@ -1454,6 +1454,104 @@ def test_a_failing_capture_raises(cuda):
     assert float(x) == 1  # the eager first step ran, nothing after it
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree_kind", ["bf16", "int4g"])
+def test_sampled_graph_loop_equals_the_eager_body(cuda, tree_kind):
+    """Nucleus sampling draws inside the captured body from the device
+    step: the graph's tokens are the eager body's, token for token, with the
+    same launches; another seed draws other tokens."""
+    from halva_tpu_torch.ops.generate import generate
+
+    params, cfg, inputs = _graph_model(tree_kind)
+    kv = {"kv_quant": "int4"} if tree_kind == "int4g" else {}
+    runs = []
+    with torch.inference_mode():
+        for graph, seed in ((None, 5), (False, 5), (None, 6)):
+            st = {}
+            _kernels.reset_launches()
+            tok, num = generate(params, cfg, *inputs, max_new_tokens=12,
+                                eos_id=-1, temperature=0.7, top_p=0.9,
+                                seed=seed, graph=graph, loop_stats=st, **kv)
+            torch.cuda.synchronize()
+            runs.append((tok.cpu(), dict(_kernels.launches), st))
+    (tok_g, l_g, st_g), (tok_e, l_e, st_e), (tok_o, _, _) = runs
+    assert st_g["graph"] is True and st_e["graph"] is False
+    assert torch.equal(tok_g, tok_e) and l_g == l_e
+    assert not torch.equal(tok_g, tok_o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree_kind", ["bf16", "int4g"])
+def test_continuous_engine_graph_equals_eager(cuda, tree_kind):
+    """The engine's chunks replay one capture across refills: its tokens
+    are those of its eager run, with the same launches."""
+    import numpy as np
+
+    from halva_tpu_torch.ops import graph_loop
+    from halva_tpu_torch.ops.continuous import ContinuousEngine, Request
+
+    params, cfg, _ = _graph_model(tree_kind)
+    kv = "int4" if tree_kind == "int4g" else False
+    rng = np.random.RandomState(0)
+    reqs = []
+    for _ in range(20):
+        ids = rng.randint(5, 1000, (int(rng.randint(9, 25)),)).astype(
+            np.int32)
+        ids[1] = -200
+        reqs.append(Request(ids=ids, image=rng.randn(3, 28, 28).astype(
+            np.float32), budget=int(rng.randint(3, 17))))
+    captures = []
+    step_graph = graph_loop.StepGraph
+
+    def counted(*a, **k):
+        captures.append(1)
+        return step_graph(*a, **k)
+
+    out = []
+    with torch.inference_mode(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graph_loop, "StepGraph", counted)
+        for graph in (None, False):
+            eng = ContinuousEngine(params, cfg, batch=8, max_new_tokens=16,
+                                   eos_id=-1, prompt_pad=24, chunk=4,
+                                   kv_quant=kv, graph=graph)
+            _kernels.reset_launches()
+            res = eng.run(reqs)
+            torch.cuda.synchronize()
+            out.append((res, dict(_kernels.launches), dict(eng.stats)))
+    (res_g, l_g, st_g), (res_e, l_e, st_e) = out
+    assert captures == [1] and st_g == st_e and st_g["refills"] >= 2
+    assert l_g == l_e
+    for (tg, ng), (te, ne), rq in zip(res_g, res_e, reqs):
+        assert ng == ne == rq.budget and np.array_equal(tg, te)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "kv4"])
+def test_decode_attn_takes_ring_validity(cuda, mode):
+    """K4 over gen slots valid in no prefix (the continuous engine's ring)
+    matches its plain version."""
+    b, kvh, h, sp, sg, d = 4, 8, 32, 300, 128, 128
+    q = torch.randn(b, 1, h, d, generator=cuda, device="cuda").bfloat16()
+    if mode == "bf16":
+        pc = {n: torch.randn(b, kvh, sp, d, generator=cuda,
+                             device="cuda").bfloat16() for n in ("k", "v")}
+        gc = {n: torch.randn(b, kvh, sg, d, generator=cuda,
+                             device="cuda").bfloat16() for n in ("k", "v")}
+    else:
+        pc, gc = _quant_caches(cuda, "kv4", b, kvh, sp, sg, d)
+    seg = torch.ones(b, sp, dtype=torch.int32, device="cuda")
+    seg[1, 200:] = 0
+    g = torch.tensor(200, device="cuda")
+    row_start = torch.tensor([0, 150, 199, 200], device="cuda")
+    s = torch.arange(sg, device="cuda")[None, :]
+    valid = (g - torch.remainder(g - s, sg)) >= row_start[:, None]
+    # row 1 holds global steps 150-200 at slots 22-72: valid in no prefix
+    assert valid[1, 22:73].all() and not valid[1, :22].any()
+    assert not valid[1, 73:].any() and valid[0].all()
+    got = decode_attend_layer(q, pc, seg, gc, valid)
+    _close(got, decode_attend_plain(q, pc, seg, gc, valid))
+
+
 # ---- the train CLI on the card (train/run.py, train/checkpoint.py) -------
 
 class _PreTokenized:

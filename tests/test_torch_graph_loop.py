@@ -219,3 +219,20 @@ def test_run_loop_stop_rule_and_bodies_in_turn():
     assert graph_loop.run_loop([body(0)], lambda: False, 3, "cpu") == 0
     with pytest.raises(ValueError, match="CUDA graph"):
         graph_loop.run_loop([body(0)], lambda: True, 3, "cpu", graph=True)
+
+
+def test_run_loop_kept_graphs_on_the_cpu():
+    """`keep` carries a loop's graphs across calls; on the CPU the bodies
+    run eagerly, so nothing is captured and every call counts its own
+    steps."""
+    count = torch.zeros((), dtype=torch.long)
+    keep = graph_loop.LoopGraphs()
+    for _ in range(3):
+        stats = {}
+        n = graph_loop.run_loop([lambda: count.add_(1)],
+                                lambda: int(count) % 4 != 3, 8, "cpu",
+                                stats=stats, keep=keep)
+        assert stats["graph"] is False and stats["capture_s"] == 0.0
+        assert keep.graphs is None
+        count.add_(1)  # past the stop value
+    assert n == 3 and int(count) == 12

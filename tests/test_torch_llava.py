@@ -227,3 +227,11 @@ def test_prefill_quantized_cache_layout(kv_quant):
         assert tuple(gen_cache[key].shape) == want_gen[key].shape, key
         assert str(gen_cache[key].dtype).split(".")[-1] == str(
             want_gen[key].dtype), key
+
+
+def test_radio_tower_refused_naming_its_item():
+    """The RADIO tower is not ported: the refusal names ROADMAP queue 1
+    item 11, as every other refusal of the port names its item."""
+    cfg = dataclasses.replace(port_cfg(LLAVA_TINY), vision_tower_type="radio")
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        llava.encode_images({}, cfg, torch.zeros(1, 3, 28, 28))

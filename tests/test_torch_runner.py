@@ -105,10 +105,7 @@ def test_batched_generator_quantized_tree(tmp_path, kv_quant):
 
 def test_unported_options_raise():
     _, tp = shared_trees()
-    for unported, item in (({"temperature": 0.5}, "item 9"),
-                           ({"top_p": 0.9}, "item 9"),
-                           ({"continuous": True}, "item 9"),
-                           ({"mesh": object()}, "item 10")):
+    for unported, item in (({"mesh": object()}, "item 10"),):
         with pytest.raises(NotImplementedError, match=item):
             runner.BatchedGenerator(tp, TCFG, SPTok(), None, **unported)
     with pytest.raises(TypeError):  # not an argument of either package
@@ -177,3 +174,45 @@ def test_reference_arguments_pass_at_their_neutral_values(tmp_path):
     plain = runner.BatchedGenerator(tp, TCFG, SPTok(), proc, **kw).run(reqs)
     assert runner.BatchedGenerator(tp, TCFG, SPTok(), proc, **kw,
                                    **neutral).run(reqs) == plain
+
+
+@pytest.mark.parametrize("options", [
+    dict(temperature=0.7, top_p=0.9),
+    dict(top_p=0.9),
+    dict(continuous=True, batch_size=8),
+])
+def test_decode_variants_run_end_to_end(tmp_path, monkeypatch, options):
+    """Sampling, top_p alone (greedy: temperature 0) and continuous batching
+    answer every request. A sampled run draws batch bi from seed + bi * B
+    (the reference's per-batch key) and repeats; the others give the
+    greedy texts."""
+    _, tp = shared_trees()
+    kw = dict(batch_size=2, max_new_tokens=4, prompt_bucket=16)
+    proc = ImageProcessor(size=28, crop_size=28)
+    greedy = runner.BatchedGenerator(tp, TCFG, SPTok(), proc, **kw).run(
+        _requests(tmp_path, runner))
+    seeds = []
+    generate = runner.generate
+
+    def spy(*args, **kwargs):
+        seeds.append(kwargs["seed"])
+        return generate(*args, **kwargs)
+
+    monkeypatch.setattr(runner, "generate", spy)
+    gen = runner.BatchedGenerator(tp, TCFG, SPTok(), proc,
+                                  **{**kw, "seed": 3, **options})
+    got = gen.run(_requests(tmp_path, runner))
+    assert len(got) == 5 and all(isinstance(t, str) for t in got)
+    if options.get("continuous"):
+        assert seeds == [] and got == greedy
+        assert gen.last_stats["continuous"] is True
+        return
+    assert seeds == [3, 5, 7]
+    if options.get("temperature", 0) == 0:
+        assert got == greedy
+    else:
+        again = runner.BatchedGenerator(
+            tp, TCFG, SPTok(), proc, **{**kw, "seed": 3, **options}).run(
+                _requests(tmp_path, runner))
+        assert again == got
+    assert set(gen.last_stats) == STATS
