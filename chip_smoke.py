@@ -78,6 +78,22 @@ bytes; a second run stopped at step 2 and resumed equals it at steps 3-4;
 the component checkpoint, loaded by models/builder.py, is merge_lora of
 the trained tree bit for bit and decodes the same 8 greedy tokens (K4).
 
+Packed DPA and the 8-bit Adam moments (after the train entry point, on the
+same save_params dir): samples of 96-512 text tokens (mean 256, from a
+seed) packed by train/pack.PackedDPABatcher into 2 pn rows and 1 ref row
+of 2,624 tokens (3 samples a step, 3 documents in every pn row, positions
+restarting per document); K1, K2 and K3 against their plain versions on
+the batcher's own segment ids, timed beside their bounds and SDPA with the
+packed mask; one packed micro-step (llava.forward_packed, the packed loss)
+against the unpacked micro-step on the same samples within 4/3 of a noise
+floor; 3 packed micro-steps with 8-bit moments, their 160 K1 + 64 K2 + 64
+K3 launches each added to the `kernels` line, and their time beside the
+unpacked micro-step's on the same samples as samples/s; 8 updates of
+train/optim8bit on the 7B LoRA tree against fp32 moments, its state bytes
+and update time beside torch.optim.AdamW's; the train CLI with
+`--pack true --optim adamw8bit`, 4 micro-steps, and a run stopped at 2
+and resumed equal to it.
+
 The eval path's decode variants, on the int4g tree with int4 prompt KV
 (after its graph loops; briefly on the bf16 tree, where temperature 0 is
 greedy): nucleus sampling (`generate`, temperature 0.7, top_p 0.9) at batch
@@ -138,7 +154,15 @@ runs) on a fresh random tree, with the rows of K7 and K8 alone.
     python3 chip_smoke.py --train-cli-only
 
 runs only the train step (no plain-path comparison) for its time per
-micro-step, then the train entry point's phase, on a fresh random tree.
+micro-step, then the train entry point's phase and the packed-train phase,
+on a fresh random tree.
+
+    python3 chip_smoke.py --pack-only
+
+runs only the packed-train phase above (its K1-K3 rows, the packed against
+the unpacked micro-step, the launches and times, 8-bit Adam, the packed
+train CLI) on a fresh random tree, with its own save_params dir, and prints
+its rows.
 
     python3 chip_smoke.py --serve-variants-only
 
@@ -153,6 +177,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import itertools
 import json
 import os
 import shutil
@@ -239,11 +264,15 @@ from halva_tpu_torch.ops.w4_matmul import (
     w4_gemm,
     w4_gemm_plain,
 )
+from halva_tpu_torch.train import optim8bit
+from halva_tpu_torch.train.data import collate
 from halva_tpu_torch.train.lora import add_lora
+from halva_tpu_torch.train.pack import PackedDPABatcher
 from halva_tpu_torch.train.trainer import (
     TrainConfig,
     dpa_step_fns,
     init_train_state,
+    packed_dpa_step_fns,
 )
 
 CFG = LLAVA_V15_7B  # the first train phase's model
@@ -802,10 +831,11 @@ def _sdpa_mask(mask, bias):
 
 
 def flash_mode_case(gen, label, b, s, h, kvh, lens, modes, packed_at=None,
-                    shard=None, timed=False):
+                    shard=None, timed=False, seg=None):
     """K1, K2 and K3 in one mode against their plain versions on random bf16
     inputs of B rows of S tokens (padded to `lens`, two documents per row
-    from `packed_at` on). `shard` = (offset, rows): only that shard of the
+    from `packed_at` on; or with the segment ids `seg`, (B, S) int32, as
+    given). `shard` = (offset, rows): only that shard of the
     queries runs, with q_offset, against all keys, and is also held against
     the same rows of the full call. Returns {"fwd": .., "dq": .., "dkv": ..}
     of max_abs_err and, when timed, ms, plain_ms, library_ms and the bound
@@ -817,7 +847,8 @@ def flash_mode_case(gen, label, b, s, h, kvh, lens, modes, packed_at=None,
 
     q, k, v, do = r(b, s, h, d), r(b, s, kvh, d), r(b, s, kvh, d), r(
         b, s, h, d)
-    seg = lengths_to_seg(lens, s, dev)
+    if seg is None:
+        seg = lengths_to_seg(lens, s, dev)
     if packed_at is not None:
         seg = seg * (1 + (torch.arange(s, device=dev) >= packed_at).int())
     kw = dict(modes)
@@ -2993,8 +3024,8 @@ def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
                         f"{what}train micro-step {i}")
         if opt.updates and (i + 1) % tcfg.grad_accum_steps == 0:
             sums.append(bit_sums(policy))
-    for name in ("flash_bwd_dq" + suffix, "flash_bwd_dkv" + suffix):
-        kernels[name]["launches"] = seen.get(name, 0)
+    add_launches(kernels, {name: seen.get(name, 0) for name in (
+        "flash_bwd_dq" + suffix, "flash_bwd_dkv" + suffix)})
 
     lora_paths = {p for p, t in tree.flatten(trainable) if t is not None}
     first, second = changed(sums[0], sums[1]), changed(sums[1], sums[2])
@@ -3230,9 +3261,11 @@ def comparison_policy(params: dict) -> dict:
 
 
 def micro_step_grads(policy: dict, batch: dict, cfg, noise=None,
-                     impl: str = "auto"):
-    """(alignment, kl, flat LoRA grads) of one DPA micro-step on `policy`
-    on path `impl`; with `noise`, the text-embedding table is perturbed."""
+                     impl: str = "auto", packed: int = 0):
+    """(alignment, kl, flat LoRA grads, loss) of one DPA micro-step on
+    `policy` on path `impl`; with `noise`, the text-embedding table is
+    perturbed; with `packed` (max_samples), `batch` is a packed batch and
+    the step is packed_dpa_step_fns'."""
     tcfg = TrainConfig(grad_accum_steps=1, num_train_steps=400, remat=True,
                        loss_chunk=256, attn_impl=impl)
     trainable, frozen, opt, _ = init_train_state(policy, tcfg)
@@ -3240,12 +3273,16 @@ def micro_step_grads(policy: dict, batch: dict, cfg, noise=None,
         frozen = tree.map_tree(lambda x: x, frozen)
         frozen["llm"]["embed"]["embedding"] = perturbed(
             frozen["llm"]["embed"]["embedding"], noise)
-    step, _ = dpa_step_fns(cfg, tcfg, opt)
+    if packed:
+        step, _ = packed_dpa_step_fns(cfg, tcfg, opt, max_samples=packed)
+    else:
+        step, _ = dpa_step_fns(cfg, tcfg, opt)
     _, parts, grads = step.loss_and_grads(trainable, frozen, None, batch)
     flat = torch.cat([g.float().flatten() for _, g in tree.flatten(grads)
                       if g is not None])
     torch.cuda.synchronize()
-    return float(parts.alignment), float(parts.divergence), flat
+    return (float(parts.alignment), float(parts.divergence), flat,
+            float(parts.total))
 
 
 def run_train_quant(qtree: dict, kernels: dict, what: str,
@@ -4074,7 +4111,7 @@ def _greedy_one(params, cfg) -> tuple:
     return tokens, dict(_kernels.launches)
 
 
-def run_train_cli(params, cfg, train_ms: float) -> None:
+def run_train_cli(params, cfg, train_ms: float, then=None) -> None:
     """train.run.train, the train CLI's entry, at llava-v1.5-7b's full width
     and depth on the bf16 tree: its save_params dir as the base (no orbax);
     run A, 4 micro-steps of 2 rows at grad_accum 2, LoRA r=128, a save
@@ -4229,10 +4266,425 @@ def run_train_cli(params, cfg, train_ms: float) -> None:
         if not ok:
             raise AssertionError("train CLI: the resumed run differs from "
                                  "the uninterrupted one")
+        print(f"train CLI phase: {time.perf_counter() - t_phase:.1f} s wall")
+        if then is not None:
+            then(base)  # a further phase on the same base dir
     finally:
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
-    print(f"train CLI phase: {time.perf_counter() - t_phase:.1f} s wall")
+
+
+# ---- packed DPA (train/pack.py, llava.forward_packed, the packed loss and
+# step) and the 8-bit Adam moments (train/optim8bit.py) ---------------------
+
+PACK_TEXT = (96, 512, 256, 96)  # text tokens a document: min, max, mean, sd
+PACK_SEED = 34  # every pn row of the first packed batches holds 3 documents
+PACK_SAMPLES = 16
+PACK_BATCH = 4  # per_device_batch: max_samples of a packed batch
+PACK_ROWS, PACK_REF_ROWS = 2, 1
+PACK_MAX_LENGTH = 2048  # the CLI's default max_length
+# the CLI's default pack_seq_len: r64(max_length + T - 1), 2624 = 41 x 64
+PACK_SEQ = -(-(PACK_MAX_LENGTH + LLAVA_V15_7B.num_image_tokens - 1)
+             // 64) * 64
+PACK_STEPS = 5  # packed micro-steps timed (the first a warm-up)
+ADAM8_UPDATES = 8
+ADAM8_LR = 1e-4
+# 8-bit moments against fp32 moments (the same update code, min_quant_size
+# above every leaf) after ADAM8_UPDATES updates of seeded N(0, 1e-3^2)
+# grads at lr ADAM8_LR: the relative error of the params' total change.
+# Each moment's block code step is absmax/127 (m) or max/255 of sqrt(v),
+# ~1 % of a block's RMS, so the direction m / sqrt(v) moves by ~1 % where
+# the codes are nonzero, and the few elements of a block whose codes round
+# to 0 at the first update take no step. This phase run on the CPU with a
+# 2-layer LoRA tree of the same leaf kinds reads 9.1e-3; the bound is about
+# three times that.
+ADAM8_REL = 0.03
+
+
+class PackSamples(CliSamples):
+    """HallDataset.__getitem__'s samples like CliSamples', with text
+    lengths drawn from a seed: N(256, 96) rounded and clipped to 96-512
+    (TRAIN7B_PACK.json's 256-token mean texts) for each of pos, neg and ref;
+    the image sentinel at 1, labels on the second half, two phrase spans on
+    pos and neg."""
+
+    def __init__(self, cfg, n: int = PACK_SAMPLES, seed: int = PACK_SEED):
+        lo, hi, mean, sd = PACK_TEXT
+        rng = np.random.RandomState(seed)
+        lens = np.clip(np.rint(rng.normal(mean, sd, (n, 3))), lo, hi)
+        size = cfg.vision.image_size
+        vocab = min(30000, cfg.llm.vocab_size)
+
+        def seq(t: int, phrases: bool):
+            ids = rng.randint(5, vocab, t).astype(np.int32)
+            ids[1] = IMAGE_TOKEN_INDEX
+            lab = ids.copy()
+            lab[: t // 2] = IGNORE_INDEX
+            sg = np.zeros(t, np.int32)
+            if phrases:
+                sg[t // 2: t // 2 + 3] = 1
+                sg[t // 2 + 4: t // 2 + 7] = 2
+            return ids, lab, sg
+
+        self.items = []
+        for a, b, c in lens.astype(int):
+            (i1, l1, g1), (i2, l2, g2), (i3, l3, _) = (
+                seq(a, True), seq(b, True), seq(c, False))
+            self.items.append(dict(
+                input_ids=i1, labels=l1, pos_signs=g1, neg_input_ids=i2,
+                neg_labels=l2, neg_signs=g2, ref_input_ids=i3,
+                ref_labels=l3,
+                image=rng.randn(3, size, size).astype(np.float32),
+                ref_image=rng.randn(3, size, size).astype(np.float32)))
+
+
+def pack_batcher(cfg) -> PackedDPABatcher:
+    """The train CLI's batcher at --per-device-batch PACK_BATCH,
+    --pack-rows PACK_ROWS, --pack-ref-rows PACK_REF_ROWS and the default
+    pack_seq_len."""
+    return PackedDPABatcher(
+        seq_len=PACK_SEQ, pn_rows=PACK_ROWS, ref_rows=PACK_REF_ROWS,
+        max_samples=PACK_BATCH, num_image_tokens=cfg.num_image_tokens,
+        pad_token_id=0,
+        image_shape=(3, cfg.vision.image_size, cfg.vision.image_size))
+
+
+def on_card(host: dict) -> dict:
+    return {k: torch.from_numpy(np.asarray(v)).to(DEVICE)
+            for k, v in host.items()}
+
+
+def step_ms(step, trainable, frozen, opt, batch) -> float:
+    """One micro-step (the optimizer included), CUDA events around it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    m = step(trainable, frozen, None, opt, batch)[2]
+    end.record()
+    torch.cuda.synchronize()
+    if not all(np.isfinite(float(x)) for x in m):
+        raise AssertionError("packed phase: a loss is not finite")
+    return start.elapsed_time(end)
+
+
+def run_pack_steps(params, cfg, kernels: dict, ds, host: list,
+                   spans: list):
+    """The main path of the phase: PACK_STEPS packed micro-steps (AdamW
+    with 8-bit moments, grad_accum 2) with their K1-K3 launches, then the
+    unpacked micro-step on each batch's samples (collate pads to the
+    longest) for its time."""
+    layers = cfg.llm.num_layers
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    policy = add_lora(params, gen, rank=128, alpha=256.0)
+    tcfg = TrainConfig(grad_accum_steps=2, num_train_steps=400, remat=True,
+                       loss_chunk=256, optim="adamw8bit")
+    trainable, frozen, opt, _ = init_train_state(policy, tcfg)
+    step, _ = packed_dpa_step_fns(cfg, tcfg, opt, max_samples=PACK_BATCH)
+    batches = [on_card(h) for h in host]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    seen, packed_ms, total = {}, [], collections.Counter()
+    for i, batch in enumerate(batches):
+        packed_ms.append(step_ms(step, trainable, frozen, opt, batch))
+        now = dict(_kernels.launches)
+        per_step = {k: now[k] - seen.get(k, 0) for k in now}
+        seen = now
+        total.update(per_step)
+        expect_launches(per_step, {"flash_fwd": 5 * layers,
+                                   "flash_bwd_dq": 2 * layers,
+                                   "flash_bwd_dkv": 2 * layers},
+                        f"packed train micro-step {i}")
+    add_launches(kernels, dict(total))
+    del policy, trainable, frozen, opt, step, batches
+    torch.cuda.empty_cache()
+
+    policy = add_lora(params, torch.Generator(device=DEVICE).manual_seed(1),
+                      rank=128, alpha=256.0)
+    trainable, frozen, opt, _ = init_train_state(policy, tcfg)
+    step, _ = dpa_step_fns(cfg, tcfg, opt)
+    unpacked_ms, widths = [], []
+    for lo, hi in spans:
+        ub = on_card(collate(ds.items[lo:hi], pad_token_id=0))
+        widths.append(ub["input_ids"].shape[1] + cfg.num_image_tokens - 1)
+        unpacked_ms.append(step_ms(step, trainable, frozen, opt, ub))
+    del policy, trainable, frozen, opt, step
+    torch.cuda.empty_cache()
+    n = [hi - lo for lo, hi in spans]
+    pk = statistics.mean(packed_ms[1:])
+    un = statistics.mean(unpacked_ms[1:])
+    per = statistics.mean(n[1:])
+    print(f"packed train main path ({gpu_line()}): "
+          f"{pk:.1f} ms per packed micro-step (mean of micro-steps "
+          f"1-{len(n) - 1}; all: " + ", ".join(f"{t:.1f}" for t in packed_ms)
+          + f" ms, CUDA events) of {PACK_ROWS} + {PACK_REF_ROWS} rows x "
+          f"{PACK_SEQ} tokens holding {n} samples: {per / pk * 1e3:.3f} "
+          f"samples/s; the unpacked micro-step on the same samples (rows "
+          f"padded to {widths} spliced tokens) {un:.1f} ms (all: "
+          + ", ".join(f"{t:.1f}" for t in unpacked_ms)
+          + f"): {per / un * 1e3:.3f} samples/s; packed / unpacked "
+          f"samples/s {un / pk:.3f}x")
+    return pk, un
+
+
+def compare_packed(params, cfg, ds, host0: dict, span) -> None:
+    """One packed micro-step against the unpacked micro-step on the same
+    samples: loss, alignment, KL and LoRA grads, within TRAIN_FLOOR_FACTOR
+    of the noise floor (the unpacked micro-step against itself with the
+    text embeddings perturbed, the largest of FLOOR_DRAWS draws)."""
+    cmp = comparison_policy(params)
+    ub = on_card(collate(ds.items[span[0]:span[1]], pad_token_id=0))
+    noise = torch.Generator(device=DEVICE).manual_seed(3)
+    runs = {"packed": micro_step_grads(cmp, on_card(host0), cfg,
+                                       packed=PACK_BATCH),
+            "unpacked": micro_step_grads(cmp, ub, cfg)}
+    for i in range(FLOOR_DRAWS):
+        runs[f"floor{i}"] = micro_step_grads(cmp, ub, cfg, noise)
+    want = runs["unpacked"]
+
+    def errs(got):
+        return (abs(got[3] - want[3]) / abs(want[3]),
+                abs(got[0] - want[0]) / abs(want[0]),
+                abs(got[1] - want[1]) / abs(want[1]),
+                rel_err(got[2], want[2]))
+
+    got = errs(runs["packed"])
+    draws = [errs(runs[f"floor{i}"]) for i in range(FLOOR_DRAWS)]
+    floor = tuple(max(x) for x in zip(*draws))
+    finite = all(np.isfinite(r[0]) and np.isfinite(r[1]) and np.isfinite(
+        r[3]) and bool(torch.isfinite(r[2]).all()) for r in runs.values())
+    ok = finite and all(e <= TRAIN_FLOOR_FACTOR * f
+                        for e, f in zip(got, floor))
+    names = ("loss", "alignment", "kl", "LoRA grads")
+    print(f"packed vs unpacked micro-step ({span[1] - span[0]} samples, "
+          f"lora_b ~ {LORA_B_STD} N(0,1)): unpacked loss {want[3]:.6f}, "
+          f"alignment {want[0]:.6f}, kl {want[1]:.4e}; packed loss "
+          f"{runs['packed'][3]:.6f}, alignment {runs['packed'][0]:.6f}, kl "
+          f"{runs['packed'][1]:.4e}; rel err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, got))
+          + "; noise floor (unpacked vs unpacked with the text embeddings x "
+          f"(1 + 2^-7 N(0,1)), the largest of {FLOOR_DRAWS} draws) "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, floor))
+          + "; the draws: " + "; ".join(
+              "/".join(f"{e:.3e}" for e in d) for d in draws)
+          + f"; bound {TRAIN_FLOOR_FACTOR:.3f} x floor "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the packed micro-step disagrees with the "
+                             "unpacked one")
+
+
+def run_adam8(params) -> None:
+    """optim8bit on the 7B LoRA tree (r=128 on the 7 linears of every
+    layer): ADAM8_UPDATES updates from seeded grads against the same
+    updates with fp32 moments, on fp32 copies of the leaves (a bf16 param
+    would round these small steps away); the state bytes beside
+    torch.optim.AdamW's (bf16 moments, as the train step keeps them); one
+    update's device time beside AdamW's on the bf16 leaves."""
+    policy = add_lora(params, torch.Generator(device=DEVICE).manual_seed(5),
+                      rank=128, alpha=256.0)
+    leaves = [t for p, t in tree.flatten(policy)
+              if p[-1] in ("lora_a", "lora_b")]
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    for t in leaves:  # lora_b starts at 0: move it off, as training does
+        t.add_(torch.randn(t.shape, generator=gen, device=DEVICE).to(
+            t.dtype) * 1e-3)
+    n = sum(t.numel() for t in leaves)
+    p8 = [t.float().clone().requires_grad_(True) for t in leaves]
+    pf = [t.float().clone().requires_grad_(True) for t in leaves]
+    opt8 = optim8bit.AdamW8bit(p8, lr=ADAM8_LR)
+    optf = optim8bit.AdamW8bit(pf, lr=ADAM8_LR, min_quant_size=n + 1)
+    for i in range(ADAM8_UPDATES):
+        gen = torch.Generator(device=DEVICE).manual_seed(100 + i)
+        for a, b in zip(p8, pf):
+            a.grad = torch.randn(a.shape, generator=gen, device=DEVICE) * 1e-3
+            b.grad = a.grad
+        opt8.step()
+        optf.step()
+    torch.cuda.synchronize()
+    num = sum(float((a - b).detach().square().sum())
+              for a, b in zip(p8, pf))
+    den = sum(float((b.detach() - t.float()).square().sum())
+              for b, t in zip(pf, leaves))
+    rel = (num / den) ** 0.5
+    bytes8 = optim8bit.state_bytes(opt8)
+    del p8, pf, opt8, optf
+    torch.cuda.empty_cache()
+
+    # one update's device time on the bf16 leaves, each optimizer alone
+    def timed(opt_cls, **kw):
+        ps = [t.detach().clone().requires_grad_(True) for t in leaves]
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        for p in ps:
+            p.grad = (torch.randn(p.shape, generator=gen, device=DEVICE)
+                      * 1e-3).to(p.dtype)
+        opt = opt_cls(ps, lr=ADAM8_LR, **kw)
+        ms = timed_ms(opt.step, iters=5, warmup=1)
+        nbytes = optim8bit.state_bytes(opt)
+        del ps, opt
+        torch.cuda.empty_cache()
+        return ms, nbytes
+
+    ms8, _ = timed(optim8bit.AdamW8bit)
+    msw, bytesw = timed(torch.optim.AdamW)
+    ok = rel <= ADAM8_REL and np.isfinite(rel)
+    print(f"8-bit Adam on the 7B LoRA tree ({gpu_line()}): {len(leaves)} "
+          f"leaves, {n / 1e6:.1f} M params; after {ADAM8_UPDATES} updates "
+          f"(lr {ADAM8_LR}, grads N(0, 1e-3^2) from seeds) the params' "
+          f"change against fp32 moments: rel err {rel:.3e} (bound "
+          f"{ADAM8_REL}); state {bytes8 / 1e9:.3f} GB "
+          f"({bytes8 / n:.3f} bytes a param) against torch.optim.AdamW's "
+          f"{bytesw / 1e9:.3f} GB (bf16 moments, {bytesw / n:.3f} bytes a "
+          f"param); one update {ms8:.2f} ms of device time against "
+          f"AdamW's (foreach) {msw:.2f} ms {'ok' if ok else 'FAIL'}")
+    del policy, leaves
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("8-bit Adam strays from fp32 Adam")
+
+
+def run_pack_cli(base: str, cfg, ds) -> None:
+    """The train CLI on the packed path at llava-v1.5-7b's full width and
+    depth, from the save_params dir `base`: run C, --pack true --optim
+    adamw8bit, grad_accum 2, 4 micro-steps, a save every 2; run D, stopped
+    at 2 and resumed to 4, whose steps 3-4 and adapter equal C's."""
+    from halva_tpu_torch.train import checkpoint as ckpt_lib
+    from halva_tpu_torch.train import run as run_lib
+
+    root = os.path.dirname(base)
+    layers = cfg.llm.num_layers
+
+    def rcfg(out, max_steps):
+        return run_lib.RunConfig(
+            model="llava-v1.5-7b", model_path=base,
+            output_dir=os.path.join(root, out), per_device_batch=PACK_BATCH,
+            grad_accum_steps=2, lora_r=128, lora_alpha=256.0,
+            max_steps=max_steps, save_steps=2, pack=True,
+            max_length=PACK_MAX_LENGTH, pack_rows=PACK_ROWS,
+            pack_ref_rows=PACK_REF_ROWS, optim="adamw8bit", device=DEVICE)
+
+    try:
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        with _CliProbe(run_lib, ckpt_lib) as probe:
+            run_lib.train(rcfg("C", CLI_STEPS), None, dataset=ds)
+        torch.cuda.synchronize()
+        c_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        per_step = {k: v / CLI_STEPS for k, v in _kernels.launches.items()}
+        expect_launches(per_step, {"flash_fwd": 5 * layers,
+                                   "flash_bwd_dq": 2 * layers,
+                                   "flash_bwd_dkv": 2 * layers},
+                        "packed train CLI run C, per micro-step")
+        c = _metrics(os.path.join(root, "C", "metrics.jsonl"))
+        finite = set(c) == set(range(1, CLI_STEPS + 1)) and all(
+            np.isfinite(c[s][k]) for s in c for k in ("loss", "kl",
+                                                      "grad_norm"))
+        dts = [d * 1e3 for d in probe.dts]
+        saved_at = {s for s, _, _ in probe.saves}
+        clean = [d for i, d in enumerate(dts, 2) if i - 1 not in saved_at]
+        print(f"packed train CLI run C ({gpu_line()}): --pack true --optim "
+              f"adamw8bit, {CLI_STEPS} micro-steps in {c_s:.1f} s with the "
+              f"base load, the saves and the exports; host ms per micro-step "
+              "from StepTimer " + ", ".join(f"{d:.1f}" for d in dts)
+              + f" (mean without a save: {statistics.mean(clean):.1f}); loss "
+              + ", ".join(f"{c[s]['loss']:.6f}" for s in sorted(c))
+              + f" {'ok' if finite else 'FAIL'}")
+        for step, sec, nbytes in probe.saves:
+            print(f"packed train CLI checkpoint save at step {step}: "
+                  f"{nbytes / 1e9:.3f} GB (LoRA leaves, 8-bit moments and "
+                  f"count, accumulators) in {sec:.2f} s, against AdamW's "
+                  "2.559 GB (PR 15)")
+        if not finite:
+            raise AssertionError("packed train CLI: a metric is missing or "
+                                 "not finite")
+        run_lib.train(rcfg("D", 2), None, dataset=ds)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        run_lib.train(rcfg("D", CLI_STEPS), None, dataset=ds)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        d = _metrics(os.path.join(root, "D", "metrics.jsonl"))
+        diff = {k: max(abs(d[s][k] - c[s][k]) for s in (3, 4))
+                for k in ("loss", "kl")}
+        close = set(d) == set(range(1, CLI_STEPS + 1)) and all(
+            abs(d[s][k] - c[s][k]) <= CLI_RTOL * abs(c[s][k])
+            for s in (3, 4) for k in ("loss", "kl"))
+        with np.load(os.path.join(root, "C", "adapter.npz")) as zc, \
+                np.load(os.path.join(root, "D", "adapter.npz")) as zd:
+            same = sorted(zc.files) == sorted(zd.files) and all(
+                zc[k].tobytes() == zd[k].tobytes() for k in zc.files)
+        ok = close and same
+        print(f"packed train CLI run D: stopped at 2, resumed to {CLI_STEPS} "
+              f"in {resume_s:.1f} s; steps 3-4 against run C: largest |loss "
+              f"diff| {diff['loss']:.3e}, |kl diff| {diff['kl']:.3e} (rtol "
+              f"{CLI_RTOL}); adapter == run C's {same} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("packed train CLI: the resumed run differs "
+                                 "from the uninterrupted one")
+    finally:
+        for out in ("C", "D"):
+            shutil.rmtree(os.path.join(root, out), ignore_errors=True)
+
+
+def run_pack(params, cfg, kernels: dict, base: str) -> list:
+    """The packed-train phase on the bf16 tree `params` (llava-v1.5-7b at
+    full width and depth): the batcher's first packed batches (3 samples
+    and 3 documents a pn row each); K1, K2 and K3 against their plain
+    versions on the first one's segment ids, timed; the packed micro-step
+    against the unpacked one on the same samples; the main path's launches
+    and times; 8-bit Adam on the 7B LoRA tree; the packed train CLI from
+    the save_params dir `base`. Returns the phase's rows of K1-K3."""
+    t_phase = time.perf_counter()
+    ds = PackSamples(cfg)
+    batcher = pack_batcher(cfg)
+    host = list(itertools.islice(batcher.batches(iter(ds.items)),
+                                 PACK_STEPS))
+    spans, lo = [], 0
+    for h in host:
+        spans.append((lo, lo + int(h["n_samples"])))
+        lo = spans[-1][1]
+    docs = [[int(h["pn_segment_ids"][r].max()) for r in range(PACK_ROWS)]
+            for h in host]
+    live = [int((h["pn_segment_ids"] != 0).sum()) for h in host]
+    ok = (batcher.dropped == 0 and all(b - a >= 3 for a, b in spans)
+          and all(min(d) >= 3 for d in docs))
+    print(f"packed batches (llava-v1.5-7b, {PACK_ROWS} pn + {PACK_REF_ROWS} "
+          f"ref rows x {PACK_SEQ} tokens, <= {PACK_BATCH} samples; text "
+          f"lengths N({PACK_TEXT[2]}, {PACK_TEXT[3]}) in "
+          f"[{PACK_TEXT[0]}, {PACK_TEXT[1]}] from seed {PACK_SEED}): samples "
+          f"per step {[b - a for a, b in spans]}, documents per pn row "
+          f"{docs}, live pn tokens {live} of {PACK_ROWS * PACK_SEQ} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a packed batch holds fewer than 3 samples or "
+                             "a pn row fewer than 3 documents")
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    seg = torch.from_numpy(host[0]["pn_segment_ids"]).to(DEVICE)
+    case = flash_mode_case(gen, "packed rows (the batcher's segment ids)",
+                           PACK_ROWS, PACK_SEQ, cfg.llm.num_heads,
+                           cfg.llm.kv_heads, None, {}, seg=seg, timed=True)
+    rows = []
+    for part, name in (("fwd", "flash_fwd"), ("dq", "flash_bwd_dq"),
+                       ("dkv", "flash_bwd_dkv")):
+        source, replaces = FLASH_SOURCES[name]
+        rows.append({"name": f"{name}_packed", "route": "cuda",
+                     "source": source, "replaces": replaces, **case[part]})
+        if name in kernels and "max_abs_err" in kernels[name]:
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                               case[part]["max_abs_err"])
+    torch.cuda.empty_cache()
+
+    compare_packed(params, cfg, ds, host[0], spans[0])
+    torch.cuda.empty_cache()
+    run_pack_steps(params, cfg, kernels, ds, host, spans)
+    run_adam8(params)
+    run_pack_cli(base, cfg, ds)
+    print(f"packed train phase: {time.perf_counter() - t_phase:.1f} s wall")
+    return rows
 
 
 # ---- the decode variants of the eval path: nucleus sampling in the graph
@@ -4737,10 +5189,30 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--train-cli-only"]:
         params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
-        train_ms = run_train(params, collections.defaultdict(dict),
-                             compare=False)
+        launches = collections.defaultdict(dict)
+        train_ms = run_train(params, launches, compare=False)
         torch.cuda.empty_cache()
-        run_train_cli(params, LLAVA_V15_7B, train_ms)
+        run_train_cli(params, LLAVA_V15_7B, train_ms,
+                      then=lambda base: run_pack(params, LLAVA_V15_7B,
+                                                 launches, base))
+        return
+    if sys.argv[1:] == ["--pack-only"]:
+        params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
+        launches = collections.defaultdict(dict)
+        root = os.path.join(REPO, "build", f"smoke_pack_{os.getpid()}")
+        try:
+            base = os.path.join(root, "base")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            from halva_tpu_torch.train.checkpoint import save_params
+            save_params(base, params)
+            print(f"packed phase: save_params of the bf16 tree in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            rows = run_pack(params, LLAVA_V15_7B, launches, base)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        print(json.dumps({"pack_kernels": rows, "pack_launches": {
+            name: k["launches"] for name, k in sorted(launches.items())}}))
         return
     if sys.argv[1:] == ["--serve-variants-only"]:
         params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
@@ -4781,7 +5253,9 @@ def main() -> None:
         run_graph_loops(params, LLAVA_V15_7B, int4=False)
         run_sampling_bf16(params, LLAVA_V15_7B)
         run_loader(params, LLAVA_V15_7B)
-        run_train_cli(params, LLAVA_V15_7B, train_ms)
+        run_train_cli(params, LLAVA_V15_7B, train_ms,
+                      then=lambda base: run_pack(params, LLAVA_V15_7B,
+                                                 kernels, base))
     torch.cuda.empty_cache()
     # the quantized trees, each made on the card from the bf16 tree, which
     # is freed once the last of them exists (no_grad, not inference_mode:

@@ -51,7 +51,7 @@ def encode_images(params: Params, cfg: LlavaConfig,
     if cfg.vision_tower_type != "vit":
         raise NotImplementedError(
             "the RADIO tower is not ported yet (ROADMAP queue 1 item 11, "
-            "alt backends)"
+            "the RADIO tower)"
         )
     with torch.no_grad():
         feats = vit.encode(
@@ -132,6 +132,47 @@ def splice_image_tokens(
     positions = torch.arange(s_out, dtype=i32, device=dev).expand(b, s_out)
     return Spliced(embeds, gather_i32(labels, IGNORE_INDEX),
                    gather_i32(signs, 0), out_seg, positions)
+
+
+def forward_packed(
+    params: Params,
+    cfg: LlavaConfig,
+    input_ids: torch.Tensor,  # (R, S) packed docs, image blocks = pad ids
+    images: torch.Tensor,  # (NI, 3, H, W) unique images
+    img_src: torch.Tensor,  # (M,) feature index per placement
+    img_row: torch.Tensor,  # (M,) target row; == R for padding entries
+    img_col: torch.Tensor,  # (M,) target start column
+    segment_ids: torch.Tensor,  # (R, S) per-document ids, 0 = padding
+    positions: torch.Tensor,  # (R, S) restart at 0 per document
+    attn_impl: str = "auto",
+    remat: bool = False,
+    return_hidden: bool = False,
+) -> torch.Tensor:
+    """Forward over packed rows (train/pack.py): the image-token splice is
+    a host-planned scatter instead of the per-row gather. Each unique image
+    is encoded once and its (T, D) feature block is written at every
+    placement (pos and neg documents share the sample's vision forward).
+    Padding entries carry img_row == R: they are written into one extra row
+    that is cut off after the scatter, so nothing is compacted on the host
+    and nothing waits for the card. Segment ids keep the documents apart in
+    attention; RoPE restarts through `positions`."""
+    feats = encode_images(params, cfg, images)  # (NI, T, D)
+    t = feats.shape[1]
+    emb = llama.embed(params["llm"], input_ids)  # (R, S, D)
+    r, s, d = emb.shape
+    blocks = feats[img_src.long()].to(emb.dtype)  # (M, T, D)
+    rows = img_row.long()[:, None].expand(-1, t)
+    cols = img_col.long()[:, None] + torch.arange(t, device=emb.device)
+    # row R takes the dropped entries, whose columns are in range (0..T-1)
+    spill = torch.cat([emb, emb.new_zeros(1, s, d)])
+    emb = spill.index_put((rows, cols), blocks)[:r]
+    hidden = llama.forward_embeds(
+        params["llm"], cfg.llm, emb, segment_ids, positions,
+        attn_impl=attn_impl, remat=remat,
+    )
+    if return_hidden:
+        return hidden
+    return llama.lm_logits(params["llm"], cfg.llm, hidden)
 
 
 def forward(

@@ -137,11 +137,14 @@ class CheckpointManager:
 
     `opt_state` is the trainer's DPAOptimizer (train/trainer.py), whose
     state is saved whole, as optax's MultiSteps state is in the
-    reference's save: AdamW's exp_avg, exp_avg_sq and step per trainable
-    leaf and the gradient accumulators, keyed by the leaf's path in the
-    trainable tree; the schedule's update count and the mini-step in the
-    meta record. A save is written under a temporary name and renamed, so
-    an interrupted save leaves the last complete step readable."""
+    reference's save: per trainable leaf, keyed by the leaf's path in the
+    trainable tree, the optimizer's state (AdamW's exp_avg, exp_avg_sq and
+    step; under optim="adamw8bit" optim8bit's m_q/m_s/v_q/v_s, or m/v for a
+    small leaf, and step) and the gradient accumulators; the optim kind,
+    the schedule's update count and the mini-step in the meta record. A
+    checkpoint of one optim kind is refused under the other. A save is
+    written under a temporary name and renamed, so an interrupted save
+    leaves the last complete step readable."""
 
     def __init__(self, directory: str, max_to_keep: int = 2):
         self._dir = os.path.abspath(directory)
@@ -170,13 +173,12 @@ class CheckpointManager:
         if latest is not None and step <= latest:
             return False
         leaves = _trainable_leaves(trainable)
-        adamw = opt_state.adamw.state
-        state: Dict[str, Dict[str, torch.Tensor]] = {
-            "params": {}, "exp_avg": {}, "exp_avg_sq": {}, "step": {}}
+        moments = opt_state.adamw.state
+        state: Dict[str, Dict[str, torch.Tensor]] = {"params": {}}
         for key, x in leaves:
             state["params"][key] = x
-            for name, v in adamw.get(x, {}).items():
-                state[name][key] = v
+            for name, v in moments.get(x, {}).items():
+                state.setdefault(name, {})[key] = v
         if opt_state.acc is not None:
             state["acc"] = {key: a for (key, _), a in
                             zip(leaves, opt_state.acc)}
@@ -185,6 +187,7 @@ class CheckpointManager:
         os.makedirs(tmp)
         treecache.write_tree(
             os.path.join(tmp, STATE_FILE), state, step=step,
+            optim=opt_state.tcfg.optim,
             updates=opt_state.scheduler.last_epoch,
             mini_step=opt_state.mini_step)
         final = self._step_dir(step)
@@ -207,19 +210,25 @@ class CheckpointManager:
         state, meta = treecache.read_tree(
             os.path.join(self._step_dir(step), STATE_FILE))
         opt = opt_state_like
+        saved = meta.get("optim", "adamw")
+        if saved != opt.tcfg.optim:
+            raise ValueError(
+                f"checkpoint {step} holds optim={saved!r} state; this run's "
+                f"optimizer is optim={opt.tcfg.optim!r}")
         leaves = _trainable_leaves(trainable_like)
         if set(state["params"]) != {k for k, _ in leaves}:
             raise ValueError(
                 f"checkpoint {step} holds other trainable leaves: "
                 f"{sorted(set(state['params']) ^ {k for k, _ in leaves})[:5]}")
+        names = [n for n in state if n not in ("params", "acc")]
         for key, x in leaves:
             x.copy_(state["params"][key])
-            if key in state.get("exp_avg", {}):
+            st = {n: state[n][key] for n in names if key in state[n]}
+            if st:
+                # the step count stays on the host, as the optimizers keep it
                 opt.adamw.state[x] = {
-                    "step": state["step"][key].clone(),
-                    "exp_avg": state["exp_avg"][key].to(x.device),
-                    "exp_avg_sq": state["exp_avg_sq"][key].to(x.device),
-                }
+                    n: v.clone() if n == "step" else v.to(x.device)
+                    for n, v in st.items()}
             else:
                 opt.adamw.state.pop(x, None)
         if "acc" in state:

@@ -1,7 +1,7 @@
 """Data-augmented Phrase Alignment (DPA) loss, the HALVA objective.
 
-Counterpart of halva_tpu/train/dpa.py (the row-per-sample losses; the packed
-variants come with packed DPA, ROADMAP queue 1 item 8b):
+Counterpart of halva_tpu/train/dpa.py, the row-per-sample losses and their
+packed variants (train/pack.py: per-token sample ids key the phrase sums):
 - per-token logps: log_softmax gathered at the label ids, shifted;
 - phrase accumulation: sum of token logps per phrase-sign id over a static
   MAX_PHRASES axis;
@@ -136,9 +136,12 @@ def kl_divergence_chunked(
     ref_hidden: torch.Tensor,  # (B, S, D) frozen model (no gradient)
     ref_labels: torch.Tensor,  # (B, S)
     chunk: int = 256,
+    denom=None,
 ) -> torch.Tensor:
     """kl_divergence on the logits of both hidden states, chunked; lm_head
-    is shared by the policy and the frozen model (LoRA never touches it)."""
+    is shared by the policy and the frozen model (LoRA never touches it).
+    `denom` divides the sum: the row count by default; packed rows hold
+    several samples, so the packed loss passes n_samples."""
     p_hid = policy_hidden[:, :-1]
     r_hid = ref_hidden[:, :-1].detach()
     lab = ref_labels[:, 1:]
@@ -155,7 +158,9 @@ def kl_divergence_chunked(
                    lab[:, c0:c0 + chunk])
         for c0 in range(0, p_hid.shape[1], chunk)
     )
-    return total / policy_hidden.shape[0]
+    if denom is None:
+        denom = policy_hidden.shape[0]
+    return total / denom
 
 
 def dpa_loss_from_hidden(
@@ -181,6 +186,99 @@ def dpa_loss_from_hidden(
                            neg_signs[:, 1:], max_phrases)
     div = kl_divergence_chunked(logits_fn, policy_ref_hidden,
                                 frozen_ref_hidden, ref_labels, chunk)
+    return DPALossParts(align + alpha * div, align, div)
+
+
+# --------------------------------------------------------------------------
+# Packed variants (train/pack.py): rows hold several documents; per-token
+# sample_ids (1-based) and neg_flags key the phrase sums instead of the row.
+# --------------------------------------------------------------------------
+
+
+def packed_phrase_logps(
+    logps: torch.Tensor,  # (R, S-1) shifted per-token logps
+    labels: torch.Tensor,  # (R, S-1) shifted labels
+    signs: torch.Tensor,  # (R, S-1) shifted signs
+    sample_ids: torch.Tensor,  # (R, S-1) shifted 1-based sample ids
+    side_mask: torch.Tensor,  # (R, S-1) bool: tokens of the wanted side
+    max_samples: int,
+    max_phrases: int = MAX_PHRASES,
+) -> torch.Tensor:
+    """(max_samples, max_phrases): [b, k-1] = sum of logps over tokens with
+    sample_ids == b+1 and signs == k, the packed accumulate_phrase_logps
+    (a sample is a (row, segment) pair, not a row)."""
+    mask = (labels != IGNORE_INDEX) & side_mask
+    lp = logps * mask.to(logps.dtype)
+    ids_b = torch.arange(1, max_samples + 1, dtype=sample_ids.dtype,
+                         device=sample_ids.device)
+    ids_k = torch.arange(1, max_phrases + 1, dtype=signs.dtype,
+                         device=signs.device)
+    oh_b = (sample_ids[:, :, None] == ids_b) & mask[:, :, None]
+    oh_k = signs[:, :, None] == ids_k
+    return torch.einsum("rs,rsb,rsk->bk", lp, oh_b.to(lp.dtype),
+                        oh_k.to(lp.dtype))
+
+
+def packed_alignment_loss(
+    logps: torch.Tensor,  # (R, S-1) shifted
+    labels: torch.Tensor,
+    signs: torch.Tensor,
+    sample_ids: torch.Tensor,
+    neg_flags: torch.Tensor,
+    n_samples: torch.Tensor,  # () int32: real samples in the batch
+    max_samples: int,
+    max_phrases: int = MAX_PHRASES,
+) -> torch.Tensor:
+    """alignment_loss over packed rows. The present-phrase set is
+    batch-global, from the positive documents (the reference's
+    torch.unique(signs)); sample slots beyond n_samples are dead and add
+    nothing."""
+    signs = signs.clamp_min(0)
+    pos = packed_phrase_logps(logps, labels, signs, sample_ids,
+                              neg_flags == 0, max_samples, max_phrases)
+    neg = packed_phrase_logps(logps, labels, signs, sample_ids,
+                              neg_flags == 1, max_samples, max_phrases)
+    ids = torch.arange(1, max_phrases + 1, dtype=signs.dtype,
+                       device=signs.device)
+    pos_tok = (neg_flags == 0) & (sample_ids > 0)
+    present = ((signs[:, :, None] == ids) & pos_tok[:, :, None]).any(
+        dim=1).any(dim=0)  # (K,)
+    valid = torch.arange(1, max_samples + 1, device=logps.device) <= (
+        n_samples)  # (B,)
+    elem = torch.log1p(torch.exp(neg - pos))  # (B, K): log(2) where absent
+    num = (elem * present[None, :].to(elem.dtype)
+           * valid[:, None].to(elem.dtype)).sum()
+    denom = n_samples.float() * present.float().sum().clamp_min(1.0)
+    return num / denom.clamp_min(1.0)
+
+
+def dpa_loss_from_hidden_packed(
+    logits_fn: LogitsFn,
+    pn_hidden: torch.Tensor,  # (R1, S, D) pos+neg packed rows
+    pn_labels: torch.Tensor,  # (R1, S)
+    pn_signs: torch.Tensor,
+    pn_sample_ids: torch.Tensor,
+    pn_neg_flags: torch.Tensor,
+    policy_ref_hidden: torch.Tensor,  # (R2, S, D)
+    frozen_ref_hidden: torch.Tensor,
+    ref_labels: torch.Tensor,  # (R2, S)
+    n_samples: torch.Tensor,  # () int32
+    alpha: float,
+    max_samples: int,
+    max_phrases: int = MAX_PHRASES,
+    chunk: int = 256,
+) -> DPALossParts:
+    """The DPA loss over packed rows, logits chunked over the sequence.
+    The shift is the row-per-sample path's: the gather that crosses a
+    document boundary lands on the next document's first label, which is
+    IGNORE_INDEX (asserted by the batcher), so it is masked."""
+    lp = per_token_logps_chunked(logits_fn, pn_hidden, pn_labels, chunk)
+    align = packed_alignment_loss(
+        lp, pn_labels[:, 1:], pn_signs[:, 1:], pn_sample_ids[:, 1:],
+        pn_neg_flags[:, 1:], n_samples, max_samples, max_phrases)
+    div = kl_divergence_chunked(logits_fn, policy_ref_hidden,
+                                frozen_ref_hidden, ref_labels, chunk,
+                                denom=n_samples.float())
     return DPALossParts(align + alpha * div, align, div)
 
 

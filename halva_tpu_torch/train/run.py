@@ -56,7 +56,7 @@ class RunConfig:
     grad_accum_steps: int = 4
     learning_rate: float = 5e-6
     mm_projector_lr: Optional[float] = None
-    optim: str = "adamw"  # adamw | adamw8bit (not ported yet)
+    optim: str = "adamw"  # adamw | adamw8bit (train/optim8bit.py)
     loss_alpha: float = 0.4
     lora_r: int = 128
     lora_alpha: float = 256.0
@@ -83,7 +83,7 @@ class RunConfig:
     # optionally <im_patch>) with mean-init embedding rows)
     mm_use_im_start_end: bool = False
     mm_use_im_patch_token: bool = False
-    # sequence packing (train/pack.py in the reference): not ported yet
+    # sequence packing (train/pack.py): fixed rows of several documents
     pack: bool = False
     pack_rows: Optional[int] = None
     pack_ref_rows: Optional[int] = None
@@ -94,14 +94,6 @@ class RunConfig:
 def check_ported(rcfg: RunConfig) -> None:
     """Raise, before anything loads, on the options whose slice is not
     ported yet, naming its ROADMAP queue 1 item."""
-    if rcfg.pack:
-        raise NotImplementedError(
-            "pack=True (packed DPA) is not ported yet (ROADMAP queue 1 item "
-            "8b, packed DPA)")
-    if rcfg.optim == "adamw8bit":
-        raise NotImplementedError(
-            "optim='adamw8bit' is not ported yet (ROADMAP queue 1 item 8b, "
-            "train/optim8bit.py)")
     for name in ("mesh_data", "mesh_model"):
         if getattr(rcfg, name) not in (None, 1):
             raise NotImplementedError(
@@ -157,7 +149,7 @@ def build_models(rcfg: RunConfig, cfg: LlavaConfig, tokenizer=None):
 
 
 def _to_device(host_batch, device):
-    return {k: torch.from_numpy(v).to(device) for k, v in host_batch.items()}
+    return {k: torch.as_tensor(v).to(device) for k, v in host_batch.items()}
 
 
 def train(rcfg: RunConfig, tokenizer, dataset: Optional[Any] = None):
@@ -201,11 +193,21 @@ def train(rcfg: RunConfig, tokenizer, dataset: Optional[Any] = None):
     steps_per_epoch = len(dataset) // global_batch
     num_opt_steps = int(rcfg.epochs * steps_per_epoch / rcfg.grad_accum_steps)
     num_micro_steps = num_opt_steps * rcfg.grad_accum_steps
-    stop_at = (
-        min(num_micro_steps, rcfg.max_steps)
-        if rcfg.max_steps
-        else num_micro_steps
-    )
+    if rcfg.pack:
+        # a packed batch holds a VARIABLE number of samples (<=
+        # global_batch), so the sample-count cadence above undercounts
+        # packed steps whenever row capacity binds first. The epoch budget
+        # lives in the index stream itself (epoch_indices yields exactly
+        # rcfg.epochs passes): run until it drains. The LR schedule keeps
+        # the sample-count horizon; the cosine tail flattens at 0 for any
+        # overshoot.
+        stop_at = rcfg.max_steps or float("inf")
+    else:
+        stop_at = (
+            min(num_micro_steps, rcfg.max_steps)
+            if rcfg.max_steps
+            else num_micro_steps
+        )
 
     tcfg = trainer_lib.TrainConfig(
         learning_rate=rcfg.learning_rate,
@@ -249,7 +251,37 @@ def train(rcfg: RunConfig, tokenizer, dataset: Optional[Any] = None):
     ref_params = ref_overrides or None
     del initial, _base, policy
 
-    step_fn, _ = trainer_lib.dpa_step_fns(cfg, tcfg, optimizer)
+    if rcfg.pack:
+        from halva_tpu_torch.train.pack import PackedDPABatcher
+
+        def _r64(n):
+            return -(-n // 64) * 64
+
+        pack_seq = rcfg.pack_seq_len or _r64(
+            rcfg.max_length + cfg.num_image_tokens - 1
+        )
+        pack_rows = rcfg.pack_rows or global_batch
+        pack_ref_rows = rcfg.pack_ref_rows or max(1, pack_rows // 2)
+        max_samples = global_batch
+        batcher = PackedDPABatcher(
+            seq_len=pack_seq,
+            pn_rows=pack_rows,
+            ref_rows=pack_ref_rows,
+            max_samples=max_samples,
+            num_image_tokens=cfg.num_image_tokens,
+            pad_token_id=0,
+            image_shape=(3, cfg.vision.image_size, cfg.vision.image_size),
+        )
+        log0(
+            "packing: %d pn + %d ref rows x %d, <= %d samples/step",
+            pack_rows, pack_ref_rows, pack_seq, max_samples,
+        )
+        step_fn, _ = trainer_lib.packed_dpa_step_fns(
+            cfg, tcfg, optimizer, max_samples=max_samples
+        )
+    else:
+        batcher = None
+        step_fn, _ = trainer_lib.dpa_step_fns(cfg, tcfg, optimizer)
 
     mgr = ckpt_lib.CheckpointManager(
         os.path.join(rcfg.output_dir, "checkpoints")
@@ -280,7 +312,7 @@ def train(rcfg: RunConfig, tokenizer, dataset: Optional[Any] = None):
         seed=rcfg.seed,
     )
     host_batches = sampler_lib.host_shard_batches(order, global_batch, 0, 1)
-    if start_step:
+    if start_step and batcher is None:
         host_batches = itertools.islice(host_batches, start_step, None)
 
     from halva_tpu_torch.utils.cluster import PreemptionWatcher, WallClockGuard
@@ -293,8 +325,26 @@ def train(rcfg: RunConfig, tokenizer, dataset: Optional[Any] = None):
     from halva_tpu_torch.utils.prefetch import prefetch
 
     def host_batch_stream():
-        """Dataset fetch + collate on a background thread (the reference's
-        DataLoader workers); the copy to the card stays on this one."""
+        """Dataset fetch + collate (or packing) on a background thread (the
+        reference's DataLoader workers); the copy to the card stays on this
+        one."""
+        if batcher is not None:
+            def items():
+                for batch_idx in host_batches:
+                    for i in batch_idx:
+                        yield dataset[i]
+
+            stream = batcher.batches(items())
+            if start_step:
+                # resume skips PACKED batches (micro counts those): packing
+                # is deterministic over the same index order, so replaying
+                # the first start_step packed batches lands on the sample
+                # the interrupted run would see next. An index-level skip
+                # would misalign: a packed batch takes a variable number of
+                # samples.
+                stream = itertools.islice(stream, start_step, None)
+            yield from stream
+            return
         for batch_idx in host_batches:
             samples = [dataset[i] for i in batch_idx]
             samples = [s for s in samples if s is not None]

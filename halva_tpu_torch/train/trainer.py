@@ -15,12 +15,14 @@ pattern:
 - The frozen reference model is the same tensors as the policy's frozen
   tree (`ref_model_tree`): no second copy of the weights.
 - The optimizer reproduces the reference's optax chain (clip_by_global_norm
-  -> scale_by_adam -> add_decayed_weights -> scale_by_schedule, inside
-  optax.MultiSteps, one chain per param group) with torch.optim.AdamW, a
-  LambdaLR schedule per group, global-norm clipping per group and a running
-  mean of the mini-step grads. torch optimizers own their state, so
-  `opt_state` is the optimizer object itself: `train_step` updates it in
-  place and hands it back.
+  -> scale_by_adam (or optim8bit's 8-bit moments) -> add_decayed_weights ->
+  scale_by_schedule, inside optax.MultiSteps, one chain per param group)
+  with torch.optim.AdamW or optim8bit.AdamW8bit, a LambdaLR schedule per
+  group, global-norm clipping per group and a running mean of the
+  mini-step grads. torch optimizers own their state, so `opt_state` is the
+  optimizer object itself: `train_step` updates it in place and hands it
+  back.
+- `packed_dpa_step_fns` is the twin for packed batches (train/pack.py).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 from halva_tpu_torch import tree
 from halva_tpu_torch.config import LlavaConfig
 from halva_tpu_torch.models import llama, llava
-from halva_tpu_torch.train import dpa
+from halva_tpu_torch.train import dpa, optim8bit
 from halva_tpu_torch.train.lora import trainable_mask
 
 Params = Dict[str, Any]
@@ -52,7 +54,8 @@ class TrainConfig:
     adam_eps: float = 1e-8
     max_grad_norm: float = 1.0
     lr_schedule: str = "cosine"  # cosine | linear | constant
-    optim: str = "adamw"  # adamw | adamw8bit (not ported yet)
+    # adamw | adamw8bit (block-quantized moments, train/optim8bit.py)
+    optim: str = "adamw"
     loss_alpha: float = 0.4
     grad_accum_steps: int = 4
     num_train_steps: int = 1000
@@ -197,15 +200,14 @@ class DPAOptimizer:
     - Clipping as optax.clip_by_global_norm: grads are divided by the exact
       norm and times max_norm when the norm is not below it
       (torch.nn.utils.clip_grad_norm_ would add 1e-6 to the norm).
-    - Accumulators and Adam moments take the params' dtype, as optax's do.
+    - Accumulators and Adam moments take the params' dtype, as optax's do;
+      under optim="adamw8bit" the moments are optim8bit's (int8 / uint8
+      blocks, fp32 for leaves under 4,096 elements).
     """
 
     def __init__(self, tcfg: TrainConfig, trainable: Params):
-        if tcfg.optim == "adamw8bit":
-            raise NotImplementedError(
-                "optim='adamw8bit' is not ported yet (ROADMAP queue 1 item "
-                "8b, train/optim8bit.py)")
-        if tcfg.optim != "adamw":
+        kinds = {"adamw": torch.optim.AdamW, "adamw8bit": optim8bit.AdamW8bit}
+        if tcfg.optim not in kinds:
             raise ValueError(f"unknown optim {tcfg.optim!r}")
         self.tcfg = tcfg
         flat = _leaves(trainable)
@@ -220,7 +222,7 @@ class DPAOptimizer:
         names = [n for n in ("base", "projector") if groups[n]]
         self.leaves = leaves
         self.groups = [groups[n] for n in names]
-        self.adamw = torch.optim.AdamW(
+        self.adamw = kinds[tcfg.optim](
             [{"params": [leaves[i] for i in groups[n]], "lr": 1.0}
              for n in names],
             betas=(tcfg.adam_b1, tcfg.adam_b2), eps=tcfg.adam_eps,
@@ -289,6 +291,60 @@ class TrainMetrics(NamedTuple):
     grad_norm: torch.Tensor
 
 
+def _refuse_mesh(mesh, what: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what}(mesh=...) is not ported yet (ROADMAP queue 1 item 10, "
+            "multi-GPU)")
+
+
+def _step_fns(frozen_ref, loss_fn):
+    """(train_step, eval_loss) around a model's two halves:
+    frozen_ref(frozen, ref_params, batch), the frozen reference's outputs
+    (run under no_grad), and loss_fn(trainable, frozen, ref_out, batch) ->
+    DPALossParts, which autograd differentiates."""
+
+    def frozen_out(frozen, ref_params, batch):
+        with torch.no_grad():
+            return frozen_ref(ref_model_tree(frozen, ref_params), batch)
+
+    def loss_and_grads(trainable, frozen, ref_params, batch):
+        ref_out = frozen_out(frozen, ref_params, batch)
+        with torch.enable_grad():
+            parts = loss_fn(trainable, frozen, ref_out, batch)
+            leaves = [x for _, x in _leaves(trainable)]
+            # a leaf the loss does not reach gets a zero grad, as in the
+            # reference: MPT's MLP is not gated, and the tree still carries
+            # a `gate` stack whose LoRA factors are trainable leaves
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(leaves, torch.autograd.grad(
+                         parts.total, leaves, allow_unused=True))]
+        it = iter(grads)  # map_tree visits the leaves in flatten's order
+        grad_tree = tree.map_tree(lambda t: None if t is None else next(it),
+                                  trainable)
+        detached = dpa.DPALossParts(*(t.detach() for t in parts))
+        return detached.total, detached, grad_tree
+
+    def train_step(trainable, frozen, ref_params, opt_state, batch):
+        loss, parts, grads = loss_and_grads(trainable, frozen, ref_params,
+                                            batch)
+        flat = [g for _, g in _leaves(grads)]
+        gnorm = global_norm(flat)
+        opt_state.step(flat)
+        return trainable, opt_state, TrainMetrics(
+            loss, parts.alignment, parts.divergence, gnorm)
+
+    @torch.no_grad()
+    def eval_loss(trainable, frozen, ref_params, batch):
+        parts = loss_fn(trainable, frozen,
+                        frozen_out(frozen, ref_params, batch), batch)
+        return TrainMetrics(parts.total, parts.alignment, parts.divergence,
+                            torch.zeros((), device=parts.total.device))
+
+    train_step.loss_and_grads = loss_and_grads
+    return train_step, eval_loss
+
+
 def dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
                  optimizer: DPAOptimizer, mesh=None):
     """(train_step, eval_loss).
@@ -300,16 +356,13 @@ def dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
       quantity it differentiates. ref_params: None (the reference model is
       the frozen tree), a dict of overrides, or a full tree.
 
-    A micro-step: the pos+neg forward (2B rows, with grad), the policy
-    forward on the reference batch (B rows, with grad), the frozen
-    reference forward (B rows, no grad), the DPA loss (chunked when
+    A micro-step: the frozen reference forward (B rows, no grad), the
+    pos+neg forward (2B rows, with grad), the policy forward on the
+    reference batch (B rows, with grad), the DPA loss (chunked when
     tcfg.loss_chunk is set), the backward into the trainable leaves, then
     the optimizer (which applies an update every grad_accum_steps calls).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "dpa_step_fns(mesh=...) is not ported yet (ROADMAP queue 1 item "
-            "10, multi-GPU)")
+    _refuse_mesh(mesh, "dpa_step_fns")
     chunked = tcfg.loss_chunk is not None
 
     def forwards(params: Params, batch: Batch):
@@ -339,8 +392,8 @@ def dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
         )
         return out, sp.labels
 
-    def loss_fn(trainable, frozen, frozen_ref_out, ref_labels_spliced,
-                batch) -> dpa.DPALossParts:
+    def loss_fn(trainable, frozen, ref_out, batch) -> dpa.DPALossParts:
+        frozen_ref_out, ref_labels_spliced = ref_out
         params = combine_params(trainable, frozen)
         pos_out, neg_out, pos_lab, neg_lab, pos_sg, neg_sg = forwards(
             params, batch)
@@ -361,55 +414,54 @@ def dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
             policy_ref_out, frozen_ref_out, ref_labels_spliced,
             alpha=tcfg.loss_alpha, max_phrases=tcfg.max_phrases)
 
-    def frozen_ref(frozen, ref_params, batch):
-        with torch.no_grad():
-            return ref_forward(ref_model_tree(frozen, ref_params), batch)
-
-    def loss_and_grads(trainable, frozen, ref_params, batch):
-        frozen_ref_out, ref_labels_spliced = frozen_ref(frozen, ref_params,
-                                                        batch)
-        with torch.enable_grad():
-            parts = loss_fn(trainable, frozen, frozen_ref_out,
-                            ref_labels_spliced, batch)
-            leaves = [x for _, x in _leaves(trainable)]
-            # a leaf the loss does not reach gets a zero grad, as in the
-            # reference: MPT's MLP is not gated, and the tree still carries
-            # a `gate` stack whose LoRA factors are trainable leaves
-            grads = [torch.zeros_like(x) if g is None else g
-                     for x, g in zip(leaves, torch.autograd.grad(
-                         parts.total, leaves, allow_unused=True))]
-        it = iter(grads)  # map_tree visits the leaves in flatten's order
-        grad_tree = tree.map_tree(lambda t: None if t is None else next(it),
-                                  trainable)
-        detached = dpa.DPALossParts(*(t.detach() for t in parts))
-        return detached.total, detached, grad_tree
-
-    def train_step(trainable, frozen, ref_params, opt_state, batch):
-        loss, parts, grads = loss_and_grads(trainable, frozen, ref_params,
-                                            batch)
-        flat = [g for _, g in _leaves(grads)]
-        gnorm = global_norm(flat)
-        opt_state.step(flat)
-        return trainable, opt_state, TrainMetrics(
-            loss, parts.alignment, parts.divergence, gnorm)
-
-    @torch.no_grad()
-    def eval_loss(trainable, frozen, ref_params, batch):
-        frozen_ref_out, ref_labels_spliced = frozen_ref(frozen, ref_params,
-                                                        batch)
-        parts = loss_fn(trainable, frozen, frozen_ref_out,
-                        ref_labels_spliced, batch)
-        return TrainMetrics(parts.total, parts.alignment, parts.divergence,
-                            torch.zeros((), device=parts.total.device))
-
-    train_step.loss_and_grads = loss_and_grads
-    return train_step, eval_loss
+    return _step_fns(ref_forward, loss_fn)
 
 
-def packed_dpa_step_fns(*args, **kwargs):
-    raise NotImplementedError(
-        "packed_dpa_step_fns is not ported yet (ROADMAP queue 1 item 8b, "
-        "packed DPA)")
+def packed_dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
+                        optimizer: DPAOptimizer, max_samples: int,
+                        mesh=None):
+    """The packed-batch twin of dpa_step_fns (batches from
+    train/pack.PackedDPABatcher), with the same (train_step, eval_loss) and
+    `train_step.loss_and_grads`. pos and neg documents share one row set
+    and one vision forward per unique image; the loss keys the phrase sums
+    by per-token sample ids and divides by the batch's `n_samples`. It
+    always takes the chunked loss (tcfg.loss_chunk, 256 when unset): packed
+    rows exist to run dense, where whole (R, S, V) logits would not fit.
+
+    A micro-step: the frozen reference forward over the ref rows (no
+    grad), the pos+neg forward over the pn rows, the policy forward over
+    the ref rows, the chunked loss, the backward, the optimizer."""
+    _refuse_mesh(mesh, "packed_dpa_step_fns")
+    chunk = tcfg.loss_chunk or 256
+
+    def forward(params: Params, batch: Batch, side: str):
+        return llava.forward_packed(
+            params, cfg, batch[f"{side}_input_ids"], batch["images"],
+            batch[f"{side}_img_src"], batch[f"{side}_img_row"],
+            batch[f"{side}_img_col"], batch[f"{side}_segment_ids"],
+            batch[f"{side}_positions"], attn_impl=tcfg.attn_impl,
+            remat=tcfg.remat, return_hidden=True)
+
+    def ref_forward(params: Params, batch: Batch):
+        return forward(params, batch, "ref")
+
+    def loss_fn(trainable, frozen, frozen_ref_hidden, batch):
+        params = combine_params(trainable, frozen)
+        pn_hidden = forward(params, batch, "pn")
+        policy_ref_hidden = ref_forward(params, batch)
+        llm = params["llm"]
+
+        def logits_fn(h):
+            return llama.lm_logits(llm, cfg.llm, h)
+
+        return dpa.dpa_loss_from_hidden_packed(
+            logits_fn, pn_hidden, batch["pn_labels"], batch["pn_signs"],
+            batch["pn_sample_ids"], batch["pn_neg_flags"], policy_ref_hidden,
+            frozen_ref_hidden, batch["ref_labels"], batch["n_samples"],
+            alpha=tcfg.loss_alpha, max_samples=max_samples,
+            max_phrases=tcfg.max_phrases, chunk=chunk)
+
+    return _step_fns(ref_forward, loss_fn)
 
 
 def init_train_state(params: Params, tcfg: TrainConfig,

@@ -7,7 +7,9 @@ train/vila.py, and the bf16 adapter without ml_dtypes.
   reference's orbax round trip of the same numpy tree. The files differ by
   design (no orbax on the card); only the trees are held equal.
 - CheckpointManager keeps the newest `max_to_keep` steps, finds the latest
-  complete one and ignores a save that never finished.
+  complete one and ignores a save that never finished; it restores AdamW's
+  state and, under optim="adamw8bit", the quantized moments bit for bit,
+  and refuses a checkpoint of the other optim kind.
 - save_components gives the reference's directory names and an equal
   config.json; the port's builder loads a component checkpoint (and a
   save_params dir) into the tree the reference's builder gives for its own
@@ -108,12 +110,14 @@ def test_tree_file_is_the_quantized_cache_format(tmp_path):
     _assert_same(back, _mixed_numpy_tree())
 
 
-def _tiny_state():
+def _tiny_state(rank=2, optim="adamw"):
     from halva_tpu_torch.train import trainer
 
     params = tree.to_torch(jax_tree(LLAVA_TINY), "cpu")
-    policy = lora.add_lora(params, torch.Generator().manual_seed(0), rank=2)
-    tcfg = trainer.TrainConfig(grad_accum_steps=2, learning_rate=1e-2)
+    policy = lora.add_lora(params, torch.Generator().manual_seed(0),
+                           rank=rank)
+    tcfg = trainer.TrainConfig(grad_accum_steps=2, learning_rate=1e-2,
+                               optim=optim)
     return trainer.init_train_state(policy, tcfg)
 
 
@@ -168,6 +172,53 @@ def test_checkpoint_manager_restores_the_whole_optimizer(tmp_path):
     opt2.step(g)
     for (_, a), b in zip(leaves, new):
         assert torch.equal(a, b)
+
+
+def test_checkpoint_manager_restores_the_8bit_moments(tmp_path):
+    """optim="adamw8bit": the int8 / uint8 codes, their scales, the fp32
+    moments of the small leaves and the count round-trip bit for bit; the
+    restored optimizer goes on as the saved one; a checkpoint of one optim
+    kind is refused under the other, naming both."""
+    # rank 24 on LLAVA_TINY: leaves of 3,072 elements keep fp32 moments,
+    # those of 6,144 are quantized
+    trainable, _, _, opt = _tiny_state(rank=24, optim="adamw8bit")
+    leaves = [x for _, x in tree.flatten(trainable) if x is not None]
+    gen = torch.Generator().manual_seed(5)
+    for _ in range(5):  # two updates, then one mini-step into the third
+        opt.step([torch.randn(x.shape, generator=gen) for x in leaves])
+    assert opt.updates == 2 and opt.mini_step == 1
+    kinds = {tuple(sorted(st)) for st in opt.adamw.state.values()}
+    assert kinds == {("m", "step", "v"),
+                     ("m_q", "m_s", "step", "v_q", "v_s")}
+    mgr = ckpt.CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(5, trainable, opt)
+
+    fresh, _, _, opt2 = _tiny_state(rank=24, optim="adamw8bit")
+    mgr.restore(fresh, opt2)
+    new = [x for _, x in tree.flatten(fresh) if x is not None]
+    assert opt2.updates == 2 and opt2.mini_step == 1
+    for a, b in zip(leaves, new):
+        assert torch.equal(a, b)
+        sa, sb = opt.adamw.state[a], opt2.adamw.state[b]
+        assert set(sa) == set(sb)
+        for name in sa:
+            assert sa[name].dtype == sb[name].dtype, name
+            assert torch.equal(sa[name], sb[name]), name
+        assert sb["step"].device.type == "cpu"
+    g = [torch.randn(x.shape, generator=gen) for x in leaves]
+    opt.step(g)
+    opt2.step(g)
+    assert opt.updates == opt2.updates == 3
+    for a, b in zip(leaves, new):
+        assert torch.equal(a, b)
+
+    _, _, _, plain = _tiny_state(rank=24)
+    with pytest.raises(ValueError, match="'adamw8bit'.*'adamw'"):
+        mgr.restore(_tiny_state(rank=24)[0], plain)
+    mgr2 = ckpt.CheckpointManager(str(tmp_path / "ck2"))
+    mgr2.save(1, _tiny_state(rank=24)[0], plain)
+    with pytest.raises(ValueError, match="'adamw'.*'adamw8bit'"):
+        mgr2.restore(fresh, opt2)
 
 
 def _bf16_lora_numpy_tree():

@@ -1664,3 +1664,186 @@ def test_bf16_adapter_round_trip_on_the_card(cuda, tmp_path):
             if k in a:
                 assert b[k].is_cuda and b[k].dtype == torch.bfloat16
                 assert torch.equal(a[k], b[k]), (path_a, k)
+
+
+# ---- packed DPA and the 8-bit Adam moments ---------------------------------
+
+def _packed_items(n, image_size, vocab, seed=0):
+    """HallDataset-like samples of 40-120 text tokens (the image sentinel
+    at 1, labels on the second half, two phrase spans)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+
+    def seq(t, signs):
+        ids = rng.randint(5, vocab, t).astype(np.int32)
+        ids[1] = -200
+        lab = ids.copy()
+        lab[: t // 2] = -100
+        sg = np.zeros(t, np.int32)
+        if signs:
+            sg[t // 2: t // 2 + 3] = 1
+            sg[t // 2 + 4: t // 2 + 7] = 2
+        return ids, lab, sg
+
+    items = []
+    for _ in range(n):
+        (i1, l1, g1), (i2, l2, g2), (i3, l3, _) = (
+            seq(int(rng.randint(40, 120)), 1),
+            seq(int(rng.randint(40, 120)), 1),
+            seq(int(rng.randint(40, 120)), 0))
+        img = rng.randn(3, image_size, image_size).astype(np.float32)
+        items.append(dict(input_ids=i1, labels=l1, pos_signs=g1,
+                          neg_input_ids=i2, neg_labels=l2, neg_signs=g2,
+                          ref_input_ids=i3, ref_labels=l3, image=img,
+                          ref_image=img))
+    return items
+
+
+@pytest.mark.cuda
+def test_packed_micro_step_on_the_card_matches_its_plain_path(cuda):
+    """One packed micro-step (3 documents a pn row) through K1-K3 against
+    attn_impl="plain" on the same bf16 tree: loss parts within 2e-2
+    relative, LoRA grads within 5e-2 relative (2 bf16 layers; the kernels
+    round P and dS to bf16 where the plain path keeps fp32 softmax)."""
+    from halva_tpu_torch import tree
+    from halva_tpu_torch.train import lora, trainer
+    from halva_tpu_torch.train.pack import PackedDPABatcher
+
+    params, cfg, _ = _graph_model("bf16")
+    policy = lora.add_lora(params, cuda, rank=8)
+    for _, p in lora._iter_dense(policy):
+        if "lora_b" in p:
+            p["lora_b"] = (torch.randn(p["lora_b"].shape, generator=cuda,
+                                       device="cuda") * 1e-2).bfloat16()
+    t = cfg.num_image_tokens
+    batcher = PackedDPABatcher(seq_len=320, pn_rows=2, ref_rows=1,
+                               max_samples=3, num_image_tokens=t,
+                               pad_token_id=0, image_shape=(3, 28, 28))
+    batch = next(batcher.batches(iter(_packed_items(6, 28, 1000, seed=1))))
+    assert int(batch["n_samples"]) == 3
+    assert all(batch["pn_segment_ids"][r].max() >= 3 for r in range(2))
+    batch = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+    out = {}
+    for impl in ("auto", "plain"):
+        tcfg = trainer.TrainConfig(grad_accum_steps=1, attn_impl=impl,
+                                   loss_chunk=128)
+        tr, fz, opt, _ = trainer.init_train_state(policy, tcfg)
+        step, _ = trainer.packed_dpa_step_fns(cfg, tcfg, opt, max_samples=3)
+        _kernels.reset_launches()
+        _, parts, grads = step.loss_and_grads(tr, fz, None, batch)
+        torch.cuda.synchronize()
+        out[impl] = (parts, torch.cat([g.float().reshape(-1) for _, g in
+                                       tree.flatten(grads) if g is not None]),
+                     dict(_kernels.launches))
+    (kp, kg, kl), (pp, pg, pl) = out["auto"], out["plain"]
+    assert kl.get("flash_fwd", 0) == 5 * 2 and not pl.get("flash_fwd")
+    assert kl.get("flash_bwd_dq") == kl.get("flash_bwd_dkv") == 2 * 2
+    for a, b in zip(kp, pp):
+        assert torch.isfinite(a) and abs(float(a) - float(b)) <= (
+            2e-2 * abs(float(b)))
+    assert float((kg - pg).norm() / pg.norm()) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_8bit_update_on_the_card_equals_the_cpus(cuda):
+    """AdamW8bit on CUDA tensors against the same optimizer on the CPU over
+    4 updates from the same grads, each update taken on both devices from
+    the CPU's params and state. Every division is IEEE division on both
+    (optim8bit._div), so: params, scales and fp32 moments within rtol 1e-6
+    (atol 1e-9 params, 1e-12 moments), and codes equal, except one step
+    where the pre-rounding value lies within 1e-4 of a rounding midpoint
+    (the allowance of tests/test_torch_optim8bit.py against the
+    reference)."""
+    from halva_tpu_torch.train import optim8bit
+
+    shapes = ((64, 128), (33, 200), (8, 16))
+    lr, b1, b2 = 1e-2, 0.9, 0.999
+    params = [torch.randn(s, generator=cuda, device="cuda") * 0.1
+              for s in shapes]
+    grads = [[torch.randn(s, generator=cuda, device="cuda") for s in shapes]
+             for _ in range(4)]
+    pc = [p.detach().cpu().requires_grad_(True) for p in params]
+    pg = [p.detach().clone().requires_grad_(True) for p in params]
+    oc = optim8bit.AdamW8bit(pc, lr=lr, betas=(b1, b2), weight_decay=0.1)
+    og = optim8bit.AdamW8bit(pg, lr=lr, betas=(b1, b2), weight_decay=0.1)
+    for gs in grads:
+        before = []
+        with torch.no_grad():
+            for a, b, g in zip(pg, pc, gs):
+                a.copy_(b)
+                og.state[a] = {k: v.clone() if k == "step" else v.cuda()
+                               for k, v in oc.state[b].items()}
+                before.append({k: v.clone() for k, v in oc.state[b].items()}
+                              or optim8bit.init_state(b))
+                a.grad, b.grad = g, g.cpu()
+        og.step()
+        oc.step()
+        for i, (a, b) in enumerate(zip(pg, pc)):
+            torch.testing.assert_close(a.detach().cpu(), b.detach(),
+                                       rtol=1e-6, atol=1e-9, msg=str(i))
+            sa, sb = og.state[a], oc.state[b]
+            assert set(sa) == set(sb) and torch.equal(sa["step"], sb["step"])
+            for name in set(sb) - {"step", "m_q", "v_q"}:
+                torch.testing.assert_close(sa[name].cpu(), sb[name],
+                                           rtol=1e-6, atol=1e-12,
+                                           msg=f"{i} {name}")
+            if "m_q" not in sb:
+                continue
+            # the CPU's fp32 moments before rounding, over its new scales
+            st0, g = before[i], b.grad
+            flat = torch.nn.functional.pad(g.reshape(-1), (
+                0, (-g.numel()) % optim8bit.BLOCK))
+            m = b1 * optim8bit._dequantize_signed(st0["m_q"], st0["m_s"]) + (
+                1 - b1) * flat
+            v = b2 * optim8bit._dequantize_sqrt(st0["v_q"], st0["v_s"]) + (
+                1 - b2) * flat * flat
+            for name, x in (
+                    ("m_q", m.reshape(-1, optim8bit.BLOCK) / sb["m_s"]),
+                    ("v_q", v.sqrt().reshape(-1, optim8bit.BLOCK)
+                     / sb["v_s"])):
+                got, want = sa[name].cpu().int(), sb[name].int()
+                diff = got != want
+                assert int((got - want).abs().max()) <= 1, (i, name)
+                frac = (x - x.floor() - 0.5).abs()
+                assert bool((frac[diff] < 1e-4).all()), (
+                    i, name, int(diff.sum()))
+
+
+@pytest.mark.cuda
+def test_packed_8bit_train_cli_resumes_on_the_card(cuda, tmp_path,
+                                                    monkeypatch):
+    """train.run.train with pack=True and optim="adamw8bit" on the card:
+    4 micro-steps at grad_accum 2, and the same stopped at 2 and resumed,
+    give the same metrics."""
+    import json
+
+    from halva_tpu_torch.train import run
+
+    _tiny128_preset(monkeypatch)
+    ds = _PreTokenized(16, 64, 28, 1000)
+
+    def go(out, max_steps):
+        return run.train(run.RunConfig(
+            model="tiny128", output_dir=str(tmp_path / out),
+            per_device_batch=4, grad_accum_steps=2, learning_rate=1e-3,
+            lora_r=8, max_length=128, max_steps=max_steps, save_steps=2,
+            pack=True, pack_rows=2, pack_ref_rows=1, optim="adamw8bit",
+            device="cuda"), None, dataset=ds)
+
+    _kernels.reset_launches()
+    go("full", 4)
+    assert _kernels.launches["flash_fwd"] == 4 * 5 * 2
+    go("split", 2)
+    go("split", 4)
+
+    def metrics(out):
+        return {m["step"]: m for m in map(json.loads, open(
+            tmp_path / out / "metrics.jsonl"))}
+
+    full, split = metrics("full"), metrics("split")
+    assert set(full) == set(split) == {1, 2, 3, 4}
+    for step in (3, 4):
+        for key in ("loss", "kl", "alignment"):
+            assert abs(split[step][key] - full[step][key]) <= 1e-5 * abs(
+                full[step][key])

@@ -17,9 +17,14 @@ reference's halva_tpu/train/run.py, on the CPU.
   bit (metrics and adapter); a call after the end runs no step.
 - The frozen reference's projector is a real copy under tune_mm_projector
   and mm_projector_lr: it does not move with the policy's.
+- The packed loop (--pack true, with AdamW and with --optim adamw8bit)
+  against the reference's packed loop: the same metrics within rtol 1e-4
+  and adapters within lr / 10; stopped at 2 and resumed to 4 under
+  --optim adamw8bit it equals the uninterrupted run bit for bit, and its
+  checkpoint is refused under the other optim.
 - main(argv): the reference's flags plus --device; one step on the CPU
-  with a tests/tokutil.py tokenizer; the unported options raise before
-  anything loads."""
+  with a tests/tokutil.py tokenizer; a mesh raises before anything
+  loads."""
 
 import dataclasses
 import json
@@ -136,6 +141,95 @@ def test_train_loop_equals_the_reference(tmp_path, monkeypatch):
                       torch.Tensor)
 
 
+@pytest.mark.parametrize("optim", ["adamw", "adamw8bit"])
+def test_packed_loop_equals_the_reference(tmp_path, monkeypatch, optim):
+    """--pack true (and --optim): both packages' loops on the same files
+    and policy pack the same batches (the batcher's default shapes: 2 pn
+    rows and 1 ref row of r64(max_length + T - 1) tokens, <= 2 samples a
+    step) and log the same metrics within rtol 1e-4; the adapters agree
+    within lr / 10."""
+    files, tok, port_ds, ref_ds = _datasets(tmp_path)
+    np_policy = _ref_policy()
+    one = jmesh.single_device_mesh()
+    monkeypatch.setattr(jrun.mesh_lib, "make_mesh", lambda **kw: one)
+    monkeypatch.setattr(jrun, "build_models", lambda rcfg, cfg, tok: (
+        jax.tree.map(jnp.asarray, np_policy), None, cfg))
+    monkeypatch.setattr(run, "build_models", lambda rcfg, cfg, tok: (
+        tree.to_torch(jax.tree.map(np.copy, np_policy), device="cpu"), None,
+        cfg))
+    kw = dict(max_steps=4, pack=True, optim=optim)
+    jrun.train(_rcfg(jrun.RunConfig, tmp_path / "ref", files, **kw), tok,
+               dataset=ref_ds())
+    run.train(_rcfg(run.RunConfig, tmp_path / "port", files, device="cpu",
+                    **kw), tok, dataset=port_ds())
+    want = _metrics(tmp_path / "ref" / "metrics.jsonl")
+    got = _metrics(tmp_path / "port" / "metrics.jsonl")
+    assert set(got) == set(want) == {1, 2, 3, 4}
+    for step in want:
+        for key in ("loss", "alignment", "kl", "grad_norm"):
+            np.testing.assert_allclose(got[step][key], want[step][key],
+                                       rtol=1e-4, err_msg=f"{step} {key}")
+    assert want[4]["kl"] > 0
+    with np.load(tmp_path / "port" / "adapter.npz") as a, np.load(
+            tmp_path / "ref" / "adapter.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in b.files:
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=LR / 10,
+                                       err_msg=k)
+
+
+def test_packed_8bit_resume_is_bit_exact(tmp_path, monkeypatch):
+    """The CLI's flags --pack true --optim adamw8bit on the CPU: 4
+    micro-steps at grad_accum 2 stopped at 2 (the quantized moments and the
+    packed stream saved and skipped) and resumed to 4 equal an
+    uninterrupted run bit for bit, metrics and adapter; a checkpoint of
+    these moments is refused under --optim adamw."""
+    files, tok, port_ds, _ = _datasets(tmp_path)
+    dp, rp, img = files
+    saved = []
+    real = run.ckpt_lib.CheckpointManager.save
+
+    def spy(self, step, trainable, opt_state):
+        saved.append(sorted({n for st in opt_state.adamw.state.values()
+                             for n in st}))
+        return real(self, step, trainable, opt_state)
+
+    monkeypatch.setattr(run.ckpt_lib.CheckpointManager, "save", spy)
+
+    def go(out, max_steps, optim="adamw8bit"):
+        argv = ["--model", "llava-tiny", "--data-path", dp,
+                "--ref-data-path", rp, "--image-folder", img,
+                "--per-device-batch", "2", "--grad-accum-steps", "2",
+                "--learning-rate", str(LR), "--lora-r", "4",
+                "--lora-alpha", "8", "--max-length", "128",
+                "--dtype", "float32", "--pack", "true", "--optim", optim,
+                "--max-steps", str(max_steps), "--save-steps", "2",
+                "--output-dir", str(tmp_path / out), "--device", "cpu"]
+        rcfg = run.parse_args(argv)
+        assert rcfg.pack and rcfg.optim == optim
+        return run.train(rcfg, tok, dataset=port_ds())
+
+    go("full", 4)
+    go("split", 2)
+    go("split", 4)
+    assert saved[0] == ["m", "step", "v"]  # LLAVA_TINY's leaves are small
+    full = _metrics(tmp_path / "full" / "metrics.jsonl")
+    split = _metrics(tmp_path / "split" / "metrics.jsonl")
+    assert set(full) == set(split) == {1, 2, 3, 4}
+    for step in (3, 4):
+        assert split[step] | {"time": 0, "step_time": 0} == (
+            full[step] | {"time": 0, "step_time": 0}), step
+    with np.load(tmp_path / "full" / "adapter.npz") as a, np.load(
+            tmp_path / "split" / "adapter.npz") as b:
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes(), k
+        # update 2 (step 4) moved lora_b off its zero init
+        assert any(np.abs(a[k]).max() > 0 for k in a.files
+                   if "lora_B" in k or "lora_b" in k)
+    with pytest.raises(ValueError, match="adamw8bit.*adamw"):
+        go("split", 6, optim="adamw")
+
+
 def test_resume_mid_cycle_is_bit_exact(tmp_path):
     files, tok, port_ds, _ = _datasets(tmp_path)
 
@@ -223,8 +317,6 @@ def test_flags_are_the_references_plus_device():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--pack", "true"], "item 8b"),
-    (["--optim", "adamw8bit"], "item 8b"),
     (["--mesh-data", "2"], "item 10"),
     (["--mesh-model", "2"], "item 10"),
 ])

@@ -35,7 +35,7 @@ exactly 0, and a comparison would prove little).
   relative error of the whole vector <= 0.15.
 - Only LoRA leaves change; the projector group updates under
   mm_projector_lr; the frozen reference tree tolerates a lone lora_scale;
-  the entry points that are not ported raise naming their ROADMAP item."""
+  a mesh raises naming its ROADMAP item."""
 
 import dataclasses
 
@@ -375,25 +375,21 @@ def test_remat_runs_each_layer_again_in_the_backward(monkeypatch):
     torch.testing.assert_close(again, out.detach(), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("what", ["adamw8bit", "mesh", "packed", "sgd"])
+@pytest.mark.parametrize("what", ["mesh", "sgd"])
 def test_unported_options_raise(what):
     np_lp = _np_policy()
     params = tree.to_torch(np_lp, device="cpu")
-    if what == "adamw8bit":
-        with pytest.raises(NotImplementedError, match="item 8"):
-            trainer.init_train_state(params,
-                                     trainer.TrainConfig(optim="adamw8bit"))
-    elif what == "sgd":
+    if what == "sgd":
         with pytest.raises(ValueError, match="unknown optim"):
             trainer.init_train_state(params, trainer.TrainConfig(optim="sgd"))
-    elif what == "mesh":
+    else:
         _, _, opt, _ = trainer.init_train_state(params, trainer.TrainConfig())
         with pytest.raises(NotImplementedError, match="item 10"):
             trainer.dpa_step_fns(port_cfg(CFG), trainer.TrainConfig(), opt,
                                  mesh=object())
-    else:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            trainer.packed_dpa_step_fns(port_cfg(CFG), trainer.TrainConfig(), None, 4)
+        with pytest.raises(NotImplementedError, match="item 10"):
+            trainer.packed_dpa_step_fns(port_cfg(CFG), trainer.TrainConfig(),
+                                        opt, 4, mesh=object())
 
 
 def test_train_config_fields_and_defaults_match_reference():
