@@ -110,6 +110,21 @@ divergence at a drain top-two margin within a measured bf16 noise floor,
 imgs/s against the drain's, and one decode step with the engine's ring
 mask on K4 against the plain path. Their K1, K4 and K7 launches are added
 to the `kernels` line.
+
+Gemma-2B at head dim 256 (after MPT): the 256 instances of K1 (Gemma's
+prefill, B=4, H=8 over KVH=1), K4 (bf16, int8/int8, int4/int8 and its beam
+mode on bf16 and int4 caches, Sg=128) and K5 (the per-beam and the shared
+stage, bf16 and int4 caches) are held against their plain versions and
+timed beside their bounds, SDPA and their one-split plans, each line with
+its launch plan; then VILA's llava_gemma (Gemma-2B under CLIP
+ViT-L/14-336) at full width and depth from a seeded random bf16 tree and
+its int4g tree with int4 prompt KV: greedy decode of the 4 requests
+(18 K1 a prefill, 18 K4 a token, 126 K6 an int4g token) against the plain
+route within 4/3 of a noise floor, 4 beams on the route "auto" takes and a
+short run on the other, draft_k-4 speculative decode (K7 at B*K rows), a
+short int8-KV run, each graph loop against its eager body, and each
+step's device time on the kernel route beside the plain route's. The 256
+instances are rows of their own in the `kernels` line (`*_d256`).
 Every phase prints one line; any failure raises and exits non-zero. The
 last line is the device record {"ok": true, "device": {...}}.
 
@@ -164,6 +179,11 @@ the unpacked micro-step, the launches and times, 8-bit Adam, the packed
 train CLI) on a fresh random tree, with its own save_params dir, and prints
 its rows.
 
+    python3 chip_smoke.py --gemma-only
+
+runs only the Gemma-2B phase above, after the head-dim-128 checks of K1
+and K4 (their times in the same call), and prints its rows.
+
     python3 chip_smoke.py --serve-variants-only
 
 runs only the decode variants' phases (sampling, the sampler's frequencies,
@@ -194,6 +214,7 @@ import torch.nn.functional as F
 from halva_tpu_torch import _kernels, tree
 from halva_tpu_torch.config import (
     CLIP_VIT_L_336,
+    GEMMA_2B,
     LLAVA_V15_7B,
     MISTRAL_7B,
     MPT_7B,
@@ -208,6 +229,7 @@ from halva_tpu_torch.ops.attention import (
     alibi_in_kernel,
     attention,
     causal_alibi_bias,
+    head_dim_suffix,
     kernel_route,
     make_attention_mask,
 )
@@ -279,6 +301,8 @@ CFG = LLAVA_V15_7B  # the first train phase's model
 # VILA's llava_mistral and llava_mpt compositions at 7B
 LLAVA_MISTRAL_7B = LlavaConfig(llm=MISTRAL_7B, vision=CLIP_VIT_L_336)
 LLAVA_MPT_7B = LlavaConfig(llm=MPT_7B, vision=CLIP_VIT_L_336)
+# and VILA's llava_gemma: Gemma-2B (head dim 256, 8 heads over 1 kv head)
+LLAVA_GEMMA_2B = LlavaConfig(llm=GEMMA_2B, vision=CLIP_VIT_L_336)
 DEVICE = "cuda"
 
 # bf16 kernel vs plain version on the same bf16 inputs, elementwise
@@ -452,13 +476,14 @@ def phase_build() -> None:
             print(f"  ptxas: {entry}: {ln}")
 
 
-def k1_plan(b: int, sq: int, skv: int, h: int) -> str:
+def k1_plan(b: int, sq: int, skv: int, h: int, d: int = 128) -> str:
     """K1's launch plan as the wrapper picks it (an older tree, run for an
     A/B comparison, has none to report)."""
     plan_of = getattr(flash_ops, "flash_fwd_plan", None)
     if plan_of is None:
         return "plan: not reported by this tree"
-    plan = plan_of(b, sq, skv, h)
+    plan = plan_of(b, sq, skv, h) if d == 128 else plan_of(b, sq, skv, h,
+                                                            d=d)
     return (f"plan: {plan.bq}-row blocks, {plan.bk}-key tiles, "
             f"{plan.stages} stages, {plan.blocks} blocks")
 
@@ -1345,6 +1370,21 @@ def decode_checks(gen: torch.Generator) -> list:
 
 FOLD_SOURCE = "halva_tpu_torch/csrc/fold_attn.cu"
 FOLD_REPLACES = "halva_tpu/ops/decode_attention.py:306"
+MODE_SUFFIX = {"bf16": "", "kv8": "_kv8", "kv4": "_kv4"}
+
+
+def held(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Kernel against plain version within KERNEL_ATOL / KERNEL_RTOL, and
+    finite; prints the line and returns the max abs error."""
+    torch.cuda.synchronize()
+    ok = within(got, want) and bool(torch.isfinite(got).all())
+    err, rel = max_abs(got, want), rel_err(got, want)
+    print(f"{label}: max_abs_err {err:.3e} rel {rel:.3e} (limits "
+          f"{KERNEL_ATOL} + {KERNEL_RTOL}*|plain|, rel {KERNEL_RTOL}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
 
 
 def _fold_caches(gen, mode, layers, b, gen_rows, kvh, sp, sg, d):
@@ -1399,19 +1439,7 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
     dev = "cuda"
     b, h, sp, d, layers = 4, 32, 623, 128, 4
     seg = lengths_to_seg(PROMPT_LENS, sp, dev)
-    names = {"bf16": "", "kv8": "_kv8", "kv4": "_kv4"}
     out = []
-
-    def compare(label, got, want):
-        torch.cuda.synchronize()
-        ok = within(got, want) and bool(torch.isfinite(got).all())
-        err, rel = max_abs(got, want), rel_err(got, want)
-        print(f"{label}: max_abs_err {err:.3e} rel {rel:.3e} (limits "
-              f"{KERNEL_ATOL} + {KERNEL_RTOL}*|plain|, rel {KERNEL_RTOL}) "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{label} disagrees with its plain version")
-        return err
 
     def layer(t, li):
         return {key: v[li] for key, v in t.items()}
@@ -1426,7 +1454,7 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
             plan = fold_plan(b, kvh, rows, h // kvh, sp_, sg_,
                              sm_count(torch.device(dev)), shared, forced)
             got = call(0, forced)
-            worst = max(worst, compare(
+            worst = max(worst, held(
                 f"{label} forced {forced} ({plan.splits} splits) vs split "
                 "plain", got, split_plain(0, plan)))
             if not torch.equal(got, call(0, forced)):
@@ -1465,19 +1493,19 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
             tag = f"B={b} K={k} H={h} KVH={kvh} Sp={sp} Sg={sg} D={d}"
             for li in (0, layers - 1):
                 if with_k5:
-                    worst["fold"] = max(worst["fold"], compare(
-                        f"fold_attn{names[mode]} {tag}",
+                    worst["fold"] = max(worst["fold"], held(
+                        f"fold_attn{MODE_SUFFIX[mode]} {tag}",
                         fold(fold_attend_layer, li),
                         fold(fold_attend_plain, li)))
                 want1 = decode_attend_plain(
                     q1, layer(pc, li), seg, layer(gc, li), gen_valid,
                     beam_k=k)
-                worst["grid"] = max(worst["grid"], compare(
-                    f"decode_attn{names[mode]}_beam {tag}", grid(li), want1))
+                worst["grid"] = max(worst["grid"], held(
+                    f"decode_attn{MODE_SUFFIX[mode]}_beam {tag}", grid(li), want1))
             rows = k * h // kvh
             if with_k5:
                 worst["fold"] = max(worst["fold"], forced_plans(
-                    f"fold_attn{names[mode]} {tag}",
+                    f"fold_attn{MODE_SUFFIX[mode]} {tag}",
                     lambda li, z: fold(fold_attend_layer, li, splits=z),
                     lambda li, plan: fold(fold_attend_split_plain, li,
                                           plan=plan),
@@ -1526,7 +1554,7 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
 
                 got = F.scaled_dot_product_attention(
                     qt, kcat[0], vcat[0], attn_mask=mask).transpose(1, 2)
-                compare(f"SDPA yardstick of fold_attn {tag}",
+                held(f"SDPA yardstick of fold_attn {tag}",
                         got.reshape(b, k, h, d), fold(fold_attend_plain, 0))
                 lib_ms = device_ms(walk_sdpa) / layers
                 del kcat, vcat
@@ -1534,7 +1562,7 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
             k5 = (f"K5 {ms:.4f} ms (plain {plain_ms:.4f}; "
                   f"{k5_plan(b, kvh, rows, h // kvh, sp, sg, False)}), "
                   if with_k5 else "")
-            print(f"fold_attn{names[mode]} {tag} time: {k5}K4 beam route "
+            print(f"fold_attn{MODE_SUFFIX[mode]} {tag} time: {k5}K4 beam route "
                   f"{grid_ms:.4f} ms (plain {grid_plain_ms:.4f}; "
                   f"{k4_plan(b * k, kvh, sp, sg)}), bound "
                   f"{lim['bound_ms']:.4f} ms by {lim['bound_by']}; "
@@ -1548,10 +1576,10 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
                           "library_ms": lib_ms, **lim}
             del pc, gc
         if with_k5:
-            out.append({"name": "fold_attn" + names[mode], "route": "cuda",
+            out.append({"name": "fold_attn" + MODE_SUFFIX[mode], "route": "cuda",
                         "source": FOLD_SOURCE, "replaces": FOLD_REPLACES,
                         "max_abs_err": worst["fold"], **fold_t})
-        out.append({"name": f"decode_attn{names[mode]}_beam", "route": "cuda",
+        out.append({"name": f"decode_attn{MODE_SUFFIX[mode]}_beam", "route": "cuda",
                     "source": "halva_tpu_torch/csrc/decode_attn.cu",
                     "replaces": "halva_tpu/ops/decode_attention.py:82",
                     "max_abs_err": worst["grid"], **grid_t})
@@ -1584,15 +1612,15 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
         want = fold_attend_plain(q, layer(pc, 0), seg80, layer(gc, 0),
                                  gen_valid, fold_k=k)
         tag = f"B={b80} K={k} H={h} KVH={h} Sp={sp} Sg={sg} D={d}"
-        compare(f"fold_attn{names[mode]} {tag}", fold(0), want)
-        compare(f"decode_attn{names[mode]}_beam {tag}",
+        held(f"fold_attn{MODE_SUFFIX[mode]} {tag}", fold(0), want)
+        held(f"decode_attn{MODE_SUFFIX[mode]}_beam {tag}",
                 grid(0).reshape(want.shape), want)
         del want
         ms = device_ms(lambda: [fold(li) for li in range(layers80)])
         grid_ms = device_ms(lambda: [grid(li) for li in range(layers80)])
         prompt_mb = (b80 // len(PROMPT_LENS) * sum(PROMPT_LENS)
                      * _cache_row_bytes(mode, h, d, True) / 1e6)
-        print(f"fold_attn{names[mode]} at batch {b80} ({prompt_mb:.0f} MB of "
+        print(f"fold_attn{MODE_SUFFIX[mode]} at batch {b80} ({prompt_mb:.0f} MB of "
               f"live prompt cache per layer, L2 50 MB): K5 "
               f"{ms / layers80:.4f} ms "
               f"({k5_plan(b80, h, k, 1, sp, sg, False)}), K4 beam route "
@@ -1627,11 +1655,11 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
 
             tag = f"B={b} K={k} H={h} KVH={kvh} Sp={sp} Sg={sg} D={d}"
             for li in (0, layers - 1):
-                worst = max(worst, compare(
-                    f"fold_attn{names[mode]}_shared {tag}",
+                worst = max(worst, held(
+                    f"fold_attn{MODE_SUFFIX[mode]}_shared {tag}",
                     fold(fold_attend_layer, li), fold(fold_attend_plain, li)))
             worst = max(worst, forced_plans(
-                f"fold_attn{names[mode]}_shared {tag}",
+                f"fold_attn{MODE_SUFFIX[mode]}_shared {tag}",
                 lambda li, z: fold(fold_attend_layer, li, splits=z),
                 lambda li, plan: fold(fold_attend_split_plain, li, plan=plan),
                 kvh, k * h // kvh, sp, sg, True))
@@ -1677,7 +1705,7 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
                 lib_ms = device_ms(walk_sdpa) / layers
                 del kcat, vcat
             lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-            print(f"fold_attn{names[mode]}_shared K={k} Sg={sg} time: kernel "
+            print(f"fold_attn{MODE_SUFFIX[mode]}_shared K={k} Sg={sg} time: kernel "
                   f"{ms:.4f} ms ({k5_plan(b, kvh, k, 1, sp, sg, True)}), "
                   f"plain {plain_ms:.4f} ms, SDPA over concatenated keys "
                   f"{lib}, bound {lim['bound_ms']:.4f} ms by "
@@ -1686,7 +1714,7 @@ def check_fold(gen: torch.Generator, with_k5: bool = True) -> list:
                 timing = {"ms": ms, "plain_ms": plain_ms,
                           "library_ms": lib_ms, **lim}
             del pc, gc
-        out.append({"name": f"fold_attn{names[mode]}_shared", "route": "cuda",
+        out.append({"name": f"fold_attn{MODE_SUFFIX[mode]}_shared", "route": "cuda",
                     "source": FOLD_SOURCE, "replaces": FOLD_REPLACES,
                     "max_abs_err": worst, **timing})
     return out
@@ -2550,8 +2578,9 @@ def beam_routes(params, cfg, inputs, kv_quant, suffix: str):
     _, _, _, pc, pseg = _prefill_impl(params, cfg, *inputs, kv_quant=kv_quant)
     route = auto_beam_route({k: v[0] for k, v in pc.items()}, pseg, BEAMS)
     del pc
-    names = {"fold": "fold_attn" + suffix,
-             "grid": "decode_attn" + suffix + "_beam"}
+    dim = head_dim_suffix(cfg.llm.head_size)
+    names = {"fold": "fold_attn" + suffix + dim,
+             "grid": "decode_attn" + suffix + "_beam" + dim}
     other = "grid" if route == "fold" else "fold"
     print(f"route: beam_route='auto' with {kv_quant or 'bf16'} prompt KV at "
           f"B={inputs[0].shape[0]}, {BEAMS} beams -> {route} "
@@ -3382,10 +3411,12 @@ def decode_route(cfg, sp: int, sg: int) -> str:
     return route
 
 
-def family_logits(params, cfg, inputs, tokens, impl, noise=None):
+def family_logits(params, cfg, inputs, tokens, impl, noise=None,
+                  kv_quant=False):
     """First-token logits and COMPARE_STEPS decode-step logits fed `tokens`,
-    on path `impl`; with `noise`, the spliced prompt embeddings and the
-    decode tokens' embeddings are perturbed by 2^-7 N(0, 1) relative."""
+    on path `impl`, over a `kv_quant` prompt cache; with `noise`, the
+    spliced prompt embeddings and the decode tokens' embeddings are
+    perturbed by 2^-7 N(0, 1) relative."""
     ids, images, lens = inputs
     b, s = ids.shape
 
@@ -3394,7 +3425,8 @@ def family_logits(params, cfg, inputs, tokens, impl, noise=None):
         params, cfg, ids, llava.encode_images(params, cfg, images), seg)
     hidden, pc = llama.prefill(params["llm"], cfg.llm,
                                perturbed(sp.embeds, noise), sp.segment_ids,
-                               sp.positions, attn_impl=impl)
+                               sp.positions, attn_impl=impl,
+                               quantize_cache=kv_quant)
     slen = sp.segment_ids.sum(dim=1)
     last = hidden[torch.arange(b, device=DEVICE), (slen - 1).long()][:, None]
     logits = [llama.lm_logits(params["llm"], cfg.llm, last)[:, 0]]
@@ -3443,12 +3475,15 @@ def decode_step_ms(params, cfg, pc, pseg, positions, token, impl) -> float:
 
 
 def run_family_serving(params, cfg, name: str, kernels: dict,
-                       prefill_kernel: str, decode_kernel) -> None:
-    """Greedy decode of the 4 requests on `cfg`'s bf16 tree: the main path
-    with its launches asserted (K1 in `prefill_kernel`'s mode once per
-    layer; `decode_kernel` once per layer and step, or no decode kernel at
-    all where the reference's rule takes the plain attention), then
-    first-token and decode-step logits against the plain path."""
+                       prefill_kernel: str, decode_kernel, kv_quant=False,
+                       step_launches=None) -> torch.Tensor:
+    """Greedy decode of the 4 requests on one of `cfg`'s trees with a
+    `kv_quant` prompt cache: the main path with its launches asserted (K1 in
+    `prefill_kernel`'s mode once per layer; `decode_kernel` once per layer
+    and step, or no decode kernel at all where the reference's rule takes
+    the plain attention; `step_launches`, {kernel: launches a step}, beside
+    them, asserted and not recorded), then first-token and decode-step
+    logits against the plain path. Returns the main run's tokens."""
     layers = cfg.llm.num_layers
     inputs = make_inputs(cfg)
     b = inputs[0].shape[0]
@@ -3456,18 +3491,22 @@ def run_family_serving(params, cfg, name: str, kernels: dict,
     if (route == "kernel") != (decode_kernel is not None):
         raise AssertionError(f"{name}: unexpected decode route {route}")
     with torch.inference_mode():
-        generate_greedy(params, cfg, *inputs, max_new_tokens=2, eos_id=-1)
-        _, prefill_s, _ = timed_run(lambda: _prefill_impl(params, cfg,
-                                                          *inputs))
+        generate_greedy(params, cfg, *inputs, max_new_tokens=2, eos_id=-1,
+                        kv_quant=kv_quant)
+        _, prefill_s, _ = timed_run(lambda: _prefill_impl(
+            params, cfg, *inputs, kv_quant=kv_quant))
         torch.cuda.reset_peak_memory_stats()
         (tokens, num), total_s, launches = timed_run(lambda: generate_greedy(
-            params, cfg, *inputs, max_new_tokens=NEW_TOKENS, eos_id=-1))
+            params, cfg, *inputs, max_new_tokens=NEW_TOKENS, eos_id=-1,
+            kv_quant=kv_quant))
         peak = torch.cuda.max_memory_allocated()
     want = {prefill_kernel: layers}
     if decode_kernel is not None:
         want[decode_kernel] = layers * NEW_TOKENS
+    attn = list(want)
+    want.update({k: n * NEW_TOKENS for k, n in (step_launches or {}).items()})
     expect_launches(launches, want, f"{name} main run")
-    record(kernels, launches, *want)
+    record(kernels, launches, *attn)
     ok = in_vocab(tokens, cfg) and bool((num == NEW_TOKENS).all())
     decode_s = total_s - prefill_s
     print(f"{name} main path: tokens {tuple(tokens.shape)} in [0, "
@@ -3482,7 +3521,8 @@ def run_family_serving(params, cfg, name: str, kernels: dict,
     if not ok:
         raise AssertionError(f"{name}: generated tokens out of range")
     with torch.inference_mode():
-        _, _, slen, pc, pseg = _prefill_impl(params, cfg, *inputs)
+        _, _, slen, pc, pseg = _prefill_impl(params, cfg, *inputs,
+                                             kv_quant=kv_quant)
         step_ms = {impl: decode_step_ms(params, cfg, pc, pseg, slen,
                                         tokens[:, 8, None], impl)
                    for impl in ("auto", "plain")}
@@ -3498,12 +3538,15 @@ def run_family_serving(params, cfg, name: str, kernels: dict,
           "step")
     noise = torch.Generator(device=DEVICE).manual_seed(6)
     with torch.inference_mode():
-        runs = {"auto": family_logits(params, cfg, inputs, tokens, "auto"),
-                "plain": family_logits(params, cfg, inputs, tokens, "plain"),
+        runs = {"auto": family_logits(params, cfg, inputs, tokens, "auto",
+                                      kv_quant=kv_quant),
+                "plain": family_logits(params, cfg, inputs, tokens, "plain",
+                                       kv_quant=kv_quant),
                 "floor": family_logits(params, cfg, inputs, tokens, "plain",
-                                       noise)}
+                                       noise, kv_quant)}
     floor_check(runs, f"{name} first token and decode steps 0-"
                 f"{COMPARE_STEPS - 1}:")
+    return tokens
 
 
 def run_long_row(params, cfg, kernels: dict) -> None:
@@ -3637,8 +3680,9 @@ def loop_launches(kind, cfg, kv_quant, rows, steps, beam_kernel=None,
     packed-int4 matmul seven times a layer at the step's rows."""
     layers = cfg.llm.num_layers
     suffix = {False: "", "int8": "_kv8", "int4": "_kv4"}[kv_quant]
-    attn = {"greedy": "decode_attn" + suffix, "beam": beam_kernel,
-            "verify": "fold_attn" + suffix + "_shared"}[kind]
+    dim = head_dim_suffix(cfg.llm.head_size)
+    attn = {"greedy": "decode_attn" + suffix + dim, "beam": beam_kernel,
+            "verify": "fold_attn" + suffix + "_shared" + dim}[kind]
     want = {attn: layers * steps}
     if int4:
         want.update(w4_mm_launches(rows, 7 * layers * steps))
@@ -3735,14 +3779,15 @@ def graph_loop_case(params, cfg, inputs, label, kind, kv_quant, k=None,
             "device_ms": dev, "capture_ms": st_g["capture_s"] * 1e3}
 
 
-def run_graph_loops(params, cfg, int4: bool) -> None:
+def run_graph_loops(params, cfg, int4: bool,
+                    model: str = "llava-v1.5-7b") -> None:
     """The greedy, beam and verify loops of one tree as the port runs them
     on the card (CUDA graphs), each against its eager body: the bf16 tree
     with bf16 KV, or the int4g tree with int4 prompt KV (and its greedy
     loop at batch 80 too)."""
     inputs = make_inputs(cfg)
     kv = "int4" if int4 else False
-    name = "int4g, int4 KV" if int4 else "bf16"
+    name = f"{model} {'int4g, int4 KV' if int4 else 'bf16'}"
     cases = [("greedy", None, inputs, 4), ("beam", None, inputs, 4),
              ("verify", 4, inputs, 4), ("verify", 8, inputs, 4)]
     if int4:
@@ -5144,6 +5189,446 @@ def run_serve_variants(q4, kernels: dict) -> None:
     print(f"serve variants phase: {time.perf_counter() - t0:.1f} s wall")
 
 
+# ---- Gemma-2B: the head-dim-256 instances of K1, K4 and K5, and VILA's
+# llava_gemma served at full width and depth (18 layers)
+
+GEMMA_WALK_BYTES = 200e6  # caches a kernel timing walks: 4x the L2
+GEMMA_SDPA_LAYERS = 4  # layers the SDPA yardstick walks (8x the keys read)
+K1_SOURCE = "halva_tpu_torch/csrc/flash_fwd.cu"
+K1_REPLACES = "halva_tpu/ops/flash_attention.py:83"
+K4_SOURCE = "halva_tpu_torch/csrc/decode_attn.cu"
+K4_REPLACES = "halva_tpu/ops/decode_attention.py:82"
+K4_NAMES = {"bf16": "decode_attn", "kv8": "decode_attn_kv8",
+            "kv4": "decode_attn_kv4"}
+
+
+def walk_layers(layer_bytes: int) -> int:
+    """Distinct caches a timing walks, so that each call reads its own from
+    device memory and not from the 50 MB L2 (a Gemma layer's caches are a
+    few MB: its one kv head)."""
+    return max(2, -(-int(GEMMA_WALK_BYTES) // int(layer_bytes)))
+
+
+def kernel_row(name, source, replaces, err, ms, plain_ms, lib_ms, lim):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, **lim}
+
+
+def check_gemma_flash(gen: torch.Generator) -> dict:
+    """K1 at head dim 256 against flash_attention_plain at Gemma-2B's
+    prefill shape (B=4 rows of PROMPT_LENS, H=8 over KVH=1), o and LSE,
+    timed beside SDPA (the kv head repeated outside the timed call)."""
+    llm = GEMMA_2B
+    b, s = len(PROMPT_LENS), max(PROMPT_LENS)
+    h, kvh, d = llm.num_heads, llm.kv_heads, llm.head_size
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q, k, v = r(b, s, h, d), r(b, s, kvh, d), r(b, s, kvh, d)
+    seg = lengths_to_seg(PROMPT_LENS, s, "cuda")
+    o, lse = flash_attention_fwd(q, k, v, seg, seg)
+    want = flash_attention_plain(q, k, v, seg, seg)
+    live = seg != 0
+    tag = f"B={b} S={s} H={h} KVH={kvh} D={d} causal"
+    err = held(f"flash_fwd_d256 {tag}", o[live], want[live])
+    kr, vr = (t.repeat_interleave(h // kvh, dim=2) for t in (k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * d**-0.5
+    mask = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
+            & torch.ones(s, s, dtype=torch.bool, device="cuda").tril())
+    want_lse = logits.masked_fill(~mask[:, None], -1e30).logsumexp(-1)
+    del logits
+    live_h = live[:, None, :].expand(b, h, s)
+    lse_err = max_abs(lse[live_h], want_lse[live_h])
+    print(f"flash_fwd_d256 {tag}: lse_err {lse_err:.3e} (limit "
+          f"{LSE_MAX_ABS}) {'ok' if lse_err <= LSE_MAX_ABS else 'FAIL'}")
+    if lse_err > LSE_MAX_ABS:
+        raise AssertionError("flash_fwd_d256: LSE disagrees with the plain "
+                             "log-sum-exp")
+    args = (q, k, v, seg, seg)
+    ms = device_ms(lambda: flash_attention_fwd(*args))
+    plain_ms = device_ms(lambda: flash_attention_plain(*args))
+    flops = 4 * h * d * sum(n * (n + 1) / 2 for n in PROMPT_LENS)
+    qt, kt, vt = q.transpose(1, 2), kr.transpose(1, 2), vr.transpose(1, 2)
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[:, None]))
+    lim = bound(tensor_bytes(q, k, v, seg, o, lse), flops)
+    print(f"flash_fwd_d256 time: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, SDPA with the mask {lib_ms:.4f} ms, bound "
+          f"{lim['bound_ms']:.4f} ms by {lim['bound_by']}; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s on live causal pairs; "
+          f"{k1_plan(b, s, s, h, d)}")
+    return kernel_row("flash_fwd_d256", K1_SOURCE, K1_REPLACES, err, ms,
+                      plain_ms, lib_ms, lim)
+
+
+def _sdpa_walk(qt, kcat, vcat, mask, h):
+    """One SDPA call a layer over the first GEMMA_SDPA_LAYERS layers of
+    concatenated keys, the kv head repeated to the H query heads outside
+    the timed call: ms a layer."""
+    n = min(GEMMA_SDPA_LAYERS, kcat.shape[0])
+    kr = kcat[:n].repeat_interleave(h // kcat.shape[2], dim=2)
+    vr = vcat[:n].repeat_interleave(h // vcat.shape[2], dim=2)
+
+    def walk():
+        for li in range(n):
+            F.scaled_dot_product_attention(qt, kr[li], vr[li],
+                                           attn_mask=mask)
+
+    ms = device_ms(walk) / n
+    del kr, vr
+    return ms
+
+
+def check_gemma_decode(gen: torch.Generator) -> list:
+    """K4 at head dim 256 against decode_attend_plain at Gemma-2B's decode
+    shape (B=4, H=8 over KVH=1, Sp=623, Sg=128) in its bf16, int8/int8 and
+    int4/int8 modes, and its beam mode (4 beams) on bf16 and int4 prompt
+    caches; each timed over distinct layers' caches beside its bound and,
+    on bf16 caches, SDPA over the concatenated keys."""
+    llm = GEMMA_2B
+    b, h, kvh, d = len(PROMPT_LENS), llm.num_heads, llm.kv_heads, llm.head_size
+    sp, sg = max(PROMPT_LENS), 128
+    seg = lengths_to_seg(PROMPT_LENS, sp, "cuda")
+    out = []
+    for mode, k in (("bf16", 1), ("kv8", 1), ("kv4", 1), ("bf16", BEAMS),
+                    ("kv4", BEAMS)):
+        rows = b * k
+        name = K4_NAMES[mode] + ("_beam" if k > 1 else "") + "_d256"
+        steps = torch.randint(0, sg, (rows,), generator=gen, device="cuda")
+        steps[0] = 0
+        gen_valid = torch.arange(sg, device="cuda")[None, :] <= steps[:, None]
+        prow = _cache_row_bytes(mode, kvh, d, True)
+        grow = _cache_row_bytes(mode, kvh, d, False)
+        layers = walk_layers(b * sp * prow + rows * sg * grow)
+        pc, gc = _fold_caches(gen, mode, layers, b, rows, kvh, sp, sg, d)
+        q = torch.randn(rows, 1, h, d, generator=gen, device="cuda").bfloat16()
+
+        def call(fn, li, **kw):
+            return fn(q, {n: t[li] for n, t in pc.items()}, seg,
+                      {n: t[li] for n, t in gc.items()}, gen_valid,
+                      beam_k=k, **kw)
+
+        kern = functools.partial(call, decode_attend_layer,
+                                 **({"beam_route": "grid"} if k > 1 else {}))
+        plain = functools.partial(call, decode_attend_plain)
+        tag = f"B={rows} H={h} KVH={kvh} Sp={sp} Sg={sg} D={d}"
+        err = max(held(f"{name} {tag} layer {li}", kern(li), plain(li))
+                  for li in (0, layers - 1))
+        ms = device_ms(lambda: [kern(li) for li in range(layers)]) / layers
+        plain_ms = device_ms(
+            lambda: [plain(li) for li in range(layers)]) / layers
+        # the same call on one split (no merge), printed beside the plan's
+        one_ms = device_ms(lambda: [kern(li, splits=1)
+                                    for li in range(layers)]) / layers
+        live_prompt = sum(PROMPT_LENS)
+        live_gen = int((steps + 1).sum())
+        # every query row meets every live key of its item (and beam); the
+        # prompt is read once per item
+        flops = 4 * d * h * (k * live_prompt + live_gen)
+        lim = bound(live_prompt * prow + live_gen * grow
+                    + 2 * tensor_bytes(q) + tensor_bytes(seg, gen_valid),
+                    flops)
+        lib_ms = None
+        if mode == "bf16":
+            kcat = torch.cat([pc["k"].repeat_interleave(k, dim=1), gc["k"]],
+                             dim=3)
+            vcat = torch.cat([pc["v"].repeat_interleave(k, dim=1), gc["v"]],
+                             dim=3)
+            mask = torch.cat([(seg != 0).repeat_interleave(k, dim=0),
+                              gen_valid], dim=1)[:, None, None, :]
+            lib_ms = _sdpa_walk(q.transpose(1, 2), kcat, vcat, mask, h)
+            del kcat, vcat
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"{name} time ({k4_plan(rows, kvh, sp, sg)}; {layers} layers' "
+              f"caches walked): kernel {ms:.4f} ms ({one_ms:.4f} ms on one "
+              f"split), plain {plain_ms:.4f} ms, SDPA over concatenated keys "
+              f"{lib}, bound {lim['bound_ms']:.4f} ms by {lim['bound_by']}")
+        out.append(kernel_row(name, K4_SOURCE, K4_REPLACES, err, ms,
+                              plain_ms, lib_ms, lim))
+        del pc, gc
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_gemma_fold(gen: torch.Generator) -> list:
+    """K5 at head dim 256 against fold_attend_plain at Gemma-2B's beam and
+    verify shapes (B=4 items, K=4: 32 query rows an item, two chunks; Sp=623,
+    Sg=128): the per-beam gen stage and the shared gen stage with
+    candidates, on bf16 and int4 prompt caches, each also against
+    fold_attend_split_plain under its plan; timed as K4."""
+    llm = GEMMA_2B
+    b, h, kvh, d = len(PROMPT_LENS), llm.num_heads, llm.kv_heads, llm.head_size
+    sp, sg, k = max(PROMPT_LENS), 128, BEAMS
+    seg = lengths_to_seg(PROMPT_LENS, sp, "cuda")
+    out = []
+    for mode, shared in (("bf16", False), ("kv4", False), ("bf16", True),
+                         ("kv4", True)):
+        name = ("fold_attn" + MODE_SUFFIX[mode]
+                + ("_shared" if shared else "") + "_d256")
+        gen_rows = b if shared else b * k
+        if shared:
+            gen_len = torch.tensor([0, 37, 100, sg - k], device="cuda")
+            gen_valid = (torch.arange(sg, device="cuda")[None, :]
+                         < gen_len[:, None])
+            live_gen = int(gen_len.sum())
+        else:
+            steps = torch.randint(0, sg, (gen_rows,), generator=gen,
+                                  device="cuda")
+            steps[0] = 0
+            gen_valid = (torch.arange(sg, device="cuda")[None, :]
+                         <= steps[:, None])
+            live_gen = int((steps + 1).sum())
+        prow = _cache_row_bytes(mode, kvh, d, True)
+        grow = _cache_row_bytes(mode, kvh, d, False)
+        layers = walk_layers(b * sp * prow + gen_rows * sg * grow)
+        pc, gc = _fold_caches(gen, mode, layers, b, gen_rows, kvh, sp, sg, d)
+        q = torch.randn(b, k, h, d, generator=gen, device="cuda").bfloat16()
+        cand = None
+        if shared:
+            cand = tuple(torch.randn(b, k, kvh, d, generator=gen,
+                                     device="cuda").bfloat16()
+                         for _ in range(2))
+
+        def call(fn, li, **kw):
+            return fn(q, {n: t[li] for n, t in pc.items()}, seg,
+                      {n: t[li] for n, t in gc.items()}, gen_valid,
+                      fold_k=k, shared_gen=shared, candidates=cand, **kw)
+
+        plan = fold_plan(b, kvh, k * h // kvh, h // kvh, sp, sg,
+                         sm_count(torch.device("cuda")), shared)
+        tag = f"B={b} K={k} H={h} KVH={kvh} Sp={sp} Sg={sg} D={d}"
+        err = max(held(f"{name} {tag} layer {li}",
+                       call(fold_attend_layer, li),
+                       call(fold_attend_plain, li))
+                  for li in (0, layers - 1))
+        err = max(err, held(f"{name} {tag} vs its split plain version",
+                            call(fold_attend_layer, 0),
+                            call(fold_attend_split_plain, 0, plan=plan)))
+        ms = device_ms(lambda: [call(fold_attend_layer, li)
+                                for li in range(layers)]) / layers
+        plain_ms = device_ms(lambda: [call(fold_attend_plain, li)
+                                      for li in range(layers)]) / layers
+        one_ms = device_ms(lambda: [call(fold_attend_layer, li, splits=1)
+                                    for li in range(layers)]) / layers
+        live_prompt = sum(PROMPT_LENS)
+        if shared:  # query i also meets candidates j <= i
+            flops = 4 * d * h * (k * (live_prompt + live_gen)
+                                 + b * k * (k + 1) // 2)
+        else:
+            flops = 4 * d * h * (k * live_prompt + live_gen)
+        lim = bound(live_prompt * prow + live_gen * grow
+                    + 2 * tensor_bytes(q) + tensor_bytes(seg, gen_valid)
+                    + (tensor_bytes(*cand) if shared else 0), flops)
+        lib_ms = None
+        if mode == "bf16":
+            reps = 1 if shared else k  # the prompt of the row's item
+            rows, queries = (b, k) if shared else (b * k, 1)
+            parts_k = [pc["k"].repeat_interleave(reps, dim=1), gc["k"]]
+            parts_v = [pc["v"].repeat_interleave(reps, dim=1), gc["v"]]
+            masks = [(seg != 0).repeat_interleave(reps, dim=0)[:, None, :]
+                     .expand(rows, queries, sp),
+                     gen_valid[:, None, :].expand(rows, queries, sg)]
+            if shared:
+                parts_k.append(cand[0].transpose(1, 2)[None].expand(
+                    layers, b, kvh, k, d))
+                parts_v.append(cand[1].transpose(1, 2)[None].expand(
+                    layers, b, kvh, k, d))
+                masks.append(torch.ones(k, k, dtype=torch.bool,
+                                        device="cuda").tril()[None]
+                             .expand(b, k, k))
+            qt = q.reshape(rows, queries, h, d).transpose(1, 2)
+            lib_ms = _sdpa_walk(qt, torch.cat(parts_k, dim=3),
+                                torch.cat(parts_v, dim=3),
+                                torch.cat(masks, dim=2)[:, None], h)
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        plan_text = k5_plan(b, kvh, k * h // kvh, h // kvh, sp, sg, shared)
+        print(f"{name} time ({plan_text}; {layers} layers' caches walked): "
+              f"kernel {ms:.4f} ms ({one_ms:.4f} ms on one split), plain "
+              f"{plain_ms:.4f} ms, SDPA over "
+              f"concatenated keys {lib}, bound {lim['bound_ms']:.4f} ms by "
+              f"{lim['bound_by']}")
+        out.append(kernel_row(name, FOLD_SOURCE, FOLD_REPLACES, err, ms,
+                              plain_ms, lib_ms, lim))
+        del pc, gc
+        torch.cuda.empty_cache()
+    return out
+
+
+def gemma_kernel_checks(gen: torch.Generator) -> list:
+    """The head-dim-256 rows of the `kernels` line."""
+    return [check_gemma_flash(gen), *check_gemma_decode(gen),
+            *check_gemma_fold(gen)]
+
+
+def gemma_step_times(params, cfg, kv_quant, tokens) -> None:
+    """Device ms, from CUDA-graph replays at gen slot 8, of one greedy, one
+    4-beam and one draft_k-4 verify step on the kernel route and on the
+    plain route (attn_impl="plain": the plain attention and, on the int4g
+    tree, the plain int4 matmuls) over one prompt cache."""
+    inputs = make_inputs(cfg)
+    b, at = inputs[0].shape[0], 8
+    llm = params["llm"]
+    times = {}
+    with torch.inference_mode():
+        _, _, slen, pc, pseg = _prefill_impl(params, cfg, *inputs,
+                                             kv_quant=kv_quant)
+        for impl in ("auto", "plain"):
+            for kind, k in (("greedy", 1), ("beam", BEAMS)):
+                gen_cache = init_gen_cache_like(cfg.llm, b * k, NEW_TOKENS,
+                                                pc)
+                emb = llama.embed(llm, tokens[:, at, None]
+                                  .repeat_interleave(k, dim=0))
+                pos = (slen + at).repeat_interleave(k)
+                times[kind, impl] = device_ms(lambda: llama.decode_step(
+                    llm, cfg.llm, emb, pos, pc, pseg, gen_cache, at,
+                    attn_impl=impl, beam_k=k))
+                del gen_cache
+            gen_cache = init_gen_cache_like(cfg.llm, b, NEW_TOKENS, pc)
+            emb = llama.embed(llm, tokens[:, at:at + 4])
+            gen_len = torch.full((b,), at, dtype=torch.int32, device=DEVICE)
+            times["verify", impl] = device_ms(lambda: llama.verify_step(
+                llm, cfg.llm, emb, slen + at, pc, pseg, gen_cache, gen_len,
+                attn_impl=impl))
+            del gen_cache
+        hidden = llama.embed(llm, tokens[:, at, None])
+        times["lm_logits"] = device_ms(lambda: llama.lm_logits(
+            llm, cfg.llm, hidden))
+        del pc
+    what = "int4g, int4 KV" if kv_quant else "bf16"
+    print(f"llava-gemma-2b {what} step device time (CUDA graphs, gen slot "
+          f"{at}, B={b}; {gpu_line()}): "
+          + "; ".join(f"{kind} {times[kind, 'auto']:.3f} ms on the kernel "
+                      f"route, {times[kind, 'plain']:.3f} ms plain "
+                      f"({times[kind, 'plain'] / times[kind, 'auto']:.2f}x)"
+                      for kind in ("greedy", "beam", "verify"))
+          + f"; of a greedy step, the tied head (lm_logits over "
+          f"{cfg.llm.vocab_size} tokens) {times['lm_logits']:.3f} ms")
+
+
+def run_gemma_variants(params, cfg, kernels: dict, kv_quant) -> None:
+    """On one Gemma tree: 4 beams over NEW_TOKENS on the route
+    beam_route="auto" takes, a short run on the other route, and
+    speculative decode at draft_k 4 over NEW_TOKENS, each through its entry
+    point with its launches asserted; on the int4g tree the layer matmuls
+    at B*K rows go to K7 by the row rule."""
+    layers = cfg.llm.num_layers
+    inputs = make_inputs(cfg)
+    b = inputs[0].shape[0]
+    suffix = {False: "", "int8": "_kv8", "int4": "_kv4"}[kv_quant]
+    w4 = "kernel_q4p" in params["llm"]["layers"]["attn"]["wq"]
+    what = f"llava-gemma-2b {'int4g, int4 KV' if w4 else 'bf16'}"
+    n = NEW_TOKENS
+
+    def want(attn: str, count: int, rows: int, steps: int) -> dict:
+        out = {"flash_fwd_d256": layers, attn: count}
+        if w4:
+            out.update(w4_mm_launches(rows, 7 * layers * steps))
+        return out
+
+    with torch.inference_mode():
+        main, other_route, other = beam_routes(params, cfg, inputs, kv_quant,
+                                               suffix)
+        stats = {}
+        (tok, num), secs, launches = timed_run(lambda: generate_beam(
+            params, cfg, *inputs, max_new_tokens=n, eos_id=-1,
+            num_beams=BEAMS, kv_quant=kv_quant, stats=stats))
+        expect_launches(launches, want(main, layers * n, b * BEAMS, n),
+                        f"{what} beam run ({BEAMS} beams, {n} tokens)")
+        record(kernels, launches, main)
+        ok = (in_vocab(tok, cfg) and bool((num == n).all())
+              and bool(torch.isfinite(stats["best_scores"]).all())
+              and stats["steps"] == n)
+        print(f"{what} beam run: {secs:.3f} s with its prefill, best scores "
+              + ", ".join(f"{x:.3f}" for x in stats["best_scores"].tolist())
+              + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{what} beam run: bad hypotheses or scores")
+        (tok_o, _), _, launches = timed_run(lambda: generate_beam(
+            params, cfg, *inputs, max_new_tokens=SHORT_TOKENS, eos_id=-1,
+            num_beams=BEAMS, kv_quant=kv_quant, beam_route=other_route))
+        expect_launches(launches, want(other, layers * SHORT_TOKENS,
+                                       b * BEAMS, SHORT_TOKENS),
+                        f"{what} beam run on the {other_route} route")
+        record(kernels, launches, other)
+        if not in_vocab(tok_o, cfg):
+            raise AssertionError(f"{what}: {other_route}-route beam tokens "
+                                 "out of range")
+        spec = "fold_attn" + suffix + "_shared_d256"
+        (tok_s, num_s, st), secs, launches = timed_run(
+            lambda: generate_speculative(params, cfg, *inputs,
+                                         max_new_tokens=n, eos_id=-1,
+                                         draft_k=4, kv_quant=kv_quant))
+        steps = st["verify_steps"]
+        expect_launches(launches, want(spec, layers * steps, b * 4, steps),
+                        f"{what} speculative run (draft_k 4)")
+        record(kernels, launches, spec)
+        ok = (in_vocab(tok_s, cfg) and bool((num_s == n).all())
+              and st["emitted_tokens"] >= steps >= 1)
+        print(f"{what} speculative run: {st}, {secs:.3f} s with its prefill "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{what} speculative run: bad tokens or "
+                                 "stats")
+
+
+def run_gemma(kernels: dict) -> None:
+    """LLaVA-Gemma-2B at full width and depth from a seeded random bf16
+    tree, then its int4g tree with int4 prompt KV (and briefly int8 KV):
+    greedy decode of the 4 requests through `generate` against the plain
+    route within 4/3 of a noise floor, 4 beams, speculative decode at
+    draft_k 4, each graph loop against its eager body (`run_graph_loops`:
+    greedy, 4 beams, verify at draft_k 4 and 8, and on int4g greedy at
+    batch 80), and the step times
+    on the kernel route beside the plain route's. K1: 18 launches a
+    prefill; K4: 18 a token; K6: 7 x 18 = 126 an int4g token. The launch
+    counts recorded are the head-dim-256 kernels'; K6 and K7 are asserted
+    here and keep the llava rows' counts."""
+    cfg = LLAVA_GEMMA_2B
+    llm = cfg.llm
+    layers = llm.num_layers
+    w4_route = ("K6/K7" if llama._w4_mm("auto", llm.head_size)
+                is w4_matmul.w4_decode_matmul else "plain")
+    print(f"route: attn_impl='auto' at Gemma's head dim {llm.head_size} -> "
+          f"{kernel_route('auto', llm.head_size)} (serving), "
+          f"{kernel_route('auto', llm.head_size, grad=True)} for a forward "
+          "with grad enabled (K2 and K3 take head dim 128 only); the "
+          f"packed-int4 decode matmuls -> {w4_route}")
+    t0 = time.perf_counter()
+    params = new_tree(cfg, "llava-gemma-2b (VILA's llava_gemma: Gemma-2B "
+                      "under CLIP ViT-L/14-336)")
+    tokens = run_family_serving(params, cfg, "llava-gemma-2b bf16", kernels,
+                                "flash_fwd_d256", "decode_attn_d256")
+    run_gemma_variants(params, cfg, kernels, False)
+    gemma_step_times(params, cfg, False, tokens)
+    run_graph_loops(params, cfg, int4=False, model="llava-gemma-2b")
+    q4 = quantize_int4g(params)
+    del params
+    torch.cuda.empty_cache()
+    tokens = run_family_serving(q4, cfg, "llava-gemma-2b int4g, int4 KV",
+                                kernels, "flash_fwd_d256",
+                                "decode_attn_kv4_d256", "int4",
+                                {"w4_gemv": 7 * layers})
+    with torch.inference_mode():
+        (tok8, _), _, launches = timed_run(lambda: generate_greedy(
+            q4, cfg, *make_inputs(cfg), max_new_tokens=SHORT_TOKENS,
+            eos_id=-1, kv_quant="int8"))
+    expect_launches(launches, {
+        "flash_fwd_d256": layers,
+        "decode_attn_kv8_d256": layers * SHORT_TOKENS,
+        "w4_gemv": 7 * layers * SHORT_TOKENS}, "llava-gemma-2b int8-KV run")
+    record(kernels, launches, "decode_attn_kv8_d256")
+    if not in_vocab(tok8, cfg):
+        raise AssertionError("llava-gemma-2b int8-KV tokens out of range")
+    run_gemma_variants(q4, cfg, kernels, "int4")
+    gemma_step_times(q4, cfg, "int4", tokens)
+    run_graph_loops(q4, cfg, int4=True, model="llava-gemma-2b")
+    del q4
+    torch.cuda.empty_cache()
+    print(f"llava-gemma-2b phase: {time.perf_counter() - t0:.1f} s")
+
+
 def flash_checks(gen: torch.Generator) -> list:
     """K1, K2 and K3 against their plain versions, base mode then the modes:
     their rows of the `kernels` line."""
@@ -5214,6 +5699,17 @@ def main() -> None:
         print(json.dumps({"pack_kernels": rows, "pack_launches": {
             name: k["launches"] for name, k in sorted(launches.items())}}))
         return
+    if sys.argv[1:] == ["--gemma-only"]:
+        # the head-dim-128 rows of K1 and K4 beside the 256 ones, one card
+        base = [check_flash(gen), check_decode(gen)]
+        rows = gemma_kernel_checks(gen)
+        kernels = collections.defaultdict(dict, {k["name"]: k for k in rows})
+        run_gemma(kernels)
+        keys = ("name", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        print(json.dumps({"gemma_kernels": [{k: kern.get(k) for k in keys}
+                                            for kern in base + rows]}))
+        return
     if sys.argv[1:] == ["--serve-variants-only"]:
         params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
         run_sampling_bf16(params, LLAVA_V15_7B)
@@ -5233,16 +5729,19 @@ def main() -> None:
     if not quant_only:
         checked = flash_checks(gen) + [
             check_decode(gen), *check_decode_quant(gen), *check_fold(gen),
-            check_w4(gen)] + checked
+            check_w4(gen)] + checked + gemma_kernel_checks(gen)
     kernels = {k["name"]: k for k in checked}
     if quant_only:  # the other kernels' launches are counted, not kept
         kernels = collections.defaultdict(dict, kernels)
     print(f"route: attn_impl='auto' at head dim {CFG.llm.head_size} -> "
-          f"{kernel_route('auto', CFG.llm.head_size)}, at head dim 64 -> "
-          f"{kernel_route('auto', 64)} (ops/attention.kernel_route, from the "
-          "config alone, on either device: K1-K5 and the packed-int4 decode "
-          "step take head dim 128 only; a caller who names 'kernel' still "
-          "gets the wrappers' ValueError)")
+          f"{kernel_route('auto', CFG.llm.head_size)}, at head dim 256 -> "
+          f"{kernel_route('auto', 256)} ({kernel_route('auto', 256, True)} "
+          f"with grad enabled), at head dim 64 -> {kernel_route('auto', 64)} "
+          "(ops/attention.kernel_route, from the config and "
+          "torch.is_grad_enabled() alone, on either device: K1, K4, K5 and "
+          "the packed-int4 decode step take head dims 128 and 256, K2 and "
+          "K3 128 only; a caller who names 'kernel' still gets the "
+          "wrappers' ValueError)")
     if quant_only:
         params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
     else:
@@ -5298,6 +5797,8 @@ def main() -> None:
         run_mistral(kernels)
         torch.cuda.empty_cache()
         run_mpt(kernels)
+        torch.cuda.empty_cache()
+        run_gemma(kernels)
         torch.cuda.empty_cache()
         run_bench()
     loaded = sorted(m for m in sys.modules

@@ -67,6 +67,10 @@
 // cache is stored once per item; each beam's blocks still stream it (the L2
 // may serve the repeats). fold_attn.cu reads it once per item instead. The
 // reference's rows mode is the same function as the base modes.
+// Head dims 128 and 256 (Gemma-2B: G = 8 query heads over one kv head) are
+// instances of one template: at 256 a cache row's logit takes a whole warp
+// (32 lanes of 8 dims) and a lane sums 8 dims of P V; a bf16 ring slot is
+// 64 KB (one block an SM), an int8 or int4/int8 slot 32 KB.
 // Measured on an NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py, device ms
 // from CUDA-graph replays, B=4 Sp=623 Sg=128 H=KVH=32; first design in
 // brackets): bf16 0.0241 (0.0793; SDPA over the same keys 0.0309, byte
@@ -98,19 +102,24 @@ using halva_decode::nib;
 using halva_decode::row_bytes;
 using halva_decode::sbyte;
 
-constexpr int D = 128;              // head dim of every supported Llama config
+// D, the head dim, is a template parameter: 128 (Llama, Mistral, MPT) or 256
+// (Gemma). A cache row takes D / 8 logit lanes of 8 dims each (16 at 128, a
+// whole warp at 256) and D / 32 PV dims a lane.
 constexpr int TILE = 64;            // keys per tile (int4: 32 byte rows)
 constexpr int WARPS = NT / 32;
-constexpr int LPR = 16;             // logit lanes per cache row, 8 dims each
-constexpr int RPP = NT / LPR;       // cache rows per logit pass
 static_assert(TILE == 64, "the softmax takes two keys per lane");
+
+template <int D>
+__host__ __device__ constexpr int lpr() {  // logit lanes per cache row
+  return D / 8;
+}
 
 template <int F>
 __host__ __device__ constexpr int tile_rows() {
   return F == I4 ? TILE / 2 : TILE;
 }
 
-template <int F>
+template <int F, int D>
 __host__ __device__ constexpr int tile_bytes() {
   return tile_rows<F>() * row_bytes<F>(D);
 }
@@ -178,7 +187,7 @@ __device__ __forceinline__ int meta_store(Meta& m, const MetaRegs& r) {
 }
 
 // the tile's K and V rows into one ring slot (K rows, then V rows)
-template <int F>
+template <int F, int D>
 __device__ __forceinline__ void kv_issue(const Keys& s, int t0, const Meta& m,
                                          char* dst) {
   constexpr int RB = row_bytes<F>(D);
@@ -191,16 +200,18 @@ __device__ __forceinline__ void kv_issue(const Keys& s, int t0, const Meta& m,
     const bool live = F == I4 ? (m.ok[2 * r] | m.ok[2 * r + 1]) : m.ok[r];
     const long off = live ? (r0 + r) * RB + cc * 16 : 0;
     cp_async16(dst + r * RB + cc * 16, s.k + off, live);
-    cp_async16(dst + tile_bytes<F>() + r * RB + cc * 16, s.v + off, live);
+    cp_async16(dst + tile_bytes<F, D>() + r * RB + cc * 16, s.v + off, live);
   }
 }
 
 // logits of the tile's keys times their k scale (0 for a masked key)
-template <int F, int G>
+template <int F, int G, int D>
 __device__ __forceinline__ void logits(const char* kt, const Meta& m,
                                        const float (&qreg)[G][8],
                                        Shared<G>& sh) {
   constexpr int RB = row_bytes<F>(D);
+  constexpr int LPR = lpr<D>();
+  constexpr int RPP = NT / LPR;  // cache rows per logit pass
   const int lr = threadIdx.x % LPR, rr = threadIdx.x / LPR;
 #pragma unroll
   for (int r = rr; r < tile_rows<F>(); r += RPP) {
@@ -282,68 +293,78 @@ __device__ __forceinline__ void softmax(const Meta& m, Shared<G>& sh) {
   }
 }
 
-// acc = acc * alpha + P V: warp w takes rows w, w + 8, ..., a lane 4 dims
-template <int F, int G>
+// acc = acc * alpha + P V: warp w takes rows w, w + 8, ..., a lane DPL =
+// D / 32 contiguous dims, read 4 at a time
+template <int F, int G, int D>
 __device__ __forceinline__ void pv(const char* vt, const Meta& m,
-                                   const Shared<G>& sh, float (&acc)[G][4]) {
+                                   const Shared<G>& sh,
+                                   float (&acc)[G][D / 32]) {
   constexpr int RB = row_bytes<F>(D);
+  constexpr int DPL = D / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[g][j] *= sh.alpha[g];
+    for (int j = 0; j < DPL; ++j) acc[g][j] *= sh.alpha[g];
 #pragma unroll 2
   for (int r = warp; r < tile_rows<F>(); r += WARPS) {
     if constexpr (F == I4) {
       const int t = 2 * r;
       if (!(m.ok[t] | m.ok[t + 1])) continue;  // the same for the whole warp
-      const uint32_t w =
-          *reinterpret_cast<const uint32_t*>(vt + r * RB + lane * 4);
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float pe = sh.pw[t][g], po = sh.pw[t + 1][g];
+      for (int c = 0; c < DPL / 4; ++c) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            vt + r * RB + lane * DPL + 4 * c);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[g][j] += pe * nib(w, j, 0) + po * nib(w, j, 4);
+        for (int g = 0; g < G; ++g) {
+          const float pe = sh.pw[t][g], po = sh.pw[t + 1][g];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[g][4 * c + j] += pe * nib(w, j, 0) + po * nib(w, j, 4);
+        }
       }
     } else {
       if (!m.ok[r]) continue;
-      float vf[4];
-      if constexpr (F == BF16) {
-        const uint2 x = *reinterpret_cast<const uint2*>(vt + r * RB + lane * 8);
-        const float2 f0 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&x.x));
-        const float2 f1 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&x.y));
-        vf[0] = f0.x;
-        vf[1] = f0.y;
-        vf[2] = f1.x;
-        vf[3] = f1.y;
-      } else {
-        const uint32_t w =
-            *reinterpret_cast<const uint32_t*>(vt + r * RB + lane * 4);
+      float vf[DPL];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) vf[j] = sbyte(w, j);
+      for (int c = 0; c < DPL / 4; ++c) {
+        if constexpr (F == BF16) {
+          const uint2 x = *reinterpret_cast<const uint2*>(
+              vt + r * RB + lane * DPL * 2 + 8 * c);
+          const float2 f0 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+          const float2 f1 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+          vf[4 * c] = f0.x;
+          vf[4 * c + 1] = f0.y;
+          vf[4 * c + 2] = f1.x;
+          vf[4 * c + 3] = f1.y;
+        } else {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(
+              vt + r * RB + lane * DPL + 4 * c);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) vf[4 * c + j] = sbyte(w, j);
+        }
       }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = sh.pw[r][g];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[g][j] += p * vf[j];
+        for (int j = 0; j < DPL; ++j) acc[g][j] += p * vf[j];
       }
     }
   }
 }
 
 // one ring slot: a tile's K rows and V rows
-template <int PF, int GF>
+template <int PF, int GF, int D>
 __host__ __device__ constexpr int slot_bytes() {
-  return 2 * cmax(tile_bytes<PF>(), tile_bytes<GF>());
+  return 2 * cmax(tile_bytes<PF, D>(), tile_bytes<GF, D>());
 }
 
-template <int G, int PF, int GF>
+template <int G, int PF, int GF, int D>
 __host__ __device__ constexpr int smem_bytes() {
-  return 2 * slot_bytes<PF, GF>() + (int)sizeof(Shared<G>);
+  return 2 * slot_bytes<PF, GF, D>() + (int)sizeof(Shared<G>);
 }
 
 // PF / GF: prompt and gen cache formats. Sp is the true prompt length in
@@ -351,7 +372,7 @@ __host__ __device__ constexpr int smem_bytes() {
 // int4). Split z of (kv head x, row y) takes prompt tiles [z * tps,
 // min((z + 1) * tps, ceil(Sp / 64))) and, if it is the last split, the gen
 // tiles.
-template <int G, int PF, int GF>
+template <int G, int PF, int GF, int D>
 __global__ void __launch_bounds__(NT)
 decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    const void* __restrict__ kp, const void* __restrict__ vp,
@@ -366,7 +387,8 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    int* __restrict__ tickets, int H, int KVH, int Sp,
                    int sp_rows, int Sg, int beam_k, int splits, int tps,
                    float scale_log2) {
-  constexpr int SLOT = slot_bytes<PF, GF>();
+  constexpr int SLOT = slot_bytes<PF, GF, D>();
+  constexpr int DPL = D / 32;  // PV dims of a lane
   static_assert(WARPS * G * D * 4 <= 2 * SLOT, "the final sum reuses the ring");
   extern __shared__ __align__(16) char smem[];
   Shared<G>& sh = *reinterpret_cast<Shared<G>*>(smem + 2 * SLOT);
@@ -375,7 +397,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
 
   // this thread's 8 dims of each query head, pre-scaled into the exp2 domain
   float qreg[G][8];
-  const int lr = tid % LPR;
+  const int lr = tid % lpr<D>();
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const uint4 qx = *reinterpret_cast<const uint4*>(
@@ -388,11 +410,11 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
       qreg[g][2 * i + 1] = f.y * scale_log2;
     }
   }
-  float acc[G][4];
+  float acc[G][DPL];
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[g][j] = 0.f;
+    for (int j = 0; j < DPL; ++j) acc[g][j] = 0.f;
   if (tid < G) {
     sh.m[tid] = M_INIT;
     sh.l[tid] = 0.f;
@@ -447,9 +469,9 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
     char* dst = smem + (i & 1) * SLOT;
     const Meta& m = sh.meta[i % 3];
     if (i < np_)
-      kv_issue<PF>(ps, start(i), m, dst);
+      kv_issue<PF, D>(ps, start(i), m, dst);
     else
-      kv_issue<GF>(gs, start(i), m, dst);
+      kv_issue<GF, D>(gs, start(i), m, dst);
   };
 
   // prologue: tile 0's metadata, then its rows; tile 1's metadata in flight
@@ -471,16 +493,16 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
       const Meta& m = sh.meta[i % 3];
       const char* kt = smem + (i & 1) * SLOT;
       if (i < np_)
-        logits<PF, G>(kt, m, qreg, sh);
+        logits<PF, G, D>(kt, m, qreg, sh);
       else
-        logits<GF, G>(kt, m, qreg, sh);
+        logits<GF, G, D>(kt, m, qreg, sh);
       __syncthreads();
       softmax<G>(m, sh);
       __syncthreads();
       if (i < np_)
-        pv<PF, G>(kt + tile_bytes<PF>(), m, sh, acc);
+        pv<PF, G, D>(kt + tile_bytes<PF, D>(), m, sh, acc);
       else
-        pv<GF, G>(kt + tile_bytes<GF>(), m, sh, acc);
+        pv<GF, G, D>(kt + tile_bytes<GF, D>(), m, sh, acc);
     }
     live = live_next;
   }
@@ -491,8 +513,12 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
   float* red = reinterpret_cast<float*>(smem);  // [WARPS][G][D]
 #pragma unroll
   for (int g = 0; g < G; ++g)
-    *reinterpret_cast<float4*>(red + (warp * G + g) * D + lane * 4) =
-        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+#pragma unroll
+    for (int c = 0; c < DPL / 4; ++c)
+      *reinterpret_cast<float4*>(red + (warp * G + g) * D + lane * DPL +
+                                 4 * c) =
+          make_float4(acc[g][4 * c], acc[g][4 * c + 1], acc[g][4 * c + 2],
+                      acc[g][4 * c + 3]);
   __syncthreads();
   __nv_bfloat16* out = o + ((long)b * H + n * G) * D;
   auto warp_sum = [&](int i) {
@@ -555,11 +581,11 @@ struct Args {
 // above 48 KB of dynamic shared memory needs the opt-in, once per kernel and
 // device (the first launch is never inside a CUDA graph capture: the callers
 // warm up first)
-template <int G, int PF, int GF>
+template <int G, int PF, int GF, int D>
 int launch_g(dim3 grid, cudaStream_t st, const Args& a) {
   static uint64_t smem_set = 0;
-  constexpr int bytes = smem_bytes<G, PF, GF>();
-  auto kernel = decode_attn_kernel<G, PF, GF>;
+  constexpr int bytes = smem_bytes<G, PF, GF, D>();
+  auto kernel = decode_attn_kernel<G, PF, GF, D>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -577,11 +603,27 @@ int launch_g(dim3 grid, cudaStream_t st, const Args& a) {
   return (int)cudaGetLastError();
 }
 
+template <int PF, int GF, int D>
+int run_d(const dim3 grid, cudaStream_t st, const Args& b) {
+  switch (b.H / b.KVH) {
+    case 1:
+      return launch_g<1, PF, GF, D>(grid, st, b);
+    case 2:
+      return launch_g<2, PF, GF, D>(grid, st, b);
+    case 4:
+      return launch_g<4, PF, GF, D>(grid, st, b);
+    case 8:
+      return launch_g<8, PF, GF, D>(grid, st, b);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <int PF, int GF>
 int run(const Args& a, int B, int D_, float scale, void* stream) {
   if (B <= 0 || a.KVH <= 0 || a.H % a.KVH != 0 || a.Sp < 0 || a.Sg < 0 ||
       a.beam_k < 1 || B % a.beam_k != 0 || B > 65535 || a.splits > 65535 ||
-      D_ != D)
+      (D_ != 128 && D_ != 256))
     return (int)cudaErrorInvalidValue;
   // the plan: prompt splits of tps tiles, none empty, the gen span a split
   // of its own when there is more than one split and a gen span
@@ -595,18 +637,8 @@ int run(const Args& a, int B, int D_, float scale, void* stream) {
   b.sl2 = scale * LOG2E;
   const dim3 grid(a.KVH, B, a.splits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (a.H / a.KVH) {
-    case 1:
-      return launch_g<1, PF, GF>(grid, st, b);
-    case 2:
-      return launch_g<2, PF, GF>(grid, st, b);
-    case 4:
-      return launch_g<4, PF, GF>(grid, st, b);
-    case 8:
-      return launch_g<8, PF, GF>(grid, st, b);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return D_ == 256 ? run_d<PF, GF, 256>(grid, st, b)
+                   : run_d<PF, GF, 128>(grid, st, b);
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
 // Pieces shared by the flash-attention kernels on Hopper (flash_fwd.cu: K1,
-// flash_bwd.cu: K2 and K3): the head dim and its swizzle halves, the tile
+// flash_bwd.cu: K2 and K3): K2's and K3's head dim, the 64-column swizzle
+// chunks every head dim is loaded in, the tile
 // rule (skip / masked / full), the exp2 and bf16 packing on the accumulator
 // layout, a warp's id-range reduction, the (B, S, heads, D) tensor map, and
 // the launcher's check of the setmaxnreg register pool.
@@ -16,7 +17,7 @@
 namespace halva {
 namespace flash {
 
-constexpr int D = 128;         // head dim
+constexpr int D = 128;         // head dim of K2 and K3 (K1: a template parameter)
 constexpr int HALF_COLS = 64;  // head-dim columns of one 128-byte swizzle row
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int IMAX = 0x7fffffff, IMIN = -IMAX - 1;  // empty id ranges
@@ -62,15 +63,17 @@ __device__ __forceinline__ void warp_range(int& mn, int& mx) {
   }
 }
 
-// A (B, S, heads, D) bf16 tensor as (D, heads, S, B), loaded in boxes of 64
-// head-dim columns (128 bytes, swizzled for wgmma) x `rows` positions of one
-// head; positions past S arrive as zeros
+// A (B, S, heads, HD) bf16 tensor as (HD, heads, S, B), loaded in boxes of
+// 64 head-dim columns (128 bytes, swizzled for wgmma) x `rows` positions of
+// one head; positions past S arrive as zeros
+template <int HD = D>
 inline int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S,
                        int heads, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2,
+                                 (cuuint64_t)heads * HD * 2,
+                                 (cuuint64_t)S * heads * HD * 2};
   const cuuint32_t box[4] = {HALF_COLS, 1, (cuuint32_t)rows, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 4, dims, strides,
                 box, CU_TENSOR_MAP_SWIZZLE_128B);

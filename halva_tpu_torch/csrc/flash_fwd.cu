@@ -69,6 +69,13 @@
 // No float atomics: the result is bitwise repeatable and a CUDA graph can
 // capture the launch.
 //
+// Head dims 128 and 256 (Gemma-2B) are instances of one template: a row is
+// HD / 64 swizzled chunks of 64 columns, Q K^T takes HD / 16 k-steps, and P V
+// runs one m64n128 product per 128 columns of O. At 256 a 128-row Q tile is
+// 64 KB and a 64-key K or V tile 32 KB, so the ring holds 2 stages of 64
+// keys (~194 KB of the 227 KB); O is 128 fp32 registers a consumer thread
+// beside S's 32 and P's 32, under the same setmaxnreg budget of 232.
+//
 // The tile rule (skip / masked / full) is ops/flash_attention.py:
 // flash_tile_kind, and flash_attention_tiled_plain walks the tiles in this
 // kernel's order with it. Inputs are in the framework's (B, S, H, D) layout,
@@ -93,7 +100,6 @@ using halva::named_sync;
 using halva::smem_u32;
 using halva::sw128_desc;
 using halva::tma_load_4d;
-using halva::flash::D;
 using halva::flash::HALF_COLS;
 using halva::flash::IMAX;
 using halva::flash::IMIN;
@@ -110,15 +116,16 @@ constexpr int WG_ROWS = 64;     // rows per consumer warpgroup
 constexpr int NTHREADS = 384;   // two consumer warpgroups + the producer's
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
-constexpr int Q_HALF = BQ * 128;          // bytes of one half of the Q tile
-constexpr int Q_BYTES = 2 * Q_HALF;       // 32 KB
+constexpr int Q_CHUNK = BQ * 128;  // bytes of 64 head-dim columns of Q
 constexpr float NEG_BIG = -1e30f;  // logit of a masked pair (selected, not added)
 constexpr float M_INIT = -1e29f;   // running-max start above NEG_BIG: masked p = 0
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int BK, int STAGES>
+// HD: the head dim, loaded as HD / 64 swizzled chunks of 64 columns
+template <int HD, int BK, int STAGES>
 struct Plan {
-  static constexpr int KV_BYTES = BK * D * 2;        // one K or V tile
+  static constexpr int Q_BYTES = HD / 64 * Q_CHUNK;  // 32 KB at 128
+  static constexpr int KV_BYTES = BK * HD * 2;       // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;   // K then V
   static constexpr int SEG_INTS = BK + 4;  // the ids, then {min, max} of them
   // 1 KB of slack to align the swizzled tiles to 1024 bytes
@@ -137,14 +144,14 @@ __device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t& big,
 }
 
 // S (64 x BK) = Q (this warpgroup's 64 rows) K^T: both K-major, each row's
-// 128 head-dim columns in two 128-byte swizzled halves
-template <int BK>
+// HD head-dim columns in HD / 64 128-byte swizzled chunks
+template <int HD, int BK>
 __device__ __forceinline__ void qk_tile(float (&s)[BK / 2], uint32_t qa,
                                         uint32_t kb) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < HD / 16; ++kk) {
     const uint64_t da =
-        sw128_desc(qa + (kk >> 2) * Q_HALF + (kk & 3) * 32, 16, 1024);
+        sw128_desc(qa + (kk >> 2) * Q_CHUNK + (kk & 3) * 32, 16, 1024);
     const uint64_t db =
         sw128_desc(kb + (kk >> 2) * BK * 128 + (kk & 3) * 32, 16, 1024);
     if constexpr (BK == 128)
@@ -238,7 +245,7 @@ __device__ __forceinline__ float2 softmax_tile(
 // grid (H, B, query tiles), last query tile first. Warps 0-7 are the two
 // consumer warpgroups; warps 8-11 the producer warpgroup, of which warp 8
 // works and the others only give up their registers.
-template <int BK, int STAGES>
+template <int HD, int BK, int STAGES>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
@@ -247,15 +254,17 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int Sq, int Skv, int H, int KVH, float scale_log2,
                  int causal, int alibi, int window, int q_off) {
-  using P = Plan<BK, STAGES>;
+  using P = Plan<HD, BK, STAGES>;
   static_assert(BK == 64 || BK == 128, "key tile");
+  static_assert(HD == 128 || HD == 256, "head dim");
+  constexpr int CHUNKS = HD / 64;  // swizzled column chunks of a row
   static_assert(P::SMEM <= 232448 - 1024, "shared memory of one block");
   extern __shared__ __align__(1024) unsigned char smem[];
   __shared__ int2 wg_range[2][4];
   const uint32_t raw = smem_u32(smem);
   const uint32_t base = (raw + 1023) & ~1023u;
   const uint32_t q_s = base;
-  const uint32_t kv_s = q_s + Q_BYTES;  // stage st: K at + st * STAGE_BYTES
+  const uint32_t kv_s = q_s + P::Q_BYTES;  // stage st: K at + st * STAGE_BYTES
   const uint32_t seg_s = kv_s + STAGES * P::STAGE_BYTES;
   const uint32_t full = seg_s + STAGES * P::SEG_INTS * 4;
   const uint32_t empty = full + 8 * STAGES;
@@ -301,9 +310,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     warp_range(qmin, qmax);
     if (lane == 0) {
-      mbar_expect_tx(qbar, Q_BYTES);
-      tma_load_4d(q_s, &qmap, qbar, 0, h, q0, b);
-      tma_load_4d(q_s + Q_HALF, &qmap, qbar, HALF_COLS, h, q0, b);
+      mbar_expect_tx(qbar, P::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < CHUNKS; ++c)
+        tma_load_4d(q_s + c * Q_CHUNK, &qmap, qbar, c * HALF_COLS, h, q0, b);
     }
     const int* ks = kvseg + (long)b * Skv;
     int next[BK / 32];
@@ -347,10 +357,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
         const uint32_t kd = kv_s + st * P::STAGE_BYTES;
         const uint32_t vd = kd + P::KV_BYTES;
         mbar_expect_tx(fb, P::STAGE_BYTES);
-        tma_load_4d(kd, &kmap, fb, 0, kvh, c0, b);
-        tma_load_4d(kd + BK * 128, &kmap, fb, HALF_COLS, kvh, c0, b);
-        tma_load_4d(vd, &vmap, fb, 0, kvh, c0, b);
-        tma_load_4d(vd + BK * 128, &vmap, fb, HALF_COLS, kvh, c0, b);
+#pragma unroll
+        for (int c = 0; c < CHUNKS; ++c) {
+          tma_load_4d(kd + c * BK * 128, &kmap, fb, c * HALF_COLS, kvh, c0, b);
+          tma_load_4d(vd + c * BK * 128, &vmap, fb, c * HALF_COLS, kvh, c0, b);
+        }
       } else {
         mbar_arrive(fb);
       }
@@ -388,9 +399,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   const float slope2 =
       alibi ? exp2f(-8.f * (float)(h + 1) / (float)H) * LOG2E : 0.f;
 
-  float oacc[64];
+  // O: one m64n128 accumulator per 128 head-dim columns
+  float oacc[HD / 128][64];
 #pragma unroll
-  for (int e = 0; e < 64; ++e) oacc[e] = 0.f;
+  for (int nb = 0; nb < HD / 128; ++nb)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) oacc[nb][e] = 0.f;
   float m0 = M_INIT, m1 = M_INIT, l0 = 0.f, l1 = 0.f;
   const uint32_t qa = q_s + wg * WG_ROWS * 128;
 #define SOFTMAX_ARGS                                                      \
@@ -415,7 +429,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t vb = kb + P::KV_BYTES;
       float s[BK / 2];
       halva::wgmma_fence();
-      qk_tile<BK>(s, qa, kb);
+      qk_tile<HD, BK>(s, qa, kb);
       halva::wgmma_commit();
       halva::wgmma_wait<0>();
 
@@ -429,13 +443,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                    : softmax_tile<BK, false, false>(SOFTMAX_ARGS);
       if (!__all_sync(0xffffffffu, al.x == 1.f && al.y == 1.f)) {
 #pragma unroll
-        for (int e = 0; e < 64; ++e) oacc[e] *= (e & 2) ? al.y : al.x;
+        for (int nb = 0; nb < HD / 128; ++nb)
+#pragma unroll
+          for (int e = 0; e < 64; ++e) oacc[nb][e] *= (e & 2) ? al.y : al.x;
       }
 
       // O += P V: the bf16-packed S accumulators of key columns 16 kk ..
       // 16 kk + 15 (n-tiles 2 kk, 2 kk + 1) are the A fragment of k-step kk;
-      // B = 16 keys of V (two 8-key groups SBO apart) by the two 64-column
-      // halves (LBO apart), N-major
+      // B = 16 keys of V (two 8-key groups SBO apart) by two 64-column
+      // chunks (LBO apart), N-major: 128 head-dim columns a product
       uint32_t pa[BK / 16][4], pl[BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
@@ -445,11 +461,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
                      pl[kk][r]);
       halva::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t db = sw128_desc(vb + kk * 16 * 128, BK * 128, 1024);
-        halva::wgmma_m64n128_rs<1>(oacc, pa[kk], db, 1);
-        halva::wgmma_m64n128_rs<1>(oacc, pl[kk], db, 1);
-      }
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int nb = 0; nb < HD / 128; ++nb) {
+          const uint64_t db = sw128_desc(
+              vb + nb * 2 * BK * 128 + kk * 16 * 128, BK * 128, 1024);
+          halva::wgmma_m64n128_rs<1>(oacc[nb], pa[kk], db, 1);
+          halva::wgmma_m64n128_rs<1>(oacc[nb], pl[kk], db, 1);
+        }
       halva::wgmma_commit();
       halva::wgmma_wait<0>();
     }
@@ -460,18 +479,20 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
 #undef SOFTMAX_ARGS
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  const long q_row = (long)H * D;  // elements between sequence positions
-  __nv_bfloat16* ob = o + (long)b * Sq * q_row + (long)h * D;
+  const long q_row = (long)H * HD;  // elements between sequence positions
+  __nv_bfloat16* ob = o + (long)b * Sq * q_row + (long)h * HD;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = 8 * j + 2 * tig;
-    if (r0 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * q_row + c) =
-          pack_bf16(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
-    if (r1 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * q_row + c) =
-          pack_bf16(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
-  }
+  for (int nb = 0; nb < HD / 128; ++nb)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 128 * nb + 8 * j + 2 * tig;
+      if (r0 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + r0 * q_row + c) = pack_bf16(
+            oacc[nb][4 * j] * inv0, oacc[nb][4 * j + 1] * inv0);
+      if (r1 < Sq)
+        *reinterpret_cast<uint32_t*>(ob + r1 * q_row + c) = pack_bf16(
+            oacc[nb][4 * j + 2] * inv1, oacc[nb][4 * j + 3] * inv1);
+    }
   if (tig == 0) {
     float* lb = lse + ((long)b * H + h) * Sq;
     if (r0 < Sq) lb[r0] = m0 * LN2 + logf(l0 > 0.f ? l0 : 1.f);
@@ -479,37 +500,39 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int BK, int STAGES>
+template <int HD, int BK, int STAGES>
 auto kernel_of() {
-  return flash_fwd_kernel<BK, STAGES>;
+  return flash_fwd_kernel<HD, BK, STAGES>;
 }
 
 // setmaxnreg's pool, checked once per instance (a shortfall would hang)
-template <int BK, int STAGES>
+template <int HD, int BK, int STAGES>
 int check_registers() {
   static const int ok = halva::flash::setmaxnreg_pool_ok(
-      kernel_of<BK, STAGES>(), NTHREADS, 256, CONSUMER_REGS, PRODUCER_REGS);
+      kernel_of<HD, BK, STAGES>(), NTHREADS, 256, CONSUMER_REGS,
+      PRODUCER_REGS);
   return ok;
 }
 
-template <int BK, int STAGES>
+template <int HD, int BK, int STAGES>
 int launch(cudaStream_t st, const void* q, const void* k, const void* v,
            const int* qs, const int* kvs, __nv_bfloat16* op, float* lp,
            int B, int Sq, int Skv, int H, int KVH, float sl2, int causal,
            int alibi, int window, int q_off) {
-  using P = Plan<BK, STAGES>;
+  using P = Plan<HD, BK, STAGES>;
+  using halva::flash::encode_bshd;
   static uint64_t smem_set = 0;
-  int err = check_registers<BK, STAGES>();
+  int err = check_registers<HD, BK, STAGES>();
   if (err) return err;
   CUtensorMap qmap, kmap, vmap;
-  if ((err = halva::flash::encode_bshd(&qmap, q, B, Sq, H, BQ))) return err;
-  if ((err = halva::flash::encode_bshd(&kmap, k, B, Skv, KVH, BK))) return err;
-  if ((err = halva::flash::encode_bshd(&vmap, v, B, Skv, KVH, BK))) return err;
+  if ((err = encode_bshd<HD>(&qmap, q, B, Sq, H, BQ))) return err;
+  if ((err = encode_bshd<HD>(&kmap, k, B, Skv, KVH, BK))) return err;
+  if ((err = encode_bshd<HD>(&vmap, v, B, Skv, KVH, BK))) return err;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  auto kernel = kernel_of<BK, STAGES>();
+  auto kernel = kernel_of<HD, BK, STAGES>();
   if (!(smem_set >> dev & 1)) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -528,8 +551,9 @@ int launch(cudaStream_t st, const void* q, const void* k, const void* v,
 
 // q (B, Sq, H, D), k/v (B, Skv, KVH, D) bf16, 16-byte aligned; qseg (B, Sq),
 // kvseg (B, Skv) int32; o (B, Sq, H, D) bf16; lse (B, H, Sq) fp32. alibi 0 |
-// 1, window 0 = none, q_off >= 0; bk: keys per tile, 64 (a ring of 4 stages)
-// or 128 (2 stages). Returns a cudaError_t.
+// 1, window 0 = none, q_off >= 0. D = 128: bk keys per tile, 64 (a ring of
+// 4 stages) or 128 (2 stages); D = 256: bk = 64, 2 stages (a stage is 64 KB
+// beside the 64 KB Q tile). Returns a cudaError_t.
 extern "C" int halva_flash_fwd_bf16(const void* q, const void* k,
                                     const void* v, const void* qseg,
                                     const void* kvseg, void* o, void* lse,
@@ -538,7 +562,7 @@ extern "C" int halva_flash_fwd_bf16(const void* q, const void* k,
                                     int alibi, int window, int q_off, int bk,
                                     void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KVH <= 0 || H % KVH != 0 ||
-      window < 0 || q_off < 0 || D_ != D)  // the head dim of every config
+      window < 0 || q_off < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * LOG2E;
@@ -546,12 +570,15 @@ extern "C" int halva_flash_fwd_bf16(const void* q, const void* k,
   const auto* kvs = static_cast<const int*>(kvseg);
   auto* op = static_cast<__nv_bfloat16*>(o);
   auto* lp = static_cast<float*>(lse);
-  if (bk == 128)
-    return launch<128, 2>(st, q, k, v, qs, kvs, op, lp, B, Sq, Skv, H, KVH,
-                          sl2, causal, alibi, window, q_off);
-  if (bk == 64)
-    return launch<64, 4>(st, q, k, v, qs, kvs, op, lp, B, Sq, Skv, H, KVH,
-                         sl2, causal, alibi, window, q_off);
+  if (D_ == 128 && bk == 128)
+    return launch<128, 128, 2>(st, q, k, v, qs, kvs, op, lp, B, Sq, Skv, H,
+                               KVH, sl2, causal, alibi, window, q_off);
+  if (D_ == 128 && bk == 64)
+    return launch<128, 64, 4>(st, q, k, v, qs, kvs, op, lp, B, Sq, Skv, H,
+                              KVH, sl2, causal, alibi, window, q_off);
+  if (D_ == 256 && bk == 64)
+    return launch<256, 64, 2>(st, q, k, v, qs, kvs, op, lp, B, Sq, Skv, H,
+                              KVH, sl2, causal, alibi, window, q_off);
   return (int)cudaErrorInvalidValue;
 }
 

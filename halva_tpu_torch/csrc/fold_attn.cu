@@ -77,6 +77,12 @@
 // flight: one split of 18 tiles a block beats seven splits at B=4 in bf16,
 // and taking the integer divisions out of the copy and conversion loops
 // took 6-17 % off every int8 and int4 time.
+// Head dim 256 (Gemma-2B: G = 8 query heads over one kv head, so K = 4
+// beams or candidates make 32 rows, two chunks an item) is an instance of the
+// same template: a staged row is 264 bf16 values, a staged tile 33.8 KB, and
+// a split plan's three-stage bf16 ring ~203 KB (one block an SM); O takes 128
+// fp32 registers a thread, so Q's fragments are read from shared memory at
+// each k-step instead of being held.
 
 #include "decode_common.cuh"
 #include "mma_bf16.cuh"
@@ -89,25 +95,44 @@ using halva::ldmatrix_x4_trans;
 using halva::mma_16816;
 using halva::pack_bf16;
 
-constexpr int D = 128;
+// D, the head dim, is a template parameter: 128 (Llama, Mistral, MPT) or 256
+// (Gemma). At 128 each warp holds the block's Q fragments in registers for
+// the whole call; at 256 they would take 64 registers beside O's 128, so Q
+// stays in shared memory and a warp reads its fragments there each k-step.
 constexpr int TILE = 64;             // keys per tile
 constexpr int ROWS = 16;             // query rows per block (the mma's M)
 constexpr int FT = 128;              // threads per block
 constexpr int WARPS = FT / 32;
 constexpr int WKEYS = TILE / WARPS;  // keys of a tile per warp
-constexpr int KS = D + 8;            // bf16 values per staged row
-constexpr int TILE_B = TILE * KS * 2;  // a staged bf16 K or V tile, bytes
-constexpr int RAW_HALF = TILE * D;     // a raw int8 K or V tile, bytes
 constexpr float NEG_BIG = -1e30f;      // logit of a key a row does not see
 constexpr int METAS = 4;   // metadata slots: tiles i .. i + 2, and i - 1's
 constexpr int MAX_SPLITS = 1024;  // the last block's weights fit the ring
 static_assert(WKEYS == 16, "a warp's keys are one k-step of the PV product");
 
+template <int D>
+__host__ __device__ constexpr int ks() {  // bf16 values per staged row
+  return D + 8;
+}
+
+template <int D>
+__host__ __device__ constexpr int tile_b() {  // a staged bf16 K or V tile
+  return TILE * ks<D>() * 2;
+}
+
+__host__ __device__ constexpr int log2i(int x) {
+  return x <= 1 ? 0 : 1 + log2i(x / 2);
+}
+
 // bf16 caches (DIRECT) stage every tile in the mma layout; the quantized
-// modes stage raw tiles and convert each into one bf16 tile
-template <bool DIRECT>
+// modes stage raw tiles (TILE * D bytes) and convert each into one bf16 tile
+template <bool DIRECT, int D>
 __host__ __device__ constexpr int half_slot() {
-  return DIRECT ? TILE_B : RAW_HALF;
+  return DIRECT ? tile_b<D>() : TILE * D;
+}
+
+template <int D>
+__host__ __device__ constexpr bool q_in_registers() {
+  return D == 128;
 }
 
 struct Meta {       // one tile's per-token metadata; a masked key: ok 0
@@ -124,11 +149,21 @@ struct Shared {  // behind the ring (and the converted tile)
   int last;
 };
 
-// STAGES ring slots: STAGES - 1 tiles in flight while one is read
-template <bool DIRECT, int STAGES>
+// STAGES ring slots: STAGES - 1 tiles in flight while one is read; then the
+// converted tile (quantized modes), the staged Q rows (D = 256) and Shared
+template <bool DIRECT, int STAGES, int D>
+__host__ __device__ constexpr int ring_bytes() {
+  return STAGES * 2 * half_slot<DIRECT, D>() + (DIRECT ? 0 : 2 * tile_b<D>());
+}
+
+template <int D>
+__host__ __device__ constexpr int q_bytes() {
+  return q_in_registers<D>() ? 0 : ROWS * ks<D>() * 2;
+}
+
+template <bool DIRECT, int STAGES, int D>
 __host__ __device__ constexpr int smem_bytes() {
-  return STAGES * 2 * half_slot<DIRECT>() + (DIRECT ? 0 : 2 * TILE_B) +
-         (int)sizeof(Shared);
+  return ring_bytes<DIRECT, STAGES, D>() + q_bytes<D>() + (int)sizeof(Shared);
 }
 
 // One span of keys of one (item, kv head): the prompt cache, a gen cache row,
@@ -186,14 +221,15 @@ __device__ __forceinline__ int tile_keys(const Span& s, int t0) {
 }
 
 // the tile's K rows, then its V rows `half` bytes behind, into a ring slot
-template <bool DIRECT>
+template <bool DIRECT, int D>
 __device__ __forceinline__ void kv_issue(const Span& s, int t0, const Meta& m,
                                          char* dst) {
-  constexpr int HALF = half_slot<DIRECT>();
-  const int lg = s.fmt == BF16 ? 4 : 3;  // log2 of 16-byte chunks a row
+  constexpr int HALF = half_slot<DIRECT, D>();
+  constexpr int LG8 = log2i(D / 16);  // log2 of 16-byte chunks, int8 row
+  const int lg = s.fmt == BF16 ? LG8 + 1 : LG8;  // log2 of chunks a row
   const int rb = 16 << lg;               // bytes per cache row
   const int rows = s.fmt == I4 ? tile_keys(s, t0) / 2 : tile_keys(s, t0);
-  const int ds = DIRECT ? KS * 2 : rb;
+  const int ds = DIRECT ? ks<D>() * 2 : rb;
   const long r0 = s.fmt == I4 ? t0 / 2 : t0;
   for (int c = threadIdx.x; c < rows << lg; c += FT) {
     const int r = c >> lg, cc = c & ((1 << lg) - 1);
@@ -220,15 +256,19 @@ __device__ __forceinline__ uint4 nibs_to_bf16(uint32_t w0, uint32_t w1,
                     pack_bf16(nib(w1, 2, sh), nib(w1, 3, sh)));
 }
 
-// a raw tile (K, then V RAW_HALF bytes behind) -> bf16 K and V tiles in the
+// a raw tile (K, then V TILE * D bytes behind) -> bf16 K and V tiles in the
 // mma layout; 16 raw bytes per thread and pass
+template <int D>
 __device__ __forceinline__ void convert(const char* src, const Span& s, int t0,
                                         __nv_bfloat16* cvt) {
+  constexpr int KS = ks<D>(), RAW_HALF = TILE * D;
+  constexpr int C16 = D / 8, LG16 = log2i(C16);  // chunks, bf16 row
+  constexpr int C8 = D / 16, LG8 = LG16 - 1;        // chunks, int8 row
   const int keys = tile_keys(s, t0);
-  if (s.fmt == BF16) {  // candidates: copied, 16 chunks a row
-    for (int c = threadIdx.x; c < 2 * keys * 16; c += FT) {
-      const int kv = c >= keys * 16, e = c - kv * keys * 16;
-      const int r = e >> 4, cc = e & 15;
+  if (s.fmt == BF16) {  // candidates: copied, D / 8 chunks a row
+    for (int c = threadIdx.x; c < 2 * keys * C16; c += FT) {
+      const int kv = c >= keys * C16, e = c - kv * keys * C16;
+      const int r = e >> LG16, cc = e & (C16 - 1);
       *reinterpret_cast<uint4*>(cvt + kv * TILE * KS + r * KS + cc * 8) =
           *reinterpret_cast<const uint4*>(src + kv * RAW_HALF + r * 2 * D +
                                           cc * 16);
@@ -236,9 +276,9 @@ __device__ __forceinline__ void convert(const char* src, const Span& s, int t0,
     return;
   }
   const int rows = s.fmt == I4 ? keys / 2 : keys;  // raw rows of D bytes
-  for (int c = threadIdx.x; c < 2 * rows * 8; c += FT) {
-    const int kv = c >= rows * 8, e = c - kv * rows * 8;
-    const int r = e >> 3, cc = e & 7;
+  for (int c = threadIdx.x; c < 2 * rows * C8; c += FT) {
+    const int kv = c >= rows * C8, e = c - kv * rows * C8;
+    const int r = e >> LG8, cc = e & (C8 - 1);
     const uint4 x = *reinterpret_cast<const uint4*>(src + kv * RAW_HALF +
                                                     r * D + cc * 16);
     __nv_bfloat16* d = cvt + kv * TILE * KS + cc * 16;
@@ -273,27 +313,34 @@ struct FoldArgs {
   float sl2;
 };
 
-// one split's partial in scratch: accumulator (ROWS x D), max, denominator
-constexpr int PART = ROWS * (D + 2);
 
 // PF / GF: prompt and gen cache formats. Block (n, b * chunks + c, z): kv
 // head n, item b, rows [16 c, 16 c + 16) of the item's K*G, split z. Split z
 // < psplits takes prompt tiles [z * tps, min((z + 1) * tps, ceil(Sp / 64)));
 // with gsplits = 0 the last split also takes the chunk's gen spans (and the
 // candidates), else split psplits + i takes gen span i of the chunk.
-template <int PF, int GF, int STAGES>
-__global__ void __launch_bounds__(FT, STAGES == 2 ? 3 : 2)
+// (at D = 256 one block an SM: its ring alone takes most of the shared
+// memory, and its registers may go to 255)
+template <int PF, int GF, int STAGES, int D>
+__global__ void __launch_bounds__(FT, D == 256 ? 1 : (STAGES == 2 ? 3 : 2))
     fold_attn_kernel(const FoldArgs a) {
   constexpr bool DIRECT = PF == BF16 && GF == BF16;
-  constexpr int HALF = half_slot<DIRECT>();
+  constexpr bool QREG = q_in_registers<D>();
+  constexpr int KS = ks<D>();
+  constexpr int HALF = half_slot<DIRECT, D>();
   constexpr int SLOT = 2 * HALF;
-  constexpr int RING = STAGES * SLOT + (DIRECT ? 0 : 2 * TILE_B);
+  constexpr int RING = ring_bytes<DIRECT, STAGES, D>();
+  // one split's partial in scratch: accumulator (ROWS x D), max, denominator
+  constexpr int PART = ROWS * (D + 2);
   static_assert(WARPS * ROWS * D * 4 <= RING && MAX_SPLITS * ROWS * 4 <= RING,
                 "the final sums reuse the ring (and the converted tile)");
   extern __shared__ __align__(16) char smem[];
   __nv_bfloat16* cvt = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * SLOT);
-  Shared& sh = *reinterpret_cast<Shared*>(smem + STAGES * SLOT +
-                                          (DIRECT ? 0 : 2 * TILE_B));
+  // the block's Q rows: in the last ring slot until the loop overwrites it
+  // (D = 128: each warp holds its fragments by then), or in their own place
+  __nv_bfloat16* qsm = reinterpret_cast<__nv_bfloat16*>(
+      smem + (QREG ? (STAGES - 1) * SLOT : RING));
+  Shared& sh = *reinterpret_cast<Shared*>(smem + RING + q_bytes<D>());
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int K = a.K, G = a.G, KVH = a.KVH, R = K * G;
   const int chunks = (R + ROWS - 1) / ROWS;
@@ -417,7 +464,8 @@ __global__ void __launch_bounds__(FT, STAGES == 2 ? 3 : 2)
   auto issue = [&](int i) {
     int t0;
     const Span s = tile(i, t0);
-    kv_issue<DIRECT>(s, t0, sh.meta[i % METAS], smem + (i % STAGES) * SLOT);
+    kv_issue<DIRECT, D>(s, t0, sh.meta[i % METAS],
+                        smem + (i % STAGES) * SLOT);
   };
 
   const int g = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
@@ -430,28 +478,25 @@ __global__ void __launch_bounds__(FT, STAGES == 2 ? 3 : 2)
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
   // prologue: tiles 0 and 1's metadata in one round trip (threads 0-63 and
-  // 64-127), the query rows into the last slot (first written by tile
-  // STAGES - 1's copies, after the loop's first barrier), then the first
-  // AHEAD tiles' rows in flight and tile 2's metadata on its way
+  // 64-127), the query rows into their place (D = 128: the last slot, first
+  // written by tile STAGES - 1's copies, after the loop's first barrier),
+  // then the first AHEAD tiles' rows in flight and tile 2's metadata on its
+  // way
   MetaRegs r = fetch(tid / TILE, tid / TILE * TILE);
-  {
-    __nv_bfloat16* qs =
-        reinterpret_cast<__nv_bfloat16*>(smem + (STAGES - 1) * SLOT);
 #pragma unroll
-    for (int j = 0; j < ROWS * (D / 8) / FT; ++j) {
-      const int e = tid + j * FT;
-      *reinterpret_cast<uint4*>(qs + e / (D / 8) * KS + e % (D / 8) * 8) =
-          qx[j];
-    }
+  for (int j = 0; j < ROWS * (D / 8) / FT; ++j) {
+    const int e = tid + j * FT;
+    *reinterpret_cast<uint4*>(qsm + e / (D / 8) * KS + e % (D / 8) * 8) =
+        qx[j];
   }
   meta_store(sh.meta[tid / TILE], r, tid / TILE * TILE);
   r = fetch(2, 0);
   __syncthreads();
-  uint32_t qa[D / 16][4];
-  {
-    const __nv_bfloat16* qr =
-        reinterpret_cast<const __nv_bfloat16*>(smem + (STAGES - 1) * SLOT) +
-        ((lane & 7) + (lane & 8)) * KS + ((lane & 16) >> 1);
+  // this lane's ldmatrix row of the Q tile
+  const __nv_bfloat16* qr =
+      qsm + ((lane & 7) + (lane & 8)) * KS + ((lane & 16) >> 1);
+  uint32_t qa[QREG ? D / 16 : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qa[kk], qr + kk * 16);
   }
@@ -478,7 +523,7 @@ __global__ void __launch_bounds__(FT, STAGES == 2 ? 3 : 2)
       const char* slot = smem + (i % STAGES) * SLOT;
       const __nv_bfloat16* kt = reinterpret_cast<const __nv_bfloat16*>(slot);
       if constexpr (!DIRECT) {
-        convert(slot, s, t0, cvt);
+        convert<D>(slot, s, t0, cvt);
         __syncthreads();
         kt = cvt;
       }
@@ -495,14 +540,19 @@ __global__ void __launch_bounds__(FT, STAGES == 2 ? 3 : 2)
             kt + (key0 + (lane & 7) + (lane & 8)) * KS + ((lane & 16) >> 1);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t bk[4];
+          uint32_t bk[4], qs[4];
           ldmatrix_x4(bk, kr + kk * 16);
+          const uint32_t* qf = qa[QREG ? kk : 0];
+          if constexpr (!QREG) {
+            ldmatrix_x4(qs, qr + kk * 16);
+            qf = qs;
+          }
           if (kk & 1) {
-            mma_16816(sd[0], qa[kk], bk[0], bk[2]);
-            mma_16816(sd[1], qa[kk], bk[1], bk[3]);
+            mma_16816(sd[0], qf, bk[0], bk[2]);
+            mma_16816(sd[1], qf, bk[1], bk[3]);
           } else {
-            mma_16816(sc[0], qa[kk], bk[0], bk[2]);
-            mma_16816(sc[1], qa[kk], bk[1], bk[3]);
+            mma_16816(sc[0], qf, bk[0], bk[2]);
+            mma_16816(sc[1], qf, bk[1], bk[3]);
           }
         }
 #pragma unroll
@@ -678,11 +728,12 @@ __global__ void __launch_bounds__(FT, STAGES == 2 ? 3 : 2)
 // above 48 KB of dynamic shared memory needs the opt-in, once per kernel and
 // device (the first launch is never inside a CUDA graph capture: the callers
 // warm up first)
-template <int PF, int GF, int STAGES>
+template <int PF, int GF, int STAGES, int D>
 int launch_stages(const FoldArgs& a, int B, cudaStream_t st) {
   static uint64_t smem_set = 0;
-  constexpr int bytes = smem_bytes<PF == BF16 && GF == BF16, STAGES>();
-  auto kernel = fold_attn_kernel<PF, GF, STAGES>;
+  constexpr int bytes = smem_bytes<PF == BF16 && GF == BF16, STAGES, D>();
+  static_assert(bytes <= 232448, "shared memory of one block");
+  auto kernel = fold_attn_kernel<PF, GF, STAGES, D>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -702,10 +753,16 @@ int launch_stages(const FoldArgs& a, int B, cudaStream_t st) {
 // a split of a few tiles wants them in flight at once (three stages, two
 // blocks an SM); a whole item's keys in one block (one split: the work items
 // fill the card) want the blocks (two stages, three blocks an SM)
+template <int PF, int GF, int D>
+int launch_d(const FoldArgs& a, int B, cudaStream_t st) {
+  return a.psplits + a.gsplits == 1 ? launch_stages<PF, GF, 2, D>(a, B, st)
+                                    : launch_stages<PF, GF, 3, D>(a, B, st);
+}
+
 template <int PF, int GF>
-int launch(const FoldArgs& a, int B, cudaStream_t st) {
-  return a.psplits + a.gsplits == 1 ? launch_stages<PF, GF, 2>(a, B, st)
-                                    : launch_stages<PF, GF, 3>(a, B, st);
+int launch(const FoldArgs& a, int B, int D, cudaStream_t st) {
+  return D == 256 ? launch_d<PF, GF, 256>(a, B, st)
+                  : launch_d<PF, GF, 128>(a, B, st);
 }
 
 }  // namespace
@@ -731,7 +788,8 @@ extern "C" int halva_fold_attn(int fmt, const void* q, const void* kp,
                                int shared_gen, int psplits, int tps,
                                int gsplits, float scale, void* stream) {
   if (B <= 0 || K < 1 || K > 8 || KVH <= 0 || H % KVH != 0 || Sp < 0 ||
-      Sg < 0 || D_ != D || (kc == nullptr) != (vc == nullptr) ||
+      Sg < 0 || (D_ != 128 && D_ != 256) ||
+      (kc == nullptr) != (vc == nullptr) ||
       (kc != nullptr && !shared_gen) ||
       sp_rows != (fmt == 2 ? (Sp + 1) / 2 : Sp))
     return (int)cudaErrorInvalidValue;
@@ -782,11 +840,11 @@ extern "C" int halva_fold_attn(int fmt, const void* q, const void* kp,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (fmt) {
     case 0:
-      return launch<BF16, BF16>(a, B, st);
+      return launch<BF16, BF16>(a, B, D_, st);
     case 1:
-      return launch<I8, I8>(a, B, st);
+      return launch<I8, I8>(a, B, D_, st);
     case 2:
-      return launch<I4, I8>(a, B, st);
+      return launch<I4, I8>(a, B, D_, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

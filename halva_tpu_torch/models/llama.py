@@ -19,8 +19,10 @@ an item-row prompt cache, and the K-token speculative verify step
 (`verify_step`, K5's shared gen stage). An int4 tree decodes through
 `_decode_step_w4`, and verifies, through K6 (up to `W4_GEMV_MAX_ROWS` rows)
 or K7 (above) for every layer matmul and K4 or K5 for attention. A config
-whose head dim is not 128 takes the plain versions of all of them under
-attn_impl="auto" (`ops/attention.kernel_route`). The decode kernels K4 and
+whose head dim the kernels are not built for (128 and 256: Gemma-2B's is
+256) takes the plain versions of all of them under attn_impl="auto"
+(`ops/attention.kernel_route`), and so does a forward at a head dim the
+flash backward lacks (256) while grad is enabled. The decode kernels K4 and
 K5 carry no bias and no window, as the Pallas kernels they replace: an
 ALiBi decode step, and a windowed one whose cache outgrows the window, take
 the position-aware plain attention (`decode_step`, the reference's rule).
@@ -486,8 +488,8 @@ def _layer_cache(cache: Params, li: int) -> Params:
 def _decode_attend(q, prompt_l, prompt_seg, gen_l, gen_valid, attn_impl,
                    beam_k=1, beam_route="auto", bias_p=None, bias_g=None):
     """K4, or K5 for beams (ops/decode_attention.py); the plain version when
-    the route is "plain" (named, or "auto" at a head dim other than 128) or
-    a bias comes with the step (the kernels carry none)."""
+    the route is "plain" (named, or "auto" at a head dim the kernels are not
+    built for) or a bias comes with the step (the kernels carry none)."""
     if kernel_route(attn_impl, q.shape[-1]) == "plain" or bias_p is not None:
         return decode_attend_plain(q, prompt_l, prompt_seg, gen_l, gen_valid,
                                    beam_k, bias_p, bias_g)
@@ -649,8 +651,9 @@ def _decode_step_w4(params, cfg, token_embeds, prompt_cache, prompt_seg,
     (ops/w4_matmul.w4_decode_matmul) on (B, K) rows and attention through
     K4 (K5 for beams), each on its layer slice (a view).
     Layer biases are not read, as in the reference. A plain route (named, or
-    "auto" at a head dim other than 128, where the reference does not run
-    its w4 decode step either) takes the plain versions of all of them."""
+    "auto" at a head dim the kernels are not built for, where the reference
+    does not run its w4 decode step either) takes the plain versions of all
+    of them."""
     mm = _w4_mm(attn_impl, cfg.head_size)
     act = _mlp_act(cfg)
     b = token_embeds.shape[0]
@@ -715,7 +718,8 @@ def write_gen_candidates(gen: Params, kc: torch.Tensor, vc: torch.Tensor,
 def _verify_attend(q, prompt_l, prompt_seg, gen_l, gen_valid, k, v,
                    attn_impl):
     """K5's shared gen stage (ops/decode_attention.py) unless the route is
-    "plain" (named, or "auto" at a head dim other than 128)."""
+    "plain" (named, or "auto" at a head dim the kernels are not built
+    for)."""
     plain = kernel_route(attn_impl, q.shape[-1]) == "plain"
     fold = fold_attend_plain if plain else fold_attend_layer
     return fold(q, prompt_l, prompt_seg, gen_l, gen_valid, q.shape[1],

@@ -122,22 +122,37 @@ def alibi_in_kernel(num_heads: int) -> bool:
     return num_heads & (num_heads - 1) == 0
 
 
-KERNEL_HEAD_DIM = 128  # the head dim the attention kernels are built for
+# the head dims the kernels are built for: K1, K4, K5 (and the K6 / K7
+# decode route beside them) take both; K2 and K3, the flash backward, 128
+KERNEL_HEAD_DIMS = (128, 256)
+BWD_HEAD_DIMS = (128,)
 
 
-def kernel_route(impl: str, head_dim: int) -> str:
+def head_dim_suffix(head_dim: int) -> str:
+    """The launch counter's suffix of a kernel instance's head dim: '' at
+    128 (the counters of every earlier config), '_d256' at 256."""
+    return "" if head_dim == 128 else f"_d{head_dim}"
+
+
+def kernel_route(impl: str, head_dim: int, grad: bool = False) -> str:
     """"kernel" or "plain" for a caller's `impl` at this head dim, decided
-    from the config alone, on either device: "auto" takes the kernels (K1-K5,
-    and K6 / K7 for a packed-int4 decode step) at head dim 128, the head dim
-    they are built for, and the plain versions at any other; a caller who
-    names "kernel" or "plain" gets what they name, and the kernels' wrappers
-    raise on a head dim they do not take. The reference makes the same
-    choice for its own reason (`dh % 128 == 0`, the TPU's lane width,
-    halva_tpu/models/llama.py:878)."""
+    from the config and `grad` alone (the caller passes
+    `torch.is_grad_enabled()` for a forward whose result may be
+    differentiated), before any launch and on either device: "auto" takes
+    the kernels (K1-K5, and K6 / K7 for a packed-int4 decode step) at the
+    head dims they are built for, 128 and 256, and the plain versions at any
+    other. One exception: a forward that needs a gradient at a head dim K2
+    and K3 lack (256) stays plain, so that autograd never meets a backward
+    kernel that refuses it. A caller who names "kernel" or "plain" gets what
+    they name, and the kernels' wrappers raise on what they do not take. The
+    reference's kernels take any `dh % 128 == 0`
+    (halva_tpu/models/llama.py:878)."""
     if impl not in ("auto", "kernel", "plain"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if impl == "auto":
-        return "kernel" if head_dim == KERNEL_HEAD_DIM else "plain"
+        ok = head_dim in KERNEL_HEAD_DIMS and (
+            not grad or head_dim in BWD_HEAD_DIMS)
+        return "kernel" if ok else "plain"
     return impl
 
 
@@ -161,10 +176,11 @@ def attention(
     sliding window computed inside the kernel: the device decides, never a
     failure. ALiBi with a head count that is not a power of two takes the
     plain path on either device, as in the reference: the kernels' slope
-    formula does not cover it. So does "auto" at a head dim other than 128
+    formula does not cover it. So does "auto" at a head dim the kernels are
+    not built for, or, with grad enabled, at one K2 and K3 lack
     (`kernel_route`).
     """
-    route = kernel_route(impl, q.shape[3])
+    route = kernel_route(impl, q.shape[3], torch.is_grad_enabled())
     from halva_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,

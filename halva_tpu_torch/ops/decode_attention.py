@@ -43,6 +43,11 @@ plain version, `fold_attend_plain`, gives 0 for a row with no visible key,
 as the kernel does. K5 splits the key axis by `fold_plan` and merges the
 splits in the same launch; `fold_attend_split_plain` is that split and
 merge in plain ops, for the tests and `chip_smoke.py`.
+
+Both kernels take head dims 128 and 256 (Gemma: 8 query heads over one kv
+head); an instance at 256 counts under its counter's name plus `_d256`
+(decode_attn_d256, decode_attn_kv4_beam_d256, fold_attn_shared_d256, ...).
+The plans and the plain versions do not depend on the head dim.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from halva_tpu_torch import _kernels
+from halva_tpu_torch.ops.attention import KERNEL_HEAD_DIMS, head_dim_suffix
 
 KERNEL = "decode_attn"
 KERNEL_KV8 = "decode_attn_kv8"
@@ -599,8 +605,9 @@ def _kernel_inputs(name, q, prompt_cache_l, prompt_seg, gen_cache_l,
                    gen_valid, prompt_rows, gen_rows, extra=()):
     """Check what a kernel is given (device, types, shapes, contiguity,
     alignment) and return (mode, kp, vp, kg, vg, scales, sp_rows). q is
-    (rows, queries, H, 128); the prompt side has `prompt_rows` rows, the gen
-    side `gen_rows`; `extra` are further bf16 tensors of the launch."""
+    (rows, queries, H, D), D in KERNEL_HEAD_DIMS; the prompt side has
+    `prompt_rows` rows, the gen side `gen_rows`; `extra` are further bf16
+    tensors of the launch."""
     mode = _mode(prompt_cache_l, gen_cache_l)
     h, d = q.shape[2], q.shape[3]
     sp = prompt_seg.shape[1]
@@ -629,7 +636,7 @@ def _kernel_inputs(name, q, prompt_cache_l, prompt_seg, gen_cache_l,
     if (
         h % kvh
         or h // kvh not in (1, 2, 4, 8)
-        or d != 128
+        or d not in KERNEL_HEAD_DIMS
         or sp_rows != want_rows
         or kp.shape != (prompt_rows, kvh, sp_rows, d)
         or vp.shape != kp.shape
@@ -690,7 +697,8 @@ def fold_attend_layer(
         raise ValueError("fold_attend_layer: candidates must be "
                          f"{(b, fold_k, kvh, d)}, got "
                          f"{[tuple(t.shape) for t in extra]}")
-    name = FOLD[mode] + (SHARED_SUFFIX if shared_gen else "")
+    name = (FOLD[mode] + (SHARED_SUFFIX if shared_gen else "")
+            + head_dim_suffix(d))
     grp = h // kvh
     plan = fold_plan(b, kvh, fold_k * grp, grp, sp, sg, sm_count(q.device),
                      shared_gen, splits)
@@ -780,7 +788,7 @@ def decode_attend_layer(
         gen_valid, b // beam_k, b)
     kvh, sg = kp.shape[1], kg.shape[2]
     sp = prompt_seg.shape[1]
-    name = mode + (BEAM_SUFFIX if beam_k > 1 else "")
+    name = mode + (BEAM_SUFFIX if beam_k > 1 else "") + head_dim_suffix(d)
     n_split, tps = decode_plan(b, kvh, sp, sg, sm_count(q.device), splits)
     if n_split > 1 and b * kvh > _kernels.MAX_TICKETS:
         raise ValueError(f"decode_attend_layer: {b * kvh} (row, kv head) "

@@ -28,7 +28,11 @@ Three modes beside the base one, all computed inside the kernels:
 Launches count under the kernel's name plus `mode_suffix`: flash_fwd,
 flash_fwd_alibi, flash_fwd_window (and flash_fwd_alibi_window), likewise
 flash_bwd_dq* and flash_bwd_dkv*; `q_offset` is an argument of each of those
-and has no counter of its own.
+and has no counter of its own. K1 takes head dims 128 and 256 (Gemma); its
+256 instance counts under the same names plus `_d256`. K2 and K3 take 128
+only: on the card `flash_attention` refuses a forward at 256 that autograd
+could differentiate (ops/attention.kernel_route keeps such a forward on the
+plain attention).
 """
 
 from __future__ import annotations
@@ -40,10 +44,13 @@ import torch
 
 from halva_tpu_torch import _kernels
 from halva_tpu_torch.ops.attention import (
+    BWD_HEAD_DIMS,
+    KERNEL_HEAD_DIMS,
     alibi_in_kernel,
     alibi_slopes,
     attention_reference,
     causal_alibi_bias,
+    head_dim_suffix,
     make_attention_mask,
 )
 from halva_tpu_torch.ops.decode_attention import sm_count
@@ -54,10 +61,13 @@ KERNEL_DKV = "flash_bwd_dkv"
 
 # K1's geometry (csrc/flash_fwd.cu): a block owns FWD_BQ query rows of one
 # (batch row, head), FWD_WG_ROWS per consumer warpgroup, and walks the keys
-# in tiles of bk through a ring of FWD_STAGES[bk] stages
+# in tiles of bk through a ring of FWD_STAGES[bk] stages at head dim 128, of
+# FWD_STAGES_BY_D[d][bk] at head dim d (256: one tile size, 64 keys, in 2
+# stages of 64 KB beside the 64 KB Q tile)
 FWD_BQ = 128
 FWD_WG_ROWS = 64
 FWD_STAGES = {64: 4, 128: 2}
+FWD_STAGES_BY_D = {128: FWD_STAGES, 256: {64: 2}}
 # the key tile: 64 up to FWD_LONG_KEYS keys, 128 above (measured on an H100,
 # PERF.md section 6: 64 wins at the prefill and train rows, 128 on a
 # 4,608-token row)
@@ -94,15 +104,19 @@ class FwdPlan(NamedTuple):
 
 
 def flash_fwd_plan(b: int, sq: int, skv: int, h: int,
-                   bk: Optional[int] = None) -> FwdPlan:
-    """K1's launch plan for B rows of Sq queries against Skv keys and H
-    query heads; `bk` forces the key tile."""
+                   bk: Optional[int] = None, d: int = 128) -> FwdPlan:
+    """K1's launch plan for B rows of Sq queries against Skv keys, H
+    query heads and head dim d; `bk` forces the key tile."""
+    stages = FWD_STAGES_BY_D.get(d)
+    if stages is None:
+        raise ValueError(f"flash_fwd: head dim {d} is not one of "
+                         f"{sorted(FWD_STAGES_BY_D)}")
     if bk is None:
-        bk = 128 if skv > FWD_LONG_KEYS else 64
-    if bk not in FWD_STAGES:
+        bk = 128 if skv > FWD_LONG_KEYS and 128 in stages else 64
+    if bk not in stages:
         raise ValueError(f"flash_fwd: key tile {bk} is not one of "
-                         f"{sorted(FWD_STAGES)}")
-    return FwdPlan(FWD_BQ, bk, FWD_STAGES[bk], b * h * -(-sq // FWD_BQ))
+                         f"{sorted(stages)} at head dim {d}")
+    return FwdPlan(FWD_BQ, bk, stages[bk], b * h * -(-sq // FWD_BQ))
 
 
 class BwdKernelPlan(NamedTuple):
@@ -492,7 +506,8 @@ def flash_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_cuda_args(name, q, k, v, q_segment_ids, kv_segment_ids):
+def _check_cuda_args(name, q, k, v, q_segment_ids, kv_segment_ids,
+                     head_dims=BWD_HEAD_DIMS):
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     tensors = (q, k, v, q_segment_ids, kv_segment_ids)
@@ -514,8 +529,9 @@ def _check_cuda_args(name, q, k, v, q_segment_ids, kv_segment_ids):
             f"k {tuple(k.shape)} v {tuple(v.shape)} "
             f"segs {tuple(q_segment_ids.shape)} {tuple(kv_segment_ids.shape)}"
         )
-    if d != 128:
-        raise ValueError(f"{name}: head dim {d} is not 128")
+    if d not in head_dims:
+        raise ValueError(f"{name}: head dim {d} is not one of "
+                         f"{list(head_dims)}")
     if any(not t.is_contiguous() for t in tensors) or any(
         t.data_ptr() % 16 for t in (q, k, v)
     ):
@@ -557,17 +573,18 @@ def flash_attention_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on CUDA tensors: returns (o (B, Sq, H, D) bf16, lse
     (B, H, Sq) fp32, natural log, the ALiBi bias included). Fully masked
-    rows give o = 0. `bk` (64 or 128 keys a tile) forces the kernel's
-    instance; by default `flash_fwd_plan` picks it from Skv."""
+    rows give o = 0. `bk` (64 or 128 keys a tile at head dim 128, 64 at
+    256) forces the kernel's instance; by default `flash_fwd_plan` picks it
+    from Skv."""
     _check_cuda_args("flash_attention_fwd", q, k, v, q_segment_ids,
-                     kv_segment_ids)
+                     kv_segment_ids, KERNEL_HEAD_DIMS)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     modes = _mode_args("flash_attention_fwd", h, causal, alibi,
                        sliding_window, q_offset)
     if scale is None:
         scale = d**-0.5
-    plan = flash_fwd_plan(b, sq, skv, h, bk)
+    plan = flash_fwd_plan(b, sq, skv, h, bk, d)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -579,7 +596,7 @@ def flash_attention_fwd(
             b, sq, skv, h, kvh, d, float(scale), int(causal), *modes,
             plan.bk, stream,
         )
-    name = KERNEL + mode_suffix(alibi, sliding_window)
+    name = KERNEL + mode_suffix(alibi, sliding_window) + head_dim_suffix(d)
     _kernels.check(err, name)
     _kernels.launches[name] += 1
     return o, lse
@@ -755,6 +772,13 @@ def flash_attention(
             q, k, v, q_segment_ids, kv_segment_ids, causal, scale, alibi,
             sliding_window, q_offset,
         )
+    if (q.shape[3] not in BWD_HEAD_DIMS and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        raise ValueError(
+            f"flash_attention: head dim {q.shape[3]} has a forward kernel "
+            f"but no backward (K2 and K3 take {list(BWD_HEAD_DIMS)}); run "
+            "it under no_grad, or take the plain attention "
+            "(ops/attention.kernel_route does)")
     return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids,
                                  causal, scale, alibi, sliding_window,
                                  q_offset)

@@ -1847,3 +1847,219 @@ def test_packed_8bit_train_cli_resumes_on_the_card(cuda, tmp_path,
         for key in ("loss", "kl", "alignment"):
             assert abs(split[step][key] - full[step][key]) <= 1e-5 * abs(
                 full[step][key])
+
+
+# Head dim 256 (Gemma-2B: 8 query heads over 1 kv head): the instances of
+# K1, K4 and K5 at 256, counted under their counters' names plus "_d256",
+# held to the same bounds as the 128 instances.
+D256 = 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modes", [{}, {"sliding_window": 100},
+                                   {"alibi": True}])
+@pytest.mark.parametrize("sq,kvh,h", [(1, 1, 8), (200, 1, 8), (623, 1, 8),
+                                      (129, 2, 4)])
+def test_flash_fwd_d256_matches_plain_and_tiled(cuda, sq, kvh, h, modes):
+    from halva_tpu_torch.ops.flash_attention import (
+        flash_attention_tiled_plain, flash_fwd_plan)
+
+    assert flash_fwd_plan(2, sq, sq, h, d=D256)[1:3] == (64, 2)
+    b = 2
+
+    def r(*shape):
+        return torch.randn(*shape, generator=cuda, device="cuda").bfloat16()
+
+    q, k, v = r(b, sq, h, D256), r(b, sq, kvh, D256), r(b, sq, kvh, D256)
+    seg = torch.ones(b, sq, dtype=torch.int32, device="cuda")
+    seg[1, sq - sq // 5:] = 0  # a padded row
+    name = "flash_fwd" + ("_alibi" if modes.get("alibi") else "") + (
+        "_window" if modes.get("sliding_window") else "") + "_d256"
+    before = _kernels.launches[name]
+    o, lse = flash_attention_fwd(q, k, v, seg, seg, **modes)
+    assert _kernels.launches[name] == before + 1
+    _, want_lse = flash_attention_tiled_plain(q, k, v, seg, seg, bk=64,
+                                              **modes)
+    _k1_check(o, lse, flash_attention_plain(q, k, v, seg, seg, **modes),
+              want_lse, seg)
+    again, _ = flash_attention_fwd(q, k, v, seg, seg, **modes)
+    assert torch.equal(again, o)  # no float atomics: bitwise repeatable
+
+
+@pytest.mark.cuda
+def test_flash_attention_d256_forward_only(cuda):
+    """K1 at 256 under no_grad; a forward autograd could differentiate is
+    refused before any launch (K2 and K3 take 128 only), and the
+    dispatcher keeps such a forward on the plain attention."""
+    from halva_tpu_torch.ops.attention import attention
+
+    q = torch.randn(1, 64, 8, D256, generator=cuda,
+                    device="cuda").bfloat16()
+    k = torch.randn(1, 64, 1, D256, generator=cuda, device="cuda").bfloat16()
+    seg = torch.ones(1, 64, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        before = _kernels.launches["flash_fwd_d256"]
+        o = flash_attention(q, k, k, seg, seg)
+        assert _kernels.launches["flash_fwd_d256"] == before + 1
+    qg = q.clone().requires_grad_()
+    before = dict(_kernels.launches)
+    with pytest.raises(ValueError, match="no backward"):
+        flash_attention(qg, k, k, seg, seg)
+    plain = attention(qg, k, k, seg, seg)  # "auto" with grad: plain
+    assert dict(_kernels.launches) == before
+    plain.float().sum().backward()
+    assert qg.grad is not None
+    _close(plain.detach(), o)
+
+
+def _d256_caches(gen, mode, b, gen_rows, kvh, sp, sg):
+    if mode == "bf16":
+        return _fold_caches(gen, "bf16", b, gen_rows, kvh, sp, sg, D256)
+    pc, _ = _quant_caches(gen, mode, b, kvh, sp, sg, D256)
+    _, gc = _quant_caches(gen, "kv8", gen_rows, kvh, 2, sg, D256)
+    return pc, gc
+
+
+K4_NAMES = {"bf16": "decode_attn", "kv8": "decode_attn_kv8",
+            "kv4": "decode_attn_kv4"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3, None])
+@pytest.mark.parametrize("kvh", [1, 2])
+@pytest.mark.parametrize("mode", ["bf16", "kv8", "kv4"])
+def test_decode_attn_d256_matches_plain(cuda, mode, kvh, splits):
+    b, h, sp, sg = 3, 8 * kvh, 301, 128
+    q = torch.randn(b, 1, h, D256, generator=cuda, device="cuda").bfloat16()
+    pc, gc = _d256_caches(cuda, mode, b, b, kvh, sp, sg)
+    seg = torch.ones(b, sp, dtype=torch.int32, device="cuda")
+    seg[0, 250:] = 0
+    seg[2] = 0
+    gen_valid = (torch.arange(sg, device="cuda")[None, :]
+                 <= torch.tensor([0, 40, 127], device="cuda")[:, None])
+    if mode != "bf16":  # garbage in the scales of masked keys
+        gc["v_scale"][~gen_valid[:, None, :].expand_as(gc["v_scale"])] = (
+            float("inf"))
+    name = K4_NAMES[mode] + "_d256"
+    before = _kernels.launches[name]
+    got = decode_attend_layer(q, pc, seg, gc, gen_valid, splits=splits)
+    assert _kernels.launches[name] == before + 1
+    assert torch.isfinite(got).all()
+    _close(got, decode_attend_plain(q, pc, seg, gc, gen_valid))
+    assert torch.equal(got, decode_attend_layer(q, pc, seg, gc, gen_valid,
+                                                splits=splits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "kv8", "kv4"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_fold_attn_d256_per_beam_and_k4_beam_mode_match_plain(cuda, mode, k):
+    """Gemma's beams: K * G = 16 or 32 rows an item (one or two chunks)."""
+    b, h, kvh, sp, sg = 3, 8, 1, 301, 128
+    q = torch.randn(b, k, h, D256, generator=cuda, device="cuda").bfloat16()
+    pc, gc = _d256_caches(cuda, mode, b, b * k, kvh, sp, sg)
+    seg = torch.ones(b, sp, dtype=torch.int32, device="cuda")
+    seg[0, 250:] = 0
+    seg[2] = 0
+    steps = torch.randint(0, sg, (b * k,), generator=cuda, device="cuda")
+    steps[0] = 0
+    gen_valid = torch.arange(sg, device="cuda")[None, :] <= steps[:, None]
+    fold = FOLD_NAMES[mode] + "_d256"
+    grid_name = GRID_NAMES[mode] + "_d256"
+    before = dict(_kernels.launches)
+    got = fold_attend_layer(q, pc, seg, gc, gen_valid, fold_k=k)
+    assert _kernels.launches[fold] == before.get(fold, 0) + 1
+    assert torch.isfinite(got).all()
+    _close(got, fold_attend_plain(q, pc, seg, gc, gen_valid, fold_k=k))
+    q1 = q.reshape(b * k, 1, h, D256)
+    grid = decode_attend_layer(q1, pc, seg, gc, gen_valid, beam_k=k,
+                               beam_route="grid")
+    assert _kernels.launches[grid_name] == before.get(grid_name, 0) + 1
+    _close(grid, decode_attend_plain(q1, pc, seg, gc, gen_valid, beam_k=k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, None])
+@pytest.mark.parametrize("mode", ["bf16", "kv8", "kv4"])
+@pytest.mark.parametrize("k,sg", [(4, 128), (8, 256)])
+def test_fold_attn_d256_shared_gen_with_candidates_matches_plain(
+        cuda, mode, k, sg, splits):
+    b, h, kvh, sp = 3, 8, 1, 301
+    q = torch.randn(b, k, h, D256, generator=cuda, device="cuda").bfloat16()
+    kc = torch.randn(b, k, kvh, D256, generator=cuda,
+                     device="cuda").bfloat16()
+    vc = torch.randn(b, k, kvh, D256, generator=cuda,
+                     device="cuda").bfloat16()
+    pc, gc = _d256_caches(cuda, mode, b, b, kvh, sp, sg)
+    seg = torch.ones(b, sp, dtype=torch.int32, device="cuda")
+    seg[0, 250:] = 0
+    seg[2] = 0
+    gen_len = torch.tensor([40, sg - k, 0], device="cuda")
+    gen_valid = torch.arange(sg, device="cuda")[None, :] < gen_len[:, None]
+    name = FOLD_NAMES[mode] + "_shared_d256"
+    before = _kernels.launches[name]
+    got = fold_attend_layer(q, pc, seg, gc, gen_valid, fold_k=k,
+                            shared_gen=True, candidates=(kc, vc),
+                            splits=splits)
+    assert _kernels.launches[name] == before + 1
+    assert torch.isfinite(got).all()
+    _close(got, fold_attend_plain(q, pc, seg, gc, gen_valid, fold_k=k,
+                                  shared_gen=True, candidates=(kc, vc)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["bf16", "int4g"])
+def test_gemma_like_model_takes_the_d256_kernels(cuda, weights):
+    """A tiny Gemma (head dim 256, 2 heads over 1 kv head) decodes greedily
+    on the card through K1, K4 and, on the int4g tree, K6 at 256, by
+    attn_impl="auto": the counts of its run are the kernels', and its
+    first decode step's logits agree with the plain path's."""
+    from halva_tpu_torch import tree
+    from halva_tpu_torch.config import LlamaConfig, LlavaConfig, ViTConfig
+    from halva_tpu_torch.models import llama
+    from halva_tpu_torch.ops.generate import (
+        _prefill_impl, generate_greedy, init_gen_cache_like)
+    from halva_tpu_torch.ops.w4_matmul import quantize_params_int4
+
+    cfg = LlavaConfig(
+        llm=LlamaConfig(vocab_size=512, hidden_size=256,
+                        intermediate_size=512, num_layers=2, num_heads=2,
+                        num_kv_heads=1, head_dim=D256,
+                        max_position_embeddings=512, rms_norm_eps=1e-6,
+                        tie_word_embeddings=True, mlp_act="gelu_tanh",
+                        rmsnorm_unit_offset=True, embed_scale=True),
+        vision=ViTConfig(image_size=28, patch_size=14, hidden_size=64,
+                         intermediate_size=128, num_layers=2, num_heads=2))
+    params = tree.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(0), torch.bfloat16)
+    if weights == "int4g":
+        params = quantize_params_int4(params, group_size=64)
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(5, 500, (3, 12), generator=g, dtype=torch.int32)
+    ids[:, 1] = -200
+    ids[1, 9:] = 0
+    args = (ids.cuda(), torch.randn(3, 3, 28, 28, generator=g).cuda(),
+            torch.tensor([12, 9, 11], dtype=torch.int32).cuda())
+    steps = 6
+    with torch.inference_mode():
+        _kernels.reset_launches()
+        tok, num = generate_greedy(params, cfg, *args,
+                                   max_new_tokens=steps, eos_id=-1)
+        launches = dict(_kernels.launches)
+        want = {"flash_fwd_d256": 2, "decode_attn_d256": 2 * steps}
+        if weights == "int4g":
+            want["w4_gemv"] = 7 * 2 * steps
+        assert launches == want
+        assert ((tok >= 0) & (tok < 512)).all() and (num == steps).all()
+        logits = {}
+        for impl in ("auto", "plain"):
+            _, first, slen, pc, pseg = _prefill_impl(params, cfg, *args,
+                                                     attn_impl=impl)
+            gen = init_gen_cache_like(cfg.llm, 3, steps, pc)
+            emb = llama.embed(params["llm"], tok[:, :1])
+            lg, _ = llama.decode_step(params["llm"], cfg.llm, emb, slen, pc,
+                                      pseg, gen, 0, attn_impl=impl)
+            logits[impl] = torch.stack([first, lg])
+    rel = float((logits["auto"] - logits["plain"]).norm()
+                / logits["plain"].norm())
+    assert rel < 2e-2, rel

@@ -5,6 +5,7 @@ llama._decode_attend: bf16 prompt and gen caches at the shapes the
 reference's own tests use (MHA, GQA, a prompt shorter than one block, a
 single valid gen slot), and int8-prompt/int8-gen and int4-prompt/int8-gen
 caches (MHA and GQA, odd and even prompt lengths, a padded prompt row),
+each also at Gemma's head dim 256 with 8 query heads over 1 kv head,
 the int4 oracle fed the even/odd view as tests/test_kv4.py feeds it. On CPU
 tensors the port's wrapper takes its plain version.
 
@@ -48,6 +49,8 @@ CASES = {
     "gqa": (2, 8, 2, 300, 64, 16, (3, 7), False),
     "short_prompt": (2, 8, 8, 130, 64, 16, (5, 1), True),
     "single_gen_slot": (2, 8, 8, 300, 64, 16, (0, 0), False),
+    # Gemma's head dim and grouping: 8 query heads over 1 kv head, D = 256
+    "gemma_g8_d256": (2, 8, 1, 300, 256, 16, (3, 7), False),
 }
 
 
@@ -117,6 +120,8 @@ QCASES = {
     "int8_gqa_even": ("int8", 2, 8, 2, 300, 128, 16, (0, 9)),
     "int4_mha_odd": ("int4", 2, 4, 4, 301, 128, 16, (3, 7)),
     "int4_gqa_even": ("int4", 2, 8, 2, 300, 128, 16, (5, 0)),
+    "int8_g8_d256": ("int8", 2, 8, 1, 301, 256, 16, (3, 7)),
+    "int4_g8_d256": ("int4", 2, 8, 1, 301, 256, 16, (5, 0)),
 }
 
 
@@ -264,6 +269,8 @@ PLAN_CASES = {
     "llava_b80_int4": (80, 32, 623, 128, True, 132, None),
     "llava_beams": (16, 32, 623, 128, True, 132, None),
     "mistral_b4": (4, 8, 623, 128, False, 132, None),
+    "gemma_b4": (4, 1, 623, 128, False, 132, None),
+    "gemma_beams_int4": (16, 1, 623, 128, True, 132, None),
     "odd_int4": (2, 8, 301, 128, True, 132, None),
     "prompt_under_a_tile": (2, 8, 40, 16, False, 132, None),
     "no_gen_span": (2, 4, 300, 0, False, 132, None),

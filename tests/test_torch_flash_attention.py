@@ -3,7 +3,8 @@ reference's Pallas flash attention, which runs in interpret mode on the CPU
 as tests/test_flash_attention.py runs it. On CPU tensors the port's wrapper
 takes its plain version, so this holds the plain version's semantics:
 segment ids (padding, packing), causal and not, GQA, lengths that are not a
-block multiple, and the three modes: ALiBi (8 heads, and under GQA), a
+block multiple, head dim 256 (Gemma) with 8 heads over 1 kv head and with
+packed rows, and the three modes: ALiBi (8 heads, and under GQA), a
 sliding window smaller than the sequence (so it bites, and the reference,
 run with 128-wide blocks, skips key blocks), window with GQA and packed
 segments, ALiBi with a window, and `q_offset` (a shard of the queries
@@ -48,6 +49,9 @@ CASES = {
     "window_gqa_packed": (1, 384, 4, 2, 32, True, "packed"),
     "window_small": (1, 200, 2, 2, 32, True, "pad"),
     "alibi_window": (1, 384, 4, 4, 32, True, "pad"),
+    # Gemma's head dim (256) and grouping (8 heads over 1 kv head)
+    "d256_gqa": (1, 200, 8, 1, 256, True, "pad"),
+    "d256_packed": (2, 256, 2, 2, 256, True, "packed"),
 }
 # the modes of a case (none: the base mode)
 MODES = {

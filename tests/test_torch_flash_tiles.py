@@ -26,6 +26,7 @@ from halva_tpu_torch.ops.flash_attention import (
     FWD_BQ,
     FWD_LONG_KEYS,
     FWD_STAGES,
+    FWD_STAGES_BY_D,
     M_INIT,
     flash_attention_plain,
     flash_attention_tiled_plain,
@@ -273,3 +274,16 @@ def test_flash_fwd_plan():
     assert flash_fwd_plan(1, 100, FWD_LONG_KEYS + 1, 8).bk == 128
     with pytest.raises(ValueError, match="key tile"):
         flash_fwd_plan(1, 128, 128, 8, bk=96)
+
+
+def test_flash_fwd_plan_at_head_dim_256():
+    """At head dim 256 (Gemma) K1 has one instance: 64-key tiles in a ring
+    of 2 stages (a 64 KB Q tile and two 64 KB stages), long rows included;
+    a 128-key tile and a head dim without an instance raise."""
+    assert FWD_STAGES_BY_D[128] is FWD_STAGES
+    assert flash_fwd_plan(4, 623, 623, 8, d=256) == (128, 64, 2, 4 * 8 * 5)
+    assert flash_fwd_plan(1, 4608, 4608, 8, d=256).bk == 64
+    with pytest.raises(ValueError, match="key tile"):
+        flash_fwd_plan(1, 128, 128, 8, bk=128, d=256)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_fwd_plan(1, 128, 128, 8, d=64)

@@ -4,7 +4,8 @@ reference's Pallas entry points called directly (interpret mode on the CPU).
 `fold_attend_plain` (per-beam gen stage; shared gen stage with candidates)
 against `fold_attend_layer`, and `decode_attend_plain(beam_k=K)` against
 `decode_attend_layer(beam_k=K)` on its grid route, on the same seeded numpy
-inputs: bf16, int8 and int4 prompt caches, MHA and GQA (G = 4), a prompt
+inputs: bf16, int8 and int4 prompt caches, MHA and GQA (G = 4), Gemma's
+head dim 256 with 8 query heads over 1 kv head (32 rows an item), a prompt
 length that is no multiple of anything, a single valid gen slot, and an item
 whose every key is masked (both sides give 0 there).
 
@@ -40,53 +41,55 @@ def _bf16(x):
     return np.asarray(jnp.asarray(x, jnp.bfloat16))
 
 
-def _caches(fmt, rng, b, gen_rows, kvh, sp, sg):
-    """Stacked prompt cache at b rows and gen cache at gen_rows rows in
-    format `fmt` (bf16 | int8 | int4; the quantized ones with int8 gen)."""
+def _caches(fmt, rng, b, gen_rows, kvh, sp, sg, d=D):
+    """Stacked prompt cache at b rows and gen cache at gen_rows rows of head
+    dim d in format `fmt` (bf16 | int8 | int4; the quantized ones with int8
+    gen)."""
 
     def int8(*shape):
         return np.clip(np.round(rng.randn(*shape) * 40), -127,
                        127).astype(np.int8)
 
     if fmt == "bf16":
-        prompt = {"k": _bf16(rng.randn(LAYERS, b, kvh, sp, D)),
-                  "v": _bf16(rng.randn(LAYERS, b, kvh, sp, D))}
-        gen = {"k": _bf16(rng.randn(LAYERS, gen_rows, kvh, sg, D)),
-               "v": _bf16(rng.randn(LAYERS, gen_rows, kvh, sg, D))}
+        prompt = {"k": _bf16(rng.randn(LAYERS, b, kvh, sp, d)),
+                  "v": _bf16(rng.randn(LAYERS, b, kvh, sp, d))}
+        gen = {"k": _bf16(rng.randn(LAYERS, gen_rows, kvh, sg, d)),
+               "v": _bf16(rng.randn(LAYERS, gen_rows, kvh, sg, d))}
         return prompt, gen
     if fmt == "int4":
         s2 = -(-sp // 2)
         prompt = {
-            "k4": rng.randint(-128, 128, (LAYERS, b, kvh, s2, D)).astype(
+            "k4": rng.randint(-128, 128, (LAYERS, b, kvh, s2, d)).astype(
                 np.int8),
-            "v4": rng.randint(-128, 128, (LAYERS, b, kvh, s2, D)).astype(
+            "v4": rng.randint(-128, 128, (LAYERS, b, kvh, s2, d)).astype(
                 np.int8),
             "k_scale": _bf16(rng.uniform(0.1, 0.3, (LAYERS, b, 2, kvh, s2))),
             "v_scale": _bf16(rng.uniform(0.1, 0.3, (LAYERS, b, 2, kvh, s2))),
         }
     else:
         prompt = {
-            "k": int8(LAYERS, b, kvh, sp, D), "v": int8(LAYERS, b, kvh, sp, D),
+            "k": int8(LAYERS, b, kvh, sp, d), "v": int8(LAYERS, b, kvh, sp, d),
             "k_scale": _bf16(rng.uniform(0.01, 0.04, (LAYERS, b, kvh, sp))),
             "v_scale": _bf16(rng.uniform(0.01, 0.04, (LAYERS, b, kvh, sp))),
         }
     gen = {
-        "k": int8(LAYERS, gen_rows, kvh, sg, D),
-        "v": int8(LAYERS, gen_rows, kvh, sg, D),
+        "k": int8(LAYERS, gen_rows, kvh, sg, d),
+        "v": int8(LAYERS, gen_rows, kvh, sg, d),
         "k_scale": _bf16(rng.uniform(0.01, 0.04, (LAYERS, gen_rows, kvh, sg))),
         "v_scale": _bf16(rng.uniform(0.01, 0.04, (LAYERS, gen_rows, kvh, sg))),
     }
     return prompt, gen
 
 
-def _inputs(fmt, k, h, kvh, sp, sg, shared, q_dtype, dead=None, seed=0):
+def _inputs(fmt, k, h, kvh, sp, sg, shared, q_dtype, dead=None, seed=0,
+            d=D):
     """dead: None | "prompt" (item 1's prompt all masked) | "all" (item 1's
     prompt and gen both masked: rows with no visible key)."""
     rng = np.random.RandomState(seed)
     b = 2
     gen_rows = b if shared else b * k
-    q = np.asarray(jnp.asarray(rng.randn(b, k, h, D), q_dtype))
-    prompt, gen = _caches(fmt, rng, b, gen_rows, kvh, sp, sg)
+    q = np.asarray(jnp.asarray(rng.randn(b, k, h, d), q_dtype))
+    prompt, gen = _caches(fmt, rng, b, gen_rows, kvh, sp, sg, d)
     seg = np.ones((b, sp), np.int32)
     seg[0, sp - 50:] = 0
     seg[1, sp // 3:] = 0
@@ -99,7 +102,7 @@ def _inputs(fmt, k, h, kvh, sp, sg, shared, q_dtype, dead=None, seed=0):
         gv[gen_rows // 2:] = False
     cand = None
     if shared:
-        cand = (_bf16(rng.randn(b, k, kvh, D)), _bf16(rng.randn(b, k, kvh, D)))
+        cand = (_bf16(rng.randn(b, k, kvh, d)), _bf16(rng.randn(b, k, kvh, d)))
     return q, prompt, seg, gen, gv, cand
 
 
@@ -113,12 +116,14 @@ def _layer(t, li):
     return {key: v[li] for key, v in t.items()}
 
 
-# name: (k, h, kvh, sp, sg, dead)
+# name: (k, h, kvh, sp, sg, dead, head dim)
 BEAM_CASES = {
-    "mha_k4": (4, 4, 4, 301, 16, None),
-    "gqa_k3": (3, 8, 2, 301, 16, None),
-    "mha_k2_dead_prompt": (2, 4, 4, 130, 16, "prompt"),
-    "mha_k4_no_visible_key": (4, 4, 4, 130, 16, "all"),
+    "mha_k4": (4, 4, 4, 301, 16, None, D),
+    "gqa_k3": (3, 8, 2, 301, 16, None, D),
+    "mha_k2_dead_prompt": (2, 4, 4, 130, 16, "prompt", D),
+    "mha_k4_no_visible_key": (4, 4, 4, 130, 16, "all", D),
+    # Gemma: 8 query heads over 1 kv head at head dim 256, 32 rows an item
+    "gemma_k4_d256": (4, 8, 1, 301, 16, None, 256),
 }
 
 
@@ -126,10 +131,10 @@ BEAM_CASES = {
 @pytest.mark.parametrize("fmt", ["bf16", "int8", "int4"])
 @pytest.mark.parametrize("name", list(BEAM_CASES))
 def test_fold_per_beam_matches_reference(name, fmt, q_dtype):
-    k, h, kvh, sp, sg, dead = BEAM_CASES[name]
+    k, h, kvh, sp, sg, dead, d = BEAM_CASES[name]
     jdt = jnp.float32 if q_dtype == "f32" else jnp.bfloat16
     q, prompt, seg, gen, gv, _ = _inputs(fmt, k, h, kvh, sp, sg, False, jdt,
-                                         dead)
+                                         dead, d=d)
     tq, tseg, tgv = tree.to_torch([q, seg, gv], device="cpu")
     tprompt = tree.to_torch(prompt, device="cpu")
     tgen = tree.to_torch(gen, device="cpu")
@@ -149,19 +154,20 @@ def test_fold_per_beam_matches_reference(name, fmt, q_dtype):
 
 @pytest.mark.parametrize("q_dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("fmt", ["bf16", "int8", "int4"])
-@pytest.mark.parametrize("name", ["mha_k4", "gqa_k3", "mha_k2_dead_prompt"])
+@pytest.mark.parametrize("name", ["mha_k4", "gqa_k3", "mha_k2_dead_prompt",
+                                  "gemma_k4_d256"])
 def test_decode_plain_beam_matches_reference_grid(name, fmt, q_dtype,
                                                   monkeypatch):
     """K4's beam mode: B*K single-query rows against B prompt rows, held
     against the reference's beam-grid kernel, and the plain fold equal to it
     row for row."""
     monkeypatch.setenv("HALVA_BEAM_DOT", "grid")
-    k, h, kvh, sp, sg, dead = BEAM_CASES[name]
+    k, h, kvh, sp, sg, dead, d = BEAM_CASES[name]
     jdt = jnp.float32 if q_dtype == "f32" else jnp.bfloat16
     q, prompt, seg, gen, gv, _ = _inputs(fmt, k, h, kvh, sp, sg, False, jdt,
-                                         dead)
+                                         dead, d=d)
     b = q.shape[0]
-    q1 = q.reshape(b * k, 1, h, D)
+    q1 = q.reshape(b * k, 1, h, d)
     tq, tseg, tgv = tree.to_torch([q1, seg, gv], device="cpu")
     tprompt = tree.to_torch(prompt, device="cpu")
     tgen = tree.to_torch(gen, device="cpu")
@@ -174,18 +180,19 @@ def test_decode_plain_beam_matches_reference_grid(name, fmt, q_dtype,
         jax.tree.map(jnp.asarray, gen), jnp.asarray(gv), jnp.int32(li),
         beam_k=k), np.float32)
     np.testing.assert_allclose(got.float().numpy(), want, **_tol(q_dtype))
-    folded = fold_attend_plain(tq.reshape(b, k, h, D), _layer(tprompt, li),
+    folded = fold_attend_plain(tq.reshape(b, k, h, d), _layer(tprompt, li),
                                tseg, _layer(tgen, li), tgv, fold_k=k)
-    torch.testing.assert_close(folded.reshape(b * k, 1, h, D), got,
+    torch.testing.assert_close(folded.reshape(b * k, 1, h, d), got,
                                rtol=1e-5, atol=1e-5 if q_dtype == "f32"
                                else 8e-3)
 
 
-# name: (k, h, kvh, sp, sg, dead)
+# name: (k, h, kvh, sp, sg, dead, head dim)
 SHARED_CASES = {
-    "mha_k4": (4, 4, 4, 301, 16, None),
-    "gqa_k8": (8, 8, 2, 300, 24, None),
-    "mha_k3_dead_prompt": (3, 4, 4, 130, 16, "prompt"),
+    "mha_k4": (4, 4, 4, 301, 16, None, D),
+    "gqa_k8": (8, 8, 2, 300, 24, None, D),
+    "mha_k3_dead_prompt": (3, 4, 4, 130, 16, "prompt", D),
+    "gemma_k4_d256": (4, 8, 1, 300, 24, None, 256),
 }
 
 
@@ -194,10 +201,10 @@ SHARED_CASES = {
 @pytest.mark.parametrize("name", list(SHARED_CASES))
 def test_fold_shared_gen_with_candidates_matches_reference(name, fmt,
                                                            q_dtype):
-    k, h, kvh, sp, sg, dead = SHARED_CASES[name]
+    k, h, kvh, sp, sg, dead, d = SHARED_CASES[name]
     jdt = jnp.float32 if q_dtype == "f32" else jnp.bfloat16
     q, prompt, seg, gen, gv, cand = _inputs(fmt, k, h, kvh, sp, sg, True,
-                                            jdt, dead)
+                                            jdt, dead, d=d)
     tq, tseg, tgv = tree.to_torch([q, seg, gv], device="cpu")
     tprompt = tree.to_torch(prompt, device="cpu")
     tgen = tree.to_torch(gen, device="cpu")

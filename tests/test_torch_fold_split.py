@@ -52,10 +52,11 @@ PLANS = [1, 2, 3, 5, "sms"]  # forced aims, and the SM count's
 def _case(name, fmt, q_dtype, shared):
     """The torch inputs of one case and the reference's output (computed
     once per case: the interpret-mode kernel is the slow part)."""
-    k, h, kvh, sp, sg, dead = (SHARED_CASES if shared else BEAM_CASES)[name]
+    k, h, kvh, sp, sg, dead, d = (SHARED_CASES if shared
+                                  else BEAM_CASES)[name]
     jdt = jnp.float32 if q_dtype == "f32" else jnp.bfloat16
     q, prompt, seg, gen, gv, cand = _inputs(fmt, k, h, kvh, sp, sg, shared,
-                                            jdt, dead)
+                                            jdt, dead, d=d)
     li = 1
     kw = {}
     tcand = None
@@ -125,6 +126,8 @@ PLAN_SHAPES = [
     (2, 4, 3, 2, 64, 8, False, 5),         # one prompt tile
     (3, 2, 2, 1, 130, 0, False, 2),        # no gen span
     (80, 32, 4, 1, 623, 128, False, None),  # batch 80
+    (4, 1, 4, 8, 623, 128, False, None),   # Gemma-2B, 4 beams: two chunks
+    (4, 1, 4, 8, 623, 128, True, None),    # Gemma-2B, a verify step
 ]
 
 

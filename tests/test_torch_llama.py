@@ -426,23 +426,27 @@ def _check_decode_step_w4(name, kv, monkeypatch):
 
 
 def test_head_dim_rule_picks_the_route_from_the_config(monkeypatch):
-    """attn_impl="auto" takes the kernels at head dim 128 and the plain
-    versions at any other, on either device, by `kernel_route`: never by a
-    failure. The kernel entry points are replaced by ones that raise, so a
-    head-dim-64 config that reached one would fail here."""
+    """attn_impl="auto" takes the kernels at head dims 128 and 256 (the
+    forward at 256 only without grad) and the plain versions at any other,
+    on either device, by `kernel_route`: never by a failure. The kernel
+    entry points are replaced by ones that raise, so a head-dim-64 config
+    that reached one would fail here."""
     from halva_tpu_torch.ops import attention as attn
     from halva_tpu_torch.ops import flash_attention as fa
     from halva_tpu_torch.ops import w4_matmul
 
     assert attn.kernel_route("auto", 128) == "kernel"
     assert attn.kernel_route("auto", 64) == "plain"
-    assert attn.kernel_route("auto", 256) == "plain"
+    assert attn.kernel_route("auto", 256) == "kernel"
+    assert attn.kernel_route("auto", 256, grad=True) == "plain"
+    assert attn.kernel_route("auto", 128, grad=True) == "kernel"
     assert attn.kernel_route("kernel", 64) == "kernel"  # named: not overruled
     assert attn.kernel_route("plain", 128) == "plain"
     with pytest.raises(ValueError, match="unknown attention impl"):
         attn.kernel_route("xla", 128)
     assert llama._w4_mm("auto", 64) is w4_matmul.w4_dense_stacked_plain
     assert llama._w4_mm("auto", 128) is w4_matmul.w4_decode_matmul
+    assert llama._w4_mm("auto", 256) is w4_matmul.w4_decode_matmul
     assert llama._w4_mm("kernel", 64) is w4_matmul.w4_decode_matmul
     assert llama._w4_mm("plain", 128) is w4_matmul.w4_dense_stacked_plain
 
