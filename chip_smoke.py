@@ -112,19 +112,25 @@ mask on K4 against the plain path. Their K1, K4 and K7 launches are added
 to the `kernels` line.
 
 Gemma-2B at head dim 256 (after MPT): the 256 instances of K1 (Gemma's
-prefill, B=4, H=8 over KVH=1), K4 (bf16, int8/int8, int4/int8 and its beam
-mode on bf16 and int4 caches, Sg=128) and K5 (the per-beam and the shared
-stage, bf16 and int4 caches) are held against their plain versions and
-timed beside their bounds, SDPA and their one-split plans, each line with
-its launch plan; then VILA's llava_gemma (Gemma-2B under CLIP
-ViT-L/14-336) at full width and depth from a seeded random bf16 tree and
-its int4g tree with int4 prompt KV: greedy decode of the 4 requests
-(18 K1 a prefill, 18 K4 a token, 126 K6 an int4g token) against the plain
-route within 4/3 of a noise floor, 4 beams on the route "auto" takes and a
-short run on the other, draft_k-4 speculative decode (K7 at B*K rows), a
-short int8-KV run, each graph loop against its eager body, and each
-step's device time on the kernel route beside the plain route's. The 256
-instances are rows of their own in the `kernels` line (`*_d256`).
+prefill, B=4, H=8 over KVH=1), K2 and K3 (the train step's pn rows, B=4 of
+1087 tokens, also against their tile walks; the packed batcher's rows; the
+window mode; bitwise repeats and graph replays), K4 (bf16, int8/int8,
+int4/int8 and its beam mode on bf16 and int4 caches, Sg=128) and K5 (the
+per-beam and the shared stage, bf16 and int4 caches) are held against
+their plain versions and timed beside their bounds, SDPA and their plans;
+then VILA's llava_gemma (Gemma-2B under CLIP ViT-L/14-336) at full width
+and depth from a seeded random bf16 tree and its int4g tree with int4
+prompt KV: greedy decode of the 4 requests (18 K1 a prefill, 18 K4 a
+token, 126 K6 an int4g token) against the plain route within 4/3 of a
+noise floor, 4 beams on the route "auto" takes and a short run on the
+other, draft_k-4 speculative decode (K7 at B*K rows), a short int8-KV run,
+each graph loop against its eager body, and each step's device time on the
+kernel route beside the plain route's; on the bf16 tree the DPA train step
+(the llava recipe: 4 micro-steps, 2 updates, 90 K1, 36 K2 and 36 K3 at 256
+a micro-step, one micro-step against the plain route within 4/3 of a noise
+floor) and its packed step (2 micro-steps on the packed batcher's rows,
+one against the unpacked step on the same samples). The 256 instances are
+rows of their own in the `kernels` line (`*_d256`).
 Every phase prints one line; any failure raises and exits non-zero. The
 last line is the device record {"ok": true, "device": {...}}.
 
@@ -183,6 +189,11 @@ its rows.
 
 runs only the Gemma-2B phase above, after the head-dim-128 checks of K1
 and K4 (their times in the same call), and prints its rows.
+
+    python3 chip_smoke.py --gemma-train-only
+
+runs only K1's, K2's and K3's head-dim-256 checks and the Gemma-2B train
+step (unpacked and packed) on a fresh random tree, and prints their rows.
 
     python3 chip_smoke.py --serve-variants-only
 
@@ -254,6 +265,7 @@ from halva_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
     flash_attention_bwd_plain,
+    flash_attention_bwd_tiled_plain,
     flash_attention_delta,
     flash_attention_fwd,
     flash_attention_plain,
@@ -488,18 +500,21 @@ def k1_plan(b: int, sq: int, skv: int, h: int, d: int = 128) -> str:
             f"{plan.stages} stages, {plan.blocks} blocks")
 
 
-def bwd_plan(b: int, sq: int, skv: int, h: int, kvh: int) -> str:
+def bwd_plan(b: int, sq: int, skv: int, h: int, kvh: int,
+             d: int = 128) -> str:
     """K2's and K3's launch plans as the wrappers pick them (an older tree,
     run for an A/B comparison, has none to report)."""
     plan_of = getattr(flash_ops, "flash_bwd_plan", None)
     if plan_of is None:
         return "K2/K3 plan: not reported by this tree"
-    plan = plan_of(b, sq, skv, h, kvh, sms=sm_count(torch.device("cuda")))
+    plan = plan_of(b, sq, skv, h, kvh, sms=sm_count(torch.device("cuda")),
+                   d=d)
     return (f"K2 plan: {plan.dq.rows}-row blocks, {plan.dq.tile}-key tiles, "
             f"{plan.dq.stages} stages, {plan.dq.blocks} blocks, "
-            f"{plan.dq.order}; K3 plan: {plan.dkv.rows}-key blocks, "
-            f"{plan.dkv.tile}-query tiles, {plan.dkv.stages} stages, "
-            f"{plan.dkv.blocks} blocks, {plan.dkv.order}")
+            f"{plan.dq.order}, warpgroups split by {plan.dq.split}; K3 plan: "
+            f"{plan.dkv.rows}-key blocks, {plan.dkv.tile}-query tiles, "
+            f"{plan.dkv.stages} stages, {plan.dkv.blocks} blocks, "
+            f"{plan.dkv.order}, warpgroups split by {plan.dkv.split}")
 
 
 def check_flash(gen: torch.Generator) -> dict:
@@ -701,22 +716,26 @@ def check_flash_repeat(gen: torch.Generator) -> None:
                                  "does not replay from a CUDA graph")
 
 
-def check_flash_bwd_repeat(gen: torch.Generator) -> None:
-    """K2 and K3 at the train shape in each mode: two launches give the same
-    bits (no float atomics; K3's GQA sum stays in the block), and a CUDA
-    graph that captured both launches replays them on new inputs (new q, k,
-    v, dO and the o, LSE and delta of K1 on them), bit for bit as eager
-    launches on those inputs."""
-    b, s, h, kvh = 4, TRAIN_SPLICED, 32, 8
+def check_flash_bwd_repeat(gen: torch.Generator, h: int = 32, kvh: int = 8,
+                           d: int = 128,
+                           all_modes=({}, {"alibi": True},
+                                      {"sliding_window": 256})) -> None:
+    """K2 and K3 at the train shape (B=4 rows of 1087 tokens, padded; H
+    query heads over KVH at head dim d) in each mode: two launches give the
+    same bits (no float atomics; K3's GQA sum stays in the block), and a
+    CUDA graph that captured both launches replays them on new inputs (new
+    q, k, v, dO and the o, LSE and delta of K1 on them), bit for bit as
+    eager launches on those inputs."""
+    b, s = 4, TRAIN_SPLICED
     lens = (s, s - 7, s - 64, s - 301)
 
     def r(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
 
     seg = lengths_to_seg(lens, s, "cuda")
-    for modes in ({}, {"alibi": True}, {"sliding_window": 256}):
-        q, k, v, do = r(b, s, h, 128), r(b, s, kvh, 128), r(
-            b, s, kvh, 128), r(b, s, h, 128)
+    for modes in all_modes:
+        q, k, v, do = r(b, s, h, d), r(b, s, kvh, d), r(b, s, kvh, d), r(
+            b, s, h, d)
         do[seg == 0] = 0
         o, lse = flash_attention_fwd(q, k, v, seg, seg, **modes)
         delta = flash_attention_delta(o, do)
@@ -736,7 +755,7 @@ def check_flash_bwd_repeat(gen: torch.Generator) -> None:
 
         ok = repeats_and_replays(both, refill)
         print(f"flash_bwd {modes or 'base mode'} B={b} S={s} H={h} "
-              f"KVH={kvh}: bitwise repeat and CUDA-graph replay on new "
+              f"KVH={kvh} D={d}: bitwise repeat and CUDA-graph replay on new "
               f"inputs {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("flash_bwd is not bitwise repeatable or "
@@ -856,16 +875,18 @@ def _sdpa_mask(mask, bias):
 
 
 def flash_mode_case(gen, label, b, s, h, kvh, lens, modes, packed_at=None,
-                    shard=None, timed=False, seg=None):
+                    shard=None, timed=False, seg=None, d=128, tiled=False):
     """K1, K2 and K3 in one mode against their plain versions on random bf16
-    inputs of B rows of S tokens (padded to `lens`, two documents per row
-    from `packed_at` on; or with the segment ids `seg`, (B, S) int32, as
-    given). `shard` = (offset, rows): only that shard of the
-    queries runs, with q_offset, against all keys, and is also held against
-    the same rows of the full call. Returns {"fwd": .., "dq": .., "dkv": ..}
-    of max_abs_err and, when timed, ms, plain_ms, library_ms and the bound
-    on this run's live pairs."""
-    dev, d = "cuda", 128
+    inputs of B rows of S tokens at head dim d (padded to `lens`, two
+    documents per row from `packed_at` on; or with the segment ids `seg`,
+    (B, S) int32, as given). `shard` = (offset, rows): only that shard of
+    the queries runs, with q_offset, against all keys, and is also held
+    against the same rows of the full call. With `tiled`, K2 and K3 are also
+    held against flash_attention_bwd_tiled_plain (their tile walks in torch
+    ops). Returns {"fwd": .., "dq": .., "dkv": ..} of max_abs_err and, when
+    timed, ms, plain_ms, library_ms and the bound on this run's live
+    pairs."""
+    dev = "cuda"
 
     def r(*shape):
         return torch.randn(*shape, generator=gen, device=dev).bfloat16()
@@ -914,6 +935,20 @@ def flash_mode_case(gen, label, b, s, h, kvh, lens, modes, packed_at=None,
         ok = ok and good and bool(torch.isfinite(g).all())
         errs[name] = err
         line.append(f"{name} {err:.3e} rel {rel:.3e}")
+    if tiled:
+        walk = flash_attention_bwd_tiled_plain(q, k, v, qseg, seg, o, lse,
+                                               do, **kw)
+        for name, g, w, lv in zip(("dq", "dk", "dv"), got[1:], walk,
+                                  lives[1:]):
+            g, w = g[lv].float(), w[lv].float()
+            err, rel = max_abs(g, w), rel_err(g, w)
+            limit = BWD_RTOL * (w.abs().max() + w.abs())
+            ok = ok and bool((g - w).abs().le(limit).all()) and (
+                rel <= BWD_REL)
+            errs[name] = max(errs[name], err)
+            line.append(f"{name} vs the tiled plain version {err:.3e} rel "
+                        f"{rel:.3e}")
+        del walk
     if full is not None:
         # kernel against kernel: the shard equals the full call's rows
         for name, g, w, lv in zip(("o", "dq", "dk", "dv"), got, full, lives):
@@ -928,7 +963,7 @@ def flash_mode_case(gen, label, b, s, h, kvh, lens, modes, packed_at=None,
                                sliding_window=kw.get("sliding_window"))
     pairs = h * int(mask.sum())
     print(f"flash modes {label} B={b} Sq={q.shape[1]} Skv={s} H={h} "
-          f"KVH={kvh} {kw}: max_abs_err " + ", ".join(line)
+          f"KVH={kvh} D={d} {kw}: max_abs_err " + ", ".join(line)
           + f"; {pairs / 1e6:.1f} M live pairs (limits o {KERNEL_ATOL} + "
           f"{KERNEL_RTOL}*|plain|, grads {BWD_RTOL}*(max|plain| + |plain|), "
           f"rel {BWD_REL}) {'ok' if ok else 'FAIL'}")
@@ -975,8 +1010,8 @@ def flash_mode_case(gen, label, b, s, h, kvh, lens, modes, packed_at=None,
         "dkv": bound(io + tensor_bytes(do, lse, delta, k, v),
                      4 * 2 * d * pairs)}
     flop = {"fwd": 4, "dq": 6, "dkv": 8}
-    print(f"flash modes {label} time ({k1_plan(b, q.shape[1], s, h)}; "
-          f"{bwd_plan(b, q.shape[1], s, h, kvh)}): "
+    print(f"flash modes {label} time ({k1_plan(b, q.shape[1], s, h, d)}; "
+          f"{bwd_plan(b, q.shape[1], s, h, kvh, d)}): "
           + "; ".join(
               f"{name} {ms[name]:.4f} ms "
               f"({flop[name] * d * pairs / ms[name] / 1e9:.1f} TFLOP/s live, "
@@ -4413,10 +4448,11 @@ def step_ms(step, trainable, frozen, opt, batch) -> float:
 
 
 def run_pack_steps(params, cfg, kernels: dict, ds, host: list,
-                   spans: list):
-    """The main path of the phase: PACK_STEPS packed micro-steps (AdamW
-    with 8-bit moments, grad_accum 2) with their K1-K3 launches, then the
-    unpacked micro-step on each batch's samples (collate pads to the
+                   spans: list, what: str = "", suffix: str = ""):
+    """The main path of the phase: a packed micro-step on each batch of
+    `host` (AdamW with 8-bit moments, grad_accum 2) with its K1-K3 launches
+    (under their names plus `suffix`, the config's head-dim suffix), then
+    the unpacked micro-step on each batch's samples (collate pads to the
     longest) for its time."""
     layers = cfg.llm.num_layers
     gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -4435,10 +4471,10 @@ def run_pack_steps(params, cfg, kernels: dict, ds, host: list,
         per_step = {k: now[k] - seen.get(k, 0) for k in now}
         seen = now
         total.update(per_step)
-        expect_launches(per_step, {"flash_fwd": 5 * layers,
-                                   "flash_bwd_dq": 2 * layers,
-                                   "flash_bwd_dkv": 2 * layers},
-                        f"packed train micro-step {i}")
+        expect_launches(per_step, {"flash_fwd" + suffix: 5 * layers,
+                                   "flash_bwd_dq" + suffix: 2 * layers,
+                                   "flash_bwd_dkv" + suffix: 2 * layers},
+                        f"{what}packed train micro-step {i}")
     add_launches(kernels, dict(total))
     del policy, trainable, frozen, opt, step, batches
     torch.cuda.empty_cache()
@@ -4458,7 +4494,7 @@ def run_pack_steps(params, cfg, kernels: dict, ds, host: list,
     pk = statistics.mean(packed_ms[1:])
     un = statistics.mean(unpacked_ms[1:])
     per = statistics.mean(n[1:])
-    print(f"packed train main path ({gpu_line()}): "
+    print(f"{what}packed train main path ({gpu_line()}): "
           f"{pk:.1f} ms per packed micro-step (mean of micro-steps "
           f"1-{len(n) - 1}; all: " + ", ".join(f"{t:.1f}" for t in packed_ms)
           + f" ms, CUDA events) of {PACK_ROWS} + {PACK_REF_ROWS} rows x "
@@ -4471,7 +4507,8 @@ def run_pack_steps(params, cfg, kernels: dict, ds, host: list,
     return pk, un
 
 
-def compare_packed(params, cfg, ds, host0: dict, span) -> None:
+def compare_packed(params, cfg, ds, host0: dict, span,
+                   what: str = "") -> None:
     """One packed micro-step against the unpacked micro-step on the same
     samples: loss, alignment, KL and LoRA grads, within TRAIN_FLOOR_FACTOR
     of the noise floor (the unpacked micro-step against itself with the
@@ -4500,8 +4537,9 @@ def compare_packed(params, cfg, ds, host0: dict, span) -> None:
     ok = finite and all(e <= TRAIN_FLOOR_FACTOR * f
                         for e, f in zip(got, floor))
     names = ("loss", "alignment", "kl", "LoRA grads")
-    print(f"packed vs unpacked micro-step ({span[1] - span[0]} samples, "
-          f"lora_b ~ {LORA_B_STD} N(0,1)): unpacked loss {want[3]:.6f}, "
+    print(f"{what}packed vs unpacked micro-step ({span[1] - span[0]} "
+          f"samples, lora_b ~ {LORA_B_STD} N(0,1)): unpacked loss "
+          f"{want[3]:.6f}, "
           f"alignment {want[0]:.6f}, kl {want[1]:.4e}; packed loss "
           f"{runs['packed'][3]:.6f}, alignment {runs['packed'][0]:.6f}, kl "
           f"{runs['packed'][1]:.4e}; rel err "
@@ -4514,8 +4552,8 @@ def compare_packed(params, cfg, ds, host0: dict, span) -> None:
           + f"; bound {TRAIN_FLOOR_FACTOR:.3f} x floor "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the packed micro-step disagrees with the "
-                             "unpacked one")
+        raise AssertionError(f"{what}the packed micro-step disagrees with "
+                             "the unpacked one")
 
 
 def run_adam8(params) -> None:
@@ -5456,10 +5494,140 @@ def check_gemma_fold(gen: torch.Generator) -> list:
     return out
 
 
+GEMMA_BWD_WINDOW = 256  # the window of the mode K2 and K3 at 256 also run
+GEMMA_PACK_STEPS = 2  # packed Gemma micro-steps: one update at grad_accum 2
+ROUTE_ROUNDS = 2  # rounds of the by-route micro-step timing
+
+
+def pack_segments(cfg) -> torch.Tensor:
+    """The pn segment ids of the packed batcher's first batch of `cfg`'s
+    samples: 2 rows of PACK_SEQ tokens, 3 documents a row."""
+    host = next(pack_batcher(cfg).batches(iter(PackSamples(cfg).items)))
+    return torch.from_numpy(host["pn_segment_ids"]).to(DEVICE)
+
+
+def check_gemma_flash_bwd(gen: torch.Generator) -> list:
+    """K2 and K3 at head dim 256 against flash_attention_bwd_plain and
+    flash_attention_bwd_tiled_plain (on K1's o and LSE at 256) at Gemma-2B's
+    train shape: the pn forward's B=4 rows of TRAIN_SPLICED tokens, H=8
+    over KVH=1, causal, every token live (the train batch's segment ids);
+    on the packed batcher's rows (2 x PACK_SEQ, 3 documents a row); in the
+    window mode; their bitwise repeats and CUDA-graph replays. Each timed
+    (median of 20 graph replays) beside the plain backward and SDPA's
+    backward, the bound from this run's live pairs. Returns the rows of
+    flash_bwd_dq_d256 and flash_bwd_dkv_d256: the train shape's times, the
+    largest error of the three cases."""
+    llm = GEMMA_2B
+    h, kvh, d = llm.num_heads, llm.kv_heads, llm.head_size
+    s = TRAIN_SPLICED
+    window = {"sliding_window": GEMMA_BWD_WINDOW}
+    cases = [
+        flash_mode_case(gen, "Gemma-2B pn rows", 4, s, h, kvh, (s,) * 4, {},
+                        timed=True, d=d, tiled=True),
+        flash_mode_case(gen, "Gemma-2B packed rows (the batcher's segment "
+                        "ids)", PACK_ROWS, PACK_SEQ, h, kvh, None, {},
+                        seg=pack_segments(LLAVA_GEMMA_2B), timed=True, d=d),
+        flash_mode_case(gen, "Gemma-2B window, padded rows", 4, s, h, kvh,
+                        (s, s - 7, s - 64, s - 301), window, d=d,
+                        tiled=True)]
+    torch.cuda.empty_cache()
+    check_flash_bwd_repeat(gen, h, kvh, d, ({}, window))
+    rows = []
+    for part, kernel in (("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv")):
+        source, replaces = FLASH_SOURCES[kernel]
+        row = dict(cases[0][part])
+        row["max_abs_err"] = max(c[part]["max_abs_err"] for c in cases)
+        rows.append({"name": kernel + head_dim_suffix(d), "route": "cuda",
+                     "source": source, "replaces": replaces, **row})
+    return rows
+
+
 def gemma_kernel_checks(gen: torch.Generator) -> list:
     """The head-dim-256 rows of the `kernels` line."""
-    return [check_gemma_flash(gen), *check_gemma_decode(gen),
-            *check_gemma_fold(gen)]
+    return [check_gemma_flash(gen), *check_gemma_flash_bwd(gen),
+            *check_gemma_decode(gen), *check_gemma_fold(gen)]
+
+
+def route_step_ms(params, cfg, what: str) -> None:
+    """One DPA micro-step of run_train's recipe (the optimizer included,
+    host clock to a synchronize) on the kernel route and on the plain route
+    (attn_impl="plain": the plain attention forward and autograd's backward
+    through it), each warmed up once, then timed ROUTE_ROUNDS times in
+    turns plain, kernel, kernel, plain: the median of each route, and the
+    peak memory of its timed steps (both routes' LoRA and optimizer states
+    resident)."""
+    batch = train_batch(cfg, 0)
+    steps, peak, ms = {}, {}, collections.defaultdict(list)
+    for impl in ("auto", "plain"):
+        policy = add_lora(params, torch.Generator(device=DEVICE)
+                          .manual_seed(1), rank=128, alpha=256.0)
+        tcfg = TrainConfig(grad_accum_steps=2, num_train_steps=400,
+                           remat=True, loss_chunk=256, attn_impl=impl)
+        trainable, frozen, opt, opt_state = init_train_state(policy, tcfg)
+        steps[impl] = [dpa_step_fns(cfg, tcfg, opt)[0], trainable, frozen,
+                       opt_state]
+        peak[impl] = 0
+
+    def once(impl):
+        step, trainable, frozen, opt_state = steps[impl]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainable, opt_state, _ = step(trainable, frozen, None, opt_state,
+                                       batch)
+        torch.cuda.synchronize()
+        steps[impl] = [step, trainable, frozen, opt_state]
+        return (time.perf_counter() - t0) * 1e3
+
+    for impl in ("plain", "auto"):
+        once(impl)
+    for impl in ("plain", "auto", "auto", "plain") * ROUTE_ROUNDS:
+        ms[impl].append(once(impl))
+        peak[impl] = max(peak[impl], torch.cuda.max_memory_allocated())
+    del steps
+    torch.cuda.empty_cache()
+    kern = statistics.median(ms["auto"])
+    plain = statistics.median(ms["plain"])
+    print(f"{what}train micro-step by route ({gpu_line()}; {ROUTE_ROUNDS} "
+          "rounds of turns plain, kernel, kernel, plain after a warm-up of "
+          "each; medians): kernel route "
+          f"{kern:.1f} ms ({', '.join(f'{t:.1f}' for t in ms['auto'])}), "
+          f"peak memory {peak['auto'] / 2**30:.2f} GiB; plain route "
+          f"{plain:.1f} ms ({', '.join(f'{t:.1f}' for t in ms['plain'])}), "
+          f"peak memory {peak['plain'] / 2**30:.2f} GiB; plain / kernel "
+          f"{plain / kern:.2f}x")
+
+
+def run_gemma_train(params, kernels: dict) -> None:
+    """LLaVA-Gemma-2B's DPA LoRA train step on its bf16 tree `params`:
+    run_train's recipe (LoRA r=128 on the 7 linears, remat, loss_chunk 256
+    over the 256,000-row tied table, 4 micro-steps at grad_accum 2), each
+    micro-step asserting 5 launches a layer of K1 at 256 and 2 each of K2
+    and K3 at 256, then one micro-step against the plain route within 4/3
+    of its noise floor; the micro-step's time and peak memory on each route
+    (`route_step_ms`); then the packed step: the packed batcher's first
+    GEMMA_PACK_STEPS batches (3 documents a pn row) through
+    packed_dpa_step_fns (8-bit Adam moments) with the same launches
+    asserted, one packed micro-step against the unpacked one on the same
+    samples (compare_packed), and the unpacked step on each batch's samples
+    for its time."""
+    cfg = LLAVA_GEMMA_2B
+    what = "llava-gemma-2b "
+    t0 = time.perf_counter()
+    run_train(params, kernels, cfg, what=what, suffix="_d256")
+    torch.cuda.empty_cache()
+    route_step_ms(params, cfg, what)
+    ds = PackSamples(cfg)
+    host = list(itertools.islice(pack_batcher(cfg).batches(iter(ds.items)),
+                                 GEMMA_PACK_STEPS))
+    spans, lo = [], 0
+    for batch in host:
+        spans.append((lo, lo + int(batch["n_samples"])))
+        lo = spans[-1][1]
+    compare_packed(params, cfg, ds, host[0], spans[0], what)
+    torch.cuda.empty_cache()
+    run_pack_steps(params, cfg, kernels, ds, host, spans, what, "_d256")
+    print(f"{what}train phase: {time.perf_counter() - t0:.1f} s")
 
 
 def gemma_step_times(params, cfg, kv_quant, tokens) -> None:
@@ -5581,20 +5749,21 @@ def run_gemma(kernels: dict) -> None:
     draft_k 4, each graph loop against its eager body (`run_graph_loops`:
     greedy, 4 beams, verify at draft_k 4 and 8, and on int4g greedy at
     batch 80), and the step times
-    on the kernel route beside the plain route's. K1: 18 launches a
-    prefill; K4: 18 a token; K6: 7 x 18 = 126 an int4g token. The launch
-    counts recorded are the head-dim-256 kernels'; K6 and K7 are asserted
-    here and keep the llava rows' counts."""
+    on the kernel route beside the plain route's; on the bf16 tree, before
+    it is quantized, the DPA train step unpacked and packed
+    (`run_gemma_train`). K1: 18 launches a prefill, 90 a train micro-step;
+    K2 and K3: 36 each a micro-step; K4: 18 a token; K6: 7 x 18 = 126 an
+    int4g token. The launch counts recorded are the head-dim-256 kernels';
+    K6 and K7 are asserted here and keep the llava rows' counts."""
     cfg = LLAVA_GEMMA_2B
     llm = cfg.llm
     layers = llm.num_layers
     w4_route = ("K6/K7" if llama._w4_mm("auto", llm.head_size)
                 is w4_matmul.w4_decode_matmul else "plain")
     print(f"route: attn_impl='auto' at Gemma's head dim {llm.head_size} -> "
-          f"{kernel_route('auto', llm.head_size)} (serving), "
-          f"{kernel_route('auto', llm.head_size, grad=True)} for a forward "
-          "with grad enabled (K2 and K3 take head dim 128 only); the "
-          f"packed-int4 decode matmuls -> {w4_route}")
+          f"{kernel_route('auto', llm.head_size)} (serving, and training: "
+          "K1 forward, K2 and K3 backward at 256); the packed-int4 decode "
+          f"matmuls -> {w4_route}")
     t0 = time.perf_counter()
     params = new_tree(cfg, "llava-gemma-2b (VILA's llava_gemma: Gemma-2B "
                       "under CLIP ViT-L/14-336)")
@@ -5603,6 +5772,8 @@ def run_gemma(kernels: dict) -> None:
     run_gemma_variants(params, cfg, kernels, False)
     gemma_step_times(params, cfg, False, tokens)
     run_graph_loops(params, cfg, int4=False, model="llava-gemma-2b")
+    run_gemma_train(params, kernels)
+    torch.cuda.empty_cache()
     q4 = quantize_int4g(params)
     del params
     torch.cuda.empty_cache()
@@ -5710,6 +5881,18 @@ def main() -> None:
         print(json.dumps({"gemma_kernels": [{k: kern.get(k) for k in keys}
                                             for kern in base + rows]}))
         return
+    if sys.argv[1:] == ["--gemma-train-only"]:
+        # K2 and K3 at 256, then the train phase on a fresh Gemma tree
+        rows = [check_gemma_flash(gen), *check_gemma_flash_bwd(gen)]
+        kernels = collections.defaultdict(dict, {k["name"]: k for k in rows})
+        params = new_tree(LLAVA_GEMMA_2B, "llava-gemma-2b (VILA's "
+                          "llava_gemma: Gemma-2B under CLIP ViT-L/14-336)")
+        run_gemma_train(params, kernels)
+        keys = ("name", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        print(json.dumps({"gemma_train_kernels": [
+            {k: kern.get(k) for k in keys} for kern in rows]}))
+        return
     if sys.argv[1:] == ["--serve-variants-only"]:
         params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
         run_sampling_bf16(params, LLAVA_V15_7B)
@@ -5735,13 +5918,12 @@ def main() -> None:
         kernels = collections.defaultdict(dict, kernels)
     print(f"route: attn_impl='auto' at head dim {CFG.llm.head_size} -> "
           f"{kernel_route('auto', CFG.llm.head_size)}, at head dim 256 -> "
-          f"{kernel_route('auto', 256)} ({kernel_route('auto', 256, True)} "
-          f"with grad enabled), at head dim 64 -> {kernel_route('auto', 64)} "
-          "(ops/attention.kernel_route, from the config and "
-          "torch.is_grad_enabled() alone, on either device: K1, K4, K5 and "
-          "the packed-int4 decode step take head dims 128 and 256, K2 and "
-          "K3 128 only; a caller who names 'kernel' still gets the "
-          "wrappers' ValueError)")
+          f"{kernel_route('auto', 256)}, at head dim 64 -> "
+          f"{kernel_route('auto', 64)} (ops/attention.kernel_route, from "
+          "the config alone, with or without grad, on either device: K1-K5 "
+          "and the "
+          "packed-int4 decode step take head dims 128 and 256; a caller "
+          "who names 'kernel' still gets the wrappers' ValueError)")
     if quant_only:
         params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
     else:

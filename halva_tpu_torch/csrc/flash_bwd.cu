@@ -77,7 +77,29 @@
 // memory, opted in for every instance at the first launch on a device.
 // ops/flash_attention.py:flash_attention_bwd_tiled_plain walks the tiles in
 // these kernels' order. Inputs are in the framework's (B, S, H, D) layout;
-// S = 1087 needs no padding by the caller. Head dim 128 only, as K1.
+// S = 1087 needs no padding by the caller.
+//
+// Head dims 128 and 256 (Gemma-2B) are instances of one template each, as
+// K1's: a row is HD / 64 swizzled chunks of 64 columns, S and dP take HD / 16
+// k-steps, and a 64 x HD result is one m64n128 accumulator per 128 columns.
+// None of the 128 geometry fits at 256, where a 64-row tile of one operand
+// is 32 KB and the card gives a block 227 KB:
+//   - K2 takes 64 query rows a block (Q and dO: 64 KB) and a ring of 2
+//     stages of 64 keys (K and V: 64 KB a stage); both warpgroups own the
+//     same rows and take alternate key tiles (each its own stage), and
+//     their dQ sums (128 fp32 registers a thread beside S's and dP's 32
+//     each) are added through the ring at the end in a fixed order, as K3's
+//     64-key layout adds its dK and dV;
+//   - K3 takes 64 keys a block (K and V: 64 KB) and a ring of 2 stages of
+//     64 queries (Q and dO: 64 KB a stage). dK and dV of 64 keys at 256
+//     would be 256 fp32 registers a thread, so the warpgroups split them by
+//     columns: each computes the whole S^T and dP^T (k-depth 256) and keeps
+//     dK and dV for 128 of the 256 head-dim columns (2 x 64 registers, the
+//     128 instances' count). S^T and dP^T are computed twice, 1.5x the
+//     tensor work of the unsplit products; handing P^T and dS^T from one
+//     warpgroup to the other through shared memory instead would sync the
+//     two on every tile. A block still walks the G query heads of its kv
+//     head and keeps their sum in registers.
 
 #include <cuda.h>  // CUtensorMap (types only)
 #include <cuda_bf16.h>
@@ -97,7 +119,6 @@ using halva::named_sync;
 using halva::smem_u32;
 using halva::sw128_desc;
 using halva::tma_load_4d;
-using halva::flash::D;
 using halva::flash::HALF_COLS;
 using halva::flash::IMAX;
 using halva::flash::IMIN;
@@ -112,66 +133,84 @@ using halva::flash::warp_range;
 constexpr int NTHREADS = 384;  // two consumer warpgroups + the producer's
 constexpr int WG_ROWS = 64;    // rows of one warpgroup's wgmma tile
 constexpr int TILE = 64;       // K2: keys per tile; K3: queries per tile
-constexpr int TILE_HALF = TILE * 128;       // bytes of one half of a tile
-constexpr int TILE_BYTES = 2 * TILE_HALF;   // 16 KB: 64 rows x 128 dims
+constexpr int TILE_CHUNK = TILE * 128;  // bytes of 64 head-dim columns of a tile
 
-// K2's geometry
+// How a block's two consumer warpgroups share its work: ROWS, each its own
+// 64 rows (K2) or keys (K3); TILES, the same rows or keys, alternate walked
+// tiles, the sums added at the end; COLS, the same keys and tiles, each the
+// results' own 128 head-dim columns
+enum Split { ROWS, TILES, COLS };
+
+// K2's geometry at head dim HD
+template <int HD>
 struct DqPlan {
-  static constexpr int BQ = 128;  // query rows per block
-  static constexpr int STAGES = 4;
-  static constexpr int PRODUCER_REGS = 40;
-  static constexpr int CONSUMER_REGS = 232;
-  static constexpr int Q_HALF = BQ * 128;     // bytes of one half of Q
-  static constexpr int Q_BYTES = 2 * Q_HALF;  // 32 KB (and as much for dO)
-  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // K then V
+  static constexpr int CHUNKS = HD / 64;  // swizzled column chunks of a row
+  static constexpr Split SPLIT = HD == 128 ? ROWS : TILES;
+  static constexpr int BQ = SPLIT == ROWS ? 128 : 64;  // query rows a block
+  static constexpr int STAGES = HD == 128 ? 4 : 2;
+  // a tile's dQ product runs on under the next tile's S and dP, its stage
+  // held until then: only where a warpgroup has more than one stage
+  static constexpr bool HOLD = SPLIT == ROWS;
+  static constexpr int PRODUCER_REGS = HD == 128 ? 40 : 24;
+  static constexpr int CONSUMER_REGS = HD == 128 ? 232 : 240;
+  static constexpr int Q_CHUNK = BQ * 128;  // bytes of 64 columns of Q
+  static constexpr int Q_BYTES = CHUNKS * Q_CHUNK;  // 32 KB (and as much for dO)
+  static constexpr int KV_BYTES = CHUNKS * TILE_CHUNK;  // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;      // K then V
   static constexpr int SEG_INTS = TILE + 4;  // the ids, then {min, max}
   // 1 KB of slack to align the swizzled tiles to 1024 bytes
   static constexpr int SMEM = 1024 + 2 * Q_BYTES + STAGES * STAGE_BYTES +
                               STAGES * SEG_INTS * 4 + (2 * STAGES + 1) * 8;
+  static_assert(SPLIT != TILES || STAGES * STAGE_BYTES >= 128 * HD / 2 * 4,
+                "the ring holds one warpgroup's dQ for the merge");
 };
 
-// K3's geometry for KEYS keys a block
-template <int KEYS>
+// K3's geometry at head dim HD for KEYS keys a block
+template <int HD, int KEYS>
 struct DkvPlan {
-  // 64: the two warpgroups share the keys and take alternate query tiles
-  static constexpr bool SPLIT = KEYS == 64;
-  // even, so that under SPLIT each stage serves one warpgroup only
-  static constexpr int STAGES = 4;
+  static constexpr int CHUNKS = HD / 64;
+  // 128 keys: 64 a warpgroup; 64 keys: alternate query tiles at 128,
+  // the results' columns at 256
+  static constexpr Split SPLIT = KEYS == 128 ? ROWS : HD == 128 ? TILES : COLS;
+  // even, so that under TILES each stage serves one warpgroup only
+  static constexpr int STAGES = HD == 128 ? 4 : 2;
   static constexpr int PRODUCER_REGS = 24;
   static constexpr int CONSUMER_REGS = 240;
-  static constexpr int K_HALF = KEYS * 128;   // bytes of one half of K
-  static constexpr int KV_BYTES = 2 * K_HALF;  // the K (or V) tile
-  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // Q then dO
+  static constexpr int K_CHUNK = KEYS * 128;  // bytes of 64 columns of K
+  static constexpr int KV_BYTES = CHUNKS * K_CHUNK;  // the K (or V) tile
+  static constexpr int STAGE_BYTES = 2 * CHUNKS * TILE_CHUNK;  // Q then dO
   // the queries' segment ids, LSE * log2 e, delta; then {min, max} of ids
   static constexpr int INFO_INTS = 3 * TILE + 2;
   static constexpr int SMEM = 1024 + 2 * KV_BYTES + STAGES * STAGE_BYTES +
                               STAGES * INFO_INTS * 4 + (2 * STAGES + 1) * 8;
-  static_assert(!SPLIT || STAGES * STAGE_BYTES >= 128 * 2 * 64 * 4,
+  static_assert(SPLIT != TILES || STAGES * STAGE_BYTES >= 128 * 2 * 64 * 4,
                 "the ring holds one warpgroup's dK and dV for the merge");
 };
 
-// A K-major operand (rows x 128 dims in two 128-byte swizzled halves
-// `half` bytes apart) at k-step kk (16 dims) of a 64-row slice
-__device__ __forceinline__ uint64_t kmajor(uint32_t rows, int half, int kk) {
-  return sw128_desc(rows + (kk >> 2) * half + (kk & 3) * 32, 16, 1024);
+// A K-major operand (rows x 64-column chunks, each a 128-byte swizzled
+// block `chunk` bytes after the previous) at k-step kk (16 dims) of a
+// 64-row slice
+__device__ __forceinline__ uint64_t kmajor(uint32_t rows, int chunk, int kk) {
+  return sw128_desc(rows + (kk >> 2) * chunk + (kk & 3) * 32, 16, 1024);
 }
 
-// The same tile as an N-major B operand (16 of its rows by its 128 dims) at
-// k-step kk, read through the transpose bit: 8-row groups SBO apart, the
-// two 64-dim halves LBO apart
-__device__ __forceinline__ uint64_t nmajor(uint32_t tile, int half, int kk) {
-  return sw128_desc(tile + kk * 16 * 128, half, 1024);
+// The same tile as an N-major B operand (16 of its rows by 128 of its
+// columns from `tile` on) at k-step kk, read through the transpose bit:
+// 8-row groups SBO apart, the two 64-column chunks LBO apart
+__device__ __forceinline__ uint64_t nmajor(uint32_t tile, int chunk, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, chunk, 1024);
 }
 
-// d (64 x 64) = A (64 rows x 128 dims) B^T (64 rows x 128 dims), both
+// d (64 x 64) = A (64 rows x HD dims) B^T (64 rows x HD dims), both
 // K-major in shared memory
+template <int HD>
 __device__ __forceinline__ void product_64x64(float (&d)[32], uint32_t a,
-                                              int a_half, uint32_t b,
-                                              int b_half) {
+                                              int a_chunk, uint32_t b,
+                                              int b_chunk) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    halva::wgmma_m64n64_ss<0>(d, kmajor(a, a_half, kk), kmajor(b, b_half, kk),
-                              kk > 0);
+  for (int kk = 0; kk < HD / 16; ++kk)
+    halva::wgmma_m64n64_ss<0>(d, kmajor(a, a_chunk, kk),
+                              kmajor(b, b_chunk, kk), kk > 0);
 }
 
 // The 64 x 64 accumulator as wgmma's A fragments, bf16: k-step kk takes
@@ -185,13 +224,13 @@ __device__ __forceinline__ void pack_a(const float (&x)[32],
       a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
 }
 
-// d (64 x 128) += A (64 x 64, registers) B (64 rows x 128 dims, N-major)
+// d (64 x 128) += A (64 x 64, registers) B (64 rows x 128 columns, N-major)
 __device__ __forceinline__ void product_rs(float (&d)[64],
                                            const uint32_t (&a)[4][4],
-                                           uint32_t b, int b_half) {
+                                           uint32_t b, int b_chunk) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    halva::wgmma_m64n128_rs<1>(d, a[kk], nmajor(b, b_half, kk), 1);
+    halva::wgmma_m64n128_rs<1>(d, a[kk], nmajor(b, b_chunk, kk), 1);
 }
 
 // K2's P of one key tile on S's accumulator layout (this thread's rows at
@@ -291,15 +330,16 @@ __device__ __forceinline__ int2 wg_id_range(int2 (&slots)[2][4], int wg,
 // The epilogue of a warpgroup's 64 x 128 fp32 accumulator (this thread's
 // rows 16 wq + g and + 8, columns 8 j + 2 tig + {0, 1}): packed to bf16
 // into `buf`, 64 rows of two 128-byte halves `half` bytes apart (the
-// warpgroup's own rows of a tile it no longer reads), each row's 16-byte
-// chunks XOR-swizzled by the row so that neither the packing nor the
-// read-out conflicts on the banks; then, after the warpgroup's barrier,
-// written out in 16-byte stores, 16 threads a 256-byte row
+// warpgroup's own rows of a tile it no longer reads: two of its column
+// chunks), each row's 16-byte chunks XOR-swizzled by the row so that
+// neither the packing nor the read-out conflicts on the banks; then, after
+// the warpgroup's barrier, written out in 16-byte stores, 16 threads a
+// 256-byte row (a 64 x 256 result: two accumulators, two calls of each)
 __device__ __forceinline__ void stage_rows(const float (&acc)[64],
                                            unsigned char* buf, int half,
                                            int wq, int g, int tig) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int r = 16 * wq + g + 8 * u;
@@ -339,6 +379,7 @@ __device__ __forceinline__ float alibi_slope2(int alibi, int h, int H) {
 // grid (H, B, query tiles), last query tile first. Warps 0-7 are the two
 // consumer warpgroups; warps 8-11 the producer warpgroup, of which warp 8
 // works and the others only give up their registers.
+template <int HD>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
@@ -351,8 +392,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H,
                     int KVH, float scale, float scale_log2, int causal,
                     int alibi, int window, int q_off) {
-  using P = DqPlan;
+  using P = DqPlan<HD>;
   constexpr int BQ = P::BQ, STAGES = P::STAGES;
+  constexpr bool SPLIT = P::SPLIT == TILES;
+  static_assert(HD == 128 || HD == 256, "head dim");
   static_assert(P::SMEM <= 232448 - 1024, "shared memory of one block");
   extern __shared__ __align__(1024) unsigned char smem[];
   __shared__ int2 wg_range[2][4];
@@ -383,7 +426,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   if (threadIdx.x == 0) {
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(full + 8 * st, 32);  // every producer lane
-      mbar_init(empty + 8 * st, 8);  // every consumer warp
+      // every consumer warp that reads the stage
+      mbar_init(empty + 8 * st, SPLIT ? 4 : 8);
     }
     mbar_init(qbar, 1);
     halva::mbar_init_fence();
@@ -396,10 +440,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     if (warp > 8) return;
     if (lane == 0) {
       mbar_expect_tx(qbar, 2 * P::Q_BYTES);
-      tma_load_4d(q_s, &qmap, qbar, 0, h, q0, b);
-      tma_load_4d(q_s + P::Q_HALF, &qmap, qbar, HALF_COLS, h, q0, b);
-      tma_load_4d(do_s, &domap, qbar, 0, h, q0, b);
-      tma_load_4d(do_s + P::Q_HALF, &domap, qbar, HALF_COLS, h, q0, b);
+#pragma unroll
+      for (int c = 0; c < P::CHUNKS; ++c) {
+        tma_load_4d(q_s + c * P::Q_CHUNK, &qmap, qbar, c * HALF_COLS, h, q0,
+                    b);
+        tma_load_4d(do_s + c * P::Q_CHUNK, &domap, qbar, c * HALF_COLS, h,
+                    q0, b);
+      }
     }
     // the segment-id range of the block's rows below Sq
     int qmin = IMAX, qmax = IMIN;
@@ -452,12 +499,15 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t fb = full + 8 * st;
       if (lane == 0 && kind != SKIP) {
         const uint32_t kd = kv_s + st * P::STAGE_BYTES;
-        const uint32_t vd = kd + TILE_BYTES;
+        const uint32_t vd = kd + P::KV_BYTES;
         mbar_expect_tx(fb, P::STAGE_BYTES);
-        tma_load_4d(kd, &kmap, fb, 0, kvh, c0, b);
-        tma_load_4d(kd + TILE_HALF, &kmap, fb, HALF_COLS, kvh, c0, b);
-        tma_load_4d(vd, &vmap, fb, 0, kvh, c0, b);
-        tma_load_4d(vd + TILE_HALF, &vmap, fb, HALF_COLS, kvh, c0, b);
+#pragma unroll
+        for (int c = 0; c < P::CHUNKS; ++c) {
+          tma_load_4d(kd + c * TILE_CHUNK, &kmap, fb, c * HALF_COLS, kvh, c0,
+                      b);
+          tma_load_4d(vd + c * TILE_CHUNK, &vmap, fb, c * HALF_COLS, kvh, c0,
+                      b);
+        }
       } else {
         mbar_arrive(fb);
       }
@@ -467,9 +517,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
       P::CONSUMER_REGS));
-  const int wg = warp >> 2, wq = warp & 3;
+  // under SPLIT the walk below runs wgmma under it: broadcast, so that the
+  // compiler knows it is warp-uniform
+  const int wg = SPLIT ? __shfl_sync(0xffffffffu, warp >> 2, 0) : warp >> 2;
+  const int wq = warp & 3;
   const int g = lane >> 2, tig = lane & 3;
-  const int row_base = q0 + wg * WG_ROWS;
+  const int row_base = q0 + (SPLIT ? 0 : wg * WG_ROWS);
   const int r0 = row_base + wq * 16 + g, r1 = r0 + 8;  // this thread's rows
   const int p0 = q_off + r0, p1 = p0 + 8;
   const int qs0 = r0 < Sq ? qseg[(long)b * Sq + r0] : 0;
@@ -485,20 +538,24 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   const int p_hi = q_off + min(row_base + WG_ROWS, Sq) - 1;
   const float slope2 = alibi_slope2(alibi, h, H);
 
-  float acc[64];
+  // dQ: one m64n128 accumulator per 128 head-dim columns
+  float acc[HD / 128][64];
 #pragma unroll
-  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
-  const uint32_t qa = q_s + wg * WG_ROWS * 128;
-  const uint32_t doa = do_s + wg * WG_ROWS * 128;
+  for (int nb = 0; nb < HD / 128; ++nb)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[nb][e] = 0.f;
+  const uint32_t qa = q_s + (SPLIT ? 0 : wg * WG_ROWS * 128);
+  const uint32_t doa = do_s + (SPLIT ? 0 : wg * WG_ROWS * 128);
 #define PROBS_ARGS                                                         \
   s, sg, c0, p0, p1, qs0, qs1, l0, l1, tig, Skv, causal, window,           \
       scale_log2, slope2
   mbar_wait(qbar, 0);
 
-  // a tile's dQ product runs on under the next tile's S and dP: `held` is
-  // its stage, released once the product has been waited (-1: none)
+  // with HOLD, a tile's dQ product runs on under the next tile's S and dP:
+  // `held` is its stage, released once the product has been waited (-1:
+  // none)
   int held = -1;
-  for (int i = 0; i < n; ++i) {
+  for (int i = SPLIT ? wg : 0; i < n; i += SPLIT ? 2 : 1) {
     const int st = i % STAGES;
     const int c0 = (t_lo + i) * TILE;
     mbar_wait(full + 8 * st, (i / STAGES) & 1);
@@ -512,15 +569,17 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
         0);
     if (kind != SKIP) {
       const uint32_t kb = kv_s + st * P::STAGE_BYTES;
-      const uint32_t vb = kb + TILE_BYTES;
+      const uint32_t vb = kb + P::KV_BYTES;
       float s[32], dp[32];
       halva::wgmma_fence();
-      product_64x64(s, qa, P::Q_HALF, kb, TILE_HALF);  // S = Q K^T
+      product_64x64<HD>(s, qa, P::Q_CHUNK, kb, TILE_CHUNK);  // S = Q K^T
       halva::wgmma_commit();
-      product_64x64(dp, doa, P::Q_HALF, vb, TILE_HALF);  // dP = dO V^T
+      product_64x64<HD>(dp, doa, P::Q_CHUNK, vb, TILE_CHUNK);  // dP = dO V^T
       halva::wgmma_commit();
-      halva::wgmma_wait<2>();  // the previous tile's dQ product
-      if (held >= 0 && lane == 0) mbar_arrive(empty + 8 * held);
+      if constexpr (P::HOLD) {
+        halva::wgmma_wait<2>();  // the previous tile's dQ product
+        if (held >= 0 && lane == 0) mbar_arrive(empty + 8 * held);
+      }
       halva::wgmma_wait<1>();
       if (kind == MASKED)
         alibi ? dq_probs<true, true>(PROBS_ARGS)
@@ -536,9 +595,16 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
       uint32_t da[4][4];
       pack_a(dp, da);
       halva::wgmma_fence();
-      product_rs(acc, da, kb, TILE_HALF);  // dQ += dS K
+#pragma unroll
+      for (int nb = 0; nb < HD / 128; ++nb)  // dQ += dS K
+        product_rs(acc[nb], da, kb + nb * 2 * TILE_CHUNK, TILE_CHUNK);
       halva::wgmma_commit();
-      held = st;
+      if constexpr (P::HOLD) {
+        held = st;
+      } else {
+        halva::wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(empty + 8 * st);
+      }
     } else {
       // nothing of this warp reads the stage; release the held one too, or
       // the producer could wait for it while this warp waits for a fill
@@ -554,18 +620,45 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   if (held >= 0 && lane == 0) mbar_arrive(empty + 8 * held);
 #undef PROBS_ARGS
 
+  if constexpr (SPLIT) {
+    // warpgroup 1's sums into the ring, once both walks are done (no copy
+    // is in flight: every stage was waited), then warpgroup 0 adds them to
+    // its own in a fixed order
+    float* red = reinterpret_cast<float*>(smem + (kv_s - raw));
+    const int t = threadIdx.x & 127;
+    named_sync(3, 256);
+    if (wg == 1) {
+      proxy_fence();
+#pragma unroll
+      for (int nb = 0; nb < HD / 128; ++nb)
+#pragma unroll
+        for (int e = 0; e < 64; ++e) red[(nb * 64 + e) * 128 + t] = acc[nb][e];
+    }
+    named_sync(3, 256);
+    if (wg == 1) return;
+#pragma unroll
+    for (int nb = 0; nb < HD / 128; ++nb)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[nb][e] += red[(nb * 64 + e) * 128 + t];
+  }
+
   // dQ through this warpgroup's rows of the Q tile
   unsigned char* buf = smem + (qa - raw);
   proxy_fence();
-  stage_rows(acc, buf, P::Q_HALF, wq, g, tig);
+#pragma unroll
+  for (int nb = 0; nb < HD / 128; ++nb)
+    stage_rows(acc[nb], buf + nb * 2 * P::Q_CHUNK, P::Q_CHUNK, wq, g, tig);
   named_sync(1 + wg, 128);
-  const long q_row = (long)H * D;  // elements between sequence positions
-  write_rows(buf, P::Q_HALF, dq + (long)b * Sq * q_row + (long)h * D, q_row,
-             row_base, Sq);
+  const long q_row = (long)H * HD;  // elements between sequence positions
+#pragma unroll
+  for (int nb = 0; nb < HD / 128; ++nb)
+    write_rows(buf + nb * 2 * P::Q_CHUNK, P::Q_CHUNK,
+               dq + (long)b * Sq * q_row + (long)h * HD + nb * 128, q_row,
+               row_base, Sq);
 }
 
 // grid (KVH, B, key tiles), first key tile first. Warps as in K2.
-template <int KEYS>
+template <int HD, int KEYS>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
@@ -579,9 +672,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
                      __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
                      int KVH, float scale, float scale_log2, int causal,
                      int alibi, int window, int q_off) {
-  using P = DkvPlan<KEYS>;
+  using P = DkvPlan<HD, KEYS>;
   constexpr int STAGES = P::STAGES;
+  constexpr bool SPLIT = P::SPLIT == TILES, COLS_ = P::SPLIT == COLS;
   static_assert(KEYS == 64 || KEYS == 128, "keys a block");
+  static_assert(HD == 128 || (HD == 256 && KEYS == 64), "head dim");
   static_assert(P::SMEM <= 232448 - 1024, "shared memory of one block");
   extern __shared__ __align__(1024) unsigned char smem[];
   __shared__ int2 wg_range[2][4];
@@ -619,7 +714,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(full + 8 * st, 32);  // every producer lane
       // every consumer warp that reads the stage
-      mbar_init(empty + 8 * st, P::SPLIT ? 4 : 8);
+      mbar_init(empty + 8 * st, SPLIT ? 4 : 8);
     }
     mbar_init(kvbar, 1);
     halva::mbar_init_fence();
@@ -632,10 +727,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
     if (warp > 8) return;
     if (lane == 0 && n > 0) {
       mbar_expect_tx(kvbar, 2 * P::KV_BYTES);
-      tma_load_4d(k_s, &kmap, kvbar, 0, kvh, kv0, b);
-      tma_load_4d(k_s + P::K_HALF, &kmap, kvbar, HALF_COLS, kvh, kv0, b);
-      tma_load_4d(v_s, &vmap, kvbar, 0, kvh, kv0, b);
-      tma_load_4d(v_s + P::K_HALF, &vmap, kvbar, HALF_COLS, kvh, kv0, b);
+#pragma unroll
+      for (int c = 0; c < P::CHUNKS; ++c) {
+        tma_load_4d(k_s + c * P::K_CHUNK, &kmap, kvbar, c * HALF_COLS, kvh,
+                    kv0, b);
+        tma_load_4d(v_s + c * P::K_CHUNK, &vmap, kvbar, c * HALF_COLS, kvh,
+                    kv0, b);
+      }
     }
     // the segment-id range of the block's keys below Skv
     int kmin = IMAX, kmax = IMIN;
@@ -691,12 +789,15 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t fb = full + 8 * st;
       if (lane == 0 && kind != SKIP) {
         const uint32_t qd = ring + st * P::STAGE_BYTES;
-        const uint32_t dd = qd + TILE_BYTES;
+        const uint32_t dd = qd + P::CHUNKS * TILE_CHUNK;
         mbar_expect_tx(fb, P::STAGE_BYTES);
-        tma_load_4d(qd, &qmap, fb, 0, h, r0, b);
-        tma_load_4d(qd + TILE_HALF, &qmap, fb, HALF_COLS, h, r0, b);
-        tma_load_4d(dd, &domap, fb, 0, h, r0, b);
-        tma_load_4d(dd + TILE_HALF, &domap, fb, HALF_COLS, h, r0, b);
+#pragma unroll
+        for (int c = 0; c < P::CHUNKS; ++c) {
+          tma_load_4d(qd + c * TILE_CHUNK, &qmap, fb, c * HALF_COLS, h, r0,
+                      b);
+          tma_load_4d(dd + c * TILE_CHUNK, &domap, fb, c * HALF_COLS, h, r0,
+                      b);
+        }
       } else {
         mbar_arrive(fb);
       }
@@ -711,24 +812,28 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
   const int wq = warp & 3;
   const int g = lane >> 2, tig = lane & 3;
-  const int c0 = kv0 + (P::SPLIT ? 0 : wg * WG_ROWS);  // this warpgroup's keys
-  const int k0 = c0 + wq * 16 + g, k1 = k0 + 8;        // this thread's keys
+  // this warpgroup's keys
+  const int c0 = kv0 + (P::SPLIT == ROWS ? wg * WG_ROWS : 0);
+  const int k0 = c0 + wq * 16 + g, k1 = k0 + 8;  // this thread's keys
   // segment 0 past Skv: such a key matches no query
   const int ks0 = k0 < Skv ? kvseg[(long)b * Skv + k0] : 0;
   const int ks1 = k1 < Skv ? kvseg[(long)b * Skv + k1] : 0;
   const int2 kr = wg_id_range(wg_range, wg, wq, lane, k0, ks0, ks1, Skv);
 
+  // this warpgroup's dK and dV: its 64 keys by 128 head-dim columns
   float dka[64], dva[64];
 #pragma unroll
   for (int e = 0; e < 64; ++e) dka[e] = dva[e] = 0.f;
   // A operands: this warpgroup's 64 keys of K and V
-  const uint32_t ka = k_s + (P::SPLIT ? 0 : wg * WG_ROWS * 128);
-  const uint32_t va = v_s + (P::SPLIT ? 0 : wg * WG_ROWS * 128);
+  const uint32_t ka = k_s + (P::SPLIT == ROWS ? wg * WG_ROWS * 128 : 0);
+  const uint32_t va = v_s + (P::SPLIT == ROWS ? wg * WG_ROWS * 128 : 0);
+  // COLS: the 128 columns of Q and dO that this warpgroup's dK and dV take
+  const int col = COLS_ ? wg * 2 * TILE_CHUNK : 0;
 #define PROBS_ARGS                                                         \
   s, info, pq0, k0, k1, ks0, ks1, tig, causal, window, scale_log2, slope2
   if (n > 0) mbar_wait(kvbar, 0);
 
-  for (int i = P::SPLIT ? wg : 0; i < n; i += P::SPLIT ? 2 : 1) {
+  for (int i = SPLIT ? wg : 0; i < n; i += SPLIT ? 2 : 1) {
     const int st = i % STAGES;
     const int h = kvh * G + i / per_head;
     const int r0 = (qt_lo + i % per_head) * TILE;
@@ -746,12 +851,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
     if (kind != SKIP) {
       const float slope2 = alibi_slope2(alibi, h, H);
       const uint32_t qb = ring + st * P::STAGE_BYTES;
-      const uint32_t db = qb + TILE_BYTES;
+      const uint32_t db = qb + P::CHUNKS * TILE_CHUNK;
       float s[32], dp[32];
       halva::wgmma_fence();
-      product_64x64(s, ka, P::K_HALF, qb, TILE_HALF);  // S^T = K Q^T
+      product_64x64<HD>(s, ka, P::K_CHUNK, qb, TILE_CHUNK);  // S^T = K Q^T
       halva::wgmma_commit();
-      product_64x64(dp, va, P::K_HALF, db, TILE_HALF);  // dP^T = V dO^T
+      product_64x64<HD>(dp, va, P::K_CHUNK, db, TILE_CHUNK);  // dP^T = V dO^T
       halva::wgmma_commit();
       halva::wgmma_wait<1>();
       if (kind == MASKED)
@@ -776,8 +881,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
       pack_a(s, pa);
       pack_a(dp, da);
       halva::wgmma_fence();
-      product_rs(dva, pa, db, TILE_HALF);  // dV += P^T dO
-      product_rs(dka, da, qb, TILE_HALF);  // dK += dS^T Q
+      product_rs(dva, pa, db + col, TILE_CHUNK);  // dV += P^T dO
+      product_rs(dka, da, qb + col, TILE_CHUNK);  // dK += dS^T Q
       halva::wgmma_commit();
       halva::wgmma_wait<0>();
     }
@@ -786,7 +891,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 #undef PROBS_ARGS
 
-  if (P::SPLIT) {
+  if constexpr (SPLIT) {
     // warpgroup 1's sums into the ring, once both walks are done (no copy
     // is in flight: every stage was waited), then warpgroup 0 adds them to
     // its own in a fixed order
@@ -809,24 +914,29 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
       dva[e] += red[(64 + e) * 128 + t];
     }
   }
+  // COLS: both warpgroups read every column of K and V; the staging below
+  // overwrites them once both walks are done
+  if constexpr (COLS_) named_sync(3, 256);
 
-  // dK and dV through this warpgroup's rows of the K and V tiles
-  unsigned char* kbuf = smem + (ka - raw);
-  unsigned char* vbuf = smem + (va - raw);
+  // dK and dV through this warpgroup's rows (COLS: columns) of the K and V
+  // tiles
+  const int own = COLS_ ? wg * 2 * P::K_CHUNK : 0;
+  unsigned char* kbuf = smem + (ka - raw) + own;
+  unsigned char* vbuf = smem + (va - raw) + own;
   proxy_fence();
-  stage_rows(dka, kbuf, P::K_HALF, wq, g, tig);
-  stage_rows(dva, vbuf, P::K_HALF, wq, g, tig);
+  stage_rows(dka, kbuf, P::K_CHUNK, wq, g, tig);
+  stage_rows(dva, vbuf, P::K_CHUNK, wq, g, tig);
   named_sync(1 + wg, 128);
-  const long kv_row = (long)KVH * D;
-  const long kv_off = (long)b * Skv * kv_row + (long)kvh * D;
-  write_rows(kbuf, P::K_HALF, dk + kv_off, kv_row, c0, Skv);
-  write_rows(vbuf, P::K_HALF, dv + kv_off, kv_row, c0, Skv);
+  const long kv_row = (long)KVH * HD;
+  const long kv_off =
+      (long)b * Skv * kv_row + (long)kvh * HD + (COLS_ ? wg * 128 : 0);
+  write_rows(kbuf, P::K_CHUNK, dk + kv_off, kv_row, c0, Skv);
+  write_rows(vbuf, P::K_CHUNK, dv + kv_off, kv_row, c0, Skv);
 }
 
-bool valid_args(int B, int Sq, int Skv, int H, int KVH, int D_, int window,
+bool valid_args(int B, int Sq, int Skv, int H, int KVH, int window,
                 int q_off) {
-  // the head dim of every supported Llama config
-  return B > 0 && Sq > 0 && Skv > 0 && KVH > 0 && H % KVH == 0 && D_ == D &&
+  return B > 0 && Sq > 0 && Skv > 0 && KVH > 0 && H % KVH == 0 &&
          window >= 0 && q_off >= 0;
 }
 
@@ -834,6 +944,24 @@ template <typename Kernel>
 int set_smem(Kernel kernel, int bytes) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// setmaxnreg's pool of K2's instance at each head dim and K3's at each
+// (head dim, keys a block) its plan can choose
+template <int HD>
+int dq_pool() {
+  using P = DqPlan<HD>;
+  return halva::flash::setmaxnreg_pool_ok(flash_bwd_dq_kernel<HD>, NTHREADS,
+                                          256, P::CONSUMER_REGS,
+                                          P::PRODUCER_REGS);
+}
+
+template <int HD, int KEYS>
+int dkv_pool() {
+  using P = DkvPlan<HD, KEYS>;
+  return halva::flash::setmaxnreg_pool_ok(flash_bwd_dkv_kernel<HD, KEYS>,
+                                          NTHREADS, 256, P::CONSUMER_REGS,
+                                          P::PRODUCER_REGS);
 }
 
 // Every kernel instance the plan can choose, prepared once per device at
@@ -845,17 +973,11 @@ int set_smem(Kernel kernel, int bytes) {
 int prepare_device() {
   static uint64_t prepared = 0;
   static const int pools = [] {
-    using halva::flash::setmaxnreg_pool_ok;
-    int e = setmaxnreg_pool_ok(flash_bwd_dq_kernel, NTHREADS, 256,
-                               DqPlan::CONSUMER_REGS, DqPlan::PRODUCER_REGS);
-    if (!e)
-      e = setmaxnreg_pool_ok(flash_bwd_dkv_kernel<128>, NTHREADS, 256,
-                             DkvPlan<128>::CONSUMER_REGS,
-                             DkvPlan<128>::PRODUCER_REGS);
-    if (!e)
-      e = setmaxnreg_pool_ok(flash_bwd_dkv_kernel<64>, NTHREADS, 256,
-                             DkvPlan<64>::CONSUMER_REGS,
-                             DkvPlan<64>::PRODUCER_REGS);
+    int e = dq_pool<128>();
+    if (!e) e = dq_pool<256>();
+    if (!e) e = dkv_pool<128, 128>();
+    if (!e) e = dkv_pool<128, 64>();
+    if (!e) e = dkv_pool<256, 64>();
     return e;
   }();
   if (pools) return pools;
@@ -864,10 +986,18 @@ int prepare_device() {
   if (err) return err;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!(prepared >> dev & 1)) {
-    if ((err = set_smem(flash_bwd_dq_kernel, DqPlan::SMEM))) return err;
-    if ((err = set_smem(flash_bwd_dkv_kernel<128>, DkvPlan<128>::SMEM)))
+    if ((err = set_smem(flash_bwd_dq_kernel<128>, DqPlan<128>::SMEM)))
       return err;
-    if ((err = set_smem(flash_bwd_dkv_kernel<64>, DkvPlan<64>::SMEM)))
+    if ((err = set_smem(flash_bwd_dq_kernel<256>, DqPlan<256>::SMEM)))
+      return err;
+    if ((err = set_smem(flash_bwd_dkv_kernel<128, 128>,
+                        DkvPlan<128, 128>::SMEM)))
+      return err;
+    if ((err = set_smem(flash_bwd_dkv_kernel<128, 64>,
+                        DkvPlan<128, 64>::SMEM)))
+      return err;
+    if ((err = set_smem(flash_bwd_dkv_kernel<256, 64>,
+                        DkvPlan<256, 64>::SMEM)))
       return err;
     prepared |= uint64_t(1) << dev;
   }
@@ -886,40 +1016,44 @@ struct Args {
 
 // the four tensor maps: Q and dO in boxes of q_rows positions, K and V of
 // kv_rows
+template <int HD>
 int encode_maps(const Args& a, int q_rows, int kv_rows, CUtensorMap* maps) {
   using halva::flash::encode_bshd;
   int err;
-  if ((err = encode_bshd(&maps[0], a.q, a.B, a.Sq, a.H, q_rows))) return err;
-  if ((err = encode_bshd(&maps[1], a.k, a.B, a.Skv, a.KVH, kv_rows)))
+  if ((err = encode_bshd<HD>(&maps[0], a.q, a.B, a.Sq, a.H, q_rows)))
     return err;
-  if ((err = encode_bshd(&maps[2], a.v, a.B, a.Skv, a.KVH, kv_rows)))
+  if ((err = encode_bshd<HD>(&maps[1], a.k, a.B, a.Skv, a.KVH, kv_rows)))
     return err;
-  return encode_bshd(&maps[3], a.dout, a.B, a.Sq, a.H, q_rows);
+  if ((err = encode_bshd<HD>(&maps[2], a.v, a.B, a.Skv, a.KVH, kv_rows)))
+    return err;
+  return encode_bshd<HD>(&maps[3], a.dout, a.B, a.Sq, a.H, q_rows);
 }
 
+template <int HD>
 int launch_dq(const Args& a, __nv_bfloat16* dq) {
+  using P = DqPlan<HD>;
   CUtensorMap m[4];
-  int err = encode_maps(a, DqPlan::BQ, TILE, m);
+  int err = encode_maps<HD>(a, P::BQ, TILE, m);
   if (err) return err;
-  const dim3 grid(a.H, a.B, (a.Sq + DqPlan::BQ - 1) / DqPlan::BQ);
-  flash_bwd_dq_kernel<<<grid, NTHREADS, DqPlan::SMEM, a.stream>>>(
+  const dim3 grid(a.H, a.B, (a.Sq + P::BQ - 1) / P::BQ);
+  flash_bwd_dq_kernel<HD><<<grid, NTHREADS, P::SMEM, a.stream>>>(
       m[0], m[1], m[2], m[3], a.qseg, a.kvseg, a.lse, a.delta, dq, a.Sq,
       a.Skv, a.H, a.KVH, a.scale, a.scale * LOG2E, a.causal, a.alibi,
       a.window, a.q_off);
   return (int)cudaGetLastError();
 }
 
-template <int KEYS>
+template <int HD, int KEYS>
 int launch_dkv(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv) {
+  using P = DkvPlan<HD, KEYS>;
   CUtensorMap m[4];
-  int err = encode_maps(a, TILE, KEYS, m);
+  int err = encode_maps<HD>(a, TILE, KEYS, m);
   if (err) return err;
   const dim3 grid(a.KVH, a.B, (a.Skv + KEYS - 1) / KEYS);
-  flash_bwd_dkv_kernel<KEYS>
-      <<<grid, NTHREADS, DkvPlan<KEYS>::SMEM, a.stream>>>(
-          m[0], m[1], m[2], m[3], a.qseg, a.kvseg, a.lse, a.delta, dk, dv,
-          a.Sq, a.Skv, a.H, a.KVH, a.scale, a.scale * LOG2E, a.causal,
-          a.alibi, a.window, a.q_off);
+  flash_bwd_dkv_kernel<HD, KEYS><<<grid, NTHREADS, P::SMEM, a.stream>>>(
+      m[0], m[1], m[2], m[3], a.qseg, a.kvseg, a.lse, a.delta, dk, dv, a.Sq,
+      a.Skv, a.H, a.KVH, a.scale, a.scale * LOG2E, a.causal, a.alibi,
+      a.window, a.q_off);
   return (int)cudaGetLastError();
 }
 
@@ -927,8 +1061,8 @@ int launch_dkv(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv) {
 
 // q, dout (B, Sq, H, D), k/v (B, Skv, KVH, D) bf16, 16-byte aligned; qseg
 // (B, Sq), kvseg (B, Skv) int32; lse, delta (B, H, Sq) fp32; dq (B, Sq, H, D)
-// bf16. alibi 0 | 1, window 0 = none, q_off >= 0, as K1 was given them; bk:
-// keys per tile, 64 (the plan's). Returns a cudaError_t.
+// bf16; D 128 or 256. alibi 0 | 1, window 0 = none, q_off >= 0, as K1 was
+// given them; bk: keys per tile, 64 (the plan's). Returns a cudaError_t.
 extern "C" int halva_flash_bwd_dq_bf16(const void* q, const void* k,
                                        const void* v, const void* qseg,
                                        const void* kvseg, const void* dout,
@@ -937,7 +1071,8 @@ extern "C" int halva_flash_bwd_dq_bf16(const void* q, const void* k,
                                        int H, int KVH, int D_, float scale,
                                        int causal, int alibi, int window,
                                        int q_off, int bk, void* stream) {
-  if (!valid_args(B, Sq, Skv, H, KVH, D_, window, q_off) || bk != TILE)
+  if (!valid_args(B, Sq, Skv, H, KVH, window, q_off) || bk != TILE ||
+      (D_ != 128 && D_ != 256))
     return (int)cudaErrorInvalidValue;
   const int err = prepare_device();
   if (err) return err;
@@ -946,11 +1081,13 @@ extern "C" int halva_flash_bwd_dq_bf16(const void* q, const void* k,
                static_cast<const float*>(lse), static_cast<const float*>(delta),
                B, Sq, Skv, H, KVH, scale, causal, alibi, window, q_off,
                static_cast<cudaStream_t>(stream)};
-  return launch_dq(a, static_cast<__nv_bfloat16*>(dq));
+  auto* dqp = static_cast<__nv_bfloat16*>(dq);
+  return D_ == 128 ? launch_dq<128>(a, dqp) : launch_dq<256>(a, dqp);
 }
 
 // As above; dk, dv (B, Skv, KVH, D) bf16, summed over each kv head's group;
-// keys: keys per block, 128 or 64 (the plan's layout).
+// keys: keys per block, 128 or 64 at D = 128, 64 at D = 256 (the plan's
+// layout).
 extern "C" int halva_flash_bwd_dkv_bf16(const void* q, const void* k,
                                         const void* v, const void* qseg,
                                         const void* kvseg, const void* dout,
@@ -960,8 +1097,9 @@ extern "C" int halva_flash_bwd_dkv_bf16(const void* q, const void* k,
                                         float scale, int causal, int alibi,
                                         int window, int q_off, int keys,
                                         void* stream) {
-  if (!valid_args(B, Sq, Skv, H, KVH, D_, window, q_off) ||
-      (keys != 128 && keys != 64))
+  if (!valid_args(B, Sq, Skv, H, KVH, window, q_off) ||
+      !((D_ == 128 && (keys == 128 || keys == 64)) ||
+        (D_ == 256 && keys == 64)))
     return (int)cudaErrorInvalidValue;
   const int err = prepare_device();
   if (err) return err;
@@ -972,6 +1110,7 @@ extern "C" int halva_flash_bwd_dkv_bf16(const void* q, const void* k,
                static_cast<cudaStream_t>(stream)};
   auto* dkp = static_cast<__nv_bfloat16*>(dk);
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
-  return keys == 128 ? launch_dkv<128>(a, dkp, dvp)
-                     : launch_dkv<64>(a, dkp, dvp);
+  if (D_ == 256) return launch_dkv<256, 64>(a, dkp, dvp);
+  return keys == 128 ? launch_dkv<128, 128>(a, dkp, dvp)
+                     : launch_dkv<128, 64>(a, dkp, dvp);
 }

@@ -1,6 +1,6 @@
 // Pieces shared by the flash-attention kernels on Hopper (flash_fwd.cu: K1,
-// flash_bwd.cu: K2 and K3): K2's and K3's head dim, the 64-column swizzle
-// chunks every head dim is loaded in, the tile
+// flash_bwd.cu: K2 and K3): the 64-column swizzle chunks every head dim is
+// loaded in, the tile
 // rule (skip / masked / full), the exp2 and bf16 packing on the accumulator
 // layout, a warp's id-range reduction, the (B, S, heads, D) tensor map, and
 // the launcher's check of the setmaxnreg register pool.
@@ -17,7 +17,6 @@
 namespace halva {
 namespace flash {
 
-constexpr int D = 128;         // head dim of K2 and K3 (K1: a template parameter)
 constexpr int HALF_COLS = 64;  // head-dim columns of one 128-byte swizzle row
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int IMAX = 0x7fffffff, IMIN = -IMAX - 1;  // empty id ranges
@@ -66,7 +65,7 @@ __device__ __forceinline__ void warp_range(int& mn, int& mx) {
 // A (B, S, heads, HD) bf16 tensor as (HD, heads, S, B), loaded in boxes of
 // 64 head-dim columns (128 bytes, swizzled for wgmma) x `rows` positions of
 // one head; positions past S arrive as zeros
-template <int HD = D>
+template <int HD>
 inline int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S,
                        int heads, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,

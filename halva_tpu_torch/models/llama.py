@@ -21,8 +21,8 @@ an item-row prompt cache, and the K-token speculative verify step
 or K7 (above) for every layer matmul and K4 or K5 for attention. A config
 whose head dim the kernels are not built for (128 and 256: Gemma-2B's is
 256) takes the plain versions of all of them under attn_impl="auto"
-(`ops/attention.kernel_route`), and so does a forward at a head dim the
-flash backward lacks (256) while grad is enabled. The decode kernels K4 and
+(`ops/attention.kernel_route`); at 128 and 256 a forward with grad enabled
+(training) runs K1 and its backward K2 and K3. The decode kernels K4 and
 K5 carry no bias and no window, as the Pallas kernels they replace: an
 ALiBi decode step, and a windowed one whose cache outgrows the window, take
 the position-aware plain attention (`decode_step`, the reference's rule).

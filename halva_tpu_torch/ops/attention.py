@@ -122,10 +122,9 @@ def alibi_in_kernel(num_heads: int) -> bool:
     return num_heads & (num_heads - 1) == 0
 
 
-# the head dims the kernels are built for: K1, K4, K5 (and the K6 / K7
-# decode route beside them) take both; K2 and K3, the flash backward, 128
+# the head dims the kernels are built for: K1-K5 (and the K6 / K7 decode
+# route beside them) take both
 KERNEL_HEAD_DIMS = (128, 256)
-BWD_HEAD_DIMS = (128,)
 
 
 def head_dim_suffix(head_dim: int) -> str:
@@ -134,25 +133,20 @@ def head_dim_suffix(head_dim: int) -> str:
     return "" if head_dim == 128 else f"_d{head_dim}"
 
 
-def kernel_route(impl: str, head_dim: int, grad: bool = False) -> str:
+def kernel_route(impl: str, head_dim: int) -> str:
     """"kernel" or "plain" for a caller's `impl` at this head dim, decided
-    from the config and `grad` alone (the caller passes
-    `torch.is_grad_enabled()` for a forward whose result may be
-    differentiated), before any launch and on either device: "auto" takes
-    the kernels (K1-K5, and K6 / K7 for a packed-int4 decode step) at the
-    head dims they are built for, 128 and 256, and the plain versions at any
-    other. One exception: a forward that needs a gradient at a head dim K2
-    and K3 lack (256) stays plain, so that autograd never meets a backward
-    kernel that refuses it. A caller who names "kernel" or "plain" gets what
-    they name, and the kernels' wrappers raise on what they do not take. The
-    reference's kernels take any `dh % 128 == 0`
-    (halva_tpu/models/llama.py:878)."""
+    from the config alone, before any launch and on either device: "auto"
+    takes the kernels (K1-K5, and K6 / K7 for a packed-int4 decode step) at
+    the head dims they are built for, 128 and 256, and the plain versions at
+    any other. Every kernel takes the same head dims, so a forward with grad
+    enabled takes the same route as one without, and its backward runs K2
+    and K3. A caller who names "kernel" or "plain" gets what they name, and
+    the kernels' wrappers raise on what they do not take. The reference's
+    kernels take any `dh % 128 == 0` (halva_tpu/models/llama.py:878)."""
     if impl not in ("auto", "kernel", "plain"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if impl == "auto":
-        ok = head_dim in KERNEL_HEAD_DIMS and (
-            not grad or head_dim in BWD_HEAD_DIMS)
-        return "kernel" if ok else "plain"
+        return "kernel" if head_dim in KERNEL_HEAD_DIMS else "plain"
     return impl
 
 
@@ -177,10 +171,10 @@ def attention(
     failure. ALiBi with a head count that is not a power of two takes the
     plain path on either device, as in the reference: the kernels' slope
     formula does not cover it. So does "auto" at a head dim the kernels are
-    not built for, or, with grad enabled, at one K2 and K3 lack
-    (`kernel_route`).
+    not built for (`kernel_route`): at 128 and 256 a forward with grad
+    enabled launches K1 and its backward K2 and K3.
     """
-    route = kernel_route(impl, q.shape[3], torch.is_grad_enabled())
+    route = kernel_route(impl, q.shape[3])
     from halva_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_plain,

@@ -28,23 +28,21 @@ Three modes beside the base one, all computed inside the kernels:
 Launches count under the kernel's name plus `mode_suffix`: flash_fwd,
 flash_fwd_alibi, flash_fwd_window (and flash_fwd_alibi_window), likewise
 flash_bwd_dq* and flash_bwd_dkv*; `q_offset` is an argument of each of those
-and has no counter of its own. K1 takes head dims 128 and 256 (Gemma); its
-256 instance counts under the same names plus `_d256`. K2 and K3 take 128
-only: on the card `flash_attention` refuses a forward at 256 that autograd
-could differentiate (ops/attention.kernel_route keeps such a forward on the
-plain attention).
+and has no counter of its own. K1, K2 and K3 take head dims 128 and 256
+(Gemma); their 256 instances count under the same names plus `_d256`, each
+with its own geometry (`flash_bwd_plan(d=256)`: K2 blocks of 64 query rows,
+K3 blocks of 64 keys whose dK and dV the two warpgroups split by columns).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from halva_tpu_torch import _kernels
 from halva_tpu_torch.ops.attention import (
-    BWD_HEAD_DIMS,
     KERNEL_HEAD_DIMS,
     alibi_in_kernel,
     alibi_slopes,
@@ -80,15 +78,42 @@ M_INIT = -1e29
 LOG2E = 1.4426950408889634
 
 
-# K2's and K3's geometry (csrc/flash_bwd.cu): a K2 block owns BWD_DQ_ROWS
-# query rows of one (batch row, head) and walks the keys in tiles of
-# BWD_TILE; a K3 block owns 128 keys (64 a consumer warpgroup) or 64 keys
-# (both warpgroups, alternate query tiles) of one (batch row, kv head) and
-# walks the query tiles of BWD_TILE rows; both rings have BWD_STAGES stages
+# K2's and K3's geometry (csrc/flash_bwd.cu) at head dim 128: a K2 block
+# owns BWD_DQ_ROWS query rows of one (batch row, head) and walks the keys in
+# tiles of BWD_TILE; a K3 block owns 128 keys (64 a consumer warpgroup) or
+# 64 keys (both warpgroups, alternate query tiles) of one (batch row, kv
+# head) and walks the query tiles of BWD_TILE rows; both rings have
+# BWD_STAGES stages
 BWD_DQ_ROWS = 128
 BWD_TILE = 64
 BWD_STAGES = 4
 BWD_DKV_KEYS = (128, 64)
+BWD_WG_ROWS = 64  # rows (K2) or keys (K3) of one warpgroup's wgmma tile
+
+
+class BwdGeometry(NamedTuple):
+    """K2's and K3's instances at one head dim. A split says how a block's
+    two consumer warpgroups share its work: "rows", each its own 64 rows
+    (K2) or keys (K3); "tiles", the same rows or keys, alternate walked
+    tiles, the two sums added at the end; "cols", the same keys and tiles,
+    each 128 of the head-dim columns of dK and dV."""
+
+    dq_rows: int  # K2: query rows a block
+    dq_split: str
+    stages: int  # tiles in flight in either ring
+    dkv: Dict[int, str]  # K3: keys a block the plan can choose -> split
+
+
+# at 256 a 64-row tile of one operand is 32 KB: K2 keeps Q and dO for 64
+# rows (64 KB) beside 2 stages of 64 keys of K and V (64 KB each); K3 keeps
+# K and V for 64 keys beside 2 stages of 64 queries of Q and dO, and its
+# warpgroups split dK and dV (2 x 128 fp32 registers a thread for 64 keys)
+# by columns
+BWD_GEOMETRY = {
+    128: BwdGeometry(BWD_DQ_ROWS, "rows", BWD_STAGES,
+                     dict(zip(BWD_DKV_KEYS, ("rows", "tiles")))),
+    256: BwdGeometry(64, "tiles", 2, {64: "cols"}),
+}
 # K3 takes 64-key blocks where 128-key ones would give fewer than this many
 # blocks an SM (measured on an H100, PERF.md section 6: 64 wins at Mistral's
 # B=2 train shape, 1.1 blocks an SM at 128, and loses at 2.2 and more)
@@ -125,6 +150,7 @@ class BwdKernelPlan(NamedTuple):
     stages: int  # tiles in flight in the ring
     blocks: int  # thread blocks of the launch (one per SM at a time)
     order: str  # which blocks the grid issues first
+    split: str  # how the two consumer warpgroups share a block (BwdGeometry)
 
 
 class BwdPlan(NamedTuple):
@@ -132,23 +158,36 @@ class BwdPlan(NamedTuple):
     dkv: BwdKernelPlan  # K3
 
 
+def bwd_geometry(d: int) -> BwdGeometry:
+    geo = BWD_GEOMETRY.get(d)
+    if geo is None:
+        raise ValueError(f"flash_bwd: head dim {d} is not one of "
+                         f"{sorted(BWD_GEOMETRY)}")
+    return geo
+
+
 def flash_bwd_plan(b: int, sq: int, skv: int, h: int, kvh: int,
                    dkv_keys: Optional[int] = None,
-                   sms: int = H100_SMS) -> BwdPlan:
+                   sms: int = H100_SMS, d: int = 128) -> BwdPlan:
     """K2's and K3's launch plans for B rows of Sq queries (H heads) against
-    Skv keys (KVH heads) on a card of `sms` SMs; `dkv_keys` forces K3's
-    keys a block (128 or 64)."""
-    dq = BwdKernelPlan(BWD_DQ_ROWS, BWD_TILE, BWD_STAGES,
-                       b * h * -(-sq // BWD_DQ_ROWS), "last query tile first")
+    Skv keys (KVH heads) at head dim d on a card of `sms` SMs; `dkv_keys`
+    forces K3's keys a block (128 or 64 at head dim 128, 64 at 256)."""
+    geo = bwd_geometry(d)
+    dq = BwdKernelPlan(geo.dq_rows, BWD_TILE, geo.stages,
+                       b * h * -(-sq // geo.dq_rows), "last query tile first",
+                       geo.dq_split)
+    keys = tuple(geo.dkv)
     if dkv_keys is None:
-        wide = b * kvh * -(-skv // BWD_DKV_KEYS[0])
-        dkv_keys = BWD_DKV_KEYS[
-            wide < BWD_DKV_MIN_BLOCKS_PER_SM * sms]
-    if dkv_keys not in BWD_DKV_KEYS:
+        dkv_keys = keys[0]
+        wide = b * kvh * -(-skv // keys[0])
+        if len(keys) > 1 and wide < BWD_DKV_MIN_BLOCKS_PER_SM * sms:
+            dkv_keys = keys[1]
+    if dkv_keys not in geo.dkv:
         raise ValueError(f"flash_bwd_dkv: {dkv_keys} keys a block is not "
-                         f"one of {sorted(BWD_DKV_KEYS)}")
-    dkv = BwdKernelPlan(dkv_keys, BWD_TILE, BWD_STAGES,
-                        b * kvh * -(-skv // dkv_keys), "first key tile first")
+                         f"one of {sorted(keys)} at head dim {d}")
+    dkv = BwdKernelPlan(dkv_keys, BWD_TILE, geo.stages,
+                        b * kvh * -(-skv // dkv_keys), "first key tile first",
+                        geo.dkv[dkv_keys])
     return BwdPlan(dq, dkv)
 
 
@@ -305,21 +344,29 @@ def flash_attention_bwd_tiled_plain(
     alibi: bool = False,
     sliding_window: Optional[int] = None,
     q_offset: Optional[int] = None,
-    dkv_keys: int = BWD_DKV_KEYS[0],
+    dkv_keys: Optional[int] = None,
+    kernel_d: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in q's, k's and v's dtypes by K2's key walk and K3's
     query walk in torch ops, tile by tile in the kernels' order: the model
     of csrc/flash_bwd.cu, held on the CPU against the Pallas backward.
 
-    K2: each warpgroup's 64 query rows walk the key tiles of BWD_TILE from
-    the block's first key tile in the window to its last under the causal
-    mask, skip what `flash_tile_kind` calls "skip" and mask pairs only on
-    "masked" tiles. K3: each block of `dkv_keys` keys walks the query tiles
-    of BWD_TILE rows from the first that can see its keys (shifted by
-    q_offset) to the last inside its keys' window, for each query head of
-    its group in turn; each warpgroup's 64 keys (128 a block) or every
-    other query tile (64 a block, the two sums added at the end) take the
-    tile rule with the query tile in the role of K1's rows. P = exp2 of the
+    The walks are those of the instance for head dim `kernel_d` (128 or
+    256; by default q's head dim, and 128's for a head dim no instance has,
+    as the small shapes of the tests) with K3's `dkv_keys` keys a block (by
+    default the first its geometry lists). K2: each warpgroup's 64 query
+    rows walk the key tiles of BWD_TILE from the block's first key tile in
+    the window to its last under the causal mask, skip what
+    `flash_tile_kind` calls "skip" and mask pairs only on "masked" tiles;
+    at 256 a block is those 64 rows and its two warpgroups take alternate
+    key tiles, their sums added at the end. K3: each block of `dkv_keys`
+    keys walks the query tiles of BWD_TILE rows from the first that can see
+    its keys (shifted by q_offset) to the last inside its keys' window, for
+    each query head of its group in turn; each warpgroup's 64 keys (128 a
+    block), or every other query tile (64 a block at 128, the two sums added
+    at the end), or all 64 keys and tiles (64 a block at 256: the
+    warpgroups' columns differ, not their sums) take the tile rule with the
+    query tile in the role of K1's rows. P = exp2 of the
     exp2-domain logit (scale * log2 e, the ALiBi term -slope_h (row - col)
     * log2 e) less LSE * log2 e, selected where masked; P is rounded to
     dO's dtype before dV and dS = P (dP - delta) scale to q's dtype before
@@ -329,13 +376,19 @@ def flash_attention_bwd_tiled_plain(
     grp = h // kvh
     if scale is None:
         scale = d**-0.5
-    if dkv_keys not in BWD_DKV_KEYS:
+    if kernel_d is None:
+        kernel_d = d if d in BWD_GEOMETRY else 128
+    geo = bwd_geometry(kernel_d)
+    if dkv_keys is None:
+        dkv_keys = next(iter(geo.dkv))
+    if dkv_keys not in geo.dkv:
         raise ValueError(f"flash_bwd_dkv: {dkv_keys} keys a block is not "
-                         f"one of {sorted(BWD_DKV_KEYS)}")
+                         f"one of {sorted(geo.dkv)} at head dim {kernel_d}")
     window = int(sliding_window or 0)
     off = int(q_offset or 0)
     dev = q.device
-    tile, wg_rows = BWD_TILE, BWD_DQ_ROWS // 2
+    tile, wg_rows, dq_rows = BWD_TILE, BWD_WG_ROWS, geo.dq_rows
+    dq_tiles = geo.dq_split == "tiles"
     slope2 = (alibi_slopes(h, dev) * LOG2E if alibi
               else torch.zeros(h, device=dev))
     l2 = lse.float() * LOG2E
@@ -352,15 +405,17 @@ def flash_attention_bwd_tiled_plain(
         # K2: 64 rows of every head at once (the heads' walks are alike)
         for r0 in range(0, sq, wg_rows):
             r1 = min(r0 + wg_rows, sq)
-            blk = r0 - r0 % BWD_DQ_ROWS  # the block's first row
+            blk = r0 - r0 % dq_rows  # the block's first row
             bp_lo = off + blk
-            bp_hi = off + min(blk + BWD_DQ_ROWS, sq) - 1
+            bp_hi = off + min(blk + dq_rows, sq) - 1
             t_hi = -(-skv // tile)
             if causal:
                 t_hi = min(t_hi, bp_hi // tile + 1)
             t_lo = (max(bp_lo - window + 1, 0) // tile) if window else 0
             pos = torch.arange(off + r0, off + r1, device=dev)
             qr = _tile_range(qseg[r0:r1])
+            parts = torch.zeros(2 if dq_tiles else 1, h, r1 - r0, d,
+                                device=dev)
             for t in range(t_lo, t_hi):
                 c0, c1 = t * tile, min(t * tile + tile, skv)
                 kind = flash_tile_kind(c0, tile, skv, *_tile_range(
@@ -374,9 +429,11 @@ def flash_attention_bwd_tiled_plain(
                     l2[bi, :, r0:r1], delta[bi, :, r0:r1], pos,
                     torch.arange(c0, c1, device=dev), qseg[r0:r1],
                     kseg[c0:c1], kind, slope2, **args)
-                dq[bi, :, r0:r1] += ds @ kf[bi, kvmap, c0:c1]
+                parts[(t - t_lo) % 2 if dq_tiles else 0] += (
+                    ds @ kf[bi, kvmap, c0:c1])
+            dq[bi, :, r0:r1] = parts[0] + parts[1] if dq_tiles else parts[0]
         # K3: every kv head at once, query head kvh * G + gi of each
-        split = dkv_keys == 64
+        split = geo.dkv[dkv_keys] == "tiles"
         for kv0 in range(0, skv, dkv_keys):
             kv_last = min(kv0 + dkv_keys, skv) - 1
             qt_lo = max(kv0 - off, 0) // tile if causal else 0
@@ -506,8 +563,7 @@ def flash_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_cuda_args(name, q, k, v, q_segment_ids, kv_segment_ids,
-                     head_dims=BWD_HEAD_DIMS):
+def _check_cuda_args(name, q, k, v, q_segment_ids, kv_segment_ids):
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     tensors = (q, k, v, q_segment_ids, kv_segment_ids)
@@ -529,9 +585,9 @@ def _check_cuda_args(name, q, k, v, q_segment_ids, kv_segment_ids,
             f"k {tuple(k.shape)} v {tuple(v.shape)} "
             f"segs {tuple(q_segment_ids.shape)} {tuple(kv_segment_ids.shape)}"
         )
-    if d not in head_dims:
+    if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} is not one of "
-                         f"{list(head_dims)}")
+                         f"{list(KERNEL_HEAD_DIMS)}")
     if any(not t.is_contiguous() for t in tensors) or any(
         t.data_ptr() % 16 for t in (q, k, v)
     ):
@@ -577,7 +633,7 @@ def flash_attention_fwd(
     256) forces the kernel's instance; by default `flash_fwd_plan` picks it
     from Skv."""
     _check_cuda_args("flash_attention_fwd", q, k, v, q_segment_ids,
-                     kv_segment_ids, KERNEL_HEAD_DIMS)
+                     kv_segment_ids)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     modes = _mode_args("flash_attention_fwd", h, causal, alibi,
@@ -634,7 +690,8 @@ def _bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse, delta,
             q_segment_ids.data_ptr(), kv_segment_ids.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr())
     modes = _mode_args(name, h, causal, alibi, sliding_window, q_offset)
-    plan = flash_bwd_plan(b, sq, skv, h, kvh, dkv_keys, sm_count(q.device))
+    plan = flash_bwd_plan(b, sq, skv, h, kvh, dkv_keys, sm_count(q.device),
+                          d)
     return ptrs, (b, sq, skv, h, kvh, d, float(scale), int(causal),
                   *modes), plan
 
@@ -645,8 +702,8 @@ def flash_attention_bwd_dq(q, k, v, q_segment_ids, kv_segment_ids, do, lse,
                            alibi: bool = False,
                            sliding_window: Optional[int] = None,
                            q_offset: Optional[int] = None) -> torch.Tensor:
-    """Launch K2 on CUDA tensors: dq (B, Sq, H, D) bf16, by the plan of
-    `flash_bwd_plan`."""
+    """Launch K2 on CUDA tensors: dq (B, Sq, H, D) bf16, D 128 or 256, by
+    the plan of `flash_bwd_plan`."""
     name = "flash_attention_bwd_dq"
     _check_bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse,
                     delta)
@@ -658,7 +715,8 @@ def flash_attention_bwd_dq(q, k, v, q_segment_ids, kv_segment_ids, do, lse,
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels.lib().halva_flash_bwd_dq_bf16(
             *ptrs, dq.data_ptr(), *dims, plan.dq.tile, stream)
-    counter = KERNEL_DQ + mode_suffix(alibi, sliding_window)
+    counter = (KERNEL_DQ + mode_suffix(alibi, sliding_window)
+               + head_dim_suffix(q.shape[3]))
     _kernels.check(err, counter)
     _kernels.launches[counter] += 1
     return dq
@@ -672,10 +730,10 @@ def flash_attention_bwd_dkv(q, k, v, q_segment_ids, kv_segment_ids, do, lse,
                             q_offset: Optional[int] = None,
                             dkv_keys: Optional[int] = None,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3 on CUDA tensors: (dk, dv) (B, Skv, KVH, D) bf16, summed
-    over each KV head's query group inside the kernel, by the plan of
-    `flash_bwd_plan`; `dkv_keys` (128 or 64 keys a block) forces its
-    layout."""
+    """Launch K3 on CUDA tensors: (dk, dv) (B, Skv, KVH, D) bf16, D 128 or
+    256, summed over each KV head's query group inside the kernel, by the
+    plan of `flash_bwd_plan`; `dkv_keys` (128 or 64 keys a block at head
+    dim 128, 64 at 256) forces its layout."""
     name = "flash_attention_bwd_dkv"
     _check_bwd_args(name, q, k, v, q_segment_ids, kv_segment_ids, do, lse,
                     delta)
@@ -690,7 +748,8 @@ def flash_attention_bwd_dkv(q, k, v, q_segment_ids, kv_segment_ids, do, lse,
         err = _kernels.lib().halva_flash_bwd_dkv_bf16(
             *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, plan.dkv.rows,
             stream)
-    counter = KERNEL_DKV + mode_suffix(alibi, sliding_window)
+    counter = (KERNEL_DKV + mode_suffix(alibi, sliding_window)
+               + head_dim_suffix(q.shape[3]))
     _kernels.check(err, counter)
     _kernels.launches[counter] += 1
     return dk, dv
@@ -772,13 +831,6 @@ def flash_attention(
             q, k, v, q_segment_ids, kv_segment_ids, causal, scale, alibi,
             sliding_window, q_offset,
         )
-    if (q.shape[3] not in BWD_HEAD_DIMS and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (q, k, v))):
-        raise ValueError(
-            f"flash_attention: head dim {q.shape[3]} has a forward kernel "
-            f"but no backward (K2 and K3 take {list(BWD_HEAD_DIMS)}); run "
-            "it under no_grad, or take the plain attention "
-            "(ops/attention.kernel_route does)")
     return _FlashAttention.apply(q, k, v, q_segment_ids, kv_segment_ids,
                                  causal, scale, alibi, sliding_window,
                                  q_offset)

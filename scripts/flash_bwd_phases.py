@@ -106,9 +106,11 @@ EDITS_K2 = [
      "      const unsigned c2_ = clock();\n      ct[2] += c2_ - c1_;\n", ""),
     ("      halva::wgmma_wait<0>();\n      // dS = P",
      "      const unsigned c3_ = clock();\n      ct[3] += c3_ - c2_;\n", ""),
-    ("      halva::wgmma_fence();\n      product_rs(acc",
+    ("      halva::wgmma_fence();\n#pragma unroll\n      for (int nb = 0; "
+     "nb < HD / 128; ++nb)  // dQ += dS K",
      "      const unsigned c4_ = clock();\n      ct[4] += c4_ - c3_;\n", ""),
-    ("      held = st;\n", "", "      ct[5] += clock() - c4_;\n      ++cn;\n"),
+    ("        held = st;\n", "", "        ct[5] += clock() - c4_;\n"
+     "        ++cn;\n"),
     ("  // dQ through this warpgroup's rows of the Q tile",
      "  const unsigned t_loop = clock();\n", ""),
     ("             row_base, Sq);\n", "", _flush(0)),
@@ -120,7 +122,7 @@ EDITS_K3 = [
     PRODUCER_WAIT,
     (PRODUCER_END, _producer(PER_KERNEL), ""),
     CONSUMER_START,
-    ("  for (int i = P::SPLIT ? wg : 0;", "  ct[0] = clock() - t_start;\n",
+    ("  for (int i = SPLIT ? wg : 0;", "  ct[0] = clock() - t_start;\n",
      ""),
     FULL_WAIT,
     ("      if (kind == MASKED)\n        alibi ? dkv_probs",
@@ -131,8 +133,9 @@ EDITS_K3 = [
      "      const unsigned c4_ = clock();\n      ct[4] += c4_ - c3_;\n", ""),
     ("    }\n    // this warp's reads of the stage are done",
      "      ct[5] += clock() - c4_;\n      ++cn;\n", ""),
-    ("  if (P::SPLIT) {\n", "  const unsigned t_loop = clock();\n", ""),
-    ("  write_rows(vbuf, P::K_HALF, dv + kv_off, kv_row, c0, Skv);\n", "",
+    ("  if constexpr (SPLIT) {\n", "  const unsigned t_loop = clock();\n",
+     ""),
+    ("  write_rows(vbuf, P::K_CHUNK, dv + kv_off, kv_row, c0, Skv);\n", "",
      _flush(PER_KERNEL)),
 ]
 

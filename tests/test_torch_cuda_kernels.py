@@ -1850,8 +1850,8 @@ def test_packed_8bit_train_cli_resumes_on_the_card(cuda, tmp_path,
 
 
 # Head dim 256 (Gemma-2B: 8 query heads over 1 kv head): the instances of
-# K1, K4 and K5 at 256, counted under their counters' names plus "_d256",
-# held to the same bounds as the 128 instances.
+# K1-K5 at 256, counted under their counters' names plus "_d256", held to
+# the same bounds as the 128 instances.
 D256 = 256
 
 
@@ -1887,29 +1887,217 @@ def test_flash_fwd_d256_matches_plain_and_tiled(cuda, sq, kvh, h, modes):
 
 
 @pytest.mark.cuda
-def test_flash_attention_d256_forward_only(cuda):
-    """K1 at 256 under no_grad; a forward autograd could differentiate is
-    refused before any launch (K2 and K3 take 128 only), and the
-    dispatcher keeps such a forward on the plain attention."""
+def test_flash_attention_d256_forward_and_backward(cuda):
+    """K1 at 256 under no_grad; a forward autograd could differentiate
+    launches K1 too, and its backward K2 and K3 at 256 (no refusal: they
+    have head-dim-256 instances), through `flash_attention` and through
+    the dispatcher's "auto" route alike; the grads are the plain
+    backward's (flash_attention_bwd_plain: P and dS rounded where the
+    kernels round them)."""
     from halva_tpu_torch.ops.attention import attention
 
     q = torch.randn(1, 64, 8, D256, generator=cuda,
                     device="cuda").bfloat16()
     k = torch.randn(1, 64, 1, D256, generator=cuda, device="cuda").bfloat16()
     seg = torch.ones(1, 64, dtype=torch.int32, device="cuda")
+    do = torch.randn(1, 64, 8, D256, generator=cuda,
+                     device="cuda").bfloat16()
+    names = ("flash_fwd_d256", "flash_bwd_dq_d256", "flash_bwd_dkv_d256")
     with torch.no_grad():
         before = _kernels.launches["flash_fwd_d256"]
         o = flash_attention(q, k, k, seg, seg)
         assert _kernels.launches["flash_fwd_d256"] == before + 1
-    qg = q.clone().requires_grad_()
+    _, lse = flash_attention_fwd(q, k, k, seg, seg)
+    want = flash_attention_bwd_plain(q, k, k, seg, seg, o, lse, do)[0]
+    for fn in (flash_attention, attention):  # the wrapper, "auto" with grad
+        qg = q.clone().requires_grad_()
+        before = [_kernels.launches[n] for n in names]
+        out = fn(qg, k, k, seg, seg)
+        assert out.grad_fn is not None
+        _close(out.detach(), o)
+        out.backward(do)
+        assert [_kernels.launches[n] for n in names] == [
+            x + 1 for x in before]
+        _close_grad(qg.grad, want)
+
+
+def _bwd_d256_inputs(gen, b, s, h, kvh, layout):
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q, k, v, do = (r(b, s, h, D256), r(b, s, kvh, D256), r(b, s, kvh, D256),
+                   r(b, s, h, D256))
+    seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    seg[-1, s - 37:] = 0
+    if layout == "packed":  # three documents in the first row
+        seg[0, s // 3:] = 2
+        seg[0, 2 * s // 3:] = 3
+    live = seg != 0
+    do[~live] = 0
+    return q, k, v, do, seg, live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modes", [{}, {"sliding_window": 100},
+                                   {"alibi": True}])
+@pytest.mark.parametrize("s,h,kvh,layout", [
+    (200, 8, 1, "pad"), (333, 8, 1, "packed"), (129, 4, 2, "pad"),
+    (65, 8, 1, "pad")])
+def test_flash_bwd_d256_matches_plain_and_tiled(cuda, s, h, kvh, layout,
+                                                modes):
+    """K2 and K3 at 256 (K2: 64-row blocks, the warpgroups on alternate key
+    tiles; K3: 64-key blocks, the warpgroups on 128 columns of dK and dV
+    each) against the plain backward and against their tile walks, in the
+    base, window and ALiBi modes, with padded and packed rows, Gemma's G=8
+    and G=2; counted under "_d256"; bitwise repeatable."""
+    from halva_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_dq, flash_attention_bwd_tiled_plain,
+        flash_bwd_plan, mode_suffix)
+
+    plan = flash_bwd_plan(2, s, s, h, kvh, d=D256)
+    assert (plan.dq.rows, plan.dq.split, plan.dkv.rows, plan.dkv.split) == (
+        64, "tiles", 64, "cols")
+    b = 2
+    q, k, v, do, seg, live = _bwd_d256_inputs(cuda, b, s, h, kvh, layout)
+    o, lse = flash_attention_fwd(q, k, v, seg, seg, **modes)
+    args = (q, k, v, seg, seg, do, lse, flash_attention_delta(o, do))
+    suffix = mode_suffix(modes.get("alibi", False),
+                         modes.get("sliding_window")) + "_d256"
+    names = ("flash_bwd_dq" + suffix, "flash_bwd_dkv" + suffix)
+    before = [_kernels.launches[n] for n in names]
+    got = (flash_attention_bwd_dq(*args, **modes),
+           *flash_attention_bwd_dkv(*args, **modes))
+    assert [_kernels.launches[n] for n in names] == [x + 1 for x in before]
+    want = flash_attention_bwd_plain(q, k, v, seg, seg, o, lse, do, **modes)
+    walk = flash_attention_bwd_tiled_plain(q, k, v, seg, seg, o, lse, do,
+                                           **modes)
+    lives = (live, live, live)
+    for g, w, t, lv in zip(got, want, (q, k, v), lives):
+        assert g.shape == t.shape and g.dtype == torch.bfloat16
+        assert torch.isfinite(g).all()
+        _close_grad(g[lv], w[lv])
+    for g, w, lv in zip(got, walk, lives):
+        _close_grad(g[lv], w[lv])
+    again = (flash_attention_bwd_dq(*args, **modes),
+             *flash_attention_bwd_dkv(*args, **modes))
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_d256_refuses_what_it_lacks(cuda):
+    """K3 at 256 has no 128-key layout; a head dim between the instances
+    has no backward either way."""
+    q, k, v, do, seg, _ = _bwd_d256_inputs(cuda, 1, 64, 8, 1, "pad")
+    o, lse = flash_attention_fwd(q, k, v, seg, seg)
+    args = (q, k, v, seg, seg, do, lse, flash_attention_delta(o, do))
+    with pytest.raises(ValueError, match="keys a block"):
+        flash_attention_bwd_dkv(*args, dkv_keys=128)
+    x = torch.randn(1, 64, 8, 192, device="cuda").bfloat16()
+    x1 = x[:, :, :1].contiguous()
+    lse1 = torch.zeros(1, 8, 64, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd_dkv(x, x1, x1, seg, seg, x, lse1, lse1)
+
+
+@pytest.mark.cuda
+def test_flash_attention_d256_autograd_reaches_q_k_v(cuda):
+    """flash_attention at 256 with grad: K1, then K2 and K3, each launched
+    once; the grads of q, k and v are the plain backward's."""
+    q, k, v, do, seg, live = _bwd_d256_inputs(cuda, 2, 300, 8, 1, "packed")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = dict(_kernels.launches)
-    with pytest.raises(ValueError, match="no backward"):
-        flash_attention(qg, k, k, seg, seg)
-    plain = attention(qg, k, k, seg, seg)  # "auto" with grad: plain
-    assert dict(_kernels.launches) == before
-    plain.float().sum().backward()
-    assert qg.grad is not None
-    _close(plain.detach(), o)
+    flash_attention(*leaves, seg, seg).backward(do)
+    for name in ("flash_fwd_d256", "flash_bwd_dq_d256",
+                 "flash_bwd_dkv_d256"):
+        assert _kernels.launches[name] == before.get(name, 0) + 1
+    o, lse = flash_attention_fwd(q, k, v, seg, seg)
+    want = flash_attention_bwd_plain(q, k, v, seg, seg, o, lse, do)
+    for t, w in zip(leaves, want):
+        assert t.grad is not None
+        _close_grad(t.grad[live], w[live])
+
+
+def _gemma_cfg():
+    """A 2-layer LLaVA-Gemma: Gemma's knobs at head dim 256, 2 heads over 1
+    kv head, under a tiny tower."""
+    from halva_tpu_torch.config import LlamaConfig, LlavaConfig, ViTConfig
+
+    return LlavaConfig(
+        llm=LlamaConfig(vocab_size=1000, hidden_size=256,
+                        intermediate_size=512, num_layers=2, num_heads=2,
+                        num_kv_heads=1, head_dim=D256,
+                        max_position_embeddings=2048, rms_norm_eps=1e-6,
+                        tie_word_embeddings=True, mlp_act="gelu_tanh",
+                        rmsnorm_unit_offset=True, embed_scale=True),
+        vision=ViTConfig(image_size=28, patch_size=14, hidden_size=32,
+                         intermediate_size=64, num_layers=2, num_heads=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_gemma_micro_step_on_the_card_matches_its_plain_path(cuda, packed):
+    """One DPA micro-step of a tiny LLaVA-Gemma (bf16, LoRA r=8 with a
+    perturbed lora_b) through K1, K2 and K3 at 256 against
+    attn_impl="plain" on the same tree and batch, unpacked and packed (3
+    documents a pn row): 5 K1 and 2 each of K2 and K3 a layer, none on the
+    plain path; loss parts within 2e-2 relative, LoRA grads within 5e-2
+    relative (2 bf16 layers; the kernels round P and dS to bf16 where the
+    plain path keeps fp32 softmax), the bound the head-dim-128 packed step
+    above is held to."""
+    import numpy as np
+
+    from halva_tpu_torch import tree
+    from halva_tpu_torch.train import lora, trainer
+    from halva_tpu_torch.train.pack import PackedDPABatcher
+
+    cfg = _gemma_cfg()
+    params = tree.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(0), torch.bfloat16)
+    policy = lora.add_lora(params, cuda, rank=8)
+    for _, p in lora._iter_dense(policy):
+        if "lora_b" in p:
+            p["lora_b"] = (torch.randn(p["lora_b"].shape, generator=cuda,
+                                       device="cuda") * 1e-2).bfloat16()
+    items = _packed_items(6, 28, 1000, seed=1)
+    if packed:
+        batcher = PackedDPABatcher(
+            seq_len=320, pn_rows=2, ref_rows=1, max_samples=3,
+            num_image_tokens=cfg.num_image_tokens, pad_token_id=0,
+            image_shape=(3, 28, 28))
+        batch = next(batcher.batches(iter(items)))
+        assert int(batch["n_samples"]) == 3
+    else:
+        from halva_tpu_torch.train.data import collate
+
+        batch = collate(items[:2], pad_token_id=0)
+    batch = {k: torch.as_tensor(np.asarray(v)).to("cuda")
+             for k, v in batch.items()}
+    out = {}
+    for impl in ("auto", "plain"):
+        tcfg = trainer.TrainConfig(grad_accum_steps=1, attn_impl=impl,
+                                   loss_chunk=128)
+        tr, fz, opt, _ = trainer.init_train_state(policy, tcfg)
+        if packed:
+            step, _ = trainer.packed_dpa_step_fns(cfg, tcfg, opt,
+                                                  max_samples=3)
+        else:
+            step, _ = trainer.dpa_step_fns(cfg, tcfg, opt)
+        _kernels.reset_launches()
+        _, parts, grads = step.loss_and_grads(tr, fz, None, batch)
+        torch.cuda.synchronize()
+        out[impl] = (parts, torch.cat([g.float().reshape(-1) for _, g in
+                                       tree.flatten(grads) if g is not None]),
+                     dict(_kernels.launches))
+    (kp, kg, kl), (pp, pg, pl) = out["auto"], out["plain"]
+    layers = cfg.llm.num_layers
+    assert kl == {"flash_fwd_d256": 5 * layers,
+                  "flash_bwd_dq_d256": 2 * layers,
+                  "flash_bwd_dkv_d256": 2 * layers}
+    assert pl == {}
+    for a, b in zip(kp, pp):
+        assert torch.isfinite(a) and abs(float(a) - float(b)) <= (
+            2e-2 * abs(float(b)))
+    assert float((kg - pg).norm() / pg.norm()) <= 5e-2
 
 
 def _d256_caches(gen, mode, b, gen_rows, kvh, sp, sg):

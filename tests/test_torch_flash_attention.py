@@ -3,8 +3,8 @@ reference's Pallas flash attention, which runs in interpret mode on the CPU
 as tests/test_flash_attention.py runs it. On CPU tensors the port's wrapper
 takes its plain version, so this holds the plain version's semantics:
 segment ids (padding, packing), causal and not, GQA, lengths that are not a
-block multiple, head dim 256 (Gemma) with 8 heads over 1 kv head and with
-packed rows, and the three modes: ALiBi (8 heads, and under GQA), a
+block multiple, head dim 256 (Gemma) with 8 heads over 1 kv head, with
+packed rows and under a sliding window, and the three modes: ALiBi (8 heads, and under GQA), a
 sliding window smaller than the sequence (so it bites, and the reference,
 run with 128-wide blocks, skips key blocks), window with GQA and packed
 segments, ALiBi with a window, and `q_offset` (a shard of the queries
@@ -52,6 +52,7 @@ CASES = {
     # Gemma's head dim (256) and grouping (8 heads over 1 kv head)
     "d256_gqa": (1, 200, 8, 1, 256, True, "pad"),
     "d256_packed": (2, 256, 2, 2, 256, True, "packed"),
+    "d256_window": (1, 384, 8, 1, 256, True, "packed"),
 }
 # the modes of a case (none: the base mode)
 MODES = {
@@ -61,6 +62,7 @@ MODES = {
     "window_gqa_packed": {"sliding_window": 150},
     "window_small": {"sliding_window": 7},  # narrower than any tile
     "alibi_window": {"alibi": True, "sliding_window": 130},
+    "d256_window": {"sliding_window": 150},
 }
 # the reference's blocks: 128 wide where a window should skip some
 BLOCKS = {name: {"block_q": 128, "block_k": 128} for name in MODES

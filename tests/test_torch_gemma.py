@@ -22,9 +22,11 @@ head, 8 query heads over 1 KV head at head dim 256 in GEMMA_2B) against
 - greedy decode (bf16 and int4 prompt KV), 2-beam search and speculative
   decode token-exact against the reference on the tiny LLAVA_GEMMA
   composition (VILA's llava_gemma: LLAVA_TINY's towers with a tiny Gemma);
-- `kernel_route` at head dims 64, 128 and 256 with and without grad: at 256
-  the serving steps take the kernels' wrappers (their plain versions on CPU
-  tensors) and a forward that needs a gradient stays on the plain attention.
+- the attention route at head dims 64, 128 and 256 with and without grad: at 256
+  the serving steps and a forward that needs a gradient (training) both
+  take the kernels' wrappers (their plain versions on CPU tensors), since
+  K2 and K3 have head-dim-256 instances. Gemma's train step itself is held
+  against the reference in tests/test_torch_gemma_train.py.
 """
 
 import dataclasses
@@ -318,21 +320,42 @@ def test_generate_speculative_token_exact(llava_trees, kv_quant):
 
 @pytest.mark.parametrize("grad", [False, True])
 @pytest.mark.parametrize("head_dim", [64, 128, 256])
-def test_kernel_route_by_head_dim_and_grad(head_dim, grad):
-    """"auto" takes the kernels at 128 and 256 for a serving step, the plain
-    versions at 64; a forward that needs a gradient takes them at 128 only
-    (K2 and K3 lack 256). A named route is never overruled."""
-    want = "kernel" if head_dim == 128 or (
-        head_dim == 256 and not grad) else "plain"
-    assert attn.kernel_route("auto", head_dim, grad) == want
-    assert attn.kernel_route("kernel", head_dim, grad) == "kernel"
-    assert attn.kernel_route("plain", head_dim, grad) == "plain"
+def test_kernel_route_by_head_dim_and_grad(head_dim, grad, monkeypatch):
+    """"auto" takes the kernels at 128 and 256, the plain versions at 64,
+    whether or not the forward needs a gradient (K2 and K3 take 128 and
+    256, as K1 does): `attention` with grad enabled or not reaches K1's
+    wrapper at 128 and 256 and the plain attention at 64. A named route is
+    never overruled."""
+    from halva_tpu_torch.ops import flash_attention as fa
+
+    want = "kernel" if head_dim in (128, 256) else "plain"
+    assert attn.kernel_route("auto", head_dim) == want
+    assert attn.kernel_route("kernel", head_dim) == "kernel"
+    assert attn.kernel_route("plain", head_dim) == "plain"
+    took = []
+    real_k, real_p = fa.flash_attention, fa.flash_attention_plain
+    monkeypatch.setattr(fa, "flash_attention", lambda *a, **k: took.append(
+        "kernel") or real_k(*a, **k))
+    monkeypatch.setattr(fa, "flash_attention_plain", lambda *a, **k: took
+                        .append("plain") or real_p(*a, **k))
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 4, 2, head_dim, generator=g,
+                           requires_grad=grad) for _ in range(3))
+    seg = torch.ones(1, 4, dtype=torch.int32)
+    with torch.set_grad_enabled(grad):
+        out = attn.attention(q, k, v, seg, seg)
+    assert took[0] == want  # on the CPU the wrapper then runs the plain one
+    assert out.requires_grad == grad
+    if grad:
+        out.sum().backward()
+        assert all(t.grad is not None for t in (q, k, v))
 
 
 def test_gemma_attention_route_follows_grad(monkeypatch):
-    """Gemma's prefill reaches K1's wrapper under no_grad (serving), and a
-    forward with grad enabled (training) never does: the rule is decided
-    before any launch, from the config and torch.is_grad_enabled()."""
+    """Gemma's prefill reaches K1's wrapper under no_grad (serving), and so
+    does a forward with grad enabled (training), once a layer: the rule is
+    decided before any launch, from the config and torch.is_grad_enabled(),
+    and at head dim 256 both take the kernels."""
     from halva_tpu_torch.ops import flash_attention as fa
 
     calls = []
@@ -350,5 +373,6 @@ def test_gemma_attention_route_follows_grad(monkeypatch):
     assert all(s[-1] == 256 for s in calls)
     calls.clear()
     trained = llama.forward(tp, pcfg, ids)
-    assert calls == []
+    assert len(calls) == GEMMA_TINY.num_layers
+    assert all(s[-1] == 256 for s in calls)
     torch.testing.assert_close(trained.detach(), served, rtol=0, atol=0)

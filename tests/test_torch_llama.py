@@ -426,8 +426,8 @@ def _check_decode_step_w4(name, kv, monkeypatch):
 
 
 def test_head_dim_rule_picks_the_route_from_the_config(monkeypatch):
-    """attn_impl="auto" takes the kernels at head dims 128 and 256 (the
-    forward at 256 only without grad) and the plain versions at any other,
+    """attn_impl="auto" takes the kernels at head dims 128 and 256 (with or
+    without grad: K2 and K3 take both) and the plain versions at any other,
     on either device, by `kernel_route`: never by a failure. The kernel
     entry points are replaced by ones that raise, so a head-dim-64 config
     that reached one would fail here."""
@@ -438,8 +438,6 @@ def test_head_dim_rule_picks_the_route_from_the_config(monkeypatch):
     assert attn.kernel_route("auto", 128) == "kernel"
     assert attn.kernel_route("auto", 64) == "plain"
     assert attn.kernel_route("auto", 256) == "kernel"
-    assert attn.kernel_route("auto", 256, grad=True) == "plain"
-    assert attn.kernel_route("auto", 128, grad=True) == "kernel"
     assert attn.kernel_route("kernel", 64) == "kernel"  # named: not overruled
     assert attn.kernel_route("plain", 128) == "plain"
     with pytest.raises(ValueError, match="unknown attention impl"):
