@@ -131,6 +131,28 @@ a micro-step, one micro-step against the plain route within 4/3 of a noise
 floor) and its packed step (2 micro-steps on the packed batcher's rows,
 one against the unpacked step on the same samples). The 256 instances are
 rows of their own in the `kernels` line (`*_d256`).
+
+VILA-1.5-13B at 384 px (after Gemma): K1 at its prefill (4 rows of 228-243
+spliced tokens: 196 image tokens each, H=KVH=40), K1, K2 and K3 at its
+train step's pn rows (4 x 707 tokens), K4 (bf16 and int4 prompt KV, H=40;
+one query a row and its 4-beam mode), K5 (per-beam and shared gen stages,
+4 queries an item) over the same caches, and K6 / K7 at its 13B decode
+matmuls (wq, gate/up, down; 4, 16 and 80 rows) are held against their plain versions and timed beside their bounds
+and library calls (rows `*_vila13b` of the `kernels` line); then the
+VILA_13B_384 preset at full width and depth (SigLIP-so400m/14-384 at layer
+-2, mlp_downsample with the 27 x 27 grid padded to 28 x 28, Llama-13B) from
+a seeded random bf16 tree and its int4g tree with int4 prompt KV: greedy
+decode of the 4 requests (40 K1 a prefill, 40 K4 a token, 280 K6 an int4g
+token) against the plain route within 4/3 of a noise floor, 4 beams, draft_k
+4 speculative decode, each graph loop against its eager body, each step's
+device time beside the plain route's; on the bf16 tree a multi-image
+forward (2 image slots a row, one row with 1 image), S2 on its tower at
+scales (384, 768), and the DPA step by train/vila.py's recipe (LoRA r=128,
+the projector trained whole, loss alpha 0.2: 4 micro-steps, 200 K1, 80 K2
+and 80 K3 a micro-step, updates to LoRA and projector leaves only, one
+micro-step against the plain route within 4/3 of a noise floor in
+alignment, KL, LoRA grads and projector grads); last InternViT-6B-448 and
+RADIO ViT-H/16-432 at full width on one image each.
 Every phase prints one line; any failure raises and exits non-zero. The
 last line is the device record {"ok": true, "device": {...}}.
 
@@ -195,6 +217,11 @@ and K4 (their times in the same call), and prints its rows.
 runs only K1's, K2's and K3's head-dim-256 checks and the Gemma-2B train
 step (unpacked and packed) on a fresh random tree, and prints their rows.
 
+    python3 chip_smoke.py --vila-only
+
+runs only the VILA-13B/384 phase above after its kernel checks, and prints
+its rows.
+
     python3 chip_smoke.py --serve-variants-only
 
 runs only the decode variants' phases (sampling, the sampler's frequencies,
@@ -226,13 +253,16 @@ from halva_tpu_torch import _kernels, tree
 from halva_tpu_torch.config import (
     CLIP_VIT_L_336,
     GEMMA_2B,
+    INTERNVIT_6B_448,
     LLAVA_V15_7B,
     MISTRAL_7B,
     MPT_7B,
+    RADIO_VIT_H_432,
+    VILA_13B_384,
     LlavaConfig,
 )
 from halva_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from halva_tpu_torch.models import llama, llava
+from halva_tpu_torch.models import llama, llava, s2, vit
 from halva_tpu_torch.models.llava import LlavaModel
 from halva_tpu_torch.ops import int8_matmul as int8_ops
 from halva_tpu_torch.ops import quant, w4_matmul
@@ -302,6 +332,7 @@ from halva_tpu_torch.train import optim8bit
 from halva_tpu_torch.train.data import collate
 from halva_tpu_torch.train.lora import add_lora
 from halva_tpu_torch.train.pack import PackedDPABatcher
+from halva_tpu_torch.train.vila import VILA_13B_RECIPE
 from halva_tpu_torch.train.trainer import (
     TrainConfig,
     dpa_step_fns,
@@ -364,6 +395,13 @@ W4_GROUP = 128  # the int4g serving tree's group size
 PROMPT_LENS = (623, 615, 608, 623)  # spliced lengths of the 48/40/33/48 prompts
 TEXT_LENS = (48, 40, 33, 48)  # the requests' text tokens, image sentinel at 1
 NEW_TOKENS = 32
+
+
+def spliced_lens(cfg) -> tuple:
+    """The 4 requests' spliced lengths under `cfg`: PROMPT_LENS for every
+    config with CLIP-336's 576 image tokens."""
+    return tuple(n + cfg.num_image_tokens - 1 for n in TEXT_LENS)
+
 # the DPA train step: 512 text tokens, the image sentinel at 1 -> 1087 spliced
 TRAIN_TEXT = 512
 TRAIN_SPLICED = TRAIN_TEXT + LLAVA_V15_7B.num_image_tokens - 1
@@ -1833,27 +1871,37 @@ def k6_plan_text(b: int, k: int, np_: int, groups: int) -> str:
     return f"plan: rows {rc}, {splits} x {ksplit} K rows"
 
 
-def check_w4(gen: torch.Generator) -> dict:
-    """K6 against w4_dense_stacked_plain at the 7B decode matmul shapes,
-    per-channel and g=128 scales, B = 4 (the smoke's batch), 16 and 32 (the
-    rows of 4 beams and of an 8-token verify step) and 80 (the reference's
-    serving batch), each line with its launch plan, bound and rate; at B=4
-    also against the loop's own arithmetic in torch ops
-    (w4_dense_stacked_split_plain) and beside dequantize + torch.matmul. The
-    JSON line carries gate/up at B=4, g=128."""
+MISTRAL_W4_SHAPES = ((4096, 1024), (4096, 14336), (14336, 4096))
+
+
+def check_w4(gen: torch.Generator, shapes=W4_SHAPES, rows=(4, 16, 32, 80),
+             per_channel: bool = True, also=MISTRAL_W4_SHAPES,
+             row_at=(4096, 11008, 4), tag: str = "",
+             model: str = "") -> dict:
+    """K6 against w4_dense_stacked_plain at the (K, N) decode matmul shapes
+    `shapes` (the 7B's by default), g=128 scales and, with `per_channel`,
+    per-channel ones, at `rows` rows (by default B = 4, the smoke's batch,
+    16 and 32, the rows of 4 beams and of an 8-token verify step, and 80,
+    the reference's serving batch), each line with its launch plan, bound
+    and rate; at B=4 also against the loop's own arithmetic in torch ops
+    (w4_dense_stacked_split_plain) and beside dequantize + torch.matmul;
+    then, compared and not timed, `also` (Mistral-7B's wk/wv, gate/up and
+    down) at B=4, g=128. The JSON row, w4_gemv + `tag`, carries the times
+    at `row_at` (K, N, B), g=128: gate/up at B=4 by default."""
     dev = "cuda"
     layers = 4
     worst = 0.0
-    for k, n in W4_SHAPES:
+    label = f"w4_gemv {model} " if model else "w4_gemv "
+    for k, n in shapes:
         np_ = n // 2
         # random bytes: every nibble occurs, -8 included; `layers` distinct
         # weights so that timed calls read device memory, not L2
         w = torch.randint(-128, 128, (layers, k, np_), generator=gen,
                           device=dev, dtype=torch.int8)
-        for groups in (1, k // W4_GROUP):
+        for groups in ((1,) if per_channel else ()) + (k // W4_GROUP,):
             s = (torch.rand(layers, 2, groups, np_, generator=gen,
                             device=dev) * 0.02 + 0.005).bfloat16()
-            for b in (4, 16, 32, 80):
+            for b in rows:
                 x = torch.randn(b, k, generator=gen, device=dev).bfloat16()
 
                 def call(fn, li):
@@ -1896,7 +1944,7 @@ def check_w4(gen: torch.Generator) -> dict:
                     split = (f"; against its split version max_abs_err "
                              f"{float(diff.max()):.3e} (limit 2^-7 |split| "
                              f"+ 2^-10 max|split|)")
-                print(f"w4_gemv B={b} K={k} N={n} G={groups} "
+                print(f"{label}B={b} K={k} N={n} G={groups} "
                       f"[{k6_plan_text(b, k, np_, groups)}]: max_abs_err "
                       f"{err:.3e} rel {rel:.3e} (limits {KERNEL_ATOL} + "
                       f"{KERNEL_RTOL}*|plain|, rel {KERNEL_RTOL}){split}; "
@@ -1906,7 +1954,7 @@ def check_w4(gen: torch.Generator) -> dict:
                       f"{nbytes / 1e6:.2f} MB packed weights + scales -> "
                       f"{nbytes / ms / 1e6:.0f} GB/s {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    raise AssertionError("w4_gemv disagrees with its plain "
+                    raise AssertionError(f"{label}disagrees with its plain "
                                          "version")
                 worst = max(worst, err)
                 if b == 4:
@@ -1916,15 +1964,14 @@ def check_w4(gen: torch.Generator) -> dict:
                         lambda x_, p: x_ @ dequantize_int4(
                             p["kernel_q4p"], p["kernel_scale4p"],
                             torch.bfloat16))) / layers
-                    print(f"w4_gemv B={b} K={k} N={n} G={groups}: dequantize"
+                    print(f"{label}B={b} K={k} N={n} G={groups}: dequantize"
                           f" + torch.matmul {lib_ms:.4f} ms")
-                if (k, n, groups, b) == (4096, 11008, 4096 // W4_GROUP, 4):
+                if (k, n, b) == row_at and groups > 1:
                     timing = {"ms": ms, "plain_ms": plain_ms,
                               "library_ms": lib_ms, **lim}
         del w
-    # Mistral-7B's decode matmuls at the smoke's batch, g=128: wk/wv
-    # (N=1024), gate/up (N=14336), down (K=14336); compared, not timed
-    for k, n in ((4096, 1024), (4096, 14336), (14336, 4096)):
+    # compared, not timed
+    for k, n in also:
         groups = k // W4_GROUP
         p = {"kernel_q4p": torch.randint(-128, 128, (k, n // 2),
                                          generator=gen, device=dev,
@@ -1943,7 +1990,7 @@ def check_w4(gen: torch.Generator) -> dict:
         if not ok:
             raise AssertionError("w4_gemv disagrees with its plain version")
         worst = max(worst, err)
-    return {"name": "w4_gemv", "route": "cuda",
+    return {"name": "w4_gemv" + tag, "route": "cuda",
             "source": "halva_tpu_torch/csrc/w4_gemv.cu",
             "replaces": "halva_tpu/ops/w4_matmul.py:313",
             "max_abs_err": worst, **timing}
@@ -1958,7 +2005,6 @@ def check_w4(gen: torch.Generator) -> dict:
 # does (2^-9 relative per weight, averaging out over K).
 GEMM_RTOL = 1e-2
 GEMM_REL = 4e-3
-MISTRAL_W4_SHAPES = ((4096, 1024), (4096, 14336), (14336, 4096))
 GEMM_ROWS = (9, 16, 32, 80, 2492, 4348)  # ragged; beams, verify, batch 80;
 # prefill (B=4 x 623) and the train step's pos+neg forward (4 x 1087)
 TRAIN_ROWS = 2 * TRAIN_SPLICED  # one forward of the micro-batch: dx's rows
@@ -1987,29 +2033,34 @@ SUMMARY_ROWS = (80, TOWER_ROWS, 2492)  # the wgmma path's rows in the summary
 HOST_CALLS = 200  # calls behind the wrappers' host time
 
 
-def check_w4_gemm(gen: torch.Generator) -> dict:
-    """K7 against w4_gemm_plain at the packed-int4 matmul shapes of
-    llava-1.5-7b and Mistral-7B, per-channel and g=128 scales, at GEMM_ROWS
-    rows; timed at the 7B shapes with g=128 beside its plain version, K6 (up
-    to 80 rows) and the library route, dequantize then torch.matmul; the
-    Function's dx against g @ dequant(W).T. The JSON line carries gate/up at
-    16 rows, g=128: the beam step's shape."""
+def check_w4_gemm(gen: torch.Generator, shapes=W4_SHAPES,
+                  also=MISTRAL_W4_SHAPES, rows=GEMM_ROWS,
+                  per_channel: bool = True, row_at=(4096, 11008, 16),
+                  tag: str = "", model: str = "") -> dict:
+    """K7 against w4_gemm_plain at the packed-int4 matmul shapes `shapes`
+    and `also` (llava-1.5-7b's and Mistral-7B's by default), g=128 scales
+    and, with `per_channel`, per-channel ones, at `rows` rows; timed at
+    `shapes` with g=128 beside its plain version, K6 (up to 80 rows) and
+    the library route, dequantize then torch.matmul. The JSON row, w4_gemm
+    + `tag`, carries the times at `row_at` (K, N, M), g=128: by default
+    gate/up at 16 rows, the beam step's shape."""
     dev = "cuda"
     layers = 4
     worst = 0.0
     timing = None
     summary = []
-    for k, n in W4_SHAPES + MISTRAL_W4_SHAPES:
+    label = f"w4_gemm {model} " if model else "w4_gemm "
+    for k, n in shapes + also:
         np_ = n // 2
-        timed_shape = (k, n) in W4_SHAPES
+        timed_shape = (k, n) in shapes
         # random bytes: every nibble occurs, -8 included; `layers` distinct
         # weights so that timed small-M calls read device memory, not L2
         w = torch.randint(-128, 128, (layers, k, np_), generator=gen,
                           device=dev, dtype=torch.int8)
-        for groups in (1, k // W4_GROUP):
+        for groups in ((1,) if per_channel else ()) + (k // W4_GROUP,):
             s = (torch.rand(layers, 2, groups, np_, generator=gen,
                             device=dev) * 0.02 + 0.005).bfloat16()
-            for m in GEMM_ROWS:
+            for m in rows:
                 x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
                 ok, err, rel = True, 0.0, 0.0
                 for li in (0, layers - 1):
@@ -2019,7 +2070,7 @@ def check_w4_gemm(gen: torch.Generator) -> dict:
                     good, e, r = gemm_within(got, want)
                     ok, err, rel = ok and good, max(err, e), max(rel, r)
                     del got, want
-                line = (f"w4_gemm M={m} K={k} N={n} G={groups}"
+                line = (f"{label}M={m} K={k} N={n} G={groups}"
                         f"{gemm_plan_text(m, k, n, np_)}: max_abs_err "
                         f"{err:.3e} rel {rel:.3e} (limits {GEMM_RTOL}*(max|"
                         f"plain|/4 + |plain|), rel {GEMM_REL})")
@@ -2049,20 +2100,29 @@ def check_w4_gemm(gen: torch.Generator) -> dict:
                                 x_, {"kernel_q4p": w_, "kernel_scale4p": s_}))
                         ) / layers
                         line += f", K6 {k6:.4f} ms"
-                    if (k, n, m) == (4096, 11008, 16):
+                    if (k, n, m) == row_at:
                         timing = {"ms": ms, "plain_ms": plain_ms,
                                   "library_ms": lib_ms, **lim}
-                    if m in SUMMARY_ROWS:
+                    if m in SUMMARY_ROWS and not tag:
                         summary.append((f"K7 {k}x{n} g={W4_GROUP}", m, ms,
                                         plain_ms, lib_ms, lim))
                 print(line + f" {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    raise AssertionError("w4_gemm disagrees with its plain "
-                                         "version")
+                    raise AssertionError(f"{label}disagrees with its "
+                                         "plain version")
                 worst = max(worst, err)
             del s
         del w
-    # the Function's backward at the rows of one train forward
+    return {"name": "w4_gemm" + tag, "route": "cuda",
+            "source": "halva_tpu_torch/csrc/dq_gemm.cu",
+            "replaces": "halva_tpu/ops/w4_matmul.py:313",
+            "max_abs_err": worst, **timing, "summary": summary}
+
+
+def check_w4_gemm_dx(gen: torch.Generator) -> None:
+    """The w4_gemm Function's dx at the rows of one train forward of the 7B
+    (gate/up) against g @ dequant(W).T, bit for bit."""
+    dev = "cuda"
     k, n = W4_SHAPES[1]
     w = torch.randint(-128, 128, (k, n // 2), generator=gen, device=dev,
                       dtype=torch.int8)
@@ -2079,10 +2139,6 @@ def check_w4_gemm(gen: torch.Generator) -> dict:
           f"equals g @ dequant(W).T bit for bit {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("w4_gemm's backward is not g @ dequant(W).T")
-    return {"name": "w4_gemm", "route": "cuda",
-            "source": "halva_tpu_torch/csrc/dq_gemm.cu",
-            "replaces": "halva_tpu/ops/w4_matmul.py:313",
-            "max_abs_err": worst, **timing, "summary": summary}
 
 
 # (K, N) of the int8 tree's denses: the LLM's three, lm_head, the projector's
@@ -2601,9 +2657,15 @@ def timed_run(fn):
     return out, time.perf_counter() - t0, dict(_kernels.launches)
 
 
-def record(kernels: dict, launches: dict, *names) -> None:
+def record(kernels: dict, launches: dict, *names, tag: str = "") -> None:
+    """The main path's counts into its kernels' rows; with `tag`, into the
+    rows of a config's own shapes (`name + tag`) where the line has one,
+    and nowhere else: the untagged rows keep their own main path's."""
     for name in names:
-        kernels[name]["launches"] = launches[name]
+        if not tag:
+            kernels[name]["launches"] = launches[name]
+        elif name + tag in kernels:
+            kernels[name + tag]["launches"] = launches[name]
 
 
 def beam_routes(params, cfg, inputs, kv_quant, suffix: str):
@@ -3025,9 +3087,24 @@ def changed(before: dict, after: dict) -> list:
     return [p for p in before if before[p] != after[p]]
 
 
+def state_and_ref(policy: dict, tcfg, extra: tuple):
+    """init_train_state with the components `extra` trained whole beside
+    LoRA, and the frozen reference's overrides (train/run.py's ref_params):
+    the initial copy of the projector where it trains (VILA_EXTRA), None
+    where only LoRA trains."""
+    trainable, frozen, opt, opt_state = init_train_state(policy, tcfg, extra)
+    ref = None
+    if extra:
+        ref = {"projector": tree.map_tree(lambda x: x.detach().clone(),
+                                          policy["projector"])}
+    return trainable, frozen, opt, opt_state, ref
+
+
 def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
               suffix: str = "", micro_steps: int = TRAIN_MICRO_STEPS,
-              grad_accum: int = 2, compare: bool = True) -> float:
+              grad_accum: int = 2, compare: bool = True,
+              overrides: dict = None, extra: tuple = (),
+              tag: str = "") -> float:
     """The DPA LoRA train step at full width (llava-v1.5-7b unless `cfg`
     says otherwise): bf16 base, bf16 LoRA r=128 alpha=256 on the 7 linears
     of all layers, remat per layer, loss_chunk=256, micro-batch 2, AdamW
@@ -3037,14 +3114,19 @@ def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
     `compare`, one micro-step on the kernel path against the plain path. A
     quantized `params` is the frozen base as it is (its denses launch no
     kernel here: W8A8 is a library product, NF4 and int4 dequantize).
-    Returns the mean ms per micro-step after the first."""
+    `overrides` (TrainConfig fields) replace the llava recipe's loss alpha,
+    learning rate and warmup; `extra` trains the projector whole, its
+    initial copy in the frozen reference; `tag` names the rows of this
+    config's shapes that take the K2 and K3 counts. Returns the mean ms per
+    micro-step after the first."""
     cfg = cfg or CFG
     layers = cfg.llm.num_layers
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     policy = add_lora(params, gen, rank=128, alpha=256.0)
     tcfg = TrainConfig(grad_accum_steps=grad_accum, num_train_steps=400,
-                       remat=True, loss_chunk=256)
-    trainable, frozen, opt, opt_state = init_train_state(policy, tcfg)
+                       remat=True, loss_chunk=256, **(overrides or {}))
+    trainable, frozen, opt, opt_state, ref = state_and_ref(policy, tcfg,
+                                                          extra)
     step, _ = dpa_step_fns(cfg, tcfg, opt)
     batches = [train_batch(cfg, seed) for seed in range(micro_steps)]
     n_lora = sum(t.numel() for _, t in tree.flatten(trainable)
@@ -3062,7 +3144,7 @@ def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
     for i, batch in enumerate(batches):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        trainable, opt_state, m = step(trainable, frozen, None, opt_state,
+        trainable, opt_state, m = step(trainable, frozen, ref, opt_state,
                                        batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
@@ -3088,56 +3170,70 @@ def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
                         f"{what}train micro-step {i}")
         if opt.updates and (i + 1) % tcfg.grad_accum_steps == 0:
             sums.append(bit_sums(policy))
-    add_launches(kernels, {name: seen.get(name, 0) for name in (
+    add_launches(kernels, {name + tag: seen.get(name, 0) for name in (
         "flash_bwd_dq" + suffix, "flash_bwd_dkv" + suffix)})
 
     lora_paths = {p for p, t in tree.flatten(trainable) if t is not None}
+    proj = {p for p in lora_paths if p[0] == "projector"}
     first, second = changed(sums[0], sums[1]), changed(sums[1], sums[2])
     ok = (opt.updates == 2 and not first and second
-          and set(second) <= lora_paths)
+          and set(second) <= lora_paths
+          and (not proj or bool(proj & set(second))))
     print(f"{what}train updates: {opt.updates}; leaves changed by update 1 (lr(0) "
           f"= 0): {len(first)}; by update 2: {len(second)} of "
-          f"{len(lora_paths)} LoRA leaves ({n_lora / 1e6:.1f} M params), "
+          f"{len(lora_paths)} trainable leaves ({len(proj)} of the "
+          f"projector's, {len(proj & set(second))} of them changed; "
+          f"{n_lora / 1e6:.1f} M params), "
           f"{len(set(second) - lora_paths)} others "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the optimizer changed other leaves than LoRA's,"
-                             " or none")
+        raise AssertionError("the optimizer changed other leaves than the "
+                             "trainable ones, or none, or no projector leaf "
+                             "where the projector trains")
     steady = times[1:]
     print(f"{what}train main path ({gpu_line()}): "
           f"{statistics.mean(steady) * 1e3:.1f} ms per micro-step (mean of "
           f"micro-steps 1-{len(times) - 1}; all: "
           + ", ".join(f"{t * 1e3:.1f}" for t in times)
-          + f" ms), B={TRAIN_B} rows of {TRAIN_SPLICED} spliced tokens, "
+          + f" ms), B={TRAIN_B} rows of "
+          f"{TRAIN_TEXT + cfg.num_image_tokens - 1} spliced tokens, "
           f"peak memory {peak / 2**30:.2f} GiB")
     del policy, trainable, frozen, opt, opt_state, step
     if compare:
-        compare_train(params, batches[0], cfg, what)
+        compare_train(params, batches[0], cfg, what, overrides, extra)
     return statistics.mean(steady) * 1e3
 
 
 def compare_train(params: dict, batch: dict, cfg=None,
-                  what: str = "") -> None:
+                  what: str = "", overrides: dict = None,
+                  extra: tuple = ()) -> None:
     """One micro-step's loss parts and LoRA grads, kernel path against plain
     path, beside the noise floor; on a tree whose lora_b is small and
     nonzero (at B = 0 the KL and the lora_a grads are exactly 0). The two
     loss parts are scalars, and the relative change of a scalar under one
     random perturbation is itself a random draw that can land near 0: the
     floor of each quantity is the largest of FLOOR_DRAWS independent
-    perturbations, every one of which is printed."""
+    perturbations, every one of which is printed. Under `overrides` and
+    `extra` (run_train's); where `extra` trains the projector, its grads
+    are held the same way."""
     cfg = cfg or CFG
     cmp = comparison_policy(params)
     noise = torch.Generator(device=DEVICE).manual_seed(3)
-    runs = {"kernel": micro_step_grads(cmp, batch, cfg),
-            "plain": micro_step_grads(cmp, batch, cfg, impl="plain")}
+    kw = {"overrides": overrides, "extra": extra}
+    runs = {"kernel": micro_step_grads(cmp, batch, cfg, **kw),
+            "plain": micro_step_grads(cmp, batch, cfg, impl="plain", **kw)}
     for i in range(FLOOR_DRAWS):
-        runs[f"floor{i}"] = micro_step_grads(cmp, batch, cfg, noise, "plain")
+        runs[f"floor{i}"] = micro_step_grads(cmp, batch, cfg, noise, "plain",
+                                             **kw)
 
     def errs(run):
         got, want = runs[run], runs["plain"]
-        return (abs(got[0] - want[0]) / abs(want[0]),
-                abs(got[1] - want[1]) / abs(want[1]),
-                rel_err(got[2], want[2]))
+        out = (abs(got[0] - want[0]) / abs(want[0]),
+               abs(got[1] - want[1]) / abs(want[1]),
+               rel_err(got[2], want[2]))
+        if want[4] is not None:
+            out += (rel_err(got[4], want[4]),)
+        return out
 
     got = errs("kernel")
     draws = [errs(f"floor{i}") for i in range(FLOOR_DRAWS)]
@@ -3146,7 +3242,7 @@ def compare_train(params: dict, batch: dict, cfg=None,
                  runs.values())
     ok = finite and all(e <= TRAIN_FLOOR_FACTOR * f
                         for e, f in zip(got, floor))
-    names = ("alignment", "kl", "LoRA grads")
+    names = ("alignment", "kl", "LoRA grads", "projector grads")
     print(f"{what}train kernel vs plain path (one micro-step, lora_b ~ "
           f"{LORA_B_STD} N(0,1)): plain alignment {runs['plain'][0]:.6f}, "
           f"kl {runs['plain'][1]:.4e}; rel err "
@@ -3325,14 +3421,16 @@ def comparison_policy(params: dict) -> dict:
 
 
 def micro_step_grads(policy: dict, batch: dict, cfg, noise=None,
-                     impl: str = "auto", packed: int = 0):
-    """(alignment, kl, flat LoRA grads, loss) of one DPA micro-step on
-    `policy` on path `impl`; with `noise`, the text-embedding table is
+                     impl: str = "auto", packed: int = 0,
+                     overrides: dict = None, extra: tuple = ()):
+    """(alignment, kl, flat LoRA grads, loss, flat projector grads or None)
+    of one DPA micro-step on `policy` on path `impl`, under `overrides`
+    and `extra` (run_train's); with `noise`, the text-embedding table is
     perturbed; with `packed` (max_samples), `batch` is a packed batch and
     the step is packed_dpa_step_fns'."""
     tcfg = TrainConfig(grad_accum_steps=1, num_train_steps=400, remat=True,
-                       loss_chunk=256, attn_impl=impl)
-    trainable, frozen, opt, _ = init_train_state(policy, tcfg)
+                       loss_chunk=256, attn_impl=impl, **(overrides or {}))
+    trainable, frozen, opt, _, ref = state_and_ref(policy, tcfg, extra)
     if noise is not None:
         frozen = tree.map_tree(lambda x: x, frozen)
         frozen["llm"]["embed"]["embedding"] = perturbed(
@@ -3341,12 +3439,14 @@ def micro_step_grads(policy: dict, batch: dict, cfg, noise=None,
         step, _ = packed_dpa_step_fns(cfg, tcfg, opt, max_samples=packed)
     else:
         step, _ = dpa_step_fns(cfg, tcfg, opt)
-    _, parts, grads = step.loss_and_grads(trainable, frozen, None, batch)
-    flat = torch.cat([g.float().flatten() for _, g in tree.flatten(grads)
-                      if g is not None])
+    _, parts, grads = step.loss_and_grads(trainable, frozen, ref, batch)
+    flat = {part: [g.float().flatten() for p, g in tree.flatten(grads)
+                   if g is not None and (p[0] == "projector") == part]
+            for part in (False, True)}
     torch.cuda.synchronize()
-    return (float(parts.alignment), float(parts.divergence), flat,
-            float(parts.total))
+    return (float(parts.alignment), float(parts.divergence),
+            torch.cat(flat[False]), float(parts.total),
+            torch.cat(flat[True]) if flat[True] else None)
 
 
 def run_train_quant(qtree: dict, kernels: dict, what: str,
@@ -3511,18 +3611,20 @@ def decode_step_ms(params, cfg, pc, pseg, positions, token, impl) -> float:
 
 def run_family_serving(params, cfg, name: str, kernels: dict,
                        prefill_kernel: str, decode_kernel, kv_quant=False,
-                       step_launches=None) -> torch.Tensor:
+                       step_launches=None, tag: str = "") -> torch.Tensor:
     """Greedy decode of the 4 requests on one of `cfg`'s trees with a
     `kv_quant` prompt cache: the main path with its launches asserted (K1 in
     `prefill_kernel`'s mode once per layer; `decode_kernel` once per layer
     and step, or no decode kernel at all where the reference's rule takes
     the plain attention; `step_launches`, {kernel: launches a step}, beside
-    them, asserted and not recorded), then first-token and decode-step
-    logits against the plain path. Returns the main run's tokens."""
+    them, asserted and recorded only into rows of `tag`), then first-token
+    and decode-step logits against the plain path. Returns the main run's
+    tokens."""
     layers = cfg.llm.num_layers
     inputs = make_inputs(cfg)
     b = inputs[0].shape[0]
-    route = decode_route(cfg, max(PROMPT_LENS), 128)
+    lens = spliced_lens(cfg)
+    route = decode_route(cfg, max(lens), 128)
     if (route == "kernel") != (decode_kernel is not None):
         raise AssertionError(f"{name}: unexpected decode route {route}")
     with torch.inference_mode():
@@ -3541,12 +3643,12 @@ def run_family_serving(params, cfg, name: str, kernels: dict,
     attn = list(want)
     want.update({k: n * NEW_TOKENS for k, n in (step_launches or {}).items()})
     expect_launches(launches, want, f"{name} main run")
-    record(kernels, launches, *attn)
+    record(kernels, launches, *(list(want) if tag else attn), tag=tag)
     ok = in_vocab(tokens, cfg) and bool((num == NEW_TOKENS).all())
     decode_s = total_s - prefill_s
     print(f"{name} main path: tokens {tuple(tokens.shape)} in [0, "
           f"{cfg.llm.vocab_size}); prefill {prefill_s * 1e3:.2f} ms (B={b}, "
-          f"{max(PROMPT_LENS)} spliced tokens), decode "
+          f"{max(lens)} spliced tokens), decode "
           f"{decode_s / NEW_TOKENS * 1e3:.3f} ms/step on the "
           f"{'kernel' if decode_kernel else 'plain position-aware'} route, "
           f"{b * NEW_TOKENS / decode_s:.1f} decode tokens/s, "
@@ -5323,17 +5425,26 @@ def check_gemma_decode(gen: torch.Generator) -> list:
     """K4 at head dim 256 against decode_attend_plain at Gemma-2B's decode
     shape (B=4, H=8 over KVH=1, Sp=623, Sg=128) in its bf16, int8/int8 and
     int4/int8 modes, and its beam mode (4 beams) on bf16 and int4 prompt
-    caches; each timed over distinct layers' caches beside its bound and,
-    on bf16 caches, SDPA over the concatenated keys."""
-    llm = GEMMA_2B
-    b, h, kvh, d = len(PROMPT_LENS), llm.num_heads, llm.kv_heads, llm.head_size
-    sp, sg = max(PROMPT_LENS), 128
-    seg = lengths_to_seg(PROMPT_LENS, sp, "cuda")
+    caches (decode_rows)."""
+    return decode_rows(gen, GEMMA_2B, PROMPT_LENS,
+                       (("bf16", 1), ("kv8", 1), ("kv4", 1), ("bf16", BEAMS),
+                        ("kv4", BEAMS)), "_d256")
+
+
+def decode_rows(gen: torch.Generator, llm, lens, cases,
+                row_tag: str) -> list:
+    """K4 against decode_attend_plain at `llm`'s heads over prompt caches of
+    the spliced lengths `lens` (Sp their largest, Sg=128), in each (cache
+    mode, beams) of `cases`; each timed over distinct layers' caches
+    beside its bound and, on bf16 caches, SDPA over the concatenated keys.
+    Returns rows named K4's counter + `row_tag`."""
+    b, h, kvh, d = len(lens), llm.num_heads, llm.kv_heads, llm.head_size
+    sp, sg = max(lens), 128
+    seg = lengths_to_seg(lens, sp, "cuda")
     out = []
-    for mode, k in (("bf16", 1), ("kv8", 1), ("kv4", 1), ("bf16", BEAMS),
-                    ("kv4", BEAMS)):
+    for mode, k in cases:
         rows = b * k
-        name = K4_NAMES[mode] + ("_beam" if k > 1 else "") + "_d256"
+        name = K4_NAMES[mode] + ("_beam" if k > 1 else "") + row_tag
         steps = torch.randint(0, sg, (rows,), generator=gen, device="cuda")
         steps[0] = 0
         gen_valid = torch.arange(sg, device="cuda")[None, :] <= steps[:, None]
@@ -5360,7 +5471,7 @@ def check_gemma_decode(gen: torch.Generator) -> list:
         # the same call on one split (no merge), printed beside the plan's
         one_ms = device_ms(lambda: [kern(li, splits=1)
                                     for li in range(layers)]) / layers
-        live_prompt = sum(PROMPT_LENS)
+        live_prompt = sum(lens)
         live_gen = int((steps + 1).sum())
         # every query row meets every live key of its item (and beam); the
         # prompt is read once per item
@@ -5390,21 +5501,31 @@ def check_gemma_decode(gen: torch.Generator) -> list:
     return out
 
 
+FOLD_CASES = (("bf16", False), ("kv4", False), ("bf16", True),
+              ("kv4", True))  # (prompt cache mode, shared gen stage)
+
+
 def check_gemma_fold(gen: torch.Generator) -> list:
     """K5 at head dim 256 against fold_attend_plain at Gemma-2B's beam and
     verify shapes (B=4 items, K=4: 32 query rows an item, two chunks; Sp=623,
-    Sg=128): the per-beam gen stage and the shared gen stage with
-    candidates, on bf16 and int4 prompt caches, each also against
-    fold_attend_split_plain under its plan; timed as K4."""
-    llm = GEMMA_2B
-    b, h, kvh, d = len(PROMPT_LENS), llm.num_heads, llm.kv_heads, llm.head_size
-    sp, sg, k = max(PROMPT_LENS), 128, BEAMS
-    seg = lengths_to_seg(PROMPT_LENS, sp, "cuda")
+    Sg=128), in each of FOLD_CASES (fold_rows)."""
+    return fold_rows(gen, GEMMA_2B, PROMPT_LENS, FOLD_CASES, "_d256")
+
+
+def fold_rows(gen: torch.Generator, llm, lens, cases, row_tag: str) -> list:
+    """K5 against fold_attend_plain at `llm`'s heads over prompt caches of
+    the spliced lengths `lens` (B items, K=BEAMS queries an item, Sp their
+    largest, Sg=128), in each (cache mode, shared) of `cases`: the per-beam
+    gen stage, or the shared gen stage with candidates; each also against
+    fold_attend_split_plain under its plan, and timed as decode_rows.
+    Returns rows named K5's counter + `row_tag`."""
+    b, h, kvh, d = len(lens), llm.num_heads, llm.kv_heads, llm.head_size
+    sp, sg, k = max(lens), 128, BEAMS
+    seg = lengths_to_seg(lens, sp, "cuda")
     out = []
-    for mode, shared in (("bf16", False), ("kv4", False), ("bf16", True),
-                         ("kv4", True)):
+    for mode, shared in cases:
         name = ("fold_attn" + MODE_SUFFIX[mode]
-                + ("_shared" if shared else "") + "_d256")
+                + ("_shared" if shared else "") + row_tag)
         gen_rows = b if shared else b * k
         if shared:
             gen_len = torch.tensor([0, 37, 100, sg - k], device="cuda")
@@ -5450,7 +5571,7 @@ def check_gemma_fold(gen: torch.Generator) -> list:
                                       for li in range(layers)]) / layers
         one_ms = device_ms(lambda: [call(fold_attend_layer, li, splits=1)
                                     for li in range(layers)]) / layers
-        live_prompt = sum(PROMPT_LENS)
+        live_prompt = sum(lens)
         if shared:  # query i also meets candidates j <= i
             flops = 4 * d * h * (k * (live_prompt + live_gen)
                                  + b * k * (k + 1) // 2)
@@ -5630,7 +5751,7 @@ def run_gemma_train(params, kernels: dict) -> None:
     print(f"{what}train phase: {time.perf_counter() - t0:.1f} s")
 
 
-def gemma_step_times(params, cfg, kv_quant, tokens) -> None:
+def family_step_times(params, cfg, kv_quant, tokens, model: str) -> None:
     """Device ms, from CUDA-graph replays at gen slot 8, of one greedy, one
     4-beam and one draft_k-4 verify step on the kernel route and on the
     plain route (attn_impl="plain": the plain attention and, on the int4g
@@ -5665,32 +5786,36 @@ def gemma_step_times(params, cfg, kv_quant, tokens) -> None:
             llm, cfg.llm, hidden))
         del pc
     what = "int4g, int4 KV" if kv_quant else "bf16"
-    print(f"llava-gemma-2b {what} step device time (CUDA graphs, gen slot "
+    tied = "tied " if cfg.llm.tie_word_embeddings else ""
+    print(f"{model} {what} step device time (CUDA graphs, gen slot "
           f"{at}, B={b}; {gpu_line()}): "
           + "; ".join(f"{kind} {times[kind, 'auto']:.3f} ms on the kernel "
                       f"route, {times[kind, 'plain']:.3f} ms plain "
                       f"({times[kind, 'plain'] / times[kind, 'auto']:.2f}x)"
                       for kind in ("greedy", "beam", "verify"))
-          + f"; of a greedy step, the tied head (lm_logits over "
+          + f"; of a greedy step, the {tied}head (lm_logits over "
           f"{cfg.llm.vocab_size} tokens) {times['lm_logits']:.3f} ms")
 
 
-def run_gemma_variants(params, cfg, kernels: dict, kv_quant) -> None:
-    """On one Gemma tree: 4 beams over NEW_TOKENS on the route
+def run_family_variants(params, cfg, model: str, kernels: dict, kv_quant,
+                        tag: str = "") -> None:
+    """On one tree of `cfg`: 4 beams over NEW_TOKENS on the route
     beam_route="auto" takes, a short run on the other route, and
     speculative decode at draft_k 4 over NEW_TOKENS, each through its entry
     point with its launches asserted; on the int4g tree the layer matmuls
-    at B*K rows go to K7 by the row rule."""
+    at B*K rows go to K7 by the row rule. With `tag`, the main runs' counts
+    go to the rows of `tag` (record)."""
     layers = cfg.llm.num_layers
     inputs = make_inputs(cfg)
     b = inputs[0].shape[0]
     suffix = {False: "", "int8": "_kv8", "int4": "_kv4"}[kv_quant]
+    dim = head_dim_suffix(cfg.llm.head_size)
     w4 = "kernel_q4p" in params["llm"]["layers"]["attn"]["wq"]
-    what = f"llava-gemma-2b {'int4g, int4 KV' if w4 else 'bf16'}"
+    what = f"{model} {'int4g, int4 KV' if w4 else 'bf16'}"
     n = NEW_TOKENS
 
     def want(attn: str, count: int, rows: int, steps: int) -> dict:
-        out = {"flash_fwd_d256": layers, attn: count}
+        out = {"flash_fwd" + dim: layers, attn: count}
         if w4:
             out.update(w4_mm_launches(rows, 7 * layers * steps))
         return out
@@ -5704,7 +5829,7 @@ def run_gemma_variants(params, cfg, kernels: dict, kv_quant) -> None:
             num_beams=BEAMS, kv_quant=kv_quant, stats=stats))
         expect_launches(launches, want(main, layers * n, b * BEAMS, n),
                         f"{what} beam run ({BEAMS} beams, {n} tokens)")
-        record(kernels, launches, main)
+        record(kernels, launches, *(launches if tag else [main]), tag=tag)
         ok = (in_vocab(tok, cfg) and bool((num == n).all())
               and bool(torch.isfinite(stats["best_scores"]).all())
               and stats["steps"] == n)
@@ -5719,11 +5844,11 @@ def run_gemma_variants(params, cfg, kernels: dict, kv_quant) -> None:
         expect_launches(launches, want(other, layers * SHORT_TOKENS,
                                        b * BEAMS, SHORT_TOKENS),
                         f"{what} beam run on the {other_route} route")
-        record(kernels, launches, other)
+        record(kernels, launches, other, tag=tag)
         if not in_vocab(tok_o, cfg):
             raise AssertionError(f"{what}: {other_route}-route beam tokens "
                                  "out of range")
-        spec = "fold_attn" + suffix + "_shared_d256"
+        spec = "fold_attn" + suffix + "_shared" + dim
         (tok_s, num_s, st), secs, launches = timed_run(
             lambda: generate_speculative(params, cfg, *inputs,
                                          max_new_tokens=n, eos_id=-1,
@@ -5731,7 +5856,7 @@ def run_gemma_variants(params, cfg, kernels: dict, kv_quant) -> None:
         steps = st["verify_steps"]
         expect_launches(launches, want(spec, layers * steps, b * 4, steps),
                         f"{what} speculative run (draft_k 4)")
-        record(kernels, launches, spec)
+        record(kernels, launches, spec, tag=tag)
         ok = (in_vocab(tok_s, cfg) and bool((num_s == n).all())
               and st["emitted_tokens"] >= steps >= 1)
         print(f"{what} speculative run: {st}, {secs:.3f} s with its prefill "
@@ -5769,8 +5894,8 @@ def run_gemma(kernels: dict) -> None:
                       "under CLIP ViT-L/14-336)")
     tokens = run_family_serving(params, cfg, "llava-gemma-2b bf16", kernels,
                                 "flash_fwd_d256", "decode_attn_d256")
-    run_gemma_variants(params, cfg, kernels, False)
-    gemma_step_times(params, cfg, False, tokens)
+    run_family_variants(params, cfg, "llava-gemma-2b", kernels, False)
+    family_step_times(params, cfg, False, tokens, "llava-gemma-2b")
     run_graph_loops(params, cfg, int4=False, model="llava-gemma-2b")
     run_gemma_train(params, kernels)
     torch.cuda.empty_cache()
@@ -5792,12 +5917,284 @@ def run_gemma(kernels: dict) -> None:
     record(kernels, launches, "decode_attn_kv8_d256")
     if not in_vocab(tok8, cfg):
         raise AssertionError("llava-gemma-2b int8-KV tokens out of range")
-    run_gemma_variants(q4, cfg, kernels, "int4")
-    gemma_step_times(q4, cfg, "int4", tokens)
+    run_family_variants(q4, cfg, "llava-gemma-2b", kernels, "int4")
+    family_step_times(q4, cfg, "int4", tokens, "llava-gemma-2b")
     run_graph_loops(q4, cfg, int4=True, model="llava-gemma-2b")
     del q4
     torch.cuda.empty_cache()
     print(f"llava-gemma-2b phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# VILA-1.5-13B at 384 px: SigLIP-so400m/14 at layer -2, mlp_downsample (its
+# 27 x 27 grid zero-padded to 28 x 28, 196 image tokens), Llama-13B
+# ---------------------------------------------------------------------------
+
+VILA = VILA_13B_384
+VILA_NAME = "vila-13b-384"
+VILA_TAG = "_vila13b"  # the `kernels` line's rows at VILA-13B's shapes
+VILA_TRAIN = dict(  # train/vila.py's published recipe, beside LoRA r=128
+    loss_alpha=VILA_13B_RECIPE["loss_alpha"],
+    learning_rate=VILA_13B_RECIPE["learning_rate"],
+    warmup_ratio=VILA_13B_RECIPE["warmup_ratio"])
+VILA_EXTRA = (r"^projector/",)  # --tune-mm-projector: trained whole
+VILA_S2_SCALES = (384, 768)
+VILA_MULTI_TEXT = 64  # text tokens of a multi-image row
+# (K, N) of wq, gate/up and down at 13B (g=128: 40, 40 and 108 groups)
+VILA_W4_SHAPES = ((5120, 5120), (5120, 13824), (13824, 5120))
+VILA_W4_GATE_UP = VILA_W4_SHAPES[1]  # the shape of the K6 and K7 rows
+VILA_GEMM_ROWS = (16, 80)  # 4 beams and draft_k-4 verify; batch 80
+
+
+def check_vila_flash(gen: torch.Generator) -> list:
+    """K1 at VILA-13B's prefill (4 rows of spliced_lens(VILA): 228-243
+    tokens, H=KVH=40), and K1, K2 and K3 at its train step's pn rows (4 rows
+    of TRAIN_TEXT + 195 tokens, every token live), against their plain
+    versions, timed beside their bounds and SDPA: the rows flash_fwd,
+    flash_bwd_dq and flash_bwd_dkv + VILA_TAG (K1's at the prefill
+    shape)."""
+    llm = VILA.llm
+    h, kvh = llm.num_heads, llm.kv_heads
+    lens = spliced_lens(VILA)
+    pre = flash_mode_case(gen, "VILA-13B prefill", len(lens), max(lens), h,
+                          kvh, lens, {}, timed=True)
+    s = TRAIN_TEXT + VILA.num_image_tokens - 1
+    train = flash_mode_case(gen, "VILA-13B pn rows", 2 * TRAIN_B, s, h, kvh,
+                            (s,) * (2 * TRAIN_B), {}, timed=True)
+    torch.cuda.empty_cache()
+    rows = []
+    for name, case, part in (("flash_fwd", pre, "fwd"),
+                             ("flash_bwd_dq", train, "dq"),
+                             ("flash_bwd_dkv", train, "dkv")):
+        source, replaces = FLASH_SOURCES[name]
+        rows.append({"name": name + VILA_TAG, "route": "cuda",
+                     "source": source, "replaces": replaces, **case[part]})
+    return rows
+
+
+def vila_kernel_checks(gen: torch.Generator) -> list:
+    """The `kernels` line's rows at VILA-13B's shapes: K1, K2, K3; K4 (bf16
+    and int4 prompt KV over 228-243 spliced tokens, H=40, Sg=128) for one
+    query a row and in its beam mode; K5's per-beam and shared gen stages
+    on the same caches; K6 at a greedy step's 4 rows and K7 at 16 and 80
+    (VILA_W4_SHAPES, g=128; the rows at gate/up, 4 and 16 rows)."""
+    gemv = check_w4(gen, VILA_W4_SHAPES, (4,), per_channel=False, also=(),
+                    row_at=(*VILA_W4_GATE_UP, 4), tag=VILA_TAG,
+                    model="VILA-13B")
+    gemm = check_w4_gemm(gen, VILA_W4_SHAPES, (), VILA_GEMM_ROWS,
+                         per_channel=False, row_at=(*VILA_W4_GATE_UP, 16),
+                         tag=VILA_TAG, model="VILA-13B")
+    return [*check_vila_flash(gen),
+            *decode_rows(gen, VILA.llm, spliced_lens(VILA),
+                         (("bf16", 1), ("kv4", 1), ("bf16", BEAMS),
+                          ("kv4", BEAMS)), VILA_TAG),
+            *fold_rows(gen, VILA.llm, spliced_lens(VILA), FOLD_CASES,
+                       VILA_TAG),
+            gemv, gemm]
+
+
+def run_vila_multi_image(params, cfg) -> None:
+    """One llava.forward at full width with images (B=2, K=2, 3, 384, 384):
+    row 0 holds 2 image sentinels, row 1 one (its second block parked after
+    its content): finite logits on the live positions, segment id 0 on the
+    whole parked block, each row's live count its text plus its real
+    blocks."""
+    k, t, s = 2, cfg.num_image_tokens, VILA_MULTI_TEXT
+    rng = np.random.RandomState(9)
+    ids = rng.randint(5, 30000, (2, s)).astype(np.int32)
+    ids[0, [1, 20]] = IMAGE_TOKEN_INDEX
+    ids[1, 1] = IMAGE_TOKEN_INDEX
+    seg = np.ones((2, s), np.int32)
+    seg[1, 50:] = 0
+    ids[1, 50:] = 0
+    size = cfg.vision.image_size
+    images = rng.randn(2, k, 3, size, size).astype(np.float32)
+    ids, seg, images = (torch.from_numpy(a).to(DEVICE)
+                        for a in (ids, seg, images))
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        (logits, sp), secs, launches = timed_run(lambda: llava.forward(
+            params, cfg, ids, images.bfloat16(), seg))
+        peak = torch.cuda.max_memory_allocated()
+    live = sp.segment_ids != 0
+    real1 = 50 + (t - 1)
+    ok = (tuple(logits.shape) == (2, s + k * (t - 1), cfg.llm.vocab_size)
+          and bool(torch.isfinite(logits[live]).all())
+          and int(live[0].sum()) == s + k * (t - 1)
+          and int(live[1].sum()) == real1
+          and not bool(live[1, real1:real1 + t].any()))
+    print(f"{VILA_NAME} multi-image forward (B=2 rows of {s} tokens, K={k} "
+          f"image slots, one row with 1 image): logits "
+          f"{tuple(logits.shape)}, live positions {live.sum(1).tolist()} "
+          f"(row 1's parked block at {real1}-{real1 + t - 1} segment id 0), "
+          f"{secs * 1e3:.1f} ms on the host clock, peak memory "
+          f"{peak / 2**30:.2f} GiB, launches {launches} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the multi-image forward is wrong")
+
+
+def tower_line(name: str, fn, want_shape: tuple) -> None:
+    """One full-width tower call: its shape, finite, device ms (CUDA events,
+    median of 3 after a warm-up) and peak memory, beside the card."""
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = timed_ms(fn, iters=3, warmup=1)
+    ok = tuple(out.shape) == want_shape and bool(torch.isfinite(out).all())
+    print(f"{name}: output {tuple(out.shape)} (expected {want_shape}), "
+          f"finite {bool(torch.isfinite(out).all())}; {ms:.2f} ms a call "
+          f"({gpu_line()}), peak memory {peak / 2**30:.2f} GiB "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: bad output")
+    return out
+
+
+def run_vila_s2(params, cfg) -> None:
+    """S2 on VILA's SigLIP tower at full width: encode_multiscale at
+    VILA_S2_SCALES on the 4 requests' images (one tower call over 4 x
+    (1 + 4) tiles of 384 px), against the base-scale encode on its first
+    channel block."""
+    images = make_inputs(cfg)[1].bfloat16()
+    v, vc, layer = params["vision"], cfg.vision, cfg.mm_vision_select_layer
+    side = vc.image_size // vc.patch_size
+    out = tower_line(
+        f"S2 on SigLIP-so400m/14-384 at scales {VILA_S2_SCALES} (B=4)",
+        lambda: s2.encode_multiscale(v, vc, images, scales=VILA_S2_SCALES,
+                                     select_layer=layer),
+        (4, side * side, vc.hidden_size * len(VILA_S2_SCALES)))
+    with torch.inference_mode():
+        base = vit.encode(v, vc, images, select_layer=layer)
+    same = torch.equal(out[..., :vc.hidden_size], base)
+    print(f"S2: the first channel block equals the base-scale encode "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("S2's base scale differs from vit.encode")
+
+
+def run_other_towers() -> None:
+    """InternViT-6B-448 and RADIO ViT-H/16-432 at full width, each a random
+    bf16 tower from seed 0 run on one image: InternViT through vit.encode
+    (RMSNorm blocks, q/k norm over the whole width, LayerScale; layer -2),
+    RADIO through encode_radio with no unshuffle (its 27 x 27 grid is odd:
+    an unshuffle of 2 raises, as PixelUnshuffle does)."""
+    rng = np.random.RandomState(10)
+    for name, vcfg in (("InternViT-6B-448", INTERNVIT_6B_448),
+                       ("RADIO ViT-H/16-432", RADIO_VIT_H_432)):
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = tree.init_vision_params(vcfg, gen, torch.bfloat16, DEVICE)
+        torch.cuda.synchronize()
+        size = vcfg.image_size
+        radio = vcfg is RADIO_VIT_H_432
+        pix = rng.rand(1, 3, size, size) if radio else rng.randn(
+            1, 3, size, size)
+        x = torch.from_numpy(pix.astype(np.float32)).to(DEVICE).bfloat16()
+        print(f"tower: {name}, {vcfg.num_layers} layers, width "
+              f"{vcfg.hidden_size}, {vcfg.num_heads} heads, "
+              f"{vcfg.num_prefix_tokens} prefix tokens; "
+              f"{tree_bytes(v) / 1e9:.3f} GB random bf16 in "
+              f"{time.perf_counter() - t0:.1f} s")
+        side = size // vcfg.patch_size
+        if radio:
+            tower_line(f"{name} encode_radio", lambda: vit.encode_radio(
+                v, vcfg, x), (1, side * side, vcfg.hidden_size))
+            try:
+                vit.encode_radio(v, vcfg, x, pixel_unshuffle=2)
+            except ValueError as e:
+                print(f"{name} with pixel_unshuffle=2: ValueError ({e}) ok")
+            else:
+                raise AssertionError(f"{name}: the odd grid's unshuffle ran")
+        else:
+            tower_line(f"{name} encode (layer -2)", lambda: vit.encode(
+                v, vcfg, x, select_layer=-2), (1, side * side,
+                                               vcfg.hidden_size))
+        del v
+        torch.cuda.empty_cache()
+
+
+def run_vila(kernels: dict) -> None:
+    """VILA-1.5-13B at 384 px at full width and depth from a seeded random
+    bf16 tree, then its int4g tree with int4 prompt KV: greedy decode of
+    the 4 requests (196 image tokens each; 40 K1 a prefill, 40 K4 a token,
+    280 K6 an int4g token) against the plain route within 4/3 of a noise
+    floor, 4 beams on the route "auto" takes and a short run on the other,
+    draft_k-4 speculative decode (K7 at B*K rows), each graph loop against
+    its eager body, each step's device time beside the plain route's; on
+    the bf16 tree the multi-image forward, S2 on its tower and the DPA step
+    by train/vila.py's recipe (LoRA r=128, the projector trained whole,
+    loss alpha 0.2: 200 K1, 80 K2 and 80 K3 a micro-step, one micro-step
+    against the plain route within 4/3 of a noise floor in alignment, KL,
+    LoRA and projector grads); then InternViT-6B and RADIO-H at full width.
+    The counts go to the rows + VILA_TAG."""
+    cfg = VILA
+    llm = cfg.llm
+    layers = llm.num_layers
+    side = cfg.vision.image_size // cfg.vision.patch_size
+    if cfg.num_image_tokens != 196:
+        raise AssertionError(f"{VILA_NAME}: {cfg.num_image_tokens} image "
+                             "tokens, not 196")
+    print(f"route: {VILA_NAME}'s SigLIP grid {side} x {side} -> "
+          f"mlp_downsample pads it to {side + side % 2} x {side + side % 2}"
+          f" and folds 2 x 2: {cfg.num_image_tokens} image tokens a request "
+          f"(spliced lengths {spliced_lens(cfg)}); attn_impl='auto' at head "
+          f"dim {llm.head_size} -> {kernel_route('auto', llm.head_size)} "
+          f"(K1-K5, H=KVH={llm.num_heads}); the tower's attention -> "
+          "attention_reference (plain, as the reference's)")
+    t0 = time.perf_counter()
+    peaks = {}
+
+    def mark(what: str):  # the peak since the last mark (or a reset)
+        peaks[what] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    params = new_tree(cfg, f"{VILA_NAME} (VILA-1.5-13B: SigLIP-so400m/14-384"
+                      " at layer -2, mlp_downsample 4608 -> 5120 -> 5120, "
+                      "Llama-13B)")
+    what = f"{VILA_NAME} bf16"
+    tokens = run_family_serving(params, cfg, what, kernels, "flash_fwd",
+                                "decode_attn", tag=VILA_TAG)
+    mark("bf16 serving")
+    run_family_variants(params, cfg, VILA_NAME, kernels, False, VILA_TAG)
+    family_step_times(params, cfg, False, tokens, VILA_NAME)
+    mark("bf16 beams, verify, step times")
+    run_graph_loops(params, cfg, int4=False, model=VILA_NAME)
+    run_vila_multi_image(params, cfg)
+    mark("bf16 graph loops, multi-image forward")
+    run_vila_s2(params, cfg)
+    mark("S2")
+    torch.cuda.empty_cache()
+    run_train(params, kernels, cfg, what=f"{VILA_NAME} ",
+              overrides=VILA_TRAIN, extra=VILA_EXTRA, tag=VILA_TAG)
+    mark("training")
+    torch.cuda.empty_cache()
+    q4 = quantize_int4g(params)
+    mark("int4g quantize")
+    del params
+    torch.cuda.empty_cache()
+    what = f"{VILA_NAME} int4g, int4 KV"
+    tokens = run_family_serving(q4, cfg, what, kernels, "flash_fwd",
+                                "decode_attn_kv4", "int4",
+                                {"w4_gemv": 7 * layers}, tag=VILA_TAG)
+    mark("int4g serving")
+    run_family_variants(q4, cfg, VILA_NAME, kernels, "int4", VILA_TAG)
+    family_step_times(q4, cfg, "int4", tokens, VILA_NAME)
+    run_graph_loops(q4, cfg, int4=True, model=VILA_NAME)
+    mark("int4g beams, verify, graph loops")
+    del q4
+    torch.cuda.empty_cache()
+    run_other_towers()
+    mark("InternViT and RADIO")
+    top = max(peaks, key=peaks.get)
+    print(f"{VILA_NAME} phase: {time.perf_counter() - t0:.1f} s, peak "
+          f"memory {peaks[top] / 2**30:.2f} GiB in {top} ({gpu_line()}); "
+          "peaks by part (GiB): " + ", ".join(
+              f"{k} {v / 2**30:.2f}" for k, v in peaks.items()))
 
 
 def flash_checks(gen: torch.Generator) -> list:
@@ -5833,6 +6230,7 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--gemm-only"]:
         checked = [check_w4_gemm(gen), check_int8_matmul(gen)]
+        check_w4_gemm_dx(gen)
         gemm_summary(checked)
         k6_rows_table(gen)
         gemm_plan_sweep(gen)
@@ -5893,6 +6291,15 @@ def main() -> None:
         print(json.dumps({"gemma_train_kernels": [
             {k: kern.get(k) for k in keys} for kern in rows]}))
         return
+    if sys.argv[1:] == ["--vila-only"]:
+        rows = vila_kernel_checks(gen)
+        kernels = collections.defaultdict(dict, {k["name"]: k for k in rows})
+        run_vila(kernels)
+        keys = ("name", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        print(json.dumps({"vila_kernels": [{k: kern.get(k) for k in keys}
+                                           for kern in rows]}))
+        return
     if sys.argv[1:] == ["--serve-variants-only"]:
         params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
         run_sampling_bf16(params, LLAVA_V15_7B)
@@ -5908,11 +6315,13 @@ def main() -> None:
     if sys.argv[1:] and not quant_only:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     checked = [check_w4_gemm(gen), check_int8_matmul(gen)]
+    check_w4_gemm_dx(gen)
     gemm_summary(checked)
     if not quant_only:
         checked = flash_checks(gen) + [
             check_decode(gen), *check_decode_quant(gen), *check_fold(gen),
-            check_w4(gen)] + checked + gemma_kernel_checks(gen)
+            check_w4(gen)] + checked + gemma_kernel_checks(gen) + (
+                vila_kernel_checks(gen))
     kernels = {k["name"]: k for k in checked}
     if quant_only:  # the other kernels' launches are counted, not kept
         kernels = collections.defaultdict(dict, kernels)
@@ -5981,6 +6390,8 @@ def main() -> None:
         run_mpt(kernels)
         torch.cuda.empty_cache()
         run_gemma(kernels)
+        torch.cuda.empty_cache()
+        run_vila(kernels)
         torch.cuda.empty_cache()
         run_bench()
     loaded = sorted(m for m in sys.modules

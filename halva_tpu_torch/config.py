@@ -9,6 +9,7 @@ Configs are frozen dataclasses, so they are hashable and compare by value
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 
@@ -128,13 +129,19 @@ class LlavaConfig:
 
     @property
     def num_image_tokens(self) -> int:
+        """Image tokens a sentinel expands to. mlp_downsample folds
+        ceil(side / f)**2 blocks of the (after any RADIO unshuffle) square
+        grid: an odd side is zero-padded first, as VILA's DownSampleBlock
+        does, so SigLIP-384/14's 27 x 27 grid gives 14 x 14 = 196 (the
+        reference counts 729 // 4 = 182 and cannot fold that grid)."""
         n = self.vision.num_patches
         if self.mm_vision_select_feature == "cls_patch":
             n += 1
         if self.vision_tower_type == "radio" and self.radio_pixel_unshuffle > 1:
             n //= self.radio_pixel_unshuffle**2
         if self.mm_projector_type == "mlp_downsample":
-            n //= self.downsample_factor**2
+            f = self.downsample_factor
+            n = (-(-math.isqrt(n) // f)) ** 2
         return n
 
 

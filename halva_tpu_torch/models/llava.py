@@ -1,10 +1,13 @@
-"""LLaVA: CLIP tower + projector + Llama, with the static image-token splice.
+"""LLaVA: vision tower + projector + Llama, with the static image-token
+splice.
 
-Counterpart of halva_tpu/models/llava.py (single-image rows). The splice is
-a fixed-shape gather: output position j of a row whose image sentinel sits
-at p (T patches) takes text token j (j < p), patch j - p (p <= j < p + T)
-or text token j - T + 1 (j >= p + T). Output length S + T - 1. `forward` is
-the training-style forward: splice with labels and signs, then the decoder.
+Counterpart of halva_tpu/models/llava.py. The splice is a fixed-shape
+gather: output position j of a row whose image sentinel sits at p (T
+patches) takes text token j (j < p), patch j - p (p <= j < p + T) or text
+token j - T + 1 (j >= p + T). Output length S + T - 1. Multi-image rows
+(VILA) splice up to K sentinels a row the same way, S + K (T - 1) long; the
+one-image splice is that splice at K = 1. `forward` is the training-style
+forward: splice with labels and signs, then the decoder.
 """
 
 from __future__ import annotations
@@ -45,20 +48,23 @@ class LlavaModel(nn.Module):
 
 def encode_images(params: Params, cfg: LlavaConfig,
                   images: torch.Tensor) -> torch.Tensor:
-    """(B, 3, H, W) -> (B, T, D_llm): the frozen tower under no_grad (the
+    """(B, 3, H, W) -> (B, T, D_llm): the frozen tower (ViT, or RADIO by
+    cfg.vision_tower_type) under no_grad (the
     reference's stop_gradient), then the projector, also under no_grad
     unless one of its leaves requires grad (mm_projector_lr training)."""
-    if cfg.vision_tower_type != "vit":
-        raise NotImplementedError(
-            "the RADIO tower is not ported yet (ROADMAP queue 1 item 11, "
-            "the RADIO tower)"
-        )
     with torch.no_grad():
-        feats = vit.encode(
-            params["vision"], cfg.vision, images,
-            select_layer=cfg.mm_vision_select_layer,
-            select_feature=cfg.mm_vision_select_feature,
-        )
+        if cfg.vision_tower_type == "radio":
+            feats = vit.encode_radio(
+                params["vision"], cfg.vision, images,
+                pixel_unshuffle=cfg.radio_pixel_unshuffle,
+                skip_final_norm=cfg.radio_skip_final_norm,
+            )
+        else:
+            feats = vit.encode(
+                params["vision"], cfg.vision, images,
+                select_layer=cfg.mm_vision_select_layer,
+                select_feature=cfg.mm_vision_select_feature,
+            )
     trained = any(t.requires_grad
                   for _, t in tree.flatten(params["projector"]))
     with torch.set_grad_enabled(trained and torch.is_grad_enabled()):
@@ -82,10 +88,32 @@ def splice_image_tokens(
     labels: Optional[torch.Tensor] = None,
     signs: Optional[torch.Tensor] = None,
 ) -> Spliced:
-    """Static-shape gather splice; integer fields are int32."""
+    """Static-shape gather splice of one image a row (the first sentinel;
+    a row without one keeps its text and gets a masked block after it):
+    the multi-image splice at K = 1. Integer fields are int32."""
+    return splice_image_tokens_multi(params, cfg, input_ids,
+                                     image_features[:, None], segment_ids,
+                                     labels, signs)
+
+
+def splice_image_tokens_multi(
+    params: Params,
+    cfg: LlavaConfig,
+    input_ids: torch.Tensor,  # (B, S) with up to K sentinels a row
+    image_features: torch.Tensor,  # (B, K, T, D)
+    segment_ids: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
+    signs: Optional[torch.Tensor] = None,
+) -> Spliced:
+    """Static-shape splice of multi-image rows (VILA's multi-image and
+    video-as-frames samples), S + K (T - 1) long. Sentinel i of a row (in
+    order) expands to feature block i. A row with n < K sentinels parks its
+    missing blocks i >= n right after its real content (input position
+    row_len + i - n), with segment id 0. All index arithmetic on tensors:
+    nothing is read back to the host."""
     b, s = input_ids.shape
-    t = image_features.shape[1]
-    s_out = s + t - 1
+    k, t = image_features.shape[1:3]
+    s_out = s + k * (t - 1)
     dev = input_ids.device
     i32 = torch.int32
     if segment_ids is None:
@@ -95,40 +123,44 @@ def splice_image_tokens(
     if signs is None:
         signs = torch.zeros((b, s), dtype=i32, device=dev)
 
-    is_sentinel = input_ids == IMAGE_TOKEN_INDEX
-    has_img = is_sentinel.any(dim=1)  # (B,)
-    row_len = (segment_ids != 0).sum(dim=1)
-    # first sentinel: argmax of a bool row is not defined to be the first
-    # True in torch, so take the smallest index that holds one
-    idx = torch.arange(s, device=dev).expand(b, s)
-    first = torch.where(is_sentinel, idx, s).min(dim=1).values
-    img_pos = torch.where(has_img, first, row_len)  # (B,)
+    is_sent = input_ids == IMAGE_TOKEN_INDEX
+    row_len = (segment_ids != 0).sum(dim=1)  # (B,)
+    n_real = is_sent.sum(dim=1)  # (B,)
+    rank = is_sent.long().cumsum(dim=1)  # 1-based rank of each sentinel
+    blocks = torch.arange(k, device=dev)  # (K,)
+    hit = is_sent[:, None, :] & (rank[:, None, :] == blocks[None, :, None] + 1)
+    has = hit.any(dim=2)  # (B, K)
+    idx = torch.arange(s, device=dev)
+    first = torch.where(hit, idx, s).min(dim=2).values  # (B, K)
+    pos = torch.where(has, first,
+                      row_len[:, None] + blocks[None, :] - n_real[:, None])
+    start = pos + blocks[None, :] * (t - 1)  # output start of each block
 
-    j = torch.arange(s_out, device=dev)[None, :]
-    p = img_pos[:, None]
-    in_img = (j >= p) & (j < p + t)
-    after = j >= p + t
-    text_idx = torch.where(after, j - (t - 1), j).clamp(0, s - 1)
-    patch_idx = (j - p).clamp(0, t - 1)
+    j = torch.arange(s_out, device=dev)[None, None, :]  # (1, 1, S_out)
+    q = start[:, :, None]  # (B, K, 1)
+    inside = (j >= q) & (j < q + t)  # (B, K, S_out)
+    in_img = inside.any(dim=1)  # (B, S_out)
+    # a position lies in at most one block: sums pick that block's values
+    patch_src = (inside * (blocks[None, :, None] * t + (j - q))).sum(dim=1)
+    img_valid = (inside & has[:, :, None]).any(dim=1)
+    blocks_before = (j >= q + t).sum(dim=1)
+    text_idx = (j[0] - blocks_before * (t - 1)).clamp(0, s - 1)
 
     text_embeds = llama.embed(params["llm"], input_ids)  # (B, S, D)
     d = text_embeds.shape[-1]
-    gathered_text = torch.gather(
-        text_embeds, 1, text_idx[:, :, None].expand(b, s_out, d))
-    gathered_img = torch.gather(
-        image_features.to(text_embeds.dtype), 1,
-        patch_idx[:, :, None].expand(b, s_out, d))
-    embeds = torch.where(in_img[:, :, None], gathered_img, gathered_text)
+    feats_flat = image_features.reshape(b, k * t, -1).to(text_embeds.dtype)
+    g_text = torch.gather(text_embeds, 1,
+                          text_idx[:, :, None].expand(b, s_out, d))
+    g_img = torch.gather(feats_flat, 1, patch_src.clamp(0, k * t - 1)
+                         [:, :, None].expand(b, s_out, d))
+    embeds = torch.where(in_img[:, :, None], g_img, g_text)
 
     def gather_i32(x, fill):
         g = torch.gather(x.to(i32), 1, text_idx)
         return torch.where(in_img, torch.full_like(g, fill), g)
 
-    out_seg = torch.where(
-        in_img,
-        has_img[:, None].to(i32).expand(b, s_out),
-        torch.gather(segment_ids.to(i32), 1, text_idx),
-    )
+    out_seg = torch.where(in_img, img_valid.to(i32),
+                          torch.gather(segment_ids.to(i32), 1, text_idx))
     positions = torch.arange(s_out, dtype=i32, device=dev).expand(b, s_out)
     return Spliced(embeds, gather_i32(labels, IGNORE_INDEX),
                    gather_i32(signs, 0), out_seg, positions)
@@ -178,8 +210,8 @@ def forward_packed(
 def forward(
     params: Params,
     cfg: LlavaConfig,
-    input_ids: torch.Tensor,  # (B, S) with one IMAGE_TOKEN_INDEX or none
-    images: torch.Tensor,  # (B, 3, H, W)
+    input_ids: torch.Tensor,  # (B, S) with IMAGE_TOKEN_INDEX sentinels
+    images: torch.Tensor,  # (B, 3, H, W), or (B, K, 3, H, W) multi-image
     segment_ids: Optional[torch.Tensor] = None,
     labels: Optional[torch.Tensor] = None,
     signs: Optional[torch.Tensor] = None,
@@ -193,13 +225,15 @@ def forward(
     return_hidden: final hidden states (B, S_out, D) instead of logits, for
     the chunked loss (train/dpa.py), which never holds (B, S, V) logits."""
     if images.ndim == 5:
-        raise NotImplementedError(
-            "multi-image rows are not ported yet (ROADMAP queue 1 item 11, "
-            "splice_image_tokens_multi)"
-        )
-    feats = encode_images(params, cfg, images)
-    sp = splice_image_tokens(params, cfg, input_ids, feats, segment_ids,
-                             labels, signs)
+        b, k = images.shape[:2]
+        feats = encode_images(params, cfg, images.flatten(0, 1))
+        sp = splice_image_tokens_multi(
+            params, cfg, input_ids, feats.reshape((b, k) + feats.shape[1:]),
+            segment_ids, labels, signs)
+    else:
+        feats = encode_images(params, cfg, images)
+        sp = splice_image_tokens(params, cfg, input_ids, feats, segment_ids,
+                                 labels, signs)
     hidden = llama.forward_embeds(
         params["llm"], cfg.llm, sp.embeds, sp.segment_ids, sp.positions,
         attn_impl=attn_impl, remat=remat,

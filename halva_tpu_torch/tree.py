@@ -230,3 +230,10 @@ def init_params(cfg: LlavaConfig, generator: torch.Generator,
         "vision": _init_vit(ini, cfg.vision),
         "projector": _init_projector(ini, cfg),
     }
+
+
+def init_vision_params(cfg: ViTConfig, generator: torch.Generator,
+                       dtype=torch.float32, device="cuda") -> dict:
+    """A random tower of `cfg` alone: the `vision` sub-tree init_params
+    makes, for a tower run without an LLM (S2, a tower's encode)."""
+    return _init_vit(_Init(generator, dtype, device), cfg)

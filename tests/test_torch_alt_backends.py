@@ -12,7 +12,12 @@ LLM of each kind, fp32, the same seeded weights and inputs:
   `dpa_step_fns(...).loss_and_grads`. MPT's MLP is not gated, yet the tree
   carries a `gate` stack and `add_lora` puts factors on it in both packages:
   their grads are exactly 0 in both;
-- the speculative entry refuses both configs, as the reference's does.
+- the speculative entry refuses both configs, as the reference's does;
+- tests/test_alt_backends.py's HF parity cases on the port: the Mistral
+  forward with its sliding window and the MPT forward (LayerNorm,
+  non-gated ffn, ALiBi, packed Wqkv) against tiny `transformers` models
+  through the port's `convert_hf` (the reference tests' tolerances, atol
+  3e-4, rtol 3e-3).
 """
 
 import dataclasses
@@ -172,3 +177,57 @@ def test_batched_generator_texts_match_reference(tmp_path, name, num_beams):
     got = runner.BatchedGenerator(tp, port_cfg(cfg), SPTok(), proc,
                                   **kw).run(_requests(tmp_path, runner))
     assert got == want and len(got) == 5
+
+
+def test_mistral_sliding_window_parity_with_hf():
+    """tests/test_alt_backends.py::test_mistral_sliding_window_parity on
+    the port: a window of 4 under 12 tokens."""
+    transformers = pytest.importorskip("transformers")
+    from halva_tpu_torch.config import LlamaConfig
+    from halva_tpu_torch.models import convert_hf, llama
+
+    cfg = LlamaConfig(vocab_size=128, hidden_size=64, intermediate_size=160,
+                      num_layers=2, num_heads=4, num_kv_heads=2,
+                      max_position_embeddings=256, rms_norm_eps=1e-5,
+                      sliding_window=4)
+    hf_cfg = transformers.MistralConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=160,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=256, rms_norm_eps=1e-5, sliding_window=4,
+        attn_implementation="eager", tie_word_embeddings=False)
+    torch.manual_seed(0)
+    model = transformers.MistralForCausalLM(hf_cfg).eval()
+    params = convert_hf.llama_from_hf(model.state_dict(), cfg)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 128, (1, 12)))
+    with torch.no_grad():
+        want = model(ids).logits
+        got = llama.forward(params, cfg, ids)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=3e-4,
+                               rtol=3e-3)
+
+
+def test_mpt_parity_with_hf():
+    """tests/test_alt_backends.py::test_mpt_parity on the port."""
+    transformers = pytest.importorskip("transformers")
+    from halva_tpu_torch.config import LlamaConfig
+    from halva_tpu_torch.models import convert_hf, llama
+
+    cfg = LlamaConfig(vocab_size=128, hidden_size=64, intermediate_size=256,
+                      num_layers=2, num_heads=4, max_position_embeddings=128,
+                      rms_norm_eps=1e-5, tie_word_embeddings=True,
+                      position_embedding="alibi", mlp_act="gelu",
+                      norm_type="layernorm", gated_mlp=False)
+    hf_cfg = transformers.MptConfig(
+        vocab_size=128, d_model=64, n_heads=4, n_layers=2,
+        expansion_ratio=4, max_seq_len=128, layer_norm_epsilon=1e-5,
+        no_bias=True, attn_config=transformers.models.mpt
+        .configuration_mpt.MptAttentionConfig(alibi=True))
+    torch.manual_seed(0)
+    model = transformers.MptForCausalLM(hf_cfg).eval()
+    params = convert_hf.mpt_from_hf(model.state_dict(), cfg)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 128, (1, 10)))
+    with torch.no_grad():
+        want = model(ids).logits
+        got = llama.forward(params, cfg, ids)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=3e-4,
+                               rtol=3e-3)

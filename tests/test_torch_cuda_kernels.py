@@ -2251,3 +2251,161 @@ def test_gemma_like_model_takes_the_d256_kernels(cuda, weights):
     rel = float((logits["auto"] - logits["plain"]).norm()
                 / logits["plain"].norm())
     assert rel < 2e-2, rel
+
+
+# VILA-13B's shapes (Llama-13B: H = KVH = 40, head dim 128, width 5120, MLP
+# 13,824; 196 image tokens a request): K1 at its prefill rows and K2 / K3
+# at its train step's pn rows, K4 over its prompt caches, K6 / K7 at its
+# decode matmuls with g=128 scales (108 groups for down's K = 13,824)
+VILA_H = 40
+VILA_LENS = (243, 235, 228, 243)  # the smoke's 4 requests, spliced
+VILA_PN = 707  # 512 text tokens + 196 image tokens - 1
+
+
+@pytest.mark.cuda
+def test_flash_fwd_at_vila_13b_prefill(cuda):
+    from halva_tpu_torch.ops.flash_attention import flash_attention_tiled_plain
+
+    b, s = len(VILA_LENS), max(VILA_LENS)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=cuda, device="cuda").bfloat16()
+
+    q, k, v = r(b, s, VILA_H, 128), r(b, s, VILA_H, 128), r(b, s, VILA_H, 128)
+    seg = (torch.arange(s, device="cuda")[None, :]
+           < torch.tensor(VILA_LENS, device="cuda")[:, None]).int()
+    before = _kernels.launches["flash_fwd"]
+    o, lse = flash_attention_fwd(q, k, v, seg, seg)
+    assert _kernels.launches["flash_fwd"] == before + 1
+    want, want_lse = flash_attention_tiled_plain(q, k, v, seg, seg, bq=128,
+                                                 bk=128)
+    _k1_check(o, lse, want, want_lse, seg)
+    live = seg != 0
+    _close(o[live], flash_attention_plain(q, k, v, seg, seg)[live])
+
+
+@pytest.mark.cuda
+def test_flash_bwd_at_vila_13b_pn_rows(cuda):
+    """K2 and K3 at the VILA-13B train step's pn rows: 4 x 707 tokens,
+    every token live, H = KVH = 40."""
+    from halva_tpu_torch.ops.flash_attention import flash_attention_bwd_dq
+
+    b, s = 4, VILA_PN
+
+    def r(*shape):
+        return torch.randn(*shape, generator=cuda, device="cuda").bfloat16()
+
+    q, k, v, do = (r(b, s, VILA_H, 128), r(b, s, VILA_H, 128),
+                   r(b, s, VILA_H, 128), r(b, s, VILA_H, 128))
+    seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    o, lse = flash_attention_fwd(q, k, v, seg, seg)
+    args = (q, k, v, seg, seg, do, lse, flash_attention_delta(o, do))
+    before = [_kernels.launches[n] for n in ("flash_bwd_dq", "flash_bwd_dkv")]
+    got = (flash_attention_bwd_dq(*args), *flash_attention_bwd_dkv(*args))
+    assert [_kernels.launches[n] for n in ("flash_bwd_dq",
+                                           "flash_bwd_dkv")] == [
+        x + 1 for x in before]
+    want = flash_attention_bwd_plain(q, k, v, seg, seg, o, lse, do)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        _close_grad(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "kv8", "kv4"])
+def test_decode_attn_at_vila_13b_caches(cuda, mode):
+    b, sp, sg = len(VILA_LENS), max(VILA_LENS), 128
+    q = torch.randn(b, 1, VILA_H, 128, generator=cuda,
+                    device="cuda").bfloat16()
+    if mode == "bf16":
+        pc, gc = _fold_caches(cuda, "bf16", b, b, VILA_H, sp, sg, 128)
+    else:
+        pc, gc = _quant_caches(cuda, mode, b, VILA_H, sp, sg, 128)
+    seg = (torch.arange(sp, device="cuda")[None, :]
+           < torch.tensor(VILA_LENS, device="cuda")[:, None]).int()
+    gen_valid = (torch.arange(sg, device="cuda")[None, :]
+                 <= torch.tensor([0, 8, 31, 127], device="cuda")[:, None])
+    name = K4_NAMES[mode]
+    before = _kernels.launches[name]
+    got = decode_attend_layer(q, pc, seg, gc, gen_valid)
+    assert _kernels.launches[name] == before + 1
+    assert torch.isfinite(got).all()
+    _close(got, decode_attend_plain(q, pc, seg, gc, gen_valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "kv4"])
+def test_beam_routes_at_vila_13b_caches(cuda, mode):
+    """4 beams over VILA-13B's prompt caches: K4's beam mode (the route
+    auto_beam_route takes there) and K5's per-beam gen stage."""
+    b, k, sp, sg = len(VILA_LENS), 4, max(VILA_LENS), 128
+    q = torch.randn(b, k, VILA_H, 128, generator=cuda,
+                    device="cuda").bfloat16()
+    pc, gc = _fold_caches(cuda, mode, b, b * k, VILA_H, sp, sg, 128)
+    seg = (torch.arange(sp, device="cuda")[None, :]
+           < torch.tensor(VILA_LENS, device="cuda")[:, None]).int()
+    steps = torch.randint(0, sg, (b * k,), generator=cuda, device="cuda")
+    steps[0] = 0
+    gen_valid = torch.arange(sg, device="cuda")[None, :] <= steps[:, None]
+    q1 = q.reshape(b * k, 1, VILA_H, 128)
+    before = dict(_kernels.launches)
+    grid = decode_attend_layer(q1, pc, seg, gc, gen_valid, beam_k=k,
+                               beam_route="grid")
+    assert _kernels.launches[GRID_NAMES[mode]] == before.get(
+        GRID_NAMES[mode], 0) + 1
+    assert torch.isfinite(grid).all()
+    _close(grid, decode_attend_plain(q1, pc, seg, gc, gen_valid, beam_k=k))
+    got = fold_attend_layer(q, pc, seg, gc, gen_valid, fold_k=k)
+    assert _kernels.launches[FOLD_NAMES[mode]] == before.get(
+        FOLD_NAMES[mode], 0) + 1
+    _close(got, fold_attend_plain(q, pc, seg, gc, gen_valid, fold_k=k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "kv4"])
+def test_fold_attn_shared_at_vila_13b_caches(cuda, mode):
+    """K5's shared gen stage at a draft_k-4 verify step over VILA-13B's
+    prompt caches (H = KVH = 40: 4 query rows an item and kv head)."""
+    b, k, sp, sg = len(VILA_LENS), 4, max(VILA_LENS), 128
+    q = torch.randn(b, k, VILA_H, 128, generator=cuda,
+                    device="cuda").bfloat16()
+    kc, vc = (torch.randn(b, k, VILA_H, 128, generator=cuda,
+                          device="cuda").bfloat16() for _ in range(2))
+    pc, gc = _fold_caches(cuda, mode, b, b, VILA_H, sp, sg, 128)
+    seg = (torch.arange(sp, device="cuda")[None, :]
+           < torch.tensor(VILA_LENS, device="cuda")[:, None]).int()
+    gen_len = torch.tensor([0, 37, 100, sg - k], device="cuda")
+    gen_valid = torch.arange(sg, device="cuda")[None, :] < gen_len[:, None]
+    name = FOLD_NAMES[mode] + "_shared"
+    before = _kernels.launches[name]
+    got = fold_attend_layer(q, pc, seg, gc, gen_valid, fold_k=k,
+                            shared_gen=True, candidates=(kc, vc))
+    assert _kernels.launches[name] == before + 1
+    assert torch.isfinite(got).all()
+    _close(got, fold_attend_plain(q, pc, seg, gc, gen_valid, fold_k=k,
+                                  shared_gen=True, candidates=(kc, vc)))
+
+
+# (K, N/2, G) of wq / wo, gate / up and down at 13B, g=128
+VILA_W4 = [(5120, 2560, 40), (5120, 6912, 40), (13824, 2560, 108)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,np_,groups", VILA_W4)
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 20, 80])
+def test_w4_decode_matmul_at_vila_13b_shapes(cuda, m, k, np_, groups):
+    """The decode-family route at 13B: K6 up to W4_GEMV_MAX_ROWS rows, K7
+    above (4 beams and a draft_k-4 verify step at 16 rows, batch 80)."""
+    from halva_tpu_torch.ops.w4_matmul import (W4_GEMV_MAX_ROWS,
+                                               w4_decode_matmul)
+
+    w, s = _w4_weights(cuda, k, np_, groups)
+    x = torch.randn(m, k, generator=cuda, device="cuda").bfloat16()
+    name = "w4_gemv" if m <= W4_GEMV_MAX_ROWS else "w4_gemm"
+    before = _kernels.launches[name]
+    got = w4_decode_matmul(x, {"kernel_q4p": w, "kernel_scale4p": s})
+    assert _kernels.launches[name] == before + 1
+    assert got.shape == (m, 2 * np_) and got.dtype == torch.bfloat16
+    _gemm_close(got, w4_gemm_plain(x, w, s))
+    assert torch.equal(got, w4_decode_matmul(
+        x, {"kernel_q4p": w, "kernel_scale4p": s}))

@@ -51,6 +51,12 @@ def test_config_module_constants_and_derived_properties_equal():
     for name in ("LLAVA_V15_7B", "LLAVA_TINY", "VILA_13B_384"):
         j, t = getattr(jconfig, name), getattr(tconfig, name)
         for prop in ("num_image_tokens", "vision_feature_size"):
+            if (name, prop) == ("VILA_13B_384", "num_image_tokens"):
+                # ROADMAP queue 3, reference behaviours: the reference
+                # counts 729 // 4 = 182 for a 27 x 27 grid it cannot fold;
+                # the port pads it to 28 x 28 and folds 14 x 14
+                assert (getattr(j, prop), getattr(t, prop)) == (182, 196)
+                continue
             assert getattr(t, prop) == getattr(j, prop), (name, prop)
         for prop in ("kv_heads", "head_size"):
             assert getattr(t.llm, prop) == getattr(j.llm, prop), (name, prop)

@@ -229,9 +229,18 @@ def test_prefill_quantized_cache_layout(kv_quant):
             want_gen[key].dtype), key
 
 
-def test_radio_tower_refused_naming_its_item():
-    """The RADIO tower is not ported: the refusal names ROADMAP queue 1
-    item 11, as every other refusal of the port names its item."""
-    cfg = dataclasses.replace(port_cfg(LLAVA_TINY), vision_tower_type="radio")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        llava.encode_images({}, cfg, torch.zeros(1, 3, 28, 28))
+def test_radio_tower_encodes_as_the_reference():
+    """encode_images on a RADIO tower (cls + 3 register tokens, the 2 x 2
+    unshuffle, a linear projector): the reference's features, 1e-5."""
+    from test_intern_radio import RADIO_TINY
+
+    cfg = dataclasses.replace(LLAVA_TINY, vision=RADIO_TINY,
+                              vision_tower_type="radio",
+                              radio_pixel_unshuffle=2,
+                              mm_projector_type="linear")
+    jp, tp = shared_trees(cfg)
+    imgs = np.random.RandomState(3).rand(2, 3, 32, 32).astype(np.float32)
+    want = jllava.encode_images(jp, cfg, jnp.asarray(imgs))
+    got = llava.encode_images(tp, port_cfg(cfg), torch.from_numpy(imgs))
+    assert got.shape == (2, cfg.num_image_tokens, cfg.llm.hidden_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)

@@ -364,24 +364,55 @@ def test_main_runs_a_step_on_the_cpu(tmp_path, monkeypatch):
     assert "lora_a" not in params["llm"]["layers"]["attn"]["wq"]
 
 
-def test_vila_main_stops_at_the_unported_projector(tmp_path, monkeypatch):
-    """The VILA CLI's preset builds, then its first step raises where the
-    VILA tower's projector (mlp_downsample) is not ported, naming item 11.
-    The preset is cut to tiny widths on the CPU."""
+def test_vila_main_runs_its_steps(tmp_path, monkeypatch):
+    """The VILA CLI with its recipe's defaults (mlp_downsample, the
+    projector trained beside LoRA, component dirs) runs 2 steps on the CPU
+    with the preset cut to tiny widths and a tower on a 3 x 3 grid, which
+    the projector pads to 2 x 2 before folding. The projector's leaves are
+    in the checkpointed trainable set, and the component dir loads back
+    through the eval builder with its config and decodes."""
     from halva_tpu_torch.config import PRESETS
+    from halva_tpu_torch.models import builder
+    from halva_tpu_torch.ops import generate
     from halva_tpu_torch.train import vila
 
-    vila_tiny = dataclasses.replace(port_cfg(LLAVA_TINY),
-                                    mm_projector_type="mlp_downsample")
+    vila_tiny = dataclasses.replace(
+        port_cfg(LLAVA_TINY), mm_projector_type="mlp_downsample",
+        vision=dataclasses.replace(port_cfg(LLAVA_TINY.vision),
+                                   image_size=42))
+    assert vila_tiny.num_image_tokens == 4
     monkeypatch.setitem(PRESETS, "vila-13b-384", vila_tiny)
     monkeypatch.setenv("HALVA_TOKENIZER", str(tmp_path / "tok"))
     from tokutil import build_tiny_tokenizer
 
     build_tiny_tokenizer(str(tmp_path / "tok"))
     dp, rp, img = _make_data(tmp_path, tags=("closed", "open"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        vila.main(["--data-path", dp, "--ref-data-path", rp,
-                   "--image-folder", img, "--per-device-batch", "1",
-                   "--lora-r", "2", "--max-length", "256",
-                   "--model-max-length", "256", "--dtype", "float32",
-                   "--output-dir", str(tmp_path / "v"), "--device", "cpu"])
+    out = tmp_path / "v"
+    vila.main(["--data-path", dp, "--ref-data-path", rp,
+               "--image-folder", img, "--per-device-batch", "1",
+               "--grad-accum-steps", "1", "--max-steps", "2",
+               "--lora-r", "2", "--max-length", "256",
+               "--model-max-length", "256", "--dtype", "float32",
+               "--output-dir", str(out), "--device", "cpu"])
+    m = _metrics(out / "metrics.jsonl")
+    assert list(m) == [1, 2]
+    assert all(np.isfinite(m[k]["loss"]) for k in m)
+    from halva_tpu_torch.utils import treecache
+
+    state, _ = treecache.read_tree(str(out / "checkpoints" / "2" /
+                                       "state.npz"))
+    assert any(k.startswith("projector") for k in state["params"])
+    params, cfg = builder.load_pretrained_model(
+        str(out / "components"), dtype=torch.float32, device="cpu")
+    assert cfg == vila_tiny
+    assert "lora_a" not in params["llm"]["layers"]["attn"]["wq"]
+    ids = torch.full((2, 8), 5, dtype=torch.int32)
+    ids[:, 1] = -200
+    imgs = torch.randn(2, 3, 42, 42, generator=torch.Generator()
+                       .manual_seed(0))
+    with torch.inference_mode():
+        tok, num = generate.generate_greedy(
+            params, cfg, ids, imgs, torch.tensor([8, 6], dtype=torch.int32),
+            max_new_tokens=4, eos_id=-1)
+    assert tok.shape == (2, 4) and num.tolist() == [4, 4]
+    assert int(tok.min()) >= 0 and int(tok.max()) < cfg.llm.vocab_size

@@ -338,10 +338,22 @@ def test_llava_forward_matches_reference():
                               *(torch.from_numpy(batch[a]) for a in args),
                               return_hidden=True)
     assert hidden.shape == got.shape[:2] + (CFG.llm.hidden_size,)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        llava.forward(tree.to_torch(np_lp, device="cpu"), port_cfg(CFG),
-                      torch.from_numpy(batch["input_ids"]),
-                      torch.from_numpy(batch["images"])[:, None])
+    # one image a row as (B, 1, 3, H, W): the multi-image splice
+    want5, wsp5 = jllava.forward(
+        jax.tree.map(jnp.asarray, np_lp), CFG,
+        jnp.asarray(batch["input_ids"]), jnp.asarray(batch["images"])[:, None],
+        *(jnp.asarray(batch[a]) for a in args[2:]), attn_impl="xla")
+    got5, sp5 = llava.forward(tree.to_torch(np_lp, device="cpu"),
+                              port_cfg(CFG),
+                              torch.from_numpy(batch["input_ids"]),
+                              torch.from_numpy(batch["images"])[:, None],
+                              *(torch.from_numpy(batch[a]) for a in args[2:]))
+    np.testing.assert_allclose(got5.numpy(), np.asarray(want5), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(got5.numpy(), got.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    for g, w in zip(sp5[1:], wsp5[1:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def test_remat_runs_each_layer_again_in_the_backward(monkeypatch):
