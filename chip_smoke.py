@@ -28,7 +28,8 @@ work (bytes over 3.35 TB/s or FLOP over 989 TFLOP/s, whichever is larger)
 and, where one PyTorch call computes the same function
 (`scaled_dot_product_attention`), that call's time as a yardstick; the
 port itself never calls it. Then the two other model families at 7B width
-and depth, each from its own random bf16 tree: Mistral-7B (GQA 32 over 8
+on the first FAMILY_LAYERS (16) of their 32 layers, each from its own
+random bf16 tree: Mistral-7B (GQA 32 over 8
 heads, sliding window 4096: K1, K2 and K3 in window mode, K4 at G=4, a
 4,608-token text row that outgrows the window and decodes through the
 position-aware plain attention, a short int4g run: K6 and K4 int4 at
@@ -69,10 +70,12 @@ process and prints its JSON line.
 
 The train entry point (train/run.py, after the loader, on the bf16 tree):
 the tree written by train/checkpoint.save_params is the base of
-`train.run.train` at full width and depth (4 micro-steps of 2 pre-tokenized
+`train.run.train` at full width on the tree's first CLI_LAYERS (8) layers,
+under a preset of that depth (4 micro-steps of 2 pre-tokenized
 samples at the recipe's shapes, grad_accum 2, LoRA r=128, a checkpoint
 every 2 steps, the component dirs at the end), with its K1/K2/K3 launches
-per micro-step equal to the train phase's, its host clock per micro-step
+per micro-step those of the train step at that depth, its host clock per
+micro-step
 beside that phase's device time, and each checkpoint save's seconds and
 bytes; a second run stopped at step 2 and resumed equals it at steps 3-4;
 the component checkpoint, loaded by models/builder.py, is merge_lora of
@@ -153,6 +156,24 @@ and 80 K3 a micro-step, updates to LoRA and projector leaves only, one
 micro-step against the plain route within 4/3 of a noise floor in
 alignment, KL, LoRA grads and projector grads); last InternViT-6B-448 and
 RADIO ViT-H/16-432 at full width on one image each.
+The device mesh (parallel/, after the int4g beam and verify runs): K6 at a
+tp=2 shard's decode matmuls (gate/up N=5504, down K=5504, 4 rows), K7 at 16
+rows, K4 at 16 local heads and K1-K3 on the last of 4 context-parallel
+shards of a 4,096-token row are held against their plain versions and
+timed (rows `*_tp2`, `*_cp4096`); then (a) a world of one over NCCL, mesh
+{1, 1}: generate(mesh=) gives the int4g main run's tokens exactly from a
+captured loop, and BatchedGenerator(mesh=) the meshless texts; (b) two
+ranks spawned on the one card, joined by gloo over CUDA tensors, each
+handed its contiguous shards of the tp=2-packed int4g tree (quantized from
+the bf16 tree before it is freed) and the int4g tree by CUDA IPC: manual TP
+{data 1, model 2} (prefill logits against the single-device int4g logits,
+greedy tokens beside the main run's, a batch-16 run on K7), data
+parallelism {data 2, model 1} (each rank's rows token for token against
+the one-device program on them, loops captured: no collective in the
+body), context_parallel_attention over {seq 2} against the full call; each
+rank prints its launches and imports neither JAX nor the JAX package; (c)
+the 4 shard bodies of a 4,096-token row one after another with their
+q_offsets, forward and backward, against the full call.
 Every phase prints one line; any failure raises and exits non-zero. The
 last line is the device record {"ok": true, "device": {...}}.
 
@@ -222,6 +243,11 @@ step (unpacked and packed) on a fresh random tree, and prints their rows.
 runs only the VILA-13B/384 phase above after its kernel checks, and prints
 its rows.
 
+    python3 chip_smoke.py --mesh-only
+
+runs only the mesh phase above after its kernel checks, on a fresh random
+tree, and prints its rows.
+
     python3 chip_smoke.py --serve-variants-only
 
 runs only the decode variants' phases (sampling, the sampler's frequencies,
@@ -234,19 +260,26 @@ Needs a CUDA device; imports no JAX.
 from __future__ import annotations
 
 import collections
+import dataclasses
+import datetime
 import functools
 import itertools
 import json
 import os
+import queue as queue_lib
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 import torch.nn.functional as F
 
 from halva_tpu_torch import _kernels, tree
@@ -258,6 +291,7 @@ from halva_tpu_torch.config import (
     MISTRAL_7B,
     MPT_7B,
     RADIO_VIT_H_432,
+    PRESETS,
     VILA_13B_384,
     LlavaConfig,
 )
@@ -291,6 +325,7 @@ from halva_tpu_torch.ops.decode_attention import (
 )
 from halva_tpu_torch.ops import flash_attention as flash_ops
 from halva_tpu_torch.ops.flash_attention import (
+    flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
@@ -328,6 +363,14 @@ from halva_tpu_torch.ops.w4_matmul import (
     w4_gemm,
     w4_gemm_plain,
 )
+from halva_tpu_torch.evals import runner as runner_mod
+from halva_tpu_torch.parallel import partition
+from halva_tpu_torch.parallel.context import (
+    context_parallel_attention,
+    sequential_cp_attention,
+)
+from halva_tpu_torch.parallel.mesh import axes_mesh, make_mesh, mesh_shape
+from halva_tpu_torch.train import checkpoint as ckpt_lib
 from halva_tpu_torch.train import optim8bit
 from halva_tpu_torch.train.data import collate
 from halva_tpu_torch.train.lora import add_lora
@@ -342,8 +385,21 @@ from halva_tpu_torch.train.trainer import (
 
 CFG = LLAVA_V15_7B  # the first train phase's model
 # VILA's llava_mistral and llava_mpt compositions at 7B
-LLAVA_MISTRAL_7B = LlavaConfig(llm=MISTRAL_7B, vision=CLIP_VIT_L_336)
-LLAVA_MPT_7B = LlavaConfig(llm=MPT_7B, vision=CLIP_VIT_L_336)
+# at full width on the first FAMILY_LAYERS of their 32 layers (the smoke's
+# time limit)
+FAMILY_LAYERS = 16
+
+
+def at_depth(cfg: LlavaConfig, layers: int) -> LlavaConfig:
+    """`cfg` with its LLM cut to `layers` layers, the widths unchanged."""
+    return dataclasses.replace(
+        cfg, llm=dataclasses.replace(cfg.llm, num_layers=layers))
+
+
+LLAVA_MISTRAL_7B = at_depth(LlavaConfig(llm=MISTRAL_7B, vision=CLIP_VIT_L_336),
+                            FAMILY_LAYERS)
+LLAVA_MPT_7B = at_depth(LlavaConfig(llm=MPT_7B, vision=CLIP_VIT_L_336),
+                        FAMILY_LAYERS)
 # and VILA's llava_gemma: Gemma-2B (head dim 256, 8 heads over 1 kv head)
 LLAVA_GEMMA_2B = LlavaConfig(llm=GEMMA_2B, vision=CLIP_VIT_L_336)
 DEVICE = "cuda"
@@ -417,6 +473,18 @@ FLOOR_DRAWS = 5  # perturbations behind each train noise floor
 # the card's published peaks (H100 SXM data sheet), for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+
+
+_CLOCK = [time.perf_counter()] * 2  # the smoke's start, the last mark
+
+
+def clock(stage: str) -> None:
+    """The smoke's clock on stderr: seconds since its start and the stage
+    just ended."""
+    now = time.perf_counter()
+    print(f"[smoke +{now - _CLOCK[0]:7.1f}s] {stage}: "
+          f"{now - _CLOCK[1]:.1f} s", file=sys.stderr, flush=True)
+    _CLOCK[1] = now
 
 
 def gpu_line() -> str:
@@ -4185,8 +4253,33 @@ def run_loader(params, cfg) -> None:
 
 CLI_SAMPLES = 8  # one epoch of 4 micro-batches of TRAIN_B: two updates
 CLI_STEPS = 4
+# the train CLI's runs (plain and packed) take the first CLI_LAYERS of the
+# bf16 tree's 32 layers at full width, under their own preset name: their
+# time is the base's write, loads and exports, which scale with the depth
+CLI_LAYERS = 8
+CLI_PRESET = f"llava-v1.5-7b-{CLI_LAYERS}l"
 CLI_DECODE = 8  # greedy tokens decoded from the trained checkpoint
 CLI_RTOL = 1e-5  # the resumed run's loss and kl (tests/test_train_e2e.py)
+
+
+def depth_cut(params, cfg, layers: int):
+    """The tree with the first `layers` of its LLM layer stacks (views) and
+    the config of that depth, the widths unchanged."""
+    llm = dict(params["llm"], layers=tree.map_tree(
+        lambda t: t[:layers], params["llm"]["layers"]))
+    return dict(params, llm=llm), at_depth(cfg, layers)
+
+
+def cli_base(params, cfg, directory: str):
+    """save_params of the CLI_LAYERS cut of `params` into `directory`, its
+    config registered as CLI_PRESET (the caller pops it when done); returns
+    (that config, the save's seconds)."""
+    cut, cut_cfg = depth_cut(params, cfg, CLI_LAYERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt_lib.save_params(directory, cut)
+    PRESETS[CLI_PRESET] = cut_cfg
+    return cut_cfg, time.perf_counter() - t0
 
 
 class CliSamples:
@@ -4295,42 +4388,42 @@ def _greedy_one(params, cfg) -> tuple:
 
 def run_train_cli(params, cfg, train_ms: float, then=None) -> None:
     """train.run.train, the train CLI's entry, at llava-v1.5-7b's full width
-    and depth on the bf16 tree: its save_params dir as the base (no orbax);
+    on the first CLI_LAYERS layers of the bf16 tree: their save_params dir
+    as the base (no orbax);
     run A, 4 micro-steps of 2 rows at grad_accum 2, LoRA r=128, a save
     every 2, the component dirs at the end, with its K1-K3 launches per
-    micro-step equal to run_train's; run B stopped at 2 and resumed to 4,
+    micro-step those of run_train's step at that depth; run B stopped at 2
+    and resumed to 4,
     whose steps 3 and 4 equal A's; the component checkpoint loaded by the
     eval builder, bit for bit merge_lora of A's tree, and 8 greedy tokens
     decoded from it through the graph loop (K4) equal to the in-memory
     merged tree's. Every directory under build/ is removed, and each tree
-    freed, once its check is done."""
-    from halva_tpu_torch.train import checkpoint as ckpt_lib
+    freed, once its check is done. `then(base, config)` runs a further
+    phase on the same base dir."""
     from halva_tpu_torch.train import lora as lora_lib
     from halva_tpu_torch.train import run as run_lib
 
     t_phase = time.perf_counter()
     root = os.path.join(REPO, "build", f"smoke_train_cli_{os.getpid()}")
     base = os.path.join(root, "base")
-    layers = cfg.llm.num_layers
     try:
         os.makedirs(root)
-        need = 2.5 * tree_bytes(params)
+        need = 2.5 * tree_bytes(depth_cut(params, cfg, CLI_LAYERS)[0])
         free = shutil.disk_usage(root).free
         if free < need:
             raise AssertionError(f"train CLI: {free / 1e9:.1f} GB free "
                                  f"under build/, {need / 1e9:.1f} GB needed")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ckpt_lib.save_params(base, params)
-        save_s = time.perf_counter() - t0
-        print(f"train CLI: save_params of the bf16 tree: "
+        cfg, save_s = cli_base(params, cfg, base)
+        layers = cfg.llm.num_layers
+        print(f"train CLI: save_params of the bf16 tree's first {layers} "
+              f"layers: "
               f"{dir_bytes(base) / 1e9:.3f} GB in {save_s:.1f} s "
               f"({dir_bytes(base) / 1e9 / save_s:.2f} GB/s)")
         ds = CliSamples(cfg)
 
         def rcfg(out, max_steps, components=False):
             return run_lib.RunConfig(
-                model="llava-v1.5-7b", model_path=base,
+                model=CLI_PRESET, model_path=base,
                 output_dir=os.path.join(root, out), per_device_batch=TRAIN_B,
                 grad_accum_steps=2, lora_r=128, lora_alpha=256.0,
                 max_steps=max_steps, save_steps=2,
@@ -4351,7 +4444,7 @@ def run_train_cli(params, cfg, train_ms: float, then=None) -> None:
         want = {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
                 "flash_bwd_dkv": 2 * layers}
         expect_launches(per_step, want, "train CLI run A, per micro-step "
-                        "(run_train's)")
+                        f"(run_train's at {layers} layers)")
         a = _metrics(os.path.join(root, "A", "metrics.jsonl"))
         finite = set(a) == set(range(1, CLI_STEPS + 1)) and all(
             np.isfinite(a[s][k]) for s in a for k in ("loss", "kl",
@@ -4366,9 +4459,9 @@ def run_train_cli(params, cfg, train_ms: float, then=None) -> None:
               f"{a_s:.1f} s with the base load, the saves and the exports; "
               f"host ms per micro-step from StepTimer "
               + ", ".join(f"{d:.1f}" for d in dts)
-              + f" (mean without a save: {host_ms:.1f}) beside run_train's "
-              f"device {train_ms:.1f} ms per micro-step: "
-              f"{host_ms / train_ms:.3f}x (the CLI's loss takes whole "
+              + f" (mean without a save: {host_ms:.1f}) at {layers} layers, "
+              f"beside run_train's device {train_ms:.1f} ms per micro-step "
+              f"at {CFG.llm.num_layers} (the CLI's loss takes whole "
               "logits, run_train's loss_chunk=256); loss "
               + ", ".join(f"{a[s]['loss']:.6f}" for s in sorted(a))
               + f"; kl {a[max(a)]['kl']:.3e} "
@@ -4450,8 +4543,9 @@ def run_train_cli(params, cfg, train_ms: float, then=None) -> None:
                                  "the uninterrupted one")
         print(f"train CLI phase: {time.perf_counter() - t_phase:.1f} s wall")
         if then is not None:
-            then(base)  # a further phase on the same base dir
+            then(base, cfg)  # a further phase on the same base dir
     finally:
+        PRESETS.pop(CLI_PRESET, None)
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
 
@@ -4729,10 +4823,10 @@ def run_adam8(params) -> None:
 
 def run_pack_cli(base: str, cfg, ds) -> None:
     """The train CLI on the packed path at llava-v1.5-7b's full width and
-    depth, from the save_params dir `base`: run C, --pack true --optim
+    CLI_LAYERS depth (`cfg`, registered as CLI_PRESET), from the save_params
+    dir `base`: run C, --pack true --optim
     adamw8bit, grad_accum 2, 4 micro-steps, a save every 2; run D, stopped
     at 2 and resumed to 4, whose steps 3-4 and adapter equal C's."""
-    from halva_tpu_torch.train import checkpoint as ckpt_lib
     from halva_tpu_torch.train import run as run_lib
 
     root = os.path.dirname(base)
@@ -4740,7 +4834,7 @@ def run_pack_cli(base: str, cfg, ds) -> None:
 
     def rcfg(out, max_steps):
         return run_lib.RunConfig(
-            model="llava-v1.5-7b", model_path=base,
+            model=CLI_PRESET, model_path=base,
             output_dir=os.path.join(root, out), per_device_batch=PACK_BATCH,
             grad_accum_steps=2, lora_r=128, lora_alpha=256.0,
             max_steps=max_steps, save_steps=2, pack=True,
@@ -4814,14 +4908,15 @@ def run_pack_cli(base: str, cfg, ds) -> None:
             shutil.rmtree(os.path.join(root, out), ignore_errors=True)
 
 
-def run_pack(params, cfg, kernels: dict, base: str) -> list:
+def run_pack(params, cfg, kernels: dict, base: str, cli_cfg) -> list:
     """The packed-train phase on the bf16 tree `params` (llava-v1.5-7b at
     full width and depth): the batcher's first packed batches (3 samples
     and 3 documents a pn row each); K1, K2 and K3 against their plain
     versions on the first one's segment ids, timed; the packed micro-step
     against the unpacked one on the same samples; the main path's launches
     and times; 8-bit Adam on the 7B LoRA tree; the packed train CLI from
-    the save_params dir `base`. Returns the phase's rows of K1-K3."""
+    the save_params dir `base` of config `cli_cfg`. Returns the phase's
+    rows of K1-K3."""
     t_phase = time.perf_counter()
     ds = PackSamples(cfg)
     batcher = pack_batcher(cfg)
@@ -4867,7 +4962,7 @@ def run_pack(params, cfg, kernels: dict, base: str) -> list:
     torch.cuda.empty_cache()
     run_pack_steps(params, cfg, kernels, ds, host, spans)
     run_adam8(params)
-    run_pack_cli(base, cfg, ds)
+    run_pack_cli(base, cli_cfg, ds)
     print(f"packed train phase: {time.perf_counter() - t_phase:.1f} s wall")
     return rows
 
@@ -6197,6 +6292,418 @@ def run_vila(kernels: dict) -> None:
               f"{k} {v / 2**30:.2f}" for k, v in peaks.items()))
 
 
+# --------------------------------------------------------------------------
+# The device mesh (parallel/): manual TP and data parallelism on two ranks of
+# the one card, a world of one over NCCL, and context parallelism.
+# --------------------------------------------------------------------------
+
+MESH_TP = 2  # the model axis of the two-rank phase
+TP2_TAG = "_tp2"  # the `kernels` line's rows at the tp=2 shard shapes
+# the 7B's decode matmuls on one of two ranks: wq/wk/wv and gate/up split by
+# columns, wo and down by rows (down: K = 5504 = 86 x 64, 43 groups of 128)
+TP2_W4_COLUMNS = ((4096, 2048), (4096, 5504))
+TP2_W4_ROWS = ((5504, 4096), (2048, 4096))
+TP2_GATE_UP, TP2_DOWN = TP2_W4_COLUMNS[1], TP2_W4_ROWS[0]
+TP2_LLM = dataclasses.replace(LLAVA_V15_7B.llm, hidden_size=2048,
+                              num_heads=16, num_kv_heads=16)  # local heads
+TP2_GEMM_ROWS = 16  # the batch-16 TP run: K7 at each shard's matmuls
+CP_TOKENS, CP_SHARDS = 4096, 4  # (c): one row over 4 shards, H=32, D=128
+CP2_TOKENS = 2048  # (b): context_parallel_attention over {seq: 2}
+MESH_TIMEOUT_S = 600
+CP_TAG = "_cp4096"
+
+
+def cp_row_inputs(gen, s: int, h: int = 32):
+    """One row of s tokens: q, k, v and a cotangent, bf16 (H=KVH=h, D=128),
+    leaves with grad; every token live."""
+    def r():
+        return torch.randn(1, s, h, 128, generator=gen,
+                           device=DEVICE).bfloat16()
+
+    q, k, v, w = r(), r(), r(), r()
+    seg = torch.ones(1, s, dtype=torch.int32, device=DEVICE)
+    return [t.requires_grad_() for t in (q, k, v)], w, seg
+
+
+def cp_against_full(got, want) -> tuple:
+    """(ok, text): out and grads against the full call's, by the smoke's
+    shard-against-full-call rule (flash_mode_case): |d| <= KERNEL_ATOL *
+    scale + BWD_RTOL * |full|, scale 1 for the output and max|full| for a
+    grad (dK, dV: bf16 sums of the shards' grads)."""
+    ok, line = True, []
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        scale = 1.0 if name == "o" else float(w.abs().max())
+        good = bool((g - w).abs().le(KERNEL_ATOL * scale
+                                     + BWD_RTOL * w.abs()).all()
+                    and torch.isfinite(g).all())
+        ok = ok and good
+        line.append(f"{name} {max_abs(g, w):.3e} rel {rel_err(g, w):.3e}")
+    return ok, ", ".join(line)
+
+
+def mesh_kernel_checks(gen: torch.Generator) -> list:
+    """The `kernels` line's rows of the mesh paths: K6 at a tp=2 shard's
+    decode matmuls (4 rows: gate/up N=5504 and, a row of its own, down
+    K=5504), K7 at 16 rows, K4 at 16 local heads over int4 prompt caches;
+    K1, K2 and K3 on the last of 4 context-parallel shards of a 4,096-token
+    row (q_offset 3,072 against all keys), timed, against their plain
+    versions and the full call's rows."""
+    model = "LLaVA-1.5-7B tp=2 shard"
+    gemv = check_w4(gen, TP2_W4_COLUMNS, (4,), per_channel=False, also=(),
+                    row_at=(*TP2_GATE_UP, 4), tag=TP2_TAG, model=model)
+    down = check_w4(gen, TP2_W4_ROWS, (4,), per_channel=False, also=(),
+                    row_at=(*TP2_DOWN, 4), tag=TP2_TAG + "_down", model=model)
+    gemm = check_w4_gemm(gen, TP2_W4_COLUMNS + TP2_W4_ROWS, (),
+                         (TP2_GEMM_ROWS,), per_channel=False,
+                         row_at=(*TP2_GATE_UP, TP2_GEMM_ROWS), tag=TP2_TAG,
+                         model=model)
+    n = CP_TOKENS // CP_SHARDS
+    cp = flash_mode_case(gen, f"context-parallel shard {CP_SHARDS} of "
+                         f"{CP_SHARDS}", 1, CP_TOKENS, 32, 32, (CP_TOKENS,),
+                         {}, shard=(CP_TOKENS - n, n), timed=True)
+    rows = []
+    for part, kernel in (("fwd", "flash_fwd"), ("dq", "flash_bwd_dq"),
+                         ("dkv", "flash_bwd_dkv")):
+        source, replaces = FLASH_SOURCES[kernel]
+        rows.append({"name": kernel + CP_TAG, "route": "cuda",
+                     "source": source, "replaces": replaces, **cp[part]})
+    torch.cuda.empty_cache()
+    return [gemv, down, gemm,
+            *decode_rows(gen, TP2_LLM, PROMPT_LENS, (("kv4", 1),), TP2_TAG),
+            *rows]
+
+
+class SmokeTok:
+    """A word-level tokenizer (the card's machine has no transformers): the
+    runner's interface, a BOS, ids from the words' characters."""
+
+    bos_token_id, eos_token_id = 1, 2
+
+    def __call__(self, text):
+        ids = [1] + [5 + sum(map(ord, w)) % 30000 for w in text.split()]
+        return SimpleNamespace(input_ids=ids)
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(f"w{i}" for i in ids if i > 4)
+
+
+def run_world_of_one(q4, cfg, tokens) -> None:
+    """(a): a world of one over NCCL, mesh {1, 1}: generate(mesh=) and
+    BatchedGenerator(mesh=) give the meshless tokens and texts exactly,
+    the decode loop captured."""
+    inputs = make_inputs(cfg)
+    mesh = make_mesh(data=1, model=1, device=DEVICE)
+    backend = dist.get_backend(mesh.group("model"))
+    stats = {}
+    with torch.inference_mode():
+        (got, num), secs, launches = timed_run(lambda: generate(
+            q4, cfg, *inputs, NEW_TOKENS, -1, kv_quant="int4", mesh=mesh,
+            loop_stats=stats))
+    layers = cfg.llm.num_layers
+    expect_launches(launches, {
+        "flash_fwd": layers, "decode_attn_kv4": layers * NEW_TOKENS,
+        "w4_gemv": 7 * layers * NEW_TOKENS}, "{1, 1} mesh run")
+    reqs = [runner_mod.EvalRequest(question_id=i, image_path=None,
+                                   text=f"Describe item {i} in detail."
+                                   + " Please." * i) for i in range(6)]
+    kw = dict(batch_size=4, max_new_tokens=SHORT_TOKENS, prompt_bucket=64,
+              kv_quant="int4")
+    proc = SimpleNamespace(crop_size=cfg.vision.image_size)
+    texts = runner_mod.BatchedGenerator(q4, cfg, SmokeTok(), proc,
+                                        **kw).run(reqs)
+    mtexts = runner_mod.BatchedGenerator(q4, cfg, SmokeTok(), proc,
+                                         mesh=mesh, **kw).run(reqs)
+    ok = (torch.equal(got, tokens) and bool((num == NEW_TOKENS).all())
+          and stats["graph"] and texts == mtexts
+          and backend == ("gloo" if mesh.device.type == "cpu" else "nccl"))
+    print(f"mesh (a): a world of one over {backend}, mesh {mesh.shape}: "
+          f"generate(mesh=) {tuple(got.shape)} tokens equal to the meshless "
+          f"int4g main run's {torch.equal(got, tokens)}, loop captured "
+          f"{stats['graph']} ({stats['steps']} steps, {secs:.3f} s); "
+          f"BatchedGenerator(mesh=) texts of {len(reqs)} requests equal to "
+          f"the meshless ones {texts == mtexts} {'ok' if ok else 'FAIL'}")
+    dist.destroy_process_group()
+    if not ok:
+        raise AssertionError("the {1, 1} mesh run differs from the meshless")
+
+
+def mesh_rank(rank: int, port: int, inbox, outbox) -> None:
+    """One of the two ranks of (b) on the one card: gloo over CUDA tensors.
+    Runs manual TP on its shards ({data 1, model 2}), data parallelism over
+    the whole int4g tree ({data 2, model 1}) and context_parallel_attention
+    over {seq 2}; prints its launches; returns its results on `outbox`."""
+    try:
+        torch.cuda.set_device(0)
+        os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+            world_size=MESH_TP, timeout=datetime.timedelta(
+                seconds=MESH_TIMEOUT_S))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        got = inbox.get(timeout=MESH_TIMEOUT_S)
+        outbox.put((rank, "ok", mesh_rank_work(rank, got)))
+    except BaseException:
+        import traceback
+
+        outbox.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh_rank_work(rank: int, got: dict) -> dict:
+    """mesh_rank's runs; tensors come back as numpy (a tensor in a queue
+    lives in this process, which ends first)."""
+    cfg = LLAVA_V15_7B
+    layers = cfg.llm.num_layers
+    inputs = got["inputs"]
+    out = {}
+    tp = make_mesh(data=1, model=MESH_TP, device=DEVICE)
+    placed = partition.Placed(got["shard"], "manual_tp")
+    group = tp.group("model")
+    with torch.inference_mode():
+        generate(placed, cfg, *inputs, 2, -1, kv_quant="int4",
+                 mesh=tp)  # warm-up, not counted
+        out["tp_logits"] = _prefill_impl(
+            got["shard"], cfg, *inputs, kv_quant="int4", tp=MESH_TP,
+            tp_group=group)[1].cpu().numpy()
+        stats = {}
+        (tok, num), secs, out["tp_launches"] = timed_run(lambda: generate(
+            placed, cfg, *inputs, NEW_TOKENS, -1, kv_quant="int4", mesh=tp,
+            loop_stats=stats))
+        out.update(tp_tokens=tok.cpu().numpy(), tp_num=num.cpu().numpy(),
+                   tp_s=secs, tp_graph=stats["graph"])
+        rows16 = [t.repeat(TP2_GEMM_ROWS // t.shape[0], *[1] * (t.ndim - 1))
+                  for t in inputs]
+        (tok16, _), _, out["tp16_launches"] = timed_run(lambda: generate(
+            placed, cfg, *rows16, SHORT_TOKENS, -1, kv_quant="int4",
+            mesh=tp))
+        out["tp16_ok"] = in_vocab(tok16, cfg)
+        dp = make_mesh(data=MESH_TP, model=1, device=DEVICE)
+        stats = {}
+        generate(got["q4"], cfg, *inputs, 2, -1, kv_quant="int4", mesh=dp)
+        (tok, _), secs, out["dp_launches"] = timed_run(lambda: generate(
+            got["q4"], cfg, *inputs, NEW_TOKENS, -1, kv_quant="int4",
+            mesh=dp, loop_stats=stats))
+        out.update(dp_tokens=tok.cpu().numpy(), dp_s=secs,
+                   dp_graph=stats["graph"])
+    # context_parallel_attention over {seq: 2}; every rank draws the same
+    # row from one seed and holds the result against the full call
+    cp = axes_mesh({"seq": MESH_TP}, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    (q, k, v), w, seg = cp_row_inputs(gen, CP2_TOKENS)
+    _kernels.reset_launches()
+    o = context_parallel_attention(cp, q, k, v, seg, seg)
+    (o.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    out["cp_launches"] = dict(_kernels.launches)
+    got_cp = [o.detach(), q.grad, k.grad, v.grad]
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o2 = flash_attention(q2, k2, v2, seg, seg)
+    (o2.float() * w.float()).sum().backward()
+    out["cp_ok"], out["cp_line"] = cp_against_full(
+        got_cp, [o2.detach(), q2.grad, k2.grad, v2.grad])
+    out["modules"] = sorted(m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "jaxlib",
+                                                   "halva_tpu"))
+    print(f"mesh rank {rank}: launches, manual TP {{data 1, model 2}} "
+          f"{out['tp_launches']}; its batch-{TP2_GEMM_ROWS} run "
+          f"{out['tp16_launches']}; data parallelism {{data 2, model 1}} "
+          f"{out['dp_launches']}; context parallelism {{seq 2}} "
+          f"{out['cp_launches']}", flush=True)
+    return out
+
+
+def run_two_ranks(q4, shards, tokens, kernels) -> None:
+    """(b): two ranks on the one card (spawned, gloo over CUDA tensors; the
+    weights are this process's, shared by CUDA IPC): manual TP on the
+    tp=2-packed int4g tree's shards against the single-device int4g prefill
+    logits and greedy tokens, data parallelism over the int4g tree token
+    for token against the one-device program on each rank's rows, and
+    context_parallel_attention over {seq 2} against the full call."""
+    cfg = LLAVA_V15_7B
+    layers = cfg.llm.num_layers
+    inputs = make_inputs(cfg)
+    with torch.inference_mode():
+        want_logits = _prefill_impl(q4, cfg, *inputs, kv_quant="int4")[1]
+        half = inputs[0].shape[0] // MESH_TP
+        want_rows = [generate(q4, cfg, *(t[r * half:(r + 1) * half]
+                                         for t in inputs),
+                              NEW_TOKENS, -1, kv_quant="int4")[0]
+                     for r in range(MESH_TP)]
+    ctx = mp.get_context("spawn")
+    outbox = ctx.Queue()
+    inboxes = [ctx.Queue() for _ in range(MESH_TP)]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=mesh_rank, args=(r, port, inboxes[r], outbox))
+             for r in range(MESH_TP)]
+    results, errors = {}, []
+    try:
+        for p in procs:
+            p.start()
+        for r in range(MESH_TP):
+            inboxes[r].put({"shard": shards[r], "q4": q4, "inputs": inputs})
+        for _ in procs:
+            rank, status, out = outbox.get(timeout=MESH_TIMEOUT_S)
+            if status != "ok":
+                errors.append(f"rank {rank}:\n{out}")
+                break
+            results[rank] = out
+    except queue_lib.Empty:
+        errors.append(f"no result within {MESH_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.join(timeout=0 if errors else 60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    if errors:
+        raise AssertionError("the two-rank mesh phase failed: "
+                             + "\n".join(errors))
+    wall = time.perf_counter() - t0
+    for out in results.values():
+        for key in ("tp_logits", "tp_tokens", "tp_num", "dp_tokens"):
+            out[key] = torch.from_numpy(out[key])
+    want_main = {"flash_fwd": layers, "decode_attn_kv4": layers * NEW_TOKENS,
+                 "w4_gemv": 7 * layers * NEW_TOKENS}
+    want16 = {"flash_fwd": layers, "decode_attn_kv4": layers * SHORT_TOKENS,
+              "w4_gemm": 7 * layers * SHORT_TOKENS}
+    want_cp = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    for r, out in sorted(results.items()):
+        expect_launches(out["tp_launches"], want_main, f"rank {r}'s TP run")
+        expect_launches(out["tp16_launches"], want16,
+                        f"rank {r}'s batch-{TP2_GEMM_ROWS} TP run")
+        expect_launches(out["dp_launches"], want_main, f"rank {r}'s DP run")
+        expect_launches(out["cp_launches"], want_cp, f"rank {r}'s CP run")
+        if out["modules"]:
+            raise AssertionError(f"rank {r} imported {out['modules']}")
+    r0, r1 = results[0], results[1]
+    tp_rel = rel_err(r0["tp_logits"], want_logits.cpu())
+    tok_tp = r0["tp_tokens"]
+    same = tok_tp == tokens.cpu()
+    prefix = same.int().cumprod(dim=1).sum(dim=1).tolist()
+    ok = (tp_rel <= LOGITS_REL_W4 and in_vocab(tok_tp, cfg)
+          and bool((r0["tp_num"] == NEW_TOKENS).all())
+          and torch.equal(tok_tp, r1["tp_tokens"])
+          and torch.equal(r0["tp_logits"], r1["tp_logits"])
+          and r0["tp16_ok"] and not r0["tp_graph"])
+    print(f"mesh (b) manual TP {{data 1, model {MESH_TP}}} (tp=2-packed "
+          f"int4g, int4 prompt KV, {TP2_LLM.num_heads} local heads, "
+          "all-reduce of wo and down over gloo): prefill logits against the "
+          f"single-device int4g logits rel err {tp_rel:.3e} (limit "
+          f"{LOGITS_REL_W4}); greedy tokens agree with the int4g main run's "
+          f"{float(same.float().mean()):.3f} over {NEW_TOKENS} tokens, equal "
+          f"prefixes {prefix}; both ranks' tokens and logits equal; loop "
+          f"eager under gloo {not r0['tp_graph']}; {r0['tp_s']:.3f} s "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("manual TP disagrees with one device")
+    dp_tokens = r0["dp_tokens"]
+    rows_ok = all(torch.equal(dp_tokens[r * half:(r + 1) * half],
+                              want_rows[r].cpu()) for r in range(MESH_TP))
+    ok = (rows_ok and torch.equal(dp_tokens, r1["dp_tokens"])
+          and r0["dp_graph"] and r1["dp_graph"])
+    agree = float((dp_tokens == tokens.cpu()).float().mean())
+    print(f"mesh (b) data parallelism {{data {MESH_TP}, model 1}} over the "
+          "int4g tree shared by CUDA IPC: each rank's rows equal the "
+          f"one-device program's on them, token for token, {rows_ok}; "
+          f"agreement with the batch-4 main run {agree:.3f}; loops captured "
+          f"{r0['dp_graph'] and r1['dp_graph']}; {r0['dp_s']:.3f} s "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("data parallelism differs from one device")
+    ok = r0["cp_ok"] and r1["cp_ok"]
+    print(f"mesh (b) context_parallel_attention over {{seq {MESH_TP}}}, one "
+          f"row of {CP2_TOKENS} tokens, H=32, D=128, K/V all-gathered and "
+          "dK/dV reduce-scattered over gloo: against the full call, rank 0 "
+          f"{r0['cp_line']}; rank 1 {r1['cp_line']} (limits o {KERNEL_ATOL} "
+          f"+ {BWD_RTOL}*|full|, grads {KERNEL_ATOL}*max|full| + "
+          f"{BWD_RTOL}*|full|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("context parallelism disagrees with the full "
+                             "call")
+    print(f"mesh (b): gloo took all_reduce, all_gather_into_tensor and "
+          "reduce_scatter_tensor on CUDA tensors, none through host tensors; "
+          f"the ranks imported neither jax nor the JAX package; {wall:.1f} s "
+          "with their start")
+    # rank 0's counts (asserted above) into the rows at the shard shapes;
+    # K6's count is the shard's every matmul, gate/up and down among them
+    for row, run, name in (
+            ("w4_gemv" + TP2_TAG, "tp_launches", "w4_gemv"),
+            ("w4_gemv" + TP2_TAG + "_down", "tp_launches", "w4_gemv"),
+            ("w4_gemm" + TP2_TAG, "tp16_launches", "w4_gemm"),
+            ("decode_attn_kv4" + TP2_TAG, "tp_launches", "decode_attn_kv4")):
+        kernels[row]["launches"] = r0[run].get(name, 0)
+
+
+def run_cp_long(kernels) -> None:
+    """(c): one row of 4,096 tokens, H=32, D=128, over 4 context-parallel
+    shards in one process: the 4 shard bodies one after another over the
+    whole K/V with their q_offsets (K1 each), their backward (K2, K3 each),
+    dK/dV summed over the shards by autograd; against the full call."""
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    (q, k, v), w, seg = cp_row_inputs(gen, CP_TOKENS)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    o = sequential_cp_attention(q, k, v, seg, seg, CP_SHARDS)
+    (o.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    expect_launches(launches, {"flash_fwd": CP_SHARDS,
+                               "flash_bwd_dq": CP_SHARDS,
+                               "flash_bwd_dkv": CP_SHARDS},
+                    f"{CP_SHARDS} context-parallel shard bodies")
+    got = [o.detach(), q.grad, k.grad, v.grad]
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o2 = flash_attention(q2, k2, v2, seg, seg)
+    (o2.float() * w.float()).sum().backward()
+    ok, line = cp_against_full(got, [o2.detach(), q2.grad, k2.grad, v2.grad])
+    print(f"mesh (c) context parallelism in one process: {CP_SHARDS} shards "
+          f"of a {CP_TOKENS}-token row (H=32, D=128), q_offsets "
+          f"{[i * CP_TOKENS // CP_SHARDS for i in range(CP_SHARDS)]}, "
+          f"forward and backward {secs * 1e3:.1f} ms (host clock); against "
+          f"the full call {line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the context-parallel shards disagree with the "
+                             "full call")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        kernels[name + CP_TAG]["launches"] = launches.get(name, 0)
+
+
+def tp2_shards(params) -> list:
+    """Each rank's contiguous manual-TP shards of the tp=2-packed int4g
+    tree, quantized on the card from the bf16 tree."""
+    with torch.no_grad():
+        q4tp = quantize_params_int4(params, group_size=W4_GROUP, tp=MESH_TP)
+        shards = [partition.eval_shmap_shard_params(
+            q4tp, mesh_shape({"data": 1, "model": MESH_TP}, r, DEVICE))
+            for r in range(MESH_TP)]
+    torch.cuda.synchronize()
+    print(f"tp=2-packed int4g tree (g={W4_GROUP}): {tree_bytes(q4tp) / 1e9:.3f}"
+          f" GB; each rank's shards {tree_bytes(shards[0]) / 1e9:.3f} GB "
+          "(the layer stacks halved, the rest replicated)")
+    return shards
+
+
+def run_mesh(q4, shards, tokens, kernels) -> None:
+    """The mesh phase: (a), (b) and (c) above."""
+    t0 = time.perf_counter()
+    run_world_of_one(q4, LLAVA_V15_7B, tokens)
+    torch.cuda.empty_cache()
+    run_two_ranks(q4, shards, tokens, kernels)
+    torch.cuda.empty_cache()
+    run_cp_long(kernels)
+    torch.cuda.empty_cache()
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+
+
 def flash_checks(gen: torch.Generator) -> list:
     """K1, K2 and K3 against their plain versions, base mode then the modes:
     their rows of the `kernels` line."""
@@ -6247,8 +6754,8 @@ def main() -> None:
         train_ms = run_train(params, launches, compare=False)
         torch.cuda.empty_cache()
         run_train_cli(params, LLAVA_V15_7B, train_ms,
-                      then=lambda base: run_pack(params, LLAVA_V15_7B,
-                                                 launches, base))
+                      then=lambda base, cli_cfg: run_pack(
+                          params, LLAVA_V15_7B, launches, base, cli_cfg))
         return
     if sys.argv[1:] == ["--pack-only"]:
         params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
@@ -6256,14 +6763,12 @@ def main() -> None:
         root = os.path.join(REPO, "build", f"smoke_pack_{os.getpid()}")
         try:
             base = os.path.join(root, "base")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            from halva_tpu_torch.train.checkpoint import save_params
-            save_params(base, params)
-            print(f"packed phase: save_params of the bf16 tree in "
-                  f"{time.perf_counter() - t0:.1f} s")
-            rows = run_pack(params, LLAVA_V15_7B, launches, base)
+            cli_cfg, save_s = cli_base(params, LLAVA_V15_7B, base)
+            print(f"packed phase: save_params of the bf16 tree's first "
+                  f"{CLI_LAYERS} layers in {save_s:.1f} s")
+            rows = run_pack(params, LLAVA_V15_7B, launches, base, cli_cfg)
         finally:
+            PRESETS.pop(CLI_PRESET, None)
             shutil.rmtree(root, ignore_errors=True)
         print(json.dumps({"pack_kernels": rows, "pack_launches": {
             name: k["launches"] for name, k in sorted(launches.items())}}))
@@ -6300,6 +6805,27 @@ def main() -> None:
         print(json.dumps({"vila_kernels": [{k: kern.get(k) for k in keys}
                                            for kern in rows]}))
         return
+    if sys.argv[1:] == ["--mesh-only"]:
+        rows = mesh_kernel_checks(gen)
+        kernels = collections.defaultdict(dict, {k["name"]: k for k in rows})
+        params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
+        shards = tp2_shards(params)
+        q4 = quantize_int4g(params)
+        del params
+        torch.cuda.empty_cache()
+        inputs = make_inputs(LLAVA_V15_7B)
+        with torch.inference_mode():
+            generate_greedy(q4, LLAVA_V15_7B, *inputs, max_new_tokens=2,
+                            eos_id=-1, kv_quant="int4")  # warm-up
+            tokens, _ = generate_greedy(q4, LLAVA_V15_7B, *inputs,
+                                        max_new_tokens=NEW_TOKENS, eos_id=-1,
+                                        kv_quant="int4")
+        run_mesh(q4, shards, tokens, kernels)
+        keys = ("name", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        print(json.dumps({"mesh_kernels": [{k: kern.get(k) for k in keys}
+                                           for kern in rows]}))
+        return
     if sys.argv[1:] == ["--serve-variants-only"]:
         params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
         run_sampling_bf16(params, LLAVA_V15_7B)
@@ -6314,14 +6840,17 @@ def main() -> None:
     quant_only = sys.argv[1:] == ["--quant-only"]
     if sys.argv[1:] and not quant_only:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
+    clock("build")
     checked = [check_w4_gemm(gen), check_int8_matmul(gen)]
     check_w4_gemm_dx(gen)
     gemm_summary(checked)
+    clock("K7/K8 checks")
     if not quant_only:
         checked = flash_checks(gen) + [
             check_decode(gen), *check_decode_quant(gen), *check_fold(gen),
             check_w4(gen)] + checked + gemma_kernel_checks(gen) + (
-                vila_kernel_checks(gen))
+                vila_kernel_checks(gen)) + mesh_kernel_checks(gen)
+        clock("K1-K6 checks")
     kernels = {k["name"]: k for k in checked}
     if quant_only:  # the other kernels' launches are counted, not kept
         kernels = collections.defaultdict(dict, kernels)
@@ -6337,15 +6866,21 @@ def main() -> None:
         params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
     else:
         params = run_bf16(kernels)
+        clock("bf16 main path")
         run_beam_spec_bf16(params, kernels)
+        clock("bf16 beams and speculative decode")
         train_ms = run_train(params, kernels)
         torch.cuda.empty_cache()
+        clock("bf16 train step")
         run_graph_loops(params, LLAVA_V15_7B, int4=False)
         run_sampling_bf16(params, LLAVA_V15_7B)
+        clock("bf16 graph loops and sampling")
         run_loader(params, LLAVA_V15_7B)
+        clock("loader")
         run_train_cli(params, LLAVA_V15_7B, train_ms,
-                      then=lambda base: run_pack(params, LLAVA_V15_7B,
-                                                 kernels, base))
+                      then=lambda base, cli_cfg: run_pack(
+                          params, LLAVA_V15_7B, kernels, base, cli_cfg))
+        clock("train CLI and packed training")
     torch.cuda.empty_cache()
     # the quantized trees, each made on the card from the bf16 tree, which
     # is freed once the last of them exists (no_grad, not inference_mode:
@@ -6362,9 +6897,12 @@ def main() -> None:
               f"(bits=4, one code index per uint8 byte, int8 embedding) in "
               f"{time.perf_counter() - t1:.2f} s, "
               f"{tree_bytes(nf4) / 1e9:.3f} GB")
+    if not quant_only:  # the two-rank phase's shards, made on the card
+        shards = tp2_shards(params)
     q4 = quantize_int4g(params)
     del params  # the bf16 tree is freed here
     torch.cuda.empty_cache()
+    clock("quantized trees")
     run_int8_serving(q8, kernels)
     run_train_quant(q8, kernels, "int8", W8A8_FLOOR_FACTOR)
     del q8
@@ -6372,33 +6910,49 @@ def main() -> None:
     run_train_quant(nf4, kernels, "NF4", TRAIN_FLOOR_FACTOR)
     del nf4
     torch.cuda.empty_cache()
+    clock("int8 serving, int8 and NF4 training")
     print("route: dense on kernel_q4p at prefill and train M -> dequantize "
           "+ torch.matmul (K7 is measured beside it in check_w4_gemm and "
           "routed only where it wins); kernel_q4 -> nf4_dense; kernel_q -> "
           "int8_dense (W8A8 on)")
     run_train_quant(q4, kernels, "int4g", W8A8_FLOOR_FACTOR)
+    clock("int4g training")
     greedy_tokens = run_int4g(q4, kernels)
+    clock("int4g main path")
     run_beam_spec_int4g(q4, kernels, greedy_tokens)
+    clock("int4g beams, speculative decode, batch 80")
     if not quant_only:
+        run_mesh(q4, shards, greedy_tokens, kernels)
+        del shards
+        torch.cuda.empty_cache()
+        clock("mesh")
         run_graph_loops(q4, LLAVA_V15_7B, int4=True)
+        clock("int4g graph loops")
         run_serve_variants(q4, kernels)
+        clock("serve variants")
     del q4
     torch.cuda.empty_cache()
     if not quant_only:
-        run_mistral(kernels)
-        torch.cuda.empty_cache()
-        run_mpt(kernels)
-        torch.cuda.empty_cache()
+        for name, run in (("mistral-7b", run_mistral), ("mpt-7b", run_mpt)):
+            t0 = time.perf_counter()
+            run(kernels)
+            torch.cuda.empty_cache()
+            print(f"{name} phase: {time.perf_counter() - t0:.1f} s")
+            clock(name)
         run_gemma(kernels)
         torch.cuda.empty_cache()
+        clock("llava-gemma-2b")
         run_vila(kernels)
         torch.cuda.empty_cache()
+        clock("vila-13b-384")
         run_bench()
+        clock("bench")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "halva_tpu"))
     if loaded:
         raise AssertionError(f"JAX or the JAX package was imported: {loaded}")
-    print("imports: neither jax nor any module of the JAX package")
+    print("imports: neither jax nor any module of the JAX package (this "
+          "process; the two mesh ranks checked their own)")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     idle = [kern["name"] for kern in checked if not kern.get("launches")]

@@ -10,11 +10,16 @@ only when OPENAI_API_KEY is set, matching the reference's optional judge
 plumbing. The tokenizer comes from `transformers` and the images are
 decoded with Pillow, both on the host.
 
-The reference's arguments are kept: sampling (--temperature, --top-p) and
---continuous run as in the reference. Not ported yet, and refused before
-anything loads: device meshes (--mesh-data other than 0, --mesh-model
-other than 1; ROADMAP queue 1 item 10). --device (default cuda) names the
-device; the CPU runs the kernels' plain versions.
+The reference's arguments are kept: sampling (--temperature, --top-p),
+--continuous and the device mesh (--mesh-data N --mesh-model M) run as in
+the reference. A mesh runs one process a GPU under
+`torchrun --nproc-per-node N*M` (RANK / WORLD_SIZE from the environment,
+a world of another size is refused before anything loads); --mesh-model
+alone means data 1, and an int4 tree under a model axis > 1 is packed for
+it (quant_tp, HALVA_TP_IMPL=shmap). Every rank decodes its rows and rank 0
+writes the answers and scores. --device (default cuda: `cuda:LOCAL_RANK`
+under a mesh) names the device; the CPU runs the kernels' plain versions
+(and a mesh there runs on gloo).
 
 Usage:
   python -m halva_tpu_torch.evals.cli chair --model-path ... \
@@ -66,7 +71,7 @@ def _add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--length-penalty", type=float, default=1.0)
     p.add_argument("--tokenizer", default=None)
     p.add_argument("--answers-file", required=True)
-    # the reference's device mesh: not ported yet (item 10)
+    # the reference's device mesh: one process a GPU under torchrun
     p.add_argument("--mesh-data", type=int, default=0,
                    help="data-parallel mesh axis (0 = no mesh)")
     p.add_argument("--mesh-model", type=int, default=1,
@@ -89,18 +94,38 @@ def _add_model_args(p: argparse.ArgumentParser):
                         "kernels' plain versions)")
 
 
-def check_ported(args) -> None:
-    """Refuse the reference's options that the port does not run yet,
-    naming their ROADMAP items, before anything is loaded."""
-    unported = {
-        "--mesh-data / --mesh-model (device meshes)": (
-            args.mesh_data != 0 or args.mesh_model != 1, "item 10"),
-    }
-    asked = [f"{name}: ROADMAP queue 1 {item}"
-             for name, (on, item) in unported.items() if on]
-    if asked:
-        raise NotImplementedError(
-            "halva_tpu_torch.evals.cli: not ported yet: " + "; ".join(asked))
+def mesh_axes(args):
+    """(data, model) of the mesh the flags ask for, or None: --mesh-model
+    alone means data 1 (the reference's rule)."""
+    data, model = args.mesh_data, args.mesh_model or 1
+    if model > 1 and not data:
+        data = 1
+    return (data, model) if data else None
+
+
+def check_world(axes) -> None:
+    """Refuse a mesh whose size is not the world's, before anything
+    loads."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if axes is not None and axes[0] * axes[1] != world:
+        raise ValueError(
+            f"{axes[0]}x{axes[1]} != {world} devices: run the mesh under "
+            f"torchrun --nproc-per-node {axes[0] * axes[1]}")
+
+
+def _device(args, axes) -> str:
+    """--device; under a mesh on the card, this rank's card."""
+    if axes is not None and args.device == "cuda":
+        return f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    return args.device
+
+
+def is_writer(gen) -> bool:
+    """Whether this process writes the answers and scores: rank 0 of a
+    mesh, or the one process."""
+    import torch.distributed as dist
+
+    return gen.mesh is None or dist.get_rank() == 0
 
 
 def _build_generator(args):
@@ -111,7 +136,18 @@ def _build_generator(args):
     from halva_tpu_torch.models.builder import load_pretrained_model
     from halva_tpu_torch.utils.phases import phase
 
-    check_ported(args)
+    axes = mesh_axes(args)
+    check_world(axes)
+    device = _device(args, axes)
+    mesh = None
+    if axes is not None:
+        from halva_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(data=axes[0], model=axes[1], device=device)
+    quant_tp = 1
+    if (args.quant in ("int4", "int4g") and axes is not None and axes[1] > 1
+            and os.environ.get("HALVA_TP_IMPL", "shmap") == "shmap"):
+        quant_tp = axes[1]
     tok_src = args.tokenizer or args.model_base or args.model_path
     with phase("tokenizer_load"):
         try:
@@ -134,7 +170,8 @@ def _build_generator(args):
             vision_tower_path=args.vision_tower_path,
             quant=args.quant,
             tokenizer=tokenizer,
-            device=args.device,
+            quant_tp=quant_tp,
+            device=device,
         )
     return BatchedGenerator(
         params,
@@ -151,6 +188,7 @@ def _build_generator(args):
         top_p=args.top_p,
         num_beams=getattr(args, "num_beams", 1),
         length_penalty=getattr(args, "length_penalty", 1.0),
+        mesh=mesh,
         prefetch_workers=getattr(args, "prefetch_workers", 0),
         kv_quant=getattr(args, "kv_quant", False),
         continuous=getattr(args, "continuous", False),
@@ -167,6 +205,8 @@ def cmd_chair(args):
     gen = _build_generator(args)
     t0 = time.time()
     texts = gen.run(reqs)
+    if not is_writer(gen):  # rank 0 of a mesh writes
+        return
     dt = time.time() - t0
     print(f"generated {len(reqs)} captions in {dt:.1f}s "
           f"({len(reqs)/dt:.2f} imgs/sec)")
@@ -200,6 +240,8 @@ def cmd_pope(args):
     )
     gen = _build_generator(args)
     texts = gen.run(reqs)
+    if not is_writer(gen):  # rank 0 of a mesh writes
+        return
     write_answers_jsonl(args.answers_file, reqs, texts, MODEL_ID)
     if args.annotation_dir:
         out = eval_pope_files(
@@ -215,6 +257,8 @@ def cmd_amber(args):
     reqs = amber_requests(args.query_file, args.image_folder)
     gen = _build_generator(args)
     texts = gen.run(reqs)
+    if not is_writer(gen):  # rank 0 of a mesh writes
+        return
     for r, t in zip(reqs, texts):
         r.extra["response"] = t
     write_answers_jsonl(args.answers_file, reqs, texts, MODEL_ID)
@@ -241,6 +285,8 @@ def cmd_mme(args):
     )
     gen = _build_generator(args)
     texts = gen.run(reqs)
+    if not is_writer(gen):  # rank 0 of a mesh writes
+        return
     write_answers_jsonl(args.answers_file, reqs, texts, MODEL_ID)
     if args.mme_data:
         answers = [json.loads(l) for l in open(args.answers_file)]
@@ -258,6 +304,8 @@ def cmd_mmhal(args):
     reqs = mmhal_requests(data, args.image_folder)
     gen = _build_generator(args)
     texts = gen.run(reqs)
+    if not is_writer(gen):  # rank 0 of a mesh writes
+        return
     write_answers_jsonl(args.answers_file, reqs, texts, MODEL_ID)
 
     if os.environ.get("OPENAI_API_KEY"):
@@ -294,6 +342,8 @@ def cmd_hallusionbench(args):
     reqs = hallusion_requests(data, args.image_folder)
     gen = _build_generator(args)
     texts = gen.run(reqs)
+    if not is_writer(gen):  # rank 0 of a mesh writes
+        return
     write_answers_jsonl(args.answers_file, reqs, texts, MODEL_ID)
 
     rows = []
@@ -317,8 +367,10 @@ def cmd_hallusionbench(args):
 def cmd_suite(args):
     """Full hallucination suite with ONE model load (the reference's
     eval_hall_suite.sh reloads the model per benchmark; here the loaded
-    params are shared and only prompts/images change)."""
+    params are shared and only prompts/images change). Under a mesh every
+    rank decodes every set and rank 0 writes and scores."""
     gen = _build_generator(args)
+    writer = is_writer(gen)
     out_dir = os.path.dirname(os.path.abspath(args.answers_file)) or "."
     results = {}
 
@@ -334,10 +386,11 @@ def cmd_suite(args):
         t0 = time.time()
         texts = gen.run(reqs)
         results["chair_imgs_per_sec"] = round(len(reqs) / (time.time() - t0), 3)
-        write_answers_jsonl(
-            os.path.join(out_dir, "chair.jsonl"), reqs, texts, MODEL_ID
-        )
-        if args.coco_path:
+        if writer:
+            write_answers_jsonl(
+                os.path.join(out_dir, "chair.jsonl"), reqs, texts, MODEL_ID
+            )
+        if writer and args.coco_path:
             from halva_tpu_torch.evals.chair import ChairEvaluator
 
             ev = ChairEvaluator.from_coco(args.coco_path)
@@ -349,8 +402,9 @@ def cmd_suite(args):
         reqs = vqa_requests(args.pope_question_file, args.pope_image_folder)
         texts = gen.run(reqs)
         pope_path = os.path.join(out_dir, "pope.jsonl")
-        write_answers_jsonl(pope_path, reqs, texts, MODEL_ID)
-        if args.pope_annotation_dir:
+        if writer:
+            write_answers_jsonl(pope_path, reqs, texts, MODEL_ID)
+        if writer and args.pope_annotation_dir:
             from halva_tpu_torch.evals.pope import eval_pope_files
 
             results["pope"] = eval_pope_files(
@@ -360,10 +414,11 @@ def cmd_suite(args):
     if args.amber_query_file:
         reqs = amber_requests(args.amber_query_file, args.amber_image_folder)
         texts = gen.run(reqs)
-        write_answers_jsonl(
-            os.path.join(out_dir, "amber.jsonl"), reqs, texts, MODEL_ID
-        )
-        if args.amber_anno_dir:
+        if writer:
+            write_answers_jsonl(
+                os.path.join(out_dir, "amber.jsonl"), reqs, texts, MODEL_ID
+            )
+        if writer and args.amber_anno_dir:
             from halva_tpu_torch.evals.amber import AmberEvaluator
 
             ev = AmberEvaluator.from_files(
@@ -384,13 +439,16 @@ def cmd_suite(args):
         )
         texts = gen.run(reqs)
         mme_path = os.path.join(out_dir, "mme.jsonl")
-        write_answers_jsonl(mme_path, reqs, texts, MODEL_ID)
-        if args.mme_data:
+        if writer:
+            write_answers_jsonl(mme_path, reqs, texts, MODEL_ID)
+        if writer and args.mme_data:
             from halva_tpu_torch.evals.mme import score_mme
 
             answers = [json.loads(l) for l in open(mme_path)]
             results["mme"] = score_mme(answers, args.mme_data)
 
+    if not writer:
+        return
     with open(args.answers_file, "w") as f:
         json.dump(results, f, indent=2, default=str)
     print(json.dumps(results, indent=2, default=str))
@@ -471,6 +529,10 @@ def main(argv: Optional[List[str]] = None):
         from halva_tpu_torch.utils.phases import dump
 
         dump()
+        import torch.distributed as dist
+
+        if mesh_axes(args) is not None and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

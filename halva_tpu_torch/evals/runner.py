@@ -1,4 +1,4 @@
-"""Batched evaluation generation on one device.
+"""Batched evaluation generation on one device or a device mesh.
 
 Counterpart of halva_tpu/evals/runner.py's BatchedGenerator for greedy
 decode, nucleus sampling (`temperature` > 0, `top_p`), beam search
@@ -13,10 +13,13 @@ Quantized trees (int8, int4) and quantized KV caches (`kv_quant`) run.
 With `prefetch_workers` > 0 the host work of each batch (image decode on a
 thread pool, padding) runs in a lookahead thread (utils/prefetch.py) while
 the device decodes the batch before. The constructor takes the
-reference's arguments; device meshes are not ported yet: `mesh=None`
-passes, any other raises NotImplementedError naming its ROADMAP item. PIL
-and mm_utils are imported where an image or a prompt is processed, so
-importing this module needs neither.
+reference's arguments. With a `mesh` (parallel/mesh.py, one process a
+GPU) every rank builds the same batches, places the weights once for their
+route (parallel/partition.place_serving), decodes the rows of its data
+index and gets every row's text back; the reference's refusals hold
+(continuous, speculative, beams with a model axis, a batch that does not
+divide the data axis). PIL and mm_utils are imported where an image or a
+prompt is processed, so importing this module needs neither.
 
 The request builders of the reference's loader scripts (`chair_requests`,
 `vqa_requests`, `amber_requests`, `mmhal_requests`, `hallusion_requests`)
@@ -40,6 +43,8 @@ from halva_tpu_torch.config import LlavaConfig
 from halva_tpu_torch.ops.beam import generate_beam
 from halva_tpu_torch.ops.generate import decode_tokens, generate
 from halva_tpu_torch.ops.speculative import generate_speculative
+from halva_tpu_torch.parallel import partition
+from halva_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 
 CHAIR_PROMPT = "Describe the image in detail."
 _DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
@@ -109,27 +114,33 @@ class BatchedGenerator:
         top_p: float = 1.0,
         num_beams: int = 1,
         length_penalty: float = 1.0,
-        seed: int = 0,  # sampling only: batch bi draws from seed + bi * B
+        # sampling only: batch bi draws from seed + bi * B (+ d * B / dp on
+        # data shard d of a mesh: ops/generate.py)
+        seed: int = 0,
         mesh=None,
         prefetch_workers: int = 0,
         kv_quant=False,  # False | True | "int8" | "int4"
         continuous: bool = False,
         spec_k: int = 0,  # >= 2: speculative greedy decode
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "BatchedGenerator: not ported yet: mesh (multi-GPU): "
-                "ROADMAP queue 1 item 10 (the port runs single-device "
-                "decode)")
-        if spec_k >= 2 and (num_beams > 1 or temperature > 0 or continuous):
+        if spec_k >= 2 and (num_beams > 1 or temperature > 0 or continuous
+                            or mesh is not None):
             raise ValueError(
                 "spec_k is single-device greedy decode (ops/speculative.py); "
-                "drop num_beams / temperature / continuous"
+                "drop num_beams / temperature / continuous / mesh"
             )
         if continuous and (num_beams > 1 or temperature > 0):
             raise ValueError(
                 "continuous is greedy single-beam decode "
                 "(ops/continuous.py); drop num_beams / temperature")
+        if continuous and mesh is not None:
+            raise ValueError(
+                "continuous runs single-device; drop mesh or use "
+                "num_chunks fanout")
+        if num_beams > 1 and mesh is not None and mesh.size(MODEL_AXIS) > 1:
+            raise ValueError(
+                "num_beams > 1 supports {data: N} meshes only (ops/beam.py); "
+                "drop the model axis or use num_chunks fanout")
         if num_beams > 1 and temperature > 0:
             raise ValueError("beam search is deterministic; drop "
                              "temperature or num_beams")
@@ -138,6 +149,14 @@ class BatchedGenerator:
                 f"spec_k must be 0 or >= 2 and num_beams >= 1, got "
                 f"spec_k={spec_k} num_beams={num_beams}"
             )
+        if mesh is not None:
+            if batch_size % mesh.size(DATA_AXIS):
+                raise ValueError(
+                    f"batch_size {batch_size} must be a multiple of the "
+                    f"mesh data axis size ({mesh.size(DATA_AXIS)})")
+            # placed once, in the layout every generate call expects
+            params = partition.place_serving(params, cfg, mesh)
+        self.mesh = mesh
         self.params = params
         self.cfg = cfg
         self.tok = tokenizer
@@ -159,7 +178,8 @@ class BatchedGenerator:
         self.prefetch_workers = prefetch_workers
         self.eos_id = tokenizer.eos_token_id
         # any tensor leaf: a quantized tree has embedding_q, not embedding
-        self.device = next(t for _, t in tree.flatten(params["llm"])
+        local = params.params if mesh is not None else params
+        self.device = next(t for _, t in tree.flatten(local["llm"])
                            if isinstance(t, torch.Tensor)).device
         self.last_stats: Dict = {}
 
@@ -321,9 +341,11 @@ class BatchedGenerator:
                     eos_id=self.eos_id,
                     attn_impl=self.attn_impl,
                     kv_quant=self.kv_quant,
+                    mesh=self.mesh,
                 )
                 with torch.inference_mode():
                     if self.spec_k >= 2:
+                        kwargs.pop("mesh")
                         tokens, num, sstats = generate_speculative(
                             *args, draft_k=self.spec_k, **kwargs)
                         spec_steps += sstats["verify_steps"]

@@ -28,8 +28,10 @@ same: an fp32 copy is made only where the reference computes in fp32 on
 something that is not the file's value (a LoRA merge, a vocab extension),
 so the tree equals the reference's leaf for leaf, bit for bit.
 
-Not ported yet: tensor-parallel int4 packing (quant_tp > 1, ROADMAP queue
-1 item 10).
+`quant_tp` > 1 packs an int4 tree for a quant_tp-way manual-TP mesh
+(w4_matmul.quantize_params_int4(tp=)), where the tree and config qualify
+for that route (parallel/partition.manual_tp_ready), as the reference
+does.
 """
 
 from __future__ import annotations
@@ -311,10 +313,6 @@ def load_pretrained_model(
 
     if quant not in QUANTS:
         raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
-    if quant_tp != 1:
-        raise NotImplementedError(
-            "tensor-parallel int4 packing (quant_tp > 1) is not ported yet "
-            "(ROADMAP queue 1 item 10, multi-GPU)")
 
     def put_leaf(x: torch.Tensor) -> torch.Tensor:
         # int8 payloads, bf16 scales and integer metadata keep their dtype
@@ -406,8 +404,18 @@ def load_pretrained_model(
             if quant in ("int4", "int4g"):
                 from halva_tpu_torch.ops.w4_matmul import quantize_params_int4
 
+                from halva_tpu_torch.parallel.partition import (
+                    manual_tp_ready,
+                )
+
+                # tp-packed only where the manual-TP route will take the
+                # tree: anywhere else its channels are block-permuted
+                eff_tp = quant_tp
+                if eff_tp > 1 and not manual_tp_ready(params, cfg, eff_tp):
+                    eff_tp = 1
                 params = quantize_params_int4(
-                    params, group_size=128 if quant == "int4g" else None)
+                    params, group_size=128 if quant == "int4g" else None,
+                    tp=eff_tp)
             else:
                 from halva_tpu_torch.ops.quant import quantize_params
 

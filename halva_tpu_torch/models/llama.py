@@ -28,8 +28,16 @@ ALiBi decode step, and a windowed one whose cache outgrows the window, take
 the position-aware plain attention (`decode_step`, the reference's rule).
 `verify_step` and per-row gen validity are RoPE-only without a window, as
 in the reference.
-Not ported yet (it raises NotImplementedError naming its ROADMAP slice):
-tensor parallelism.
+
+Manual tensor parallelism (`tp`, `tp_group`: prefill, decode_step and the
+packed-int4 step, the reference's tp / tp_axis): the caller passes this
+rank's shards of the layer stacks (parallel/partition.eval_shmap_pspecs:
+wq/wk/wv/gate/up by output columns, wo/down by input rows); the model
+computes on its num_heads/tp and kv_heads/tp local heads (the caches hold
+them) and all-reduces the outputs of wo and down over `tp_group`, so the
+kernels run unchanged on the local shards. Gather-at-use (the other route)
+hands `layer_slice` a partition.GatheredLayers, whose layers arrive
+all-gathered.
 
 Shapes: B batch, S sequence, D hidden, H heads, Dh head dim, V vocab.
 """
@@ -61,6 +69,8 @@ from halva_tpu_torch.ops.w4_matmul import (
     w4_dense_stacked_plain,
     w4a8_dense,
 )
+from halva_tpu_torch.parallel.mesh import all_reduce
+from halva_tpu_torch.parallel.partition import GatheredLayers
 
 Params = Dict[str, Any]
 
@@ -190,7 +200,10 @@ def _norm(cfg: LlamaConfig, x: torch.Tensor, scale: torch.Tensor):
 
 
 def layer_slice(layers: Params, li: int) -> Params:
-    """Layer `li` of the stacked layer tree (views, no copies)."""
+    """Layer `li` of the stacked layer tree (views, no copies; a
+    GatheredLayers all-gathers its shards of the layer)."""
+    if isinstance(layers, GatheredLayers):
+        return layers.layer(li)
     if isinstance(layers, dict):
         return {k: layer_slice(v, li) for k, v in layers.items()}
     return layers[li]
@@ -204,11 +217,30 @@ def _mlp(cfg: LlamaConfig, y: torch.Tensor, mp: Params) -> torch.Tensor:
     return dense(act(dense(y, mp["up"])), mp["down"])
 
 
-def _attn_block(cfg, lp, x, cos, sin, segment_ids, attn_impl):
+def _tp_reduce(tp: int, tp_group):
+    """The sum over the model group of a row-split dense's output (the
+    reference's psum); the identity without TP."""
+    if tp > 1:
+        return lambda y: all_reduce(y, tp_group)
+    return lambda y: y
+
+
+def _local_heads(cfg: LlamaConfig, tp: int) -> Tuple[int, int]:
+    if tp > 1 and cfg.position_embedding == "alibi":
+        raise ValueError("manual TP takes no ALiBi: the kernels derive a "
+                         "head's slope from its index "
+                         "(parallel/partition.manual_tp_ready)")
+    return cfg.num_heads // tp, cfg.kv_heads // tp
+
+
+def _attn_block(cfg, lp, x, cos, sin, segment_ids, attn_impl, tp=1,
+                red=None):
     """Pre-norm attention sublayer; returns (x + attn, k (roped under RoPE),
-    v)."""
+    v). Under manual TP (`tp` local heads' shards) `red` all-reduces wo's
+    output."""
     b, s, _ = x.shape
-    h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_size
+    h, kvh = _local_heads(cfg, tp)
+    dh = cfg.head_size
     ap = lp["attn"]
     y = _norm(cfg, x, lp["input_norm"]["scale"])
     q = dense(y, ap["wq"]).reshape(b, s, h, dh)
@@ -222,7 +254,8 @@ def _attn_block(cfg, lp, x, cos, sin, segment_ids, attn_impl):
                     impl=attn_impl,
                     alibi=cfg.position_embedding == "alibi",
                     sliding_window=cfg.sliding_window)
-    return x + dense(out.reshape(b, s, h * dh), ap["wo"]), k, v
+    o = dense(out.reshape(b, s, h * dh), ap["wo"])
+    return x + (o if red is None else red(o)), k, v
 
 
 def _layer(cfg, attn_impl, x, lp, cos, sin, segment_ids):
@@ -333,13 +366,15 @@ def init_gen_cache(
     dtype=torch.bfloat16,
     device="cuda",
     quantized: bool = False,
+    tp: int = 1,
 ) -> Params:
     """Zeroed gen cache (L, B, KVH, Sg, Dh); quantized: int8 values with
     per-(head, slot) bf16 scales (ones). Sg is max_new rounded up to a
     multiple of 128, as in the reference, so the shapes agree; slots past
-    the current step stay invalid."""
+    the current step stay invalid. Under manual TP it holds the kv_heads/tp
+    local heads."""
     sg = -(-max_new // 128) * 128
-    shape = (cfg.num_layers, batch, cfg.kv_heads, sg, cfg.head_size)
+    shape = (cfg.num_layers, batch, cfg.kv_heads // tp, sg, cfg.head_size)
     if quantized:
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -408,6 +443,8 @@ def prefill(
     cache_dtype=torch.bfloat16,
     attn_impl: str = "auto",
     quantize_cache=False,
+    tp: int = 1,
+    tp_group=None,
 ) -> Tuple[torch.Tensor, Params]:
     """Full-sequence forward writing the prompt cache.
 
@@ -415,14 +452,17 @@ def prefill(
     False = `cache_dtype` {k, v}; True | "int8" = int8 values + per-(token,
     head) scales; "int4" = nibble-packed token pairs (an odd S gets one
     dead padding slot). Prompts are right-padded; padding keys carry
-    segment id 0 so decode steps never attend to them."""
+    segment id 0 so decode steps never attend to them. tp / tp_group:
+    manual TP on this rank's shards (module docstring); the cache holds
+    the local heads."""
     if quantize_cache not in KV_QUANT:
         raise ValueError(f"quantize_cache must be one of {KV_QUANT}, got "
                          f"{quantize_cache!r}")
     b, s, _ = inputs_embeds.shape
     cos, sin = rope_cos_sin(positions, cfg.head_size, cfg.rope_theta,
                             cfg.rope_scaling)
-    nl, kvh, dh = cfg.num_layers, cfg.kv_heads, cfg.head_size
+    nl, kvh, dh = cfg.num_layers, _local_heads(cfg, tp)[1], cfg.head_size
+    red = _tp_reduce(tp, tp_group)
     dev = inputs_embeds.device
 
     def empty(shape, dtype):
@@ -445,9 +485,10 @@ def prefill(
     x = inputs_embeds
     for li in range(nl):
         lp = layer_slice(params["layers"], li)
-        x, k, v = _attn_block(cfg, lp, x, cos, sin, segment_ids, attn_impl)
-        x = x + _mlp(cfg, _norm(cfg, x, lp["post_attn_norm"]["scale"]),
-                     lp["mlp"])
+        x, k, v = _attn_block(cfg, lp, x, cos, sin, segment_ids, attn_impl,
+                              tp, red)
+        x = x + red(_mlp(cfg, _norm(cfg, x, lp["post_attn_norm"]["scale"]),
+                         lp["mlp"]))
         _store_prompt_kv(cache, li, k.transpose(1, 2), v.transpose(1, 2),
                          quantize_cache)
     return _norm(cfg, x, params["final_norm"]["scale"]), cache
@@ -553,6 +594,8 @@ def decode_step(
     beam_route: str = "auto",
     gen_valid_override: Optional[torch.Tensor] = None,
     write_slot: Optional[Step] = None,
+    tp: int = 1,
+    tp_group=None,
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step: (fp32 logits (B, V), gen cache). The new token's KV
     goes to gen slot `step` (lockstep across rows; a host int or, as the
@@ -582,12 +625,16 @@ def decode_step(
     slot `write_slot` instead of `step`, and validity is the caller's per-row
     ring mask instead of the lockstep `slot <= step`. K4 reads validity per
     slot either way. RoPE only, without a window, as in the reference: the
-    key positions of ALiBi and a window assume lockstep gen slots."""
+    key positions of ALiBi and a window assume lockstep gen slots.
+
+    tp / tp_group: manual TP on this rank's shards (module docstring); the
+    caches hold the local heads."""
     b = token_embeds.shape[0]
     if beam_k < 1 or b % beam_k or prompt_seg.shape[0] * beam_k != b:
         raise ValueError(f"decode_step: {b} rows are not beam_k={beam_k} "
                          f"beams of {prompt_seg.shape[0]} prompt rows")
-    h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_size
+    (h, kvh), dh = _local_heads(cfg, tp), cfg.head_size
+    red = _tp_reduce(tp, tp_group)
     sg = gen_cache["k"].shape[3]
     rope = cfg.position_embedding == "rope"
     cos, sin = rope_cos_sin(positions[:, None], dh, cfg.rope_theta,
@@ -612,7 +659,8 @@ def decode_step(
     elif "kernel_q4p" in params["layers"]["attn"]["wq"]:
         return _decode_step_w4(params, cfg, token_embeds, prompt_cache,
                                prompt_seg, gen_cache, write_slot, cos, sin,
-                               gen_valid, attn_impl, beam_k, beam_route)
+                               gen_valid, attn_impl, beam_k, beam_route, tp,
+                               red)
     x = token_embeds
     for li in range(cfg.num_layers):
         lp = layer_slice(params["layers"], li)
@@ -627,9 +675,9 @@ def decode_step(
         out = _decode_attend(q, _layer_cache(prompt_cache, li), prompt_seg,
                              _layer_cache(gen_cache, li), gen_valid,
                              attn_impl, beam_k, beam_route, bias_p, bias_g)
-        x = x + dense(out.reshape(b, 1, h * dh), ap["wo"])
-        x = x + _mlp(cfg, _norm(cfg, x, lp["post_attn_norm"]["scale"]),
-                     lp["mlp"])
+        x = x + red(dense(out.reshape(b, 1, h * dh), ap["wo"]))
+        x = x + red(_mlp(cfg, _norm(cfg, x, lp["post_attn_norm"]["scale"]),
+                         lp["mlp"]))
     hidden = _norm(cfg, x, params["final_norm"]["scale"])
     return lm_logits(params, cfg, hidden)[:, 0], gen_cache
 
@@ -645,7 +693,7 @@ def _w4_mm(attn_impl: str, head_dim: int):
 
 def _decode_step_w4(params, cfg, token_embeds, prompt_cache, prompt_seg,
                     gen_cache, write_slot, cos, sin, gen_valid, attn_impl,
-                    beam_k=1, beam_route="auto"):
+                    beam_k=1, beam_route="auto", tp=1, red=None):
     """decode_step over packed-int4 layer stacks: all 7 layer matmuls go
     through K6 or, above W4_GEMV_MAX_ROWS rows, K7
     (ops/w4_matmul.w4_decode_matmul) on (B, K) rows and attention through
@@ -653,11 +701,13 @@ def _decode_step_w4(params, cfg, token_embeds, prompt_cache, prompt_seg,
     Layer biases are not read, as in the reference. A plain route (named, or
     "auto" at a head dim the kernels are not built for, where the reference
     does not run its w4 decode step either) takes the plain versions of all
-    of them."""
+    of them. Under manual TP (`tp` local heads' shards, tp-packed columns)
+    `red` all-reduces the outputs of wo and down."""
     mm = _w4_mm(attn_impl, cfg.head_size)
     act = _mlp_act(cfg)
+    red = red or _tp_reduce(1, None)
     b = token_embeds.shape[0]
-    h, kvh, dh = cfg.num_heads, cfg.kv_heads, cfg.head_size
+    (h, kvh), dh = _local_heads(cfg, tp), cfg.head_size
     x = token_embeds
     for li in range(cfg.num_layers):
         lp = layer_slice(params["layers"], li)
@@ -670,13 +720,13 @@ def _decode_step_w4(params, cfg, token_embeds, prompt_cache, prompt_seg,
         out = _decode_attend(q, _layer_cache(prompt_cache, li), prompt_seg,
                              _layer_cache(gen_cache, li), gen_valid,
                              attn_impl, beam_k, beam_route)
-        x = x + mm(out.reshape(b, h * dh), ap["wo"])[:, None]
+        x = x + red(mm(out.reshape(b, h * dh), ap["wo"]))[:, None]
         y2 = _norm(cfg, x, lp["post_attn_norm"]["scale"])[:, 0]
         if cfg.gated_mlp:
             mlp = mm(act(mm(y2, mp["gate"])) * mm(y2, mp["up"]), mp["down"])
         else:
             mlp = mm(act(mm(y2, mp["up"])), mp["down"])
-        x = x + mlp[:, None]
+        x = x + red(mlp)[:, None]
     hidden = _norm(cfg, x, params["final_norm"]["scale"])
     return lm_logits(params, cfg, hidden)[:, 0], gen_cache
 

@@ -2,7 +2,8 @@
 
 Counterpart of halva_tpu/ops/beam.py (HF beam-search semantics:
 transformers' vectorized `_beam_search`, do_sample=False,
-early_stopping=False), single device:
+early_stopping=False), on one device or, over a {data: N} mesh, on every
+rank's rows (an item's beams stay on one rank):
 
 - B items expand to B*K rows after one shared prefill; candidates are the
   top 2K of the (K*V) frontier; finished hypotheses live in a (B, K) set
@@ -45,7 +46,14 @@ import torch
 from halva_tpu_torch.config import LlavaConfig
 from halva_tpu_torch.models import llama
 from halva_tpu_torch.ops import graph_loop
-from halva_tpu_torch.ops.generate import _prefill_impl, init_gen_cache_like
+from halva_tpu_torch.ops.generate import (
+    _prefill_impl,
+    gather_rows,
+    init_gen_cache_like,
+    shard_rows,
+)
+from halva_tpu_torch.parallel import partition
+from halva_tpu_torch.parallel.mesh import MODEL_AXIS
 
 Params = Dict[str, Any]
 
@@ -301,20 +309,37 @@ def generate_beam(
     ops/decode_attention.auto_beam_route). `stats`,
     when given, receives "steps" (loop iterations) and "best_scores" ((B,)
     penalized score of each returned hypothesis). `graph`, `loop_stats`:
-    graph_loop.run_loop's `graph` and `stats`."""
+    graph_loop.run_loop's `graph` and `stats`.
+
+    mesh: a {data: N} mesh, the whole batch on every rank (it must divide
+    N); each rank searches its items' rows with the single-device program
+    and every rank gets every item's result (`stats` holds this rank's
+    steps). `params` is the tree or its "data" placement."""
     if num_beams < 2:
         raise ValueError("generate_beam needs num_beams >= 2; use "
                          "ops.generate.generate_greedy for greedy")
+    if mesh is not None and mesh.size(MODEL_AXIS) > 1:
+        raise ValueError("beam search supports {data: N} meshes only; "
+                         "tensor-parallel beams are not implemented")
+    if isinstance(params, partition.Placed):
+        params = params.params
+    stamp = partition.w4_pack_stamp(params)
+    if stamp > 1:
+        raise ValueError(
+            f"params are int4-packed for manual TP={stamp} (w4_pack_tp); "
+            "beam search has no TP mode — requantize with "
+            "quantize_params_int4(tp=1)")
     if mesh is not None:
-        raise NotImplementedError(
-            "generate_beam: device meshes are not ported yet (ROADMAP queue "
-            "1 item 10: meshes and data parallelism)")
+        (input_ids, images, prompt_lengths), _ = shard_rows(
+            mesh, input_ids, images, prompt_lengths)
     _, first_logits, spliced_len, prompt_cache, prompt_seg = _prefill_impl(
         params, cfg, input_ids, images, prompt_lengths, attn_impl, kv_quant)
     tokens, num, steps, best = _beam_decode_impl(
         params, cfg, first_logits, spliced_len, prompt_cache, prompt_seg,
         max_new_tokens, eos_id, num_beams, length_penalty, attn_impl,
         beam_route, graph, loop_stats)
+    if mesh is not None:
+        tokens, num, best = gather_rows(mesh, tokens, num, best)
     if stats is not None:
         stats["steps"] = steps
         stats["best_scores"] = best

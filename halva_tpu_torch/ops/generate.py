@@ -19,6 +19,17 @@ Gumbel noise is a pure function of (seed, step, row, vocab index), a
 counter-based hash in integer tensor ops keyed by the 0-d device step. So
 every replay of the graph draws fresh numbers without a host read, and one
 seed gives the same tokens from a graph, eagerly, and on the CPU.
+
+Under a mesh (`generate(mesh=)`, parallel/mesh.py: one process per GPU)
+every rank is given the whole batch and decodes the rows of its data index
+with the single-device program, on the route its tree was placed for
+(parallel/partition.place_serving): the whole tree ("data"), manual TP on
+its shards with the two all-reduces of a layer ("manual_tp"), or
+gather-at-use ("gather"). The tokens are then all-gathered over the data
+axis, so every rank returns the whole batch's. The reference's rng rule
+(halva_tpu/ops/generate.py:405-411) becomes a seed rule: data shard d
+draws from seed + d * (its rows), so identical prompts on two shards draw
+apart and model shards, which hold the same rows, draw in lockstep.
 """
 
 from __future__ import annotations
@@ -33,6 +44,8 @@ from halva_tpu_torch.config import LlavaConfig
 from halva_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from halva_tpu_torch.models import llama, llava
 from halva_tpu_torch.ops import graph_loop
+from halva_tpu_torch.parallel import partition
+from halva_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, all_gather
 
 Params = Dict[str, Any]
 
@@ -45,10 +58,12 @@ def _prefill_impl(
     prompt_lengths: torch.Tensor,  # (B,) valid tokens before the splice
     attn_impl: str = "auto",
     kv_quant=False,
+    tp: int = 1,
+    tp_group=None,
 ):
     """Returns (first token (B,) int32, first logits (B, V) fp32, spliced
     lengths (B,), prompt cache in the `kv_quant` format, spliced segment
-    ids (B, S + T - 1))."""
+    ids (B, S + T - 1)). tp / tp_group: manual TP (llama.prefill)."""
     b, s = input_ids.shape
     dev = input_ids.device
     seg = (torch.arange(s, device=dev)[None, :]
@@ -58,7 +73,7 @@ def _prefill_impl(
     hidden, prompt_cache = llama.prefill(
         params["llm"], cfg.llm, sp.embeds, sp.segment_ids, sp.positions,
         cache_dtype=torch.bfloat16, attn_impl=attn_impl,
-        quantize_cache=kv_quant,
+        quantize_cache=kv_quant, tp=tp, tp_group=tp_group,
     )
     has_img = (input_ids == IMAGE_TOKEN_INDEX).any(dim=1)
     spliced_len = prompt_lengths + has_img.to(prompt_lengths.dtype) * (
@@ -139,14 +154,14 @@ def _select_token(logits: torch.Tensor, temperature: float, top_p: float,
 
 
 def init_gen_cache_like(cfg_llm, rows: int, max_new_tokens: int,
-                        prompt_cache: Params) -> Params:
+                        prompt_cache: Params, tp: int = 1) -> Params:
     """Generated-token cache on the prompt cache's device: int8 for an int8
     or int4 prompt cache (both carry `k_scale`), the prompt dtype
-    otherwise."""
+    otherwise; the kv_heads/tp local heads under manual TP."""
     k = prompt_cache["k4" if "k4" in prompt_cache else "k"]
     return llama.init_gen_cache(cfg_llm, rows, max_new_tokens, dtype=k.dtype,
                                 device=k.device,
-                                quantized="k_scale" in prompt_cache)
+                                quantized="k_scale" in prompt_cache, tp=tp)
 
 
 class DecodeState(NamedTuple):
@@ -171,12 +186,15 @@ def decode_loop(
     temperature: float = 0.0,
     top_p: float = 1.0,
     seed: int = 0,
+    tp: int = 1,
+    tp_group=None,
 ) -> Tuple[DecodeState, List[Callable[[], None]]]:
     """The decode loop's state, made before any step (a CUDA graph captures
     the body over it), and its body: one step, in place — emit `cur`
     (eos_id on done rows), embed it, `decode_step` at the device step,
     select the next token (`_select_token` keyed by that step), step + 1 —
-    reading nothing on the host."""
+    reading nothing on the host. tp / tp_group: manual TP
+    (llama.decode_step)."""
     b = first_tok.shape[0]
     dev = first_tok.device
     state = DecodeState(
@@ -186,7 +204,7 @@ def decode_loop(
         done=spliced_len == 0,  # dead rows
         step=torch.zeros((), dtype=torch.long, device=dev),
         gen_cache=init_gen_cache_like(cfg.llm, b, max_new_tokens,
-                                      prompt_cache))
+                                      prompt_cache, tp))
 
     tokens, cur, done, step, gen_cache = state
 
@@ -197,7 +215,8 @@ def decode_loop(
         embeds = llama.embed(params["llm"], tok[:, None])
         logits, _ = llama.decode_step(
             params["llm"], cfg.llm, embeds, spliced_len + step, prompt_cache,
-            prompt_seg, gen_cache, step, attn_impl=attn_impl)
+            prompt_seg, gen_cache, step, attn_impl=attn_impl, tp=tp,
+            tp_group=tp_group)
         cur.copy_(_select_token(logits, temperature, top_p, seed, step))
         step.add_(1)
 
@@ -219,16 +238,22 @@ def _decode_impl(
     temperature: float = 0.0,
     top_p: float = 1.0,
     seed: int = 0,
+    tp: int = 1,
+    tp_group=None,
+    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Decode loop: (tokens (B, max_new) int32, num_generated (B,), steps).
     Slots past the last step hold 0; tokens after a row's EOS are eos_id.
-    `graph`, `loop_stats`: graph_loop.run_loop's `graph` and `stats`."""
+    `graph`, `loop_stats`, `group` (the process group the body's
+    collectives run on): graph_loop.run_loop's `graph`, `stats` and
+    `group`."""
     state, bodies = decode_loop(params, cfg, first_tok, spliced_len,
                                 prompt_cache, prompt_seg, max_new_tokens,
-                                eos_id, attn_impl, temperature, top_p, seed)
+                                eos_id, attn_impl, temperature, top_p, seed,
+                                tp, tp_group)
     steps = graph_loop.run_loop(
         bodies, lambda: not bool(state.done.all()), max_new_tokens,
-        first_tok.device, graph, loop_stats)
+        first_tok.device, graph, loop_stats, group=group)
     tokens = state.tokens
     written = torch.arange(max_new_tokens, device=tokens.device)[None] < steps
     num = ((tokens != eos_id) & written).sum(dim=1).to(torch.int32)
@@ -265,25 +290,87 @@ def generate(
     per-(token, head) scales; "int4" = nibble-packed token pairs. The gen
     cache is int8 whenever the prompt cache is quantized. The decode loop
     runs from a CUDA graph on the card (`graph`, `loop_stats`:
-    graph_loop.run_loop's `graph` and `stats`)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "generate(mesh=...): not ported yet: device meshes are ROADMAP "
-            "queue 1 item 10")
+    graph_loop.run_loop's `graph` and `stats`; under a gloo group whose
+    collectives the loop runs, graph=None runs it eagerly).
+
+    mesh (parallel/mesh.Mesh): every rank passes the whole batch, which
+    must divide the data axis, and gets the whole batch's tokens back
+    (module docstring). `params` is this rank's placement
+    (partition.place_serving, once for many calls), or the whole tree,
+    placed on every call."""
     if temperature < 0 or not 0.0 < top_p <= 1.0:
         raise ValueError(f"temperature must be >= 0 and top_p in (0, 1], "
                          f"got {temperature}, {top_p}")
+    args = (cfg, input_ids, images, prompt_lengths, max_new_tokens, eos_id,
+            attn_impl, temperature, top_p)
+    if mesh is None:
+        if isinstance(params, partition.Placed):
+            raise ValueError("generate: placed shards need their mesh")
+        partition.check_pack_stamp(params, False, None)
+        return _generate_rows(params, *args, seed, kv_quant, graph,
+                              loop_stats)
+    placed = params if isinstance(params, partition.Placed) else (
+        partition.place_serving(params, cfg, mesh))
+    return _generate_shard(placed, mesh, *args, seed, kv_quant, graph,
+                           loop_stats)
+
+
+def _generate_rows(params, cfg, input_ids, images, prompt_lengths,
+                   max_new_tokens, eos_id, attn_impl, temperature, top_p,
+                   seed, kv_quant, graph, loop_stats, tp=1, tp_group=None,
+                   group=None):
+    """The single-device program on these rows (manual TP with tp /
+    tp_group; `group`: the process group of the loop's collectives)."""
     first_tok, first_logits, spliced_len, prompt_cache, prompt_seg = (
         _prefill_impl(params, cfg, input_ids, images, prompt_lengths,
-                      attn_impl, kv_quant))
+                      attn_impl, kv_quant, tp, tp_group))
     if temperature > 0.0:
         first_tok = _select_token(first_logits, temperature, top_p, seed,
                                   FIRST_STEP)
     tokens, num, _ = _decode_impl(
         params, cfg, first_tok, spliced_len, prompt_cache, prompt_seg,
         max_new_tokens, eos_id, attn_impl, graph, loop_stats, temperature,
-        top_p, seed)
+        top_p, seed, tp, tp_group, group)
     return tokens, num
+
+
+def shard_rows(mesh, *batch):
+    """(rows of this rank's data index of each batch tensor, rows a
+    shard); the rows must divide the data axis."""
+    dp, d = mesh.size(DATA_AXIS), mesh.index(DATA_AXIS)
+    if batch[0].shape[0] % dp:
+        raise ValueError(f"batch {batch[0].shape[0]} must be a multiple of "
+                         f"the mesh data axis size ({dp})")
+    n = batch[0].shape[0] // dp
+    return [t[d * n:(d + 1) * n] for t in batch], n
+
+
+def gather_rows(mesh, *local):
+    """Every data shard's rows, in order, on every rank (a data axis of one
+    has them)."""
+    if mesh.size(DATA_AXIS) == 1:
+        return local
+    group = mesh.group(DATA_AXIS)
+    return tuple(all_gather(t, group) for t in local)
+
+
+def _generate_shard(placed, mesh, cfg, input_ids, images, prompt_lengths,
+                    max_new_tokens, eos_id, attn_impl, temperature, top_p,
+                    seed, kv_quant, graph, loop_stats):
+    """This rank's rows on its route, then every shard's tokens."""
+    (ids, ims, lens), n = shard_rows(mesh, input_ids, images, prompt_lengths)
+    tp, tp_group, group, params = 1, None, None, placed.params
+    if placed.route == "manual_tp":
+        tp = mesh.size(MODEL_AXIS)
+        tp_group = group = mesh.group(MODEL_AXIS)
+    elif placed.route == "gather":
+        group = mesh.group(MODEL_AXIS)
+        params = partition.gather_at_use(placed, group)
+    tokens, num = _generate_rows(
+        params, cfg, ids, ims, lens, max_new_tokens, eos_id, attn_impl,
+        temperature, top_p, seed + mesh.index(DATA_AXIS) * n, kv_quant,
+        graph, loop_stats, tp, tp_group, group)
+    return gather_rows(mesh, tokens, num)
 
 
 def generate_greedy(

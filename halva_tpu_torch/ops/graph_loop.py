@@ -18,6 +18,11 @@ the reference's `cond`.
 On the CPU the same body runs eagerly. That choice comes from the device,
 never from a failure: a capture that fails raises.
 
+A body may run collectives (a mesh's decode: parallel/mesh.py). NCCL's are
+captured into the graph with the rest; gloo's cannot be, so a loop whose
+`group` is a gloo group runs eagerly under graph=None and refuses
+graph=True: it never drops a capture it was asked for.
+
 A capture may outlive one loop: the continuous-batching engine
 (ops/continuous.py) runs its chunks as loops over one body, and refills
 rows between them by writing into the captured state in place. It passes
@@ -37,6 +42,7 @@ import time
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from halva_tpu_torch import _kernels
 
@@ -90,6 +96,7 @@ def run_loop(
     graph: Optional[bool] = None,
     stats: Optional[dict] = None,
     keep: Optional[LoopGraphs] = None,
+    group=None,
 ) -> int:
     """Run step n = 0, 1, ... with `bodies[n % len(bodies)]` while n <
     max_steps and `more()`; return the number of steps. Several bodies take
@@ -104,8 +111,17 @@ def run_loop(
     0 without such a test), and
     "loop_s" for the whole loop, its device work included (the card is
     synchronized at the end). `keep`: the graphs captured by an earlier call
-    over these bodies, replayed from step 0, or filled by this call."""
+    over these bodies, replayed from step 0, or filled by this call.
+    `group`: the process group whose collectives the bodies run, if any;
+    a gloo group of more than one rank cannot be captured."""
     device = torch.device(device)
+    if (group is not None and dist.get_world_size(group) > 1
+            and dist.get_backend(group) == "gloo"):
+        if graph:
+            raise ValueError("a CUDA graph cannot capture gloo collectives: "
+                             "run the loop with graph=None or False, or "
+                             "over NCCL")
+        graph = False
     use_graph = device.type == "cuda" if graph is None else graph
     if use_graph and device.type != "cuda":
         raise ValueError("a CUDA graph loop needs its state on the card, "

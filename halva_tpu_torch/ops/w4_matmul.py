@@ -2,9 +2,10 @@
 GEMV (CUDA, csrc/w4_gemv.cu), and K7, the M-tiled GEMM (CUDA,
 csrc/dq_gemm.cu), each with its plain version.
 
-Counterpart of halva_tpu/ops/w4_matmul.py, single device (tp=1). Storage is
-the reference's: two int4 values per int8 byte, split-half, so byte [k, j]
-holds channel j in its low nibble and channel j + N/2 in its high nibble;
+Counterpart of halva_tpu/ops/w4_matmul.py, with its tensor-parallel
+packing (`tp`). Storage is the reference's: two int4 values per int8 byte,
+split-half, so byte [k, j] holds channel j in its low nibble and channel
+j + N/2 in its high nibble;
 `kernel_scale4p` (2, G, N/2) bf16 scales the two halves, one scale per
 output channel (G = 1) or per group of K/G input rows. Quantization is
 symmetric absmax/7 with values in [-7, 7]; unpacking sign-extends, so any
@@ -74,12 +75,24 @@ def quantize_kernel_int4_stacked(
     w: torch.Tensor, group_size: Optional[int] = None, tp: int = 1
 ) -> Dict[str, torch.Tensor]:
     """(L, K, N) float -> {kernel_q4p (L, K, N/2) int8, kernel_scale4p
-    (L, 2, G, N/2) bf16}; G = 1 (group_size None) or K / group_size."""
-    if tp != 1:
-        raise NotImplementedError(
-            "tensor-parallel int4 packing (tp > 1) is not ported yet "
-            "(ROADMAP queue 1 item 10, multi-GPU)"
-        )
+    (L, 2, G, N/2) bf16}; G = 1 (group_size None) or K / group_size.
+
+    tp > 1: tensor-parallel packing. The nibble pairing (c, c + N/2) mixes
+    output channels across the packed dim, so a positional slice of the tp=1
+    layout would permute heads; instead each of the tp column blocks is
+    packed on its own and the results concatenated, so a contiguous 1/tp
+    slice of the packed dim is the packed kernel of its channel block (the
+    manual-TP shard, parallel/partition.eval_shmap_pspecs). The quantized
+    values are the same as at tp=1: only the pairing moves."""
+    if tp > 1:
+        n = w.shape[-1]
+        if n % (2 * tp):
+            raise ValueError(f"tp={tp} packing needs N % (2 tp) == 0, got "
+                             f"N={n}")
+        blocks = [quantize_kernel_int4_stacked(blk, group_size)
+                  for blk in w.chunk(tp, dim=-1)]
+        return {name: torch.cat([b[name] for b in blocks], dim=-1)
+                for name in ("kernel_q4p", "kernel_scale4p")}
     nl, k, n = w.shape
     if n % 2:
         raise ValueError(f"int4 packing needs an even output dim, got {n}")
@@ -106,16 +119,18 @@ def quantize_params_int4(params: Params, group_size: Optional[int] = None,
     (quant.quantize_params). Stacks whose K the group size does not divide
     keep per-channel scales. Sibling leaves (biases) are kept; the input
     tree is not modified. Same leaves, bytes and scale bits as the
-    reference's quantize_params_int4_host."""
-    if tp != 1:
-        raise NotImplementedError(
-            "tensor-parallel int4 packing (tp > 1) is not ported yet "
-            "(ROADMAP queue 1 item 10, multi-GPU)"
-        )
+    reference's quantize_params_int4_host.
 
-    def rewrite(node):
+    tp > 1: the LLM's column-split kernels (wq/wk/wv/gate/up) are packed
+    for a tp-way manual-TP mesh (quantize_kernel_int4_stacked) and the tree
+    is stamped `w4_pack_tp` (a 0-d int32 tensor), which
+    parallel/partition.manual_tp_ready checks against the mesh. The
+    row-split wo/down and the vision stacks keep the tp=1 layout."""
+
+    def rewrite(node, path=()):
         if isinstance(node, (list, tuple)):
-            return type(node)(rewrite(x) for x in node)
+            return type(node)(rewrite(x, path + (i,))
+                              for i, x in enumerate(node))
         if not isinstance(node, dict):
             return node
         k3 = node.get("kernel")
@@ -123,12 +138,20 @@ def quantize_params_int4(params: Params, group_size: Optional[int] = None,
             g = group_size
             if g is not None and k3.shape[1] % g:
                 g = None
+            kt = tp if (path and path[0] == "llm"
+                        and path[-1] in _N_SPLIT_KEYS) else 1
             out = {k: v for k, v in node.items() if k != "kernel"}
-            out.update(quantize_kernel_int4_stacked(k3, group_size=g))
+            out.update(quantize_kernel_int4_stacked(k3, group_size=g, tp=kt))
             return out
-        return {k: rewrite(v) for k, v in node.items()}
+        return {k: rewrite(v, path + (k,)) for k, v in node.items()}
 
-    return quant.quantize_params(rewrite(params))
+    out = quant.quantize_params(rewrite(params))
+    if tp > 1:
+        out["w4_pack_tp"] = torch.tensor(tp, dtype=torch.int32)
+    return out
+
+
+_N_SPLIT_KEYS = {"wq", "wk", "wv", "gate", "up"}
 
 
 def unpack_int4(p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -139,9 +139,22 @@ def test_beam_argument_checks_and_stats(tiny):
             torch.from_numpy(imgs), torch.from_numpy(lens))
     with pytest.raises(ValueError, match="num_beams >= 2"):
         beam.generate_beam(*args, max_new_tokens=4, eos_id=-1, num_beams=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    # a {data: 1} mesh reaches no collective and gives the meshless beams
+    # (tests/test_torch_mesh_generate.py runs {data: 4} on gloo ranks); a
+    # model axis is refused, as in the reference
+    from halva_tpu_torch.parallel.mesh import mesh_shape
+
+    with torch.inference_mode():
+        want = beam.generate_beam(*args, max_new_tokens=4, eos_id=-1,
+                                  num_beams=2)
+        got = beam.generate_beam(*args, max_new_tokens=4, eos_id=-1,
+                                 num_beams=2,
+                                 mesh=mesh_shape({"data": 1, "model": 1}))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="data: N"):
         beam.generate_beam(*args, max_new_tokens=4, eos_id=-1, num_beams=2,
-                           mesh=object())
+                           mesh=mesh_shape({"data": 1, "model": 2}))
     stats = {}
     with torch.inference_mode():
         beam.generate_beam(*args, max_new_tokens=4, eos_id=-1, num_beams=2,

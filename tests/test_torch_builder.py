@@ -273,12 +273,20 @@ def test_refusals(dirs, tmp_path):
     (comp / "mm_projector").mkdir()
     with pytest.raises(FileNotFoundError, match="config.json"):
         builder.load_pretrained_model(str(comp), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        builder.load_pretrained_model(dirs["bin"], quant="int4",
-                                      quant_tp=2, device="cpu")
     with pytest.raises(ValueError, match="quant"):
         builder.load_pretrained_model(dirs["bin"], quant="int3",
                                       device="cpu")
+
+
+@pytest.mark.parametrize("quant", ["int4", "int4g"])
+@pytest.mark.parametrize("quant_tp", [2, 4])
+def test_tp_packed_load_equals_the_reference(dirs, quant, quant_tp):
+    """quant_tp packs the column-split stacks for a manual-TP mesh and
+    stamps the tree, as the reference's loader (tp 4 too: the tiny heads
+    and mlp divide it)."""
+    tp, jp = _both(dirs["bin"], quant, quant_tp=quant_tp)
+    assert int(tp.pop("w4_pack_tp")) == int(jp.pop("w4_pack_tp")) == quant_tp
+    assert_same_tree(tp, jp)
 
 
 def _tower_dir(tmp_path):

@@ -9,9 +9,9 @@ tokenizer from tests/tokutil.py, PNG images, `--prefetch-workers 2`.
   tree (the reference's texts may differ: its bf16 tree rounds in another
   framework);
 - `pope` with an annotation dir scores with the copied POPE scorer;
-- `--temperature`, `--top-p` and `--continuous` run end to end; the
-  reference's options the port does not run yet (device meshes) raise,
-  naming their ROADMAP item, before anything is loaded;
+- `--temperature`, `--top-p` and `--continuous` run end to end; a device
+  mesh on two gloo ranks writes the one-process answers, and a mesh whose
+  size is not the world's is refused before anything is loaded;
 - the runner's prefetch pool gives the texts of the serial run.
 """
 
@@ -132,18 +132,47 @@ def test_pope_cli_scores_with_the_annotations(setup, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh-data", "2"], "item 10"),
-    (["--mesh-model", "2"], "item 10"),
+    (["--mesh-data", "2"], "2x1 != 1 devices"),
+    (["--mesh-model", "2"], "1x2 != 1 devices"),
 ])
 def test_unported_flags_raise_naming_their_items(setup, tmp_path, flags,
                                                  item, monkeypatch):
+    """A mesh runs one process a GPU (torchrun): a world of another size is
+    refused before anything loads (--mesh-model alone means data 1)."""
     def no_load(*a, **k):
         raise AssertionError("the model was loaded")
 
     monkeypatch.setattr(builder, "load_pretrained_model", no_load)
-    with pytest.raises(NotImplementedError, match=item):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match=item):
         cli.main(_args(setup, "pope", str(tmp_path / "a.jsonl"))
                  + ["--device", "cpu", *flags])
+
+
+def test_two_rank_cli_writes_the_one_process_answers(setup, tmp_path):
+    """`--mesh-data 2` on two gloo ranks (RANK / WORLD_SIZE as torchrun
+    sets them): rank 0 writes the answers of the one-process run, row for
+    row (a batch of 4 puts each rank on the rows of one batch of 2)."""
+    import dataclasses
+
+    import torch_mesh_workers as W
+    from test_torch_builder import TTINY
+
+    one, two = str(tmp_path / "one.jsonl"), str(tmp_path / "two.jsonl")
+    world = W.World(W.cli_rank, 2, {
+        "llm": dataclasses.asdict(TTINY.llm),
+        "vision": dataclasses.asdict(TTINY.vision),
+        "argv": _args(setup, "pope", two) + [
+            "--device", "cpu", "--batch-size", "4", "--mesh-data", "2"]})
+    cli.main(_args(setup, "pope", one) + ["--device", "cpu"])
+    ranks = world.results()
+    assert all(not [m for m in loaded if m.startswith("halva_tpu")]
+               for _, loaded in ranks)
+    got, want = _rows(two), _rows(one)
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        g.pop("answer_id"), w.pop("answer_id")
+        assert g == w
 
 
 @pytest.mark.parametrize("flags", [

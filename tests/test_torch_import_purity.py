@@ -66,7 +66,9 @@ def test_every_module_imports_without_jax():
                  "utils.treecache", "utils.phases", "utils.prefetch",
                  "evals.cli", "evals.lemmatize", "evals.chair",
                  "evals.pope", "evals.amber", "evals.mme", "evals.mmhal",
-                 "evals.hallusion", "evals.judge", "evals.merge"):
+                 "evals.hallusion", "evals.judge", "evals.merge",
+                 "parallel", "parallel.mesh", "parallel.partition",
+                 "parallel.context"):
         assert f"halva_tpu_torch.{name}" in out["modules"]
     assert out["halva_tpu"] == []
     assert out["lib_loaded"] == 0  # no kernel built or loaded on import

@@ -81,8 +81,12 @@ def test_int4_group_size_that_does_not_divide_falls_back():
     want = jw4.quantize_params_int4_host(t, group_size=32)
     assert got["layers"]["kernel_scale4p"].shape == (2, 2, 1, 8)
     _assert_trees_bit_equal(want, tree.to_numpy(got))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w4_matmul.quantize_params_int4(tree.to_torch(t, device="cpu"), tp=2)
+    # tensor-parallel packing (an "llm" stack's column-split kernel)
+    tl = {"llm": {"layers": {"attn": {"wq": {"kernel": w}}}}}
+    got = w4_matmul.quantize_params_int4(tree.to_torch(tl, device="cpu"),
+                                         group_size=32, tp=2)
+    want = jw4.quantize_params_int4_host(tl, group_size=32, tp=2)
+    _assert_trees_bit_equal(want, tree.to_numpy(got))
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

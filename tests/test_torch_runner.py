@@ -103,11 +103,30 @@ def test_batched_generator_quantized_tree(tmp_path, kv_quant):
     assert set(gen.last_stats) == STATS
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """Every option of the reference runs now: a mesh is placed for its
+    route (a {1, 1} one reaches no collective and gives the meshless texts;
+    tests/test_torch_mesh_generate.py runs real ones on gloo ranks), and
+    the reference's refusals of mesh options hold."""
+    from halva_tpu_torch.parallel.mesh import mesh_shape
+
     _, tp = shared_trees()
-    for unported, item in (({"mesh": object()}, "item 10"),):
-        with pytest.raises(NotImplementedError, match=item):
-            runner.BatchedGenerator(tp, TCFG, SPTok(), None, **unported)
+    kw = dict(batch_size=2, max_new_tokens=4, prompt_bucket=16)
+    proc = ImageProcessor(size=28, crop_size=28)
+    one = mesh_shape({"data": 1, "model": 1})
+    gen = runner.BatchedGenerator(tp, TCFG, SPTok(), proc, mesh=one, **kw)
+    assert gen.params.route == "data" and gen.device.type == "cpu"
+    want = runner.BatchedGenerator(tp, TCFG, SPTok(), proc, **kw).run(
+        _requests(tmp_path, runner))
+    assert gen.run(_requests(tmp_path, runner)) == want
+    for bad, match in (({"continuous": True}, "continuous"),
+                       ({"spec_k": 4}, "spec_k"),
+                       ({"batch_size": 3,
+                         "mesh": mesh_shape({"data": 2, "model": 1})},
+                        "mesh data axis")):
+        with pytest.raises(ValueError, match=match):
+            runner.BatchedGenerator(tp, TCFG, SPTok(), None,
+                                    **{"mesh": one, **bad})
     with pytest.raises(TypeError):  # not an argument of either package
         runner.BatchedGenerator(tp, TCFG, SPTok(), None, no_such_option=1)
     # the reference's argument checks

@@ -249,9 +249,21 @@ def test_sampling_modes(trees):
 
 
 def test_generate_refuses_a_mesh_and_bad_sampling_values(trees):
+    """A mesh runs now (tests/test_torch_mesh_generate.py on gloo ranks): a
+    {1, 1} one, which reaches no collective, samples the meshless call's
+    tokens (data shard 0 keeps the seed); bad sampling values are refused
+    with a mesh or without."""
+    from halva_tpu_torch.parallel.mesh import mesh_shape
+
     _, tp = trees
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _gen(tp, mesh=object())
+    one = mesh_shape({"data": 1, "model": 1})
+    for kw in (dict(temperature=0.9, top_p=0.9, seed=5), {}):
+        want, wnum = _gen(tp, **kw)
+        got, gnum = _gen(tp, mesh=one, **kw)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        np.testing.assert_array_equal(gnum.numpy(), wnum.numpy())
+    with pytest.raises(ValueError, match="top_p"):
+        _gen(tp, mesh=one, top_p=0.0)
     for bad in (dict(temperature=-0.1), dict(top_p=0.0), dict(top_p=1.5)):
         with pytest.raises(ValueError, match="top_p"):
             _gen(tp, **bad)
