@@ -174,6 +174,22 @@ body), context_parallel_attention over {seq 2} against the full call; each
 rank prints its launches and imports neither JAX nor the JAX package; (c)
 the 4 shard bodies of a 4,096-token row one after another with their
 q_offsets, forward and backward, against the full call.
+The training half of the mesh: (a) right after the bf16 train phase, a
+world of one over NCCL, mesh {1, 1}: two micro-steps of the bf16 7B tree at
+full width and depth through init_train_state(mesh=) and
+dpa_step_fns(mesh=) equal the train phase's first two meshless micro-steps
+bit for bit (metrics, LoRA leaves, AdamW moments); (b) in the two-rank
+spawn above, on the bf16 tree's first MESH_TRAIN_LAYERS layers at full
+width (handed over by CUDA IPC; gloo carries every gathered layer through
+host memory) with the train recipe (LoRA r=128 with a small
+nonzero lora_b, remat, loss_chunk 256, 2 rows of 1,087 tokens) and a
+constant lr of MESH_TRAIN_LR: one unpacked AdamW micro-step on {data 2,
+model 1} (FSDP) and on {data 1, model 2} (TP, gather-at-use), one packed
+micro-step on {data 2} whose batch holds a sample with its positive and
+negative documents on different ranks, each against the one-device step on
+the same tree and batch within TRAIN_FLOOR_FACTOR of a noise floor (loss,
+alignment, KL, the LoRA leaves' update); each rank prints its K1/K2/K3
+launches and peak memory.
 Every phase prints one line; any failure raises and exits non-zero. The
 last line is the device record {"ok": true, "device": {...}}.
 
@@ -263,6 +279,7 @@ import collections
 import dataclasses
 import datetime
 import functools
+import importlib
 import itertools
 import json
 import os
@@ -3151,6 +3168,16 @@ def bit_sums(params) -> dict:
     return out
 
 
+def train_state_sums(trainable, opt) -> dict:
+    """bit_sums of the trainable leaves, their AdamW moments and the
+    accumulators."""
+    leaves = [t for _, t in tree.flatten(trainable) if t is not None]
+    return bit_sums({
+        "leaves": leaves, "acc": opt.acc or [],
+        "moments": [[opt.adamw.state[t][n] for n in ("exp_avg", "exp_avg_sq")]
+                    for t in leaves if t in opt.adamw.state]})
+
+
 def changed(before: dict, after: dict) -> list:
     return [p for p in before if before[p] != after[p]]
 
@@ -3172,7 +3199,7 @@ def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
               suffix: str = "", micro_steps: int = TRAIN_MICRO_STEPS,
               grad_accum: int = 2, compare: bool = True,
               overrides: dict = None, extra: tuple = (),
-              tag: str = "") -> float:
+              tag: str = "", keep: dict = None) -> float:
     """The DPA LoRA train step at full width (llava-v1.5-7b unless `cfg`
     says otherwise): bf16 base, bf16 LoRA r=128 alpha=256 on the 7 linears
     of all layers, remat per layer, loss_chunk=256, micro-batch 2, AdamW
@@ -3185,8 +3212,10 @@ def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
     `overrides` (TrainConfig fields) replace the llava recipe's loss alpha,
     learning rate and warmup; `extra` trains the projector whole, its
     initial copy in the frozen reference; `tag` names the rows of this
-    config's shapes that take the K2 and K3 counts. Returns the mean ms per
-    micro-step after the first."""
+    config's shapes that take the K2 and K3 counts; `keep` receives the
+    first MESH_ONE_STEPS micro-steps' metrics and the state's checksums
+    after them (run_train_world_of_one holds the mesh step to them).
+    Returns the mean ms per micro-step after the first."""
     cfg = cfg or CFG
     layers = cfg.llm.num_layers
     gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -3236,6 +3265,10 @@ def run_train(params: dict, kernels: dict, cfg=None, what: str = "",
                                    "flash_bwd_dq" + suffix: 2 * layers,
                                    "flash_bwd_dkv" + suffix: 2 * layers},
                         f"{what}train micro-step {i}")
+        if keep is not None and i < MESH_ONE_STEPS:
+            keep.setdefault("metrics", []).append(vals)
+            if i == MESH_ONE_STEPS - 1:
+                keep["sums"] = train_state_sums(trainable, opt)
         if opt.updates and (i + 1) % tcfg.grad_accum_steps == 0:
             sums.append(bit_sums(policy))
     add_launches(kernels, {name + tag: seen.get(name, 0) for name in (
@@ -6428,6 +6461,241 @@ def run_world_of_one(q4, cfg, tokens) -> None:
         raise AssertionError("the {1, 1} mesh run differs from the meshless")
 
 
+# ---- the training half of the mesh ------------------------------------------
+
+MESH_ONE_STEPS = 2  # (a): the train phase's first micro-steps, on {1, 1}
+# (b): a constant lr large enough that one AdamW update moves bf16 LoRA
+# leaves (the recipe's warmup makes the first update lr(0) = 0)
+MESH_TRAIN_LR = 1e-3
+# (b)'s runs: name, (data, model), batch kind
+MESH_TRAIN_RUNS = (("fsdp", (MESH_TP, 1), "rows"), ("tp", (1, MESH_TP), "rows"),
+                   ("packed", (MESH_TP, 1), "packed"))
+# (b)'s depth, at full width: gloo carries every gathered layer through host
+# memory, 5 gathers of each layer a micro-step (3 forwards, 2 remat
+# recomputes), ~200 MB each; on an H100 a micro-step of 8 layers took
+# 15-19 s of the phase's time
+MESH_TRAIN_LAYERS = 2
+MESH_TRAIN_PARTS = ("loss", "alignment", "kl", "LoRA update")
+
+
+def run_train_world_of_one(params, keep: dict) -> None:
+    """(a) of the mesh-train phase: a world of one over NCCL, mesh {1, 1}.
+    MESH_ONE_STEPS micro-steps of run_train's recipe on the bf16 7B tree at
+    full width and depth through init_train_state(mesh=) and
+    dpa_step_fns(mesh=) must equal run_train's first micro-steps (`keep`)
+    bit for bit: metrics, and the LoRA leaves, AdamW moments and
+    accumulators after them."""
+    cfg = CFG
+    layers = cfg.llm.num_layers
+    mesh = make_mesh(data=1, model=1, device=DEVICE)
+    backend = dist.get_backend(mesh.group("model"))
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    policy = add_lora(params, gen, rank=128, alpha=256.0)
+    tcfg = TrainConfig(grad_accum_steps=2, num_train_steps=400, remat=True,
+                       loss_chunk=256)
+    trainable, frozen, opt, opt_state = init_train_state(policy, tcfg,
+                                                         mesh=mesh)
+    step, _ = dpa_step_fns(cfg, tcfg, opt, mesh=mesh)
+    metrics = []
+    t0 = time.perf_counter()
+    for i in range(MESH_ONE_STEPS):
+        batch = train_batch(cfg, i)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        trainable, opt_state, m = step(trainable, frozen, None, opt_state,
+                                       batch)
+        torch.cuda.synchronize()
+        expect_launches(dict(_kernels.launches), {
+            "flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
+            "flash_bwd_dkv": 2 * layers}, f"{{1, 1}} mesh train micro-step {i}")
+        metrics.append([float(x) for x in m])
+    secs = time.perf_counter() - t0
+    same_metrics = metrics == keep["metrics"]
+    same_state = train_state_sums(trainable, opt) == keep["sums"]
+    ok = (same_metrics and same_state
+          and backend == ("gloo" if mesh.device.type == "cpu" else "nccl"))
+    print(f"mesh-train (a): a world of one over {backend}, mesh {mesh.shape}:"
+          f" {MESH_ONE_STEPS} micro-steps of {cfg.llm.num_layers} layers "
+          "through init_train_state(mesh=) and dpa_step_fns(mesh=), "
+          f"{secs:.2f} s; metrics equal to the meshless train phase's bit "
+          f"for bit {same_metrics} (loss {metrics[-1][0]:.6f}, grad_norm "
+          f"{metrics[-1][3]:.4e}); LoRA leaves, AdamW moments and "
+          f"accumulators after them equal bit for bit {same_state} "
+          f"({gpu_line()}) {'ok' if ok else 'FAIL'}")
+    del policy, trainable, frozen, opt, opt_state, step
+    dist.destroy_process_group()
+    if not ok:
+        raise AssertionError("the {1, 1} mesh train step differs from the "
+                             "meshless one")
+
+
+def mesh_train_inputs(params) -> dict:
+    """(b)'s inputs: the first MESH_TRAIN_LAYERS layers of the bf16 tree at
+    full width (the layer stacks copied: the whole tree is freed before the
+    mesh phase), their config, train_batch's unpacked batch and the first packed
+    batch of PackSamples in 2 pn and 2 ref rows of PACK_SEQ tokens, which
+    must hold a sample whose positive and negative documents lie in
+    different rows (so on different data ranks)."""
+    cut, cfg8 = depth_cut(params, CFG, MESH_TRAIN_LAYERS)
+    cut["llm"]["layers"] = tree.map_tree(lambda t: t.clone(),
+                                         cut["llm"]["layers"])
+    batcher = PackedDPABatcher(
+        seq_len=PACK_SEQ, pn_rows=MESH_TP, ref_rows=MESH_TP,
+        max_samples=PACK_BATCH, num_image_tokens=cfg8.num_image_tokens,
+        pad_token_id=0,
+        image_shape=(3, cfg8.vision.image_size, cfg8.vision.image_size))
+    packed = next(batcher.batches(iter(PackSamples(cfg8, n=8).items)))
+    sid, neg = packed["pn_sample_ids"], packed["pn_neg_flags"]
+    straddle = [s for s in range(1, int(packed["n_samples"]) + 1)
+                if set(np.nonzero((sid == s) & (neg == 0))[0])
+                != set(np.nonzero((sid == s) & (neg == 1))[0])]
+    if not straddle:
+        raise AssertionError("the mesh-train packed batch has no sample "
+                             "across the data ranks")
+    return {"tree": cut, "cfg": cfg8, "rows": train_batch(cfg8, 0),
+            "packed": on_card(packed), "straddle": straddle,
+            "n_samples": int(packed["n_samples"])}
+
+
+def mesh_train_step(inputs: dict, kind: str, mesh=None, noise=None) -> dict:
+    """One micro-step of (b) on `inputs`' tree and `kind` batch: on this
+    rank's shards and rows (`mesh`) or on one device, where `noise`
+    perturbs the text-embedding table (a noise-floor draw). The policy is
+    comparison_policy's (lora_b small and nonzero), lr MESH_TRAIN_LR
+    constant. Returns the metrics, the whole LoRA leaves' update (fp32,
+    flat), this process's K1-K3 launches and peak memory, and the host
+    seconds of the step and of the set-up and read-back around it."""
+    t_set = time.perf_counter()
+    cfg8 = inputs["cfg"]
+    policy = comparison_policy(inputs["tree"])
+    tcfg = TrainConfig(learning_rate=MESH_TRAIN_LR, lr_schedule="constant",
+                       grad_accum_steps=1, num_train_steps=400, remat=True,
+                       loss_chunk=256)
+    trainable, frozen, opt, opt_state = init_train_state(policy, tcfg,
+                                                         mesh=mesh)
+    if noise is not None:
+        frozen = tree.map_tree(lambda x: x, frozen)
+        frozen["llm"]["embed"]["embedding"] = perturbed(
+            frozen["llm"]["embed"]["embedding"], noise)
+    whole = (lambda t: t) if mesh is None else opt.layout.whole
+
+    def flat(t):
+        return torch.cat([x.detach().float().flatten()
+                          for _, x in tree.flatten(whole(t))
+                          if x is not None])
+
+    before = flat(trainable)
+    batch = inputs[kind]
+    if kind == "packed":
+        step, _ = packed_dpa_step_fns(cfg8, tcfg, opt, max_samples=PACK_BATCH,
+                                      mesh=mesh)
+    else:
+        step, _ = dpa_step_fns(cfg8, tcfg, opt, mesh=mesh)
+    if mesh is not None:
+        partition.check_train_rows(batch, mesh, kind == "packed")
+        batch = (partition.shard_packed_batch(batch, mesh) if kind == "packed"
+                 else partition.shard_batch(batch, mesh))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainable, opt_state, m = step(trainable, frozen, None, opt_state, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = {"parts": [float(x) for x in m], "launches": dict(_kernels.launches),
+           "peak": torch.cuda.max_memory_allocated(), "s": t1 - t0}
+    out["delta"] = flat(trainable) - before
+    torch.cuda.synchronize()
+    out["other_s"] = (t0 - t_set) + (time.perf_counter() - t1)
+    return out
+
+
+def train_errs(got: dict, want: dict) -> tuple:
+    """Relative errors of the loss, alignment and KL, and of the LoRA
+    update as a whole vector."""
+    return tuple(abs(g - w) / abs(w) for g, w in zip(got["parts"][:3],
+                                                      want["parts"][:3])) + (
+        rel_err(got["delta"], want["delta"]),)
+
+
+def mesh_train_refs(inputs: dict) -> dict:
+    """The one-device step of each (b) batch kind, and its noise floor: the
+    largest of FLOOR_DRAWS perturbations of the text-embedding table by
+    2^-7 N(0, 1) relative, per quantity (compare_train's floor)."""
+    noise = torch.Generator(device=DEVICE).manual_seed(3)
+    refs = {}
+    for kind in ("rows", "packed"):
+        want = mesh_train_step(inputs, kind)
+        draws = [train_errs(mesh_train_step(inputs, kind, noise=noise), want)
+                 for _ in range(FLOOR_DRAWS)]
+        refs[kind] = dict(want, floor=tuple(max(x) for x in zip(*draws)),
+                          draws=draws)
+    torch.cuda.empty_cache()
+    return refs
+
+
+def mesh_rank_train(inputs: dict, meshes: dict) -> dict:
+    """(b)'s train runs on this rank: errors against the one-device steps
+    (`inputs["want"]`, shared by CUDA IPC), launches, peak memory."""
+    out = {}
+    for name, _, kind in MESH_TRAIN_RUNS:
+        got = mesh_train_step(inputs, kind, meshes[name])
+        out[name] = {"parts": got["parts"], "launches": got["launches"],
+                     "peak": got["peak"], "s": got["s"],
+                     "other_s": got["other_s"],
+                     "errs": train_errs(got, inputs["want"][kind])}
+        del got
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_mesh_train(results: dict, inputs: dict) -> None:
+    """(b)'s train runs from both ranks against their one-device steps
+    within TRAIN_FLOOR_FACTOR of the floor, K1-K3 launched on every rank."""
+    layers = inputs["cfg"].llm.num_layers
+    want_launches = {"flash_fwd": 5 * layers, "flash_bwd_dq": 2 * layers,
+                     "flash_bwd_dkv": 2 * layers}
+    for kind in ("rows", "packed"):
+        ref = inputs["want"][kind]
+        print(f"mesh-train (b) one-device {kind} step (reduced: the first "
+              f"{layers} of {CFG.llm.num_layers} layers, at full width): loss {ref['parts'][0]:.6f} alignment "
+              f"{ref['parts'][1]:.6f} kl {ref['parts'][2]:.4e}, "
+              f"{ref['s']:.2f} s, peak {ref['peak'] / 2**30:.2f} GiB; noise "
+              f"floor (largest of {FLOOR_DRAWS} draws) " + ", ".join(
+                  f"{n} {f:.3e}" for n, f in zip(MESH_TRAIN_PARTS,
+                                                  ref["floor"])))
+    bad = []
+    for name, shape, kind in MESH_TRAIN_RUNS:
+        floor = inputs["want"][kind]["floor"]
+        for r, out in sorted(results.items()):
+            got = out["train"][name]
+            expect_launches(got["launches"], want_launches,
+                            f"rank {r}'s mesh-train {name} step")
+            ok = (all(np.isfinite(got["parts"]))
+                  and all(e <= TRAIN_FLOOR_FACTOR * f
+                          for e, f in zip(got["errs"], floor)))
+            if not ok:
+                bad.append(f"{name} rank {r}")
+            launches = {k: got["launches"].get(k, 0) for k in want_launches}
+            print(f"mesh-train (b) {name} {{data {shape[0]}, model "
+                  f"{shape[1]}}} ({kind}"
+                  + (f", samples {inputs['straddle']} of "
+                     f"{inputs['n_samples']} across the data ranks"
+                     if kind == "packed" else "")
+                  + f") rank {r}: loss {got['parts'][0]:.6f}, grad_norm "
+                  f"{got['parts'][3]:.4e}; rel err against one device "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in
+                              zip(MESH_TRAIN_PARTS, got["errs"]))
+                  + f" (bound {TRAIN_FLOOR_FACTOR:.3f} x floor); launches "
+                  f"{launches}; peak {got['peak'] / 2**30:.2f} GiB; the "
+                  f"step {got['s']:.2f} s, set-up and read-back "
+                  f"{got['other_s']:.2f} s ({gpu_line()}) "
+                  f"{'ok' if ok else 'FAIL'}")
+    if bad:
+        raise AssertionError(f"mesh-train runs disagree with one device: "
+                             f"{bad}")
+
+
 def mesh_rank(rank: int, port: int, inbox, outbox) -> None:
     """One of the two ranks of (b) on the one card: gloo over CUDA tensors.
     Runs manual TP on its shards ({data 1, model 2}), data parallelism over
@@ -6442,6 +6710,9 @@ def mesh_rank(rank: int, port: int, inbox, outbox) -> None:
                 seconds=MESH_TIMEOUT_S))
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # the first optimizer a process builds imports this (seconds on the
+        # card's host): load it while the main process makes the references
+        importlib.import_module("torch._dynamo")
         got = inbox.get(timeout=MESH_TIMEOUT_S)
         outbox.put((rank, "ok", mesh_rank_work(rank, got)))
     except BaseException:
@@ -6456,6 +6727,7 @@ def mesh_rank(rank: int, port: int, inbox, outbox) -> None:
 def mesh_rank_work(rank: int, got: dict) -> dict:
     """mesh_rank's runs; tensors come back as numpy (a tensor in a queue
     lives in this process, which ends first)."""
+    t_start = time.perf_counter()
     cfg = LLAVA_V15_7B
     layers = cfg.llm.num_layers
     inputs = got["inputs"]
@@ -6505,6 +6777,11 @@ def mesh_rank_work(rank: int, got: dict) -> dict:
     (o2.float() * w.float()).sum().backward()
     out["cp_ok"], out["cp_line"] = cp_against_full(
         got_cp, [o2.detach(), q2.grad, k2.grad, v2.grad])
+    t_train = time.perf_counter()
+    out["train"] = mesh_rank_train(got["train"], {"fsdp": dp, "tp": tp,
+                                                  "packed": dp})
+    out["serve_s"] = t_train - t_start
+    out["train_s"] = time.perf_counter() - t_train
     out["modules"] = sorted(m for m in sys.modules
                             if m.split(".")[0] in ("jax", "jaxlib",
                                                    "halva_tpu"))
@@ -6512,27 +6789,25 @@ def mesh_rank_work(rank: int, got: dict) -> dict:
           f"{out['tp_launches']}; its batch-{TP2_GEMM_ROWS} run "
           f"{out['tp16_launches']}; data parallelism {{data 2, model 1}} "
           f"{out['dp_launches']}; context parallelism {{seq 2}} "
-          f"{out['cp_launches']}", flush=True)
+          f"{out['cp_launches']}; serving and CP runs {out['serve_s']:.1f} s, "
+          f"train runs {out['train_s']:.1f} s", flush=True)
     return out
 
 
-def run_two_ranks(q4, shards, tokens, kernels) -> None:
+def run_two_ranks(q4, shards, tokens, kernels, train: dict) -> None:
     """(b): two ranks on the one card (spawned, gloo over CUDA tensors; the
     weights are this process's, shared by CUDA IPC): manual TP on the
     tp=2-packed int4g tree's shards against the single-device int4g prefill
     logits and greedy tokens, data parallelism over the int4g tree token
     for token against the one-device program on each rank's rows, and
-    context_parallel_attention over {seq 2} against the full call."""
+    context_parallel_attention over {seq 2} against the full call; then
+    the mesh-train runs on `train` (mesh_train_inputs) against their
+    one-device steps. The references are computed here while the ranks
+    start."""
     cfg = LLAVA_V15_7B
     layers = cfg.llm.num_layers
     inputs = make_inputs(cfg)
-    with torch.inference_mode():
-        want_logits = _prefill_impl(q4, cfg, *inputs, kv_quant="int4")[1]
-        half = inputs[0].shape[0] // MESH_TP
-        want_rows = [generate(q4, cfg, *(t[r * half:(r + 1) * half]
-                                         for t in inputs),
-                              NEW_TOKENS, -1, kv_quant="int4")[0]
-                     for r in range(MESH_TP)]
+    half = inputs[0].shape[0] // MESH_TP
     ctx = mp.get_context("spawn")
     outbox = ctx.Queue()
     inboxes = [ctx.Queue() for _ in range(MESH_TP)]
@@ -6546,8 +6821,18 @@ def run_two_ranks(q4, shards, tokens, kernels) -> None:
     try:
         for p in procs:
             p.start()
+        t1 = time.perf_counter()
+        train = dict(train, want=mesh_train_refs(train))
+        refs_s = time.perf_counter() - t1
+        with torch.inference_mode():
+            want_logits = _prefill_impl(q4, cfg, *inputs, kv_quant="int4")[1]
+            want_rows = [generate(q4, cfg, *(t[r * half:(r + 1) * half]
+                                             for t in inputs),
+                                  NEW_TOKENS, -1, kv_quant="int4")[0]
+                         for r in range(MESH_TP)]
         for r in range(MESH_TP):
-            inboxes[r].put({"shard": shards[r], "q4": q4, "inputs": inputs})
+            inboxes[r].put({"shard": shards[r], "q4": q4, "inputs": inputs,
+                            "train": train})
         for _ in procs:
             rank, status, out = outbox.get(timeout=MESH_TIMEOUT_S)
             if status != "ok":
@@ -6627,10 +6912,12 @@ def run_two_ranks(q4, shards, tokens, kernels) -> None:
     if not ok:
         raise AssertionError("context parallelism disagrees with the full "
                              "call")
+    check_mesh_train(results, train)
     print(f"mesh (b): gloo took all_reduce, all_gather_into_tensor and "
           "reduce_scatter_tensor on CUDA tensors, none through host tensors; "
           f"the ranks imported neither jax nor the JAX package; {wall:.1f} s "
-          "with their start")
+          f"with their start, {refs_s:.1f} s of it one-device train "
+          "references and floors made while they started")
     # rank 0's counts (asserted above) into the rows at the shard shapes;
     # K6's count is the shard's every matmul, gate/up and down among them
     for row, run, name in (
@@ -6692,12 +6979,13 @@ def tp2_shards(params) -> list:
     return shards
 
 
-def run_mesh(q4, shards, tokens, kernels) -> None:
-    """The mesh phase: (a), (b) and (c) above."""
+def run_mesh(q4, shards, tokens, kernels, train: dict) -> None:
+    """The mesh phase: (a), (b) with the mesh-train runs on `train`, and
+    (c) above."""
     t0 = time.perf_counter()
     run_world_of_one(q4, LLAVA_V15_7B, tokens)
     torch.cuda.empty_cache()
-    run_two_ranks(q4, shards, tokens, kernels)
+    run_two_ranks(q4, shards, tokens, kernels, train)
     torch.cuda.empty_cache()
     run_cp_long(kernels)
     torch.cuda.empty_cache()
@@ -6809,6 +7097,12 @@ def main() -> None:
         rows = mesh_kernel_checks(gen)
         kernels = collections.defaultdict(dict, {k["name"]: k for k in rows})
         params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
+        keep = {}
+        run_train(params, kernels, compare=False, keep=keep)
+        torch.cuda.empty_cache()
+        run_train_world_of_one(params, keep)
+        torch.cuda.empty_cache()
+        train = mesh_train_inputs(params)
         shards = tp2_shards(params)
         q4 = quantize_int4g(params)
         del params
@@ -6820,7 +7114,7 @@ def main() -> None:
             tokens, _ = generate_greedy(q4, LLAVA_V15_7B, *inputs,
                                         max_new_tokens=NEW_TOKENS, eos_id=-1,
                                         kv_quant="int4")
-        run_mesh(q4, shards, tokens, kernels)
+        run_mesh(q4, shards, tokens, kernels, train)
         keys = ("name", "launches", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")
         print(json.dumps({"mesh_kernels": [{k: kern.get(k) for k in keys}
@@ -6869,9 +7163,13 @@ def main() -> None:
         clock("bf16 main path")
         run_beam_spec_bf16(params, kernels)
         clock("bf16 beams and speculative decode")
-        train_ms = run_train(params, kernels)
+        keep = {}
+        train_ms = run_train(params, kernels, keep=keep)
         torch.cuda.empty_cache()
         clock("bf16 train step")
+        run_train_world_of_one(params, keep)
+        torch.cuda.empty_cache()
+        clock("mesh-train (a)")
         run_graph_loops(params, LLAVA_V15_7B, int4=False)
         run_sampling_bf16(params, LLAVA_V15_7B)
         clock("bf16 graph loops and sampling")
@@ -6899,6 +7197,7 @@ def main() -> None:
               f"{tree_bytes(nf4) / 1e9:.3f} GB")
     if not quant_only:  # the two-rank phase's shards, made on the card
         shards = tp2_shards(params)
+        train = mesh_train_inputs(params)
     q4 = quantize_int4g(params)
     del params  # the bf16 tree is freed here
     torch.cuda.empty_cache()
@@ -6922,8 +7221,8 @@ def main() -> None:
     run_beam_spec_int4g(q4, kernels, greedy_tokens)
     clock("int4g beams, speculative decode, batch 80")
     if not quant_only:
-        run_mesh(q4, shards, greedy_tokens, kernels)
-        del shards
+        run_mesh(q4, shards, greedy_tokens, kernels, train)
+        del shards, train
         torch.cuda.empty_cache()
         clock("mesh")
         run_graph_loops(q4, LLAVA_V15_7B, int4=True)

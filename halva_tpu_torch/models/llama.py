@@ -258,8 +258,11 @@ def _attn_block(cfg, lp, x, cos, sin, segment_ids, attn_impl, tp=1,
     return x + (o if red is None else red(o)), k, v
 
 
-def _layer(cfg, attn_impl, x, lp, cos, sin, segment_ids):
-    """One decoder layer: attention sublayer, then the MLP sublayer."""
+def _layer(cfg, attn_impl, x, lp, cos, sin, segment_ids, gather=None):
+    """One decoder layer: attention sublayer, then the MLP sublayer.
+    `gather` takes the layer's shards to the whole layer (gather-at-use)."""
+    if gather is not None:
+        lp = gather(lp)
     x, _, _ = _attn_block(cfg, lp, x, cos, sin, segment_ids, attn_impl)
     return x + _mlp(cfg, _norm(cfg, x, lp["post_attn_norm"]["scale"]),
                     lp["mlp"])
@@ -297,19 +300,27 @@ def forward_embeds(
     `torch.utils.checkpoint` region (the reference's `jax.checkpoint(...,
     nothing_saveable)` per layer): the forward keeps only the layer inputs,
     and the backward runs each layer again before its gradient (so K1 runs
-    once more per layer)."""
+    once more per layer).
+
+    A stack of shards (partition.GatheredLayers: serving's gather-at-use,
+    or TrainGatheredLayers on a train mesh) is unbound into each layer's
+    shards, and the layer is gathered inside `_layer`, so inside the remat
+    region: the backward gathers it again, and a gathered layer is alive
+    only while it runs."""
     cos, sin = rope_cos_sin(positions, cfg.head_size, cfg.rope_theta,
                             cfg.rope_scaling)
     x = inputs_embeds
     remat = remat and torch.is_grad_enabled()
-    for lp in unstack_layers(params["layers"]):
+    stack = params["layers"]
+    gather = stack.gather if isinstance(stack, GatheredLayers) else None
+    for lp in unstack_layers(stack):
         if remat:
             # no randomness in a layer: no RNG state to stash and restore
             x = checkpoint(_layer, cfg, attn_impl, x, lp, cos, sin,
-                           segment_ids, use_reentrant=False,
+                           segment_ids, gather, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = _layer(cfg, attn_impl, x, lp, cos, sin, segment_ids)
+            x = _layer(cfg, attn_impl, x, lp, cos, sin, segment_ids, gather)
     return _norm(cfg, x, params["final_norm"]["scale"])
 
 

@@ -21,6 +21,8 @@ from halva_tpu_torch import tree
 from halva_tpu_torch.config import LlavaConfig
 from halva_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from halva_tpu_torch.models import llama, projector, vit
+from halva_tpu_torch.parallel import partition
+from halva_tpu_torch.parallel.mesh import DATA_AXIS
 
 Params = Dict[str, Any]
 
@@ -179,6 +181,7 @@ def forward_packed(
     attn_impl: str = "auto",
     remat: bool = False,
     return_hidden: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Forward over packed rows (train/pack.py): the image-token splice is
     a host-planned scatter instead of the per-row gather. Each unique image
@@ -187,13 +190,27 @@ def forward_packed(
     Padding entries carry img_row == R: they are written into one extra row
     that is cut off after the scatter, so nothing is compacted on the host
     and nothing waits for the card. Segment ids keep the documents apart in
-    attention; RoPE restarts through `positions`."""
+    attention; RoPE restarts through `positions`.
+
+    On a train mesh (partition.shard_packed_batch) a rank holds its rows
+    and its share of the unique-image stack, while the plans stay whole
+    and index both globally. The rank encodes its share and all-gathers the
+    features over "data" (gather_leaf: a trained projector's gradient comes
+    back reduce-scattered), which costs one (NI, T, D) gather instead of
+    every rank running the tower on every image; placements into other
+    ranks' rows go to the spill row."""
     feats = encode_images(params, cfg, images)  # (NI, T, D)
     t = feats.shape[1]
     emb = llama.embed(params["llm"], input_ids)  # (R, S, D)
     r, s, d = emb.shape
+    row_of = img_row.long()
+    if mesh is not None and mesh.size(DATA_AXIS) > 1:
+        feats = partition.gather_leaf(feats, (DATA_AXIS, None, None), mesh)
+        r0 = mesh.index(DATA_AXIS) * r
+        mine = (row_of >= r0) & (row_of < r0 + r)
+        row_of = torch.where(mine, row_of - r0, torch.full_like(row_of, r))
     blocks = feats[img_src.long()].to(emb.dtype)  # (M, T, D)
-    rows = img_row.long()[:, None].expand(-1, t)
+    rows = row_of[:, None].expand(-1, t)
     cols = img_col.long()[:, None] + torch.arange(t, device=emb.device)
     # row R takes the dropped entries, whose columns are in range (0..T-1)
     spill = torch.cat([emb, emb.new_zeros(1, s, d)])

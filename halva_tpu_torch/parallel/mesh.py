@@ -204,3 +204,23 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
                       device=x.device)
     _scatter_into(out, x, group)
     return out.movedim(0, dim).contiguous()
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `t` over the group's ranks, for a quantity every rank then
+    uses whole (a batch-global loss term): its backward passes the gradient
+    through unchanged, since each rank holds the same d(loss)/d(sum), and a
+    summing backward would count it once per rank. group None: `t`."""
+    if group is None or dist.get_world_size(group) == 1:
+        return t
+    return _Psum.apply(t, group)

@@ -15,6 +15,13 @@ sharding, a rank here keeps its own shard, a contiguous slice of the leaf
 on its device (`local_shard`): `shard_params`, `eval_shard_params`,
 `eval_shmap_shard_params`, `shard_batch`, `shard_packed_batch`.
 
+Training places a tree by `param_pspecs` (`TrainLayout`: FSDP's "embed" over
+"data", TP's heads / mlp / vocab over "model") and computes on
+gather-at-use with a backward (`gather_leaf`, `TrainGatheredLayers`): a leaf
+is all-gathered over every axis of its spec where it is used, and its
+gradient comes back to the rank's shard summed over "data" and sliced, not
+summed, over "model".
+
 Serving places a tree once for its route (`place_serving`, the rule of the
 reference's BatchedGenerator) and hands the result, a `Placed`, to every
 decode call:
@@ -39,10 +46,13 @@ import numpy as np
 import torch
 
 from halva_tpu_torch.parallel.mesh import (
+    AXIS_NAMES,
     DATA_AXIS,
     MODEL_AXIS,
     MeshShape,
     all_gather,
+    all_reduce,
+    reduce_scatter,
 )
 
 Params = Dict[str, Any]
@@ -401,15 +411,20 @@ class GatheredLayers(dict):
     """A stacked layer tree of this rank's eval_param_pspecs shards (the
     dict holds them, so structure tests read as on the whole tree) whose
     layer `li` is all-gathered over the model group by `layer(li)`
-    (models/llama.layer_slice), just before it runs."""
+    (models/llama.layer_slice), just before it runs. `gather(lp)` takes one
+    layer's shards (views of the stack's, as models/llama.forward_embeds
+    unbinds them) to the whole layer."""
 
     def __init__(self, local: Params, specs: Params, group):
         super().__init__(local)
         self.specs, self.group = specs, group
 
+    def gather(self, lp: Params) -> Params:
+        return _map2(lambda x, sp: _gather_leaf(x, sp, self.group, 1), lp,
+                     self.specs)
+
     def layer(self, li: int) -> Params:
-        return _map2(lambda x, sp: _gather_leaf(x[li], sp, self.group, 1),
-                     dict(self), self.specs)
+        return self.gather(_map2(lambda x, _: x[li], dict(self), self.specs))
 
 
 def gather_at_use(placed: Placed, group) -> Params:
@@ -429,3 +444,167 @@ def gather_at_use(placed: Placed, group) -> Params:
             out[key] = _map2(lambda x, sp: _gather_leaf(x, sp, group), sub,
                              specs[key])
     return out
+
+
+# --------------------------------------------------------------------------
+# Training: FSDP/TP placement and the differentiable gather-at-use.
+# --------------------------------------------------------------------------
+
+
+def _check_train_spec(spec: Spec, ndim: int) -> None:
+    axes = [a for a in spec if a is not None]
+    if (len(spec) not in (0, ndim) or any(a not in AXIS_NAMES for a in axes)
+            or len(set(axes)) != len(axes)):
+        raise ValueError(f"the train gather cannot take spec {spec} of a "
+                         f"{ndim}-dim leaf")
+
+
+def _gather_all(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    for dim, axis in enumerate(spec):
+        if axis is not None and mesh.size(axis) > 1:
+            x = all_gather(x, mesh.group(axis), dim)
+    return x
+
+
+class _GatherLeaf(torch.autograd.Function):
+    """All-gather of a trainable shard over every axis of its spec. The
+    backward gives the rank its shard's gradient: summed over "data", whose
+    ranks ran other rows (a reduce-scatter where "data" splits a dim, an
+    all-reduce where the leaf is replicated over it), and sliced without a
+    sum over "model", whose ranks of one data shard ran the same rows on the
+    whole leaf (a sum there would count every gradient `model` times)."""
+
+    @staticmethod
+    def forward(ctx, x, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return _gather_all(x, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, mesh = ctx.spec, ctx.mesh
+        if MODEL_AXIS in spec and mesh.size(MODEL_AXIS) > 1:
+            dim = spec.index(MODEL_AXIS)
+            size = g.shape[dim] // mesh.size(MODEL_AXIS)
+            g = g.narrow(dim, mesh.index(MODEL_AXIS) * size, size)
+        if mesh.size(DATA_AXIS) > 1:
+            group = mesh.group(DATA_AXIS)
+            if DATA_AXIS in spec:
+                g = reduce_scatter(g, group, spec.index(DATA_AXIS))
+            else:
+                g = all_reduce(g.clone(), group)
+        return g.contiguous(), None, None
+
+
+def gather_leaf(x, spec: Spec, mesh):
+    """The whole leaf of this rank's shard `x` under `spec`, all-gathered
+    over each axis of the spec; differentiable (`_GatherLeaf`) where `x`
+    takes a gradient, a plain gather (nothing saved, no backward) where it
+    does not. A spec this gather cannot take raises ValueError."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    _check_train_spec(spec, x.ndim)
+    if x.requires_grad and torch.is_grad_enabled():
+        if mesh.size(DATA_AXIS) == 1 and not any(
+                a is not None and mesh.size(a) > 1 for a in spec):
+            return x
+        return _GatherLeaf.apply(x, spec, mesh)
+    return _gather_all(x, spec, mesh)
+
+
+def whole_leaf(x, spec: Spec, mesh):
+    """The whole leaf of this rank's shard, gathered without autograd (a
+    checkpoint's save, the 8-bit moments' update)."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    _check_train_spec(spec, x.ndim)
+    with torch.no_grad():
+        return _gather_all(x.detach(), spec, mesh)
+
+
+def _map_like(fn, tree, specs):
+    """fn(leaf, spec) over `tree`, whose keys are a subset of the spec
+    tree's (a trainable or frozen half, a reference model)."""
+    if isinstance(tree, dict):
+        return {k: _map_like(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_like(fn, v, sp) for v, sp in zip(tree, specs)]
+    return fn(tree, specs)
+
+
+class TrainGatheredLayers(GatheredLayers):
+    """The LLM layer stack of a train tree: this rank's param_pspecs shards,
+    whose layer models/llama.forward_embeds gathers with `gather_leaf`
+    inside its remat region, so the backward gathers the layer again and
+    no gathered layer lives from the forward to the backward."""
+
+    def __init__(self, local: Params, specs: Params, mesh):
+        super().__init__(local, specs, None)
+        self.mesh = mesh
+
+    def gather(self, lp: Params) -> Params:
+        return _map2(lambda x, sp: gather_leaf(x, sp[1:], self.mesh), lp,
+                     self.specs)
+
+
+class TrainLayout:
+    """The training layout of a param tree on a mesh: `specs`, the
+    reference's param_pspecs of the whole tree (FSDP over "data", TP over
+    "model", replication where a dim does not divide its axis). `place`
+    cuts a tree laid out like it (the whole tree, a trainable or frozen
+    half with None placeholders) into this rank's shards; `gather` is the
+    compute tree of those shards (gather-at-use); `whole` gathers them back
+    without autograd."""
+
+    def __init__(self, params: Params, mesh):
+        self.mesh = mesh
+        self.specs = param_pspecs(params, mesh)
+
+    def spec(self, path) -> Spec:
+        node = self.specs
+        for k in path:
+            node = node[k]
+        return node
+
+    def place(self, tree: Params) -> Params:
+        return _map_like(lambda x, sp: local_shard(x.detach(), sp, self.mesh)
+                         if isinstance(x, torch.Tensor) else x, tree,
+                         self.specs)
+
+    def whole(self, tree: Params) -> Params:
+        return _map_like(lambda x, sp: whole_leaf(x, sp, self.mesh), tree,
+                         self.specs)
+
+    def gather(self, tree: Params) -> Params:
+        """The leaves outside the LLM layer stack gathered now (vocab
+        tables, final norm, projector; the tower is replicated), the stack
+        as TrainGatheredLayers."""
+        def leaves(sub, specs):
+            return _map_like(lambda x, sp: gather_leaf(x, sp, self.mesh),
+                             sub, specs)
+
+        out = {}
+        for key, sub in tree.items():
+            if key == "llm":
+                out[key] = {
+                    k: (TrainGatheredLayers(v, self.specs[key][k], self.mesh)
+                        if k == "layers" else leaves(v, self.specs[key][k]))
+                    for k, v in sub.items()}
+            else:
+                out[key] = leaves(sub, self.specs[key])
+        return out
+
+
+def check_train_rows(batch, mesh: MeshShape, packed: bool = False) -> None:
+    """A train step on a mesh takes each rank's rows: the batch's rows (a
+    packed batch's token rows, its 2-dim arrays) must divide the data axis,
+    or ValueError names it. shard_packed_batch would replicate rows that do
+    not, and the loss would count them `data` times. (A packed image stack
+    that does not divide is replicated, and llava.forward_packed's gather
+    still finds each image at its global index.)"""
+    n = mesh.size(DATA_AXIS)
+    for key, x in batch.items():
+        shape = _shape(x)
+        rows = len(shape) == 2 if packed else bool(shape)
+        if rows and shape[0] % n:
+            raise ValueError(f"batch {key!r} has {shape[0]} rows, which do "
+                             f"not divide the mesh data axis size ({n})")

@@ -32,9 +32,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from halva_tpu_torch import tree
+from halva_tpu_torch.parallel import partition
 from halva_tpu_torch.utils import treecache
+from halva_tpu_torch.utils.logging import is_main_process
 
 Params = Dict[str, Any]
 
@@ -144,7 +147,14 @@ class CheckpointManager:
     the schedule's update count and the mini-step in the meta record. A
     checkpoint of one optim kind is refused under the other. A save is
     written under a temporary name and renamed, so an interrupted save
-    leaves the last complete step readable."""
+    leaves the last complete step readable.
+
+    On a train mesh (the optimizer's TrainLayout) the file is the one a
+    single device writes: every rank takes part in gathering the whole
+    leaves, their AdamW moments and accumulators (the 8-bit moments are
+    whole already), rank 0 writes, and the ranks meet before the next
+    step; a restore reads the whole leaves and each rank keeps its shards.
+    A checkpoint of either kind of run restores in the other."""
 
     def __init__(self, directory: str, max_to_keep: int = 2):
         self._dir = os.path.abspath(directory)
@@ -174,14 +184,28 @@ class CheckpointManager:
             return False
         leaves = _trainable_leaves(trainable)
         moments = opt_state.adamw.state
+        mesh = opt_state.mesh
+        sharded = opt_state.LEAF_STATE[opt_state.tcfg.optim]
+
+        def whole(t, spec):
+            return t if mesh is None else partition.whole_leaf(t, spec, mesh)
+
         state: Dict[str, Dict[str, torch.Tensor]] = {"params": {}}
-        for key, x in leaves:
-            state["params"][key] = x
+        for (key, x), spec in zip(leaves, opt_state.specs):
+            state["params"][key] = whole(x, spec)
             for name, v in moments.get(x, {}).items():
-                state.setdefault(name, {})[key] = v
+                state.setdefault(name, {})[key] = (
+                    whole(v, spec) if name in sharded else v)
         if opt_state.acc is not None:
-            state["acc"] = {key: a for (key, _), a in
-                            zip(leaves, opt_state.acc)}
+            state["acc"] = {key: whole(a, spec) for (key, _), a, spec in
+                            zip(leaves, opt_state.acc, opt_state.specs)}
+        if mesh is None or is_main_process():
+            self._write(step, state, opt_state)
+        if mesh is not None:
+            dist.barrier()
+        return True
+
+    def _write(self, step: int, state, opt_state) -> None:
         tmp = os.path.join(self._dir, f".{step}.{os.getpid()}.tmp")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -196,7 +220,6 @@ class CheckpointManager:
         os.replace(tmp, final)
         for old in self.all_steps()[:-self._keep] if self._keep else []:
             shutil.rmtree(self._step_dir(old), ignore_errors=True)
-        return True
 
     @torch.no_grad()
     def restore(self, trainable_like: Params, opt_state_like,
@@ -221,18 +244,27 @@ class CheckpointManager:
                 f"checkpoint {step} holds other trainable leaves: "
                 f"{sorted(set(state['params']) ^ {k for k, _ in leaves})[:5]}")
         names = [n for n in state if n not in ("params", "acc")]
-        for key, x in leaves:
-            x.copy_(state["params"][key])
+        sharded = opt.LEAF_STATE[opt.tcfg.optim]
+
+        def mine(t, spec, x):
+            if opt.mesh is None:
+                return t.to(x.device)
+            return partition.local_shard(t, spec, opt.mesh)
+
+        for (key, x), spec in zip(leaves, opt.specs):
+            x.copy_(mine(state["params"][key], spec, x))
             st = {n: state[n][key] for n in names if key in state[n]}
             if st:
                 # the step count stays on the host, as the optimizers keep it
                 opt.adamw.state[x] = {
-                    n: v.clone() if n == "step" else v.to(x.device)
+                    n: v.clone() if n == "step" else
+                    mine(v, spec, x) if n in sharded else v.to(x.device)
                     for n, v in st.items()}
             else:
                 opt.adamw.state.pop(x, None)
         if "acc" in state:
-            opt.acc = [state["acc"][key].to(x.device) for key, x in leaves]
+            opt.acc = [mine(state["acc"][key], spec, x)
+                       for (key, x), spec in zip(leaves, opt.specs)]
         elif opt.acc is not None:
             for a in opt.acc:
                 a.zero_()

@@ -15,6 +15,13 @@ positions at a time, each chunk a non-reentrant `torch.utils.checkpoint`
 region (the reference's `jax.checkpoint` scan body): no (B, S, V) fp32
 tensor lives whole, forward or backward. A ragged last chunk needs no
 padding here.
+
+On a train mesh each data rank holds its own rows, while every normalizer
+of the loss is batch-global: the losses take the data group
+(`_batch_constrainer`) and sum their partial sums over it with
+`parallel.mesh.psum` before anything nonlinear, the present-phrase set is
+the union over the ranks, and B is the global row count. Every rank then
+holds the global loss, and the metrics it reports are the global ones.
 """
 
 from __future__ import annotations
@@ -22,14 +29,37 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from halva_tpu_torch.constants import IGNORE_INDEX
+from halva_tpu_torch.parallel.mesh import DATA_AXIS, all_reduce, psum
 
 MAX_PHRASES = 16  # static upper bound on <MASK> spans per answer
 
 LogitsFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _batch_constrainer(mesh):
+    """The loss's "data" group on a train mesh, None without one or with a
+    data axis of 1. The reference pins the batch dim to "data" with
+    sharding constraints and lets XLA reduce; here each rank holds its rows
+    and the losses reduce over this group."""
+    if mesh is None or mesh.size(DATA_AXIS) <= 1:
+        return None
+    return mesh.group(DATA_AXIS)
+
+
+def _ranks(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _any_rank(present: torch.Tensor, group) -> torch.Tensor:
+    """A (K,) bool set united over the group's ranks."""
+    if group is None:
+        return present
+    return all_reduce(present.float(), group) > 0
 
 
 def _gather_logps(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -64,10 +94,12 @@ def alignment_loss(
     pos_signs: torch.Tensor,  # (B, S-1) shifted signs
     neg_signs: torch.Tensor,
     max_phrases: int = MAX_PHRASES,
+    group=None,
 ) -> torch.Tensor:
     """Phrase-level contrastive loss (scalar, fp32). The present-phrase set
     comes from `pos_signs` only, as in the reference (HALVA pairs carry the
-    same phrase ids on both sides); rows lacking a present id add log(2)."""
+    same phrase ids on both sides); rows lacking a present id add log(2).
+    `group`: the data group of a mesh (the set and B are global)."""
     pos_mask = (pos_labels != IGNORE_INDEX).float()
     neg_mask = (neg_labels != IGNORE_INDEX).float()
     pos_signs = pos_signs.clamp_min(0)
@@ -77,24 +109,28 @@ def alignment_loss(
                                   neg_signs.clamp_min(0), max_phrases)
     ids = torch.arange(1, max_phrases + 1, dtype=pos_signs.dtype,
                        device=pos_signs.device)
-    present = (pos_signs[:, :, None] == ids[None, None, :]).any(dim=1).any(
-        dim=0)  # (K,)
+    present = _any_rank((pos_signs[:, :, None] == ids[None, None, :]).any(
+        dim=1).any(dim=0), group)  # (K,)
     elem = torch.log1p(torch.exp(neg - pos))  # (B, K)
     num = (elem * present[None, :].to(elem.dtype)).sum()
-    denom = pos.shape[0] * present.float().sum().clamp_min(1.0)
-    return num / denom
+    denom = pos.shape[0] * _ranks(group) * present.float().sum().clamp_min(
+        1.0)
+    return psum(num, group) / denom
 
 
 def kl_divergence(policy_logits: torch.Tensor,  # (B, S, V) fp32
                   ref_logits: torch.Tensor,  # (B, S, V) frozen model
-                  ref_labels: torch.Tensor) -> torch.Tensor:  # (B, S)
+                  ref_labels: torch.Tensor,  # (B, S)
+                  group=None) -> torch.Tensor:
     """KL(ref || policy) over the supervised (shifted) ref tokens, summed,
-    divided by the batch size. No gradient flows into `ref_logits`."""
+    divided by the (global) batch size. No gradient flows into
+    `ref_logits`."""
     mask = (ref_labels[:, 1:] != IGNORE_INDEX).float()
     r_logp = F.log_softmax(ref_logits[:, :-1].detach().float(), dim=-1)
     p_logp = F.log_softmax(policy_logits[:, :-1].float(), dim=-1)
     div = (r_logp.exp() * (r_logp - p_logp)).sum(-1)  # (B, S-1)
-    return (div * mask).sum() / policy_logits.shape[0]
+    return psum((div * mask).sum(), group) / (policy_logits.shape[0]
+                                              * _ranks(group))
 
 
 class DPALossParts(NamedTuple):
@@ -137,11 +173,12 @@ def kl_divergence_chunked(
     ref_labels: torch.Tensor,  # (B, S)
     chunk: int = 256,
     denom=None,
+    group=None,
 ) -> torch.Tensor:
     """kl_divergence on the logits of both hidden states, chunked; lm_head
     is shared by the policy and the frozen model (LoRA never touches it).
-    `denom` divides the sum: the row count by default; packed rows hold
-    several samples, so the packed loss passes n_samples."""
+    `denom` divides the sum: the (global) row count by default; packed rows
+    hold several samples, so the packed loss passes n_samples."""
     p_hid = policy_hidden[:, :-1]
     r_hid = ref_hidden[:, :-1].detach()
     lab = ref_labels[:, 1:]
@@ -159,8 +196,8 @@ def kl_divergence_chunked(
         for c0 in range(0, p_hid.shape[1], chunk)
     )
     if denom is None:
-        denom = policy_hidden.shape[0]
-    return total / denom
+        denom = policy_hidden.shape[0] * _ranks(group)
+    return psum(total, group) / denom
 
 
 def dpa_loss_from_hidden(
@@ -177,15 +214,17 @@ def dpa_loss_from_hidden(
     alpha: float,
     max_phrases: int = MAX_PHRASES,
     chunk: int = 256,
+    group=None,
 ) -> DPALossParts:
     """dpa_loss from final hidden states, logits chunked over the sequence."""
     pos_lp = per_token_logps_chunked(logits_fn, pos_hidden, pos_labels, chunk)
     neg_lp = per_token_logps_chunked(logits_fn, neg_hidden, neg_labels, chunk)
     align = alignment_loss(pos_lp, neg_lp, pos_labels[:, 1:],
                            neg_labels[:, 1:], pos_signs[:, 1:],
-                           neg_signs[:, 1:], max_phrases)
+                           neg_signs[:, 1:], max_phrases, group)
     div = kl_divergence_chunked(logits_fn, policy_ref_hidden,
-                                frozen_ref_hidden, ref_labels, chunk)
+                                frozen_ref_hidden, ref_labels, chunk,
+                                group=group)
     return DPALossParts(align + alpha * div, align, div)
 
 
@@ -228,21 +267,27 @@ def packed_alignment_loss(
     n_samples: torch.Tensor,  # () int32: real samples in the batch
     max_samples: int,
     max_phrases: int = MAX_PHRASES,
+    group=None,
 ) -> torch.Tensor:
     """alignment_loss over packed rows. The present-phrase set is
     batch-global, from the positive documents (the reference's
     torch.unique(signs)); sample slots beyond n_samples are dead and add
-    nothing."""
+    nothing. On a mesh (`group`) a sample's positive and negative documents
+    may lie in other ranks' rows: the phrase sums are summed over the ranks
+    before the nonlinearity, and `n_samples` is the batch's."""
     signs = signs.clamp_min(0)
-    pos = packed_phrase_logps(logps, labels, signs, sample_ids,
-                              neg_flags == 0, max_samples, max_phrases)
-    neg = packed_phrase_logps(logps, labels, signs, sample_ids,
-                              neg_flags == 1, max_samples, max_phrases)
+    pos = psum(packed_phrase_logps(logps, labels, signs, sample_ids,
+                                   neg_flags == 0, max_samples, max_phrases),
+               group)
+    neg = psum(packed_phrase_logps(logps, labels, signs, sample_ids,
+                                   neg_flags == 1, max_samples, max_phrases),
+               group)
     ids = torch.arange(1, max_phrases + 1, dtype=signs.dtype,
                        device=signs.device)
     pos_tok = (neg_flags == 0) & (sample_ids > 0)
-    present = ((signs[:, :, None] == ids) & pos_tok[:, :, None]).any(
-        dim=1).any(dim=0)  # (K,)
+    present = _any_rank(((signs[:, :, None] == ids)
+                         & pos_tok[:, :, None]).any(dim=1).any(dim=0),
+                        group)  # (K,)
     valid = torch.arange(1, max_samples + 1, device=logps.device) <= (
         n_samples)  # (B,)
     elem = torch.log1p(torch.exp(neg - pos))  # (B, K): log(2) where absent
@@ -267,6 +312,7 @@ def dpa_loss_from_hidden_packed(
     max_samples: int,
     max_phrases: int = MAX_PHRASES,
     chunk: int = 256,
+    group=None,
 ) -> DPALossParts:
     """The DPA loss over packed rows, logits chunked over the sequence.
     The shift is the row-per-sample path's: the gather that crosses a
@@ -275,10 +321,10 @@ def dpa_loss_from_hidden_packed(
     lp = per_token_logps_chunked(logits_fn, pn_hidden, pn_labels, chunk)
     align = packed_alignment_loss(
         lp, pn_labels[:, 1:], pn_signs[:, 1:], pn_sample_ids[:, 1:],
-        pn_neg_flags[:, 1:], n_samples, max_samples, max_phrases)
+        pn_neg_flags[:, 1:], n_samples, max_samples, max_phrases, group)
     div = kl_divergence_chunked(logits_fn, policy_ref_hidden,
                                 frozen_ref_hidden, ref_labels, chunk,
-                                denom=n_samples.float())
+                                denom=n_samples.float(), group=group)
     return DPALossParts(align + alpha * div, align, div)
 
 
@@ -294,11 +340,13 @@ def dpa_loss(
     ref_labels: torch.Tensor,  # (B, Sr)
     alpha: float,
     max_phrases: int = MAX_PHRASES,
+    group=None,
 ) -> DPALossParts:
     pos_lp = per_token_logps(pos_logits, pos_labels)
     neg_lp = per_token_logps(neg_logits, neg_labels)
     align = alignment_loss(pos_lp, neg_lp, pos_labels[:, 1:],
                            neg_labels[:, 1:], pos_signs[:, 1:],
-                           neg_signs[:, 1:], max_phrases)
-    div = kl_divergence(policy_ref_logits, frozen_ref_logits, ref_labels)
+                           neg_signs[:, 1:], max_phrases, group)
+    div = kl_divergence(policy_ref_logits, frozen_ref_logits, ref_labels,
+                        group)
     return DPALossParts(align + alpha * div, align, div)

@@ -29,6 +29,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from halva_tpu_torch.parallel import partition
+
 BLOCK = 256
 MIN_QUANT_SIZE = 4096
 
@@ -123,16 +125,25 @@ class AdamW8bit(torch.optim.Optimizer):
 
     state[p]: "step" (a 0-d int64 CPU tensor, the updates so far) and the
     moments of `init_state`. A param without a grad is skipped, as the
-    reference passes a None placeholder through."""
+    reference passes a None placeholder through.
+
+    On a train mesh (`mesh`, and a group's "specs": each param's
+    partition spec) a param is this rank's shard. The blocks of BLOCK run
+    over the whole leaf's flattened order, which a shard's slice does not
+    follow, so the moments are the whole leaf's on every rank (as the
+    reference's param_shardings leave them: no rule matches their paths):
+    a step gathers the whole gradient, updates the whole moments and
+    applies this rank's slice of the direction."""
 
     def __init__(self, params, lr: float = 1e-3,
                  betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.0,
-                 min_quant_size: int = MIN_QUANT_SIZE):
+                 min_quant_size: int = MIN_QUANT_SIZE, mesh=None):
         defaults = dict(lr=lr, betas=betas, eps=eps,
                         weight_decay=weight_decay,
                         min_quant_size=min_quant_size)
         super().__init__(params, defaults)
+        self.mesh = mesh
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -142,16 +153,22 @@ class AdamW8bit(torch.optim.Optimizer):
                 loss = closure()
         for group in self.param_groups:
             b1, b2 = group["betas"]
-            for p in group["params"]:
+            specs = group.get("specs") or [()] * len(group["params"])
+            for p, spec in zip(group["params"], specs):
                 if p.grad is None:
                     continue
+                g = p.grad
+                if self.mesh is not None:
+                    g = partition.whole_leaf(g, spec, self.mesh)
                 st = self.state[p]
                 if not st:
                     st["step"] = torch.zeros((), dtype=torch.int64)
-                    st.update(init_state(p, group["min_quant_size"]))
+                    st.update(init_state(g, group["min_quant_size"]))
                 st["step"] += 1
-                u = adam_direction(p.grad, st, b1, b2, group["eps"],
+                u = adam_direction(g, st, b1, b2, group["eps"],
                                    int(st["step"]))
+                if self.mesh is not None:
+                    u = partition.local_shard(u, spec, self.mesh)
                 if group["weight_decay"]:
                     u = u + group["weight_decay"] * p
                 p.sub_(u * group["lr"])

@@ -2,13 +2,22 @@
 
 Counterpart of halva_tpu/train/run.py with the same RunConfig, flow and
 semantics, on one card (`device`, the card unless the caller names the
-CPU). Orchestration only — all device math lives in trainer.py. The flow
-(reference llava/train/train_halva.py:1179-1243):
+CPU) or on a device mesh of one process a card (--mesh-data N --mesh-model
+M under `torchrun --nproc-per-node N*M`). Orchestration only — all device
+math lives in trainer.py. The flow (reference
+llava/train/train_halva.py:1179-1243):
   build policy (base + LoRA) and frozen reference model -> dataset ->
   train loop (grad-accum, cosine lr, checkpoint/resume) -> adapter save.
 
+On a mesh every rank builds the whole policy and cuts its shards
+(trainer.init_train_state(mesh=)), reads the same index stream and collates
+the same global batch as the reference's one process does (so padding is to
+the longest row of the global batch), and keeps its rows
+(partition.shard_batch / shard_packed_batch); rank 0 writes the logs, the
+metrics, the checkpoints and the exports, which are the files one card
+writes.
+
 Differences by design:
-- one process drives one card: the global batch is the per-device batch;
 - the frozen ref model is the policy's frozen tree (trainer.ref_model_tree),
   not a second engine;
 - resume is a CheckpointManager step restore (train/checkpoint.py), not HF
@@ -27,18 +36,25 @@ import dataclasses
 import itertools
 import os
 import time
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
 from halva_tpu_torch import tree
 from halva_tpu_torch.config import LlavaConfig, PRESETS
+from halva_tpu_torch.parallel import partition
+from halva_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
 from halva_tpu_torch.train import checkpoint as ckpt_lib
 from halva_tpu_torch.train import lora as lora_lib
 from halva_tpu_torch.train import sampler as sampler_lib
 from halva_tpu_torch.train import trainer as trainer_lib
 from halva_tpu_torch.train.data import HallDataset, collate
-from halva_tpu_torch.utils.logging import MetricsLogger, StepTimer, log0
+from halva_tpu_torch.utils.logging import (
+    MetricsLogger,
+    StepTimer,
+    is_main_process,
+    log0,
+)
 
 
 @dataclasses.dataclass
@@ -67,7 +83,7 @@ class RunConfig:
     save_steps: int = 50000
     log_every: int = 1
     dtype: str = "bfloat16"
-    mesh_data: Optional[int] = None  # one card: None or 1
+    mesh_data: Optional[int] = None  # None: the processes over mesh_model
     mesh_model: int = 1
     resume: bool = True
     metrics_path: Optional[str] = None
@@ -91,15 +107,23 @@ class RunConfig:
     device: str = "cuda"  # the card unless the caller names the CPU
 
 
-def check_ported(rcfg: RunConfig) -> None:
-    """Raise, before anything loads, on the options whose slice is not
-    ported yet, naming its ROADMAP queue 1 item."""
-    for name in ("mesh_data", "mesh_model"):
-        if getattr(rcfg, name) not in (None, 1):
-            raise NotImplementedError(
-                f"{name}={getattr(rcfg, name)}: a device mesh is not ported "
-                "yet (ROADMAP queue 1 item 10, multi-GPU); one card runs "
-                "with mesh_data and mesh_model 1 or unset")
+def mesh_axes(rcfg: RunConfig) -> Optional[Tuple[int, int]]:
+    """(data, model) of the run's mesh, or None for a run of one process:
+    the world is WORLD_SIZE (torchrun's), 1 without it. A mesh_model that
+    does not divide the world, or a shape whose size is not the world's,
+    raises ValueError: called before anything loads."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    model = rcfg.mesh_model
+    if model < 1 or world % model:
+        raise ValueError(f"mesh_model={model} does not divide the {world} "
+                         "processes of this run (one process a card, under "
+                         "torchrun --nproc-per-node)")
+    data = rcfg.mesh_data or world // model
+    if data * model != world:
+        raise ValueError(f"mesh {data}x{model} != the {world} processes of "
+                         "this run (one process a card, under torchrun "
+                         "--nproc-per-node)")
+    return None if world == 1 else (data, model)
 
 
 def build_models(rcfg: RunConfig, cfg: LlavaConfig, tokenizer=None):
@@ -148,6 +172,16 @@ def build_models(rcfg: RunConfig, cfg: LlavaConfig, tokenizer=None):
     return policy, base, cfg  # ref model shares the base tree (frozen)
 
 
+def _any_rank(flag: bool, mesh) -> bool:
+    """A stop flag that holds on every rank of the mesh if on any (the
+    ranks meet in every step's collectives, so they stop together)."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([float(flag)], device=mesh.device)
+    torch.distributed.all_reduce(t)
+    return bool(t.item() > 0)
+
+
 def _to_device(host_batch, device):
     return {k: torch.as_tensor(v).to(device) for k, v in host_batch.items()}
 
@@ -162,7 +196,11 @@ def train(rcfg: RunConfig, tokenizer, dataset: Optional[Any] = None):
             f"unknown LLaVA preset {rcfg.model!r}; choose one of "
             f"{llava_presets}"
         )
-    check_ported(rcfg)
+    axes = mesh_axes(rcfg)
+    mesh = None
+    if axes is not None:
+        mesh = make_mesh(data=axes[0], model=axes[1], device=rcfg.device)
+        log0("mesh: %s", dict(mesh.shape))
     device = torch.device(rcfg.device)
 
     if rcfg.model_max_length:
@@ -188,7 +226,7 @@ def train(rcfg: RunConfig, tokenizer, dataset: Optional[Any] = None):
             seed=rcfg.seed,
         )
 
-    n_data = 1  # one card
+    n_data = 1 if mesh is None else mesh.size(DATA_AXIS)
     global_batch = rcfg.per_device_batch * n_data
     steps_per_epoch = len(dataset) // global_batch
     num_opt_steps = int(rcfg.epochs * steps_per_epoch / rcfg.grad_accum_steps)
@@ -229,7 +267,7 @@ def train(rcfg: RunConfig, tokenizer, dataset: Optional[Any] = None):
     if rcfg.tune_mm_projector:
         extra_trainable.append(r"^projector/")
     trainable, frozen, optimizer, opt_state = trainer_lib.init_train_state(
-        policy, tcfg, extra_trainable=tuple(extra_trainable)
+        policy, tcfg, extra_trainable=tuple(extra_trainable), mesh=mesh
     )
     # the frozen reference model is DERIVED from `frozen` inside the step
     # (trainer.ref_model_tree) — no second 13GB tree on device. Trainable
@@ -251,17 +289,21 @@ def train(rcfg: RunConfig, tokenizer, dataset: Optional[Any] = None):
     ref_params = ref_overrides or None
     del initial, _base, policy
 
+    mesh_kw = {} if mesh is None else {"mesh": mesh}
     if rcfg.pack:
         from halva_tpu_torch.train.pack import PackedDPABatcher
 
         def _r64(n):
             return -(-n // 64) * 64
 
+        def _rdata(n):
+            return -(-n // n_data) * n_data
+
         pack_seq = rcfg.pack_seq_len or _r64(
             rcfg.max_length + cfg.num_image_tokens - 1
         )
-        pack_rows = rcfg.pack_rows or global_batch
-        pack_ref_rows = rcfg.pack_ref_rows or max(1, pack_rows // 2)
+        pack_rows = _rdata(rcfg.pack_rows or global_batch)
+        pack_ref_rows = _rdata(rcfg.pack_ref_rows or max(1, pack_rows // 2))
         max_samples = global_batch
         batcher = PackedDPABatcher(
             seq_len=pack_seq,
@@ -277,11 +319,11 @@ def train(rcfg: RunConfig, tokenizer, dataset: Optional[Any] = None):
             pack_rows, pack_ref_rows, pack_seq, max_samples,
         )
         step_fn, _ = trainer_lib.packed_dpa_step_fns(
-            cfg, tcfg, optimizer, max_samples=max_samples
+            cfg, tcfg, optimizer, max_samples=max_samples, **mesh_kw
         )
     else:
         batcher = None
-        step_fn, _ = trainer_lib.dpa_step_fns(cfg, tcfg, optimizer)
+        step_fn, _ = trainer_lib.dpa_step_fns(cfg, tcfg, optimizer, **mesh_kw)
 
     mgr = ckpt_lib.CheckpointManager(
         os.path.join(rcfg.output_dir, "checkpoints")
@@ -303,7 +345,8 @@ def train(rcfg: RunConfig, tokenizer, dataset: Optional[Any] = None):
     # index stream: modality length grouping, fresh shuffle per epoch;
     # on resume the first `start_step` micro-batches are skipped so a
     # resumed run continues the SAME data stream instead of replaying
-    # from sample 0 (HF Trainer skip_first_batches semantics)
+    # from sample 0 (HF Trainer skip_first_batches semantics). Every rank
+    # of a mesh reads the whole stream and collates the global batch.
     order = sampler_lib.epoch_indices(
         dataset.modality_lengths,
         rcfg.per_device_batch,
@@ -357,11 +400,17 @@ def train(rcfg: RunConfig, tokenizer, dataset: Optional[Any] = None):
     for host_batch in prefetch(host_batch_stream(), depth=2):
         if micro >= stop_at:
             break
-        if watcher.should_stop(micro) or wall.should_stop():
+        if _any_rank(watcher.should_stop(micro) or wall.should_stop(), mesh):
             log0("preemption/timeout: checkpoint + stop at step %d", micro)
             mgr.save(micro, trainable, opt_state)
             break
-        batch = _to_device(host_batch, device)
+        if mesh is None:
+            batch = _to_device(host_batch, device)
+        else:
+            partition.check_train_rows(host_batch, mesh, batcher is not None)
+            batch = (partition.shard_packed_batch(host_batch, mesh)
+                     if batcher is not None
+                     else partition.shard_batch(host_batch, mesh))
         trainable, opt_state, m = step_fn(
             trainable, frozen, ref_params, opt_state, batch
         )
@@ -393,14 +442,19 @@ def train(rcfg: RunConfig, tokenizer, dataset: Optional[Any] = None):
     log0("training done in %.1f min", (time.time() - t_train0) / 60)
     mgr.save(micro, trainable, opt_state)
 
-    # adapter-only export (reference adapter + non_lora_trainables save)
+    # adapter-only export (reference adapter + non_lora_trainables save);
+    # on a mesh every rank gathers the whole tree and rank 0 writes
     final = trainer_lib.combine_params(trainable, frozen)
+    if mesh is not None:
+        final = optimizer.layout.whole(final)
+    writer = mesh is None or is_main_process()
     adapter = lora_lib.lora_state_dict(final)
-    ckpt_lib.save_adapter(
-        os.path.join(rcfg.output_dir, "adapter.npz"), adapter
-    )
+    if writer:
+        ckpt_lib.save_adapter(
+            os.path.join(rcfg.output_dir, "adapter.npz"), adapter
+        )
     log0("saved adapter with %d tensors", len(adapter))
-    if rcfg.save_component_dirs:
+    if rcfg.save_component_dirs and writer:
         from halva_tpu_torch.train import vila as vila_lib
 
         vila_lib.save_components(
@@ -444,7 +498,7 @@ def parse_args(argv=None) -> RunConfig:
 
 def main(argv=None):
     rcfg = parse_args(argv)
-    check_ported(rcfg)
+    mesh_axes(rcfg)  # a mesh that does not fit the world: before loading
 
     from transformers import AutoTokenizer
 

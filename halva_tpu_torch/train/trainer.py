@@ -23,6 +23,16 @@ pattern:
   optimizer object itself: `train_step` updates it in place and hands it
   back.
 - `packed_dpa_step_fns` is the twin for packed batches (train/pack.py).
+- On a device mesh (`init_train_state(mesh=)`, then the step fns with the
+  same mesh) every rank holds its parallel/partition.TrainLayout shards of
+  the trainable and frozen trees and of the optimizer state, and its own
+  rows of the batch (partition.shard_batch / shard_packed_batch). The step
+  computes on gather-at-use: the leaves outside the LLM layer stack are
+  gathered once a forward pass, each layer inside its remat region, and
+  their gradients come back as this rank's shards (summed over "data"). The
+  loss terms are batch-global (train/dpa.py), the grad norm sums each
+  shard once, and AdamW updates the local shards; the 8-bit moments stay
+  whole on every rank, as the reference lays them out.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ import torch
 from halva_tpu_torch import tree
 from halva_tpu_torch.config import LlavaConfig
 from halva_tpu_torch.models import llama, llava
+from halva_tpu_torch.parallel import partition
+from halva_tpu_torch.parallel.mesh import all_reduce
 from halva_tpu_torch.train import dpa, optim8bit
 from halva_tpu_torch.train.lora import trainable_mask
 
@@ -203,14 +215,26 @@ class DPAOptimizer:
     - Accumulators and Adam moments take the params' dtype, as optax's do;
       under optim="adamw8bit" the moments are optim8bit's (int8 / uint8
       blocks, fp32 for leaves under 4,096 elements).
+    - `layout` (a partition.TrainLayout): the leaves are this rank's shards;
+      accumulators and AdamW's moments are shards like their leaves, the
+      norm is global_norm's over the mesh, and the 8-bit moments stay whole
+      (the reference's param_shardings match no rule on their paths and
+      replicate them): AdamW8bit updates them from the whole gradient.
     """
 
-    def __init__(self, tcfg: TrainConfig, trainable: Params):
+    # the optimizer state that is laid out like its leaf, by optim
+    LEAF_STATE = {"adamw": ("exp_avg", "exp_avg_sq"), "adamw8bit": ()}
+
+    def __init__(self, tcfg: TrainConfig, trainable: Params, layout=None):
         kinds = {"adamw": torch.optim.AdamW, "adamw8bit": optim8bit.AdamW8bit}
         if tcfg.optim not in kinds:
             raise ValueError(f"unknown optim {tcfg.optim!r}")
         self.tcfg = tcfg
+        self.layout = layout
+        self.mesh = None if layout is None else layout.mesh
         flat = _leaves(trainable)
+        self.specs = [() if layout is None else layout.spec(p)
+                      for p, _ in flat]
         leaves = [x for _, x in flat]
         # indices into the trainable-leaf order, by group
         groups: Dict[str, List[int]] = {"base": [], "projector": []}
@@ -222,11 +246,17 @@ class DPAOptimizer:
         names = [n for n in ("base", "projector") if groups[n]]
         self.leaves = leaves
         self.groups = [groups[n] for n in names]
+        whole_moments = tcfg.optim == "adamw8bit" and layout is not None
+        param_groups = []
+        for n in names:
+            group = {"params": [leaves[i] for i in groups[n]], "lr": 1.0}
+            if whole_moments:
+                group["specs"] = [self.specs[i] for i in groups[n]]
+            param_groups.append(group)
         self.adamw = kinds[tcfg.optim](
-            [{"params": [leaves[i] for i in groups[n]], "lr": 1.0}
-             for n in names],
-            betas=(tcfg.adam_b1, tcfg.adam_b2), eps=tcfg.adam_eps,
-            weight_decay=tcfg.weight_decay)
+            param_groups, betas=(tcfg.adam_b1, tcfg.adam_b2),
+            eps=tcfg.adam_eps, weight_decay=tcfg.weight_decay,
+            **({"mesh": layout.mesh} if whole_moments else {}))
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(
             self.adamw, [lr_schedule(tcfg, rates[n]) for n in names])
         self.mini_step = 0
@@ -254,7 +284,7 @@ class DPAOptimizer:
             grads = self.acc
         for group in self.groups:
             gs = [grads[i].to(self.leaves[i].dtype) for i in group]
-            norm = global_norm(gs)
+            norm = global_norm(gs, [self.specs[i] for i in group], self.mesh)
             if not norm < self.tcfg.max_grad_norm:
                 gs = [g / norm.to(g.dtype) * self.tcfg.max_grad_norm
                       for g in gs]
@@ -270,13 +300,30 @@ class DPAOptimizer:
         return True
 
 
-def make_optimizer(tcfg: TrainConfig, trainable: Params) -> DPAOptimizer:
-    return DPAOptimizer(tcfg, trainable)
+def make_optimizer(tcfg: TrainConfig, trainable: Params,
+                   layout=None) -> DPAOptimizer:
+    return DPAOptimizer(tcfg, trainable, layout)
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every grad, in fp32."""
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+def global_norm(grads, specs=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every grad, in fp32. On a mesh each
+    grad is this rank's shard under its spec (`specs`, in order): the
+    squares of the grads sharded over the same axes are summed and
+    all-reduced over those axes, so that a replicated grad counts once and
+    every rank gets the same norm."""
+    if mesh is None:
+        return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    by_axes: Dict[tuple, List[torch.Tensor]] = {}
+    for g, spec in zip(grads, specs):
+        axes = tuple(a for a in spec if a is not None and mesh.size(a) > 1)
+        by_axes.setdefault(axes, []).append(g)
+    total = 0
+    for axes, gs in by_axes.items():
+        part = sum(g.float().square().sum() for g in gs)
+        for axis in axes:
+            part = all_reduce(part, mesh.group(axis))
+        total = total + part
+    return torch.sqrt(total)
 
 
 # --------------------------------------------------------------------------
@@ -291,27 +338,38 @@ class TrainMetrics(NamedTuple):
     grad_norm: torch.Tensor
 
 
-def _refuse_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...) is not ported yet (ROADMAP queue 1 item 10, "
-            "multi-GPU)")
+def _layout_of(optimizer: DPAOptimizer, mesh, what: str):
+    """The optimizer's TrainLayout, which must be for `mesh`: the trees the
+    step takes are the shards init_train_state(mesh=) placed."""
+    layout = optimizer.layout
+    if (mesh is None) != (layout is None) or (
+            layout is not None and layout.mesh is not mesh):
+        raise ValueError(
+            f"{what}(mesh=...) takes the shards of init_train_state(..., "
+            "mesh=) on the same mesh, and a meshless step the whole trees")
+    return layout
 
 
-def _step_fns(frozen_ref, loss_fn):
+def _step_fns(frozen_ref, loss_fn, layout=None):
     """(train_step, eval_loss) around a model's two halves:
     frozen_ref(frozen, ref_params, batch), the frozen reference's outputs
-    (run under no_grad), and loss_fn(trainable, frozen, ref_out, batch) ->
-    DPALossParts, which autograd differentiates."""
+    (run under no_grad), and loss_fn(params, ref_out, batch) ->
+    DPALossParts, which autograd differentiates. Both take the compute
+    tree: the combined halves, on a mesh (`layout`) the layout's gather of
+    this rank's shards."""
+    gather = (lambda t: t) if layout is None else layout.gather
+    mesh = None if layout is None else layout.mesh
 
     def frozen_out(frozen, ref_params, batch):
         with torch.no_grad():
-            return frozen_ref(ref_model_tree(frozen, ref_params), batch)
+            return frozen_ref(gather(ref_model_tree(frozen, ref_params)),
+                              batch)
 
     def loss_and_grads(trainable, frozen, ref_params, batch):
         ref_out = frozen_out(frozen, ref_params, batch)
         with torch.enable_grad():
-            parts = loss_fn(trainable, frozen, ref_out, batch)
+            parts = loss_fn(gather(combine_params(trainable, frozen)),
+                            ref_out, batch)
             leaves = [x for _, x in _leaves(trainable)]
             # a leaf the loss does not reach gets a zero grad, as in the
             # reference: MPT's MLP is not gated, and the tree still carries
@@ -329,14 +387,14 @@ def _step_fns(frozen_ref, loss_fn):
         loss, parts, grads = loss_and_grads(trainable, frozen, ref_params,
                                             batch)
         flat = [g for _, g in _leaves(grads)]
-        gnorm = global_norm(flat)
+        gnorm = global_norm(flat, opt_state.specs, mesh)
         opt_state.step(flat)
         return trainable, opt_state, TrainMetrics(
             loss, parts.alignment, parts.divergence, gnorm)
 
     @torch.no_grad()
     def eval_loss(trainable, frozen, ref_params, batch):
-        parts = loss_fn(trainable, frozen,
+        parts = loss_fn(gather(combine_params(trainable, frozen)),
                         frozen_out(frozen, ref_params, batch), batch)
         return TrainMetrics(parts.total, parts.alignment, parts.divergence,
                             torch.zeros((), device=parts.total.device))
@@ -361,8 +419,12 @@ def dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
     reference batch (B rows, with grad), the DPA loss (chunked when
     tcfg.loss_chunk is set), the backward into the trainable leaves, then
     the optimizer (which applies an update every grad_accum_steps calls).
+
+    mesh: the mesh of init_train_state(..., mesh=); the trees are its
+    shards and the batch this rank's rows (partition.shard_batch).
     """
-    _refuse_mesh(mesh, "dpa_step_fns")
+    layout = _layout_of(optimizer, mesh, "dpa_step_fns")
+    group = dpa._batch_constrainer(mesh)
     chunked = tcfg.loss_chunk is not None
 
     def forwards(params: Params, batch: Batch):
@@ -392,9 +454,8 @@ def dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
         )
         return out, sp.labels
 
-    def loss_fn(trainable, frozen, ref_out, batch) -> dpa.DPALossParts:
+    def loss_fn(params, ref_out, batch) -> dpa.DPALossParts:
         frozen_ref_out, ref_labels_spliced = ref_out
-        params = combine_params(trainable, frozen)
         pos_out, neg_out, pos_lab, neg_lab, pos_sg, neg_sg = forwards(
             params, batch)
         policy_ref_out, _ = ref_forward(params, batch)
@@ -408,13 +469,13 @@ def dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
                 logits_fn, pos_out, neg_out, pos_lab, neg_lab, pos_sg,
                 neg_sg, policy_ref_out, frozen_ref_out, ref_labels_spliced,
                 alpha=tcfg.loss_alpha, max_phrases=tcfg.max_phrases,
-                chunk=tcfg.loss_chunk)
+                chunk=tcfg.loss_chunk, group=group)
         return dpa.dpa_loss(
             pos_out, neg_out, pos_lab, neg_lab, pos_sg, neg_sg,
             policy_ref_out, frozen_ref_out, ref_labels_spliced,
-            alpha=tcfg.loss_alpha, max_phrases=tcfg.max_phrases)
+            alpha=tcfg.loss_alpha, max_phrases=tcfg.max_phrases, group=group)
 
-    return _step_fns(ref_forward, loss_fn)
+    return _step_fns(ref_forward, loss_fn, layout)
 
 
 def packed_dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
@@ -430,8 +491,13 @@ def packed_dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
 
     A micro-step: the frozen reference forward over the ref rows (no
     grad), the pos+neg forward over the pn rows, the policy forward over
-    the ref rows, the chunked loss, the backward, the optimizer."""
-    _refuse_mesh(mesh, "packed_dpa_step_fns")
+    the ref rows, the chunked loss, the backward, the optimizer.
+
+    mesh: as dpa_step_fns'; the batch is this rank's
+    partition.shard_packed_batch (its rows, its share of the images, the
+    whole scatter plans and n_samples)."""
+    layout = _layout_of(optimizer, mesh, "packed_dpa_step_fns")
+    group = dpa._batch_constrainer(mesh)
     chunk = tcfg.loss_chunk or 256
 
     def forward(params: Params, batch: Batch, side: str):
@@ -440,13 +506,12 @@ def packed_dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
             batch[f"{side}_img_src"], batch[f"{side}_img_row"],
             batch[f"{side}_img_col"], batch[f"{side}_segment_ids"],
             batch[f"{side}_positions"], attn_impl=tcfg.attn_impl,
-            remat=tcfg.remat, return_hidden=True)
+            remat=tcfg.remat, return_hidden=True, mesh=mesh)
 
     def ref_forward(params: Params, batch: Batch):
         return forward(params, batch, "ref")
 
-    def loss_fn(trainable, frozen, frozen_ref_hidden, batch):
-        params = combine_params(trainable, frozen)
+    def loss_fn(params, frozen_ref_hidden, batch):
         pn_hidden = forward(params, batch, "pn")
         policy_ref_hidden = ref_forward(params, batch)
         llm = params["llm"]
@@ -459,21 +524,27 @@ def packed_dpa_step_fns(cfg: LlavaConfig, tcfg: TrainConfig,
             batch["pn_sample_ids"], batch["pn_neg_flags"], policy_ref_hidden,
             frozen_ref_hidden, batch["ref_labels"], batch["n_samples"],
             alpha=tcfg.loss_alpha, max_samples=max_samples,
-            max_phrases=tcfg.max_phrases, chunk=chunk)
+            max_phrases=tcfg.max_phrases, chunk=chunk, group=group)
 
-    return _step_fns(ref_forward, loss_fn)
+    return _step_fns(ref_forward, loss_fn, layout)
 
 
 def init_train_state(params: Params, tcfg: TrainConfig,
-                     extra_trainable: Tuple[str, ...] = ()):
+                     extra_trainable: Tuple[str, ...] = (), mesh=None):
     """Split params, mark the trainable leaves `requires_grad`, build the
     optimizer. Returns (trainable, frozen, optimizer, opt_state); opt_state
-    is the optimizer (see the module docstring)."""
+    is the optimizer (see the module docstring). With `mesh`, the whole
+    tree `params` is cut into this rank's shards (partition.TrainLayout,
+    kept on the optimizer) and the halves are those shards."""
     if tcfg.mm_projector_lr:
         extra_trainable = extra_trainable + (r"^projector/",)
     mask = trainable_mask(params, extra_trainable=extra_trainable)
+    layout = None
+    if mesh is not None:
+        layout = partition.TrainLayout(params, mesh)
+        params = layout.place(params)
     trainable, frozen = split_params(params, mask)
     for _, leaf in _leaves(trainable):
         leaf.requires_grad_(True)
-    optimizer = make_optimizer(tcfg, trainable)
+    optimizer = make_optimizer(tcfg, trainable, layout)
     return trainable, frozen, optimizer, optimizer

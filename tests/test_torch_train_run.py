@@ -23,8 +23,10 @@ reference's halva_tpu/train/run.py, on the CPU.
   --optim adamw8bit it equals the uninterrupted run bit for bit, and its
   checkpoint is refused under the other optim.
 - main(argv): the reference's flags plus --device; one step on the CPU
-  with a tests/tokutil.py tokenizer; a mesh raises before anything
-  loads."""
+  with a tests/tokutil.py tokenizer; a mesh that does not fit the run's
+  processes raises before anything loads, and a batch whose rows do not
+  divide the data axis is refused (tests/test_torch_mesh_train.py runs the
+  CLI on a {2, 2} mesh of gloo ranks)."""
 
 import dataclasses
 import json
@@ -316,24 +318,67 @@ def test_flags_are_the_references_plus_device():
         dataclasses.asdict(got), device="cuda")
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--mesh-data", "2"], "item 10"),
-    (["--mesh-model", "2"], "item 10"),
+@pytest.mark.parametrize("argv,world,match", [
+    (["--mesh-data", "2"], None, "mesh 2x1 != the 1 processes"),
+    (["--mesh-model", "2"], None, "mesh_model=2 does not divide the 1"),
+    (["--mesh-model", "3"], "4", "mesh_model=3 does not divide the 4"),
+    (["--mesh-data", "3", "--mesh-model", "2"], "4", "mesh 3x2 != the 4"),
 ])
-def test_unported_options_raise_before_loading(tmp_path, monkeypatch, argv,
-                                               item):
+def test_a_mesh_that_does_not_fit_raises_before_loading(
+        tmp_path, monkeypatch, argv, world, match):
+    """The mesh flags against the run's processes (WORLD_SIZE as torchrun
+    sets it, 1 without it): ValueError before the tokenizer, the data or
+    the model loads, and before a process group is joined."""
     monkeypatch.setenv("HALVA_TOKENIZER", str(tmp_path / "no-tokenizer"))
+    if world is None:
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("WORLD_SIZE", world)
 
     def never(*a, **k):
         raise AssertionError("loaded a model")
 
     monkeypatch.setattr(run, "build_models", never)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=match):
         run.main(argv + ["--model", "llava-tiny", "--device", "cpu",
                          "--output-dir", str(tmp_path / "o")])
     rcfg = run.parse_args(argv + ["--model", "llava-tiny"])
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=match):
         run.train(rcfg, None, dataset=[])
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("world,argv,want", [
+    ("1", [], None),
+    ("1", ["--mesh-data", "1", "--mesh-model", "1"], None),
+    ("4", [], (4, 1)),
+    ("4", ["--mesh-model", "2"], (2, 2)),
+    ("8", ["--mesh-data", "2", "--mesh-model", "4"], (2, 4)),
+])
+def test_mesh_flags_parse_to_the_runs_mesh(monkeypatch, world, argv, want):
+    monkeypatch.setenv("WORLD_SIZE", world)
+    assert run.mesh_axes(run.parse_args(argv)) == want
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_rows_that_do_not_divide_the_data_axis_raise(packed):
+    """A train step on a mesh takes each rank's rows: 3 rows over data 2
+    raise ValueError naming the data axis (a packed batch's 1-dim scatter
+    plans and n_samples are whole on every rank, and checked for
+    nothing)."""
+    from halva_tpu_torch.parallel import mesh, partition
+
+    two = mesh.mesh_shape({"data": 2, "model": 2})
+    rows = np.zeros((3, 8), np.int32)
+    batch = ({"pn_input_ids": rows, "pn_img_row": np.zeros(5, np.int32),
+              "n_samples": np.int32(3)} if packed else
+             {"input_ids": rows, "images": np.zeros((3, 3, 4, 4))})
+    with pytest.raises(ValueError, match="data axis size"):
+        partition.check_train_rows(batch, two, packed)
+    even = {k: (v[:2] if np.ndim(v) == 2 else v) for k, v in batch.items()}
+    if not packed:
+        even["images"] = batch["images"][:2]
+    partition.check_train_rows(even, two, packed)
 
 
 def test_main_runs_a_step_on_the_cpu(tmp_path, monkeypatch):

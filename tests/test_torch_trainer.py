@@ -34,8 +34,11 @@ exactly 0, and a comparison would prove little).
   frameworks round at different places: loss parts rtol = 5e-2, grads by
   relative error of the whole vector <= 0.15.
 - Only LoRA leaves change; the projector group updates under
-  mm_projector_lr; the frozen reference tree tolerates a lone lora_scale;
-  a mesh raises naming its ROADMAP item."""
+  mm_projector_lr; the frozen reference tree tolerates a lone lora_scale.
+- The mesh options: init_train_state(mesh=) and the step on a {1, 1}
+  MeshShape (no process group: every collective has one rank) give the
+  meshless micro-step bit for bit; a step refuses trees of another layout
+  (tests/test_torch_mesh_train.py runs the real meshes on gloo ranks)."""
 
 import dataclasses
 
@@ -387,21 +390,62 @@ def test_remat_runs_each_layer_again_in_the_backward(monkeypatch):
     torch.testing.assert_close(again, out.detach(), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("what", ["mesh", "sgd"])
+@pytest.mark.parametrize("what", ["sgd"])
 def test_unported_options_raise(what):
     np_lp = _np_policy()
     params = tree.to_torch(np_lp, device="cpu")
-    if what == "sgd":
-        with pytest.raises(ValueError, match="unknown optim"):
-            trainer.init_train_state(params, trainer.TrainConfig(optim="sgd"))
-    else:
-        _, _, opt, _ = trainer.init_train_state(params, trainer.TrainConfig())
-        with pytest.raises(NotImplementedError, match="item 10"):
-            trainer.dpa_step_fns(port_cfg(CFG), trainer.TrainConfig(), opt,
-                                 mesh=object())
-        with pytest.raises(NotImplementedError, match="item 10"):
-            trainer.packed_dpa_step_fns(port_cfg(CFG), trainer.TrainConfig(),
-                                        opt, 4, mesh=object())
+    with pytest.raises(ValueError, match="unknown optim"):
+        trainer.init_train_state(params, trainer.TrainConfig(optim=what))
+
+
+@pytest.mark.parametrize("chunk", [None, 8])
+def test_one_rank_mesh_step_equals_the_meshless_step(chunk):
+    from halva_tpu_torch.parallel import mesh
+
+    one = mesh.mesh_shape({"data": 1, "model": 1})
+    kw = dict(learning_rate=1e-3, lr_schedule="constant", grad_accum_steps=1,
+              num_train_steps=10, loss_chunk=chunk)
+    batch = {k: torch.from_numpy(v) for k, v in _batches()[0].items()}
+    out = []
+    for m in (None, one):
+        tcfg = trainer.TrainConfig(**kw)
+        tt, tf, _, st = trainer.init_train_state(
+            tree.to_torch(_np_policy(), device="cpu"), tcfg, mesh=m)
+        step, _ = trainer.dpa_step_fns(port_cfg(CFG), tcfg, st, mesh=m)
+        tt, st, metrics = step(tt, tf, None, st, batch)
+        out.append((metrics, tree.flatten(tt)))
+    (m0, t0), (m1, t1) = out
+    assert [float(x) for x in m0] == [float(x) for x in m1]
+    for (p, a), (q, b) in zip(t0, t1):
+        assert p == q and (a is None) == (b is None)
+        assert a is None or torch.equal(a, b), p
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_step_refuses_trees_of_another_layout(packed):
+    """A step with a mesh takes init_train_state(mesh=)'s shards, and a
+    meshless one the whole trees."""
+    from halva_tpu_torch.parallel import mesh
+
+    one = mesh.mesh_shape({"data": 1, "model": 1})
+    tcfg = trainer.TrainConfig()
+
+    def build(opt, m):
+        if packed:
+            return trainer.packed_dpa_step_fns(port_cfg(CFG), tcfg, opt, 4,
+                                               mesh=m)
+        return trainer.dpa_step_fns(port_cfg(CFG), tcfg, opt, mesh=m)
+
+    params = tree.to_torch(_np_policy(), device="cpu")
+    _, _, opt, _ = trainer.init_train_state(params, tcfg)
+    with pytest.raises(ValueError, match="init_train_state"):
+        build(opt, one)
+    _, _, opt, _ = trainer.init_train_state(params, tcfg, mesh=one)
+    with pytest.raises(ValueError, match="init_train_state"):
+        build(opt, None)
+    with pytest.raises(ValueError, match="init_train_state"):
+        build(opt, mesh.mesh_shape({"data": 1, "model": 1}))  # another mesh
+    build(opt, one)
 
 
 def test_train_config_fields_and_defaults_match_reference():

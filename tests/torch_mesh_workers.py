@@ -17,6 +17,7 @@ import tempfile
 import traceback
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -293,3 +294,167 @@ class World:
         if errors:
             raise AssertionError("\n".join(errors))
         return [got[r] for r in range(len(self.procs))]
+
+
+# ---- training on the mesh (tests/test_torch_mesh_train.py) -----------------
+
+# the TrainConfig of every step case: a constant learning rate, so that the
+# first update moves the LoRA leaves; remat on
+TRAIN_BASE = dict(learning_rate=1e-3, lr_schedule="constant",
+                  grad_accum_steps=1, num_train_steps=10, remat=True)
+# (name, mesh (data, model), batch kind, policy, TrainConfig fields)
+TRAIN_CASES = [
+    ("d4", (4, 1), "rows", "r4", {}),
+    ("d4_chunk", (4, 1), "rows", "r4", {"loss_chunk": 8}),
+    ("tp", (2, 2), "rows", "r4", {}),
+    ("tp_chunk", (2, 2), "rows", "r4", {"loss_chunk": 8}),
+    ("packed_d4", (4, 1), "packed", "r4", {}),
+    ("packed_tp", (2, 2), "packed", "r4", {}),
+    ("adamw8bit_tp", (2, 2), "rows", "r32",
+     {"optim": "adamw8bit", "loss_chunk": 8}),
+    ("accum_tp", (2, 2), "accum", "r4",
+     {"grad_accum_steps": 2, "loss_chunk": 8}),
+]
+MAX_SAMPLES = 4  # the packed batch's sample slots
+
+
+def _flat(t):
+    from halva_tpu_torch import tree
+
+    return {"/".join(map(str, p)): x.detach().float().numpy().copy()
+            for p, x in tree.flatten(t) if x is not None}
+
+
+def train_case(case, payload, mesh=None):
+    """One step case on this rank's shards (`mesh`) or on one device: the
+    first micro-step's loss parts and whole LoRA grads
+    (`loss_and_grads`), then the micro-steps' metrics and the whole
+    trainable leaves after them, as numpy."""
+    from halva_tpu_torch import tree
+    from halva_tpu_torch.config import llava_config_from_dict
+    from halva_tpu_torch.parallel import partition
+    from halva_tpu_torch.train import trainer
+
+    name, _, kind, policy, kw = case
+    cfg = llava_config_from_dict(payload["cfg"])
+    params = tree.to_torch(tree.map_tree(np.copy, payload[policy]),
+                           device="cpu")
+    tcfg = trainer.TrainConfig(**dict(TRAIN_BASE, **kw))
+    trainable, frozen, opt, st = trainer.init_train_state(params, tcfg,
+                                                          mesh=mesh)
+    packed = kind == "packed"
+    if packed:
+        step, _ = trainer.packed_dpa_step_fns(cfg, tcfg, opt, MAX_SAMPLES,
+                                              mesh=mesh)
+    else:
+        step, _ = trainer.dpa_step_fns(cfg, tcfg, opt, mesh=mesh)
+    batches = {"rows": payload["batches"][:1], "accum": payload["batches"],
+               "packed": [payload["packed"]]}[kind]
+
+    def rows(b):
+        b = {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
+        if mesh is None:
+            return b
+        partition.check_train_rows(b, mesh, packed)
+        return (partition.shard_packed_batch(b, mesh) if packed
+                else partition.shard_batch(b, mesh))
+
+    whole = (lambda t: t) if mesh is None else opt.layout.whole
+    _, parts, grads = step.loss_and_grads(trainable, frozen, None,
+                                          rows(batches[0]))
+    out = {"parts": [float(x) for x in parts], "grads": _flat(whole(grads)),
+           "metrics": []}
+    for b in batches:
+        trainable, st, m = step(trainable, frozen, None, st, rows(b))
+        out["metrics"].append([float(x) for x in m])
+    out["params"] = _flat(whole(trainable))
+    out["updates"] = st.updates
+    return out
+
+
+def ckpt_case(payload, mesh):
+    """AdamW at grad_accum 2 on the {2, 2} mesh: 3 micro-steps, a save at 3
+    (the accumulators mid-cycle), a 4th; then a fresh state restored from
+    step 3 runs the 4th again; and the one-device checkpoint of the payload
+    restored here. Whole leaves, moments and accumulators as numpy."""
+    from halva_tpu_torch import tree
+    from halva_tpu_torch.config import llava_config_from_dict
+    from halva_tpu_torch.parallel import partition
+    from halva_tpu_torch.train import checkpoint, trainer
+
+    cfg = llava_config_from_dict(payload["cfg"])
+    tcfg = trainer.TrainConfig(**dict(TRAIN_BASE, grad_accum_steps=2,
+                                      loss_chunk=8))
+    batches = [partition.shard_batch(
+        {k: torch.from_numpy(v) for k, v in b.items()}, mesh)
+        for b in payload["batches"] * 2]
+
+    def fresh():
+        params = tree.to_torch(tree.map_tree(np.copy, payload["r4"]),
+                               device="cpu")
+        tt, tf, opt, st = trainer.init_train_state(params, tcfg, mesh=mesh)
+        step, _ = trainer.dpa_step_fns(cfg, tcfg, opt, mesh=mesh)
+        return tt, tf, st, step
+
+    def state(tt, st):
+        def whole(t, sp):
+            return partition.whole_leaf(t, sp, mesh).numpy()
+
+        leaves = [x for _, x in trainer._leaves(tt)]
+        moments = [{k: int(v) if k == "step" else whole(v, sp)
+                    for k, v in st.adamw.state[x].items()}
+                   for x, sp in zip(leaves, st.specs)]
+        return {"params": _flat(st.layout.whole(tt)), "moments": moments,
+                "acc": [whole(a, sp) for a, sp in zip(st.acc, st.specs)],
+                "mini_step": st.mini_step, "updates": st.updates}
+
+    mgr = checkpoint.CheckpointManager(payload["ckpt_dir"])
+    tt, tf, st, step = fresh()
+    for b in batches[:3]:
+        tt, st, _ = step(tt, tf, None, st, b)
+    mgr.save(3, tt, st)
+    out = {"at3": state(tt, st)}
+    tt, st, _ = step(tt, tf, None, st, batches[3])
+    out["full4"] = _flat(st.layout.whole(tt))
+    tt, tf, st, step = fresh()
+    tt, st, got = mgr.restore(tt, st)
+    out["restored3"] = state(tt, st)
+    tt, st, _ = step(tt, tf, None, st, batches[3])
+    out["resumed4"] = _flat(st.layout.whole(tt))
+    tt, tf, st, step = fresh()
+    tt, st, _ = checkpoint.CheckpointManager(payload["ckpt_one"]).restore(
+        tt, st)
+    out["from_one"] = state(tt, st)
+    return out
+
+
+def cli_case(rank, world, argv, vila_cfg=None):
+    """The train CLI (or, with `vila_cfg`, the VILA CLI on that preset) on
+    this rank, its environment as torchrun sets it."""
+    from halva_tpu_torch.config import PRESETS, llava_config_from_dict
+    from halva_tpu_torch.train import run, vila
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    if vila_cfg is None:
+        run.main(argv)
+    else:
+        PRESETS["vila-13b-384"] = llava_config_from_dict(vila_cfg)
+        vila.main(argv)
+
+
+def train_cases(rank, world, payload):
+    """Every case of the mesh train test on this rank: the step cases, the
+    checkpoint case on {2, 2}, the train CLI and the VILA CLI."""
+    from halva_tpu_torch.parallel.mesh import make_mesh
+
+    meshes, out = {}, {}
+    for case in TRAIN_CASES:
+        dm = case[1]
+        if dm not in meshes:
+            meshes[dm] = make_mesh(data=dm[0], model=dm[1], device="cpu")
+        out[case[0]] = train_case(case, payload, meshes[dm])
+    out["ckpt"] = ckpt_case(payload, meshes[(2, 2)])
+    cli_case(rank, world, payload["cli_argv"])
+    cli_case(rank, world, payload["vila_argv"], payload["vila_cfg"])
+    return out
