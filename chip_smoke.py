@@ -68,6 +68,22 @@ cold and warm from the tree cache, each bitwise equal to the merge
 quantized in memory, and `python -m halva_tpu_torch.bench` runs in its own
 process and prints its JSON line.
 
+The scripts tail: `python -m halva_tpu_torch.convert_checkpoint` runs in
+its own process on the loader's shards, and its save_params dir reads back
+through train/checkpoint.load_params equal to the bf16 tree bit for bit;
+halva_tpu_torch.chat's device half (ChatSession, batch 1) answers two
+questions greedily at the chat's 512 tokens and one with 4 beams on the
+bf16 tree, and one greedily on each route of the int8 tree (W8A8, the
+CLI's default, and weight-only: K8 at one row), each token for token
+against generate_greedy / generate_beam, with the time to the first token
+and host and device ms a token; the eval suite's device half drains three
+batches of 80 requests from the runner's own builders (captions,
+POPE-shaped yes/no questions, HallusionBench-shaped rows with 20 text-only)
+on the int4g tree with int4 prompt KV, prints each batch's host wall time
+and prefill share and a labelled projection of every benchmark's time at
+its public size; the `_b1` rows hold K1, K4 (bf16 and its beam
+mode) and K8 at the chat's batch of 1.
+
 The train entry point (train/run.py, after the loader, on the bf16 tree):
 the tree written by train/checkpoint.save_params is the base of
 `train.run.train` at full width on the tree's first CLI_LAYERS (8) layers,
@@ -106,9 +122,10 @@ that repeats and one that differs, temperature 0 against generate_greedy,
 the sampled step's device time beside the greedy step's, and the sampler
 alone on full-vocab logits against the float64 filtered softmax by a
 chi-square test; then the continuous-batching engine (ops/continuous.py)
-on bench_continuous's workload (240 requests with CHAIR-like budgets,
-batch 80, cap 128) at chunk 16 and 8, its chunk-16 graph run against its
-eager run token for token, every request against the drain with each
+on bench_continuous's workload (160 of its 240 requests with CHAIR-like
+budgets, batch 80, cap 128) at chunk 16, its graph run against its eager
+run from the same global step token for token, every request against the
+drain with each
 divergence at a drain top-two margin within a measured bf16 noise floor,
 imgs/s against the drain's, and one decode step with the engine's ring
 mask on K4 against the plain path. Their K1, K4 and K7 launches are added
@@ -270,6 +287,15 @@ runs only the decode variants' phases (sampling, the sampler's frequencies,
 continuous batching) on a fresh random tree quantized to int4g, and prints
 their launches.
 
+    python3 chip_smoke.py --recipe-peak-only
+
+builds the kernels and measures only the card's memory under the 13B
+launch scripts' train step on one card: two DPA micro-steps of
+llava-v1.5-13b at 2 x 2,048 text tokens and of VILA-13B/384 at 2 x 4,096
+(scripts/torch_halva_13b.sh and torch_halva_vila_13b.sh, their flags as
+train/run.py reads them), at full width and depth; not part of the run
+with no arguments.
+
 Needs a CUDA device; imports no JAX.
 """
 
@@ -290,6 +316,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from types import SimpleNamespace
 from unittest import mock
 
@@ -300,6 +327,7 @@ import torch.multiprocessing as mp
 import torch.nn.functional as F
 
 from halva_tpu_torch import _kernels, tree
+from halva_tpu_torch.chat import ChatSession
 from halva_tpu_torch.config import (
     CLIP_VIT_L_336,
     GEMMA_2B,
@@ -313,6 +341,8 @@ from halva_tpu_torch.config import (
     LlavaConfig,
 )
 from halva_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from halva_tpu_torch.conversation import get_template
+from halva_tpu_torch.mm_utils import processor_for_vision
 from halva_tpu_torch.models import llama, llava, s2, vit
 from halva_tpu_torch.models.llava import LlavaModel
 from halva_tpu_torch.ops import int8_matmul as int8_ops
@@ -487,6 +517,10 @@ LONG_ROW = 4608  # a text-only Mistral row past its 4096 window
 LONG_STEPS = 4  # decode steps on the long row
 FAMILY_MICRO_STEPS = 2  # train micro-steps on the Mistral and MPT trees
 FLOOR_DRAWS = 5  # perturbations behind each train noise floor
+# replays behind a whole decode step's time on the plain route (the plain
+# int4 matmuls dequantize every call: 342 ms a VILA-13B step): reduced from
+# device_ms's 20 for the smoke's time limit
+PLAIN_STEP_ITERS = 3
 # the card's published peaks (H100 SXM data sheet), for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -504,7 +538,10 @@ def clock(stage: str) -> None:
     _CLOCK[1] = now
 
 
+@functools.lru_cache(maxsize=None)
 def gpu_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them, read
+    once: neither changes while the smoke runs."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -2233,24 +2270,27 @@ W8_SHAPES = W4_SHAPES + ((4096, 32000), (1024, 4096), (1024, 1024),
 W8_ROWS = (4, 80, 2492)
 
 
-def check_int8_matmul(gen: torch.Generator) -> dict:
+def check_int8_matmul(gen: torch.Generator, shapes=W8_SHAPES, rows=W8_ROWS,
+                      name: str = "int8_matmul", timed=(4096, 11008, 4)
+                      ) -> dict:
     """K8 against int8_matmul_plain at the shapes of the int8 tree's denses,
     4, 80 and 2,492 rows (the tower's shapes also at its 2,308), timed beside
     its plain version, the library route (dequantize the weights, then
     torch.matmul: what w8_dense was) and W8A8 (int8_dense: torch._int_mm).
-    The JSON line carries gate/up at 4 rows, the decode step's shape."""
+    The JSON line carries gate/up at 4 rows, the decode step's shape; with
+    `shapes`, `rows`, `name` and `timed` (K, N, M), a row of those shapes."""
     dev = "cuda"
     layers = 4
     worst = 0.0
     timing = None
     summary = []
-    for k, n in W8_SHAPES:
+    for k, n in shapes:
         q = torch.randint(-127, 128, (layers, k, n), generator=gen,
                           device=dev, dtype=torch.int8)
         sc = (torch.rand(layers, 1, n, generator=gen, device=dev) * 0.002
               + 0.0005).bfloat16()
-        rows = W8_ROWS + ((TOWER_ROWS,) if k == 1024 or n == 1024 else ())
-        for m in rows:
+        tower_rows = (TOWER_ROWS,) if 1024 in (k, n) else ()
+        for m in rows + tower_rows:
             x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
             ok, err, rel = True, 0.0, 0.0
             for li in (0, layers - 1):
@@ -2287,13 +2327,13 @@ def check_int8_matmul(gen: torch.Generator) -> dict:
                 raise AssertionError("int8_matmul disagrees with its plain "
                                      "version")
             worst = max(worst, err)
-            if (k, n, m) == (4096, 11008, 4):
+            if (k, n, m) == timed:
                 timing = {"ms": ms, "plain_ms": plain_ms,
                           "library_ms": lib_ms, **lim}
             if m in SUMMARY_ROWS:
                 summary.append((f"K8 {k}x{n}", m, ms, plain_ms, lib_ms, lim))
         del q, sc
-    return {"name": "int8_matmul", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "halva_tpu_torch/csrc/dq_gemm.cu",
             "replaces": "halva_tpu/ops/int8_matmul.py:24",
             "max_abs_err": worst, **timing, "summary": summary}
@@ -3123,12 +3163,12 @@ TRAIN_MICRO_STEPS = 4  # two updates at grad_accum_steps=2
 LORA_B_STD = 1e-3  # comparison tree's lora_b: ~2 % of a layer's output
 
 
-def train_batch(cfg, seed: int) -> dict:
+def train_batch(cfg, seed: int, text: int = TRAIN_TEXT) -> dict:
     """A synthetic DPA batch as scripts/bench_train7b.py:build_batch makes it:
-    TRAIN_B rows of TRAIN_TEXT tokens with the image sentinel at 1, labels
-    on the second half, two phrase spans, random pixels."""
+    TRAIN_B rows of `text` tokens with the image sentinel at 1, labels on
+    the second half, two phrase spans, random pixels."""
     rng = np.random.RandomState(seed)
-    b, t = TRAIN_B, TRAIN_TEXT
+    b, t = TRAIN_B, text
     hi = min(30000, cfg.llm.vocab_size)
 
     def grp():
@@ -3699,6 +3739,11 @@ def floor_check(runs: dict, what: str) -> None:
                              "path")
 
 
+def step_iters(impl: str) -> int:
+    """Replays behind a decode step's device time on path `impl`."""
+    return PLAIN_STEP_ITERS if impl == "plain" else 20
+
+
 def decode_step_ms(params, cfg, pc, pseg, positions, token, impl) -> float:
     """Device ms of one decode step at gen slot 8 on path `impl`, replayed
     from a CUDA graph (no host time)."""
@@ -3707,7 +3752,7 @@ def decode_step_ms(params, cfg, pc, pseg, positions, token, impl) -> float:
     emb = llama.embed(params["llm"], token)
     return device_ms(lambda: llama.decode_step(
         params["llm"], cfg.llm, emb, positions + at, pc, pseg, gen_cache, at,
-        attn_impl=impl))
+        attn_impl=impl), iters=step_iters(impl))
 
 
 def run_family_serving(params, cfg, name: str, kernels: dict,
@@ -3769,7 +3814,8 @@ def run_family_serving(params, cfg, name: str, kernels: dict,
           f" {step_ms['auto']:.3f} ms on the "
           f"{'K4' if decode_kernel else 'plain position-aware'} route, "
           f"{step_ms['plain']:.3f} ms with attn_impl='plain' "
-          f"({'decode_attend_plain without a bias' if decode_kernel else 'the same route'})"
+          f"({'decode_attend_plain without a bias' if decode_kernel else 'the same route'}"
+          f"; reduced: {PLAIN_STEP_ITERS} replays)"
           f"; {decode_s / NEW_TOKENS * 1e3:.3f} ms on the host clock in the "
           f"main run: the device idles "
           f"{1 - step_ms['auto'] / (decode_s / NEW_TOKENS * 1e3):.1%} of a "
@@ -3905,7 +3951,9 @@ def run_mpt(kernels: dict) -> None:
 # ---- the decode loops from CUDA graphs, the bench entry, the loader -------
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-GRAPH_TOKENS = 32  # steps of each graph loop and of its eager reference
+# steps of each graph loop and of its eager reference (reduced from 32 for
+# the smoke's time limit)
+GRAPH_TOKENS = 16
 GRAPH_AIM = 1.25  # host clock over device time per step: reported, not held
 GRAPH_AT = 8  # gen slot at which a body's device time is taken
 LOADER_RANK, LOADER_ALPHA = 128, 256.0  # the HALVA adapters' PEFT config
@@ -4039,13 +4087,15 @@ def run_graph_loops(params, cfg, int4: bool,
         results.append(graph_loop_case(
             params, cfg, inp, f"{name} {what} B={b}", kind, kv, k, int4))
         torch.cuda.empty_cache()
-    print(f"graph loops on {name} ({gpu_line()}): "
+    clock(f"graph loops on {name}")
+    print(f"graph loops on {name} (reduced: {GRAPH_TOKENS} of 32 tokens; "
+          f"{gpu_line()}): "
           + "; ".join(f"{r['label']} {r['host_ms']:.3f} / {r['device_ms']:.3f}"
                       f" ms host / device per step (eager {r['eager_ms']:.3f})"
                       for r in results))
 
 
-def run_bench() -> None:
+def run_bench() -> dict:
     """`python -m halva_tpu_torch.bench` as a user runs it: its own process,
     its defaults (llava-v1.5-7b, random int4g tree, int4 prompt KV, batch 80,
     128 tokens, W4A8 on); its JSON line printed on a line of its own. Its
@@ -4072,6 +4122,7 @@ def run_bench() -> None:
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("bench: unexpected JSON line")
+    return out
 
 
 _PEFT = (("self_attn", "q_proj", "attn", "wq"),
@@ -4193,7 +4244,7 @@ def dir_bytes(path: str) -> int:
                for d, _, files in os.walk(path) for f in files)
 
 
-def run_loader(params, cfg) -> None:
+def run_loader(params, cfg) -> float:
     """models/builder.load_pretrained_model at full width: a random
     llava-v1.5-7b checkpoint written from the bf16 tree in the released
     layout (bf16 pytorch_model-0000{1,2}-of-00002.bin + config.json) and a
@@ -4201,14 +4252,20 @@ def run_loader(params, cfg) -> None:
     int4g load cold, then warm from the tree cache; both trees bitwise
     equal to each other and to the int4g tree of the merge computed on the
     card from the same tensors; then one greedy run on the loaded tree
-    against the in-memory one, token for token."""
+    against the in-memory one, token for token. (d) Then `python -m
+    halva_tpu_torch.convert_checkpoint` on the same shards in its own
+    process, its save_params dir read back by train/checkpoint.load_params
+    and held equal to the bf16 tree bit for bit. Returns the warm load's
+    seconds."""
     root = os.path.join(REPO, "build", f"smoke_loader_{os.getpid()}")
     base, adapter_dir = os.path.join(root, "base"), os.path.join(root, "lora")
     was = os.environ.get("HALVA_QUANT_CACHE")
     try:
         os.makedirs(base)
         os.makedirs(adapter_dir)
-        need = 2 * tree_bytes(params)
+        # the bf16 shards, the int4g tree cache and the converter's
+        # save_params dir side by side (~14 + 4 + 14 GB at 7B)
+        need = 3 * tree_bytes(params)
         free = shutil.disk_usage(root).free
         if free < need:
             raise AssertionError(f"loader: {free / 1e9:.1f} GB free under "
@@ -4232,6 +4289,7 @@ def run_loader(params, cfg) -> None:
             json.dump({"r": LOADER_RANK, "lora_alpha": LOADER_ALPHA,
                        "target_modules": [p[1] for p in _PEFT]}, f)
         write_s = time.perf_counter() - t0
+        clock("loader: the checkpoint written")
         os.environ["HALVA_QUANT_CACHE"] = os.path.join(root, "cache")
         times, trees = {}, {}
         for run in ("cold", "warm"):
@@ -4273,6 +4331,11 @@ def run_loader(params, cfg) -> None:
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("loader: the loaded tree differs")
+        del trees, ref
+        torch.cuda.empty_cache()
+        clock("loader: cold and warm int4g loads")
+        run_converter(params, base, os.path.join(root, "converted"))
+        return times["warm"]
     finally:
         if was is None:
             os.environ.pop("HALVA_QUANT_CACHE", None)
@@ -4280,6 +4343,46 @@ def run_loader(params, cfg) -> None:
             os.environ["HALVA_QUANT_CACHE"] = was
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
+
+
+def run_converter(params, hf_dir: str, out: str) -> None:
+    """(d) `python -m halva_tpu_torch.convert_checkpoint --hf-dir hf_dir
+    --out out` in its own process, as a user runs it (bf16, on the card);
+    then train/checkpoint.load_params(out, like=params) equal to `params`,
+    the bf16 tree that wrote the shards, bit for bit. Prints its seconds and
+    GB/s; removes `out`."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m",
+                        "halva_tpu_torch.convert_checkpoint", "--hf-dir",
+                        hf_dir, "--out", out], capture_output=True, text=True,
+                       cwd=REPO, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = p.stdout.strip().splitlines()
+    if p.returncode != 0 or not lines:
+        print(p.stderr[-4000:])
+        raise AssertionError(f"convert_checkpoint: exit {p.returncode}")
+    nbytes = dir_bytes(out)
+    t0 = time.perf_counter()
+    got = ckpt_lib.load_params(out, params)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    same = same_tree(got, params)
+    del got
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    gb = tree_bytes(params) / 1e9
+    print(f"converter: python -m halva_tpu_torch.convert_checkpoint on the "
+          f"2 bf16 shards in its own process, {secs:.1f} s from start to exit"
+          f" ({gb / secs:.3f} GB/s of the {gb:.3f} GB tree: start, read, "
+          f"convert on the card, save_params), {nbytes / 1e9:.3f} GB "
+          f"written; it said {lines[-1][:100]!r}...; load_params(out, like="
+          f"the bf16 tree) in {read_s:.1f} s ({gb / read_s:.3f} GB/s), equal "
+          f"to the tree that wrote the shards bit for bit {same} "
+          f"({gpu_line()}) {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("convert_checkpoint: the tree differs from the "
+                             "one that wrote the shards")
 
 
 # ---- the train CLI (train/run.py) at full width ----------------------------
@@ -5005,14 +5108,18 @@ def run_pack(params, cfg, kernels: dict, base: str, cli_cfg) -> list:
 
 SAMPLE_T, SAMPLE_P = 0.7, 0.9  # the sampled runs' temperature and top_p
 SAMPLE_SEED = 1234
-SAMPLE_TOKENS = 128  # the sampled main path: batch 80, as the bench
+# the sampled main path: batch 80 (the bench's 128 tokens reduced to 64 for
+# the smoke's time limit)
+SAMPLE_TOKENS = 64
 SAMPLE_SHORT = 32  # the repeat, the other seed, temperature 0 vs greedy
 CHI2_ROWS = 4  # full-vocab rows of the sampler's frequency test
 CHI2_REPEAT = 1024  # copies of each row a call
 CHI2_CALLS = 8  # calls (steps): CHI2_REPEAT * CHI2_CALLS draws a row
 CHI2_P = 1e-3
-CB_REQUESTS, CB_CAP = 240, 128  # bench_continuous's workload
-CB_CHUNKS = (16, 8)  # its default chunk and one smaller
+# bench_continuous's workload, its 240 requests reduced to 160 (two drain
+# batches) for the smoke's time limit
+CB_REQUESTS, CB_CAP = 160, 128
+CB_CHUNKS = (16,)  # its default chunk (reduced: chunk 8 no longer run)
 CB_FLOOR_ROWS = 16  # rows decoded at a refill's size for the noise floor
 CB_RING_ROWS = 16  # rows refilled for the ring-mask step on K4
 CB_PREFILL_ROWS = (16, 10, 80)  # the refill sizes at batch 80, and a batch
@@ -5141,7 +5248,8 @@ def run_sampling(q4, cfg, kernels: dict) -> None:
           and bool((num == SAMPLE_TOKENS).all()))
     print(f"sampled int4g run at batch {BATCH80} ({gpu_line()}): "
           f"generate(temperature={SAMPLE_T}, top_p={SAMPLE_P}) "
-          f"{SAMPLE_TOKENS} tokens x {BATCH80} rows in {secs:.3f} s with its "
+          f"{SAMPLE_TOKENS} tokens (reduced: the bench's 128) x {BATCH80} "
+          f"rows in {secs:.3f} s with its "
           f"prefill; graph loop == its eager body {same_graph} (and == "
           f"generate's run on another prefill {same_first}); every eager "
           f"draw in its step's nucleus {in_nucleus} ({len(seen)} steps); "
@@ -5291,9 +5399,10 @@ def bf16_floor(q4, cfg, ids, images, drain_tok, drain_logits) -> float:
 
 def run_continuous_phase(q4, cfg, kernels: dict) -> None:
     """bench_continuous's workload in process on the smoke's int4g tree
-    (int4 prompt KV): 240 requests, batch 80, cap 128, at chunk 16 and 8,
-    timed after a warm-up (the chunk-16 run's launches counted); the chunk-16
-    graph run against the engine's own eager run, token for token; every
+    (int4 prompt KV): CB_REQUESTS requests, batch 80, cap 128, at the
+    CB_CHUNKS chunks, timed after a warm-up (the first chunk's launches
+    counted); that graph run against the engine's own eager run from the
+    same global step, token for token; every
     request against the drain (greedy batches of 80, cut to its budget), each
     divergence at a drain margin within the bf16 noise floor; the drain
     timed; one decode step with the ring mask on K4 against the plain
@@ -5319,6 +5428,9 @@ def run_continuous_phase(q4, cfg, kernels: dict) -> None:
                 f"continuous run at chunk {chunk}")
             if chunk == CB_CHUNKS[0]:
                 add_launches(kernels, launches)
+                # the global step the timed run began at (after the
+                # warm-up), read before the ring check steps the state on
+                start = int(eng.state.global_step) - st["steps"]
                 # a state mid-stream: one refill of CB_RING_ROWS slots, one
                 # chunk; their rows' valid slots lie in no prefix
                 eng._scatter(list(range(CB_RING_ROWS)), *eng._prefill(
@@ -5328,19 +5440,31 @@ def run_continuous_phase(q4, cfg, kernels: dict) -> None:
             runs[chunk] = (out, wall, st, launches)
             del eng
             torch.cuda.empty_cache()
-        # the engine's own eager run at the first chunk, after the same
-        # warm-up: the ring's write slots follow the global step
+            clock(f"continuous: chunk {chunk}")
+        # the engine's own eager run at the first chunk from the global step
+        # the graph run began at: the ring's write slots follow the global
+        # step (reduced: its state starts there instead of after an eager
+        # run of the warm-up; K4 zero-fills the slots it masks, so what the
+        # warm-up left in them cannot reach a token)
         t0 = time.perf_counter()
         eager = ContinuousEngine(q4, cfg, batch=BATCH80,
                                  max_new_tokens=CB_CAP, eos_id=-1,
                                  prompt_pad=bench_continuous.PROMPT_LEN,
                                  chunk=CB_CHUNKS[0], kv_quant="int4",
                                  graph=False)
-        eager.run(reqs[:BATCH80])
+        make_state = eager._make_state
+
+        def state_at_start(pc, seg):
+            st_e = make_state(pc, seg)
+            st_e.global_step.fill_(start)
+            return st_e
+
+        eager._make_state = state_at_start
         out_e = eager.run(reqs)
         eager_s = time.perf_counter() - t0
         del eager
         torch.cuda.empty_cache()
+        clock("continuous: the engine's eager run")
         drain_s, nb = bench_continuous.run_drain(
             q4, cfg, ids, images, BATCH80, CB_CAP, "int4", DEVICE)
         drain_tok, drain_margin, drain_logits = drain_with_margins(
@@ -5348,6 +5472,7 @@ def run_continuous_phase(q4, cfg, kernels: dict) -> None:
         floor = bf16_floor(q4, cfg, ids, images, drain_tok, drain_logits)
         del drain_logits
         torch.cuda.empty_cache()
+        clock("continuous: the drain, its margins and floor")
         prefill_ms = {}
         for rows in CB_PREFILL_ROWS:
             args = [torch.from_numpy(a[:rows]).to(DEVICE) for a in (
@@ -5394,7 +5519,8 @@ def run_continuous_phase(q4, cfg, kernels: dict) -> None:
             f"(limit {CB_MARGIN_FACTOR:.3f} x floor {floor:.4f}) "
             f"{'ok' if at_budget and explained else 'FAIL'}")
     print(f"continuous vs drain ({gpu_line()}; int4g, int4 prompt KV, batch "
-          f"{BATCH80}, {CB_REQUESTS} requests, cap {CB_CAP}, budgets mean "
+          f"{BATCH80}, {CB_REQUESTS} requests (reduced: bench_continuous's "
+          f"240), cap {CB_CAP}, budgets mean "
           f"{budgets.mean():.1f}, their sum / batch {ideal:.1f} steps): drain "
           f"{drain_ips:.3f} imgs/s ({drain_s:.2f} s for {nb} full-budget "
           f"batches, {nb * CB_CAP} steps); prefill on the host clock "
@@ -5450,8 +5576,10 @@ def run_serve_variants(q4, kernels: dict) -> None:
     t0 = time.perf_counter()
     run_sampling(q4, cfg, kernels)
     torch.cuda.empty_cache()
+    clock("serve variants: sampling")
     check_sampler_frequencies(cfg)
     torch.cuda.empty_cache()
+    clock("serve variants: the sampler's chi-square")
     run_continuous_phase(q4, cfg, kernels)
     torch.cuda.empty_cache()
     print(f"serve variants phase: {time.perf_counter() - t0:.1f} s wall")
@@ -5560,14 +5688,15 @@ def check_gemma_decode(gen: torch.Generator) -> list:
 
 
 def decode_rows(gen: torch.Generator, llm, lens, cases,
-                row_tag: str) -> list:
+                row_tag: str, sg: int = 128, live=None) -> list:
     """K4 against decode_attend_plain at `llm`'s heads over prompt caches of
-    the spliced lengths `lens` (Sp their largest, Sg=128), in each (cache
-    mode, beams) of `cases`; each timed over distinct layers' caches
-    beside its bound and, on bf16 caches, SDPA over the concatenated keys.
-    Returns rows named K4's counter + `row_tag`."""
+    the spliced lengths `lens` (Sp their largest) and a gen cache of `sg`
+    slots (each row at a random gen step, or every row at step `live`), in
+    each (cache mode, beams) of `cases`; each timed over distinct layers'
+    caches beside its bound and, on bf16 caches, SDPA over the concatenated
+    keys. Returns rows named K4's counter + `row_tag`."""
     b, h, kvh, d = len(lens), llm.num_heads, llm.kv_heads, llm.head_size
-    sp, sg = max(lens), 128
+    sp = max(lens)
     seg = lengths_to_seg(lens, sp, "cuda")
     out = []
     for mode, k in cases:
@@ -5575,6 +5704,8 @@ def decode_rows(gen: torch.Generator, llm, lens, cases,
         name = K4_NAMES[mode] + ("_beam" if k > 1 else "") + row_tag
         steps = torch.randint(0, sg, (rows,), generator=gen, device="cuda")
         steps[0] = 0
+        if live is not None:
+            steps.fill_(live)
         gen_valid = torch.arange(sg, device="cuda")[None, :] <= steps[:, None]
         prow = _cache_row_bytes(mode, kvh, d, True)
         grow = _cache_row_bytes(mode, kvh, d, False)
@@ -5745,7 +5876,7 @@ def fold_rows(gen: torch.Generator, llm, lens, cases, row_tag: str) -> list:
 
 GEMMA_BWD_WINDOW = 256  # the window of the mode K2 and K3 at 256 also run
 GEMMA_PACK_STEPS = 2  # packed Gemma micro-steps: one update at grad_accum 2
-ROUTE_ROUNDS = 2  # rounds of the by-route micro-step timing
+ROUTE_ROUNDS = 1  # rounds of the by-route micro-step timing (reduced from 2)
 
 
 def pack_segments(cfg) -> torch.Tensor:
@@ -5900,14 +6031,14 @@ def family_step_times(params, cfg, kv_quant, tokens, model: str) -> None:
                 pos = (slen + at).repeat_interleave(k)
                 times[kind, impl] = device_ms(lambda: llama.decode_step(
                     llm, cfg.llm, emb, pos, pc, pseg, gen_cache, at,
-                    attn_impl=impl, beam_k=k))
+                    attn_impl=impl, beam_k=k), iters=step_iters(impl))
                 del gen_cache
             gen_cache = init_gen_cache_like(cfg.llm, b, NEW_TOKENS, pc)
             emb = llama.embed(llm, tokens[:, at:at + 4])
             gen_len = torch.full((b,), at, dtype=torch.int32, device=DEVICE)
             times["verify", impl] = device_ms(lambda: llama.verify_step(
                 llm, cfg.llm, emb, slen + at, pc, pseg, gen_cache, gen_len,
-                attn_impl=impl))
+                attn_impl=impl), iters=step_iters(impl))
             del gen_cache
         hidden = llama.embed(llm, tokens[:, at, None])
         times["lm_logits"] = device_ms(lambda: llama.lm_logits(
@@ -5916,7 +6047,8 @@ def family_step_times(params, cfg, kv_quant, tokens, model: str) -> None:
     what = "int4g, int4 KV" if kv_quant else "bf16"
     tied = "tied " if cfg.llm.tie_word_embeddings else ""
     print(f"{model} {what} step device time (CUDA graphs, gen slot "
-          f"{at}, B={b}; {gpu_line()}): "
+          f"{at}, B={b}; the plain route reduced to {PLAIN_STEP_ITERS} "
+          f"replays; {gpu_line()}): "
           + "; ".join(f"{kind} {times[kind, 'auto']:.3f} ms on the kernel "
                       f"route, {times[kind, 'plain']:.3f} ms plain "
                       f"({times[kind, 'plain'] / times[kind, 'auto']:.2f}x)"
@@ -6280,6 +6412,7 @@ def run_vila(kernels: dict) -> None:
     def mark(what: str):  # the peak since the last mark (or a reset)
         peaks[what] = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        clock(f"{VILA_NAME}: {what}")
 
     params = new_tree(cfg, f"{VILA_NAME} (VILA-1.5-13B: SigLIP-so400m/14-384"
                       " at layer -2, mlp_downsample 4608 -> 5120 -> 5120, "
@@ -6985,11 +7118,525 @@ def run_mesh(q4, shards, tokens, kernels, train: dict) -> None:
     t0 = time.perf_counter()
     run_world_of_one(q4, LLAVA_V15_7B, tokens)
     torch.cuda.empty_cache()
+    clock("mesh: (a) a world of one")
     run_two_ranks(q4, shards, tokens, kernels, train)
     torch.cuda.empty_cache()
+    clock("mesh: (b) two ranks")
     run_cp_long(kernels)
     torch.cuda.empty_cache()
     print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ---- the scripts tail: the chat at batch 1 (halva_tpu_torch/chat.py), the
+# eval suite's device half (evals/runner.py) and the converter
+# (halva_tpu_torch/convert_checkpoint.py, in run_loader)
+
+B1_TAG = "_b1"  # the `kernels` line's rows at the chat's batch of 1
+CHAT_TOKENS = 512  # scripts/chat.py's --max-new-tokens default
+CHAT_BEAM_TOKENS = 128
+CHAT_INT8_TOKENS = 128
+# the int8 chat's W8A8 answer (the CLI's default route, its steps ~6x the
+# weight-only route's at B=4): a shorter budget for the smoke's time limit
+CHAT_W8A8_TOKENS = 32
+CHAT_QUESTIONS = ("What is unusual about this image?",
+                  "Is there a cat in the image? Answer in detail.")
+CHAT_LEN = max(PROMPT_LENS)  # the rows' spliced prompt: 48 text tokens
+CHAT_SLOTS = (8, CHAT_TOKENS - 32)  # gen slots at which a step is timed
+CHAT_TTFT_RUNS = 3  # prefills behind the time to the first token
+SUITE_BATCH = BATCH80  # the README's eval command: int4g, int4 KV, batch 80
+SUITE_CAPTION_TOKENS = 128  # the bench's budget
+# a yes/no answer: "Yes" or "No", EOS and one spare (an assumption: random
+# weights emit no EOS, so every row runs to this budget)
+SUITE_YESNO_TOKENS = 4
+SUITE_TEXT_ONLY = 20  # HallusionBench rows with visual_input 0, of 80
+POPE_OBJECTS = ("dog", "car", "chair", "person", "bottle", "cup", "bird",
+                "umbrella")
+# the suite's benchmarks at their public sizes: (name, questions, the batch
+# shape that stands for them, source of the count)
+SUITE_COUNTS = (
+    ("POPE", 27000, "yes/no", "Li et al. 2023, POPE: 3 splits x 3,000 "
+     "questions on each of COCO, A-OKVQA and GQA"),
+    ("AMBER discriminative", 14216, "yes/no", "Wang et al. 2023, AMBER"),
+    ("MME hallucination subset", 240, "yes/no", "Fu et al. 2023, MME: "
+     "existence, count, position, color"),
+    ("HallusionBench", 1129, "mixed", "Guan et al. 2024, HallusionBench"),
+    ("CHAIR", 500, "caption", "Rohrbach et al. 2018; the 500 COCO images "
+     "of evals/data"),
+    ("AMBER generative", 1004, "caption", "Wang et al. 2023, AMBER"),
+    ("MMHal-Bench", 96, "caption", "Sun et al. 2023, LLaVA-RLHF"),
+)
+
+
+def chat_pixels(cfg) -> np.ndarray:
+    """A seeded processed image, (1, 3, S, S): the card's machine has no
+    Pillow to decode one."""
+    size = cfg.vision.image_size
+    return np.random.RandomState(5).randn(1, 3, size, size).astype(
+        np.float32)
+
+
+def check_flash_b1(gen: torch.Generator) -> dict:
+    """K1 against flash_attention_plain (o and LSE) at the chat's prefill:
+    one row of CHAT_LEN tokens, H=KVH=32, causal; timed over distinct
+    layers' inputs (one layer's 15 MB would be read from the L2) beside its
+    bound and SDPA with the causal mask."""
+    b, s, h, d = 1, CHAT_LEN, 32, 128
+    layers = walk_layers(3 * s * h * d * 2)
+
+    def r():
+        return torch.randn(layers, b, s, h, d, generator=gen,
+                           device="cuda").bfloat16()
+
+    q, k, v = r(), r(), r()
+    seg = lengths_to_seg((s,), s, "cuda")
+    tag = f"B={b} S={s} H={h} KVH={h} D={d} causal"
+    err = 0.0
+    for li in (0, layers - 1):
+        o, lse = flash_attention_fwd(q[li], k[li], v[li], seg, seg)
+        want = flash_attention_plain(q[li], k[li], v[li], seg, seg)
+        err = max(err, held(f"flash_fwd{B1_TAG} {tag} layer {li}", o, want))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q[li].float(),
+                          k[li].float()) * d**-0.5
+    mask = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    want_lse = logits.masked_fill(~mask, -1e30).logsumexp(-1)
+    del logits
+    lse_err = max_abs(lse, want_lse)
+    print(f"flash_fwd{B1_TAG} {tag}: lse_err {lse_err:.3e} (limit "
+          f"{LSE_MAX_ABS}) {'ok' if lse_err <= LSE_MAX_ABS else 'FAIL'}")
+    if lse_err > LSE_MAX_ABS:
+        raise AssertionError(f"flash_fwd{B1_TAG}: LSE disagrees with the "
+                             "plain log-sum-exp")
+    ms = device_ms(lambda: [flash_attention_fwd(q[i], k[i], v[i], seg, seg)
+                            for i in range(layers)]) / layers
+    plain_ms = device_ms(lambda: [flash_attention_plain(q[i], k[i], v[i],
+                                                        seg, seg)
+                                  for i in range(layers)]) / layers
+    qt, kt, vt = (t.transpose(2, 3) for t in (q, k, v))
+    lib_ms = device_ms(lambda: [F.scaled_dot_product_attention(
+        qt[i], kt[i], vt[i], attn_mask=mask) for i in range(layers)]) / layers
+    flops = 4 * h * d * s * (s + 1) / 2
+    lim = bound(tensor_bytes(q[0], k[0], v[0], seg, o, lse), flops)
+    print(f"flash_fwd{B1_TAG} time ({layers} layers' inputs walked): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA with the mask "
+          f"{lib_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms by "
+          f"{lim['bound_by']}; {flops / ms / 1e9:.1f} TFLOP/s on live causal "
+          f"pairs; {k1_plan(b, s, s, h)}")
+    return kernel_row("flash_fwd" + B1_TAG, K1_SOURCE, K1_REPLACES, err, ms,
+                      plain_ms, lib_ms, lim)
+
+
+def tail_kernel_checks(gen: torch.Generator) -> list:
+    """The rows at the chat's batch of 1: K1 on one prompt row; K4 bf16 on
+    one row at the last step of a 512-slot gen cache, and its beam mode on
+    one prompt (4 beams at the last of 128 slots); K8 at one row on the 7B
+    shapes (gate/up in the line, wq and down printed)."""
+    llm = LLAVA_V15_7B.llm
+    return [check_flash_b1(gen),
+            *decode_rows(gen, llm, (CHAT_LEN,), (("bf16", 1),), B1_TAG,
+                         sg=CHAT_TOKENS, live=CHAT_TOKENS - 1),
+            *decode_rows(gen, llm, (CHAT_LEN,), (("bf16", BEAMS),), B1_TAG,
+                         sg=CHAT_BEAM_TOKENS, live=CHAT_BEAM_TOKENS - 1),
+            check_int8_matmul(gen, shapes=W4_SHAPES, rows=(1,),
+                              name="int8_matmul" + B1_TAG,
+                              timed=(4096, 11008, 1))]
+
+
+def chat_batch(session: ChatSession, question: str) -> tuple:
+    """(ids, lengths) of one question as ChatSession.answer makes them."""
+    ids = session.prompt_ids(question)
+    return (torch.tensor([ids], dtype=torch.int32, device=DEVICE),
+            torch.tensor([len(ids)], dtype=torch.int32, device=DEVICE))
+
+
+def run_chat(params, kernels: dict) -> None:
+    """(a) halva_tpu_torch.chat's device half at batch 1 on the bf16 tree,
+    loaded once: ChatSession with SmokeTok and a seeded 336 px image, two
+    greedy answers at the reference's 512 tokens, each against
+    generate_greedy on the same ids and pixels, token for token; one answer
+    with 4 beams at 128 tokens against generate_beam's. Prints the time to
+    the first token (tower, projector and prefill), host and device ms a
+    token and the K1 / K4 launches, which the `_b1` rows take."""
+    cfg = LLAVA_V15_7B
+    layers = cfg.llm.num_layers
+    eos = SmokeTok.eos_token_id
+    template = get_template("v1")
+    session = ChatSession(params, cfg, SmokeTok(), chat_pixels(cfg),
+                          template, max_new_tokens=CHAT_TOKENS)
+    img = session.pixels
+    total = collections.Counter()
+    for qi, question in enumerate(CHAT_QUESTIONS):
+        _, secs, launches = timed_run(lambda: session.answer(question))
+        batch, lens = chat_batch(session, question)
+        st = {}
+        with torch.inference_mode():
+            tok, num = generate_greedy(params, cfg, batch, img, lens,
+                                       max_new_tokens=CHAT_TOKENS,
+                                       eos_id=eos, loop_stats=st)
+            ttft = []
+            for _ in range(CHAT_TTFT_RUNS):
+                _, s_, _ = timed_run(lambda: _prefill_impl(params, cfg, batch,
+                                                           img, lens))
+                ttft.append(s_)
+            first_tok, _, slen, pc, pseg = _prefill_impl(params, cfg, batch,
+                                                         img, lens)
+            state, bodies = decode_loop(params, cfg, first_tok, slen, pc,
+                                        pseg, CHAT_TOKENS, -1)
+            dev = {}
+            for at in CHAT_SLOTS:
+                state.step.fill_(at)
+                dev[at] = device_ms(bodies[0])
+            del state, bodies, pc
+        steps = st["steps"]
+        expect_launches(launches, {"flash_fwd": layers,
+                                   "decode_attn": layers * steps},
+                        f"chat's greedy answer {qi + 1} (B=1, {steps} steps)")
+        total.update(launches)
+        same = (torch.equal(session.last["tokens"], tok.cpu())
+                and torch.equal(session.last["num"], num.cpu()))
+        host = ((st["loop_s"] - st["first_step_s"] - st["capture_s"])
+                / (steps - 1) * 1e3)
+        n = int(num[0])
+        ok = same and in_vocab(tok, cfg, eos) and steps >= 2
+        print(f"chat answer {qi + 1} (ChatSession, B=1, bf16 llava-v1.5-7b, "
+              f"{len(session.last['ids'])} prompt ids, {int(slen[0])} "
+              f"spliced): {n} tokens of the {CHAT_TOKENS} budget (random "
+              f"weights: the budget, not an answer length) in {secs:.3f} s; "
+              f"time to the first token (tower, projector, prefill) "
+              f"{statistics.median(ttft) * 1e3:.2f} ms (median of "
+              f"{CHAT_TTFT_RUNS}); host {host:.3f} ms a token (graph "
+              f"replays), device "
+              + ", ".join(f"{ms:.3f} ms at gen slot {at}"
+                          for at, ms in dev.items())
+              + f" ({gpu_line()}); idle {max(0.0, 1 - dev[CHAT_SLOTS[0]] / host):.1%}"
+              f" of the host clock at slot {CHAT_SLOTS[0]}; capture "
+              f"{st['capture_s'] * 1e3:.1f} ms; tokens == generate_greedy's "
+              f"on the same ids and pixels {same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"chat answer {qi + 1} differs from "
+                                 "generate_greedy")
+    record(kernels, dict(total), "flash_fwd", "decode_attn", tag=B1_TAG)
+    bsession = ChatSession(params, cfg, SmokeTok(), chat_pixels(cfg),
+                           template, max_new_tokens=CHAT_BEAM_TOKENS,
+                           num_beams=BEAMS)
+    question = CHAT_QUESTIONS[0]
+    batch, lens = chat_batch(bsession, question)
+    with torch.inference_mode():
+        main, _, _ = beam_routes(params, cfg, (batch, img, lens), False, "")
+    if main != "decode_attn_beam":
+        raise AssertionError(f"chat beams: beam_route='auto' took {main}, "
+                             "where K4's beam mode was expected")
+    _, secs, launches = timed_run(lambda: bsession.answer(question))
+    stats = {}
+    with torch.inference_mode():
+        tok, num = generate_beam(params, cfg, batch, img, lens,
+                                 max_new_tokens=CHAT_BEAM_TOKENS, eos_id=eos,
+                                 num_beams=BEAMS, beam_route="auto",
+                                 stats=stats)
+    expect_launches(launches, {"flash_fwd": layers,
+                               main: layers * stats["steps"]},
+                    f"chat's {BEAMS}-beam answer (B=1)")
+    record(kernels, launches, main, tag=B1_TAG)
+    same = (torch.equal(bsession.last["tokens"], tok.cpu())
+            and torch.equal(bsession.last["num"], num.cpu()))
+    print(f"chat answer with {BEAMS} beams (B=1, route auto -> {main}): "
+          f"{int(num[0])} tokens of the {CHAT_BEAM_TOKENS} budget, "
+          f"{stats['steps']} steps in {secs:.3f} s "
+          f"({secs / stats['steps'] * 1e3:.3f} ms a step with the prefill); "
+          f"tokens == generate_beam's {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("chat beams differ from generate_beam")
+
+
+def run_chat_int8(q8, kernels: dict) -> None:
+    """(b) ChatSession on the int8 tree at batch 1, one greedy answer on
+    each of its two routes, each against generate_greedy on that route:
+    first W8A8 (CHAT_W8A8_TOKENS), the route `python -m halva_tpu_torch.chat
+    --quant int8` takes by default (HALVA_W8A8 on: int8_dense,
+    torch._int_mm, no K8 launch); then weight-only (CHAT_INT8_TOKENS,
+    HALVA_W8A8=0: K8 for every int8 dense). On the weight-only route the
+    answer's K8 launches are
+    split inside that run, read around its one prefill call: the prefill's
+    (the tower, the projector, the LLM pass over the prompt) and the decode
+    steps' at 1 row, which the `int8_matmul_b1` row takes. The switch is
+    restored."""
+    cfg = LLAVA_V15_7B
+    layers = cfg.llm.num_layers
+    eos = SmokeTok.eos_token_id
+    vit = cfg.vision
+    tower_run = cfg.mm_vision_select_layer % (vit.num_layers + 1)
+    tower = (count_denses(q8["vision"]["layers"], "kernel_q")
+             // vit.num_layers * tower_run)
+    proj = count_denses(q8["projector"], "kernel_q")
+    per_pass = count_denses(q8["llm"]["layers"], "kernel_q") + count_denses(
+        q8["llm"]["lm_head"], "kernel_q")
+    question = CHAT_QUESTIONS[0]
+    prefill = generate_mod._prefill_impl
+    was = quant.w8a8_enabled()
+    try:
+        for route, on, budget in (
+                ("W8A8, the CLI's default", True, CHAT_W8A8_TOKENS),
+                ("weight-only, HALVA_W8A8=0", False, CHAT_INT8_TOKENS)):
+            quant.set_w8a8(on)
+            session = ChatSession(q8, cfg, SmokeTok(), chat_pixels(cfg),
+                                  get_template("v1"), max_new_tokens=budget)
+            batch, lens = chat_batch(session, question)
+            with torch.inference_mode():
+                _, prefill_s, _ = timed_run(lambda: prefill(
+                    q8, cfg, batch, session.pixels, lens))
+            pre = []
+
+            def prefill_rec(*a, **k):
+                before = _kernels.launches["int8_matmul"]
+                out = prefill(*a, **k)
+                pre.append(_kernels.launches["int8_matmul"] - before)
+                return out
+
+            with mock.patch.object(generate_mod, "_prefill_impl",
+                                   prefill_rec):
+                _, secs, launches = timed_run(
+                    lambda: session.answer(question))
+            st = {}
+            with torch.inference_mode():
+                tok, num = generate_greedy(q8, cfg, batch, session.pixels,
+                                           lens, max_new_tokens=budget,
+                                           eos_id=eos, loop_stats=st)
+            steps = st["steps"]
+            want = {"flash_fwd": layers, "decode_attn": layers * steps}
+            if not on:
+                want["int8_matmul"] = tower + proj + (1 + steps) * per_pass
+            expect_launches(launches, want, f"int8 chat answer (B=1, "
+                            f"{route} route, {steps} steps)")
+            same = (torch.equal(session.last["tokens"], tok.cpu())
+                    and torch.equal(session.last["num"], num.cpu()))
+            ok = same and in_vocab(tok, cfg, eos) and pre == [
+                0 if on else tower + proj + per_pass]
+            host = (st["loop_s"] - st["first_step_s"] - st["capture_s"]) / (
+                steps - 1) * 1e3
+            k8 = ""
+            if not on:
+                row1 = launches["int8_matmul"] - pre[0]
+                kernels["int8_matmul" + B1_TAG]["launches"] = row1
+                ok = ok and row1 == steps * per_pass
+                k8 = (f"; K8 launches {launches['int8_matmul']}: {pre[0]} in "
+                      f"the answer's prefill call ({tower} in the tower, "
+                      f"{tower_run} layers x 6 at one image's "
+                      f"{vit.num_positions} rows, {proj} in the projector, "
+                      f"{per_pass} in the LLM pass), {row1} after it at 1 "
+                      f"row ({steps} steps x {per_pass} denses with lm_head)")
+            print(f"int8 chat answer (ChatSession, B=1, {route} route): "
+                  f"{int(num[0])} tokens of the {budget} budget"
+                  f"{' (reduced: 128)' if on else ''} in "
+                  f"{secs:.3f} s, prefill {prefill_s * 1e3:.2f} ms, host "
+                  f"{host:.3f} ms a token ({gpu_line()}){k8}; tokens == "
+                  f"generate_greedy's on this route {same} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"int8 chat, {route} route: tokens or "
+                                     "K8 launches differ")
+    finally:
+        quant.set_w8a8(was)
+
+
+class SuiteGenerator(runner_mod.BatchedGenerator):
+    """evals/runner.BatchedGenerator with a seeded processed image for each
+    image path (the card's machine has no Pillow to decode one); a request
+    without an image keeps the runner's zero image."""
+
+    def _load_image(self, req):
+        if req.image_path is None:
+            return super()._load_image(req)
+        size = self.proc.crop_size
+        rng = np.random.RandomState(zlib.crc32(req.image_path.encode()))
+        return rng.randn(3, size, size).astype(np.float32)
+
+
+def suite_requests(root: str) -> dict:
+    """Three batches of SUITE_BATCH requests from the runner's own builders:
+    CHAIR's captions, POPE-shaped yes/no questions and HallusionBench-shaped
+    rows (SUITE_TEXT_ONLY of them text-only). {shape: (requests, budget)}."""
+    images = os.path.join(root, "val2014")
+    caption = runner_mod.chair_requests(images)[:SUITE_BATCH]
+    qfile = os.path.join(root, "pope_questions.jsonl")
+    with open(qfile, "w") as f:
+        for i in range(SUITE_BATCH):
+            obj = POPE_OBJECTS[i % len(POPE_OBJECTS)]
+            f.write(json.dumps({"question_id": i,
+                                "image": f"COCO_val2014_{i:012d}.jpg",
+                                "text": f"Is there a {obj} in the image?",
+                                "category": "adversarial"}) + "\n")
+    yesno = runner_mod.vqa_requests(qfile, images)
+    rows = [{"visual_input": int(i >= SUITE_TEXT_ONLY), "category": "VS",
+             "subcategory": "chart", "set_id": i, "figure_id": 0,
+             "question_id": 0, "filename": f"./VS/chart/{i}_0.png",
+             "question": f"Is the bar of series {i} higher than 50 in this "
+                         "chart?", "gt_answer": "1"}
+            for i in range(SUITE_BATCH)]
+    mixed = runner_mod.hallusion_requests(rows, os.path.join(root, "hb"))
+    return {"caption": (caption, SUITE_CAPTION_TOKENS),
+            "yes/no": (yesno, SUITE_YESNO_TOKENS),
+            "mixed": (mixed, SUITE_YESNO_TOKENS)}
+
+
+def run_suite(q4, load_s: float) -> dict:
+    """(c) The one-load eval suite's device half on the int4g tree with int4
+    prompt KV at batch 80 (the README's eval command, not
+    scripts/torch_eval_suite.sh's batch 8): three drains of 80 requests
+    through SuiteGenerator with SmokeTok, each batch's host wall time
+    (BatchedGenerator.last_stats["device_s"]: one cold generate call, its
+    capture and eager first step in it) and the share of its prefill (the
+    same batch prefilled again, timed alone); then a projection of each
+    benchmark's host wall time at its public size, and of the whole suite,
+    beside the loader's warm int4g load. Returns the caption batch's
+    imgs/s."""
+    cfg = LLAVA_V15_7B
+    layers = cfg.llm.num_layers
+    proc = processor_for_vision(cfg.vision)
+    root = os.path.join(REPO, "build", f"smoke_suite_{os.getpid()}")
+    os.makedirs(root, exist_ok=True)
+    measured = {}
+    try:
+        for shape, (reqs, budget) in suite_requests(root).items():
+            gen = SuiteGenerator(q4, cfg, SmokeTok(), proc,
+                                 image_aspect_ratio=cfg.image_aspect_ratio,
+                                 batch_size=SUITE_BATCH,
+                                 max_new_tokens=budget, kv_quant="int4")
+            texts, secs, launches = timed_run(lambda: gen.run(reqs))
+            batch_s = gen.last_stats["device_s"]
+            steps = launches.get("decode_attn_kv4", 0) // layers
+            expect_launches(launches, {
+                "flash_fwd": layers, "decode_attn_kv4": layers * steps,
+                **w4_mm_launches(SUITE_BATCH, 7 * layers * steps)},
+                f"suite's {shape} batch ({steps} steps)")
+            ids_all = [gen._tokenize(r) for r in reqs]
+            order = sorted(range(len(reqs)), key=lambda i: len(ids_all[i]))
+            _, bids, imgs, blens, _ = gen._build_batch(reqs, ids_all, order,
+                                                       None)
+            args = [torch.from_numpy(a).to(DEVICE) for a in (bids, imgs,
+                                                              blens)]
+            with torch.inference_mode():
+                _, prefill_s, _ = timed_run(lambda: _prefill_impl(
+                    q4, cfg, *args, kv_quant="int4"))
+            text_only = sum(r.image_path is None for r in reqs)
+            ok = (len(texts) == SUITE_BATCH and all(texts)
+                  and 1 <= steps <= budget)
+            measured[shape] = (batch_s, prefill_s, steps)
+            print(f"suite {shape} batch ({len(reqs)} requests, {text_only} "
+                  f"text-only, prompts of {min(blens)}-{max(blens)} ids "
+                  f"padded to {bids.shape[1]}, budget {budget}): "
+                  f"{batch_s:.3f} s of host wall time in one cold generate "
+                  f"call (its capture and eager first step in it; {secs:.3f}"
+                  f" s with tokenizing and the seeded images), {steps} decode"
+                  f" steps;"
+                  f" prefill alone {prefill_s * 1e3:.1f} ms = "
+                  f"{prefill_s / batch_s:.1%} of the batch, decode "
+                  f"{(batch_s - prefill_s) / steps * 1e3:.3f} ms a step; "
+                  f"{SUITE_BATCH / batch_s:.3f} imgs/s ({gpu_line()}); every "
+                  f"row answered {all(texts)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"suite {shape} batch: rows unanswered")
+            del gen, args
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = prefill = 0.0
+    parts = []
+    for name, count, shape, source in SUITE_COUNTS:
+        batch_s, prefill_s, _ = measured[shape]
+        n = -(-count // SUITE_BATCH)
+        total += n * batch_s
+        prefill += n * prefill_s
+        parts.append(f"{name} {count} ({source}): {n} x {shape} = "
+                     f"{n * batch_s:.1f} s")
+    print(f"suite PROJECTION, not a measurement (each benchmark's batches "
+          f"of {SUITE_BATCH} at its public size x the host wall time of one "
+          f"cold batch of its shape; the README's batch {SUITE_BATCH}, not "
+          f"torch_eval_suite.sh's 8; captions at {SUITE_CAPTION_TOKENS} "
+          f"tokens, yes/no at {SUITE_YESNO_TOKENS}, an assumed answer length "
+          f"where the script's budgets are 64 for POPE and MME and 1024 for "
+          f"AMBER): " + "; ".join(parts)
+          + f"; the suite {total:.1f} s of host wall time, "
+          f"{prefill / total:.1%} of it prefill, after one load (the "
+          f"loader's warm int4g load {load_s:.1f} s) ({gpu_line()})")
+    return {"caption_ips": SUITE_BATCH / measured["caption"][0]}
+
+
+# the 13B launch scripts' train steps: (preset, script, its --max-length,
+# the TrainConfig fields its flags set)
+RECIPE_PEAKS = (
+    ("llava-v1.5-13b", "scripts/torch_halva_13b.sh", 2048,
+     dict(learning_rate=5e-6, mm_projector_lr=0.0, loss_alpha=0.5)),
+    ("vila-13b-384", "scripts/torch_halva_vila_13b.sh", 4096,
+     dict(learning_rate=2.5e-5, mm_projector_lr=2.5e-5, loss_alpha=0.2)),
+)
+
+
+def recipe_peaks() -> None:
+    """The card's memory under the 13B launch scripts' train step on one
+    card (MESH_MODEL=1): the DPA micro-step as train/run.py builds it from
+    each script's flags (LoRA r=128 alpha=256, remat, whole logits, AdamW,
+    the projector trained and its initial copy in the reference where
+    --mm-projector-lr is set), per-device batch 2, every row at the
+    script's --max-length text tokens (the longest the dataset keeps), at
+    full width and depth on random weights. Two micro-steps at grad_accum
+    2, the second applying the update (its AdamW moments allocated): the
+    peak of max_memory_allocated over them."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    for name, script, max_len, fields in RECIPE_PEAKS:
+        cfg = PRESETS[name]
+        params = new_tree(cfg, name)
+        policy = add_lora(params, torch.Generator(device=DEVICE).manual_seed(
+            1), rank=128, alpha=256.0)
+        del params
+        tcfg = TrainConfig(grad_accum_steps=2, num_train_steps=400,
+                           warmup_ratio=0.03, weight_decay=0.0, **fields)
+        extra = (r"^projector/",) if tcfg.mm_projector_lr else ()
+        trainable, frozen, opt, opt_state, ref = state_and_ref(policy, tcfg,
+                                                              extra)
+        del policy
+        step, _ = dpa_step_fns(cfg, tcfg, opt)
+        base = torch.cuda.memory_allocated()
+        peak, times = 0, []
+        for seed in range(2):
+            batch = train_batch(cfg, seed, text=max_len)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainable, opt_state, m = step(trainable, frozen, ref, opt_state,
+                                           batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            vals = [float(x) for x in m]
+            if not (all(np.isfinite(vals)) and vals[3] > 0):
+                raise AssertionError(f"{name}: a loss is not finite")
+            del batch
+        spliced = max_len - 1 + cfg.num_image_tokens
+        print(f"recipe peak {name} ({script}, one card): micro-step at "
+              f"{TRAIN_B} x {max_len} text tokens ({spliced} spliced, "
+              f"{2 * TRAIN_B} pos+neg and {TRAIN_B} ref rows), "
+              f"{opt.updates} update(s) applied: peak "
+              f"{peak / 2**30:.2f} GiB allocated of the card's "
+              f"{total / 2**30:.2f} GiB (the tree, LoRA and state "
+              f"{base / 2**30:.2f} GiB before the steps); micro-steps "
+              + ", ".join(f"{t:.2f}" for t in times) + f" s ({gpu_line()}) "
+              f"{'ok' if peak < total else 'FAIL'}")
+        del trainable, frozen, opt, opt_state, ref, step
+        torch.cuda.empty_cache()
+
+
+def compare_bench(suite: dict, bench: dict) -> None:
+    """The suite's caption batch beside `python -m halva_tpu_torch.bench`
+    in the same run."""
+    ips, bench_ips = suite["caption_ips"], bench["value"]
+    off = abs(ips / bench_ips - 1)
+    print(f"suite caption batch {ips:.3f} imgs/s against the bench's "
+          f"{bench_ips} imgs/s ({ips / bench_ips:.3f}x): "
+          + ("within 10 %" if off <= 0.10 else
+             "more than 10 % apart: the bench times 3 batches after a "
+             "warm-up with W4A8 on and 48-slot prompts; the suite batch is "
+             "one cold drain through the runner (bucketed prompts, capture "
+             "in its time)")
+          + f" ({gpu_line()})")
 
 
 def flash_checks(gen: torch.Generator) -> list:
@@ -7120,6 +7767,9 @@ def main() -> None:
         print(json.dumps({"mesh_kernels": [{k: kern.get(k) for k in keys}
                                            for kern in rows]}))
         return
+    if sys.argv[1:] == ["--recipe-peak-only"]:
+        recipe_peaks()
+        return
     if sys.argv[1:] == ["--serve-variants-only"]:
         params = new_tree(LLAVA_V15_7B, "llava-v1.5-7b")
         run_sampling_bf16(params, LLAVA_V15_7B)
@@ -7140,11 +7790,15 @@ def main() -> None:
     gemm_summary(checked)
     clock("K7/K8 checks")
     if not quant_only:
-        checked = flash_checks(gen) + [
-            check_decode(gen), *check_decode_quant(gen), *check_fold(gen),
-            check_w4(gen)] + checked + gemma_kernel_checks(gen) + (
-                vila_kernel_checks(gen)) + mesh_kernel_checks(gen)
-        clock("K1-K6 checks")
+        for what, check in (
+                ("K1-K3", flash_checks),
+                ("K4", lambda g: [check_decode(g), *check_decode_quant(g)]),
+                ("K5", check_fold), ("K6", lambda g: [check_w4(g)]),
+                ("head dim 256", gemma_kernel_checks),
+                ("VILA-13B", vila_kernel_checks), ("mesh", mesh_kernel_checks),
+                ("batch 1", tail_kernel_checks)):
+            checked += check(gen)
+            clock(f"{what} checks")
     kernels = {k["name"]: k for k in checked}
     if quant_only:  # the other kernels' launches are counted, not kept
         kernels = collections.defaultdict(dict, kernels)
@@ -7161,6 +7815,8 @@ def main() -> None:
     else:
         params = run_bf16(kernels)
         clock("bf16 main path")
+        run_chat(params, kernels)
+        clock("chat at batch 1")
         run_beam_spec_bf16(params, kernels)
         clock("bf16 beams and speculative decode")
         keep = {}
@@ -7173,8 +7829,8 @@ def main() -> None:
         run_graph_loops(params, LLAVA_V15_7B, int4=False)
         run_sampling_bf16(params, LLAVA_V15_7B)
         clock("bf16 graph loops and sampling")
-        run_loader(params, LLAVA_V15_7B)
-        clock("loader")
+        load_s = run_loader(params, LLAVA_V15_7B)
+        clock("loader and converter")
         run_train_cli(params, LLAVA_V15_7B, train_ms,
                       then=lambda base, cli_cfg: run_pack(
                           params, LLAVA_V15_7B, kernels, base, cli_cfg))
@@ -7203,6 +7859,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     clock("quantized trees")
     run_int8_serving(q8, kernels)
+    run_chat_int8(q8, kernels)
     run_train_quant(q8, kernels, "int8", W8A8_FLOOR_FACTOR)
     del q8
     torch.cuda.empty_cache()
@@ -7221,6 +7878,8 @@ def main() -> None:
     run_beam_spec_int4g(q4, kernels, greedy_tokens)
     clock("int4g beams, speculative decode, batch 80")
     if not quant_only:
+        suite = run_suite(q4, load_s)
+        clock("eval suite's device half")
         run_mesh(q4, shards, greedy_tokens, kernels, train)
         del shards, train
         torch.cuda.empty_cache()
@@ -7244,7 +7903,7 @@ def main() -> None:
         run_vila(kernels)
         torch.cuda.empty_cache()
         clock("vila-13b-384")
-        run_bench()
+        compare_bench(suite, run_bench())
         clock("bench")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "halva_tpu"))

@@ -454,7 +454,9 @@ def cmd_suite(args):
     print(json.dumps(results, indent=2, default=str))
 
 
-def main(argv: Optional[List[str]] = None):
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's parser: one sub-command a benchmark, each with the
+    reference's flags plus --device."""
     p = argparse.ArgumentParser(prog="halva_tpu_torch.evals")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -520,8 +522,11 @@ def main(argv: Optional[List[str]] = None):
     c.add_argument("--image-folder", required=True)
     c.add_argument("--judge-model", default="gpt-4-0613")
     c.set_defaults(fn=cmd_hallusionbench)
+    return p
 
-    args = p.parse_args(argv)
+
+def main(argv: Optional[List[str]] = None):
+    args = build_parser().parse_args(argv)
     try:
         args.fn(args)
     finally:

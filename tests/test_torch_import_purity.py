@@ -68,7 +68,7 @@ def test_every_module_imports_without_jax():
                  "evals.pope", "evals.amber", "evals.mme", "evals.mmhal",
                  "evals.hallusion", "evals.judge", "evals.merge",
                  "parallel", "parallel.mesh", "parallel.partition",
-                 "parallel.context"):
+                 "parallel.context", "chat", "convert_checkpoint"):
         assert f"halva_tpu_torch.{name}" in out["modules"]
     assert out["halva_tpu"] == []
     assert out["lib_loaded"] == 0  # no kernel built or loaded on import
@@ -101,6 +101,9 @@ def test_every_module_imports_on_the_cards_machine():
     names = json.loads(p.stdout.strip().splitlines()[-1])
     assert "halva_tpu_torch.train.run" in names
     assert "halva_tpu_torch.mm_utils" in names
+    # the chat and the converter import Pillow and transformers in main()
+    assert "halva_tpu_torch.chat" in names
+    assert "halva_tpu_torch.convert_checkpoint" in names
 
 
 def test_sources_use_no_library_attention():
